@@ -1,0 +1,203 @@
+// Hopper (sm_90a) kernels of the flat async-DP round, bound to Python with
+// ctypes (plain C entry points; pointers and the stream arrive as void*).
+//
+// dp_round  replaces src/repro/kernels/dp_clip_noise/kernel.py:
+//           _dp_round_kernel / dp_round_2d. One pass over the (P,) flat
+//           buffer: q = acc*gain + ns*Laplace(bits) (eq. 4), g_reg = sigma*tb,
+//           new_i = clip(tb - lr_own*(g_reg/(2N) + w*q)) (eq. 5),
+//           new_L = clip(tb - lr_L*g_reg) (eq. 7). The uint32 bits are NOT
+//           read from memory: each element hashes its own 64-bit index with
+//           threefry2x32 exactly as repro_torch.random.bits(key, (P,)) (and
+//           jax.random.bits in partitionable mode) does, so no P-word bits
+//           array is written or read per round. Bound: bytes, 16 B/element
+//           (read tb and acc, write both outputs); the hash adds ~100 integer
+//           operations per element on top.
+// sqnorm    replaces src/repro/kernels/dp_clip_noise/kernel.py:
+//           _sqnorm_kernel / sqnorm_2d. Deterministic two-pass sum of g*g:
+//           pass 1 writes one partial per block of a grid that depends only on
+//           P, pass 2 is one block that sums the partials in a fixed order.
+//           No atomics, so the same input gives the same bits on every run.
+//           Bound: bytes, 4 B/element.
+//
+// Both are the simple first versions: grid-stride loops, one element (or one
+// float4 for sqnorm) per thread per step, no shared-memory staging.
+//
+// The per-round scalars (gain, noise scale, owner weight) and the round key
+// are read from device memory, so the caller never syncs with the host. The
+// float arithmetic uses the _rn intrinsics op for op in the order of
+// ref.py, so no multiply-add is contracted into an FMA the plain version
+// does not have.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr long long kMaxBlocks = 4096;
+constexpr int kMaxPartials = 1024;
+constexpr int kFinalThreads = 1024;
+
+__device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1, int r) {
+  x0 += x1;
+  x1 = ((x1 << r) | (x1 >> (32 - r))) ^ x0;
+}
+
+// threefry2x32 (20 rounds) of the counter (i >> 32, i & 0xffffffff),
+// returning y0 ^ y1: element i of jax.random.bits(key, (n,)).
+__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
+                                                  uint64_t i) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  uint32_t x0 = static_cast<uint32_t>(i >> 32) + k0;
+  uint32_t x1 = static_cast<uint32_t>(i) + k1;
+  mix(x0, x1, 13); mix(x0, x1, 15); mix(x0, x1, 26); mix(x0, x1, 6);
+  x0 += k1; x1 += k2 + 1u;
+  mix(x0, x1, 17); mix(x0, x1, 29); mix(x0, x1, 16); mix(x0, x1, 24);
+  x0 += k2; x1 += k0 + 2u;
+  mix(x0, x1, 13); mix(x0, x1, 15); mix(x0, x1, 26); mix(x0, x1, 6);
+  x0 += k0; x1 += k1 + 3u;
+  mix(x0, x1, 17); mix(x0, x1, 29); mix(x0, x1, 16); mix(x0, x1, 24);
+  x0 += k1; x1 += k2 + 4u;
+  mix(x0, x1, 13); mix(x0, x1, 15); mix(x0, x1, 26); mix(x0, x1, 6);
+  x0 += k2; x1 += k0 + 5u;
+  return x0 ^ x1;
+}
+
+// Inverse-CDF Laplace(0, 1) from the top 24 bits; sign(0) = 0 as jnp.sign.
+__device__ __forceinline__ float laplace_from_bits(uint32_t b) {
+  const float lim = static_cast<float>(0.4999999);
+  const float u01 = __fmul_rn(__uint2float_rn(b >> 8), 5.9604644775390625e-08f);
+  const float v = __fsub_rn(u01, 0.5f);
+  const float vc = fminf(fmaxf(v, -lim), lim);
+  const float neg_sign = v > 0.f ? -1.f : (v < 0.f ? 1.f : -0.f);
+  return __fmul_rn(neg_sign, log1pf(__fmul_rn(-2.0f, fabsf(vc))));
+}
+
+__global__ void __launch_bounds__(kThreads)
+dp_round_kernel(const float* __restrict__ tb, const float* __restrict__ acc,
+                const uint32_t* __restrict__ key, const float* __restrict__ gain,
+                const float* __restrict__ ns, const float* __restrict__ w,
+                float* __restrict__ out_l, float* __restrict__ out_i, int64_t n,
+                float sigma, float lr_own, float lr_l, float inv_2n,
+                float theta_max) {
+  const uint32_t k0 = key[0];
+  const uint32_t k1 = key[1];
+  const float g = *gain;
+  const float s = *ns;
+  const float wv = *w;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n; i += stride) {
+    const float lap = laplace_from_bits(
+        threefry_bits(k0, k1, static_cast<uint64_t>(i)));
+    const float t = tb[i];
+    const float q = __fadd_rn(__fmul_rn(acc[i], g), __fmul_rn(s, lap));
+    const float g_reg = __fmul_rn(sigma, t);
+    const float step_i = __fmul_rn(
+        lr_own, __fadd_rn(__fmul_rn(g_reg, inv_2n), __fmul_rn(wv, q)));
+    const float new_i = __fsub_rn(t, step_i);
+    const float new_l = __fsub_rn(t, __fmul_rn(lr_l, g_reg));
+    out_i[i] = fminf(fmaxf(new_i, -theta_max), theta_max);
+    out_l[i] = fminf(fmaxf(new_l, -theta_max), theta_max);
+  }
+}
+
+// Sum over the block in a fixed order (warp shuffles, then warp 0);
+// the result is valid in thread 0.
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float warp_sums[32];
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < static_cast<int>(blockDim.x >> 5) ? warp_sums[lane] : 0.f;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+sqnorm_partial_kernel(const float* __restrict__ g, int64_t n, int vec,
+                      float* __restrict__ partial) {
+  float acc = 0.f;
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  int64_t tail = 0;
+  if (vec) {
+    const int64_t n4 = n >> 2;
+    const float4* g4 = reinterpret_cast<const float4*>(g);
+    for (int64_t i = start; i < n4; i += stride) {
+      const float4 v = g4[i];
+      acc = fmaf(v.x, v.x, acc);
+      acc = fmaf(v.y, v.y, acc);
+      acc = fmaf(v.z, v.z, acc);
+      acc = fmaf(v.w, v.w, acc);
+    }
+    tail = n4 << 2;
+  }
+  for (int64_t i = tail + start; i < n; i += stride) {
+    const float v = g[i];
+    acc = fmaf(v, v, acc);
+  }
+  acc = block_sum(acc);
+  if (threadIdx.x == 0) partial[blockIdx.x] = acc;
+}
+
+__global__ void __launch_bounds__(kFinalThreads)
+sqnorm_final_kernel(const float* __restrict__ partial, int nparts,
+                    float* __restrict__ out) {
+  float acc = 0.f;
+  for (int i = threadIdx.x; i < nparts; i += kFinalThreads) acc += partial[i];
+  acc = block_sum(acc);
+  if (threadIdx.x == 0) *out = acc;
+}
+
+}  // namespace
+
+extern "C" {
+
+int dp_round_launch(const float* tb, const float* acc, const uint32_t* key,
+                    const float* gain, const float* ns, const float* w,
+                    float* out_l, float* out_i, long long n, float sigma,
+                    float lr_own, float lr_l, float inv_2n, float theta_max,
+                    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    long long blocks = (n + kThreads - 1) / kThreads;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    dp_round_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+        tb, acc, key, gain, ns, w, out_l, out_i, n, sigma, lr_own, lr_l,
+        inv_2n, theta_max);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Number of pass-1 partials (the scratch the caller allocates); a function of
+// n alone, which is what makes the sum deterministic.
+int sqnorm_num_partials(long long n) {
+  if (n <= 0) return 0;
+  long long parts = (n + 4LL * kThreads - 1) / (4LL * kThreads);
+  return static_cast<int>(parts < kMaxPartials ? parts : kMaxPartials);
+}
+
+int sqnorm_launch(const float* g, long long n, float* partial, float* out,
+                  int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int parts = sqnorm_num_partials(n);
+  if (parts > 0) {
+    const int vec = (reinterpret_cast<uintptr_t>(g) & 15u) == 0;
+    sqnorm_partial_kernel<<<parts, kThreads, 0, s>>>(g, n, vec, partial);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  sqnorm_final_kernel<<<1, kFinalThreads, 0, s>>>(partial, parts, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

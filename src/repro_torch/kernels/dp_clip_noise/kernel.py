@@ -1,0 +1,109 @@
+"""CUDA kernels of the flat async-DP round, bound with ctypes.
+
+The counterpart of ``repro/kernels/dp_clip_noise/kernel.py``; the source
+is ``csrc/dp_clip_noise.cu`` (what each kernel replaces, its bound and its
+design are noted there). These functions launch on PyTorch's current
+stream, allocate their outputs and scratch with ``torch.empty``, never
+synchronise, and raise when the launch is refused. Each adds one to its
+entry of `launches` when it launches, and nowhere else, so a caller can
+show that a run went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+NAME = "dp_clip_noise"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "dp_clip_noise.cu"
+
+launches: Dict[str, int] = {"dp_round": 0, "sqnorm": 0}
+
+_P = ctypes.c_void_p
+_F = ctypes.c_float
+_I64 = ctypes.c_longlong
+_I = ctypes.c_int
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load(NAME, SOURCE)
+    lib.dp_round_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _F, _F,
+                                    _F, _F, _F, _I, _P]
+    lib.dp_round_launch.restype = _I
+    lib.sqnorm_num_partials.argtypes = [_I64]
+    lib.sqnorm_num_partials.restype = _I
+    lib.sqnorm_launch.argtypes = [_P, _I64, _P, _P, _I, _P]
+    lib.sqnorm_launch.restype = _I
+    return lib
+
+
+def _require(t: torch.Tensor, what: str, dtype: torch.dtype, device: torch.device,
+             numel: int) -> None:
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what} has dtype {t.dtype}, expected {dtype}")
+    if t.numel() != numel or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous tensor of {numel} "
+                         f"elements, got shape {tuple(t.shape)}")
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {err}")
+
+
+def dp_round_cuda(tb: torch.Tensor, acc: torch.Tensor, key: torch.Tensor,
+                  gain: torch.Tensor, noise_scale: torch.Tensor, w: torch.Tensor,
+                  *, sigma: float, lr_own: float, lr_l: float, inv_2n: float,
+                  theta_max: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the fused round on a (P,) f32 buffer -> (new_L, new_i).
+
+    `key` is the round's (2,) uint32 key; `gain`, `noise_scale` and `w` are
+    one-element f32 tensors, all on the buffer's device."""
+    dev = tb.device
+    if dev.type != "cuda":
+        raise ValueError(f"dp_round_cuda needs CUDA tensors, got {dev}")
+    n = tb.numel()
+    _require(tb, "theta_bar", torch.float32, dev, n)
+    _require(acc, "acc", torch.float32, dev, n)
+    _require(key, "key", torch.uint32, dev, 2)
+    for what, s in (("gain", gain), ("noise_scale", noise_scale), ("w", w)):
+        _require(s, what, torch.float32, dev, 1)
+    new_l = torch.empty_like(tb)
+    new_i = torch.empty_like(tb)
+    err = _library().dp_round_launch(
+        tb.data_ptr(), acc.data_ptr(), key.data_ptr(), gain.data_ptr(),
+        noise_scale.data_ptr(), w.data_ptr(), new_l.data_ptr(), new_i.data_ptr(),
+        n, sigma, lr_own, lr_l, inv_2n, theta_max, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "dp_round")
+    launches["dp_round"] += 1
+    return new_l, new_i
+
+
+def sqnorm_cuda(g: torch.Tensor) -> torch.Tensor:
+    """Deterministic sum of g*g over a contiguous f32 tensor -> 0-d tensor
+    on the same device."""
+    dev = g.device
+    if dev.type != "cuda":
+        raise ValueError(f"sqnorm_cuda needs a CUDA tensor, got {dev}")
+    n = g.numel()
+    _require(g, "g", torch.float32, dev, n)
+    lib = _library()
+    partial = torch.empty(lib.sqnorm_num_partials(n), dtype=torch.float32, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    err = lib.sqnorm_launch(g.data_ptr(), n, partial.data_ptr(), out.data_ptr(),
+                            dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "sqnorm")
+    launches["sqnorm"] += 1
+    return out

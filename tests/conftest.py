@@ -19,3 +19,8 @@ def rng_key():
 @pytest.fixture(scope="session")
 def np_rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and the CUDA toolkit (skips elsewhere)")
