@@ -1,7 +1,7 @@
 """Carry weights from the reference package into the port.
 
     np_params = jax.tree_util.tree_map(np.asarray, jax_params)   # caller side
-    params = params_from_numpy(np_params, device="cpu")
+    params = params_from_numpy(np_params)              # on CUDA; device="cpu" for the CPU
 
 The input is the reference's parameter tree with every array mapped to
 numpy: nested dicts, lists/tuples and NamedTuples (read through their
@@ -16,6 +16,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.mlp import MLPParams
 
@@ -23,16 +24,21 @@ _NAMEDTUPLES = {cls.__name__: cls for cls in (AttnParams, MLPParams)}
 
 
 def params_from_numpy(tree: Any, device=None) -> Any:
+    """The port's params on `device` (CUDA when None)."""
+    return _convert(tree, resolve_device(device))
+
+
+def _convert(tree: Any, device: torch.device) -> Any:
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+        return {k: _convert(v, device) for k, v in tree.items()}
     if hasattr(tree, "_asdict"):
         name = type(tree).__name__
         if name not in _NAMEDTUPLES:
             raise TypeError(f"no port counterpart for NamedTuple {name!r}")
-        return _NAMEDTUPLES[name](**{k: params_from_numpy(v, device)
+        return _NAMEDTUPLES[name](**{k: _convert(v, device)
                                      for k, v in tree._asdict().items()})
     if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_numpy(v, device) for v in tree)
+        return type(tree)(_convert(v, device) for v in tree)
     return torch.from_numpy(np.array(tree, copy=True)).to(device)

@@ -42,6 +42,7 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.federation.config import paper_rates
 from repro_torch.federation.dp_sgd import PrivatizerConfig, _group_batch
 from repro_torch.federation.flatten import ParamFlat, init_flat_bank, pack_params
@@ -76,9 +77,10 @@ class AsyncDPState(NamedTuple):
 
 
 def init_state_flat(params, cfg: AsyncDPConfig, device=None) -> AsyncDPState:
-    """Flat state on `device`: theta_L packed into one (P,) buffer, every
-    bank row a copy of it, a fresh device ledger (every owner capped at
-    the horizon T)."""
+    """Flat state on `device` (CUDA when None): theta_L packed into one
+    (P,) buffer, every bank row a copy of it, a fresh device ledger (every
+    owner capped at the horizon T)."""
+    device = resolve_device(device)
     flat = pack_params(params, device=device)
     return AsyncDPState(flat, init_flat_bank(flat, cfg.n_owners),
                         torch.zeros((), dtype=torch.int32, device=device),
@@ -119,13 +121,6 @@ def _flat_clipped_grad_acc(loss_fn, spec, pcfg: PrivatizerConfig,
     def clip_scale(norm):
         return torch.clamp(xi / torch.clamp(norm, min=1e-12), max=1.0)
 
-    if G == 1:
-        g = flat_grad(batch)
-        norm = torch.sqrt(fused_sqnorm(g))
-        one = torch.ones((), dtype=torch.float32, device=tb.device)
-        return g * clip_scale(norm), one, {
-            "clip_frac": (norm > xi).to(torch.float32), "max_grad_norm": norm}
-
     xs = _group_batch(batch, G)
     acc = torch.zeros_like(tb)
     nclip = torch.zeros((), dtype=torch.float32, device=tb.device)
@@ -156,6 +151,7 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, scales: Optional[torch.Tensor]
                                   "for a later slice; pass fused_kernel=True")
     if pcfg.mechanism != "laplace":
         raise ValueError("fused_kernel implements the laplace mechanism")
+    device = resolve_device(device)
     scales = (_noise_scales(cfg, device) if scales is None
               else scales.to(device=device, dtype=torch.float32))
     n_i = torch.tensor(list(cfg.owner_sizes), dtype=torch.float32, device=device)

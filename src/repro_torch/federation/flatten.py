@@ -6,7 +6,7 @@ into ONE contiguous (P,) f32 buffer and the owner bank becomes one
 (N_owners, P) matrix whose gather/scatter is a row copy:
 
     spec = flatten_spec(params)         # leaf shapes/offsets in jax's order
-    flat = pack_params(params)          # ParamFlat: (P,) f32 + spec
+    flat = pack_params(params)          # ParamFlat: (P,) f32 + spec, on CUDA
     tree = flat.unpack()                # views of flat.buf
 
 Leaf order is jax.tree_util's, not torch's: dicts flatten in SORTED key
@@ -22,6 +22,8 @@ import math
 from typing import Any, List, Tuple
 
 import torch
+
+from repro_torch.device import resolve_device
 
 _LEAF = "*"
 
@@ -140,10 +142,10 @@ class ParamFlat:
 
 
 def pack_params(tree, spec: FlatSpec = None, device=None) -> ParamFlat:
-    """Pack a model tree into a ParamFlat on `device` (spec inferred if
-    omitted)."""
+    """Pack a model tree into a ParamFlat on `device` (CUDA when None; spec
+    inferred if omitted)."""
     spec = flatten_spec(tree) if spec is None else spec
-    return ParamFlat(spec.pack(tree).to(device), spec)
+    return ParamFlat(spec.pack(tree).to(resolve_device(device)), spec)
 
 
 def init_flat_bank(flat: ParamFlat, n_owners: int, dtype=None) -> torch.Tensor:

@@ -14,6 +14,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.federation.config import FederationConfig
 from repro_torch.federation.owners import DataOwner
 from repro_torch.federation.privacy import (DeviceLedger, PrivacyAccountant,
@@ -48,11 +49,11 @@ class _LedgeredMechanism:
     def scales(self, clip_norm: Optional[float] = None, device=None) -> torch.Tensor:
         """(N,) f32 per-owner noise scales. `clip_norm` overrides each
         owner's Xi_i as the sensitivity bound (the deep path passes its
-        ENFORCED clip norm)."""
+        ENFORCED clip norm). On `device`, CUDA when None."""
         return torch.tensor([
             0.0 if self.cfg.noiseless else
             self._scale_one(o, clip_norm if clip_norm is not None else o.xi)
-            for o in self.owners], dtype=torch.float32, device=device)
+            for o in self.owners], dtype=torch.float32, device=resolve_device(device))
 
     def authorize(self, owner_idx: int) -> bool:
         ok = self._accountant.record_response(int(owner_idx))
@@ -74,6 +75,7 @@ class _LedgeredMechanism:
     def device_ledger(self, device=None) -> DeviceLedger:
         """Snapshot the accountant as a DeviceLedger with a fresh generation
         id; only the latest snapshot's state chain may reconcile."""
+        device = resolve_device(device)
         self._snapshot_sid += 1
         n = len(self.owners)
         led = self._accountant.device_ledger(device)

@@ -19,6 +19,8 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 def laplace_scale_theorem1(xi: float, horizon: int, n_records: int,
                            epsilon: float) -> float:
@@ -62,6 +64,8 @@ class DeviceLedger:
 def make_device_ledger(caps: Sequence[int], spent: Optional[Sequence[int]] = None,
                        refused: Optional[Sequence[int]] = None, sid: int = 0,
                        device=None) -> DeviceLedger:
+    """Device counters on `device` (CUDA when None)."""
+    device = resolve_device(device)
     caps = torch.tensor(list(caps), dtype=torch.int32, device=device)
 
     def col(v):

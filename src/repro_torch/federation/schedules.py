@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch import random
+from repro_torch.device import resolve_device
 
 
 class UniformSchedule:
@@ -23,7 +24,8 @@ class UniformSchedule:
 
 def as_owner_seq(seq, n_owners: int, device=None) -> torch.Tensor:
     """Normalize an owner sequence to the engines' (K,) int32 form on
-    `device`, validating its bounds once (one host copy of the sequence)."""
+    `device` (CUDA when None), validating its bounds once (one host copy
+    of the sequence)."""
     seq = seq if isinstance(seq, torch.Tensor) else torch.tensor(np.asarray(seq))
     if seq.ndim != 1:
         raise ValueError(f"owner sequence must be 1-D, got {tuple(seq.shape)}")
@@ -33,4 +35,4 @@ def as_owner_seq(seq, n_owners: int, device=None) -> torch.Tensor:
         lo, hi = (int(v) for v in torch.aminmax(seq.cpu()))
         if lo < 0 or hi >= n_owners:
             raise ValueError(f"owner sequence out of range for {n_owners} owners")
-    return seq.to(device=device, dtype=torch.int32)
+    return seq.to(device=resolve_device(device), dtype=torch.int32)

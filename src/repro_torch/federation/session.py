@@ -30,6 +30,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import random
+from repro_torch.device import resolve_device
 from repro_torch.federation.config import FederationConfig
 from repro_torch.federation.deep import (AsyncDPConfig, AsyncDPState, init_state_flat,
                                          make_fused_rounds, make_train_step)
@@ -37,16 +38,6 @@ from repro_torch.federation.dp_sgd import PrivatizerConfig
 from repro_torch.federation.mechanisms import make_mechanism
 from repro_torch.federation.owners import DataOwner
 from repro_torch.federation.schedules import UniformSchedule, as_owner_seq
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device`, or "cuda" when None; raises when CUDA is asked for and
-    absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("the port runs on CUDA and no CUDA device is available; "
-                           "pass device='cpu' to run the plain versions on the CPU")
-    return dev
 
 
 class Federation:

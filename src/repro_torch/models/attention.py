@@ -34,16 +34,15 @@ class AttnParams(NamedTuple):
 
 
 def init_attention(generator: torch.Generator, d_model: int, n_heads: int, n_kv: int,
-                   head_dim: int, qkv_bias: bool, device=None,
-                   dtype=torch.float32) -> AttnParams:
+                   head_dim: int, qkv_bias: bool, dtype=torch.float32) -> AttnParams:
     def w(*shape):
-        return dense_init(shape, generator, device, dtype)
+        return dense_init(shape, generator, dtype)
 
     p = AttnParams(w(d_model, n_heads, head_dim), w(d_model, n_kv, head_dim),
                    w(d_model, n_kv, head_dim), w(n_heads, head_dim, d_model))
     if qkv_bias:
         def z(*shape):
-            return torch.zeros(shape, dtype=dtype, device=device)
+            return torch.zeros(shape, dtype=dtype, device=generator.device)
         p = p._replace(bq=z(n_heads, head_dim), bk=z(n_kv, head_dim), bv=z(n_kv, head_dim))
     return p
 

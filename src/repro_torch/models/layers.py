@@ -38,25 +38,25 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
-def truncated_normal(shape: Sequence[int], generator: torch.Generator,
-                     device=None) -> torch.Tensor:
-    """Standard normal truncated to [-2, 2], by inverse CDF of a uniform."""
+def truncated_normal(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2], by inverse CDF of a uniform,
+    drawn on the generator's device."""
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     hi = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
-    u = torch.rand(tuple(shape), generator=generator, device=device)
+    u = torch.rand(tuple(shape), generator=generator, device=generator.device)
     p = lo + u * (hi - lo)
     return (math.sqrt(2.0) * torch.erfinv(2.0 * p - 1.0)).clamp_(-2.0, 2.0)
 
 
-def dense_init(shape: Sequence[int], generator: torch.Generator, device=None,
+def dense_init(shape: Sequence[int], generator: torch.Generator,
                dtype=torch.float32) -> torch.Tensor:
     """Truncated-normal fan-in init (fan-in = product of all but the last
     dimension, the reference's rule)."""
     fan_in = math.prod(shape[:-1]) if len(shape) > 1 else shape[0]
-    return (truncated_normal(shape, generator, device)
+    return (truncated_normal(shape, generator)
             / math.sqrt(max(fan_in, 1))).to(dtype)
 
 
-def embed_init(shape: Sequence[int], generator: torch.Generator, device=None,
+def embed_init(shape: Sequence[int], generator: torch.Generator,
                dtype=torch.float32) -> torch.Tensor:
-    return (0.02 * truncated_normal(shape, generator, device)).to(dtype)
+    return (0.02 * truncated_normal(shape, generator)).to(dtype)

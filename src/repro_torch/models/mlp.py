@@ -15,11 +15,11 @@ class MLPParams(NamedTuple):
     w_down: torch.Tensor             # (f, d)
 
 
-def init_swiglu(generator: torch.Generator, d_model: int, d_ff: int, device=None,
+def init_swiglu(generator: torch.Generator, d_model: int, d_ff: int,
                 dtype=torch.float32) -> MLPParams:
-    return MLPParams(dense_init((d_model, d_ff), generator, device, dtype),
-                     dense_init((d_model, d_ff), generator, device, dtype),
-                     dense_init((d_ff, d_model), generator, device, dtype))
+    return MLPParams(dense_init((d_model, d_ff), generator, dtype),
+                     dense_init((d_model, d_ff), generator, dtype),
+                     dense_init((d_ff, d_model), generator, dtype))
 
 
 def mlp_forward(p: MLPParams, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """The dense LM family, training path. Counterpart of ``repro/models/model.py``.
 
     lm = build_model(cfg)                         # cfg: ModelConfig, family 'dense'
-    params = lm.init(seed=0, device="cuda")
+    params = lm.init(seed=0)                      # on CUDA; device="cpu" for the CPU
     loss, metrics = lm.loss(params, batch)        # batch: tokens/labels (B, S)
 
 Params are a plain nested dict with the reference's structure and names:
@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.layers import embed_init, rms_norm
@@ -72,29 +73,32 @@ class LM:
         self.cfg = cfg
 
     def init(self, seed: int = 0, device=None, dtype=torch.float32) -> Params:
+        """Random weights from `seed` on `device` (CUDA when None). They are
+        drawn from a CPU generator and then moved, so a seed gives the same
+        weights on every device."""
         cfg = self.cfg
-        gen = torch.Generator(device=device if device is not None else "cpu")
-        gen.manual_seed(int(seed))
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(int(seed))
         L, d = cfg.n_layers, cfg.d_model
         layers = [(attn.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                                       cfg.head_dim, cfg.qkv_bias, device, dtype),
-                   mlp_mod.init_swiglu(gen, d, cfg.d_ff, device, dtype))
+                                       cfg.head_dim, cfg.qkv_bias, dtype),
+                   mlp_mod.init_swiglu(gen, d, cfg.d_ff, dtype))
                   for _ in range(L)]
 
         def stack(nts):
-            return type(nts[0])(*(None if leaves[0] is None else torch.stack(leaves)
+            return type(nts[0])(*(None if leaves[0] is None else torch.stack(leaves).to(dev)
                                   for leaves in zip(*nts)))
 
         p: Params = {
-            "embed": embed_init((cfg.vocab, d), gen, device, dtype),
-            "ln_f": torch.ones(d, dtype=dtype, device=device),
-            "blocks": {"ln1": torch.ones(L, d, dtype=dtype, device=device),
-                       "ln2": torch.ones(L, d, dtype=dtype, device=device),
+            "embed": embed_init((cfg.vocab, d), gen, dtype).to(dev),
+            "ln_f": torch.ones(d, dtype=dtype, device=dev),
+            "blocks": {"ln1": torch.ones(L, d, dtype=dtype, device=dev),
+                       "ln2": torch.ones(L, d, dtype=dtype, device=dev),
                        "attn": stack([a for a, _ in layers]),
                        "ffn": stack([f for _, f in layers])},
         }
         if not cfg.tie_embeddings:
-            p["unembed"] = embed_init((d, cfg.vocab), gen, device, dtype)
+            p["unembed"] = embed_init((d, cfg.vocab), gen, dtype).to(dev)
         return p
 
     def _unembed(self, params: Params) -> torch.Tensor:

@@ -6,7 +6,7 @@ partitionable mode (``jax_threefry_partitionable=True``, the jax 0.9
 default). This module reproduces that stream exactly, so the port consumes
 the reference's own keys and a whole trajectory can be held against it:
 
-    key = PRNGKey(0)                 # (2,) uint32 tensor
+    key = PRNGKey(0)                 # (2,) uint32 tensor, on CUDA by default
     k1, k2 = split(key)              # rows of a (2, 2) tensor
     u = bits(k1, (5,))               # (5,) uint32 == jax.random.bits
     i = randint(k2, (8,), 0, 4)      # (8,) int32  == jax.random.randint
@@ -26,6 +26,8 @@ import math
 from typing import Sequence, Tuple, Union
 
 import torch
+
+from repro_torch.device import resolve_device
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -65,12 +67,13 @@ def _as_key(y0: torch.Tensor, y1: torch.Tensor) -> torch.Tensor:
 
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:
-    """jax.random.PRNGKey(seed) for a non-negative integer seed."""
+    """jax.random.PRNGKey(seed) for a non-negative integer seed, on
+    `device` (CUDA when None)."""
     seed = int(seed)
     if not 0 <= seed < 1 << 63:
         raise ValueError(f"seed must be in [0, 2**63), got {seed}")
     return torch.tensor([(seed >> 32) & _MASK, seed & _MASK], dtype=torch.int64,
-                        device=device).to(torch.uint32)
+                        device=resolve_device(device)).to(torch.uint32)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:

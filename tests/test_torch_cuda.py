@@ -78,7 +78,7 @@ def test_session_on_the_card_matches_the_cpu():
                       privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2,
                                                   fused_kernel=True))
         state, ms = fed.run_rounds(fed.init_state(params), batches,
-                                   key=trandom.PRNGKey(3))
+                                   key=trandom.PRNGKey(3, device=dev))
         out.append((ms["refused"].cpu(), fed.reconcile(state), state.bank.cpu()))
     assert torch.equal(out[0][0], out[1][0])
     assert out[0][1] == out[1][1]
@@ -91,3 +91,14 @@ def test_default_device_is_cuda():
     fed = Federation([DataOwner(n=10, epsilon=1.0, xi=1.0)], FederationConfig(horizon=3))
     assert fed.device.type == "cuda"
     assert not torch.backends.cuda.matmul.allow_tf32
+    assert trandom.PRNGKey(0).device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_init_gives_the_same_weights_on_every_device():
+    _device()
+    lm = LM(DENSE_124M.reduced())
+    on_card, on_cpu = lm.init(seed=4), lm.init(seed=4, device="cpu")
+    assert on_card["embed"].device.type == "cuda"
+    assert torch.equal(on_card["embed"].cpu(), on_cpu["embed"])
+    assert torch.equal(on_card["blocks"]["attn"].wq.cpu(), on_cpu["blocks"]["attn"].wq)

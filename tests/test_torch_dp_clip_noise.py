@@ -24,6 +24,7 @@ from repro_torch.kernels.dp_clip_noise import kernel as tkernel
 from repro_torch.kernels.dp_clip_noise import ops as tops
 from repro_torch.kernels.dp_clip_noise import ref as tref
 
+CPU = "cpu"
 ROUND = dict(sigma=1e-2, lr_own=0.3, lr_l=0.2, n_owners=4, theta_max=100.0)
 
 
@@ -91,7 +92,7 @@ def test_sqnorm_ref_matches_pallas_kernel_interpret():
 def test_dp_round_flat_cpu_matches_reference_oracle(p):
     # same key -> same bits(key, (P,)) draw at the unpadded shape
     tb, acc = _f32(p, 8), _f32(p, 9)
-    new_l, new_i = tops.dp_round_flat(_t(tb), _t(acc), trandom.PRNGKey(12),
+    new_l, new_i = tops.dp_round_flat(_t(tb), _t(acc), trandom.PRNGKey(12, device=CPU),
                                       torch.tensor(0.5), torch.tensor(0.9),
                                       torch.tensor(0.125), **ROUND)
     ref_l, ref_i = jops.dp_round_flat(jnp.asarray(tb), jnp.asarray(acc),
@@ -105,7 +106,7 @@ def test_dp_round_flat_noise_is_the_key_stream():
     # acc = theta_bar = 0 exposes the noise term: new_i = -lr_own * w * ns * Lap(bits)
     p, ns, w = 4096, 2.0, 0.25
     z = torch.zeros(p)
-    key = trandom.PRNGKey(3)
+    key = trandom.PRNGKey(3, device=CPU)
     _, new_i = tops.dp_round_flat(z, z, key, torch.tensor(1.0), torch.tensor(ns),
                                   torch.tensor(w), **ROUND)
     lap = tref.laplace_from_bits_ref(trandom.bits(key, (p,)))
@@ -121,7 +122,7 @@ def test_fused_sqnorm_cpu_matches_reference_oracle():
 def test_cpu_runs_the_plain_version_and_counts_no_launch():
     before = dict(tkernel.launches)
     tops.fused_sqnorm(torch.ones(8))
-    tops.dp_round_flat(torch.ones(8), torch.ones(8), trandom.PRNGKey(0), 1.0,
+    tops.dp_round_flat(torch.ones(8), torch.ones(8), trandom.PRNGKey(0, device=CPU), 1.0,
                        torch.tensor(1.0), torch.tensor(1.0), **ROUND)
     assert tkernel.launches == before
 
@@ -133,7 +134,7 @@ def test_other_devices_raise(op):
         if op == "fused_sqnorm":
             tops.fused_sqnorm(t)
         else:
-            tops.dp_round_flat(t, t, trandom.PRNGKey(0), 1.0, 1.0, 1.0, **ROUND)
+            tops.dp_round_flat(t, t, trandom.PRNGKey(0, device=CPU), 1.0, 1.0, 1.0, **ROUND)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -141,5 +142,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tkernel.sqnorm_cuda(torch.ones(4))
     with pytest.raises(ValueError):
         one = torch.ones(1)
-        tkernel.dp_round_cuda(torch.ones(4), torch.ones(4), trandom.PRNGKey(0), one, one, one,
-                              sigma=1.0, lr_own=1.0, lr_l=1.0, inv_2n=0.5, theta_max=1.0)
+        tkernel.dp_round_cuda(torch.ones(4), torch.ones(4), trandom.PRNGKey(0, device=CPU),
+                              one, one, one, sigma=1.0, lr_own=1.0, lr_l=1.0, inv_2n=0.5,
+                              theta_max=1.0)

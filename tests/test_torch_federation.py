@@ -34,6 +34,8 @@ from repro_torch.configs.base import DENSE_124M
 from repro_torch.convert import params_from_numpy
 from repro_torch.federation import (DataOwner, Federation, FederationConfig,
                                     LedgerDriftError, PrivatizerConfig, as_owner_seq)
+from repro_torch.federation.flatten import pack_params
+from repro_torch.federation.privacy import make_device_ledger
 from repro_torch.models import LM
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -89,9 +91,9 @@ def _lm_fcfg(fed_mod):
         0.05, n_owners=N_LM, horizon=2, sigma=1e-2, theta_max=100.0)
 
 
-def _lm_priv(fed_mod):
+def _lm_priv(fed_mod, n_microbatches=G_LM):
     return fed_mod.PrivatizerConfig(xi=1.0, granularity="microbatch",
-                                    n_microbatches=G_LM, fused_kernel=True)
+                                    n_microbatches=n_microbatches, fused_kernel=True)
 
 
 def _lm_owners(fed_mod):
@@ -99,10 +101,10 @@ def _lm_owners(fed_mod):
             for i in range(N_LM)]
 
 
-def _run_jax_lm(lm_case):
+def _run_jax_lm(lm_case, n_microbatches):
     jlm, jparams, data = lm_case
     fed = jfed.Federation(_lm_owners(jfed), _lm_fcfg(jfed))
-    fed.make_step(lambda p, b: jlm.loss(p, b)[0], privatizer=_lm_priv(jfed),
+    fed.make_step(lambda p, b: jlm.loss(p, b)[0], privatizer=_lm_priv(jfed, n_microbatches),
                   pack_params=True)
     state = fed.init_state(jparams)
     batches = {k: jnp.asarray(v[:K_LM]) for k, v in data.items()}
@@ -119,18 +121,18 @@ def _run_jax_lm(lm_case):
                 theta=np.asarray(state.theta_L.buf), bank=np.asarray(state.bank))
 
 
-def _run_torch_lm(lm_case):
+def _run_torch_lm(lm_case, n_microbatches):
     jlm, jparams, data = lm_case
     lm = LM(DENSE_124M.reduced())
-    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), device=CPU)
     fed = Federation(_lm_owners(tfed), _lm_fcfg(tfed), device=CPU)
-    fed.make_step(lambda p, b: lm.loss(p, b)[0], privatizer=_lm_priv(tfed),
+    fed.make_step(lambda p, b: lm.loss(p, b)[0], privatizer=_lm_priv(tfed, n_microbatches),
                   pack_params=True)
     state = fed.init_state(params)
     batches = {k: torch.from_numpy(v[:K_LM]) for k, v in data.items()}
-    state, ms = fed.run_rounds(state, batches, key=trandom.PRNGKey(5))
+    state, ms = fed.run_rounds(state, batches, key=trandom.PRNGKey(5, device=CPU))
     fed.reconcile(state)
-    keys = trandom.split(trandom.PRNGKey(6), 2)
+    keys = trandom.split(trandom.PRNGKey(6, device=CPU), 2)
     step_refused = []
     for j, owner in enumerate((0, 1)):
         batch = {k: torch.from_numpy(v[K_LM + j]) for k, v in data.items()}
@@ -141,9 +143,7 @@ def _run_torch_lm(lm_case):
                 theta=_to_np(state.theta_L.buf), bank=_to_np(state.bank))
 
 
-def test_reduced_lm_matches_reference(lm_case):
-    ref = _run_jax_lm(lm_case)
-    out = _run_torch_lm(lm_case)
+def _assert_lm_runs_agree(out, ref):
     np.testing.assert_array_equal(out["owners"], ref["owners"])
     np.testing.assert_array_equal(out["refused"], ref["refused"])
     assert out["step_refused"] == ref["step_refused"]
@@ -151,6 +151,16 @@ def test_reduced_lm_matches_reference(lm_case):
     assert out["refused"].any() or any(out["step_refused"])   # refusal really bites
     np.testing.assert_allclose(out["theta"], ref["theta"], rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(out["bank"], ref["bank"], rtol=RTOL, atol=ATOL)
+
+
+def test_reduced_lm_matches_reference(lm_case):
+    _assert_lm_runs_agree(_run_torch_lm(lm_case, G_LM), _run_jax_lm(lm_case, G_LM))
+
+
+def test_reduced_lm_single_microbatch_matches_reference(lm_case):
+    # G = 1: the reference takes its own no-group branch, the port the
+    # general group loop with one group
+    _assert_lm_runs_agree(_run_torch_lm(lm_case, 1), _run_jax_lm(lm_case, 1))
 
 
 # ---------------- 32 owners, horizon 3, K = 160 (toy regime) ----------------
@@ -205,7 +215,7 @@ def test_toy_32_owners_refusals_and_ledger_match_reference(toy_case):
     tf = _torch_toy_fed()
     ts = tf.init_state(_torch_params(params))
     ts, tm = tf.run_rounds(ts, {k: torch.from_numpy(v) for k, v in data.items()},
-                           owner_seq, key=trandom.PRNGKey(4))
+                           owner_seq, key=trandom.PRNGKey(4, device=CPU))
 
     refused = _to_np(tm["refused"])
     np.testing.assert_array_equal(refused, np.asarray(jm["refused"]))
@@ -223,7 +233,7 @@ def test_toy_32_owners_refusals_and_ledger_match_reference(toy_case):
 # ------------------------- contracts inside the port ------------------------
 def test_step_loop_equals_run_rounds_bit_for_bit(toy_case):
     params, data, owner_seq = toy_case
-    root = trandom.PRNGKey(4)
+    root = trandom.PRNGKey(4, device=CPU)
     keys = trandom.split(root, K_TOY)
 
     loop = _torch_toy_fed()
@@ -254,11 +264,11 @@ def test_lm_step_loop_equals_run_rounds_bit_for_bit(lm_case):
             0.05, n_owners=N_LM, horizon=10, sigma=1e-2), device=CPU)
         fed.make_step(lambda p, b: lm.loss(p, b)[0], privatizer=_lm_priv(tfed),
                       pack_params=True)
-        params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+        params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), device=CPU)
         return fed, fed.init_state(params)
 
     owner_seq = [2, 0, 2]
-    root = trandom.PRNGKey(9)
+    root = trandom.PRNGKey(9, device=CPU)
     loop, s_loop = session()
     for k, (o, key) in enumerate(zip(owner_seq, trandom.split(root, 3))):
         s_loop, _ = loop.step(s_loop, {n: torch.from_numpy(v[k]) for n, v in data.items()},
@@ -275,10 +285,10 @@ def test_refused_round_is_bit_exact_no_op(toy_case):
     fed = _torch_toy_fed(horizon=1)
     state = fed.init_state(_torch_params(params))
     one = {k: torch.from_numpy(v[:1]) for k, v in data.items()}
-    state, m = fed.run_rounds(state, one, [5], key=trandom.PRNGKey(1))
+    state, m = fed.run_rounds(state, one, [5], key=trandom.PRNGKey(1, device=CPU))
     assert not bool(m["refused"][0])
     theta, bank, step = state.theta_L.buf.clone(), state.bank.clone(), int(state.step)
-    state, m = fed.run_rounds(state, one, [5], key=trandom.PRNGKey(2))
+    state, m = fed.run_rounds(state, one, [5], key=trandom.PRNGKey(2, device=CPU))
     assert bool(m["refused"][0])
     assert torch.equal(state.theta_L.buf, theta)
     assert torch.equal(state.bank, bank)
@@ -290,7 +300,7 @@ def test_refused_round_is_bit_exact_no_op(toy_case):
 def test_schedule_drawn_owner_sequence_matches_reference():
     # run_rounds with owner_seq=None: split(key) -> (schedule key, round
     # key), then randint over the owners, in both packages
-    key_j, key_t = jax.random.PRNGKey(11), trandom.PRNGKey(11)
+    key_j, key_t = jax.random.PRNGKey(11), trandom.PRNGKey(11, device=CPU)
     k_sched_j, _ = jax.random.split(key_j)
     k_sched_t, _ = trandom.split(key_t)
     ref = np.asarray(jfed.UniformSchedule().draw(k_sched_j, 7, 50))
@@ -304,23 +314,23 @@ def test_reconcile_refuses_a_superseded_state(toy_case):
     stale = fed.init_state(_torch_params(params))
     fed.init_state(_torch_params(params))          # a newer snapshot
     stale, _ = fed.run_rounds(stale, {k: torch.from_numpy(v[:4]) for k, v in data.items()},
-                              owner_seq[:4], key=trandom.PRNGKey(0))
+                              owner_seq[:4], key=trandom.PRNGKey(0, device=CPU))
     with pytest.raises(LedgerDriftError):
         fed.reconcile(stale)
 
 
 def test_owner_seq_is_validated(toy_case):
     with pytest.raises(ValueError):
-        as_owner_seq([0, 4], 4)
+        as_owner_seq([0, 4], 4, device=CPU)
     with pytest.raises(ValueError):
-        as_owner_seq([[0, 1]], 4)
-    assert as_owner_seq([3, 0], 4).dtype == torch.int32
+        as_owner_seq([[0, 1]], 4, device=CPU)
+    assert as_owner_seq([3, 0], 4, device=CPU).dtype == torch.int32
     params, data, _ = toy_case
     fed = _torch_toy_fed()
     with pytest.raises(ValueError, match="rounds"):
         fed.run_rounds(fed.init_state(_torch_params(params)),
                        {k: torch.from_numpy(v[:3]) for k, v in data.items()}, [0, 1],
-                       key=trandom.PRNGKey(0))
+                       key=trandom.PRNGKey(0, device=CPU))
 
 
 def test_federation_without_device_raises_without_cuda():
@@ -329,6 +339,23 @@ def test_federation_without_device_raises_without_cuda():
     owners = [DataOwner(n=10, epsilon=1.0, xi=1.0)]
     with pytest.raises(RuntimeError, match="CUDA"):
         Federation(owners, FederationConfig(horizon=3))
+
+
+@pytest.mark.parametrize("entry", ["PRNGKey", "LM.init", "pack_params", "params_from_numpy",
+                                   "as_owner_seq", "make_device_ledger"])
+def test_entry_points_without_device_raise_without_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device exists")
+    calls = {
+        "PRNGKey": lambda: trandom.PRNGKey(0),
+        "LM.init": lambda: LM(DENSE_124M.reduced()).init(seed=0),
+        "pack_params": lambda: pack_params({"w": torch.zeros(3)}),
+        "params_from_numpy": lambda: params_from_numpy({"w": np.zeros(3, np.float32)}),
+        "as_owner_seq": lambda: as_owner_seq([0], 1),
+        "make_device_ledger": lambda: make_device_ledger([1]),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
 
 
 def test_unported_modes_raise():

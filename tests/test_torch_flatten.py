@@ -21,6 +21,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.federation import flatten as tflatten
 from repro_torch.models import LM
 
+CPU = "cpu"
 JAX_REDUCED = JaxModelConfig(
     name="dense-124m", family="dense", n_layers=12, d_model=768, n_heads=12,
     n_kv_heads=4, d_ff=2048, vocab=50304).reduced()
@@ -29,7 +30,7 @@ JAX_REDUCED = JaxModelConfig(
 @pytest.fixture(scope="module")
 def lm_params():
     jparams = jax_build_model(JAX_REDUCED, remat=False).init(jax.random.PRNGKey(0))
-    return jparams, params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    return jparams, params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), device=CPU)
 
 
 def test_reduced_lm_spec_equals_reference(lm_params):
@@ -43,7 +44,7 @@ def test_reduced_lm_spec_equals_reference(lm_params):
 def test_reduced_lm_packed_buffer_is_bit_equal(lm_params):
     jparams, tparams = lm_params
     ref = np.asarray(jflatten.pack_params(jparams).buf)
-    np.testing.assert_array_equal(tflatten.pack_params(tparams).buf.numpy(), ref)
+    np.testing.assert_array_equal(tflatten.pack_params(tparams, device=CPU).buf.numpy(), ref)
 
 
 def test_leaf_order_is_jax_order(lm_params):
@@ -59,7 +60,7 @@ def test_leaf_order_is_jax_order(lm_params):
 
 
 def test_port_init_has_the_reference_structure():
-    tparams = LM(DENSE_124M.reduced()).init(seed=0)
+    tparams = LM(DENSE_124M.reduced()).init(seed=0, device=CPU)
     jparams = jax_build_model(JAX_REDUCED, remat=False).init(jax.random.PRNGKey(0))
     jspec, tspec = jflatten.flatten_spec(jparams), tflatten.flatten_spec(tparams)
     assert (tspec.shapes, tspec.offsets) == (jspec.shapes, jspec.offsets)
@@ -92,7 +93,7 @@ def test_mixed_tree_order_scalars_and_none():
 
 def test_unpack_returns_views_and_round_trips(lm_params):
     _, tparams = lm_params
-    flat = tflatten.pack_params(tparams)
+    flat = tflatten.pack_params(tparams, device=CPU)
     tree = flat.unpack()
     assert torch.equal(tflatten.flatten_spec(tree).pack(tree), flat.buf)
     flat.buf[0] = 123.0                                  # a write through the buffer...
@@ -121,12 +122,12 @@ def test_validation():
     with pytest.raises(ValueError):
         spec.unpack(torch.zeros(5))
     with pytest.raises(NotImplementedError):
-        tflatten.init_flat_bank(tflatten.pack_params({"w": torch.zeros(3)}), 2,
+        tflatten.init_flat_bank(tflatten.pack_params({"w": torch.zeros(3)}, device=CPU), 2,
                                 torch.bfloat16)
 
 
 def test_init_flat_bank_rows_are_the_buffer():
-    flat = tflatten.pack_params({"w": torch.arange(5.0)})
+    flat = tflatten.pack_params({"w": torch.arange(5.0)}, device=CPU)
     bank = tflatten.init_flat_bank(flat, 3)
     assert bank.shape == (3, 5) and bank.is_contiguous()
     assert all(torch.equal(row, flat.buf) for row in bank)

@@ -32,6 +32,7 @@ JAX_REDUCED = JaxModelConfig(
     name="dense-124m", family="dense", n_layers=12, d_model=768, n_heads=12,
     n_kv_heads=4, d_ff=2048, vocab=50304).reduced()
 B, S = 4, 16
+CPU = "cpu"
 
 
 @pytest.fixture(autouse=True)
@@ -66,7 +67,7 @@ def test_reduced_config_matches_reference():
 def test_loss_matches_reference(case):
     jlm, jparams, batch = case
     ref = float(jlm.loss(jparams, {k: jnp.asarray(v) for k, v in batch.items()})[0])
-    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), device=CPU)
     out = float(LM(DENSE_124M.reduced()).loss(
         params, {k: torch.from_numpy(v) for k, v in batch.items()})[0])
     assert out == pytest.approx(ref, abs=1e-5)
@@ -77,7 +78,7 @@ def test_packed_gradient_matches_reference(case):
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     ref = np.asarray(jflatten.pack_params(
         jax.grad(lambda p: jlm.loss(p, jb)[0])(jparams)).buf)
-    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), device=CPU)
     spec = tflatten.flatten_spec(params)
     leaf = spec.pack(params).requires_grad_(True)
     LM(DENSE_124M.reduced()).loss(
@@ -152,7 +153,7 @@ def test_chunked_lm_loss(seq, chunk):
 
 def test_port_init_is_seeded_and_sized():
     lm = LM(DENSE_124M.reduced())
-    a, b = lm.init(seed=3), lm.init(seed=3)
+    a, b = lm.init(seed=3, device=CPU), lm.init(seed=3, device=CPU)
     la, _ = tflatten.tree_flatten(a)
     lb, _ = tflatten.tree_flatten(b)
     assert all(torch.equal(x, y) for x, y in zip(la, lb))

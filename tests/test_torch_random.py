@@ -10,11 +10,12 @@ import torch
 
 from repro_torch import random as trandom
 
+CPU = "cpu"
 SEEDS = [0, 1, 42, 2**31 - 1, 123456789]
 
 
 def _key_pair(seed):
-    return jax.random.PRNGKey(seed), trandom.PRNGKey(seed)
+    return jax.random.PRNGKey(seed), trandom.PRNGKey(seed, device=CPU)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -79,7 +80,7 @@ def test_randint(seed, lo, hi):
 
 
 def test_randint_rejects_empty_or_wide_spans():
-    tk = trandom.PRNGKey(0)
+    tk = trandom.PRNGKey(0, device=CPU)
     with pytest.raises(ValueError):
         trandom.randint(tk, (3,), 4, 4)
     with pytest.raises(ValueError):
