@@ -5,15 +5,19 @@
 
 Phases (any mismatch raises and the run exits non-zero):
 
-1. build   — compile every CUDA source of the main path with nvcc (all
-             started at once) into build/repro_torch/, print the seconds
-             and ptxas' register report.
-2. kernels — hold each kernel, through the ops.py wrappers the main path
-             calls, against its plain PyTorch version on the card at the
-             main path's width (P = 152,783,616) and at a ragged P:
-             dp_round (also with acc = theta_bar = 0, which leaves only the
-             in-kernel Laplace draw) and sqnorm (also two launches, which
-             must be bit-identical).
+1. build   — compile every CUDA source of the main paths with nvcc (all
+             started at once: dp_clip_noise.cu and bank_codec.cu) into
+             build/repro_torch/, print the seconds and ptxas' register
+             report.
+2. kernels — hold each kernel, through the wrappers the main paths call,
+             against its plain PyTorch version on the card at the main
+             path's width (P = 152,783,616) and at a ragged P: dp_round
+             (also with acc = theta_bar = 0, which leaves only the
+             in-kernel Laplace draw), sqnorm (also two launches, which must
+             be bit-identical), absmax (two launches, bit-identical),
+             encode (int8 and fp8, stochastic and deterministic) and
+             decode, all bit for bit; and all 256 fp8 patterns decode
+             exactly.
 3. main    — the user's path at full width: DENSE_124M f32, 16 owners x
              10,000 records, eps = 1, batch 4 x seq 128, G = 2 microbatches,
              f32 bank; four run_rounds dispatches of K = 8 timed with the
@@ -21,15 +25,28 @@ Phases (any mismatch raises and the run exits non-zero):
              under torch.profiler (launches per round, device busy time by
              kernel group, the device's idle share), two step() calls,
              reconcile. Launch counts must be K*G sqnorm and K dp_round per
-             dispatch.
-4. refusal — a reduced model with horizon 2 and schedule-drawn owners:
-             the refused mask and reconciled ledger must equal what the
-             host computes from the drawn sequence and what the port
-             computes on the CPU; theta_L and the bank must agree with the
-             CPU run, and a step() loop must equal run_rounds bit for bit.
-5. timing  — each kernel (through its ops.py wrapper), its plain version
-             and (for sqnorm) torch.dot at the main-path shapes, with CUDA
-             events, beside the bound.
+             dispatch, and no bank codec launch.
+   quant   — the quantized bank at full width: the same model and rounds
+             with 128 owners x 10,000 records on an int8 bank (78.2 GB in
+             f32, which would not fit); launch counts per dispatch must be
+             also K decode, K encode and K absmax. Prints the bank's
+             resident bytes, peak memory, ms per round and the idle share.
+             Then one fp8 dispatch on a fresh state at the same size.
+4. refusal — a reduced model with horizon 2 and schedule-drawn owners, on
+             an f32 and an int8 bank: the refused mask and reconciled
+             ledger must equal what the host computes from the drawn
+             sequence and what the port computes on the CPU; theta_L and
+             the bank must agree with the CPU run (int8: within one
+             quantization step), a step() loop must equal run_rounds bit
+             for bit, and (int8) a refused round leaves codes, scales and
+             residual untouched.
+5. timing  — each kernel (through the wrapper the main path calls), its
+             plain version and the one PyTorch call computing the same
+             function where there is one (torch.dot for sqnorm,
+             torch.linalg.vector_norm(x, inf) for absmax, codes * scale
+             for the int8 decode), at the main-path shapes, with CUDA
+             events, beside the bound; encode and decode on an int8 row
+             for the `kernels` line, and again on an fp8 row, printed.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -48,8 +65,10 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
+P_FULL = 152_783_616                 # DENSE_124M
 P_RAGGED = 1_000_003
 ROUND = dict(sigma=1e-2, lr_own=0.3, lr_l=0.2, n_owners=16, theta_max=2.0)
+FMTS = ("int8", "fp8")
 
 
 def check(cond, msg):
@@ -70,11 +89,33 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def _kernel_modules():
+    from repro_torch.kernels.bank_codec import kernel as bank_codec
+    from repro_torch.kernels.dp_clip_noise import kernel as dp_clip_noise
+    return dp_clip_noise, bank_codec
+
+
+def _reset_launches():
+    for mod in _kernel_modules():
+        mod.reset_launches()
+
+
+def _launches():
+    """Every kernel wrapper's launch count, in one dict."""
+    out = {}
+    for mod in _kernel_modules():
+        out.update(mod.launches)
+    return out
+
+
+def _diff(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
 def phase_build():
     from repro_torch.kernels import _build
-    from repro_torch.kernels.dp_clip_noise import kernel
     t0 = time.perf_counter()
-    built = _build.build_all({kernel.NAME: kernel.SOURCE})
+    built = _build.build_all({mod.NAME: mod.SOURCE for mod in _kernel_modules()})
     print(f"[build] {time.perf_counter() - t0:.2f} s for {sorted(built) or 'nothing'}")
     for name, (sec, out) in built.items():
         regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
@@ -88,7 +129,7 @@ def phase_kernels(torch, dev):
     before = dict(kernel.launches)
     gen = torch.Generator(device=dev).manual_seed(1)
     scal = [torch.tensor(v, device=dev) for v in (0.5, 0.9, 0.0625)]
-    for p in (152_783_616, P_RAGGED):
+    for p in (P_FULL, P_RAGGED):
         key = random.PRNGKey(p, device=dev)
         tb = torch.randn(p, device=dev, generator=gen)
         acc = torch.randn(p, device=dev, generator=gen)
@@ -112,8 +153,53 @@ def phase_kernels(torch, dev):
         del tb, acc
     got = {k: kernel.launches[k] - before[k] for k in before}
     check(got == {"dp_round": 4, "sqnorm": 4}, f"the wrappers launched {got}")
+    err.update(_check_bank_codec(torch, dev))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    return err
+
+
+def _check_bank_codec(torch, dev):
+    """absmax, encode and decode through their wrappers against the plain
+    versions on the same CUDA tensors, bit for bit."""
+    from repro_torch import random
+    from repro_torch.kernels.bank_codec import kernel, ops, ref
+    err = {"absmax": 0.0, "encode": 0.0, "decode": 0.0}
+    before = dict(kernel.launches)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for p in (P_FULL, P_RAGGED):
+        x = torch.randn(p, device=dev, generator=gen) * 0.05
+        x[:4] = torch.tensor([0.0, -0.0, 1e-9, -3e-12], device=dev)
+        key = random.PRNGKey(p + 1, device=dev)
+        for fmt in FMTS:
+            s1, s2 = ops.row_scale(x, fmt), ops.row_scale(x, fmt)
+            check(torch.equal(s1, s2), "two absmax launches differ")
+            plain = ref.row_scales_ref(x.reshape(1, -1), ref.QMAX[fmt])
+            check(torch.equal(s1, plain), f"absmax {fmt}: {float(s1)} vs {float(plain)}")
+            for det in (False, True):
+                codes, scales, e = ops.encode_row(x, key, fmt, deterministic=det)
+                p_codes, p_scales, p_e = ref.encode_row_ref(x, key, fmt, deterministic=det)
+                check(torch.equal(scales, p_scales), f"encode {fmt} det={det}: scales differ")
+                bad = int((codes != p_codes).sum())
+                check(bad == 0, f"encode {fmt} det={det}: {bad} of {p} codes differ")
+                err["encode"] = max(err["encode"], float((e - p_e).abs().max()))
+                check(torch.equal(e, p_e), f"encode {fmt} det={det}: err rows differ "
+                      f"by up to {err['encode']:.3e}")
+                out = ops.decode_row(codes, scales, fmt)
+                p_out = ref.decode_row_ref(codes, scales, fmt)
+                err["decode"] = max(err["decode"], float((out - p_out).abs().max()))
+                check(torch.equal(out, p_out), f"decode {fmt}: differs from its plain version")
+                del codes, e, p_codes, p_e, out, p_out
+        print(f"[kernels] P={p}: absmax, encode (int8, fp8; stochastic and deterministic) "
+              f"and decode equal their plain versions bit for bit")
+        del x
+    pats = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    out = ops.decode_row(pats.to(dev), torch.ones(1, device=dev), "fp8").cpu()
+    check(torch.equal(out, ref.fp8_to_f32(pats)), "fp8 patterns decode differently")
+    print("[kernels] all 256 fp8 patterns decode exactly as ref.fp8_to_f32")
+    got = _diff(dict(kernel.launches), before)
+    # per P and format: 2 row_scale + 2 encode_row (absmax + encode) + 2 decode
+    check(got == {"absmax": 16, "encode": 8, "decode": 9}, f"the wrappers launched {got}")
     return err
 
 
@@ -136,6 +222,8 @@ def _kernel_group(name):
         return "dp_round kernel"
     if "sqnorm" in low:
         return "sqnorm kernels"
+    if any(k in low for k in ("absmax_", "encode_kernel", "decode_kernel")):
+        return "bank codec kernels"
     if "gemm" in low or "cutlass" in low or "xmma" in low:
         return "GEMM"
     return "other"
@@ -173,28 +261,54 @@ def _profiled(torch, dev, run, rounds, top=12):
     return out, busy_ms / rounds
 
 
-def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispatches=4):
+def _bank_summary(torch, bank, n_owners, P):
+    """One line on the bank's storage and resident bytes."""
+    from repro_torch.federation import QuantBank
+    f32 = n_owners * P * 4 / 1e9
+    if isinstance(bank, QuantBank):
+        return (f"bank {bank.codec.fmt} codes {tuple(bank.codes.shape)} + scales + residual = "
+                f"{bank.nbytes / 1e9:.3f} GB resident (f32: {f32:.3f} GB)")
+    gb = bank.numel() * bank.element_size() / 1e9
+    return f"bank {tuple(bank.shape)} {bank.dtype} = {gb:.3f} GB"
+
+
+def _state_finite(torch, state):
+    from repro_torch.federation import QuantBank
+    bank = state.bank
+    parts = (bank.scales, bank.residual) if isinstance(bank, QuantBank) else (bank,)
+    return all(bool(torch.isfinite(t).all()) for t in (state.theta_L.buf, *parts))
+
+
+def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispatches=4,
+               bank_dtype=None, tag="main"):
+    """One full-width path: `dispatches` timed run_rounds calls of K = 8, one
+    profiled, two step() calls and reconcile, with the launch counters set
+    to 0 just before and read just after. Returns (launches, fed, pipe, lm)."""
     from repro_torch import random
     from repro_torch.configs import DENSE_124M
     from repro_torch.data import OwnerDataPipeline, synthetic_owner_shards
     from repro_torch.federation import (DataOwner, Federation, FederationConfig,
-                                        PrivatizerConfig)
-    from repro_torch.kernels.dp_clip_noise import kernel
+                                        PrivatizerConfig, as_bank_codec)
     from repro_torch.models import LM
     cfg = DENSE_124M if cfg is None else cfg
     batch, G, K = 4, 2, 8
+    quant = as_bank_codec(bank_dtype) is not None
+    per_dispatch = {"sqnorm": K * G, "dp_round": K, "absmax": K * quant,
+                    "encode": K * quant, "decode": K * quant}
     lm = LM(cfg)
 
     def loss_fn(p, b):
         return lm.loss(p, b)[0]
 
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     shards = synthetic_owner_shards(n_owners, records, seq, cfg.vocab, seed=0)
     pipe = OwnerDataPipeline(shards, batch, seed=0)
     owners = [DataOwner(n=s, epsilon=1.0, xi=1.0) for s in pipe.owner_sizes]
     fed = Federation(owners, FederationConfig.from_target_lr(
         0.05, n_owners=n_owners, horizon=1000, sigma=1e-2, theta_max=100.0), device=dev)
-    fed.make_step(loss_fn, pack_params=True, privatizer=PrivatizerConfig(
+    fed.make_step(loss_fn, pack_params=True, bank_dtype=bank_dtype, privatizer=PrivatizerConfig(
         xi=1.0, granularity="microbatch", n_microbatches=G, fused_kernel=True))
     state = fed.init_state(lm.init(seed=0, device=dev))
     P = state.theta_L.size
@@ -207,20 +321,20 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
     with torch.no_grad():
         loss0 = float(loss_fn(fed.params_of(state), eval_batch))
     _sync(torch, dev)
-    print(f"[main] {cfg.name}: P={P}, bank {tuple(state.bank.shape)} f32 = "
-          f"{state.bank.numel() * 4 / 1e9:.3f} GB, set-up {time.perf_counter() - t0:.1f} s, "
-          f"central loss before {loss0:.4f}")
+    print(f"[{tag}] {cfg.name}: P={P}, {n_owners} owners, "
+          f"{_bank_summary(torch, state.bank, n_owners, P)}, "
+          f"set-up {time.perf_counter() - t0:.1f} s, central loss before {loss0:.4f}")
 
     key = random.PRNGKey(0, device=dev)
-    kernel.reset_launches()
+    _reset_launches()
 
     def dispatch(state, sub):
         owner_seq = pipe.schedule(K)
         batches = _torch_batches(torch, pipe.batches_for(owner_seq))
-        before = dict(kernel.launches)
+        before = _launches()
         state, ms = fed.run_rounds(state, batches, owner_seq, key=sub)
-        got = {k: kernel.launches[k] - before[k] for k in before}
-        check(got == {"sqnorm": K * G, "dp_round": K}, f"launches {got} in one dispatch")
+        got = _diff(_launches(), before)
+        check(got == per_dispatch, f"launches {got} in one dispatch, expected {per_dispatch}")
         check(not bool(ms["refused"].any()), "a round was refused under a long horizon")
         return state, ms, owner_seq, got
 
@@ -233,43 +347,82 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
         _sync(torch, dev)
         dt = (time.perf_counter() - t0) * 1e3
         per_round.append(dt / K)
-        print(f"[main] dispatch {d}: K={K} rounds in {dt:.1f} ms ({dt / K:.1f} ms/round), "
+        print(f"[{tag}] dispatch {d}: K={K} rounds in {dt:.1f} ms ({dt / K:.1f} ms/round), "
               f"owners {owner_seq.tolist()}, launches {got}, "
               f"clip_frac {ms['clip_frac'].mean().item():.2f}")
     # dispatch 0 warms cuBLAS and the allocator
     median = statistics.median(per_round[1:] or per_round)
-    print(f"[main] median of dispatches 1..{dispatches - 1}: {median:.2f} ms/round")
+    print(f"[{tag}] median of dispatches 1..{dispatches - 1}: {median:.2f} ms/round")
     key, sub = random.split(key)
     (state, _, _, _), busy = _profiled(torch, dev, lambda: dispatch(state, sub), K)
-    print(f"[profile] device busy {busy:.2f} of the unprofiled median {median:.2f} ms/round: "
-          f"the device idles {1 - busy / median:.1%} of a round")
+    print(f"[profile] {tag}: device busy {busy:.2f} of the unprofiled median {median:.2f} "
+          f"ms/round: the device idles {1 - busy / median:.1%} of a round")
     it = iter(pipe)
     for j in range(2):
         owner, b = next(it)
         key, sub = random.split(key)
         state, m = fed.step(state, b, owner, sub)
         check(not m["refused"], "step refused under a long horizon")
-    launches = dict(kernel.launches)
+    launches = _launches()
     rounds = (dispatches + 1) * K + 2
     ledger = fed.reconcile(state)
     check(sum(r["responses"] for r in ledger.values()) == rounds, "ledger responses")
     check(sum(r["refused"] for r in ledger.values()) == 0, "ledger refusals")
-    check(bool(torch.isfinite(state.theta_L.buf).all())
-          and bool(torch.isfinite(state.bank).all()), "non-finite state")
+    check(_state_finite(torch, state), "non-finite state")
     check(int(state.step) == rounds, "step counter")
     with torch.no_grad():
         loss1 = float(loss_fn(fed.params_of(state), eval_batch))
     check(math.isfinite(loss0) and math.isfinite(loss1), "non-finite loss")
-    print(f"[main] central loss {loss0:.4f} -> {loss1:.4f} after {rounds} rounds; "
+    print(f"[{tag}] central loss {loss0:.4f} -> {loss1:.4f} after {rounds} rounds; "
           f"launches {launches}; peak memory {_peak_gb(torch, dev):.2f} GB")
-    print("[main] ledger " + json.dumps(
+    print(f"[{tag}] ledger " + json.dumps(
         {i: [r["responses"], r["refused"], round(r["spent"], 6)]
          for i, r in ledger.items()}))
+    del state
+    return launches, fed, pipe, lm
+
+
+def phase_quant(torch, dev, cfg=None, n_owners=128, records=10_000, seq=128):
+    """The int8 bank at full width (phase_main), then one fp8 dispatch on a
+    fresh state after the int8 one is freed. Returns the int8 run's launches."""
+    from repro_torch import random
+    K, G = 8, 2
+    launches, fed, pipe, lm = phase_main(torch, dev, cfg=cfg, n_owners=n_owners,
+                                         records=records, seq=seq, bank_dtype="int8",
+                                         tag="quant")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = fed.init_state(lm.init(seed=0, device=dev), bank_dtype="fp8")
+    owner_seq = pipe.schedule(K)
+    batches = _torch_batches(torch, pipe.batches_for(owner_seq))
+    _reset_launches()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    state, ms = fed.run_rounds(state, batches, owner_seq, key=random.PRNGKey(1, device=dev))
+    _sync(torch, dev)
+    dt = (time.perf_counter() - t0) * 1e3
+    got = _launches()
+    check(got == {"sqnorm": K * G, "dp_round": K, "absmax": K, "encode": K, "decode": K},
+          f"fp8 dispatch launched {got}")
+    check(not bool(ms["refused"].any()) and _state_finite(torch, state), "fp8 dispatch")
+    print(f"[quant] fp8: one dispatch of K={K} on a fresh state, {dt:.1f} ms "
+          f"({dt / K:.1f} ms/round, the first dispatch of its state), launches {got}, "
+          f"{_bank_summary(torch, state.bank, n_owners, state.theta_L.size)}, "
+          f"peak memory {_peak_gb(torch, dev):.2f} GB")
     del state, fed
     return launches
 
 
-def phase_refusal(torch, dev):
+def _bank_tensors(bank):
+    """The bank's tensors on the CPU: (codes, scales, residual) or (rows,)."""
+    from repro_torch.federation import QuantBank
+    parts = ((bank.codes, bank.scales, bank.residual) if isinstance(bank, QuantBank)
+             else (bank,))
+    return tuple(t.cpu() for t in parts)
+
+
+def phase_refusal(torch, dev, bank_dtype=None):
     from repro_torch import random
     from repro_torch.configs import DENSE_124M
     from repro_torch.federation import (DataOwner, Federation, FederationConfig,
@@ -281,6 +434,7 @@ def phase_refusal(torch, dev):
     params = lm.init(seed=1, device="cpu")
     toks = np.random.default_rng(5).integers(0, cfg.vocab, (K, 4, 16), dtype=np.int32)
     data = {"tokens": toks, "labels": np.roll(toks, -1, axis=2)}
+    tag = "f32" if bank_dtype is None else str(bank_dtype)
 
     def session(device):
         fed = Federation([DataOwner(n=100 * (i + 1), epsilon=1.0, xi=1.0)
@@ -288,18 +442,19 @@ def phase_refusal(torch, dev):
                          FederationConfig.from_target_lr(0.05, n_owners=n_owners,
                                                          horizon=horizon, sigma=1e-2),
                          device=device)
-        fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True,
+        fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True, bank_dtype=bank_dtype,
                       privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2,
                                                   fused_kernel=True))
         return fed, fed.init_state(params)
 
-    runs = []
+    runs, sessions = [], []
     for device in (dev, torch.device("cpu")):
         fed, state = session(device)
         state, ms = fed.run_rounds(state, _torch_batches(torch, data),
                                    key=random.PRNGKey(21, device=device))
         runs.append((ms["owner"].cpu().numpy(), ms["refused"].cpu().numpy(),
-                     fed.reconcile(state), state.theta_L.buf.cpu(), state.bank.cpu()))
+                     fed.reconcile(state), state.theta_L.buf.cpu(), _bank_tensors(state.bank)))
+        sessions.append((fed, state))
     owners, refused, ledger, theta, bank = runs[0]
     counts = np.zeros(n_owners, np.int64)
     expect = []
@@ -314,9 +469,24 @@ def phase_refusal(torch, dev):
     c_owners, c_refused, c_ledger, c_theta, c_bank = runs[1]
     check(np.array_equal(owners, c_owners) and np.array_equal(refused, c_refused)
           and ledger == c_ledger, "cuda and cpu runs disagree on owners/refusals/ledger")
-    # f32 sums in other orders (cuBLAS vs the CPU BLAS) around the same keys
-    torch.testing.assert_close(theta, c_theta, rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(bank, c_bank, rtol=1e-4, atol=1e-5)
+    if bank_dtype is None:
+        # f32 sums in other orders (cuBLAS vs the CPU BLAS) around the same keys
+        torch.testing.assert_close(theta, c_theta, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(bank[0], c_bank[0], rtol=1e-4, atol=1e-5)
+    else:
+        # a last-ulp difference may flip a rounding decision: codes within one
+        # step, and theta_L within 1e-5 but half a step where such a copy was
+        # gathered again
+        step = float(c_bank[1].max())
+        dcode = (bank[0].to(torch.int32) - c_bank[0].to(torch.int32)).abs()
+        check(int(dcode.max()) <= 1 and float((dcode > 0).float().mean()) <= 1e-4,
+              f"codes differ by up to {int(dcode.max())} at {int((dcode > 0).sum())} elements")
+        dtheta = (theta - c_theta).abs()
+        check(float((dtheta > 1e-5).float().mean()) <= 1e-4
+              and float(dtheta.max()) <= step / 2 + 1e-5,
+              f"theta_L differs by up to {float(dtheta.max()):.3e} (step {step:.3e})")
+        torch.testing.assert_close(bank[1], c_bank[1], rtol=1e-6, atol=0.0)
+        torch.testing.assert_close(bank[2], c_bank[2], rtol=0.0, atol=step)
 
     # the host-authorized step loop under the same keys, bit for bit
     fed, state = session(dev)
@@ -324,17 +494,30 @@ def phase_refusal(torch, dev):
     for k in range(K):
         state, _ = fed.step(state, {n: torch.from_numpy(v[k]) for n, v in data.items()},
                             int(owners[k]), round_keys[k])
-    check(torch.equal(state.theta_L.buf.cpu(), theta) and torch.equal(state.bank.cpu(), bank),
+    check(torch.equal(state.theta_L.buf.cpu(), theta)
+          and all(torch.equal(a, b) for a, b in zip(_bank_tensors(state.bank), bank)),
           "step loop differs from run_rounds on the card")
-    print(f"[refusal] owners {owners.tolist()} refused {refused.astype(int).tolist()}; "
-          f"ledger == host == cpu run; step loop == run_rounds bit for bit; "
+    # on the run_rounds state, a round of an exhausted owner is refused on
+    # the device and changes nothing
+    fed, state = sessions[0]
+    exhausted = int(np.flatnonzero(counts >= horizon)[0])
+    before = (state.theta_L.buf.cpu(), _bank_tensors(state.bank))
+    state, ms = fed.run_rounds(state, _torch_batches(torch, {n: v[:1] for n, v in data.items()}),
+                               [exhausted], key=random.PRNGKey(22, device=dev))
+    check(bool(ms["refused"][0]), "an exhausted owner was granted")
+    check(torch.equal(state.theta_L.buf.cpu(), before[0])
+          and all(torch.equal(a, b) for a, b in zip(_bank_tensors(state.bank), before[1])),
+          "a refused round changed the state")
+    print(f"[refusal] {tag} bank: owners {owners.tolist()} refused "
+          f"{refused.astype(int).tolist()}; ledger == host == cpu run; step loop == "
+          f"run_rounds bit for bit; a refused round leaves theta_L and the bank bit-exact; "
           f"max |cuda - cpu| theta {float((theta - c_theta).abs().max()):.3e}")
 
 
 def phase_timing(torch, dev, launches, errs):
     from repro_torch import random
     from repro_torch.kernels.dp_clip_noise import ops, ref
-    P = 152_783_616
+    P = P_FULL
     gen = torch.Generator(device=dev).manual_seed(2)
     tb = torch.randn(P, device=dev, generator=gen)
     acc = torch.randn(P, device=dev, generator=gen)
@@ -361,10 +544,61 @@ def phase_timing(torch, dev, launches, errs):
         launches=launches["sqnorm"], max_abs_err=errs["sqnorm"], ms=sq_ms,
         plain_ms=sq_plain, bound_ms=4 * tb.numel() / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=sq_lib))
+    rows += _time_bank_codec(torch, dev, launches, errs)
     for r in rows:
         print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
               f"{r['bound_ms'] / r['ms']:.1%} of it), plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']}")
+    return rows
+
+
+def _time_bank_codec(torch, dev, launches, errs):
+    """absmax, encode and decode on an int8 row at the main path's width,
+    each through the wrapper the main path calls, as `kernels` rows; then
+    encode and decode on an fp8 row, printed."""
+    from repro_torch import random
+    from repro_torch.kernels.bank_codec import kernel, ops, ref
+    x = torch.randn(P_FULL, device=dev, generator=torch.Generator(device=dev).manual_seed(4))
+    key = random.PRNGKey(8, device=dev)
+    seed = ref.sr_seed(key)
+    src = "src/repro_torch/kernels/bank_codec/csrc/bank_codec.cu"
+    replaces = "src/repro/kernels/bank_codec/kernel.py:"
+    rows = []
+    for fmt in FMTS:
+        scale = ops.row_scale(x, fmt)
+        codes, _ = kernel.encode_cuda(x, scale, key, fmt)
+        if fmt == "int8":
+            # codes * scale casts int8 -> f32 (exact) inside one multiply:
+            # the library call for the int8 decode, held to the kernel
+            check(torch.equal(codes * scale, ops.decode_row(codes, scale, fmt)),
+                  "codes * scale differs from the decode kernel")
+        timed = {
+            "absmax": (lambda: ops.row_scale(x, fmt),
+                       lambda: ref.row_scales_ref(x.reshape(1, -1), ref.QMAX[fmt]),
+                       lambda: torch.linalg.vector_norm(x, float("inf")), 4, "65"),
+            "encode": (lambda: kernel.encode_cuda(x, scale, key, fmt),
+                       lambda: ref.ENCODERS[fmt](x, ref.counter_bits(seed, P_FULL), scale),
+                       None, 9, "97"),
+            "decode": (lambda: ops.decode_row(codes, scale, fmt),
+                       lambda: ref.DECODERS[fmt](codes, scale),
+                       (lambda: codes * scale) if fmt == "int8" else None, 5, "116"),
+        }
+        for name, (fn, plain, lib, bytes_per, line) in timed.items():
+            if fmt == "fp8" and name == "absmax":
+                continue                    # the same kernel as int8's, another qmax
+            row = dict(
+                name=name, route="cuda", source=src, replaces=replaces + line,
+                launches=launches[name], max_abs_err=errs[name], ms=cuda_ms(torch, fn, 50),
+                plain_ms=cuda_ms(torch, plain, 5),
+                bound_ms=bytes_per * P_FULL / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                library_ms=None if lib is None else cuda_ms(torch, lib, 50))
+            if fmt == "int8":
+                rows.append(row)
+            else:
+                print(f"[timing] {name} (fp8): {row['ms']:.4f} ms (bound "
+                      f"{row['bound_ms']:.4f} ms, {row['bound_ms'] / row['ms']:.1%} of it), "
+                      f"plain {row['plain_ms']:.4f} ms")
+        del codes
     return rows
 
 
@@ -384,10 +618,19 @@ def main():
     t_start = time.perf_counter()
     phase_build()
     errs = phase_kernels(torch, dev)
-    launches = phase_main(torch, dev)
+    main_launches = phase_main(torch, dev)[0]
     torch.cuda.empty_cache()
-    check(launches["sqnorm"] > 0 and launches["dp_round"] > 0, "main path launched no kernel")
+    check(main_launches["sqnorm"] > 0 and main_launches["dp_round"] > 0,
+          "main path launched no kernel")
+    quant_launches = phase_quant(torch, dev)
+    torch.cuda.empty_cache()
+    check(all(quant_launches[k] > 0 for k in ("absmax", "encode", "decode")),
+          "quant path launched no bank codec kernel")
     phase_refusal(torch, dev)
+    phase_refusal(torch, dev, bank_dtype="int8")
+    # each kernel's launches on its own path: rows 1-2 from main, 4-6 from quant
+    launches = dict(main_launches, **{k: quant_launches[k]
+                                      for k in ("absmax", "encode", "decode")})
     rows = phase_timing(torch, dev, launches, errs)
     print(f"[env] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

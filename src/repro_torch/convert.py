@@ -1,7 +1,9 @@
-"""Carry weights from the reference package into the port.
+"""Carry weights and bank state from the reference package into the port.
 
     np_params = jax.tree_util.tree_map(np.asarray, jax_params)   # caller side
     params = params_from_numpy(np_params)              # on CUDA; device="cpu" for the CPU
+    bank = quant_bank_from_numpy(np.asarray(qb.codes), np.asarray(qb.scales),
+                                 np.asarray(qb.residual), qb.codec.fmt)
 
 The input is the reference's parameter tree with every array mapped to
 numpy: nested dicts, lists/tuples and NamedTuples (read through their
@@ -11,12 +13,13 @@ None, and every array becomes a tensor with the same values and shape.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.federation.flatten import BankCodec, QuantBank
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.mlp import MLPParams
 
@@ -42,3 +45,22 @@ def _convert(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(_convert(v, device) for v in tree)
     return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def quant_bank_from_numpy(codes: np.ndarray, scales: np.ndarray, residual: np.ndarray,
+                          fmt: str, block_elems: Optional[int] = None,
+                          device=None) -> QuantBank:
+    """A port QuantBank on `device` (CUDA when None) from a reference
+    QuantBank's arrays: (N, P) codes (int8, or fp8 as raw uint8 bit
+    patterns; a float8 array is read as its bytes), (N, nb) f32 scales and
+    the (P,) f32 residual."""
+    codec = BankCodec(fmt, block_elems)
+    device = resolve_device(device)
+
+    def tensor(a, dtype):
+        return torch.from_numpy(np.array(a, dtype=dtype, copy=True)).to(device)
+
+    # the codes' bytes, whatever 1-byte dtype carries them
+    codes = np.asarray(codes).view(np.int8 if fmt == "int8" else np.uint8)
+    return QuantBank(tensor(codes, codes.dtype), tensor(scales, np.float32),
+                     tensor(residual, np.float32), codec)

@@ -5,8 +5,9 @@ from repro_torch.federation.config import FederationConfig, paper_rates
 from repro_torch.federation.deep import (AsyncDPConfig, AsyncDPState, init_state_flat,
                                          make_fused_rounds, make_train_step)
 from repro_torch.federation.dp_sgd import PrivatizerConfig
-from repro_torch.federation.flatten import (FlatSpec, ParamFlat, flatten_spec,
-                                            init_flat_bank, pack_params)
+from repro_torch.federation.flatten import (BankCodec, FlatSpec, ParamFlat, QuantBank,
+                                            as_bank_codec, flatten_spec, init_flat_bank,
+                                            pack_params)
 from repro_torch.federation.mechanisms import (LedgerDriftError, PaperMechanism,
                                                make_mechanism)
 from repro_torch.federation.owners import DataOwner
@@ -16,10 +17,10 @@ from repro_torch.federation.schedules import UniformSchedule, as_owner_seq
 from repro_torch.federation.session import Federation
 
 __all__ = [
-    "AsyncDPConfig", "AsyncDPState", "DataOwner", "DeviceLedger", "Federation",
+    "AsyncDPConfig", "AsyncDPState", "BankCodec", "DataOwner", "DeviceLedger", "Federation",
     "FederationConfig", "FlatSpec", "LedgerDriftError", "PaperMechanism",
-    "ParamFlat", "PrivacyAccountant", "PrivatizerConfig", "UniformSchedule",
-    "as_owner_seq", "flatten_spec", "init_flat_bank", "init_state_flat",
+    "ParamFlat", "PrivacyAccountant", "PrivatizerConfig", "QuantBank", "UniformSchedule",
+    "as_bank_codec", "as_owner_seq", "flatten_spec", "init_flat_bank", "init_state_flat",
     "laplace_scale_theorem1", "make_device_ledger", "make_fused_rounds",
     "make_mechanism", "make_train_step", "pack_params", "paper_rates",
 ]

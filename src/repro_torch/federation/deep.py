@@ -2,7 +2,7 @@
 a training strategy for a packed model.
 
 Counterpart of the main path of ``repro/federation/deep.py``: the flat
-engine (`init_state_flat`, a `ParamFlat` theta_L and an (N_owners, P) f32
+engine (`init_state_flat`, a `ParamFlat` theta_L and an (N_owners, P) owner
 bank) with the fused privatizer (`PrivatizerConfig(fused_kernel=True)`,
 microbatch granularity). One round:
 
@@ -14,6 +14,15 @@ microbatch granularity). One round:
      (eq. 4), the owner and learner updates (eqs. 5, 7) and the theta_max
      projection;
   4. write the owner's row back.
+
+The bank's storage is chosen by `init_state_flat(..., bank_dtype=)`: f32
+rows; bf16 rows (upcast on gather, narrowed on write); or a `QuantBank`
+of int8 / fp8 codes, whose row is decoded on gather (the `decode` kernel)
+and, on a granted write, re-encoded with stochastic rounding after the
+shared error-feedback residual is added (the `absmax` and `encode`
+kernels). The rounding seed is the round key folded with the codec's
+salt (`bank_codec.ref.CODEC_SALT`), so an int8 run draws the same Laplace noise as an f32 run under the same
+keys. A refused round leaves codes, scales and residual bit-exact.
 
 Two drivers share that round (`_round_math_flat`):
 
@@ -32,22 +41,23 @@ jitted drivers donate the state for the same reason: the bank is N copies
 of the model), so a state passed to a driver is consumed by it.
 
 The pytree path, the reference mode (fused_kernel=False), example
-granularity and the tree, fault, staleness, paging, quantized-bank and
-mesh layers wait for later slices.
+granularity and the tree, fault, staleness, paging and mesh layers wait
+for later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.federation.config import paper_rates
 from repro_torch.federation.dp_sgd import PrivatizerConfig, _group_batch
-from repro_torch.federation.flatten import ParamFlat, init_flat_bank, pack_params
+from repro_torch.federation.flatten import ParamFlat, QuantBank, init_flat_bank, pack_params
 from repro_torch.federation.privacy import (DeviceLedger, laplace_scale_theorem1,
                                             make_device_ledger)
+from repro_torch.kernels.bank_codec.ops import decode_row, encode_row
 from repro_torch.kernels.dp_clip_noise.ops import dp_round_flat, fused_sqnorm
 
 
@@ -69,22 +79,73 @@ class AsyncDPConfig:
         return sum(self.owner_sizes)
 
 
+Bank = Union[torch.Tensor, QuantBank]
+
+
 class AsyncDPState(NamedTuple):
     theta_L: ParamFlat                 # central model, (P,) f32
-    bank: torch.Tensor                 # (N_owners, P) f32 owner copies
+    bank: Bank                         # (N_owners, P) f32/bf16 copies, or a QuantBank
     step: torch.Tensor                 # () int32 granted rounds
     ledger: Optional[DeviceLedger] = None
 
 
-def init_state_flat(params, cfg: AsyncDPConfig, device=None) -> AsyncDPState:
+def init_state_flat(params, cfg: AsyncDPConfig, device=None, bank_dtype=None) -> AsyncDPState:
     """Flat state on `device` (CUDA when None): theta_L packed into one
     (P,) buffer, every bank row a copy of it, a fresh device ledger (every
-    owner capped at the horizon T)."""
+    owner capped at the horizon T).
+
+    `bank_dtype` (None = float32) is the bank's storage only: torch.bfloat16
+    halves it; "int8"/"fp8" (or a flatten.BankCodec) build the quantized
+    bank, about 4x below f32 (see flatten.QuantBank). Only f32 keeps the
+    bit parity with the f32 reference; the others round the owner copies."""
     device = resolve_device(device)
     flat = pack_params(params, device=device)
-    return AsyncDPState(flat, init_flat_bank(flat, cfg.n_owners),
+    return AsyncDPState(flat, init_flat_bank(flat, cfg.n_owners, bank_dtype),
                         torch.zeros((), dtype=torch.int32, device=device),
                         make_device_ledger((cfg.horizon,) * cfg.n_owners, device=device))
+
+
+def _decode_bank_row(bank: QuantBank, owner_idx: torch.Tensor) -> torch.Tensor:
+    """Gather one owner row of a quantized bank and decode it to (P,) f32."""
+    return decode_row(bank.codes.index_select(0, owner_idx).reshape(-1),
+                      bank.scales.index_select(0, owner_idx).reshape(-1),
+                      bank.codec.fmt, block_elems=bank.codec.block_elems)
+
+
+def _encode_bank_row(bank: QuantBank, value: torch.Tensor, key: torch.Tensor):
+    """Encode one f32 row (the EF residual already added to `value`) under
+    the round key -> (codes (P,), scales (nb,), err (P,)). The codec folds
+    its own salt into the key (bank_codec.ref.CODEC_SALT)."""
+    return encode_row(value, key, bank.codec.fmt, block_elems=bank.codec.block_elems)
+
+
+def _quant_write(bank: QuantBank, new_i: torch.Tensor, owner_idx: torch.Tensor,
+                 key: torch.Tensor, ok: Optional[torch.Tensor] = None) -> QuantBank:
+    """Write an owner update into a quantized bank, IN PLACE.
+
+    The shared residual is added to the value BEFORE encoding (error
+    feedback) and the fresh quantization error becomes the next residual.
+    `ok` (the fused driver's grant) selects between the new row and the
+    owner's stored codes and scales, and keeps the old residual on refusal,
+    so a refused round is a bit-exact no-op on the whole bank."""
+    codes_n, scales_n, err = _encode_bank_row(bank, new_i + bank.residual, key)
+    if ok is None:
+        bank.residual.copy_(err)
+    else:
+        codes_n = torch.where(ok, codes_n, bank.codes.index_select(0, owner_idx).reshape(-1))
+        scales_n = torch.where(ok, scales_n, bank.scales.index_select(0, owner_idx).reshape(-1))
+        torch.where(ok, err, bank.residual, out=bank.residual)
+    bank.codes.index_copy_(0, owner_idx, codes_n.reshape(1, -1))
+    bank.scales.index_copy_(0, owner_idx, scales_n.reshape(1, -1))
+    return bank
+
+
+def _gather_row(bank: Bank, owner_idx: torch.Tensor) -> torch.Tensor:
+    """The owner's (P,) f32 copy: a decoded QuantBank row, or a dense row
+    (a bf16 row upcast, which is exact)."""
+    if isinstance(bank, QuantBank):
+        return _decode_bank_row(bank, owner_idx)
+    return bank.index_select(0, owner_idx).reshape(-1).to(torch.float32)
 
 
 def _noise_scales(cfg: AsyncDPConfig, device=None) -> torch.Tensor:
@@ -163,7 +224,7 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, scales: Optional[torch.Tensor]
 
     def compute(theta_L: ParamFlat, bank: torch.Tensor, batch, owner_idx, key):
         spec = theta_L.spec
-        theta_i = bank.index_select(0, owner_idx).reshape(-1)        # (P,) copy
+        theta_i = _gather_row(bank, owner_idx)                       # (P,) f32 copy
         tb = 0.5 * (theta_L.buf + theta_i)                           # (6)
         ns = scales.index_select(0, owner_idx)
         acc, gain, pm = _flat_clipped_grad_acc(loss_fn, spec, pcfg, tb, batch)
@@ -179,8 +240,9 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, scales: Optional[torch.Tensor]
 
 def _write_bank(bank: torch.Tensor, value: torch.Tensor,
                 owner_idx: torch.Tensor) -> torch.Tensor:
-    """Write one owner row IN PLACE (owner_idx: (1,) int64 device index)."""
-    return bank.index_copy_(0, owner_idx, value.reshape(1, -1))
+    """Write one owner row of a dense bank IN PLACE, narrowed to the bank's
+    dtype (owner_idx: (1,) int64 device index)."""
+    return bank.index_copy_(0, owner_idx, value.to(bank.dtype).reshape(1, -1))
 
 
 def make_train_step(loss_fn, cfg: AsyncDPConfig,
@@ -197,7 +259,12 @@ def make_train_step(loss_fn, cfg: AsyncDPConfig,
              key: torch.Tensor) -> Tuple[AsyncDPState, Dict[str, Any]]:
         o = owner_idx.reshape(1).to(torch.int64)
         new_L, new_i, _, metrics = compute(state.theta_L, state.bank, batch, o, key)
-        bank = _write_bank(state.bank, new_i, o)
+        if isinstance(state.bank, QuantBank):
+            # same key as compute() by contract: the codec folds in its
+            # CODEC_SALT, so its rounding bits never touch the privacy stream
+            bank = _quant_write(state.bank, new_i, o, key)  # dpcheck: ignore[DPC105]
+        else:
+            bank = _write_bank(state.bank, new_i, o)
         return AsyncDPState(new_L, bank, state.step + 1, state.ledger), metrics
 
     return step
@@ -222,7 +289,11 @@ def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
         new_L, new_i, theta_i, metrics = compute(state.theta_L, state.bank, batch,
                                                  owner_idx, key)
         theta_L = new_L.replace_buf(torch.where(ok, new_L.buf, state.theta_L.buf))
-        bank = _write_bank(state.bank, torch.where(ok, new_i, theta_i), owner_idx)
+        if isinstance(state.bank, QuantBank):
+            # same key as compute() by contract (see make_train_step)
+            bank = _quant_write(state.bank, new_i, owner_idx, key, ok=ok)  # dpcheck: ignore[DPC105]
+        else:
+            bank = _write_bank(state.bank, torch.where(ok, new_i, theta_i), owner_idx)
         led.spent.scatter_add_(0, owner_idx, oki.reshape(1))
         led.refused.scatter_add_(0, owner_idx, (1 - oki).reshape(1))
         metrics = dict(metrics, refused=~ok, owner=owner_idx.reshape(()).to(torch.int32))

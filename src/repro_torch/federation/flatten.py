@@ -1,13 +1,18 @@
 """Flat-parameter representation for the deep round engine.
 
-Counterpart of ``repro/federation/flatten.py`` (f32 only so far). The
-inertia round is elementwise in every parameter, so the model is packed
-into ONE contiguous (P,) f32 buffer and the owner bank becomes one
-(N_owners, P) matrix whose gather/scatter is a row copy:
+Counterpart of ``repro/federation/flatten.py`` (f32 leaves). The inertia
+round is elementwise in every parameter, so the model is packed into ONE
+contiguous (P,) f32 buffer and the owner bank becomes one (N_owners, P)
+matrix whose gather/scatter is a row copy:
 
     spec = flatten_spec(params)         # leaf shapes/offsets in jax's order
     flat = pack_params(params)          # ParamFlat: (P,) f32 + spec, on CUDA
     tree = flat.unpack()                # views of flat.buf
+    bank = init_flat_bank(flat, N)      # (N, P) f32; bf16, or "int8"/"fp8"
+
+The bank's storage follows `bank_dtype`: f32 (the default), a dense
+torch.bfloat16 matrix, or a `QuantBank` of 1-byte int8 / fp8 codes with
+one f32 scale per row and a shared error-feedback residual row.
 
 Leaf order is jax.tree_util's, not torch's: dicts flatten in SORTED key
 order, NamedTuples (and tuples/lists) in field order, and None fields are
@@ -19,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, List, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 
@@ -148,9 +153,117 @@ def pack_params(tree, spec: FlatSpec = None, device=None) -> ParamFlat:
     return ParamFlat(spec.pack(tree).to(resolve_device(device)), spec)
 
 
-def init_flat_bank(flat: ParamFlat, n_owners: int, dtype=None) -> torch.Tensor:
-    """(N_owners, P) f32 owner-copy bank, every row the central buffer."""
-    if dtype not in (None, torch.float32):
-        raise NotImplementedError("narrow and quantized banks wait for a later "
-                                  "slice of the port; the bank is f32")
-    return flat.buf.unsqueeze(0).expand(n_owners, flat.size).clone()
+_QUANT_FMTS = ("int8", "fp8")
+_DENSE = (torch.float32, torch.bfloat16)
+
+
+@dataclasses.dataclass(frozen=True)
+class BankCodec:
+    """Configuration of a quantized owner bank.
+
+    fmt          -- "int8" (symmetric linear code, q in [-127, 127]) or
+                    "fp8" (float8_e4m3fn grid, raw uint8 patterns); 1 byte
+                    per element either way.
+    block_elems  -- None: one f32 scale per bank row (the only layout the
+                    kernels take). An int cuts each row into
+                    ceil(P / block_elems) segments with a scale each (the
+                    plain version only, on the CPU).
+    """
+    fmt: str
+    block_elems: Optional[int] = None
+
+    def __post_init__(self):
+        if self.fmt not in _QUANT_FMTS:
+            raise ValueError(f"unknown bank codec {self.fmt!r} "
+                             f"(supported: {', '.join(_QUANT_FMTS)})")
+        if self.block_elems is not None and self.block_elems < 1:
+            raise ValueError(f"block_elems must be >= 1, got {self.block_elems}")
+
+
+def as_bank_codec(dtype) -> Optional[BankCodec]:
+    """Normalize a `bank_dtype` option: "int8"/"fp8" (or a BankCodec) mean
+    the quantized bank; None, torch.float32 and torch.bfloat16 mean the
+    dense bank (returns None). Anything else raises."""
+    if isinstance(dtype, BankCodec):
+        return dtype
+    if isinstance(dtype, str):
+        if dtype in _QUANT_FMTS:
+            return BankCodec(dtype)
+        raise ValueError(f"unknown bank_dtype {dtype!r}: expected torch.float32, "
+                         f"torch.bfloat16 or a quantized format ({', '.join(_QUANT_FMTS)})")
+    if dtype is not None and dtype not in _DENSE:
+        raise ValueError(f"bank_dtype {dtype} is not a bank storage the port has "
+                         "(torch.float32, torch.bfloat16, 'int8', 'fp8')")
+    return None
+
+
+class QuantBank:
+    """Quantized owner bank: (N_owners, P) 1-byte codes, (N_owners, nb) f32
+    scales and ONE shared (P,) f32 error-feedback residual row.
+
+    The residual holds the quantization error of the last granted write;
+    the engine adds it to the next granted update before encoding, so the
+    error is fed back instead of lost. A refused round leaves codes, scales
+    AND residual untouched. The engine updates all three in place.
+
+    Resident bytes: N*P (codes) + 4*N*nb (scales) + 4*P (residual).
+    """
+
+    def __init__(self, codes: torch.Tensor, scales: torch.Tensor,
+                 residual: torch.Tensor, codec: BankCodec):
+        self.codes = codes
+        self.scales = scales
+        self.residual = residual
+        self.codec = codec
+
+    @property
+    def n_owners(self) -> int:
+        return self.codes.shape[0]
+
+    @property
+    def size(self) -> int:
+        return self.codes.shape[-1]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.codes, self.scales, self.residual))
+
+    def decode_rows(self) -> torch.Tensor:
+        """(N, P) f32 view of every owner copy (tests and inspection; on
+        CUDA this launches one decode per row)."""
+        from repro_torch.kernels.bank_codec.ops import decode_row
+        return torch.stack([decode_row(c, s, self.codec.fmt, block_elems=self.codec.block_elems)
+                            for c, s in zip(self.codes, self.scales)])
+
+    def replace(self, **kw) -> "QuantBank":
+        args = {"codes": self.codes, "scales": self.scales,
+                "residual": self.residual, "codec": self.codec}
+        args.update(kw)
+        return QuantBank(**args)
+
+    def __repr__(self) -> str:
+        return f"QuantBank(fmt={self.codec.fmt!r}, N={self.n_owners}, P={self.size})"
+
+
+def init_flat_bank(flat: ParamFlat, n_owners: int, dtype=None):
+    """(N_owners, P) owner-copy bank, every row the central buffer.
+
+    `dtype` is the bank's storage: None or torch.float32 (f32 rows),
+    torch.bfloat16 (rows upcast on gather and narrowed on write; a refused
+    row round-trips exactly), or "int8"/"fp8"/a BankCodec for a QuantBank.
+    The quantized bank encodes the central row ONCE with the deterministic
+    round-to-nearest and copies its codes N times, so no (N, P) f32 tensor
+    ever exists; the residual starts at zero."""
+    codec = as_bank_codec(dtype)
+    if codec is not None:
+        from repro_torch.kernels.bank_codec.ops import encode_row
+        codes_row, scales_row, _ = encode_row(flat.buf, None, codec.fmt,
+                                              block_elems=codec.block_elems,
+                                              deterministic=True)
+        return QuantBank(codes_row.unsqueeze(0).expand(n_owners, flat.size).clone(),
+                         scales_row.unsqueeze(0).expand(n_owners, -1).clone(),
+                         torch.zeros_like(flat.buf), codec)
+    bank = torch.empty((n_owners, flat.size), dtype=torch.float32 if dtype is None else dtype,
+                       device=flat.buf.device)
+    return bank.copy_(flat.buf.unsqueeze(0).expand(n_owners, flat.size))

@@ -5,7 +5,8 @@ Counterpart of the deep-model half of ``repro/federation/session.py``:
     fed = Federation(owners, FederationConfig(horizon=1000, sigma=2e-5))
     fed.make_step(loss_fn, pack_params=True,
                   privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2,
-                                              fused_kernel=True))
+                                              fused_kernel=True),
+                  bank_dtype=None)      # or torch.bfloat16, "int8", "fp8"
     state = fed.init_state(params)
     state, metrics = fed.step(state, batch, owner_idx, key)      # one round
     state, metrics = fed.run_rounds(state, batches, owner_seq, key)  # K rounds
@@ -35,6 +36,7 @@ from repro_torch.federation.config import FederationConfig
 from repro_torch.federation.deep import (AsyncDPConfig, AsyncDPState, init_state_flat,
                                          make_fused_rounds, make_train_step)
 from repro_torch.federation.dp_sgd import PrivatizerConfig
+from repro_torch.federation.flatten import as_bank_codec
 from repro_torch.federation.mechanisms import make_mechanism
 from repro_torch.federation.owners import DataOwner
 from repro_torch.federation.schedules import UniformSchedule, as_owner_seq
@@ -54,6 +56,7 @@ class Federation:
         self.mechanism = make_mechanism(mechanism, self.owners, config)
         self._step_fn = None
         self._fused_fn = None
+        self._bank_dtype = None
 
     @property
     def n_owners(self) -> int:
@@ -76,16 +79,23 @@ class Federation:
             lr_scale=cfg.lr_scale)
 
     def make_step(self, loss_fn, *, privatizer: Optional[PrivatizerConfig] = None,
-                  pack_params: bool = False):
+                  pack_params: bool = False, bank_dtype=None):
         """Build (and keep for .step()/.run_rounds()) the round functions.
 
         loss_fn(params, batch) -> scalar tensor, params the model tree.
         The port runs the flat engine with the fused privatizer, so
         `pack_params=True` and `privatizer.fused_kernel=True` are required;
-        the sensitivity is the privatizer's ENFORCED clip norm."""
+        the sensitivity is the privatizer's ENFORCED clip norm.
+
+        `bank_dtype` is the owner bank's storage that `init_state` builds:
+        None (f32), torch.bfloat16, or "int8"/"fp8" (or a flatten.BankCodec)
+        for the error-feedback quantized bank, about 4x below f32. The
+        round functions serve every storage; they dispatch on the state."""
         if not pack_params:
             raise NotImplementedError("the pytree path waits for a later slice; "
                                       "pass pack_params=True")
+        as_bank_codec(bank_dtype)                       # validate early
+        self._bank_dtype = bank_dtype
         acfg = self.as_async_config(privatizer)
         scales = self.mechanism.scales(clip_norm=acfg.privatizer.xi, device=self.device)
         self._step_fn = make_train_step(loss_fn, acfg, scales=scales, device=self.device)
@@ -97,13 +107,17 @@ class Federation:
         if self._step_fn is None:
             raise RuntimeError("call make_step(loss_fn, pack_params=True) first")
 
-    def init_state(self, params, pack_params: bool = True) -> AsyncDPState:
+    def init_state(self, params, pack_params: bool = True, bank_dtype=None) -> AsyncDPState:
         """The flat training state on the session's device, its device
         ledger seeded from the live accountant (in-graph authorization then
-        refuses exactly where the host would)."""
+        refuses exactly where the host would). `bank_dtype` (None follows
+        make_step) is the bank's storage, as in make_step."""
         if not pack_params:
             raise NotImplementedError("the pytree state waits for a later slice")
-        state = init_state_flat(params, self.as_async_config(), device=self.device)
+        if bank_dtype is None:
+            bank_dtype = self._bank_dtype
+        state = init_state_flat(params, self.as_async_config(), device=self.device,
+                                bank_dtype=bank_dtype)
         return state._replace(ledger=self.mechanism.device_ledger(self.device))
 
     def params_of(self, state: AsyncDPState):

@@ -2,17 +2,23 @@
 
 Each kernel family keeps its source under ``<family>/csrc/*.cu`` with a
 plain C interface (pointers and the CUDA stream as ``void*``, every entry
-point returning ``cudaGetLastError()``). At first use the source is compiled
-for Hopper into ``build/repro_torch/lib<name>.so`` at the root of the
-checkout:
+point returning ``cudaGetLastError()``); headers shared between families
+live under ``common/`` and are included as ``"common/<name>.cuh"``. At
+first use the source is compiled for Hopper into
+``build/repro_torch/lib<name>.so`` at the root of the checkout:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/lib<name>.so <src>
+         -Xcompiler -fPIC -Xptxas -v -I src/repro_torch/kernels \\
+         -o build/repro_torch/lib<name>.so <src>
 
-and rebuilt whenever the source is newer than the library. Nothing is
-built when a module is imported, so the CPU tests import every module
-without nvcc. `build_all` starts one nvcc per source at once and waits for
-all of them; a failed build raises with the compiler's output.
+and rebuilt whenever the source, or any ``*.cuh`` header under this
+directory, is newer than the library. Nothing is built when a module is
+imported, so the CPU tests import every module without nvcc. `build_all`
+starts one nvcc per source at once and waits for all of them; a failed
+build raises with the compiler's output.
+
+`require` and `raise_on` are the checks every ctypes wrapper makes before
+and after a launch.
 """
 from __future__ import annotations
 
@@ -24,10 +30,13 @@ import time
 from pathlib import Path
 from typing import Dict, Mapping, Tuple
 
-ROOT = Path(__file__).resolve().parents[3]
+import torch
+
+KERNELS_DIR = Path(__file__).resolve().parent
+ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = ROOT / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(KERNELS_DIR))
 
 # loaded libraries, one per name for the life of the process (ctypes keeps
 # a loaded shared object mapped until exit anyway)
@@ -50,9 +59,13 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
-def _stale(name: str, source: Path) -> bool:
-    lib = library_path(name)
-    return not lib.exists() or lib.stat().st_mtime < source.stat().st_mtime
+def is_stale(lib: Path, source: Path) -> bool:
+    """True when `lib` is missing or older than `source` or any shared
+    header (every ``*.cuh`` under this directory counts for every source)."""
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in (source, *KERNELS_DIR.rglob("*.cuh")))
+    return lib.stat().st_mtime < newest
 
 
 def build_all(sources: Mapping[str, Path]) -> Dict[str, Tuple[float, str]]:
@@ -61,7 +74,7 @@ def build_all(sources: Mapping[str, Path]) -> Dict[str, Tuple[float, str]]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = {}
     for name, source in sources.items():
-        if not _stale(name, source):
+        if not is_stale(library_path(name), source):
             continue
         tmp = library_path(name).with_suffix(f".so.{os.getpid()}.tmp")
         proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
@@ -90,3 +103,22 @@ def load(name: str, source: Path) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+def require(t: torch.Tensor, what: str, dtype: torch.dtype, device: torch.device,
+            numel: int) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of `numel` elements
+    on `device`."""
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what} has dtype {t.dtype}, expected {dtype}")
+    if t.numel() != numel or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous tensor of {numel} "
+                         f"elements, got shape {tuple(t.shape)}")
+
+
+def raise_on(err: int, kernel: str) -> None:
+    """Raise when a C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {err}")

@@ -31,37 +31,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common/threefry.cuh"
+
 namespace {
+
+using threefry::threefry_bits;
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 4096;
 constexpr int kMaxPartials = 1024;
 constexpr int kFinalThreads = 1024;
-
-__device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1, int r) {
-  x0 += x1;
-  x1 = ((x1 << r) | (x1 >> (32 - r))) ^ x0;
-}
-
-// threefry2x32 (20 rounds) of the counter (i >> 32, i & 0xffffffff),
-// returning y0 ^ y1: element i of jax.random.bits(key, (n,)).
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
-                                                  uint64_t i) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = static_cast<uint32_t>(i >> 32) + k0;
-  uint32_t x1 = static_cast<uint32_t>(i) + k1;
-  mix(x0, x1, 13); mix(x0, x1, 15); mix(x0, x1, 26); mix(x0, x1, 6);
-  x0 += k1; x1 += k2 + 1u;
-  mix(x0, x1, 17); mix(x0, x1, 29); mix(x0, x1, 16); mix(x0, x1, 24);
-  x0 += k2; x1 += k0 + 2u;
-  mix(x0, x1, 13); mix(x0, x1, 15); mix(x0, x1, 26); mix(x0, x1, 6);
-  x0 += k0; x1 += k1 + 3u;
-  mix(x0, x1, 17); mix(x0, x1, 29); mix(x0, x1, 16); mix(x0, x1, 24);
-  x0 += k1; x1 += k2 + 4u;
-  mix(x0, x1, 13); mix(x0, x1, 15); mix(x0, x1, 26); mix(x0, x1, 6);
-  x0 += k2; x1 += k0 + 5u;
-  return x0 ^ x1;
-}
 
 // Inverse-CDF Laplace(0, 1) from the top 24 bits; sign(0) = 0 as jnp.sign.
 __device__ __forceinline__ float laplace_from_bits(uint32_t b) {

@@ -46,22 +46,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _require(t: torch.Tensor, what: str, dtype: torch.dtype, device: torch.device,
-             numel: int) -> None:
-    if t.device != device:
-        raise ValueError(f"{what} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{what} has dtype {t.dtype}, expected {dtype}")
-    if t.numel() != numel or not t.is_contiguous():
-        raise ValueError(f"{what} must be a contiguous tensor of {numel} "
-                         f"elements, got shape {tuple(t.shape)}")
-
-
-def _raise_on(err: int, kernel: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {err}")
-
-
 def dp_round_cuda(tb: torch.Tensor, acc: torch.Tensor, key: torch.Tensor,
                   gain: torch.Tensor, noise_scale: torch.Tensor, w: torch.Tensor,
                   *, sigma: float, lr_own: float, lr_l: float, inv_2n: float,
@@ -74,11 +58,11 @@ def dp_round_cuda(tb: torch.Tensor, acc: torch.Tensor, key: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"dp_round_cuda needs CUDA tensors, got {dev}")
     n = tb.numel()
-    _require(tb, "theta_bar", torch.float32, dev, n)
-    _require(acc, "acc", torch.float32, dev, n)
-    _require(key, "key", torch.uint32, dev, 2)
+    _build.require(tb, "theta_bar", torch.float32, dev, n)
+    _build.require(acc, "acc", torch.float32, dev, n)
+    _build.require(key, "key", torch.uint32, dev, 2)
     for what, s in (("gain", gain), ("noise_scale", noise_scale), ("w", w)):
-        _require(s, what, torch.float32, dev, 1)
+        _build.require(s, what, torch.float32, dev, 1)
     new_l = torch.empty_like(tb)
     new_i = torch.empty_like(tb)
     err = _library().dp_round_launch(
@@ -86,7 +70,7 @@ def dp_round_cuda(tb: torch.Tensor, acc: torch.Tensor, key: torch.Tensor,
         noise_scale.data_ptr(), w.data_ptr(), new_l.data_ptr(), new_i.data_ptr(),
         n, sigma, lr_own, lr_l, inv_2n, theta_max, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "dp_round")
+    _build.raise_on(err, "dp_round")
     launches["dp_round"] += 1
     return new_l, new_i
 
@@ -98,12 +82,12 @@ def sqnorm_cuda(g: torch.Tensor) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"sqnorm_cuda needs a CUDA tensor, got {dev}")
     n = g.numel()
-    _require(g, "g", torch.float32, dev, n)
+    _build.require(g, "g", torch.float32, dev, n)
     lib = _library()
     partial = torch.empty(lib.sqnorm_num_partials(n), dtype=torch.float32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
     err = lib.sqnorm_launch(g.data_ptr(), n, partial.data_ptr(), out.data_ptr(),
                             dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "sqnorm")
+    _build.raise_on(err, "sqnorm")
     launches["sqnorm"] += 1
     return out

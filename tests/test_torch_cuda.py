@@ -8,16 +8,23 @@ without the JAX package:
 
 Tolerances: the kernels use the plain versions' op order with
 round-to-nearest intrinsics, so only log1pf could differ (1e-6); the
-squared norm sums in another order (rtol 1e-5). The session on the card
-and on the CPU agree to 1e-5 (cuBLAS and the CPU BLAS sum in other
-orders); integer results are exact.
+squared norm sums in another order (rtol 1e-5); the bank codec kernels
+(absmax, encode, decode) equal their plain versions bit for bit. The
+session on the card and on the CPU agree to 1e-5 (cuBLAS and the CPU BLAS
+sum in other orders); integer results are exact. On an int8 bank the two
+may differ by one quantization step where such a difference flipped a
+stochastic rounding decision.
 """
 import pytest
 import torch
 
 from repro_torch import random as trandom
 from repro_torch.configs import DENSE_124M
-from repro_torch.federation import DataOwner, Federation, FederationConfig, PrivatizerConfig
+from repro_torch.federation import (DataOwner, Federation, FederationConfig, PrivatizerConfig,
+                                    QuantBank)
+from repro_torch.kernels.bank_codec import kernel as bkernel
+from repro_torch.kernels.bank_codec import ops as bops
+from repro_torch.kernels.bank_codec import ref as bref
 from repro_torch.kernels.dp_clip_noise import kernel as tkernel
 from repro_torch.kernels.dp_clip_noise import ops as tops
 from repro_torch.kernels.dp_clip_noise import ref as tref
@@ -61,7 +68,47 @@ def test_sqnorm_of_an_unaligned_view():
 
 
 @pytest.mark.cuda
-def test_session_on_the_card_matches_the_cpu():
+@pytest.mark.parametrize("p", [1, 4099, 3 * 1024 * 1024 + 77])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_bank_codec_kernels_match_plain_versions(fmt, p):
+    dev = _device()
+    x = torch.randn(p, device=dev, generator=torch.Generator(device=dev).manual_seed(p)) * 0.1
+    key = trandom.PRNGKey(6, device=dev)
+    before = dict(bkernel.launches)
+    for det in (False, True):
+        codes, scales, err = bops.encode_row(x, key, fmt, deterministic=det)
+        ref_codes, ref_scales, ref_err = bref.encode_row_ref(x, key, fmt, deterministic=det)
+        assert torch.equal(codes, ref_codes) and torch.equal(scales, ref_scales)
+        assert torch.equal(err, ref_err)
+        assert torch.equal(bops.decode_row(codes, scales, fmt),
+                           bref.decode_row_ref(codes, scales, fmt))
+    assert bkernel.launches == {"absmax": before["absmax"] + 2,
+                                "encode": before["encode"] + 2,
+                                "decode": before["decode"] + 2}
+
+
+@pytest.mark.cuda
+def test_bank_codec_edges_on_the_card():
+    dev = _device()
+    pats = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    out = bops.decode_row(pats.to(dev), torch.ones(1, device=dev), "fp8").cpu()
+    assert torch.equal(out, bref.fp8_to_f32(pats))
+    x = torch.randn(10_001, device=dev)
+    x[5] = float("nan")
+    assert bool(torch.isnan(bops.row_scale(x, "int8")).all())
+    tail = x[6:]                           # past the NaN, and not 16-byte aligned
+    assert torch.equal(bops.row_scale(tail, "fp8"), bref.row_scales_ref(tail.reshape(1, -1),
+                                                                        448.0))
+    with pytest.raises(NotImplementedError):
+        bops.encode_row(x, None, "int8", block_elems=1000, deterministic=True)
+    with pytest.raises(NotImplementedError):
+        bops.decode_row(torch.zeros(8, dtype=torch.int8, device=dev),
+                        torch.ones(2, device=dev), "int8", block_elems=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bank_dtype", [None, "int8"])
+def test_session_on_the_card_matches_the_cpu(bank_dtype):
     dev = _device()
     cfg = DENSE_124M.reduced()
     lm = LM(cfg)
@@ -74,15 +121,17 @@ def test_session_on_the_card_matches_the_cpu():
         fed = Federation([DataOwner(n=100, epsilon=1.0, xi=1.0)] * 3,
                          FederationConfig.from_target_lr(0.05, n_owners=3, horizon=2,
                                                          sigma=1e-2), device=device)
-        fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True,
+        fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True, bank_dtype=bank_dtype,
                       privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2,
                                                   fused_kernel=True))
         state, ms = fed.run_rounds(fed.init_state(params), batches,
                                    key=trandom.PRNGKey(3, device=dev))
-        out.append((ms["refused"].cpu(), fed.reconcile(state), state.bank.cpu()))
+        bank = state.bank.decode_rows() if isinstance(state.bank, QuantBank) else state.bank
+        step = float(state.bank.scales.max()) if isinstance(state.bank, QuantBank) else 0.0
+        out.append((ms["refused"].cpu(), fed.reconcile(state), bank.cpu(), step))
     assert torch.equal(out[0][0], out[1][0])
     assert out[0][1] == out[1][1]
-    torch.testing.assert_close(out[0][2], out[1][2], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(out[0][2], out[1][2], rtol=1e-4, atol=1e-5 + out[1][3])
 
 
 @pytest.mark.cuda

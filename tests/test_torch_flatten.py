@@ -121,9 +121,10 @@ def test_validation():
         tflatten.flatten_spec({"w": torch.zeros(3, dtype=torch.float64)})
     with pytest.raises(ValueError):
         spec.unpack(torch.zeros(5))
-    with pytest.raises(NotImplementedError):
-        tflatten.init_flat_bank(tflatten.pack_params({"w": torch.zeros(3)}, device=CPU), 2,
-                                torch.bfloat16)
+    flat = tflatten.pack_params({"w": torch.zeros(3)}, device=CPU)
+    for storage in (torch.float16, "int4", "bfloat16"):     # not a bank storage of the port
+        with pytest.raises(ValueError):
+            tflatten.init_flat_bank(flat, 2, storage)
 
 
 def test_init_flat_bank_rows_are_the_buffer():
