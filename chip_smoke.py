@@ -5,19 +5,22 @@
 
 Phases (any mismatch raises and the run exits non-zero):
 
-1. build   — compile every CUDA source of the main paths with nvcc (all
-             started at once: dp_clip_noise.cu and bank_codec.cu) into
-             build/repro_torch/, print the seconds and ptxas' register
+1. build   — compile every CUDA source of the paths with nvcc (all started
+             at once: dp_clip_noise.cu, bank_codec.cu and tree_noise.cu)
+             into build/repro_torch/, print the seconds and ptxas' register
              report.
-2. kernels — hold each kernel, through the wrappers the main paths call,
+2. kernels — hold each kernel, through the wrappers the paths call,
              against its plain PyTorch version on the card at the main
              path's width (P = 152,783,616) and at a ragged P: dp_round
-             (also with acc = theta_bar = 0, which leaves only the
-             in-kernel Laplace draw), sqnorm (also two launches, which must
-             be bit-identical), absmax (two launches, bit-identical),
+             bit for bit (also with acc = theta_bar = 0, which leaves only
+             the in-kernel Laplace draw), sqnorm (also two launches, which
+             must be bit-identical), absmax (two launches, bit-identical),
              encode (int8 and fp8, stochastic and deterministic) and
-             decode, all bit for bit; and all 256 fp8 patterns decode
-             exactly.
+             decode, all bit for bit; all 256 fp8 patterns decode exactly;
+             tree_delta at depth 4 for counts 0, 1, 2, 3, 6, 7 and 14
+             (r = 0 to 3 retired levels), granted and refused, bit for bit
+             on delta and the whole node tensor, and two launches on copies
+             of one input give the same bits.
 3. main    — the user's path at full width: DENSE_124M f32, 16 owners x
              10,000 records, eps = 1, batch 4 x seq 128, G = 2 microbatches,
              f32 bank; four run_rounds dispatches of K = 8 timed with the
@@ -25,28 +28,41 @@ Phases (any mismatch raises and the run exits non-zero):
              under torch.profiler (launches per round, device busy time by
              kernel group, the device's idle share), two step() calls,
              reconcile. Launch counts must be K*G sqnorm and K dp_round per
-             dispatch, and no bank codec launch.
+             dispatch, and no bank codec or tree_delta launch.
    quant   — the quantized bank at full width: the same model and rounds
              with 128 owners x 10,000 records on an int8 bank (78.2 GB in
              f32, which would not fit); launch counts per dispatch must be
              also K decode, K encode and K absmax. Prints the bank's
              resident bytes, peak memory, ms per round and the idle share.
              Then one fp8 dispatch on a fresh state at the same size.
-4. refusal — a reduced model with horizon 2 and schedule-drawn owners, on
-             an f32 and an int8 bank: the refused mask and reconciled
-             ledger must equal what the host computes from the drawn
-             sequence and what the port computes on the CPU; theta_L and
-             the bank must agree with the CPU run (int8: within one
+   tree    — the tree mechanism (DP-FTRL) at full width: main's model,
+             owners and rounds with mechanism="tree", tree_depth=4
+             (capacity 15 leaves per owner; the nodes are 16 x 4 x P x 4 B
+             = 39.1 GB beside the 9.78 GB bank). Launch counts per dispatch
+             must be K tree_delta, K*G sqnorm and 0 dp_round; the leaf
+             counts and the ledger's "tree" view must equal what the host
+             computes from the drawn owners. Prints the node bytes, peak
+             memory, ms per round, the idle share, and the device time per
+             round against main's, by kernel group.
+4. refusal — a reduced model with schedule-drawn owners, on an f32 and an
+             int8 bank, under the paper mechanism (horizon 2) and the tree
+             (depth 2, horizon 8, capacity 3): the refused mask and
+             reconciled ledger (with its tree view) must equal what the host
+             computes from the drawn sequence and what the port computes on
+             the CPU, and so must the leaf counts; theta_L, the bank and the
+             nodes must agree with the CPU run (int8: within one
              quantization step), a step() loop must equal run_rounds bit
-             for bit, and (int8) a refused round leaves codes, scales and
-             residual untouched.
+             for bit (nodes and counts included), a refused round leaves the
+             state untouched (codes, scales, residual, nodes, counts), and a
+             depth-0 tree equals the paper mechanism bit for bit.
 5. timing  — each kernel (through the wrapper the main path calls), its
              plain version and the one PyTorch call computing the same
              function where there is one (torch.dot for sqnorm,
              torch.linalg.vector_norm(x, inf) for absmax, codes * scale
              for the int8 decode), at the main-path shapes, with CUDA
              events, beside the bound; encode and decode on an int8 row
-             for the `kernels` line, and again on an fp8 row, printed.
+             for the `kernels` line, and again on an fp8 row, printed;
+             tree_delta at depth 4 for r = 0 (the `kernels` row), 1 and 2.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -92,7 +108,8 @@ def cuda_ms(torch, fn, iters):
 def _kernel_modules():
     from repro_torch.kernels.bank_codec import kernel as bank_codec
     from repro_torch.kernels.dp_clip_noise import kernel as dp_clip_noise
-    return dp_clip_noise, bank_codec
+    from repro_torch.kernels.tree_noise import kernel as tree_noise
+    return dp_clip_noise, bank_codec, tree_noise
 
 
 def _reset_launches():
@@ -138,8 +155,9 @@ def phase_kernels(torch, dev):
             out = ops.dp_round_flat(a, b, key, *scal, **ROUND)
             plain = ref.dp_round_ref(a, b, random.bits(key, (p,)), *scal, **ROUND)
             for o, r in zip(out, plain):
-                torch.testing.assert_close(o, r, rtol=1e-6, atol=1e-6)
                 err["dp_round"] = max(err["dp_round"], float((o - r).abs().max()))
+                check(torch.equal(o, r), f"dp_round ({tag}, P={p}) differs from its plain "
+                      f"version by up to {err['dp_round']:.3e}")
             if tag == "zero":
                 check(float(out[1].abs().max()) > 0, "zero input gave no noise")
             del out, plain
@@ -148,15 +166,64 @@ def phase_kernels(torch, dev):
         plain = ref.sqnorm_ref(tb)
         torch.testing.assert_close(s1, plain, rtol=1e-5, atol=0.0)
         err["sqnorm"] = max(err["sqnorm"], float((s1 - plain).abs()))
-        print(f"[kernels] P={p}: dp_round and sqnorm agree with their plain versions "
-              f"(sqnorm {float(s1):.6e} vs {float(plain):.6e})")
+        print(f"[kernels] P={p}: dp_round equals its plain version bit for bit, sqnorm "
+              f"agrees ({float(s1):.6e} vs {float(plain):.6e})")
         del tb, acc
     got = {k: kernel.launches[k] - before[k] for k in before}
     check(got == {"dp_round": 4, "sqnorm": 4}, f"the wrappers launched {got}")
     err.update(_check_bank_codec(torch, dev))
+    err.update(_check_tree_delta(torch, dev))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return err
+
+
+TREE_DEPTH = 4
+TREE_COUNTS = (0, 1, 2, 3, 6, 7, 14)        # trailing ones r = 0, 1, 0, 2, 0, 3, 0
+
+
+def _check_tree_delta(torch, dev):
+    """tree_delta through the wrapper the engine calls against its plain
+    version on the same CUDA tensors, bit for bit (delta and the whole
+    (2, depth, P) node tensor after the call), at depth 4 for every count
+    of TREE_COUNTS, granted and refused; a second launch on a copy of the
+    same input gives the same bits."""
+    from repro_torch import random
+    from repro_torch.kernels.tree_noise import kernel, ops, ref
+    err = 0.0
+    before = dict(kernel.launches)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    owner = torch.tensor([1], dtype=torch.int64, device=dev)
+    ns = torch.tensor([0.37], device=dev)
+    for p in (P_FULL, P_RAGGED):
+        nodes = torch.randn((2, TREE_DEPTH, p), device=dev, generator=gen)
+        key = random.PRNGKey(p + 2, device=dev)
+        bits = random.bits(key, (p,))
+        for count in TREE_COUNTS:
+            counts = torch.tensor([5, count], dtype=torch.int32, device=dev)
+            for g in (1, 0):
+                grant = torch.tensor(g, dtype=torch.int32, device=dev)
+                out, again, plain = nodes.clone(), nodes.clone(), nodes.clone()
+                delta = ops.tree_delta_(out, counts, owner, key, ns, grant)
+                delta2 = ops.tree_delta_(again, counts, owner, key, ns, grant)
+                p_delta = ref.tree_delta_inplace_ref(plain, counts, owner, bits, ns, grant)
+                err = max(err, float((delta - p_delta).abs().max()),
+                          float((out - plain).abs().max()))
+                check(torch.equal(delta, p_delta) and torch.equal(out, plain),
+                      f"tree_delta (P={p}, count {count}, grant {g}) differs from its plain "
+                      f"version by up to {err:.3e}")
+                check(torch.equal(delta, delta2) and torch.equal(out, again),
+                      f"two tree_delta launches differ (P={p}, count {count}, grant {g})")
+                if not g:
+                    check(torch.equal(out, nodes), "a refused tree_delta changed the nodes")
+                del out, again, plain, delta, delta2, p_delta
+        print(f"[kernels] P={p}: tree_delta (depth {TREE_DEPTH}, counts {list(TREE_COUNTS)}, "
+              f"granted and refused) equals its plain version bit for bit, delta and nodes; "
+              f"two launches give the same bits")
+        del nodes, bits
+    got = _diff(dict(kernel.launches), before)
+    check(got == {"tree_delta": 2 * 2 * 2 * len(TREE_COUNTS)}, f"tree_delta launched {got}")
+    return {"tree_delta": err}
 
 
 def _check_bank_codec(torch, dev):
@@ -212,6 +279,20 @@ def _peak_gb(torch, dev):
     return torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else float("nan")
 
 
+def _allocator_work(torch, dev):
+    """The caching allocator's device calls since its accumulated counters
+    were last reset (retries after a failed cudaMalloc, cudaMalloc and
+    cudaFree calls: each one a device synchronisation or worse), and the
+    bytes it holds."""
+    if dev.type != "cuda":
+        return "the allocator is not measured on the CPU"
+    st = torch.cuda.memory_stats()
+    return (f"the allocator made {st.get('num_alloc_retries', -1)} retries, "
+            f"{st.get('num_device_alloc', -1)} cudaMalloc and "
+            f"{st.get('num_device_free', -1)} cudaFree calls, and holds "
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB")
+
+
 def _torch_batches(torch, batches):
     return {k: torch.from_numpy(v) for k, v in batches.items()}
 
@@ -224,6 +305,8 @@ def _kernel_group(name):
         return "sqnorm kernels"
     if any(k in low for k in ("absmax_", "encode_kernel", "decode_kernel")):
         return "bank codec kernels"
+    if "tree_delta" in low:
+        return "tree_delta kernel"
     if "gemm" in low or "cutlass" in low or "xmma" in low:
         return "GEMM"
     return "other"
@@ -231,7 +314,8 @@ def _kernel_group(name):
 
 def _profiled(torch, dev, run, rounds, top=12):
     """run() once under torch.profiler; prints where the device time went
-    and returns run()'s result."""
+    and returns (run()'s result, device busy ms per round, {kernel group:
+    ms per round})."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -258,7 +342,7 @@ def _profiled(torch, dev, run, rounds, top=12):
     for name, ms in per_name.most_common(top):
         print(f"[profile]   {ms / rounds:8.3f} ms/round {calls[name] / rounds:6.1f}x/round  "
               f"{name[:100]}")
-    return out, busy_ms / rounds
+    return out, busy_ms / rounds, {g: ms / rounds for g, ms in groups.items()}
 
 
 def _bank_summary(torch, bank, n_owners, P):
@@ -276,14 +360,29 @@ def _state_finite(torch, state):
     from repro_torch.federation import QuantBank
     bank = state.bank
     parts = (bank.scales, bank.residual) if isinstance(bank, QuantBank) else (bank,)
+    if state.tree is not None:
+        # one (P,) level at a time: isfinite over all the nodes at once
+        # would allocate as much again
+        parts += tuple(state.tree.nodes.flatten(0, 1))
     return all(bool(torch.isfinite(t).all()) for t in (state.theta_L.buf, *parts))
 
 
+def _tree_view(counts, depth, eps, cap):
+    """The ledger's "tree" view of each owner, as the host computes it from
+    the responses it granted."""
+    return {i: {"depth": depth, "capacity": (1 << depth) - 1,
+                "nodes_completed_per_level": [int(c) >> lvl for lvl in range(depth)],
+                "eps_per_node": eps / (depth * cap)} for i, c in enumerate(counts)}
+
+
 def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispatches=4,
-               bank_dtype=None, tag="main"):
+               bank_dtype=None, tree_depth=None, tag="main"):
     """One full-width path: `dispatches` timed run_rounds calls of K = 8, one
     profiled, two step() calls and reconcile, with the launch counters set
-    to 0 just before and read just after. Returns (launches, fed, pipe, lm)."""
+    to 0 just before and read just after. `tree_depth` runs the tree
+    mechanism at that depth. Returns (launches, fed, pipe, lm, profile)
+    with profile = {"busy": device ms per round, "median": ms per round,
+    "groups": {kernel group: ms per round}}."""
     from repro_torch import random
     from repro_torch.configs import DENSE_124M
     from repro_torch.data import OwnerDataPipeline, synthetic_owner_shards
@@ -293,8 +392,10 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
     cfg = DENSE_124M if cfg is None else cfg
     batch, G, K = 4, 2, 8
     quant = as_bank_codec(bank_dtype) is not None
-    per_dispatch = {"sqnorm": K * G, "dp_round": K, "absmax": K * quant,
-                    "encode": K * quant, "decode": K * quant}
+    tree = bool(tree_depth)
+    per_dispatch = {"sqnorm": K * G, "dp_round": K * (not tree), "absmax": K * quant,
+                    "encode": K * quant, "decode": K * quant, "tree_delta": K * tree}
+    mech = {} if tree_depth is None else dict(mechanism="tree", tree_depth=tree_depth)
     lm = LM(cfg)
 
     def loss_fn(p, b):
@@ -307,7 +408,7 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
     pipe = OwnerDataPipeline(shards, batch, seed=0)
     owners = [DataOwner(n=s, epsilon=1.0, xi=1.0) for s in pipe.owner_sizes]
     fed = Federation(owners, FederationConfig.from_target_lr(
-        0.05, n_owners=n_owners, horizon=1000, sigma=1e-2, theta_max=100.0), device=dev)
+        0.05, n_owners=n_owners, horizon=1000, sigma=1e-2, theta_max=100.0), device=dev, **mech)
     fed.make_step(loss_fn, pack_params=True, bank_dtype=bank_dtype, privatizer=PrivatizerConfig(
         xi=1.0, granularity="microbatch", n_microbatches=G, fused_kernel=True))
     state = fed.init_state(lm.init(seed=0, device=dev))
@@ -324,6 +425,13 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
     print(f"[{tag}] {cfg.name}: P={P}, {n_owners} owners, "
           f"{_bank_summary(torch, state.bank, n_owners, P)}, "
           f"set-up {time.perf_counter() - t0:.1f} s, central loss before {loss0:.4f}")
+    if state.tree is not None:
+        nodes = state.tree.nodes
+        print(f"[{tag}] noise trees: nodes {tuple(nodes.shape)} f32 = "
+              f"{nodes.numel() * 4 / 1e9:.3f} GB (N x depth x P x 4 B), capacity "
+              f"{fed.mechanism.capacity} leaves per owner, per-node scale "
+              f"{float(fed.mechanism.scales(device=dev)[0]):.6e}")
+    granted = collections.Counter()
 
     key = random.PRNGKey(0, device=dev)
     _reset_launches()
@@ -336,12 +444,15 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
         got = _diff(_launches(), before)
         check(got == per_dispatch, f"launches {got} in one dispatch, expected {per_dispatch}")
         check(not bool(ms["refused"].any()), "a round was refused under a long horizon")
+        granted.update(int(o) for o in owner_seq)
         return state, ms, owner_seq, got
 
     per_round = []
     for d in range(dispatches):
         key, sub = random.split(key)
         _sync(torch, dev)
+        if d == 1 and dev.type == "cuda":
+            torch.cuda.reset_accumulated_memory_stats()
         t0 = time.perf_counter()
         state, ms, owner_seq, got = dispatch(state, sub)
         _sync(torch, dev)
@@ -352,9 +463,10 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
               f"clip_frac {ms['clip_frac'].mean().item():.2f}")
     # dispatch 0 warms cuBLAS and the allocator
     median = statistics.median(per_round[1:] or per_round)
-    print(f"[{tag}] median of dispatches 1..{dispatches - 1}: {median:.2f} ms/round")
+    print(f"[{tag}] median of dispatches 1..{dispatches - 1}: {median:.2f} ms/round; in "
+          f"those dispatches {_allocator_work(torch, dev)}")
     key, sub = random.split(key)
-    (state, _, _, _), busy = _profiled(torch, dev, lambda: dispatch(state, sub), K)
+    (state, _, _, _), busy, groups = _profiled(torch, dev, lambda: dispatch(state, sub), K)
     print(f"[profile] {tag}: device busy {busy:.2f} of the unprofiled median {median:.2f} "
           f"ms/round: the device idles {1 - busy / median:.1%} of a round")
     it = iter(pipe)
@@ -363,11 +475,22 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
         key, sub = random.split(key)
         state, m = fed.step(state, b, owner, sub)
         check(not m["refused"], "step refused under a long horizon")
+        granted[int(owner)] += 1
     launches = _launches()
     rounds = (dispatches + 1) * K + 2
     ledger = fed.reconcile(state)
-    check(sum(r["responses"] for r in ledger.values()) == rounds, "ledger responses")
+    counts = [granted[i] for i in range(n_owners)]
+    check([r["responses"] for r in ledger.values()] == counts and sum(counts) == rounds,
+          "ledger responses differ from the host's count of the drawn owners")
     check(sum(r["refused"] for r in ledger.values()) == 0, "ledger refusals")
+    if tree:
+        cap = fed.mechanism.cap
+        view = _tree_view(counts, tree_depth, 1.0, cap)
+        check({i: r["tree"] for i, r in ledger.items()} == view,
+              "the ledger's tree view differs from the host's")
+        check(state.tree.counts.cpu().tolist() == counts, "leaf counts differ from the host's")
+        print(f"[{tag}] leaf counts {counts} == host; ledger tree view == host "
+              f"(capacity {cap}, eps per node {view[0]['eps_per_node']:.6f})")
     check(_state_finite(torch, state), "non-finite state")
     check(int(state.step) == rounds, "step counter")
     with torch.no_grad():
@@ -379,7 +502,7 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
         {i: [r["responses"], r["refused"], round(r["spent"], 6)]
          for i, r in ledger.items()}))
     del state
-    return launches, fed, pipe, lm
+    return launches, fed, pipe, lm, dict(busy=busy, median=median, groups=groups)
 
 
 def phase_quant(torch, dev, cfg=None, n_owners=128, records=10_000, seq=128):
@@ -387,9 +510,9 @@ def phase_quant(torch, dev, cfg=None, n_owners=128, records=10_000, seq=128):
     fresh state after the int8 one is freed. Returns the int8 run's launches."""
     from repro_torch import random
     K, G = 8, 2
-    launches, fed, pipe, lm = phase_main(torch, dev, cfg=cfg, n_owners=n_owners,
-                                         records=records, seq=seq, bank_dtype="int8",
-                                         tag="quant")
+    launches, fed, pipe, lm, _ = phase_main(torch, dev, cfg=cfg, n_owners=n_owners,
+                                            records=records, seq=seq, bank_dtype="int8",
+                                            tag="quant")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -403,8 +526,8 @@ def phase_quant(torch, dev, cfg=None, n_owners=128, records=10_000, seq=128):
     _sync(torch, dev)
     dt = (time.perf_counter() - t0) * 1e3
     got = _launches()
-    check(got == {"sqnorm": K * G, "dp_round": K, "absmax": K, "encode": K, "decode": K},
-          f"fp8 dispatch launched {got}")
+    check(got == {"sqnorm": K * G, "dp_round": K, "absmax": K, "encode": K, "decode": K,
+                  "tree_delta": 0}, f"fp8 dispatch launched {got}")
     check(not bool(ms["refused"].any()) and _state_finite(torch, state), "fp8 dispatch")
     print(f"[quant] fp8: one dispatch of K={K} on a fresh state, {dt:.1f} ms "
           f"({dt / K:.1f} ms/round, the first dispatch of its state), launches {got}, "
@@ -422,26 +545,45 @@ def _bank_tensors(bank):
     return tuple(t.cpu() for t in parts)
 
 
-def phase_refusal(torch, dev, bank_dtype=None):
+def _state_tensors(state):
+    """theta_L, the bank's tensors and the noise tree's, on the CPU."""
+    tree = () if state.tree is None else (state.tree.nodes.cpu(), state.tree.counts.cpu())
+    return (state.theta_L.buf.cpu(),) + _bank_tensors(state.bank) + tree
+
+
+def _bit_equal(torch, a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_refusal(torch, dev, bank_dtype=None, tree_depth=None):
+    """Refusals at a reduced size, card against CPU. The paper mechanism
+    runs with horizon 2; `tree_depth` = 2 runs the tree mechanism with
+    horizon 8 and capacity 3, and adds: exact leaf counts, the ledger's
+    tree view, nodes within the f32 tolerance, and depth 0 == "paper" bit
+    for bit on the card."""
     from repro_torch import random
     from repro_torch.configs import DENSE_124M
     from repro_torch.federation import (DataOwner, Federation, FederationConfig,
                                         PrivatizerConfig)
     from repro_torch.models import LM
-    n_owners, horizon, K = 4, 2, 12
+    n_owners, K = 4, 12
+    horizon = 2 if tree_depth is None else 8
+    cap = horizon if tree_depth is None else min(horizon, (1 << tree_depth) - 1)
     cfg = DENSE_124M.reduced()
     lm = LM(cfg)
     params = lm.init(seed=1, device="cpu")
     toks = np.random.default_rng(5).integers(0, cfg.vocab, (K, 4, 16), dtype=np.int32)
     data = {"tokens": toks, "labels": np.roll(toks, -1, axis=2)}
-    tag = "f32" if bank_dtype is None else str(bank_dtype)
+    tag = ("f32" if bank_dtype is None else str(bank_dtype)) + (
+        "" if tree_depth is None else f", tree depth {tree_depth}")
 
-    def session(device):
+    def session(device, depth=tree_depth):
+        mech = {} if depth is None else dict(mechanism="tree", tree_depth=depth)
         fed = Federation([DataOwner(n=100 * (i + 1), epsilon=1.0, xi=1.0)
                           for i in range(n_owners)],
                          FederationConfig.from_target_lr(0.05, n_owners=n_owners,
                                                          horizon=horizon, sigma=1e-2),
-                         device=device)
+                         device=device, **mech)
         fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True, bank_dtype=bank_dtype,
                       privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2,
                                                   fused_kernel=True))
@@ -453,22 +595,32 @@ def phase_refusal(torch, dev, bank_dtype=None):
         state, ms = fed.run_rounds(state, _torch_batches(torch, data),
                                    key=random.PRNGKey(21, device=device))
         runs.append((ms["owner"].cpu().numpy(), ms["refused"].cpu().numpy(),
-                     fed.reconcile(state), state.theta_L.buf.cpu(), _bank_tensors(state.bank)))
+                     fed.reconcile(state), _state_tensors(state)))
         sessions.append((fed, state))
-    owners, refused, ledger, theta, bank = runs[0]
+    owners, refused, ledger, tensors = runs[0]
     counts = np.zeros(n_owners, np.int64)
     expect = []
     for o in owners:
-        expect.append(counts[o] >= horizon)
+        expect.append(counts[o] >= cap)
         counts[o] += 1
     check(refused.tolist() == expect, f"refused {refused.tolist()} != host {expect}")
-    check(any(expect), "horizon 2 over 12 rounds refused nothing")
+    check(any(expect), f"a cap of {cap} over {K} rounds refused nothing")
+    granted = np.minimum(counts, cap)
     check({i: (r["responses"], r["refused"]) for i, r in ledger.items()}
-          == {i: (min(c, horizon), max(c - horizon, 0)) for i, c in enumerate(counts)},
+          == {i: (int(g), int(c - g)) for i, (g, c) in enumerate(zip(granted, counts))},
           "reconciled ledger")
-    c_owners, c_refused, c_ledger, c_theta, c_bank = runs[1]
+    if tree_depth is not None:
+        check({i: r["tree"] for i, r in ledger.items()}
+              == _tree_view(granted, tree_depth, 1.0, cap), "the ledger's tree view")
+        check(tensors[-1].tolist() == granted.tolist(), "leaf counts differ from the host's")
+    c_owners, c_refused, c_ledger, c_tensors = runs[1]
     check(np.array_equal(owners, c_owners) and np.array_equal(refused, c_refused)
           and ledger == c_ledger, "cuda and cpu runs disagree on owners/refusals/ledger")
+    theta, bank, c_theta, c_bank = tensors[0], tensors[1:4], c_tensors[0], c_tensors[1:4]
+    if tree_depth is not None:
+        check(torch.equal(tensors[-1], c_tensors[-1]), "cuda and cpu leaf counts differ")
+        # the nodes are Laplace draws: log1pf on the card, log1p on the CPU
+        torch.testing.assert_close(tensors[-2], c_tensors[-2], rtol=1e-4, atol=1e-5)
     if bank_dtype is None:
         # f32 sums in other orders (cuBLAS vs the CPU BLAS) around the same keys
         torch.testing.assert_close(theta, c_theta, rtol=1e-4, atol=1e-5)
@@ -494,24 +646,37 @@ def phase_refusal(torch, dev, bank_dtype=None):
     for k in range(K):
         state, _ = fed.step(state, {n: torch.from_numpy(v[k]) for n, v in data.items()},
                             int(owners[k]), round_keys[k])
-    check(torch.equal(state.theta_L.buf.cpu(), theta)
-          and all(torch.equal(a, b) for a, b in zip(_bank_tensors(state.bank), bank)),
+    check(_bit_equal(torch, _state_tensors(state), tensors),
           "step loop differs from run_rounds on the card")
     # on the run_rounds state, a round of an exhausted owner is refused on
     # the device and changes nothing
     fed, state = sessions[0]
-    exhausted = int(np.flatnonzero(counts >= horizon)[0])
-    before = (state.theta_L.buf.cpu(), _bank_tensors(state.bank))
+    exhausted = int(np.flatnonzero(counts >= cap)[0])
+    before = _state_tensors(state)
     state, ms = fed.run_rounds(state, _torch_batches(torch, {n: v[:1] for n, v in data.items()}),
                                [exhausted], key=random.PRNGKey(22, device=dev))
     check(bool(ms["refused"][0]), "an exhausted owner was granted")
-    check(torch.equal(state.theta_L.buf.cpu(), before[0])
-          and all(torch.equal(a, b) for a, b in zip(_bank_tensors(state.bank), before[1])),
-          "a refused round changed the state")
+    check(_bit_equal(torch, _state_tensors(state), before), "a refused round changed the state")
+    what = "theta_L and the bank" if tree_depth is None else "theta_L, the bank and the tree"
     print(f"[refusal] {tag} bank: owners {owners.tolist()} refused "
           f"{refused.astype(int).tolist()}; ledger == host == cpu run; step loop == "
-          f"run_rounds bit for bit; a refused round leaves theta_L and the bank bit-exact; "
+          f"run_rounds bit for bit; a refused round leaves {what} bit-exact; "
           f"max |cuda - cpu| theta {float((theta - c_theta).abs().max()):.3e}")
+    if tree_depth is not None:
+        print(f"[refusal] {tag} bank: leaf counts {granted.tolist()} == host == cpu run; "
+              f"max |cuda - cpu| nodes {float((tensors[-2] - c_tensors[-2]).abs().max()):.3e}")
+        # the degenerate tree is the paper mechanism, bit for bit, on the card
+        out = []
+        for depth in (0, None):
+            fed, state = session(dev, depth=depth)
+            state, ms = fed.run_rounds(state, _torch_batches(torch, data),
+                                       key=random.PRNGKey(23, device=dev))
+            out.append((_state_tensors(state)[:4 if bank_dtype else 2], ms["refused"].cpu(),
+                        fed.reconcile(state)))
+        check(_bit_equal(torch, out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+              and out[0][2] == out[1][2], "a depth-0 tree differs from the paper mechanism")
+        print(f"[refusal] {tag.split(',')[0]} bank: a depth-0 tree equals the paper "
+              f"mechanism bit for bit (theta_L, bank, refusals, ledger)")
 
 
 def phase_timing(torch, dev, launches, errs):
@@ -545,6 +710,7 @@ def phase_timing(torch, dev, launches, errs):
         plain_ms=sq_plain, bound_ms=4 * tb.numel() / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=sq_lib))
     rows += _time_bank_codec(torch, dev, launches, errs)
+    rows += _time_tree_delta(torch, dev, launches, errs)
     for r in rows:
         print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
               f"{r['bound_ms'] / r['ms']:.1%} of it), plain {r['plain_ms']:.4f} ms, "
@@ -602,6 +768,44 @@ def _time_bank_codec(torch, dev, launches, errs):
     return rows
 
 
+def _time_tree_delta(torch, dev, launches, errs):
+    """tree_delta through the wrapper the engine calls (granted, in place on
+    one owner's row of a (1, 4, P) node tensor) at the main path's width,
+    for r = 0, 1 and 2 retired levels (counts 0, 1, 3; the counter is not
+    bumped, so every launch moves the same bytes), beside its bound of
+    (8r + 8) B per element and its plain version. The r = 0 case, the one
+    of every other leaf, is the `kernels` row; r = 1 and 2 are printed."""
+    from repro_torch import random
+    from repro_torch.kernels.tree_noise import ops, ref
+    nodes = torch.randn((1, TREE_DEPTH, P_FULL), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(6))
+    owner = torch.zeros(1, dtype=torch.int64, device=dev)
+    key = random.PRNGKey(9, device=dev)
+    ns = torch.tensor([0.37], device=dev)
+    grant = torch.ones((), dtype=torch.int32, device=dev)
+    rows = []
+    for r, count in ((0, 0), (1, 1), (2, 3)):
+        counts = torch.tensor([count], dtype=torch.int32, device=dev)
+        row = dict(
+            name="tree_delta", route="cuda",
+            source="src/repro_torch/kernels/tree_noise/csrc/tree_noise.cu",
+            replaces="src/repro/kernels/tree_noise/kernel.py:64",
+            launches=launches["tree_delta"], max_abs_err=errs["tree_delta"],
+            ms=cuda_ms(torch, lambda: ops.tree_delta_(nodes, counts, owner, key, ns, grant), 20),
+            plain_ms=cuda_ms(torch, lambda: ref.tree_delta_inplace_ref(
+                nodes, counts, owner, random.bits(key, (P_FULL,)), ns, grant), 3),
+            bound_ms=(8 * r + 8) * P_FULL / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None)
+        if r == 0:
+            rows.append(row)
+        else:
+            print(f"[timing] tree_delta (r = {r}): {row['ms']:.4f} ms (bound "
+                  f"{row['bound_ms']:.4f} ms, {row['bound_ms'] / row['ms']:.1%} of it), "
+                  f"plain {row['plain_ms']:.4f} ms")
+    del nodes
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -618,7 +822,7 @@ def main():
     t_start = time.perf_counter()
     phase_build()
     errs = phase_kernels(torch, dev)
-    main_launches = phase_main(torch, dev)[0]
+    main_launches, _, _, _, main_prof = phase_main(torch, dev)
     torch.cuda.empty_cache()
     check(main_launches["sqnorm"] > 0 and main_launches["dp_round"] > 0,
           "main path launched no kernel")
@@ -626,11 +830,24 @@ def main():
     torch.cuda.empty_cache()
     check(all(quant_launches[k] > 0 for k in ("absmax", "encode", "decode")),
           "quant path launched no bank codec kernel")
-    phase_refusal(torch, dev)
-    phase_refusal(torch, dev, bank_dtype="int8")
-    # each kernel's launches on its own path: rows 1-2 from main, 4-6 from quant
-    launches = dict(main_launches, **{k: quant_launches[k]
-                                      for k in ("absmax", "encode", "decode")})
+    tree_launches, _, _, _, tree_prof = phase_main(torch, dev, tree_depth=TREE_DEPTH, tag="tree")
+    torch.cuda.empty_cache()
+    check(tree_launches["tree_delta"] > 0 and tree_launches["dp_round"] == 0,
+          "tree path launched no tree_delta, or a dp_round")
+    extra = {g: tree_prof["groups"].get(g, 0.0) - main_prof["groups"].get(g, 0.0)
+             for g in set(tree_prof["groups"]) | set(main_prof["groups"])}
+    print(f"[tree] device time per round {tree_prof['busy']:.3f} ms against main's "
+          f"{main_prof['busy']:.3f} (+{tree_prof['busy'] - main_prof['busy']:.3f}); by group, "
+          f"tree minus main: " + ", ".join(f"{g} {ms:+.3f}" for g, ms in sorted(extra.items()))
+          + f"; ms per round (median) {tree_prof['median']:.2f} against main's "
+          f"{main_prof['median']:.2f}")
+    for bank_dtype in (None, "int8"):
+        phase_refusal(torch, dev, bank_dtype=bank_dtype)
+        phase_refusal(torch, dev, bank_dtype=bank_dtype, tree_depth=2)
+    # each kernel's launches on its own path: rows 1-2 from main, 4-6 from
+    # quant, 7 from tree
+    launches = dict(main_launches, tree_delta=tree_launches["tree_delta"],
+                    **{k: quant_launches[k] for k in ("absmax", "encode", "decode")})
     rows = phase_timing(torch, dev, launches, errs)
     print(f"[env] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

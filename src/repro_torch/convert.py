@@ -4,6 +4,7 @@
     params = params_from_numpy(np_params)              # on CUDA; device="cpu" for the CPU
     bank = quant_bank_from_numpy(np.asarray(qb.codes), np.asarray(qb.scales),
                                  np.asarray(qb.residual), qb.codec.fmt)
+    tree = tree_noise_from_numpy(np.asarray(tn.nodes), np.asarray(tn.counts), tn.depth)
 
 The input is the reference's parameter tree with every array mapped to
 numpy: nested dicts, lists/tuples and NamedTuples (read through their
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.federation.deep import TreeNoise
 from repro_torch.federation.flatten import BankCodec, QuantBank
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.mlp import MLPParams
@@ -64,3 +66,18 @@ def quant_bank_from_numpy(codes: np.ndarray, scales: np.ndarray, residual: np.nd
     codes = np.asarray(codes).view(np.int8 if fmt == "int8" else np.uint8)
     return QuantBank(tensor(codes, codes.dtype), tensor(scales, np.float32),
                      tensor(residual, np.float32), codec)
+
+
+def tree_noise_from_numpy(nodes: np.ndarray, counts: np.ndarray, depth: int,
+                          device=None) -> TreeNoise:
+    """A port TreeNoise on `device` (CUDA when None) from a reference flat
+    TreeNoise's arrays: the (N, depth, P) f32 nodes and the (N,) int32 leaf
+    counts."""
+    device = resolve_device(device)
+    nodes = np.asarray(nodes, dtype=np.float32)
+    counts = np.asarray(counts, dtype=np.int32)
+    if nodes.ndim != 3 or nodes.shape[1] != depth or counts.shape != nodes.shape[:1]:
+        raise ValueError(f"nodes {nodes.shape} and counts {counts.shape} are not a "
+                         f"flat depth-{depth} tree")
+    return TreeNoise(torch.from_numpy(nodes.copy()).to(device),
+                     torch.from_numpy(counts.copy()).to(device), int(depth))

@@ -40,9 +40,19 @@ The bank row and the device ledger are updated IN PLACE (the reference's
 jitted drivers donate the state for the same reason: the bank is N copies
 of the model), so a state passed to a driver is consumed by it.
 
+The tree mechanism (`AsyncDPConfig.tree_depth` = d >= 1, DP-FTRL) gives
+every owner a depth-d binary noise tree, `AsyncDPState.tree` (a
+`TreeNoise`: the (N, d, P) f32 node tensor and the (N,) int32 leaf
+counts). Its round replaces step 3: the `tree_delta` kernel advances the
+owner's counter by one leaf IN PLACE on the node tensor (masked by the
+grant) and returns the noise delta, which the round adds in place of a
+fresh draw; the updates (5), (7) and the projection follow as torch ops
+in the op order of the reference. Depth 0 keeps `dp_round`: bit for bit
+the paper mechanism.
+
 The pytree path, the reference mode (fused_kernel=False), example
-granularity and the tree, fault, staleness, paging and mesh layers wait
-for later slices.
+granularity and the fault, staleness, paging and mesh layers wait for
+later slices; so does the tree on those layers.
 """
 from __future__ import annotations
 
@@ -59,6 +69,7 @@ from repro_torch.federation.privacy import (DeviceLedger, laplace_scale_theorem1
                                             make_device_ledger)
 from repro_torch.kernels.bank_codec.ops import decode_row, encode_row
 from repro_torch.kernels.dp_clip_noise.ops import dp_round_flat, fused_sqnorm
+from repro_torch.kernels.tree_noise.ops import tree_delta_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,13 +84,40 @@ class AsyncDPConfig:
     theta_max: float = 100.0           # Theta projection radius (l_inf)
     privatizer: PrivatizerConfig = PrivatizerConfig(xi=1.0, fused_kernel=True)
     lr_scale: float = 1.0              # 1.0 == paper-faithful
+    caps: Optional[Sequence[int]] = None  # per-owner response caps (None = T)
+    # DP-FTRL tree noise: None = independent per-round noise; d >= 1 = a
+    # depth-d noise tree per owner (AsyncDPState.tree), each response adds
+    # the active-node-sum delta at per-node scale d * b(R), R = min(cap,
+    # 2^d - 1); d = 0 is the degenerate tree, bit for bit the paper's.
+    tree_depth: Optional[int] = None
 
     @property
     def n_total(self) -> int:
         return sum(self.owner_sizes)
 
+    @property
+    def effective_caps(self) -> Tuple[int, ...]:
+        if self.caps is None:
+            return (self.horizon,) * self.n_owners
+        return tuple(self.caps)
+
 
 Bank = Union[torch.Tensor, QuantBank]
+
+
+class TreeNoise:
+    """Every owner's DP-FTRL noise tree, on the device.
+
+    `nodes` (N_owners, depth, P) f32 holds the live node values (always
+    f32, whatever the bank stores); `counts` (N_owners,) int32 the leaves
+    released so far, the binary counter whose bits say which nodes retire
+    at the next leaf. The drivers update both IN PLACE: a row of nodes is
+    depth * P * 4 bytes per owner (2.44 GB at depth 4 and DENSE_124M)."""
+
+    def __init__(self, nodes: torch.Tensor, counts: torch.Tensor, depth: int):
+        self.nodes = nodes
+        self.counts = counts
+        self.depth = depth
 
 
 class AsyncDPState(NamedTuple):
@@ -87,12 +125,55 @@ class AsyncDPState(NamedTuple):
     bank: Bank                         # (N_owners, P) f32/bf16 copies, or a QuantBank
     step: torch.Tensor                 # () int32 granted rounds
     ledger: Optional[DeviceLedger] = None
+    tree: Optional[TreeNoise] = None   # the noise trees when cfg.tree_depth is set
+
+
+def init_tree_noise(cfg: AsyncDPConfig, theta_L: ParamFlat) -> Optional[TreeNoise]:
+    """All-zero noise trees beside a flat theta_L, on its device; None when
+    cfg.tree_depth is None."""
+    if cfg.tree_depth is None:
+        return None
+    d, n, dev = cfg.tree_depth, cfg.n_owners, theta_L.buf.device
+    return TreeNoise(torch.zeros((n, d, theta_L.size), dtype=torch.float32, device=dev),
+                     torch.zeros(n, dtype=torch.int32, device=dev), d)
+
+
+def _require_tree(cfg: AsyncDPConfig, state: AsyncDPState) -> Optional[TreeNoise]:
+    """The state's TreeNoise when cfg asks for one (raising on a state
+    built without it, or with another depth); None otherwise."""
+    if cfg.tree_depth is not None:
+        if state.tree is None:
+            raise ValueError(
+                "cfg.tree_depth is set but the state carries no noise tree; "
+                "build the state with init_state_flat / Federation.init_state "
+                "under the same config")
+        if state.tree.depth != cfg.tree_depth:
+            raise ValueError(f"the state's tree has depth {state.tree.depth}, "
+                             f"the config {cfg.tree_depth}")
+    return state.tree
+
+
+def _check_tree_config(cfg: AsyncDPConfig) -> None:
+    """Refuse, when the round functions are built, a depth outside [0, 30]
+    or caps the tree cannot hold: past 2^d - 1 leaves the binary counter
+    has no level left for the fresh node."""
+    if cfg.tree_depth is None:
+        return
+    if not 0 <= cfg.tree_depth <= 30:
+        raise ValueError(f"tree_depth must be in [0, 30], got {cfg.tree_depth}")
+    if cfg.tree_depth:
+        cap_max = (1 << cfg.tree_depth) - 1
+        if max(cfg.effective_caps) > cap_max:
+            raise ValueError(
+                f"depth-{cfg.tree_depth} tree holds {cap_max} leaves but effective caps "
+                f"reach {max(cfg.effective_caps)}; lower cfg.caps or deepen the tree")
 
 
 def init_state_flat(params, cfg: AsyncDPConfig, device=None, bank_dtype=None) -> AsyncDPState:
     """Flat state on `device` (CUDA when None): theta_L packed into one
     (P,) buffer, every bank row a copy of it, a fresh device ledger (every
-    owner capped at the horizon T).
+    owner capped at its effective cap) and, under the tree mechanism,
+    all-zero noise trees.
 
     `bank_dtype` (None = float32) is the bank's storage only: torch.bfloat16
     halves it; "int8"/"fp8" (or a flatten.BankCodec) build the quantized
@@ -102,7 +183,8 @@ def init_state_flat(params, cfg: AsyncDPConfig, device=None, bank_dtype=None) ->
     flat = pack_params(params, device=device)
     return AsyncDPState(flat, init_flat_bank(flat, cfg.n_owners, bank_dtype),
                         torch.zeros((), dtype=torch.int32, device=device),
-                        make_device_ledger((cfg.horizon,) * cfg.n_owners, device=device))
+                        make_device_ledger(cfg.effective_caps, device=device),
+                        init_tree_noise(cfg, flat))
 
 
 def _decode_bank_row(bank: QuantBank, owner_idx: torch.Tensor) -> torch.Tensor:
@@ -149,9 +231,15 @@ def _gather_row(bank: Bank, owner_idx: torch.Tensor) -> torch.Tensor:
 
 
 def _noise_scales(cfg: AsyncDPConfig, device=None) -> torch.Tensor:
-    """Theorem-1 scale per owner (for the averaged clipped gradient)."""
-    return torch.tensor([laplace_scale_theorem1(cfg.xi, cfg.horizon, n_i, e)
-                         for n_i, e in zip(cfg.owner_sizes, cfg.epsilons)],
+    """Theorem-1 scale per owner (for the averaged clipped gradient).
+
+    Under the tree mechanism (cfg.tree_depth = d >= 1) this is the
+    per-node scale d * b(R) over the effective cap R: each response enters
+    d node queries. Depth 0 is the paper scale exactly."""
+    levels = cfg.tree_depth if cfg.tree_depth else 1
+    horizons = cfg.effective_caps if cfg.tree_depth else (cfg.horizon,) * cfg.n_owners
+    return torch.tensor([levels * laplace_scale_theorem1(cfg.xi, h, n_i, e)
+                         for h, n_i, e in zip(horizons, cfg.owner_sizes, cfg.epsilons)],
                         dtype=torch.float32, device=device)
 
 
@@ -201,11 +289,18 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, scales: Optional[torch.Tensor]
     """The inertia round on the flat representation, shared VERBATIM by
     both drivers (which is what makes them equal bit for bit).
 
-    Returns compute(theta_L, bank, batch, owner_idx, key) -> (new_L, new_i,
-    theta_i, metrics), `owner_idx` a (1,) int64 device index and `key` the
-    round's (2,) uint32 key. The per-round scalars (group gain, the owner's
-    noise scale and weight w = n_i/n) stay on the device and reach the
-    kernel as pointers."""
+    Returns compute(theta_L, bank, batch, owner_idx, key, tree=None,
+    grant=None) -> (new_L, new_i, theta_i, metrics), `owner_idx` a (1,)
+    int64 device index and `key` the round's (2,) uint32 key. The per-round
+    scalars (group gain, the owner's noise scale and weight w = n_i/n) stay
+    on the device and reach the kernels as pointers.
+
+    With a `tree` (cfg.tree_depth >= 1) the round key feeds only the tree
+    op: `tree_delta` advances the owner's node row in place, unless the
+    one-element int32 `grant` is 0, and the response adds its delta; the
+    epilogue then repeats dp_round's op order as torch ops. The caller
+    bumps the leaf count."""
+    _check_tree_config(cfg)
     pcfg = cfg.privatizer
     if not pcfg.fused_kernel:
         raise NotImplementedError("the reference mode (fused_kernel=False) waits "
@@ -222,15 +317,25 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, scales: Optional[torch.Tensor]
     N = cfg.n_owners
     lr_own, lr_L = paper_rates(N, cfg.horizon, cfg.rho, cfg.sigma, cfg.lr_scale)
 
-    def compute(theta_L: ParamFlat, bank: torch.Tensor, batch, owner_idx, key):
+    def compute(theta_L: ParamFlat, bank: torch.Tensor, batch, owner_idx, key,
+                tree: Optional[TreeNoise] = None, grant: Optional[torch.Tensor] = None):
         spec = theta_L.spec
         theta_i = _gather_row(bank, owner_idx)                       # (P,) f32 copy
         tb = 0.5 * (theta_L.buf + theta_i)                           # (6)
         ns = scales.index_select(0, owner_idx)
+        w_i = w.index_select(0, owner_idx)
         acc, gain, pm = _flat_clipped_grad_acc(loss_fn, spec, pcfg, tb, batch)
-        new_L, new_i = dp_round_flat(                           # (4)+(5)+(7)+Pi
-            tb, acc, key, gain, ns, w.index_select(0, owner_idx), sigma=cfg.sigma,
-            lr_own=lr_own, lr_l=lr_L, n_owners=N, theta_max=cfg.theta_max)
+        if tree is not None and cfg.tree_depth:
+            delta = tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns, grant)
+            q = acc * gain + delta                                   # (4)
+            g_reg = cfg.sigma * tb
+            new_i = torch.clamp(tb - lr_own * (g_reg * (1.0 / (2 * N)) + w_i * q),
+                                -cfg.theta_max, cfg.theta_max)       # (5)
+            new_L = torch.clamp(tb - lr_L * g_reg, -cfg.theta_max, cfg.theta_max)  # (7)
+        else:
+            new_L, new_i = dp_round_flat(                       # (4)+(5)+(7)+Pi
+                tb, acc, key, gain, ns, w_i, sigma=cfg.sigma, lr_own=lr_own, lr_l=lr_L,
+                n_owners=N, theta_max=cfg.theta_max)
         metrics = {"clip_frac": pm["clip_frac"], "max_grad_norm": pm["max_grad_norm"],
                    "grad_noise_scale": ns.reshape(())}
         return ParamFlat(new_L, spec), new_i, theta_i, metrics
@@ -250,22 +355,27 @@ def make_train_step(loss_fn, cfg: AsyncDPConfig,
     """Returns step(state, batch, owner_idx, key) -> (state, metrics).
 
     One host-authorized round: the caller (the session's mechanism) has
-    already granted it, so the update lands unmasked and the device ledger
-    passes through untouched. `owner_idx` is a one-element int device
-    tensor; the bank row is written in place."""
+    already granted it, so the update lands unmasked, the device ledger
+    passes through untouched and a noise tree takes its leaf. `owner_idx`
+    is a one-element int device tensor; the bank row and the tree are
+    written in place."""
     compute = _round_math_flat(loss_fn, cfg, scales, device)
+    one = torch.ones(1, dtype=torch.int32, device=resolve_device(device))
 
     def step(state: AsyncDPState, batch, owner_idx: torch.Tensor,
              key: torch.Tensor) -> Tuple[AsyncDPState, Dict[str, Any]]:
+        tree = _require_tree(cfg, state)
         o = owner_idx.reshape(1).to(torch.int64)
-        new_L, new_i, _, metrics = compute(state.theta_L, state.bank, batch, o, key)
+        new_L, new_i, _, metrics = compute(state.theta_L, state.bank, batch, o, key, tree=tree)
         if isinstance(state.bank, QuantBank):
             # same key as compute() by contract: the codec folds in its
             # CODEC_SALT, so its rounding bits never touch the privacy stream
             bank = _quant_write(state.bank, new_i, o, key)  # dpcheck: ignore[DPC105]
         else:
             bank = _write_bank(state.bank, new_i, o)
-        return AsyncDPState(new_L, bank, state.step + 1, state.ledger), metrics
+        if tree is not None:
+            tree.counts.scatter_add_(0, o, one)
+        return AsyncDPState(new_L, bank, state.step + 1, state.ledger, tree), metrics
 
     return step
 
@@ -278,32 +388,36 @@ def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
     batch leaf carries a leading (K,) round axis, owner_seq is (K,) int on
     the device, keys is (K, 2) uint32, and metrics are stacked (K,) device
     tensors. A refused round runs the same round math, then keeps theta_L,
-    writes the owner's own row back and lands in `ledger.refused` for
+    writes the owner's own row back, leaves its noise tree (nodes and
+    count) as it was and lands in `ledger.refused` for
     `Federation.reconcile()`; no value is read back to the host."""
     compute = _round_math_flat(loss_fn, cfg, scales, device)
 
     def body(state: AsyncDPState, batch, owner_idx: torch.Tensor, key: torch.Tensor):
-        led = state.ledger
+        led, tree = state.ledger, state.tree
         ok = led.authorized(owner_idx)
         oki = ok.to(torch.int32)
         new_L, new_i, theta_i, metrics = compute(state.theta_L, state.bank, batch,
-                                                 owner_idx, key)
+                                                 owner_idx, key, tree=tree, grant=oki)
         theta_L = new_L.replace_buf(torch.where(ok, new_L.buf, state.theta_L.buf))
         if isinstance(state.bank, QuantBank):
             # same key as compute() by contract (see make_train_step)
             bank = _quant_write(state.bank, new_i, owner_idx, key, ok=ok)  # dpcheck: ignore[DPC105]
         else:
             bank = _write_bank(state.bank, torch.where(ok, new_i, theta_i), owner_idx)
+        if tree is not None:
+            tree.counts.scatter_add_(0, owner_idx, oki.reshape(1))
         led.spent.scatter_add_(0, owner_idx, oki.reshape(1))
         led.refused.scatter_add_(0, owner_idx, (1 - oki).reshape(1))
         metrics = dict(metrics, refused=~ok, owner=owner_idx.reshape(()).to(torch.int32))
-        return AsyncDPState(theta_L, bank, state.step + oki, led), metrics
+        return AsyncDPState(theta_L, bank, state.step + oki, led, tree), metrics
 
     def run(state: AsyncDPState, batches: Dict[str, torch.Tensor],
             owner_seq: torch.Tensor, keys: torch.Tensor):
         if state.ledger is None:
             raise ValueError("fused rounds need a device ledger on the state; "
                              "build it with Federation.init_state")
+        _require_tree(cfg, state)
         owners = owner_seq.to(torch.int64)
         per_round = []
         for k in range(owners.shape[0]):

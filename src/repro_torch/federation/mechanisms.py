@@ -1,11 +1,19 @@
 """Privacy Mechanisms: noise calibration WITH the ledger inside.
 
-Counterpart of ``repro/federation/mechanisms.py`` for the 'paper'
-mechanism (Theorem 1's exact scale b_i = 2 Xi T / (n_i eps_i)). A
-mechanism calibrates every owner's Laplace scale AND ledgers every
-authorized response in its PrivacyAccountant, so accounting cannot drift
-from the noise emitted; budget-exhausted owners are refused here. The
-strict, per_owner_rounds and tree mechanisms wait for later slices.
+Counterpart of ``repro/federation/mechanisms.py``. A mechanism calibrates
+every owner's Laplace scale AND ledgers every authorized response in its
+PrivacyAccountant, so accounting cannot drift from the noise emitted;
+budget-exhausted owners are refused here.
+
+  'paper'            — Theorem 1's exact scale b_i = 2 Xi T / (n_i eps_i).
+  'per_owner_rounds' — owners enforce a response cap R = ceil(slack*T/N),
+                       so the same eps_i holds at 2 Xi R / (n_i eps_i).
+  'tree'             — DP-FTRL binary-tree correlated noise (Kairouz et
+                       al. 2021): per-node scale d * b(R) at R = min(T,
+                       2^d - 1), the enforced cap. The node tensor lives
+                       in the engine's state (deep.TreeNoise).
+
+The 'strict' mechanism waits for a later slice.
 """
 from __future__ import annotations
 
@@ -31,17 +39,30 @@ class _LedgeredMechanism:
 
     name = "base"
 
-    def __init__(self, owners: Sequence[DataOwner], cfg: FederationConfig):
+    def __init__(self, owners: Sequence[DataOwner], cfg: FederationConfig, *,
+                 composition: str = "paper", cap_slack: float = 2.0,
+                 tree_depth: Optional[int] = None):
         self.owners = list(owners)
         self.cfg = cfg
         self._accountant = PrivacyAccountant(
-            {i: o.epsilon for i, o in enumerate(self.owners)}, cfg.horizon)
+            {i: o.epsilon for i, o in enumerate(self.owners)}, cfg.horizon,
+            composition=composition, cap_slack=cap_slack, n_owners=len(self.owners),
+            tree_depth=tree_depth)
         self.refusals = {i: 0 for i in range(len(self.owners))}
         # device counters already folded back by reconcile(): deltas
         # against these make reconcile idempotent over chunked dispatches
         self._folded_spent = {i: 0 for i in range(len(self.owners))}
         self._folded_refused = {i: 0 for i in range(len(self.owners))}
         self._snapshot_sid = 0
+
+    @property
+    def cap(self) -> Optional[int]:
+        """Per-owner response cap the engine enforces (None = T)."""
+        return self._accountant.ledgers[0].cap if self.owners else None
+
+    def effective_horizon(self) -> int:
+        c = self.cap
+        return c if c is not None else self.cfg.horizon
 
     def _scale_one(self, owner: DataOwner, xi: float) -> float:
         raise NotImplementedError
@@ -108,7 +129,7 @@ class _LedgeredMechanism:
             if min(d_spent, d_refused) < 0:
                 raise LedgerDriftError(f"owner {i}: device counters went backwards")
             led_i = self._accountant.ledgers[i]
-            room = led_i.horizon - led_i.responses
+            room = led_i.effective_horizon - led_i.responses
             if d_spent > room:
                 raise LedgerDriftError(
                     f"owner {i}: device granted {d_spent} responses but the "
@@ -130,13 +151,81 @@ class PaperMechanism(_LedgeredMechanism):
         return laplace_scale_theorem1(xi, self.cfg.horizon, owner.n, owner.epsilon)
 
 
-_MECHANISMS = {"paper": PaperMechanism}
+class CappedRoundsMechanism(_LedgeredMechanism):
+    name = "per_owner_rounds"
+
+    def __init__(self, owners, cfg, *, cap_slack: float = 2.0):
+        super().__init__(owners, cfg, composition="per_owner_rounds", cap_slack=cap_slack)
+
+    def _scale_one(self, owner: DataOwner, xi: float) -> float:
+        return laplace_scale_theorem1(xi, self.effective_horizon(), owner.n, owner.epsilon)
 
 
-def make_mechanism(spec, owners: Sequence[DataOwner], cfg: FederationConfig):
+class TreeMechanism(_LedgeredMechanism):
+    """DP-FTRL binary-tree correlated noise (Kairouz et al. 2021).
+
+    Every response releases the delta of a depth-`tree_depth` noise tree
+    (kernels/tree_noise): the cumulative noise of an owner's first t
+    responses is popcount(t) node draws instead of t. The per-node scale is
+    d * b(R) with R = min(T, 2^d - 1) the tree's leaf capacity, which is
+    also the enforced response cap.
+
+    `depth=None` sizes the tree to the horizon (T.bit_length(), capacity
+    >= T). Depth 0 is the degenerate tree: independent per-round noise at
+    the paper scale, bit for bit the paper mechanism's path. The node
+    tensor lives in the engine's state, so this mechanism serves the deep
+    engine only."""
+
+    name = "tree"
+
+    def __init__(self, owners, cfg, *, depth: Optional[int] = None):
+        if depth is None:
+            depth = int(cfg.horizon).bit_length()
+        depth = int(depth)
+        if depth < 0:
+            raise ValueError(f"tree depth must be >= 0, got {depth}")
+        if depth > 30:
+            raise ValueError(f"tree depth {depth} overflows the int32 "
+                             "leaf counters (max 30)")
+        self.tree_depth = depth
+        super().__init__(owners, cfg, composition="tree", tree_depth=depth)
+
+    @property
+    def capacity(self) -> Optional[int]:
+        """Leaves the tree holds before refusal (None: degenerate tree)."""
+        return None if self.tree_depth == 0 else (1 << self.tree_depth) - 1
+
+    def _scale_one(self, owner: DataOwner, xi: float) -> float:
+        levels = max(1, self.tree_depth)
+        return levels * laplace_scale_theorem1(xi, self.effective_horizon(), owner.n,
+                                               owner.epsilon)
+
+
+_MECHANISMS = {
+    "paper": PaperMechanism,
+    "per_owner_rounds": CappedRoundsMechanism,
+    "tree": TreeMechanism,
+}
+
+
+def make_mechanism(spec, owners: Sequence[DataOwner], cfg: FederationConfig, *,
+                   cap_slack: Optional[float] = None, tree_depth: Optional[int] = None):
     if not isinstance(spec, str):
+        if cap_slack is not None:
+            raise ValueError("cap_slack cannot be applied to a pre-built mechanism instance")
+        if tree_depth is not None:
+            raise ValueError("tree_depth cannot be applied to a pre-built mechanism instance")
         return spec
     if spec not in _MECHANISMS:
         raise ValueError(f"mechanism {spec!r} is not ported yet; the port has "
                          f"{sorted(_MECHANISMS)}")
-    return _MECHANISMS[spec](owners, cfg)
+    cls = _MECHANISMS[spec]
+    if tree_depth is not None and cls is not TreeMechanism:
+        raise ValueError("tree_depth only applies to mechanism='tree'")
+    if cls is CappedRoundsMechanism:
+        return cls(owners, cfg, cap_slack=2.0 if cap_slack is None else cap_slack)
+    if cap_slack is not None:
+        raise ValueError("cap_slack only applies to mechanism='per_owner_rounds'")
+    if cls is TreeMechanism:
+        return cls(owners, cfg, depth=tree_depth)
+    return cls(owners, cfg)

@@ -11,10 +11,21 @@ device-resident mirror inside the training state: authorization in the
 fused multi-round driver is the device predicate ``spent[i] < cap[i]``, so
 K rounds run without a host round-trip, and `reconcile` folds the counters
 back into the accountant afterwards.
+
+Beyond the paper: `composition="per_owner_rounds"` caps every owner at
+R = ceil(slack * T / N) responses (refusal is data-independent, hence
+free), so the same eps_i holds at scale 2 Xi R / (n_i eps_i).
+`composition="tree"` (DP-FTRL, Kairouz et al. 2021) caps every owner at
+the depth-d tree's capacity R = min(T, 2^d - 1); each response enters d
+node queries at per-node scale d * b(R). The integer response ledger is
+the same in every composition (each grant costs eps/R), so reconciling
+the device ledger needs no tree arithmetic; `summary()` adds the
+per-level node-completion view of the tree.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -28,6 +39,11 @@ def laplace_scale_theorem1(xi: float, horizon: int, n_records: int,
     if epsilon <= 0:
         raise ValueError("epsilon must be > 0")
     return 2.0 * xi * horizon / (n_records * epsilon)
+
+
+def capped_rounds(horizon: int, n_owners: int, slack: float = 2.0) -> int:
+    """Response cap R_i of the per-owner-rounds composition."""
+    return max(1, math.ceil(slack * horizon / n_owners))
 
 
 class DeviceLedger:
@@ -81,23 +97,49 @@ class OwnerLedger:
     epsilon: float
     horizon: int
     responses: int = 0
+    cap: Optional[int] = None        # None -> paper composition (cap = T)
+
+    @property
+    def effective_horizon(self) -> int:
+        return self.cap if self.cap is not None else self.horizon
 
     @property
     def spent(self) -> float:
-        """Budget consumed so far (eps_i/T per response)."""
-        return self.responses * self.epsilon / self.horizon
+        """Budget consumed so far (eps_i/T_eff per response)."""
+        return self.responses * self.epsilon / self.effective_horizon
 
     @property
     def exhausted(self) -> bool:
-        return self.responses >= self.horizon
+        return self.responses >= self.effective_horizon
 
 
 class PrivacyAccountant:
-    """Tracks per-owner budget spend across the training horizon (the
-    paper composition: every owner may answer at most T queries)."""
+    """Tracks per-owner budget spend across the training horizon: every
+    owner may answer at most its effective horizon (T in the paper
+    composition, the cap in the others)."""
 
-    def __init__(self, epsilons: Dict[int, float], horizon: int):
-        self.ledgers = {i: OwnerLedger(e, horizon) for i, e in epsilons.items()}
+    def __init__(self, epsilons: Dict[int, float], horizon: int,
+                 composition: str = "paper", cap_slack: float = 2.0,
+                 n_owners: Optional[int] = None, tree_depth: Optional[int] = None):
+        if composition not in ("paper", "per_owner_rounds", "tree"):
+            raise ValueError(composition)
+        cap = None
+        if composition == "per_owner_rounds":
+            cap = capped_rounds(horizon, n_owners or len(epsilons), cap_slack)
+        elif composition == "tree":
+            # a depth-d tree holds 2^d - 1 leaves: past that the binary
+            # counter has no level for the fresh node, so the cap is also
+            # the bound the engine refuses at. Depth 0 is the degenerate
+            # tree: the paper cap (T).
+            if tree_depth is None:
+                raise ValueError("tree composition needs tree_depth")
+            if tree_depth > 0:
+                cap = min(horizon, (1 << tree_depth) - 1)
+        elif tree_depth is not None:
+            raise ValueError("tree_depth only applies to composition='tree'")
+        self.ledgers = {i: OwnerLedger(e, horizon, cap=cap) for i, e in epsilons.items()}
+        self.composition = composition
+        self.tree_depth = tree_depth
 
     def record_response(self, owner: int) -> bool:
         """Returns True if the owner may respond (budget remains)."""
@@ -110,21 +152,37 @@ class PrivacyAccountant:
     def record_responses(self, owner: int, count: int) -> int:
         """Grant up to `count` responses; returns how many were granted."""
         led = self.ledgers[owner]
-        granted = max(0, min(count, led.horizon - led.responses))
+        granted = max(0, min(count, led.effective_horizon - led.responses))
         led.responses += granted
         return granted
 
     def summary(self) -> Dict[int, Dict]:
-        return {i: {"epsilon": led.epsilon, "responses": led.responses,
-                    "spent": led.spent, "exhausted": led.exhausted}
-                for i, led in self.ledgers.items()}
+        out = {i: {"epsilon": led.epsilon, "responses": led.responses,
+                   "spent": led.spent, "exhausted": led.exhausted}
+               for i, led in self.ledgers.items()}
+        if self.composition == "tree" and (self.tree_depth or 0) > 0:
+            d = self.tree_depth
+            for i, led in self.ledgers.items():
+                # the tree-completion view of the same integer spend: after
+                # t leaves level l has completed t >> l nodes, and each
+                # response enters d node queries at eps/(d*R) each, which
+                # recomposes to the eps/R per response the ledger charges
+                r = led.effective_horizon
+                out[i]["tree"] = {
+                    "depth": d,
+                    "capacity": (1 << d) - 1,
+                    "nodes_completed_per_level": [led.responses >> lvl for lvl in range(d)],
+                    "eps_per_node": led.epsilon / (d * r),
+                }
+        return out
 
     def device_ledger(self, device=None) -> DeviceLedger:
         """Snapshot the counters as a DeviceLedger (owners 0..N-1 dense),
-        `spent` seeded from the current response counts."""
+        `spent` seeded from the current response counts and `cap` from the
+        effective horizons."""
         idx = sorted(self.ledgers)
         if idx != list(range(len(idx))):
             raise ValueError("device ledger needs dense owner ids 0..N-1")
-        return make_device_ledger(caps=[self.ledgers[i].horizon for i in idx],
+        return make_device_ledger(caps=[self.ledgers[i].effective_horizon for i in idx],
                                   spent=[self.ledgers[i].responses for i in idx],
                                   device=device)

@@ -13,6 +13,10 @@ Counterpart of the deep-model half of ``repro/federation/session.py``:
     fed.reconcile(state)                   # fold the device ledger -> host
     fed.ledger()                           # per-owner spend + refusals
 
+    # DP-FTRL tree noise: every owner keeps a depth-4 noise tree on the
+    # device, capped at its capacity 2^4 - 1 = 15 responses
+    fed = Federation(owners, config, mechanism="tree", tree_depth=4)
+
 The session runs on CUDA: with no `device` it takes "cuda" and raises
 where there is none (it never carries on on the CPU); tests pass
 ``device="cpu"``. On CUDA it turns TF32 off for matmuls and cuDNN, so f32
@@ -21,8 +25,8 @@ products are full f32 like the reference's einsums.
 The mechanism (noise calibration + PrivacyAccountant) is pluggable;
 budget-exhausted owners are refused at this layer by `step`, and on the
 device by `run_rounds`, whose refusals `reconcile` folds back bit-exactly.
-A state passed to `step` or `run_rounds` is consumed (its bank row and
-device ledger are updated in place).
+A state passed to `step` or `run_rounds` is consumed (its bank row,
+device ledger and noise tree are updated in place).
 """
 from __future__ import annotations
 
@@ -44,7 +48,8 @@ from repro_torch.federation.schedules import UniformSchedule, as_owner_seq
 
 class Federation:
     def __init__(self, owners: Sequence[DataOwner], config: FederationConfig, *,
-                 mechanism="paper", schedule=None, device=None):
+                 mechanism="paper", schedule=None, cap_slack: Optional[float] = None,
+                 tree_depth: Optional[int] = None, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # full f32 products, as the reference's einsums
@@ -53,7 +58,8 @@ class Federation:
         self.owners = list(owners)
         self.config = config
         self.schedule = schedule if schedule is not None else UniformSchedule()
-        self.mechanism = make_mechanism(mechanism, self.owners, config)
+        self.mechanism = make_mechanism(mechanism, self.owners, config,
+                                        cap_slack=cap_slack, tree_depth=tree_depth)
         self._step_fn = None
         self._fused_fn = None
         self._bank_dtype = None
@@ -70,13 +76,16 @@ class Federation:
         """The low-level engine config this session implies."""
         xi = max(o.xi for o in self.owners)
         cfg = self.config
+        cap = self.mechanism.cap
         return AsyncDPConfig(
             n_owners=self.n_owners, horizon=cfg.horizon, rho=cfg.rho, sigma=cfg.sigma,
             epsilons=tuple(o.epsilon for o in self.owners),
             owner_sizes=tuple(o.n for o in self.owners), xi=xi,
             theta_max=cfg.theta_max,
             privatizer=privatizer or PrivatizerConfig(xi=xi, fused_kernel=True),
-            lr_scale=cfg.lr_scale)
+            lr_scale=cfg.lr_scale,
+            caps=None if cap is None else (cap,) * self.n_owners,
+            tree_depth=getattr(self.mechanism, "tree_depth", None))
 
     def make_step(self, loss_fn, *, privatizer: Optional[PrivatizerConfig] = None,
                   pack_params: bool = False, bank_dtype=None):
@@ -110,7 +119,8 @@ class Federation:
     def init_state(self, params, pack_params: bool = True, bank_dtype=None) -> AsyncDPState:
         """The flat training state on the session's device, its device
         ledger seeded from the live accountant (in-graph authorization then
-        refuses exactly where the host would). `bank_dtype` (None follows
+        refuses exactly where the host would) and, under the tree
+        mechanism, all-zero noise trees. `bank_dtype` (None follows
         make_step) is the bank's storage, as in make_step."""
         if not pack_params:
             raise NotImplementedError("the pytree state waits for a later slice")

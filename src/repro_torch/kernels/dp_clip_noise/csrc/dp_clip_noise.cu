@@ -9,7 +9,8 @@
 //           read from memory: each element hashes its own 64-bit index with
 //           threefry2x32 exactly as repro_torch.random.bits(key, (P,)) (and
 //           jax.random.bits in partitionable mode) does, so no P-word bits
-//           array is written or read per round. Bound: bytes, 16 B/element
+//           array is written or read per round; the inverse CDF is
+//           common/laplace.cuh, shared with tree_delta. Bound: bytes, 16 B/element
 //           (read tb and acc, write both outputs); the hash adds ~100 integer
 //           operations per element on top.
 // sqnorm    replaces src/repro/kernels/dp_clip_noise/kernel.py:
@@ -31,26 +32,18 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common/laplace.cuh"
 #include "common/threefry.cuh"
 
 namespace {
 
+using laplace::from_bits;
 using threefry::threefry_bits;
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 4096;
 constexpr int kMaxPartials = 1024;
 constexpr int kFinalThreads = 1024;
-
-// Inverse-CDF Laplace(0, 1) from the top 24 bits; sign(0) = 0 as jnp.sign.
-__device__ __forceinline__ float laplace_from_bits(uint32_t b) {
-  const float lim = static_cast<float>(0.4999999);
-  const float u01 = __fmul_rn(__uint2float_rn(b >> 8), 5.9604644775390625e-08f);
-  const float v = __fsub_rn(u01, 0.5f);
-  const float vc = fminf(fmaxf(v, -lim), lim);
-  const float neg_sign = v > 0.f ? -1.f : (v < 0.f ? 1.f : -0.f);
-  return __fmul_rn(neg_sign, log1pf(__fmul_rn(-2.0f, fabsf(vc))));
-}
 
 __global__ void __launch_bounds__(kThreads)
 dp_round_kernel(const float* __restrict__ tb, const float* __restrict__ acc,
@@ -67,7 +60,7 @@ dp_round_kernel(const float* __restrict__ tb, const float* __restrict__ acc,
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        i < n; i += stride) {
-    const float lap = laplace_from_bits(
+    const float lap = from_bits(
         threefry_bits(k0, k1, static_cast<uint64_t>(i)));
     const float t = tb[i];
     const float q = __fadd_rn(__fmul_rn(acc[i], g), __fmul_rn(s, lap));

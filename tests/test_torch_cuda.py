@@ -9,9 +9,10 @@ without the JAX package:
 Tolerances: the kernels use the plain versions' op order with
 round-to-nearest intrinsics, so only log1pf could differ (1e-6); the
 squared norm sums in another order (rtol 1e-5); the bank codec kernels
-(absmax, encode, decode) equal their plain versions bit for bit. The
-session on the card and on the CPU agree to 1e-5 (cuBLAS and the CPU BLAS
-sum in other orders); integer results are exact. On an int8 bank the two
+(absmax, encode, decode) and tree_delta equal their plain versions bit
+for bit. The session on the card and on the CPU agree to 1e-5 (cuBLAS and
+the CPU BLAS sum in other orders; the tree's nodes are Laplace draws,
+log1pf against log1p); integer results are exact. On an int8 bank the two
 may differ by one quantization step where such a difference flipped a
 stochastic rounding decision.
 """
@@ -28,6 +29,9 @@ from repro_torch.kernels.bank_codec import ref as bref
 from repro_torch.kernels.dp_clip_noise import kernel as tkernel
 from repro_torch.kernels.dp_clip_noise import ops as tops
 from repro_torch.kernels.dp_clip_noise import ref as tref
+from repro_torch.kernels.tree_noise import kernel as nkernel
+from repro_torch.kernels.tree_noise import ops as nops
+from repro_torch.kernels.tree_noise import ref as nref
 from repro_torch.models import LM
 
 ROUND = dict(sigma=1e-2, lr_own=0.3, lr_l=0.2, n_owners=4, theta_max=1.0)
@@ -132,6 +136,75 @@ def test_session_on_the_card_matches_the_cpu(bank_dtype):
     assert torch.equal(out[0][0], out[1][0])
     assert out[0][1] == out[1][1]
     torch.testing.assert_close(out[0][2], out[1][2], rtol=1e-4, atol=1e-5 + out[1][3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,offset", [(1, 0), (4099, 0), (4096, 1), (3 * 1024 * 1024 + 76, 0)])
+@pytest.mark.parametrize("depth", [1, 4])
+def test_tree_delta_matches_plain_version(depth, p, offset):
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(p + depth)
+    n_owners = 3
+    # offset 1: the node tensor starts 4 bytes into its storage (no float4)
+    base = torch.randn(n_owners * depth * p + offset, device=dev, generator=gen)
+    nodes = base[offset:].view(n_owners, depth, p)
+    owner = torch.tensor([1], device=dev)
+    key = trandom.PRNGKey(8, device=dev)
+    ns = torch.tensor([0.3], device=dev)
+    bits = trandom.bits(key, (p,))
+    before = dict(nkernel.launches)
+    def copy():
+        buf = torch.empty(nodes.numel() + offset, device=dev)
+        return buf[offset:].view(nodes.shape).copy_(nodes)
+
+    for count in range((1 << depth) + 1):
+        counts = torch.tensor([2, count, 0], dtype=torch.int32, device=dev)
+        for grant in (None, torch.tensor(1, dtype=torch.int32, device=dev),
+                      torch.tensor(0, dtype=torch.int32, device=dev)):
+            out, plain = copy(), copy()
+            delta = nops.tree_delta_(out, counts, owner, key, ns, grant)
+            ref_delta = nref.tree_delta_inplace_ref(plain, counts, owner, bits, ns, grant)
+            assert torch.equal(delta, ref_delta) and torch.equal(out, plain), (count, grant)
+    assert nkernel.launches["tree_delta"] == before["tree_delta"] + 3 * ((1 << depth) + 1)
+    row_delta, row = nops.tree_delta_row(nodes[1], 1, key, ns)
+    want_delta, want_row = nref.tree_delta_ref(nodes[1], bits, 1, ns)
+    assert torch.equal(row_delta, want_delta) and torch.equal(row, want_row)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bank_dtype", [None, "int8"])
+def test_tree_session_on_the_card_matches_the_cpu(bank_dtype):
+    dev = _device()
+    cfg = DENSE_124M.reduced()
+    lm = LM(cfg)
+    params = lm.init(seed=2)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (10, 4, 16), generator=gen, dtype=torch.int32)
+    batches = {"tokens": toks, "labels": torch.roll(toks, -1, dims=2)}
+    out = []
+    for device in (dev, torch.device("cpu")):
+        fed = Federation([DataOwner(n=100, epsilon=1.0, xi=1.0)] * 3,
+                         FederationConfig.from_target_lr(0.05, n_owners=3, horizon=8,
+                                                         sigma=1e-2),
+                         mechanism="tree", tree_depth=2, device=device)
+        fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True, bank_dtype=bank_dtype,
+                      privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2,
+                                                  fused_kernel=True))
+        before = nkernel.launches["tree_delta"]
+        state, ms = fed.run_rounds(fed.init_state(params), batches,
+                                   key=trandom.PRNGKey(4, device=dev))
+        if device.type == "cuda":
+            assert nkernel.launches["tree_delta"] == before + 10
+        bank = state.bank.decode_rows() if isinstance(state.bank, QuantBank) else state.bank
+        step = float(state.bank.scales.max()) if isinstance(state.bank, QuantBank) else 0.0
+        out.append((ms["refused"].cpu(), fed.reconcile(state), state.tree.counts.cpu(),
+                    state.tree.nodes.cpu(), bank.cpu(), step))
+    assert bool(out[0][0].any())                               # capacity 3 bites
+    assert torch.equal(out[0][0], out[1][0])
+    assert out[0][1] == out[1][1]
+    assert torch.equal(out[0][2], out[1][2])
+    torch.testing.assert_close(out[0][3], out[1][3], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(out[0][4], out[1][4], rtol=1e-4, atol=1e-5 + out[1][5])
 
 
 @pytest.mark.cuda
