@@ -20,7 +20,10 @@ Phases (any mismatch raises and the run exits non-zero):
              tree_delta at depth 4 for counts 0, 1, 2, 3, 6, 7 and 14
              (r = 0 to 3 retired levels), granted and refused, bit for bit
              on delta and the whole node tensor, and two launches on copies
-             of one input give the same bits.
+             of one input give the same bits; scale_noise through
+             fused_scale_noise_tree and dp_privatize_tree on the 12
+             DENSE_124M leaves and on one leaf of P = 1,000,003, bit for
+             bit on every leaf.
 3. main    — the user's path at full width: DENSE_124M f32, 16 owners x
              10,000 records, eps = 1, batch 4 x seq 128, G = 2 microbatches,
              f32 bank; four run_rounds dispatches of K = 8 timed with the
@@ -44,9 +47,23 @@ Phases (any mismatch raises and the run exits non-zero):
              computes from the drawn owners. Prints the node bytes, peak
              memory, ms per round, the idle share, and the device time per
              round against main's, by kernel group.
+   pytree  — the reference's default path at full width: main's model,
+             owners and rounds on a PYTREE state (make_step's default
+             pack_params=False: theta_L the model tree, a 9.78 GB bank of
+             (16, *leaf.shape) leaves) with the fused privatizer. Launch
+             counts per dispatch must be K*G*12 sqnorm, K*12 scale_noise
+             and 0 dp_round; the ledger must equal the host's. Prints ms
+             per round, the device time per round by kernel group,
+             launches per round, peak memory and the idle share beside
+             main's; then two dispatches of the repo's example
+             configuration (fused_kernel=False, the jnp-equivalent draw:
+             no kernel launch) on a fresh pytree state, the second's ms
+             per round.
 4. refusal — a reduced model with schedule-drawn owners, on an f32 and an
              int8 bank, under the paper mechanism (horizon 2) and the tree
-             (depth 2, horizon 8, capacity 3): the refused mask and
+             (depth 2, horizon 8, capacity 3), and on pytree states under
+             the paper mechanism (fused) and the tree (depth 2,
+             fused_kernel=False): the refused mask and
              reconciled ledger (with its tree view) must equal what the host
              computes from the drawn sequence and what the port computes on
              the CPU, and so must the leaf counts; theta_L, the bank and the
@@ -54,7 +71,10 @@ Phases (any mismatch raises and the run exits non-zero):
              quantization step), a step() loop must equal run_rounds bit
              for bit (nodes and counts included), a refused round leaves the
              state untouched (codes, scales, residual, nodes, counts), and a
-             depth-0 tree equals the paper mechanism bit for bit.
+             depth-0 tree equals the paper mechanism bit for bit. On the
+             card, `spec.pack` of a pytree run equals the flat engine's
+             reference mode (fused_kernel=False) bit for bit, under the
+             paper mechanism and the tree.
 5. timing  — each kernel (through the wrapper the main path calls), its
              plain version and the one PyTorch call computing the same
              function where there is one (torch.dot for sqnorm,
@@ -62,7 +82,8 @@ Phases (any mismatch raises and the run exits non-zero):
              for the int8 decode), at the main-path shapes, with CUDA
              events, beside the bound; encode and decode on an int8 row
              for the `kernels` line, and again on an fp8 row, printed;
-             tree_delta at depth 4 for r = 0 (the `kernels` row), 1 and 2.
+             tree_delta at depth 4 for r = 0 (the `kernels` row), 1 and 2;
+             scale_noise over the 12 DENSE_124M leaves (12 launches).
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -170,12 +191,72 @@ def phase_kernels(torch, dev):
               f"agrees ({float(s1):.6e} vs {float(plain):.6e})")
         del tb, acc
     got = {k: kernel.launches[k] - before[k] for k in before}
-    check(got == {"dp_round": 4, "sqnorm": 4}, f"the wrappers launched {got}")
+    check(got == {"dp_round": 4, "scale_noise": 0, "sqnorm": 4}, f"the wrappers launched {got}")
     err.update(_check_bank_codec(torch, dev))
     err.update(_check_tree_delta(torch, dev))
+    err.update(_check_scale_noise(torch, dev))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return err
+
+
+def _dense_leaves(torch, dev, seed):
+    """The 12 leaves of DENSE_124M's params (random weights from `seed`), in
+    jax's leaf order, on the card."""
+    from repro_torch.configs import DENSE_124M
+    from repro_torch.models import LM
+    from repro_torch.tree_util import tree_flatten
+    return tree_flatten(LM(DENSE_124M).init(seed=seed, device=dev))[0]
+
+
+def _check_scale_noise(torch, dev):
+    """scale_noise through the tree entry points the pytree privatizer
+    calls, against its plain version on the same CUDA tensors, bit for bit:
+    fused_scale_noise_tree and dp_privatize_tree on the 12 DENSE_124M
+    leaves, then on a single leaf of P_RAGGED. dp_privatize_tree's clip
+    factor comes from the deterministic sqnorm kernel (held against its
+    plain version above), so the plain side rebuilds it from the same
+    norm; that norm must agree with the plain sqnorm to rtol 1e-5."""
+    from repro_torch import random
+    from repro_torch.kernels.dp_clip_noise import kernel, ops, ref
+    err = 0.0
+    before = dict(kernel.launches)
+    cs = torch.tensor([0.5], device=dev)
+    ns = torch.tensor(0.37, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    trees = (("the 12 DENSE_124M leaves", lambda: _dense_leaves(torch, dev, seed=3)),
+             (f"one leaf of {P_RAGGED}",
+              lambda: [torch.randn(P_RAGGED, device=dev, generator=gen)]))
+    for what, make in trees:
+        leaves = make()
+        key = random.PRNGKey(len(leaves) + 12, device=dev)
+        keys = random.split(key, len(leaves))
+        norm = torch.sqrt(ops.fused_sqnorm_tree(leaves))
+        plain_norm = torch.sqrt(sum(ref.sqnorm_ref(x) for x in leaves))
+        torch.testing.assert_close(norm, plain_norm, rtol=1e-5, atol=0.0)
+        clip = torch.clamp(torch.full_like(norm, 0.25) / torch.clamp(norm, min=1e-12), max=1.0)
+        for name, outs, scale in (
+                ("fused_scale_noise_tree", ops.fused_scale_noise_tree(leaves, key, cs, ns), cs),
+                ("dp_privatize_tree", ops.dp_privatize_tree(leaves, key, 0.25, ns), clip)):
+            for leaf, k, out in zip(leaves, keys, outs):
+                plain = ref.scale_noise_ref(leaf, random.bits(k, leaf.shape), scale.reshape(()),
+                                            ns)
+                err = max(err, float((out - plain).abs().max()))
+                check(out.shape == leaf.shape and torch.equal(out, plain),
+                      f"scale_noise ({name}, {tuple(leaf.shape)}) differs from its plain "
+                      f"version by up to {err:.3e}")
+                del plain
+            del outs
+        print(f"[kernels] {what}: scale_noise (fused_scale_noise_tree and dp_privatize_tree, "
+              f"clip {float(clip):.4e}) equals its plain version bit for bit on every leaf")
+        del leaves
+    got = _diff(dict(kernel.launches), before)
+    # per tree: its sqnorm for the check, then dp_privatize_tree's; two
+    # scale_noise per leaf
+    check(got == {"dp_round": 0, "scale_noise": 2 * 13, "sqnorm": 2 * 13},
+          f"the wrappers launched {got}")
+    torch.cuda.empty_cache()
+    return {"scale_noise": err}
 
 
 TREE_DEPTH = 4
@@ -299,6 +380,8 @@ def _torch_batches(torch, batches):
 
 def _kernel_group(name):
     low = name.lower()
+    if "scale_noise" in low:
+        return "scale_noise kernel"
     if "dp_round" in low:
         return "dp_round kernel"
     if "sqnorm" in low:
@@ -315,7 +398,7 @@ def _kernel_group(name):
 def _profiled(torch, dev, run, rounds, top=12):
     """run() once under torch.profiler; prints where the device time went
     and returns (run()'s result, device busy ms per round, {kernel group:
-    ms per round})."""
+    ms per round}, device kernels per round)."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -342,7 +425,20 @@ def _profiled(torch, dev, run, rounds, top=12):
     for name, ms in per_name.most_common(top):
         print(f"[profile]   {ms / rounds:8.3f} ms/round {calls[name] / rounds:6.1f}x/round  "
               f"{name[:100]}")
-    return out, busy_ms / rounds, {g: ms / rounds for g, ms in groups.items()}
+    return out, busy_ms / rounds, {g: ms / rounds for g, ms in groups.items()}, n_launch / rounds
+
+
+def _leaves(tree):
+    from repro_torch.tree_util import tree_flatten
+    return tree_flatten(tree)[0]
+
+
+def _model_size(theta_L):
+    """P of a ParamFlat or of a model tree."""
+    from repro_torch.federation import ParamFlat
+    if isinstance(theta_L, ParamFlat):
+        return theta_L.size
+    return sum(leaf.numel() for leaf in _leaves(theta_L))
 
 
 def _bank_summary(torch, bank, n_owners, P):
@@ -352,19 +448,31 @@ def _bank_summary(torch, bank, n_owners, P):
     if isinstance(bank, QuantBank):
         return (f"bank {bank.codec.fmt} codes {tuple(bank.codes.shape)} + scales + residual = "
                 f"{bank.nbytes / 1e9:.3f} GB resident (f32: {f32:.3f} GB)")
-    gb = bank.numel() * bank.element_size() / 1e9
-    return f"bank {tuple(bank.shape)} {bank.dtype} = {gb:.3f} GB"
+    leaves = _leaves(bank)
+    gb = sum(leaf.numel() * leaf.element_size() for leaf in leaves) / 1e9
+    if len(leaves) == 1:
+        return f"bank {tuple(bank.shape)} {bank.dtype} = {gb:.3f} GB"
+    return f"pytree bank of {len(leaves)} (N, *shape) leaves = {gb:.3f} GB"
+
+
+def _finite(torch, t):
+    """isfinite(t).all(), one row (of the leading axis) at a time where t is
+    large: isfinite over a whole bank or node tensor would allocate as much
+    again and more (it set main's peak memory before it went row-wise)."""
+    if t.dim() > 1 and t.numel() > 1 << 26:
+        return all(_finite(torch, row) for row in t)
+    return bool(torch.isfinite(t).all())
 
 
 def _state_finite(torch, state):
-    from repro_torch.federation import QuantBank
+    from repro_torch.federation import ParamFlat, QuantBank
     bank = state.bank
-    parts = (bank.scales, bank.residual) if isinstance(bank, QuantBank) else (bank,)
+    parts = (bank.scales, bank.residual) if isinstance(bank, QuantBank) else tuple(_leaves(bank))
     if state.tree is not None:
-        # one (P,) level at a time: isfinite over all the nodes at once
-        # would allocate as much again
-        parts += tuple(state.tree.nodes.flatten(0, 1))
-    return all(bool(torch.isfinite(t).all()) for t in (state.theta_L.buf, *parts))
+        parts += tuple(_leaves(state.tree.nodes))
+    theta = state.theta_L
+    theta = (theta.buf,) if isinstance(theta, ParamFlat) else tuple(_leaves(theta))
+    return all(_finite(torch, t) for t in (*theta, *parts))
 
 
 def _tree_view(counts, depth, eps, cap):
@@ -376,13 +484,15 @@ def _tree_view(counts, depth, eps, cap):
 
 
 def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispatches=4,
-               bank_dtype=None, tree_depth=None, tag="main"):
+               bank_dtype=None, tree_depth=None, pack_params=True, tag="main"):
     """One full-width path: `dispatches` timed run_rounds calls of K = 8, one
     profiled, two step() calls and reconcile, with the launch counters set
     to 0 just before and read just after. `tree_depth` runs the tree
-    mechanism at that depth. Returns (launches, fed, pipe, lm, profile)
-    with profile = {"busy": device ms per round, "median": ms per round,
-    "groups": {kernel group: ms per round}}."""
+    mechanism at that depth; `pack_params=False` the pytree state (with the
+    fused privatizer: per leaf sqnorm and scale_noise). Returns (launches,
+    fed, pipe, lm, profile) with profile = {"busy": device ms per round,
+    "median": ms per round, "groups": {kernel group: ms per round},
+    "launches": device kernels per round, "peak": peak GB}."""
     from repro_torch import random
     from repro_torch.configs import DENSE_124M
     from repro_torch.data import OwnerDataPipeline, synthetic_owner_shards
@@ -393,8 +503,6 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
     batch, G, K = 4, 2, 8
     quant = as_bank_codec(bank_dtype) is not None
     tree = bool(tree_depth)
-    per_dispatch = {"sqnorm": K * G, "dp_round": K * (not tree), "absmax": K * quant,
-                    "encode": K * quant, "decode": K * quant, "tree_delta": K * tree}
     mech = {} if tree_depth is None else dict(mechanism="tree", tree_depth=tree_depth)
     lm = LM(cfg)
 
@@ -409,11 +517,22 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
     owners = [DataOwner(n=s, epsilon=1.0, xi=1.0) for s in pipe.owner_sizes]
     fed = Federation(owners, FederationConfig.from_target_lr(
         0.05, n_owners=n_owners, horizon=1000, sigma=1e-2, theta_max=100.0), device=dev, **mech)
-    fed.make_step(loss_fn, pack_params=True, bank_dtype=bank_dtype, privatizer=PrivatizerConfig(
-        xi=1.0, granularity="microbatch", n_microbatches=G, fused_kernel=True))
+    fed.make_step(loss_fn, pack_params=pack_params, bank_dtype=bank_dtype,
+                  privatizer=PrivatizerConfig(xi=1.0, granularity="microbatch",
+                                              n_microbatches=G, fused_kernel=True))
     state = fed.init_state(lm.init(seed=0, device=dev))
-    P = state.theta_L.size
+    P = _model_size(state.theta_L)
     check(P == cfg.param_count(), f"P = {P}")
+    if pack_params:
+        per_dispatch = {"sqnorm": K * G, "dp_round": K * (not tree), "scale_noise": 0,
+                        "absmax": K * quant, "encode": K * quant, "decode": K * quant,
+                        "tree_delta": K * tree}
+    else:
+        # the pytree privatizer: a clip norm per leaf and group, one
+        # scale_noise pass per leaf
+        n_leaves = len(_leaves(state.theta_L))
+        per_dispatch = {"sqnorm": K * G * n_leaves, "dp_round": 0, "scale_noise": K * n_leaves,
+                        "absmax": 0, "encode": 0, "decode": 0, "tree_delta": 0}
     held_out = np.random.default_rng(99).integers(0, cfg.vocab, (batch, seq),
                                                   dtype=np.int32)
     eval_batch = _torch_batches(torch, {"tokens": held_out,
@@ -426,7 +545,7 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
           f"{_bank_summary(torch, state.bank, n_owners, P)}, "
           f"set-up {time.perf_counter() - t0:.1f} s, central loss before {loss0:.4f}")
     if state.tree is not None:
-        nodes = state.tree.nodes
+        nodes = state.tree.nodes       # the flat engine's (N, depth, P) tensor
         print(f"[{tag}] noise trees: nodes {tuple(nodes.shape)} f32 = "
               f"{nodes.numel() * 4 / 1e9:.3f} GB (N x depth x P x 4 B), capacity "
               f"{fed.mechanism.capacity} leaves per owner, per-node scale "
@@ -466,7 +585,8 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
     print(f"[{tag}] median of dispatches 1..{dispatches - 1}: {median:.2f} ms/round; in "
           f"those dispatches {_allocator_work(torch, dev)}")
     key, sub = random.split(key)
-    (state, _, _, _), busy, groups = _profiled(torch, dev, lambda: dispatch(state, sub), K)
+    (state, _, _, _), busy, groups, per_round_launches = _profiled(
+        torch, dev, lambda: dispatch(state, sub), K)
     print(f"[profile] {tag}: device busy {busy:.2f} of the unprofiled median {median:.2f} "
           f"ms/round: the device idles {1 - busy / median:.1%} of a round")
     it = iter(pipe)
@@ -501,8 +621,10 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
     print(f"[{tag}] ledger " + json.dumps(
         {i: [r["responses"], r["refused"], round(r["spent"], 6)]
          for i, r in ledger.items()}))
+    peak = _peak_gb(torch, dev)
     del state
-    return launches, fed, pipe, lm, dict(busy=busy, median=median, groups=groups)
+    return launches, fed, pipe, lm, dict(busy=busy, median=median, groups=groups,
+                                         launches=per_round_launches, peak=peak)
 
 
 def phase_quant(torch, dev, cfg=None, n_owners=128, records=10_000, seq=128):
@@ -526,8 +648,8 @@ def phase_quant(torch, dev, cfg=None, n_owners=128, records=10_000, seq=128):
     _sync(torch, dev)
     dt = (time.perf_counter() - t0) * 1e3
     got = _launches()
-    check(got == {"sqnorm": K * G, "dp_round": K, "absmax": K, "encode": K, "decode": K,
-                  "tree_delta": 0}, f"fp8 dispatch launched {got}")
+    check(got == {"sqnorm": K * G, "dp_round": K, "scale_noise": 0, "absmax": K, "encode": K,
+                  "decode": K, "tree_delta": 0}, f"fp8 dispatch launched {got}")
     check(not bool(ms["refused"].any()) and _state_finite(torch, state), "fp8 dispatch")
     print(f"[quant] fp8: one dispatch of K={K} on a fresh state, {dt:.1f} ms "
           f"({dt / K:.1f} ms/round, the first dispatch of its state), launches {got}, "
@@ -537,30 +659,102 @@ def phase_quant(torch, dev, cfg=None, n_owners=128, records=10_000, seq=128):
     return launches
 
 
+def phase_pytree(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128):
+    """The reference's default path at full width: phase_main on a pytree
+    state with the fused privatizer, then two K = 8 dispatches of the repo's
+    example configuration (fused_kernel=False, the jnp-equivalent Laplace
+    draw per leaf, no kernel) on a fresh pytree state. Returns (launches,
+    profile, ms per round of the second unfused dispatch)."""
+    from repro_torch import random
+    from repro_torch.federation import PrivatizerConfig
+    K, G = 8, 2
+    launches, fed, pipe, lm, prof = phase_main(torch, dev, cfg=cfg, n_owners=n_owners,
+                                               records=records, seq=seq, pack_params=False,
+                                               tag="pytree")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    fed.make_step(lambda p, b: lm.loss(p, b)[0],
+                  privatizer=PrivatizerConfig(xi=1.0, granularity="microbatch", n_microbatches=G))
+    state = fed.init_state(lm.init(seed=0, device=dev))
+    _reset_launches()
+    per_round = []
+    for d in range(2):
+        owner_seq = pipe.schedule(K)
+        batches = _torch_batches(torch, pipe.batches_for(owner_seq))
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        state, ms = fed.run_rounds(state, batches, owner_seq,
+                                   key=random.PRNGKey(2 + d, device=dev))
+        _sync(torch, dev)
+        per_round.append((time.perf_counter() - t0) * 1e3 / K)
+        check(not bool(ms["refused"].any()), "a round of the unfused dispatch was refused")
+    got = _launches()
+    check(not any(got.values()), f"the unfused pytree dispatches launched kernels: {got}")
+    check(_state_finite(torch, state), "non-finite state after the unfused dispatches")
+    print(f"[pytree] fused_kernel=False (the example's configuration): two dispatches of "
+          f"K={K} on a fresh state, {per_round[0]:.1f} and {per_round[1]:.1f} ms/round (the "
+          f"second is kept), launches {got}, peak memory {_peak_gb(torch, dev):.2f} GB")
+    del state, fed
+    return launches, prof, per_round[1]
+
+
+def _host(t):
+    """A copy on the CPU (also of a CPU tensor: the drivers update in place)."""
+    return t.detach().to("cpu", copy=True)
+
+
 def _bank_tensors(bank):
-    """The bank's tensors on the CPU: (codes, scales, residual) or (rows,)."""
+    """Copies on the CPU of the bank's tensors: (codes, scales, residual) of
+    a quantized bank, or the dense rows: one (N, P) tensor, or every (N,
+    *shape) leaf of a pytree bank."""
     from repro_torch.federation import QuantBank
     parts = ((bank.codes, bank.scales, bank.residual) if isinstance(bank, QuantBank)
-             else (bank,))
-    return tuple(t.cpu() for t in parts)
+             else tuple(_leaves(bank)))
+    return tuple(_host(t) for t in parts)
+
+
+def _state_parts(state):
+    """{"theta", "bank", and under the tree "nodes" and "counts"}: tuples of
+    copies of the state's tensors on the CPU, in jax's leaf order."""
+    from repro_torch.federation import ParamFlat
+    theta = state.theta_L
+    theta = (theta.buf,) if isinstance(theta, ParamFlat) else tuple(_leaves(theta))
+    parts = {"theta": tuple(_host(t) for t in theta), "bank": _bank_tensors(state.bank)}
+    if state.tree is not None:
+        parts["nodes"] = tuple(_host(t) for t in _leaves(state.tree.nodes))
+        parts["counts"] = (_host(state.tree.counts),)
+    return parts
 
 
 def _state_tensors(state):
-    """theta_L, the bank's tensors and the noise tree's, on the CPU."""
-    tree = () if state.tree is None else (state.tree.nodes.cpu(), state.tree.counts.cpu())
-    return (state.theta_L.buf.cpu(),) + _bank_tensors(state.bank) + tree
+    """Every tensor of the state, on the CPU."""
+    parts = _state_parts(state)
+    return tuple(t for name in sorted(parts) for t in parts[name])
 
 
 def _bit_equal(torch, a, b):
     return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def phase_refusal(torch, dev, bank_dtype=None, tree_depth=None):
+def _max_diff(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def _packed(torch, tensors, lead):
+    """Pytree leaves packed as the flat engine packs them, `lead` leading
+    axes (owners, levels) kept."""
+    return torch.cat([t.reshape(t.shape[:lead] + (-1,)) for t in tensors], dim=lead)
+
+
+def phase_refusal(torch, dev, bank_dtype=None, tree_depth=None, pack_params=True, fused=True):
     """Refusals at a reduced size, card against CPU. The paper mechanism
     runs with horizon 2; `tree_depth` = 2 runs the tree mechanism with
     horizon 8 and capacity 3, and adds: exact leaf counts, the ledger's
-    tree view, nodes within the f32 tolerance, and depth 0 == "paper" bit
-    for bit on the card."""
+    tree view, nodes within the f32 tolerance, and (flat states) depth 0 ==
+    "paper" bit for bit on the card. `pack_params=False` runs a pytree
+    state (`fused` picks the privatizer) and adds, on the card, `spec.pack`
+    of the pytree run == the flat reference mode bit for bit."""
     from repro_torch import random
     from repro_torch.configs import DENSE_124M
     from repro_torch.federation import (DataOwner, Federation, FederationConfig,
@@ -574,19 +768,20 @@ def phase_refusal(torch, dev, bank_dtype=None, tree_depth=None):
     params = lm.init(seed=1, device="cpu")
     toks = np.random.default_rng(5).integers(0, cfg.vocab, (K, 4, 16), dtype=np.int32)
     data = {"tokens": toks, "labels": np.roll(toks, -1, axis=2)}
-    tag = ("f32" if bank_dtype is None else str(bank_dtype)) + (
-        "" if tree_depth is None else f", tree depth {tree_depth}")
+    tag = (("f32" if bank_dtype is None else str(bank_dtype))
+           + ("" if pack_params else f" pytree ({'fused' if fused else 'unfused'})")
+           + ("" if tree_depth is None else f", tree depth {tree_depth}"))
 
-    def session(device, depth=tree_depth):
+    def session(device, depth=tree_depth, pack=pack_params, fuse=fused):
         mech = {} if depth is None else dict(mechanism="tree", tree_depth=depth)
         fed = Federation([DataOwner(n=100 * (i + 1), epsilon=1.0, xi=1.0)
                           for i in range(n_owners)],
                          FederationConfig.from_target_lr(0.05, n_owners=n_owners,
                                                          horizon=horizon, sigma=1e-2),
                          device=device, **mech)
-        fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True, bank_dtype=bank_dtype,
-                      privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2,
-                                                  fused_kernel=True))
+        fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=pack,
+                      bank_dtype=bank_dtype if pack else None,
+                      privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2, fused_kernel=fuse))
         return fed, fed.init_state(params)
 
     runs, sessions = [], []
@@ -595,9 +790,9 @@ def phase_refusal(torch, dev, bank_dtype=None, tree_depth=None):
         state, ms = fed.run_rounds(state, _torch_batches(torch, data),
                                    key=random.PRNGKey(21, device=device))
         runs.append((ms["owner"].cpu().numpy(), ms["refused"].cpu().numpy(),
-                     fed.reconcile(state), _state_tensors(state)))
+                     fed.reconcile(state), _state_parts(state)))
         sessions.append((fed, state))
-    owners, refused, ledger, tensors = runs[0]
+    owners, refused, ledger, parts = runs[0]
     counts = np.zeros(n_owners, np.int64)
     expect = []
     for o in owners:
@@ -612,19 +807,22 @@ def phase_refusal(torch, dev, bank_dtype=None, tree_depth=None):
     if tree_depth is not None:
         check({i: r["tree"] for i, r in ledger.items()}
               == _tree_view(granted, tree_depth, 1.0, cap), "the ledger's tree view")
-        check(tensors[-1].tolist() == granted.tolist(), "leaf counts differ from the host's")
-    c_owners, c_refused, c_ledger, c_tensors = runs[1]
+        check(parts["counts"][0].tolist() == granted.tolist(),
+              "leaf counts differ from the host's")
+    c_owners, c_refused, c_ledger, c_parts = runs[1]
     check(np.array_equal(owners, c_owners) and np.array_equal(refused, c_refused)
           and ledger == c_ledger, "cuda and cpu runs disagree on owners/refusals/ledger")
-    theta, bank, c_theta, c_bank = tensors[0], tensors[1:4], c_tensors[0], c_tensors[1:4]
+    theta, bank, c_theta, c_bank = parts["theta"], parts["bank"], c_parts["theta"], c_parts["bank"]
     if tree_depth is not None:
-        check(torch.equal(tensors[-1], c_tensors[-1]), "cuda and cpu leaf counts differ")
+        check(torch.equal(parts["counts"][0], c_parts["counts"][0]),
+              "cuda and cpu leaf counts differ")
         # the nodes are Laplace draws: log1pf on the card, log1p on the CPU
-        torch.testing.assert_close(tensors[-2], c_tensors[-2], rtol=1e-4, atol=1e-5)
+        for a, b in zip(parts["nodes"], c_parts["nodes"]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
     if bank_dtype is None:
         # f32 sums in other orders (cuBLAS vs the CPU BLAS) around the same keys
-        torch.testing.assert_close(theta, c_theta, rtol=1e-4, atol=1e-5)
-        torch.testing.assert_close(bank[0], c_bank[0], rtol=1e-4, atol=1e-5)
+        for a, b in zip(theta + bank, c_theta + c_bank):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
     else:
         # a last-ulp difference may flip a rounding decision: codes within one
         # step, and theta_L within 1e-5 but half a step where such a copy was
@@ -633,7 +831,7 @@ def phase_refusal(torch, dev, bank_dtype=None, tree_depth=None):
         dcode = (bank[0].to(torch.int32) - c_bank[0].to(torch.int32)).abs()
         check(int(dcode.max()) <= 1 and float((dcode > 0).float().mean()) <= 1e-4,
               f"codes differ by up to {int(dcode.max())} at {int((dcode > 0).sum())} elements")
-        dtheta = (theta - c_theta).abs()
+        dtheta = (theta[0] - c_theta[0]).abs()
         check(float((dtheta > 1e-5).float().mean()) <= 1e-4
               and float(dtheta.max()) <= step / 2 + 1e-5,
               f"theta_L differs by up to {float(dtheta.max()):.3e} (step {step:.3e})")
@@ -641,6 +839,7 @@ def phase_refusal(torch, dev, bank_dtype=None, tree_depth=None):
         torch.testing.assert_close(bank[2], c_bank[2], rtol=0.0, atol=step)
 
     # the host-authorized step loop under the same keys, bit for bit
+    tensors = _state_tensors(sessions[0][1])
     fed, state = session(dev)
     round_keys = random.split(random.split(random.PRNGKey(21, device=dev))[1], K)
     for k in range(K):
@@ -652,31 +851,51 @@ def phase_refusal(torch, dev, bank_dtype=None, tree_depth=None):
     # the device and changes nothing
     fed, state = sessions[0]
     exhausted = int(np.flatnonzero(counts >= cap)[0])
-    before = _state_tensors(state)
     state, ms = fed.run_rounds(state, _torch_batches(torch, {n: v[:1] for n, v in data.items()}),
                                [exhausted], key=random.PRNGKey(22, device=dev))
     check(bool(ms["refused"][0]), "an exhausted owner was granted")
-    check(_bit_equal(torch, _state_tensors(state), before), "a refused round changed the state")
+    check(_bit_equal(torch, _state_tensors(state), tensors), "a refused round changed the state")
     what = "theta_L and the bank" if tree_depth is None else "theta_L, the bank and the tree"
-    print(f"[refusal] {tag} bank: owners {owners.tolist()} refused "
+    print(f"[refusal] {tag}: owners {owners.tolist()} refused "
           f"{refused.astype(int).tolist()}; ledger == host == cpu run; step loop == "
           f"run_rounds bit for bit; a refused round leaves {what} bit-exact; "
-          f"max |cuda - cpu| theta {float((theta - c_theta).abs().max()):.3e}")
+          f"max |cuda - cpu| theta {_max_diff(theta, c_theta):.3e}")
     if tree_depth is not None:
-        print(f"[refusal] {tag} bank: leaf counts {granted.tolist()} == host == cpu run; "
-              f"max |cuda - cpu| nodes {float((tensors[-2] - c_tensors[-2]).abs().max()):.3e}")
+        print(f"[refusal] {tag}: leaf counts {granted.tolist()} == host == cpu run; "
+              f"max |cuda - cpu| nodes {_max_diff(parts['nodes'], c_parts['nodes']):.3e}")
+    if tree_depth is not None and pack_params:
         # the degenerate tree is the paper mechanism, bit for bit, on the card
         out = []
         for depth in (0, None):
             fed, state = session(dev, depth=depth)
             state, ms = fed.run_rounds(state, _torch_batches(torch, data),
                                        key=random.PRNGKey(23, device=dev))
-            out.append((_state_tensors(state)[:4 if bank_dtype else 2], ms["refused"].cpu(),
-                        fed.reconcile(state)))
+            p = _state_parts(state)
+            out.append((p["theta"] + p["bank"], ms["refused"].cpu(), fed.reconcile(state)))
         check(_bit_equal(torch, out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
               and out[0][2] == out[1][2], "a depth-0 tree differs from the paper mechanism")
-        print(f"[refusal] {tag.split(',')[0]} bank: a depth-0 tree equals the paper "
+        print(f"[refusal] {tag.split(',')[0]}: a depth-0 tree equals the paper "
               f"mechanism bit for bit (theta_L, bank, refusals, ledger)")
+    if not pack_params:
+        # the flat engine's reference mode runs the pytree path's round on
+        # views of its buffers: spec.pack of the pytree run, bit for bit
+        out = []
+        for pack in (False, True):
+            fed, state = session(dev, pack=pack, fuse=False)
+            state, ms = fed.run_rounds(state, _torch_batches(torch, data),
+                                       key=random.PRNGKey(24, device=dev))
+            out.append((_state_parts(state), ms["refused"].cpu(), fed.reconcile(state)))
+        (tp, t_ref, t_led), (fp, f_ref, f_led) = out
+        same = (torch.equal(_packed(torch, tp["theta"], 0), fp["theta"][0])
+                and torch.equal(_packed(torch, tp["bank"], 1), fp["bank"][0])
+                and torch.equal(t_ref, f_ref) and t_led == f_led)
+        if tree_depth is not None:
+            same = (same and torch.equal(_packed(torch, tp["nodes"], 2), fp["nodes"][0])
+                    and torch.equal(tp["counts"][0], fp["counts"][0]))
+        check(same, "spec.pack of the pytree run differs from the flat reference mode")
+        print(f"[refusal] {tag.split(' (')[0]}: spec.pack of the pytree run equals the flat "
+              f"engine's reference mode bit for bit on the card (theta_L, bank"
+              f"{', nodes, counts' if tree_depth is not None else ''}, refusals, ledger)")
 
 
 def phase_timing(torch, dev, launches, errs):
@@ -709,6 +928,7 @@ def phase_timing(torch, dev, launches, errs):
         launches=launches["sqnorm"], max_abs_err=errs["sqnorm"], ms=sq_ms,
         plain_ms=sq_plain, bound_ms=4 * tb.numel() / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=sq_lib))
+    rows += _time_scale_noise(torch, dev, launches, errs)
     rows += _time_bank_codec(torch, dev, launches, errs)
     rows += _time_tree_delta(torch, dev, launches, errs)
     for r in rows:
@@ -716,6 +936,41 @@ def phase_timing(torch, dev, launches, errs):
               f"{r['bound_ms'] / r['ms']:.1%} of it), plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']}")
     return rows
+
+
+def _time_scale_noise(torch, dev, launches, errs):
+    """scale_noise over the 12 DENSE_124M leaves, one launch each through
+    the wrapper the pytree privatizer calls (the leaf keys split
+    beforehand), beside its bound of 8 B per element (read g, write the
+    result) and its plain version; no single PyTorch call computes it."""
+    from repro_torch import random
+    from repro_torch.kernels.dp_clip_noise import ops, ref
+    leaves = _dense_leaves(torch, dev, seed=5)
+    P = sum(x.numel() for x in leaves)
+    check(P == P_FULL, f"the DENSE_124M leaves hold {P} elements")
+    keys = random.split(random.PRNGKey(10, device=dev), len(leaves))
+    cs, ns = torch.tensor([0.5], device=dev), torch.tensor(0.37, device=dev)
+
+    def kernel_pass():
+        return [ops.scale_noise(x, k, cs, ns) for x, k in zip(leaves, keys)]
+
+    def plain_pass():
+        return [ref.scale_noise_ref(x, random.bits(k, x.shape), cs.reshape(()), ns)
+                for x, k in zip(leaves, keys)]
+
+    row = dict(
+        name="scale_noise", route="cuda",
+        source="src/repro_torch/kernels/dp_clip_noise/csrc/dp_clip_noise.cu",
+        replaces="src/repro/kernels/dp_clip_noise/kernel.py:94",
+        launches=launches["scale_noise"], max_abs_err=errs["scale_noise"],
+        ms=cuda_ms(torch, kernel_pass, 20), plain_ms=cuda_ms(torch, plain_pass, 3),
+        bound_ms=8 * P / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None)
+    big = max(leaves, key=lambda x: x.numel())
+    big_ms = cuda_ms(torch, lambda: ops.scale_noise(big, keys[0], cs, ns), 20)
+    print(f"[timing] scale_noise on its largest leaf {tuple(big.shape)} alone: {big_ms:.4f} ms "
+          f"(bound {8 * big.numel() / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    del leaves, big
+    return [row]
 
 
 def _time_bank_codec(torch, dev, launches, errs):
@@ -841,12 +1096,31 @@ def main():
           f"tree minus main: " + ", ".join(f"{g} {ms:+.3f}" for g, ms in sorted(extra.items()))
           + f"; ms per round (median) {tree_prof['median']:.2f} against main's "
           f"{main_prof['median']:.2f}")
+    py_launches, py_prof, unfused_ms = phase_pytree(torch, dev)
+    torch.cuda.empty_cache()
+    check(py_launches["scale_noise"] > 0 and py_launches["sqnorm"] > 0
+          and py_launches["dp_round"] == 0,
+          "pytree path launched no scale_noise or sqnorm, or a dp_round")
+    extra = {g: py_prof["groups"].get(g, 0.0) - main_prof["groups"].get(g, 0.0)
+             for g in set(py_prof["groups"]) | set(main_prof["groups"])}
+    print(f"[pytree] against main in this call, per round: wall (median) "
+          f"{py_prof['median']:.2f} vs {main_prof['median']:.2f} ms; device busy "
+          f"{py_prof['busy']:.3f} vs {main_prof['busy']:.3f} ms; device kernels "
+          f"{py_prof['launches']:.0f} vs {main_prof['launches']:.0f}; idle share "
+          f"{1 - py_prof['busy'] / py_prof['median']:.1%} vs "
+          f"{1 - main_prof['busy'] / main_prof['median']:.1%}; peak memory "
+          f"{py_prof['peak']:.2f} vs {main_prof['peak']:.2f} GB; by group, pytree minus "
+          f"main: " + ", ".join(f"{g} {ms:+.3f}" for g, ms in sorted(extra.items()))
+          + f"; fused_kernel=False {unfused_ms:.2f} ms/round")
     for bank_dtype in (None, "int8"):
         phase_refusal(torch, dev, bank_dtype=bank_dtype)
         phase_refusal(torch, dev, bank_dtype=bank_dtype, tree_depth=2)
-    # each kernel's launches on its own path: rows 1-2 from main, 4-6 from
-    # quant, 7 from tree
+    phase_refusal(torch, dev, pack_params=False)
+    phase_refusal(torch, dev, pack_params=False, tree_depth=2, fused=False)
+    # each kernel's launches on its own path: rows 1-2 from main, 3 from
+    # pytree, 4-6 from quant, 7 from tree
     launches = dict(main_launches, tree_delta=tree_launches["tree_delta"],
+                    scale_noise=py_launches["scale_noise"],
                     **{k: quant_launches[k] for k in ("absmax", "encode", "decode")})
     rows = phase_timing(torch, dev, launches, errs)
     print(f"[env] total {time.perf_counter() - t_start:.1f} s")

@@ -5,6 +5,7 @@
     bank = quant_bank_from_numpy(np.asarray(qb.codes), np.asarray(qb.scales),
                                  np.asarray(qb.residual), qb.codec.fmt)
     tree = tree_noise_from_numpy(np.asarray(tn.nodes), np.asarray(tn.counts), tn.depth)
+    state = pytree_state_from_numpy(np_theta_L, np_bank, step, tree=tree)  # a pytree state
 
 The input is the reference's parameter tree with every array mapped to
 numpy: nested dicts, lists/tuples and NamedTuples (read through their
@@ -20,10 +21,12 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.federation.deep import TreeNoise
+from repro_torch.federation.deep import AsyncDPState, TreeNoise
 from repro_torch.federation.flatten import BankCodec, QuantBank
+from repro_torch.federation.privacy import DeviceLedger
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.mlp import MLPParams
+from repro_torch.tree_util import tree_flatten
 
 _NAMEDTUPLES = {cls.__name__: cls for cls in (AttnParams, MLPParams)}
 
@@ -68,16 +71,49 @@ def quant_bank_from_numpy(codes: np.ndarray, scales: np.ndarray, residual: np.nd
                      tensor(residual, np.float32), codec)
 
 
-def tree_noise_from_numpy(nodes: np.ndarray, counts: np.ndarray, depth: int,
-                          device=None) -> TreeNoise:
-    """A port TreeNoise on `device` (CUDA when None) from a reference flat
-    TreeNoise's arrays: the (N, depth, P) f32 nodes and the (N,) int32 leaf
-    counts."""
+def tree_noise_from_numpy(nodes, counts: np.ndarray, depth: int, device=None) -> TreeNoise:
+    """A port TreeNoise on `device` (CUDA when None) from a reference
+    TreeNoise's arrays: the nodes, either one (N, depth, P) f32 array (a
+    flat state's) or the model tree of (N, depth, *leaf.shape) arrays (a
+    pytree state's), and the (N,) int32 leaf counts."""
     device = resolve_device(device)
-    nodes = np.asarray(nodes, dtype=np.float32)
     counts = np.asarray(counts, dtype=np.int32)
-    if nodes.ndim != 3 or nodes.shape[1] != depth or counts.shape != nodes.shape[:1]:
-        raise ValueError(f"nodes {nodes.shape} and counts {counts.shape} are not a "
-                         f"flat depth-{depth} tree")
-    return TreeNoise(torch.from_numpy(nodes.copy()).to(device),
-                     torch.from_numpy(counts.copy()).to(device), int(depth))
+    if isinstance(nodes, np.ndarray):
+        nodes = np.asarray(nodes, dtype=np.float32)
+        if nodes.ndim != 3 or nodes.shape[1] != depth or counts.shape != nodes.shape[:1]:
+            raise ValueError(f"nodes {nodes.shape} and counts {counts.shape} are not a "
+                             f"flat depth-{depth} tree")
+        tensors = torch.from_numpy(nodes.copy()).to(device)
+    else:
+        tensors = _convert(nodes, device)
+        for leaf in tree_flatten(tensors)[0]:
+            if leaf.dim() < 2 or leaf.shape[1] != depth or leaf.shape[:1] != counts.shape:
+                raise ValueError(f"a node leaf of shape {tuple(leaf.shape)} and counts "
+                                 f"{counts.shape} are not a depth-{depth} tree")
+            if leaf.dtype != torch.float32:
+                raise TypeError(f"node leaves are f32, got {leaf.dtype}")
+    return TreeNoise(tensors, torch.from_numpy(counts.copy()).to(device), int(depth))
+
+
+def pytree_state_from_numpy(theta_L: Any, bank: Any, step: int = 0,
+                            tree: Optional[TreeNoise] = None,
+                            ledger: Optional[DeviceLedger] = None,
+                            device=None) -> AsyncDPState:
+    """A port pytree state on `device` (CUDA when None) from a reference
+    pytree state's arrays: theta_L the model tree, `bank` the same tree with
+    (N, *leaf.shape) leaves, the granted-round count `step`, and the noise
+    trees (`tree_noise_from_numpy`) under the tree mechanism. The ledger is
+    the session's to give (`Federation.init_state` seeds one from the live
+    accountant); None leaves it out."""
+    device = resolve_device(device)
+    theta = _convert(theta_L, device)
+    owners = _convert(bank, device)
+    n_owners = {leaf.shape[0] for leaf in tree_flatten(owners)[0]}
+    if len(n_owners) != 1:
+        raise ValueError(f"bank leaves disagree on the owner axis: {sorted(n_owners)}")
+    for leaf, row in zip(tree_flatten(owners)[0], tree_flatten(theta)[0]):
+        if tuple(leaf.shape[1:]) != tuple(row.shape):
+            raise ValueError(f"a bank leaf of shape {tuple(leaf.shape)} does not hold "
+                             f"rows of {tuple(row.shape)}")
+    return AsyncDPState(theta, owners, torch.tensor(int(step), dtype=torch.int32, device=device),
+                        ledger, tree)

@@ -1,30 +1,44 @@
-"""Deep-model federation engine on the flat representation: Algorithm 1 as
-a training strategy for a packed model.
+"""Deep-model federation engine: Algorithm 1 as a training strategy.
 
-Counterpart of the main path of ``repro/federation/deep.py``: the flat
-engine (`init_state_flat`, a `ParamFlat` theta_L and an (N_owners, P) owner
-bank) with the fused privatizer (`PrivatizerConfig(fused_kernel=True)`,
-microbatch granularity). One round:
+Counterpart of ``repro/federation/deep.py``. The state is the central
+model theta_L and an owner bank holding one copy of the model per owner,
+in one of two representations, and both drivers serve both:
 
-  1. gather the owner's bank row theta_i and form theta_bar = (theta_L +
-     theta_i) / 2 (eq. 6);
-  2. per microbatch, take the packed (P,) gradient at theta_bar and clip it
-     to xi by its L2 norm (the `sqnorm` kernel);
-  3. one `dp_round` kernel pass: group mean, Theorem-1 Laplace noise
-     (eq. 4), the owner and learner updates (eqs. 5, 7) and the theta_max
-     projection;
-  4. write the owner's row back.
+  pytree (`init_state`, the reference's default) -- theta_L is the model
+      tree and every bank leaf gains a leading (N_owners,) axis. The round
+      is `_round_math`: the privatizer `dp_sgd.private_grad` per leaf,
+      then eqs. (5)-(7) and the theta_max projection per leaf. With
+      `PrivatizerConfig(fused_kernel=True)` the clip norms run through the
+      `sqnorm` kernel and the mean + Laplace add through one `scale_noise`
+      pass per leaf; without it the noise is `random.laplace`, as the
+      reference draws it.
+  flat (`init_state_flat`) -- theta_L is a `ParamFlat`, one (P,) f32
+      buffer, and the bank one (N_owners, P) matrix (or a quantized
+      `QuantBank`). The round is `_round_math_flat`. Fused: the packed
+      gradient per microbatch, clipped by the `sqnorm` kernel, then ONE
+      `dp_round` pass for the group mean, Theorem-1 Laplace noise (eq. 4),
+      eqs. (5)/(7) and the projection. Reference mode (fused_kernel=False):
+      the row is gathered, theta_L and the row unpacked into views, and
+      the SAME `_round_math.inner` as the pytree path runs on them; so
+      `spec.pack` of the pytree path's result equals the flat reference
+      mode bit for bit on f32 banks under the same keys.
 
-The bank's storage is chosen by `init_state_flat(..., bank_dtype=)`: f32
-rows; bf16 rows (upcast on gather, narrowed on write); or a `QuantBank`
-of int8 / fp8 codes, whose row is decoded on gather (the `decode` kernel)
-and, on a granted write, re-encoded with stochastic rounding after the
-shared error-feedback residual is added (the `absmax` and `encode`
-kernels). The rounding seed is the round key folded with the codec's
-salt (`bank_codec.ref.CODEC_SALT`), so an int8 run draws the same Laplace noise as an f32 run under the same
-keys. A refused round leaves codes, scales and residual bit-exact.
+One round: gather the owner's copy theta_i, form theta_bar = (theta_L +
+theta_i) / 2 (eq. 6), take the privatized gradient at theta_bar, update
+the owner copy (eq. 5) and the central model (eq. 7), write the copy back.
 
-Two drivers share that round (`_round_math_flat`):
+The flat bank's storage is chosen by `init_state_flat(..., bank_dtype=)`:
+f32 rows; bf16 rows (upcast on gather, narrowed on write); or a
+`QuantBank` of int8 / fp8 codes, whose row is decoded on gather (the
+`decode` kernel) and, on a granted write, re-encoded with stochastic
+rounding after the shared error-feedback residual is added (the `absmax`
+and `encode` kernels). The rounding seed is the round key folded with the
+codec's salt (`bank_codec.ref.CODEC_SALT`), so an int8 run draws the same
+Laplace noise as an f32 run under the same keys. A refused round leaves
+codes, scales and residual bit-exact. Pytree banks are dense only.
+
+Two drivers share the round (`_round_compute`, which dispatches on the
+state's representation):
 
   make_train_step   — one host-authorized round per call (the session's
                       mechanism has already decided refusal).
@@ -36,23 +50,26 @@ Two drivers share that round (`_round_math_flat`):
                       Equal bit for bit to the per-round loop under the
                       same per-round keys.
 
-The bank row and the device ledger are updated IN PLACE (the reference's
-jitted drivers donate the state for the same reason: the bank is N copies
-of the model), so a state passed to a driver is consumed by it.
+The bank rows, the noise trees and the device ledger are updated IN PLACE
+(the reference's jitted drivers donate the state for the same reason: the
+bank is N copies of the model), so a state passed to a driver is consumed
+by it. The bank is materialized: every owner's copy is its own memory.
 
 The tree mechanism (`AsyncDPConfig.tree_depth` = d >= 1, DP-FTRL) gives
 every owner a depth-d binary noise tree, `AsyncDPState.tree` (a
-`TreeNoise`: the (N, d, P) f32 node tensor and the (N,) int32 leaf
-counts). Its round replaces step 3: the `tree_delta` kernel advances the
-owner's counter by one leaf IN PLACE on the node tensor (masked by the
-grant) and returns the noise delta, which the round adds in place of a
-fresh draw; the updates (5), (7) and the projection follow as torch ops
-in the op order of the reference. Depth 0 keeps `dp_round`: bit for bit
-the paper mechanism.
+`TreeNoise`: the node values, (N, d, P) f32 on a flat state and a tree of
+(N, d, *leaf.shape) f32 leaves on a pytree state, and the (N,) int32 leaf
+counts). Each response adds the fresh draw minus the retired nodes. On the
+fused flat path the `tree_delta` kernel advances the owner's node row in
+place (masked by the grant) and the updates (5), (7) and the projection
+follow as torch ops in the reference's op order; depth 0 keeps
+`dp_round`, bit for bit the paper mechanism. In the reference mode (flat
+or pytree) the privatizer returns its Laplace draw, which becomes the
+fresh node; the fused pytree privatizer adds its noise in-kernel, so the
+tree with fused_kernel needs the flat engine, as in the reference.
 
-The pytree path, the reference mode (fused_kernel=False), example
-granularity and the fault, staleness, paging and mesh layers wait for
-later slices; so does the tree on those layers.
+Example granularity on the fused flat engine and the fault, staleness,
+paging, grouped and mesh layers wait for later slices.
 """
 from __future__ import annotations
 
@@ -63,13 +80,15 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.federation.config import paper_rates
-from repro_torch.federation.dp_sgd import PrivatizerConfig, _group_batch
+from repro_torch.federation.dp_sgd import PrivatizerConfig, _group_batch, private_grad
 from repro_torch.federation.flatten import ParamFlat, QuantBank, init_flat_bank, pack_params
 from repro_torch.federation.privacy import (DeviceLedger, laplace_scale_theorem1,
                                             make_device_ledger)
 from repro_torch.kernels.bank_codec.ops import decode_row, encode_row
 from repro_torch.kernels.dp_clip_noise.ops import dp_round_flat, fused_sqnorm
 from repro_torch.kernels.tree_noise.ops import tree_delta_
+from repro_torch.kernels.tree_noise.ref import tree_masks_ref
+from repro_torch.tree_util import tree_flatten, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +101,7 @@ class AsyncDPConfig:
     owner_sizes: Sequence[int] = ()    # n_i (records per owner)
     xi: float = 1.0                    # clip norm / Assumption-2 bound
     theta_max: float = 100.0           # Theta projection radius (l_inf)
-    privatizer: PrivatizerConfig = PrivatizerConfig(xi=1.0, fused_kernel=True)
+    privatizer: PrivatizerConfig = PrivatizerConfig(xi=1.0)
     lr_scale: float = 1.0              # 1.0 == paper-faithful
     caps: Optional[Sequence[int]] = None  # per-owner response caps (None = T)
     # DP-FTRL tree noise: None = independent per-round noise; d >= 1 = a
@@ -102,17 +121,21 @@ class AsyncDPConfig:
         return tuple(self.caps)
 
 
-Bank = Union[torch.Tensor, QuantBank]
+# a dense (N, P) matrix or a QuantBank (flat states); a model tree with
+# (N, *leaf.shape) leaves (pytree states)
+Bank = Union[torch.Tensor, QuantBank, Any]
 
 
 class TreeNoise:
     """Every owner's DP-FTRL noise tree, on the device.
 
-    `nodes` (N_owners, depth, P) f32 holds the live node values (always
-    f32, whatever the bank stores); `counts` (N_owners,) int32 the leaves
-    released so far, the binary counter whose bits say which nodes retire
-    at the next leaf. The drivers update both IN PLACE: a row of nodes is
-    depth * P * 4 bytes per owner (2.44 GB at depth 4 and DENSE_124M)."""
+    `nodes` holds the live node values, always f32 whatever the bank
+    stores: one (N_owners, depth, P) tensor beside a flat state, the model
+    tree with (N_owners, depth, *leaf.shape) leaves beside a pytree state.
+    `counts` (N_owners,) int32 counts the leaves released so far, the
+    binary counter whose bits say which nodes retire at the next leaf. The
+    drivers update both IN PLACE: a row of nodes is depth * P * 4 bytes
+    per owner (2.44 GB at depth 4 and DENSE_124M)."""
 
     def __init__(self, nodes: torch.Tensor, counts: torch.Tensor, depth: int):
         self.nodes = nodes
@@ -121,21 +144,27 @@ class TreeNoise:
 
 
 class AsyncDPState(NamedTuple):
-    theta_L: ParamFlat                 # central model, (P,) f32
-    bank: Bank                         # (N_owners, P) f32/bf16 copies, or a QuantBank
+    theta_L: Any                       # central model: a ParamFlat, or the model tree
+    bank: Bank                         # the owner copies (see Bank)
     step: torch.Tensor                 # () int32 granted rounds
     ledger: Optional[DeviceLedger] = None
     tree: Optional[TreeNoise] = None   # the noise trees when cfg.tree_depth is set
 
 
-def init_tree_noise(cfg: AsyncDPConfig, theta_L: ParamFlat) -> Optional[TreeNoise]:
-    """All-zero noise trees beside a flat theta_L, on its device; None when
-    cfg.tree_depth is None."""
+def init_tree_noise(cfg: AsyncDPConfig, theta_L) -> Optional[TreeNoise]:
+    """All-zero noise trees matching theta_L's representation (a ParamFlat
+    or a model tree), on its device; None when cfg.tree_depth is None."""
     if cfg.tree_depth is None:
         return None
-    d, n, dev = cfg.tree_depth, cfg.n_owners, theta_L.buf.device
-    return TreeNoise(torch.zeros((n, d, theta_L.size), dtype=torch.float32, device=dev),
-                     torch.zeros(n, dtype=torch.int32, device=dev), d)
+    d, n = cfg.tree_depth, cfg.n_owners
+    if isinstance(theta_L, ParamFlat):
+        dev = theta_L.buf.device
+        nodes = torch.zeros((n, d, theta_L.size), dtype=torch.float32, device=dev)
+    else:
+        dev = tree_flatten(theta_L)[0][0].device
+        nodes = tree_map(lambda leaf: torch.zeros((n, d) + tuple(leaf.shape),
+                                                  dtype=torch.float32, device=dev), theta_L)
+    return TreeNoise(nodes, torch.zeros(n, dtype=torch.int32, device=dev), d)
 
 
 def _require_tree(cfg: AsyncDPConfig, state: AsyncDPState) -> Optional[TreeNoise]:
@@ -167,6 +196,23 @@ def _check_tree_config(cfg: AsyncDPConfig) -> None:
             raise ValueError(
                 f"depth-{cfg.tree_depth} tree holds {cap_max} leaves but effective caps "
                 f"reach {max(cfg.effective_caps)}; lower cfg.caps or deepen the tree")
+
+
+def init_state(params, cfg: AsyncDPConfig, device=None) -> AsyncDPState:
+    """Pytree state on `device` (CUDA when None): theta_L a copy of the
+    model tree, every bank leaf (N_owners, *leaf.shape) with each owner's
+    row a copy of the leaf (materialized: an in-place row write must not
+    land in a broadcast view), a fresh device ledger (every owner capped
+    at its effective cap) and, under the tree mechanism, all-zero noise
+    trees."""
+    device = resolve_device(device)
+    theta = tree_map(lambda leaf: leaf.detach().to(device=device, copy=True), params)
+    bank = tree_map(lambda leaf: torch.empty((cfg.n_owners,) + tuple(leaf.shape),
+                                             dtype=leaf.dtype, device=device).copy_(leaf),
+                    theta)
+    return AsyncDPState(theta, bank, torch.zeros((), dtype=torch.int32, device=device),
+                        make_device_ledger(cfg.effective_caps, device=device),
+                        init_tree_noise(cfg, theta))
 
 
 def init_state_flat(params, cfg: AsyncDPConfig, device=None, bank_dtype=None) -> AsyncDPState:
@@ -230,6 +276,45 @@ def _gather_row(bank: Bank, owner_idx: torch.Tensor) -> torch.Tensor:
     return bank.index_select(0, owner_idx).reshape(-1).to(torch.float32)
 
 
+def _tree_row_of(tree: TreeNoise, owner_idx: torch.Tensor):
+    """(a copy of the owner's node row: (depth, P) flat or a tree of
+    (depth, *leaf.shape) leaves, its (1,) int32 leaf count)."""
+    row = tree_map(lambda nodes: nodes.index_select(0, owner_idx)[0], tree.nodes)
+    return row, tree.counts.index_select(0, owner_idx)
+
+
+def _tree_write(tree: TreeNoise, new_row, row, owner_idx: torch.Tensor,
+                grant: Optional[torch.Tensor] = None) -> None:
+    """Write an owner's new node row IN PLACE, leaf by leaf; with `grant`
+    (a one-element int32 tensor) 0 the old `row` is written back, so a
+    refused round is a bit-exact no-op on the nodes. The caller bumps the
+    leaf count."""
+    for nodes, new, old in zip(tree_flatten(tree.nodes)[0], tree_flatten(new_row)[0],
+                               tree_flatten(row)[0]):
+        if grant is not None:
+            new = torch.where(grant.reshape(()) != 0, new, old)
+        nodes.index_copy_(0, owner_idx, new.unsqueeze(0))
+
+
+def _retired_sum(row: torch.Tensor, retired: torch.Tensor) -> torch.Tensor:
+    """Sum of the retired levels of a (depth, ...) node row, one level at a
+    time in increasing order (elementwise, so a flat row and the leaves of
+    a pytree row give the same bits)."""
+    total = torch.zeros_like(row[0])
+    for lvl in range(row.shape[0]):
+        total = total + torch.where(retired[lvl], row[lvl], 0.0)
+    return total
+
+
+def _advance_row(row: torch.Tensor, zeta: torch.Tensor, retired: torch.Tensor,
+                 fresh: torch.Tensor) -> torch.Tensor:
+    """The node row after one leaf: the fresh level takes the draw, the
+    retired levels become 0, the rest stay."""
+    shape = (row.shape[0],) + (1,) * (row.dim() - 1)
+    return torch.where(fresh.reshape(shape), zeta.to(torch.float32).unsqueeze(0),
+                       torch.where(retired.reshape(shape), 0.0, row))
+
+
 def _noise_scales(cfg: AsyncDPConfig, device=None) -> torch.Tensor:
     """Theorem-1 scale per owner (for the averaged clipped gradient).
 
@@ -255,9 +340,9 @@ def _flat_clipped_grad_acc(loss_fn, spec, pcfg: PrivatizerConfig,
     G = pcfg.n_microbatches
     B = next(iter(batch.values())).shape[0]
     if pcfg.granularity != "microbatch":
-        raise NotImplementedError(
-            f"granularity {pcfg.granularity!r} waits for a later slice")
-    if B % G:
+        raise NotImplementedError(f"granularity {pcfg.granularity!r} on the fused flat "
+                                  "engine waits for a later slice")
+    if not pcfg.pre_grouped and B % G:
         raise ValueError(f"batch of {B} does not split into {G} microbatches")
     leaf = tb.detach().requires_grad_(True)
     xi = torch.full((), pcfg.xi, dtype=torch.float32, device=tb.device)
@@ -270,7 +355,7 @@ def _flat_clipped_grad_acc(loss_fn, spec, pcfg: PrivatizerConfig,
     def clip_scale(norm):
         return torch.clamp(xi / torch.clamp(norm, min=1e-12), max=1.0)
 
-    xs = _group_batch(batch, G)
+    xs = batch if pcfg.pre_grouped else _group_batch(batch, G)
     acc = torch.zeros_like(tb)
     nclip = torch.zeros((), dtype=torch.float32, device=tb.device)
     mx = torch.zeros((), dtype=torch.float32, device=tb.device)
@@ -284,70 +369,199 @@ def _flat_clipped_grad_acc(loss_fn, spec, pcfg: PrivatizerConfig,
     return acc, gain, {"clip_frac": nclip / G, "max_grad_norm": mx}
 
 
-def _round_math_flat(loss_fn, cfg: AsyncDPConfig, scales: Optional[torch.Tensor],
-                     device=None):
-    """The inertia round on the flat representation, shared VERBATIM by
-    both drivers (which is what makes them equal bit for bit).
+class _RoundConsts:
+    """The per-owner scalars of a round on the device, built once per
+    driver: the noise scales, the owner weights w_i = n_i / n (a true f32
+    division; a python-scalar divisor would be a reciprocal multiply on
+    CUDA) and 2N as a divisor, with the paper's learning rates."""
+
+    def __init__(self, cfg: AsyncDPConfig, scales: Optional[torch.Tensor], device):
+        self.scales = (_noise_scales(cfg, device) if scales is None
+                       else scales.to(device=device, dtype=torch.float32))
+        n_i = torch.tensor(list(cfg.owner_sizes), dtype=torch.float32, device=device)
+        self.w = n_i / torch.full_like(n_i, float(cfg.n_total))
+        self.two_n = torch.full((), 2 * cfg.n_owners, dtype=torch.float32, device=device)
+        self.lr_own, self.lr_L = paper_rates(cfg.n_owners, cfg.horizon, cfg.rho, cfg.sigma,
+                                             cfg.lr_scale)
+
+    def of(self, owner_idx: torch.Tensor):
+        """(noise scale, w_i) of the (1,) int64 owner index, as 0-d tensors."""
+        return (self.scales.index_select(0, owner_idx).reshape(()),
+                self.w.index_select(0, owner_idx).reshape(()))
+
+
+def _round_math(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
+    """The paper's inertia round (eqs. 5-7) on pytree states.
 
     Returns compute(theta_L, bank, batch, owner_idx, key, tree=None,
     grant=None) -> (new_L, new_i, theta_i, metrics), `owner_idx` a (1,)
-    int64 device index and `key` the round's (2,) uint32 key. The per-round
-    scalars (group gain, the owner's noise scale and weight w = n_i/n) stay
-    on the device and reach the kernels as pointers.
+    int64 device index and `key` the round's (2,) uint32 key. The core
+    without the bank gather is `compute.inner(theta_L, theta_i, batch,
+    owner_idx, key, noise_extra=None) -> (new_L, new_i, metrics, zeta)`:
+    the flat engine's reference mode runs that SAME function on views of
+    its buffers, which is what makes flat-versus-pytree bit parity hold.
+    `noise_extra` (the tree mechanism) is the negated sum of the retired
+    nodes, added to the response; inner then also returns the fresh draw
+    zeta, which becomes the new node without a second use of the key.
 
-    With a `tree` (cfg.tree_depth >= 1) the round key feeds only the tree
-    op: `tree_delta` advances the owner's node row in place, unless the
-    one-element int32 `grant` is 0, and the response adds its delta; the
-    epilogue then repeats dp_round's op order as torch ops. The caller
+    With a `tree` (cfg.tree_depth >= 1) compute advances the owner's node
+    row in place, unless the one-element int32 `grant` is 0; the caller
     bumps the leaf count."""
-    _check_tree_config(cfg)
     pcfg = cfg.privatizer
-    if not pcfg.fused_kernel:
-        raise NotImplementedError("the reference mode (fused_kernel=False) waits "
-                                  "for a later slice; pass fused_kernel=True")
-    if pcfg.mechanism != "laplace":
-        raise ValueError("fused_kernel implements the laplace mechanism")
-    device = resolve_device(device)
-    scales = (_noise_scales(cfg, device) if scales is None
-              else scales.to(device=device, dtype=torch.float32))
-    n_i = torch.tensor(list(cfg.owner_sizes), dtype=torch.float32, device=device)
-    # w_i = n_i / n, a true f32 division (a python-scalar divisor would be a
-    # reciprocal multiply on CUDA)
-    w = n_i / torch.full_like(n_i, float(cfg.n_total))
-    N = cfg.n_owners
-    lr_own, lr_L = paper_rates(N, cfg.horizon, cfg.rho, cfg.sigma, cfg.lr_scale)
 
-    def compute(theta_L: ParamFlat, bank: torch.Tensor, batch, owner_idx, key,
+    def project(tree):
+        return tree_map(lambda leaf: torch.clamp(leaf, -cfg.theta_max, cfg.theta_max), tree)
+
+    def inner(theta_L, theta_i, batch, owner_idx, key, noise_extra=None):
+        theta_bar = tree_map(lambda a, b: 0.5 * (a + b), theta_L, theta_i)     # (6)
+        ns, w_i = consts.of(owner_idx)
+        if noise_extra is None:
+            qbar, pm = private_grad(loss_fn, theta_bar, batch, key, cfg=pcfg,
+                                    noise_scale=ns)                              # (3)+(4)
+            zeta = None
+        else:
+            qbar, pm, zeta = private_grad(loss_fn, theta_bar, batch, key, cfg=pcfg,
+                                          noise_scale=ns, return_noise=True)
+            qbar = tree_map(lambda q, e: (q.to(torch.float32) + e).to(q.dtype),
+                            qbar, noise_extra)
+        g_reg = tree_map(lambda leaf: cfg.sigma * leaf.to(torch.float32), theta_bar)
+        new_i = project(tree_map(
+            lambda tb, gg, q: tb - (consts.lr_own * (gg / consts.two_n
+                                                     + w_i * q.to(torch.float32))
+                                    ).to(tb.dtype),
+            theta_bar, g_reg, qbar))                                             # (5)
+        new_L = project(tree_map(lambda tb, gg: tb - (consts.lr_L * gg).to(tb.dtype),
+                                 theta_bar, g_reg))                              # (7)
+        metrics = {"clip_frac": pm["clip_frac"], "max_grad_norm": pm["max_grad_norm"],
+                   "grad_noise_scale": ns}
+        return new_L, new_i, metrics, zeta
+
+    def compute(theta_L, bank, batch, owner_idx, key, tree: Optional[TreeNoise] = None,
+                grant: Optional[torch.Tensor] = None):
+        theta_i = tree_map(lambda leaf: leaf.index_select(0, owner_idx)[0], bank)
+        d = cfg.tree_depth
+        if tree is None or not d:
+            # no tree, or the degenerate depth-0 tree: the independent round
+            new_L, new_i, metrics, _ = inner(theta_L, theta_i, batch, owner_idx, key)
+            return new_L, new_i, theta_i, metrics
+        if pcfg.fused_kernel:
+            raise ValueError(
+                "tree mechanism with fused_kernel needs the flat engine "
+                "(init_state_flat) — the pytree path's fused privatizer "
+                "adds its noise in-kernel and cannot split out the draw")
+        row, count = _tree_row_of(tree, owner_idx)
+        retired, fresh = tree_masks_ref(count, d)                 # (d,) bool
+        extra = tree_map(lambda nd: -_retired_sum(nd, retired), row)
+        new_L, new_i, metrics, zeta = inner(theta_L, theta_i, batch, owner_idx, key,
+                                            noise_extra=extra)
+        new_row = tree_map(lambda nd, z: _advance_row(nd, z, retired, fresh), row, zeta)
+        _tree_write(tree, new_row, row, owner_idx, grant)
+        return new_L, new_i, theta_i, metrics
+
+    compute.inner = inner
+    return compute
+
+
+def _round_math_flat(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts, tree_inner):
+    """The inertia round on the flat representation.
+
+    Returns compute(theta_L, bank, batch, owner_idx, key, tree=None,
+    grant=None) -> (new_L, new_i, theta_i, metrics), as `_round_math`.
+    The per-round scalars (group gain, the owner's noise scale and weight)
+    stay on the device and reach the kernels as pointers.
+
+    fused_kernel=True: the packed gradient, clipped through `sqnorm`, then
+    one `dp_round` pass. With a `tree` (cfg.tree_depth >= 1) the round key
+    feeds only the tree op instead: `tree_delta` advances the owner's node
+    row in place, unless `grant` is 0, the response adds its delta, and the
+    epilogue repeats dp_round's op order as torch ops.
+
+    fused_kernel=False, the REFERENCE mode: the row is gathered (decoded on
+    a quantized bank), theta_L and the row are unpacked into views, and
+    `tree_inner` (the pytree path's `inner`) runs on them; its results are
+    packed back. Under the tree the retired nodes and the fresh draw take
+    the pytree path's elementwise ops on the flat row. So on f32 banks the
+    result is bit for bit `spec.pack` of the pytree path's."""
+    pcfg = cfg.privatizer
+    N = cfg.n_owners
+
+    def compute(theta_L: ParamFlat, bank, batch, owner_idx, key,
                 tree: Optional[TreeNoise] = None, grant: Optional[torch.Tensor] = None):
         spec = theta_L.spec
         theta_i = _gather_row(bank, owner_idx)                       # (P,) f32 copy
+        tree_on = tree is not None and bool(cfg.tree_depth)
+        if not pcfg.fused_kernel:
+            extra = None
+            if tree_on:
+                row, count = _tree_row_of(tree, owner_idx)           # (d, P)
+                retired, fresh = tree_masks_ref(count, cfg.tree_depth)
+                extra = spec.unpack_f32(-_retired_sum(row, retired))
+            new_L_t, new_i_t, metrics, zeta = tree_inner(
+                spec.unpack(theta_L.buf), spec.unpack(theta_i), batch, owner_idx, key,
+                noise_extra=extra)
+            if tree_on:
+                _tree_write(tree, _advance_row(row, spec.pack_f32(zeta), retired, fresh),
+                            row, owner_idx, grant)
+            return (ParamFlat(spec.pack(new_L_t), spec), spec.pack(new_i_t), theta_i,
+                    metrics)
+        if pcfg.mechanism != "laplace":
+            raise ValueError("fused_kernel implements the laplace mechanism")
         tb = 0.5 * (theta_L.buf + theta_i)                           # (6)
-        ns = scales.index_select(0, owner_idx)
-        w_i = w.index_select(0, owner_idx)
+        ns, w_i = consts.of(owner_idx)
         acc, gain, pm = _flat_clipped_grad_acc(loss_fn, spec, pcfg, tb, batch)
-        if tree is not None and cfg.tree_depth:
-            delta = tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns, grant)
+        if tree_on:
+            delta = tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns.reshape(1),
+                                grant)
             q = acc * gain + delta                                   # (4)
             g_reg = cfg.sigma * tb
-            new_i = torch.clamp(tb - lr_own * (g_reg * (1.0 / (2 * N)) + w_i * q),
+            new_i = torch.clamp(tb - consts.lr_own * (g_reg * (1.0 / (2 * N)) + w_i * q),
                                 -cfg.theta_max, cfg.theta_max)       # (5)
-            new_L = torch.clamp(tb - lr_L * g_reg, -cfg.theta_max, cfg.theta_max)  # (7)
+            new_L = torch.clamp(tb - consts.lr_L * g_reg, -cfg.theta_max, cfg.theta_max)  # (7)
         else:
             new_L, new_i = dp_round_flat(                       # (4)+(5)+(7)+Pi
-                tb, acc, key, gain, ns, w_i, sigma=cfg.sigma, lr_own=lr_own, lr_l=lr_L,
-                n_owners=N, theta_max=cfg.theta_max)
+                tb, acc, key, gain, ns.reshape(1), w_i.reshape(1), sigma=cfg.sigma,
+                lr_own=consts.lr_own, lr_l=consts.lr_L, n_owners=N,
+                theta_max=cfg.theta_max)
         metrics = {"clip_frac": pm["clip_frac"], "max_grad_norm": pm["max_grad_norm"],
-                   "grad_noise_scale": ns.reshape(())}
+                   "grad_noise_scale": ns}
         return ParamFlat(new_L, spec), new_i, theta_i, metrics
 
     return compute
 
 
-def _write_bank(bank: torch.Tensor, value: torch.Tensor,
-                owner_idx: torch.Tensor) -> torch.Tensor:
-    """Write one owner row of a dense bank IN PLACE, narrowed to the bank's
-    dtype (owner_idx: (1,) int64 device index)."""
-    return bank.index_copy_(0, owner_idx, value.to(bank.dtype).reshape(1, -1))
+def _round_compute(loss_fn, cfg: AsyncDPConfig, scales: Optional[torch.Tensor],
+                   device=None):
+    """The round shared VERBATIM by both drivers (which is what makes them
+    equal bit for bit), dispatching on the state: a ParamFlat theta_L runs
+    the flat engine, a model tree the pytree path. Checks the tree config
+    when the drivers are built."""
+    _check_tree_config(cfg)
+    consts = _RoundConsts(cfg, scales, resolve_device(device))
+    tree_c = _round_math(loss_fn, cfg, consts)
+    flat_c = _round_math_flat(loss_fn, cfg, consts, tree_c.inner)
+
+    def compute(theta_L, bank, batch, owner_idx, key, tree=None, grant=None):
+        run = flat_c if isinstance(theta_L, ParamFlat) else tree_c
+        return run(theta_L, bank, batch, owner_idx, key, tree=tree, grant=grant)
+
+    return compute
+
+
+def _write_bank(bank, value, owner_idx: torch.Tensor):
+    """Write one owner's copy IN PLACE, narrowed to the bank's dtype: one
+    row of a dense (N, P) bank, or one row of every leaf of a pytree bank
+    (owner_idx: (1,) int64 device index)."""
+    for leaf, v in zip(tree_flatten(bank)[0], tree_flatten(value)[0]):
+        leaf.index_copy_(0, owner_idx, v.to(leaf.dtype).unsqueeze(0))
+    return bank
+
+
+def _select(ok: torch.Tensor, new, old):
+    """torch.where(ok, new, old) over a ParamFlat's buffer or every leaf of
+    a tree."""
+    if isinstance(new, ParamFlat):
+        return new.replace_buf(torch.where(ok, new.buf, old.buf))
+    return tree_map(lambda a, b: torch.where(ok, a, b), new, old)
 
 
 def make_train_step(loss_fn, cfg: AsyncDPConfig,
@@ -358,8 +572,8 @@ def make_train_step(loss_fn, cfg: AsyncDPConfig,
     already granted it, so the update lands unmasked, the device ledger
     passes through untouched and a noise tree takes its leaf. `owner_idx`
     is a one-element int device tensor; the bank row and the tree are
-    written in place."""
-    compute = _round_math_flat(loss_fn, cfg, scales, device)
+    written in place. Flat and pytree states both run."""
+    compute = _round_compute(loss_fn, cfg, scales, device)
     one = torch.ones(1, dtype=torch.int32, device=resolve_device(device))
 
     def step(state: AsyncDPState, batch, owner_idx: torch.Tensor,
@@ -388,10 +602,11 @@ def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
     batch leaf carries a leading (K,) round axis, owner_seq is (K,) int on
     the device, keys is (K, 2) uint32, and metrics are stacked (K,) device
     tensors. A refused round runs the same round math, then keeps theta_L,
-    writes the owner's own row back, leaves its noise tree (nodes and
-    count) as it was and lands in `ledger.refused` for
-    `Federation.reconcile()`; no value is read back to the host."""
-    compute = _round_math_flat(loss_fn, cfg, scales, device)
+    writes the owner's own copy back (every leaf of a pytree bank), leaves
+    its noise tree (nodes and count) as it was and lands in
+    `ledger.refused` for `Federation.reconcile()`; no value is read back
+    to the host."""
+    compute = _round_compute(loss_fn, cfg, scales, device)
 
     def body(state: AsyncDPState, batch, owner_idx: torch.Tensor, key: torch.Tensor):
         led, tree = state.ledger, state.tree
@@ -399,12 +614,12 @@ def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
         oki = ok.to(torch.int32)
         new_L, new_i, theta_i, metrics = compute(state.theta_L, state.bank, batch,
                                                  owner_idx, key, tree=tree, grant=oki)
-        theta_L = new_L.replace_buf(torch.where(ok, new_L.buf, state.theta_L.buf))
+        theta_L = _select(ok, new_L, state.theta_L)
         if isinstance(state.bank, QuantBank):
             # same key as compute() by contract (see make_train_step)
             bank = _quant_write(state.bank, new_i, owner_idx, key, ok=ok)  # dpcheck: ignore[DPC105]
         else:
-            bank = _write_bank(state.bank, torch.where(ok, new_i, theta_i), owner_idx)
+            bank = _write_bank(state.bank, _select(ok, new_i, theta_i), owner_idx)
         if tree is not None:
             tree.counts.scatter_add_(0, owner_idx, oki.reshape(1))
         led.spent.scatter_add_(0, owner_idx, oki.reshape(1))

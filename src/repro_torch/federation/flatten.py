@@ -8,6 +8,7 @@ matrix whose gather/scatter is a row copy:
     spec = flatten_spec(params)         # leaf shapes/offsets in jax's order
     flat = pack_params(params)          # ParamFlat: (P,) f32 + spec, on CUDA
     tree = flat.unpack()                # views of flat.buf
+    noise = spec.unpack_f32(buf)        # f32 views (pack_f32 is its inverse)
     bank = init_flat_bank(flat, N)      # (N, P) f32; bf16, or "int8"/"fp8"
 
 The bank's storage follows `bank_dtype`: f32 (the default), a dense
@@ -18,7 +19,8 @@ Leaf order is jax.tree_util's, not torch's: dicts flatten in SORTED key
 order, NamedTuples (and tuples/lists) in field order, and None fields are
 dropped. A bank row therefore has the same layout in both packages, which
 is what lets a row of one be compared with a row of the other; a different
-order would shuffle the layout without failing anywhere.
+order would shuffle the layout without failing anywhere (the walk lives in
+`repro_torch.tree_util`).
 """
 from __future__ import annotations
 
@@ -29,47 +31,7 @@ from typing import Any, List, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device
-
-_LEAF = "*"
-
-
-def tree_flatten(tree) -> Tuple[List[torch.Tensor], Any]:
-    """(leaves, treedef) in jax.tree_util's order; treedef is hashable."""
-    leaves: List[torch.Tensor] = []
-
-    def rec(x):
-        if x is None:
-            return None
-        if isinstance(x, dict):
-            keys = tuple(sorted(x))
-            return ("dict", keys, tuple(rec(x[k]) for k in keys))
-        if isinstance(x, tuple) and hasattr(x, "_fields"):
-            return ("namedtuple", type(x), tuple(rec(v) for v in x))
-        if isinstance(x, (tuple, list)):
-            return (type(x).__name__, None, tuple(rec(v) for v in x))
-        leaves.append(x)
-        return _LEAF
-
-    return leaves, rec(tree)
-
-
-def tree_unflatten(treedef, leaves) -> Any:
-    it = iter(leaves)
-
-    def rec(node):
-        if node is None:
-            return None
-        if node == _LEAF:
-            return next(it)
-        kind, aux, children = node
-        built = [rec(c) for c in children]
-        if kind == "dict":
-            return dict(zip(aux, built))
-        if kind == "namedtuple":
-            return aux(*built)
-        return tuple(built) if kind == "tuple" else list(built)
-
-    return rec(treedef)
+from repro_torch.tree_util import tree_flatten, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +71,23 @@ class FlatSpec:
         pieces = torch.split(buf, sizes)
         return tree_unflatten(self.treedef,
                               [p.view(s) for p, s in zip(pieces, self.shapes)])
+
+
+    def pack_f32(self, tree) -> torch.Tensor:
+        """Tree with the spec's shapes (any floating dtype) -> (P,) f32
+        buffer (a copy); shapes are checked, dtypes are not."""
+        leaves, treedef = tree_flatten(tree)
+        if treedef != self.treedef:
+            raise ValueError("tree structure does not match the spec")
+        for leaf, shape in zip(leaves, self.shapes):
+            if tuple(leaf.shape) != shape:
+                raise ValueError(f"leaf shape {tuple(leaf.shape)} != spec {shape}")
+        return torch.cat([leaf.reshape(-1).to(torch.float32) for leaf in leaves])
+
+    def unpack_f32(self, buf: torch.Tensor) -> Any:
+        """(P,) f32 buffer -> tree of f32 views of `buf` with the spec's
+        shapes (no per-leaf cast)."""
+        return self.unpack(buf.to(torch.float32))
 
 
 def flatten_spec(tree) -> FlatSpec:

@@ -26,11 +26,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from repro_torch import random
 from repro_torch.device import resolve_device
+from repro_torch.tree_util import tree_flatten, tree_unflatten
 
 
 def laplace_scale_theorem1(xi: float, horizon: int, n_records: int,
@@ -44,6 +46,22 @@ def laplace_scale_theorem1(xi: float, horizon: int, n_records: int,
 def capped_rounds(horizon: int, n_owners: int, slack: float = 2.0) -> int:
     """Response cap R_i of the per-owner-rounds composition."""
     return max(1, math.ceil(slack * horizon / n_owners))
+
+
+def laplace_noise(key: torch.Tensor, shape, scale) -> torch.Tensor:
+    """scale * jax.random.laplace(key, shape) in f32; `scale` a float or a
+    0-d tensor on the key's device."""
+    return scale * random.laplace(key, shape)
+
+
+def laplace_noise_tree(key: torch.Tensor, tree: Any, scale) -> Any:
+    """Laplace(scale) noise shaped like `tree`: one `split(key, n_leaves)`
+    and leaf i draws from key i, leaves in jax's order, each cast to its
+    leaf's dtype."""
+    leaves, treedef = tree_flatten(tree)
+    keys = random.split(key, len(leaves))
+    return tree_unflatten(treedef, [laplace_noise(k, leaf.shape, scale).to(leaf.dtype)
+                                    for k, leaf in zip(keys, leaves)])
 
 
 class DeviceLedger:

@@ -1,21 +1,30 @@
-"""Federation: the session surface over the deep flat engine.
+"""Federation: the session surface over the deep engine.
 
 Counterpart of the deep-model half of ``repro/federation/session.py``:
 
     fed = Federation(owners, FederationConfig(horizon=1000, sigma=2e-5))
-    fed.make_step(loss_fn, pack_params=True,
-                  privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2,
-                                              fused_kernel=True),
-                  bank_dtype=None)      # or torch.bfloat16, "int8", "fp8"
-    state = fed.init_state(params)
+    fed.make_step(loss_fn, privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2))
+    state = fed.init_state(params)         # a pytree state (the default)
     state, metrics = fed.step(state, batch, owner_idx, key)      # one round
     state, metrics = fed.run_rounds(state, batches, owner_seq, key)  # K rounds
     fed.reconcile(state)                   # fold the device ledger -> host
     fed.ledger()                           # per-owner spend + refusals
 
+    # the flat engine: the model packed into one (P,) buffer, the bank one
+    # (N, P) matrix, and with fused_kernel=True one dp_round pass per round
+    fed.make_step(loss_fn, pack_params=True,
+                  privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2,
+                                              fused_kernel=True),
+                  bank_dtype=None)      # or torch.bfloat16, "int8", "fp8"
+
     # DP-FTRL tree noise: every owner keeps a depth-4 noise tree on the
     # device, capped at its capacity 2^4 - 1 = 15 responses
     fed = Federation(owners, config, mechanism="tree", tree_depth=4)
+
+As in the reference, `make_step` defaults to the pytree path
+(`pack_params=False`) and to the jnp-equivalent privatizer
+(`PrivatizerConfig(xi=xi)`, fused_kernel=False); the round functions serve
+both state kinds, and `init_state` builds the kind make_step chose.
 
 The session runs on CUDA: with no `device` it takes "cuda" and raises
 where there is none (it never carries on on the CPU); tests pass
@@ -25,8 +34,8 @@ products are full f32 like the reference's einsums.
 The mechanism (noise calibration + PrivacyAccountant) is pluggable;
 budget-exhausted owners are refused at this layer by `step`, and on the
 device by `run_rounds`, whose refusals `reconcile` folds back bit-exactly.
-A state passed to `step` or `run_rounds` is consumed (its bank row,
-device ledger and noise tree are updated in place).
+A state passed to `step` or `run_rounds` is consumed (its bank rows,
+device ledger and noise trees are updated in place).
 """
 from __future__ import annotations
 
@@ -37,10 +46,10 @@ import torch
 from repro_torch import random
 from repro_torch.device import resolve_device
 from repro_torch.federation.config import FederationConfig
-from repro_torch.federation.deep import (AsyncDPConfig, AsyncDPState, init_state_flat,
-                                         make_fused_rounds, make_train_step)
+from repro_torch.federation.deep import (AsyncDPConfig, AsyncDPState, init_state,
+                                         init_state_flat, make_fused_rounds, make_train_step)
 from repro_torch.federation.dp_sgd import PrivatizerConfig
-from repro_torch.federation.flatten import as_bank_codec
+from repro_torch.federation.flatten import ParamFlat, as_bank_codec
 from repro_torch.federation.mechanisms import make_mechanism
 from repro_torch.federation.owners import DataOwner
 from repro_torch.federation.schedules import UniformSchedule, as_owner_seq
@@ -62,6 +71,7 @@ class Federation:
                                         cap_slack=cap_slack, tree_depth=tree_depth)
         self._step_fn = None
         self._fused_fn = None
+        self._pack_params = False
         self._bank_dtype = None
 
     @property
@@ -82,7 +92,7 @@ class Federation:
             epsilons=tuple(o.epsilon for o in self.owners),
             owner_sizes=tuple(o.n for o in self.owners), xi=xi,
             theta_max=cfg.theta_max,
-            privatizer=privatizer or PrivatizerConfig(xi=xi, fused_kernel=True),
+            privatizer=privatizer or PrivatizerConfig(xi=xi),
             lr_scale=cfg.lr_scale,
             caps=None if cap is None else (cap,) * self.n_owners,
             tree_depth=getattr(self.mechanism, "tree_depth", None))
@@ -91,19 +101,20 @@ class Federation:
                   pack_params: bool = False, bank_dtype=None):
         """Build (and keep for .step()/.run_rounds()) the round functions.
 
-        loss_fn(params, batch) -> scalar tensor, params the model tree.
-        The port runs the flat engine with the fused privatizer, so
-        `pack_params=True` and `privatizer.fused_kernel=True` are required;
+        loss_fn(params, batch) -> scalar tensor, params the model tree. The
+        built functions serve BOTH state representations (they dispatch on
+        the state), so `pack_params` only selects what `init_state` builds:
+        False (the default, the reference's) a pytree state, True the flat
+        engine's packed (P,) buffer and (N, P) bank. `privatizer` None is
+        PrivatizerConfig(xi=max owner xi), the jnp-equivalent mechanism;
         the sensitivity is the privatizer's ENFORCED clip norm.
 
-        `bank_dtype` is the owner bank's storage that `init_state` builds:
-        None (f32), torch.bfloat16, or "int8"/"fp8" (or a flatten.BankCodec)
-        for the error-feedback quantized bank, about 4x below f32. The
-        round functions serve every storage; they dispatch on the state."""
-        if not pack_params:
-            raise NotImplementedError("the pytree path waits for a later slice; "
-                                      "pass pack_params=True")
+        `bank_dtype` (flat states only) is the owner bank's storage that
+        `init_state` builds: None (f32), torch.bfloat16, or "int8"/"fp8" (or
+        a flatten.BankCodec) for the error-feedback quantized bank, about 4x
+        below f32."""
         as_bank_codec(bank_dtype)                       # validate early
+        self._pack_params = pack_params
         self._bank_dtype = bank_dtype
         acfg = self.as_async_config(privatizer)
         scales = self.mechanism.scales(clip_norm=acfg.privatizer.xi, device=self.device)
@@ -114,25 +125,38 @@ class Federation:
 
     def _require_step(self):
         if self._step_fn is None:
-            raise RuntimeError("call make_step(loss_fn, pack_params=True) first")
+            raise RuntimeError("call make_step(loss_fn) first")
 
-    def init_state(self, params, pack_params: bool = True, bank_dtype=None) -> AsyncDPState:
-        """The flat training state on the session's device, its device
-        ledger seeded from the live accountant (in-graph authorization then
+    def init_state(self, params, pack_params: Optional[bool] = None,
+                   bank_dtype=None) -> AsyncDPState:
+        """The training state on the session's device, its device ledger
+        seeded from the live accountant (in-graph authorization then
         refuses exactly where the host would) and, under the tree
-        mechanism, all-zero noise trees. `bank_dtype` (None follows
-        make_step) is the bank's storage, as in make_step."""
-        if not pack_params:
-            raise NotImplementedError("the pytree state waits for a later slice")
-        if bank_dtype is None:
-            bank_dtype = self._bank_dtype
-        state = init_state_flat(params, self.as_async_config(), device=self.device,
-                                bank_dtype=bank_dtype)
+        mechanism, all-zero noise trees. `pack_params` None follows
+        make_step (default a pytree state); True builds the flat state.
+        `bank_dtype` (flat states only; None follows make_step) is the
+        bank's storage, as in make_step; given explicitly for a pytree
+        state it raises, as in the reference."""
+        pack = self._pack_params if pack_params is None else pack_params
+        acfg = self.as_async_config()
+        if pack:
+            if bank_dtype is None:
+                bank_dtype = self._bank_dtype
+            state = init_state_flat(params, acfg, device=self.device, bank_dtype=bank_dtype)
+        else:
+            # make_step's bank_dtype does not apply to a pytree state; only
+            # an explicit request here is an error
+            if bank_dtype is not None:
+                raise ValueError("bank_dtype is a flat-engine option; "
+                                 "pass pack_params=True")
+            state = init_state(params, acfg, device=self.device)
         return state._replace(ledger=self.mechanism.device_ledger(self.device))
 
     def params_of(self, state: AsyncDPState):
-        """The central model as a tree (views of theta_L's buffer)."""
-        return state.theta_L.unpack()
+        """The central model as a tree, whichever representation the state
+        carries (a flat buffer is unpacked into views)."""
+        theta = state.theta_L
+        return theta.unpack() if isinstance(theta, ParamFlat) else theta
 
     def _on_device(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}

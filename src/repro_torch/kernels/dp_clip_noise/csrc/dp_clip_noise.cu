@@ -1,4 +1,4 @@
-// Hopper (sm_90a) kernels of the flat async-DP round, bound to Python with
+// Hopper (sm_90a) kernels of the async-DP round, bound to Python with
 // ctypes (plain C entry points; pointers and the stream arrive as void*).
 //
 // dp_round  replaces src/repro/kernels/dp_clip_noise/kernel.py:
@@ -13,6 +13,22 @@
 //           common/laplace.cuh, shared with tree_delta. Bound: bytes, 16 B/element
 //           (read tb and acc, write both outputs); the hash adds ~100 integer
 //           operations per element on top.
+// scale_noise replaces src/repro/kernels/dp_clip_noise/kernel.py:
+//           _scale_noise_kernel / scale_noise_2d. One pass over one contiguous
+//           f32 leaf of a gradient tree: out = g*cs + ns*Laplace(bits), the
+//           clip (or group-mean) scale and the noise add of eq. 4 for the
+//           pytree privatizer. The bits are the leaf key's
+//           repro_torch.random.bits(key, (n,)) words, hashed per element as
+//           in dp_round; the reference's oracle draws the same words at the
+//           unpadded shape (and, in partitionable mode, its padded draw
+//           starts with them). Bound: bytes, 8 B/element (read g, write out).
+//           Design: a grid-stride loop of one float4 per thread per step
+//           where g and out are 16-byte aligned, one element per step on the
+//           tail and on an unaligned view; each step loads g first and then
+//           hashes, so the load is in flight during the ~100 integer
+//           operations of the hash (the order that took tree_delta at r = 0
+//           to 51% of its bound); streaming loads and stores (__ldcs /
+//           __stcs), since a leaf is touched once.
 // sqnorm    replaces src/repro/kernels/dp_clip_noise/kernel.py:
 //           _sqnorm_kernel / sqnorm_2d. Deterministic two-pass sum of g*g:
 //           pass 1 writes one partial per block of a grid that depends only on
@@ -20,13 +36,14 @@
 //           No atomics, so the same input gives the same bits on every run.
 //           Bound: bytes, 4 B/element.
 //
-// Both are the simple first versions: grid-stride loops, one element (or one
-// float4 for sqnorm) per thread per step, no shared-memory staging.
+// All three are simple first versions: grid-stride loops, one element (or one
+// float4 for scale_noise and sqnorm) per thread per step, no shared-memory
+// staging.
 //
-// The per-round scalars (gain, noise scale, owner weight) and the round key
-// are read from device memory, so the caller never syncs with the host. The
-// float arithmetic uses the _rn intrinsics op for op in the order of
-// ref.py, so no multiply-add is contracted into an FMA the plain version
+// The per-round scalars (gain or clip scale, noise scale, owner weight) and
+// the key are read from device memory, so the caller never syncs with the
+// host. The float arithmetic uses the _rn intrinsics op for op in the order
+// of ref.py, so no multiply-add is contracted into an FMA the plain version
 // does not have.
 
 #include <cstdint>
@@ -71,6 +88,42 @@ dp_round_kernel(const float* __restrict__ tb, const float* __restrict__ acc,
     const float new_l = __fsub_rn(t, __fmul_rn(lr_l, g_reg));
     out_i[i] = fminf(fmaxf(new_i, -theta_max), theta_max);
     out_l[i] = fminf(fmaxf(new_l, -theta_max), theta_max);
+  }
+}
+
+__device__ __forceinline__ float scale_noise_one(float g, float cs, float s,
+                                                uint32_t k0, uint32_t k1, int64_t i) {
+  const float lap = from_bits(threefry_bits(k0, k1, static_cast<uint64_t>(i)));
+  return __fadd_rn(__fmul_rn(g, cs), __fmul_rn(s, lap));
+}
+
+__global__ void __launch_bounds__(kThreads)
+scale_noise_kernel(const float* __restrict__ g, const uint32_t* __restrict__ key,
+                   const float* __restrict__ cs_ptr, const float* __restrict__ ns,
+                   float* __restrict__ out, int64_t n, int vec) {
+  const uint32_t k0 = key[0];
+  const uint32_t k1 = key[1];
+  const float cs = *cs_ptr;
+  const float s = *ns;
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  int64_t tail = 0;
+  if (vec) {
+    const int64_t n4 = n >> 2;
+    const float4* g4 = reinterpret_cast<const float4*>(g);
+    float4* out4 = reinterpret_cast<float4*>(out);
+    for (int64_t j = start; j < n4; j += stride) {
+      const float4 v = __ldcs(g4 + j);
+      const int64_t i = j << 2;
+      __stcs(out4 + j, make_float4(scale_noise_one(v.x, cs, s, k0, k1, i),
+                                   scale_noise_one(v.y, cs, s, k0, k1, i + 1),
+                                   scale_noise_one(v.z, cs, s, k0, k1, i + 2),
+                                   scale_noise_one(v.w, cs, s, k0, k1, i + 3)));
+    }
+    tail = n4 << 2;
+  }
+  for (int64_t i = tail + start; i < n; i += stride) {
+    __stcs(out + i, scale_noise_one(__ldcs(g + i), cs, s, k0, k1, i));
   }
 }
 
@@ -144,6 +197,25 @@ int dp_round_launch(const float* tb, const float* acc, const uint32_t* key,
                       static_cast<cudaStream_t>(stream)>>>(
         tb, acc, key, gain, ns, w, out_l, out_i, n, sigma, lr_own, lr_l,
         inv_2n, theta_max);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int scale_noise_launch(const float* g, const uint32_t* key, const float* cs,
+                       const float* ns, float* out, long long n, int device,
+                       void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    const int vec = (reinterpret_cast<uintptr_t>(g) & 15u) == 0 &&
+                    (reinterpret_cast<uintptr_t>(out) & 15u) == 0;
+    const long long per_thread = vec ? 4 : 1;
+    long long blocks = (n / per_thread + kThreads - 1) / kThreads;
+    if (blocks < 1) blocks = 1;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    scale_noise_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(g, key, cs, ns, out,
+                                                              n, vec);
   }
   return static_cast<int>(cudaGetLastError());
 }

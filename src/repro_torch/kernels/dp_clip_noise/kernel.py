@@ -21,7 +21,7 @@ from repro_torch.kernels import _build
 NAME = "dp_clip_noise"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "dp_clip_noise.cu"
 
-launches: Dict[str, int] = {"dp_round": 0, "sqnorm": 0}
+launches: Dict[str, int] = {"dp_round": 0, "scale_noise": 0, "sqnorm": 0}
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -39,6 +39,8 @@ def _library() -> ctypes.CDLL:
     lib.dp_round_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _F, _F,
                                     _F, _F, _F, _I, _P]
     lib.dp_round_launch.restype = _I
+    lib.scale_noise_launch.argtypes = [_P, _P, _P, _P, _P, _I64, _I, _P]
+    lib.scale_noise_launch.restype = _I
     lib.sqnorm_num_partials.argtypes = [_I64]
     lib.sqnorm_num_partials.restype = _I
     lib.sqnorm_launch.argtypes = [_P, _I64, _P, _P, _I, _P]
@@ -73,6 +75,31 @@ def dp_round_cuda(tb: torch.Tensor, acc: torch.Tensor, key: torch.Tensor,
     _build.raise_on(err, "dp_round")
     launches["dp_round"] += 1
     return new_l, new_i
+
+
+def scale_noise_cuda(g: torch.Tensor, key: torch.Tensor, clip_scale: torch.Tensor,
+                     noise_scale: torch.Tensor) -> torch.Tensor:
+    """One launch of g * clip_scale + noise_scale * Laplace(bits) over a
+    contiguous f32 tensor of any shape -> a new tensor of g's shape.
+
+    The bits are random.bits(key, (g.numel(),)), hashed in-kernel; `key` is
+    the leaf's (2,) uint32 key, `clip_scale` and `noise_scale` one-element
+    f32 tensors, all on g's device."""
+    dev = g.device
+    if dev.type != "cuda":
+        raise ValueError(f"scale_noise_cuda needs CUDA tensors, got {dev}")
+    n = g.numel()
+    _build.require(g, "g", torch.float32, dev, n)
+    _build.require(key, "key", torch.uint32, dev, 2)
+    _build.require(clip_scale, "clip_scale", torch.float32, dev, 1)
+    _build.require(noise_scale, "noise_scale", torch.float32, dev, 1)
+    out = torch.empty_like(g, memory_format=torch.contiguous_format)
+    err = _library().scale_noise_launch(
+        g.data_ptr(), key.data_ptr(), clip_scale.data_ptr(), noise_scale.data_ptr(),
+        out.data_ptr(), n, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on(err, "scale_noise")
+    launches["scale_noise"] += 1
+    return out
 
 
 def sqnorm_cuda(g: torch.Tensor) -> torch.Tensor:

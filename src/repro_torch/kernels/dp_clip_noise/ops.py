@@ -1,25 +1,33 @@
-"""Entry points of the dp_clip_noise kernels for the flat round engine.
+"""Entry points of the dp_clip_noise kernels: the flat round engine's
+(`dp_round_flat`, `fused_sqnorm`) and the pytree privatizer's
+(`fused_sqnorm_tree`, `fused_scale_noise_tree`, `dp_privatize_tree`).
 
-The counterpart of ``repro/kernels/dp_clip_noise/ops.py`` (its
-``dp_round_flat`` and ``fused_sqnorm_tree``). The backend follows the
-tensor: a CPU tensor runs the plain version from ``ref.py``; a CUDA tensor
-launches the kernel from ``kernel.py``, and a failed build or launch
-raises. There is no fallback from one to the other.
+    noisy = dp_privatize_tree(grads, key, xi, noise_scale)   # clip + noise a tree
 
-The Laplace bits are the round key's ``random.bits(key, (P,))`` stream on
-both backends: the plain version draws them, the kernel hashes each
-element's index in-kernel. Both therefore see the noise the reference's
-off-TPU path draws (``dp_round_flat(..., interpret="oracle")``).
+The counterpart of ``repro/kernels/dp_clip_noise/ops.py``. The backend
+follows the tensor: a CPU tensor runs the plain version from ``ref.py``; a
+CUDA tensor launches the kernel from ``kernel.py``, and a failed build or
+launch raises. There is no fallback from one to the other.
+
+The Laplace bits are the key's ``random.bits(key, shape)`` stream on both
+backends: the plain version draws them, the kernel hashes each element's
+index in-kernel. Both therefore see the noise the reference's off-TPU path
+draws (``interpret="oracle"``). A tree's leaves take the rows of one
+``split(key, n_leaves)``, in jax's leaf order. The reference's Pallas
+layout knobs (``block_rows``, ``interpret``) have no counterpart here: the
+kernels mask their tails instead of padding to (rows, 1024) blocks.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Tuple
 
 import torch
 
 from repro_torch import random
-from repro_torch.kernels.dp_clip_noise.kernel import dp_round_cuda, sqnorm_cuda
-from repro_torch.kernels.dp_clip_noise.ref import dp_round_ref, sqnorm_ref
+from repro_torch.tree_util import tree_flatten, tree_unflatten
+from repro_torch.kernels.dp_clip_noise.kernel import (dp_round_cuda, scale_noise_cuda,
+                                                      sqnorm_cuda)
+from repro_torch.kernels.dp_clip_noise.ref import dp_round_ref, scale_noise_ref, sqnorm_ref
 
 
 def _unsupported(t: torch.Tensor, op: str) -> ValueError:
@@ -54,3 +62,49 @@ def fused_sqnorm(g: torch.Tensor) -> torch.Tensor:
     if g.device.type == "cuda":
         return sqnorm_cuda(g)
     raise _unsupported(g, "fused_sqnorm")
+
+
+def _scalar(v, like: torch.Tensor) -> torch.Tensor:
+    """A one-element f32 tensor on `like`'s device: a float is filled in
+    there (no copy from the host), a tensor reshaped (never read back)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.float32).reshape(1)
+    return torch.full((1,), v, dtype=torch.float32, device=like.device)
+
+
+def scale_noise(g: torch.Tensor, key: torch.Tensor, clip_scale, noise_scale) -> torch.Tensor:
+    """g * clip_scale + noise_scale * Laplace(bits(key, g.shape)) for one
+    f32 leaf, in one pass on CUDA."""
+    if g.device.type == "cpu":
+        return scale_noise_ref(g, random.bits(key, g.shape), _scalar(clip_scale, g).reshape(()),
+                               _scalar(noise_scale, g).reshape(()))
+    if g.device.type == "cuda":
+        return scale_noise_cuda(g, key, _scalar(clip_scale, g), _scalar(noise_scale, g))
+    raise _unsupported(g, "scale_noise")
+
+
+def fused_sqnorm_tree(tree: Any) -> torch.Tensor:
+    """Global squared L2 norm of a tree: one `fused_sqnorm` per leaf,
+    summed in leaf order."""
+    leaves, _ = tree_flatten(tree)
+    return sum(fused_sqnorm(leaf) for leaf in leaves)
+
+
+def fused_scale_noise_tree(tree: Any, key: torch.Tensor, gain, noise_scale) -> Any:
+    """leaf * gain + Laplace(noise_scale) for every leaf, one `scale_noise`
+    pass each; leaf i draws from row i of split(key, n_leaves). `gain` and
+    `noise_scale` may be floats or one-element device tensors (a clip
+    factor, an owner's scale), so nothing syncs with the host."""
+    leaves, treedef = tree_flatten(tree)
+    keys = random.split(key, len(leaves))
+    return tree_unflatten(treedef, [scale_noise(leaf, k, gain, noise_scale)
+                                    for leaf, k in zip(leaves, keys)])
+
+
+def dp_privatize_tree(grads: Any, key: torch.Tensor, xi: float, noise_scale) -> Any:
+    """Clip a gradient tree to global L2 norm xi and add Laplace(noise_scale)
+    noise: the per-leaf `sqnorm` passes, the clip factor min(1, xi /
+    max(norm, 1e-12)) on the device, then `fused_scale_noise_tree`."""
+    norm = torch.sqrt(fused_sqnorm_tree(grads))
+    clip = torch.clamp(torch.full_like(norm, xi) / torch.clamp(norm, min=1e-12), max=1.0)
+    return fused_scale_noise_tree(grads, key, clip, noise_scale)

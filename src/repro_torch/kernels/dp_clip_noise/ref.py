@@ -19,6 +19,14 @@ def laplace_from_bits_ref(bits: torch.Tensor) -> torch.Tensor:
         -2.0 * torch.abs(torch.clamp(v, -0.4999999, 0.4999999)))
 
 
+def scale_noise_ref(g: torch.Tensor, bits: torch.Tensor, clip_scale,
+                    noise_scale) -> torch.Tensor:
+    """g * clip_scale + noise_scale * Laplace(bits) in f32, cast back to
+    g's dtype (the scale-and-noise pass of eq. 4)."""
+    lap = laplace_from_bits_ref(bits)
+    return (g.to(torch.float32) * clip_scale + noise_scale * lap).to(g.dtype)
+
+
 def sqnorm_ref(g: torch.Tensor) -> torch.Tensor:
     gf = g.to(torch.float32)
     return torch.sum(gf * gf)

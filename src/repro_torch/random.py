@@ -10,11 +10,18 @@ the reference's own keys and a whole trajectory can be held against it:
     k1, k2 = split(key)              # rows of a (2, 2) tensor
     u = bits(k1, (5,))               # (5,) uint32 == jax.random.bits
     i = randint(k2, (8,), 0, 4)      # (8,) int32  == jax.random.randint
+    x = laplace(k2, (3, 4))          # (3, 4) f32  ~ jax.random.laplace (1 ulp)
 
 Counter layout (partitionable mode): element ``i`` of ``bits(key, shape)``
 is ``y0 ^ y1`` of ``threefry2x32(key, (i >> 32, i & 0xffffffff))``; row
 ``i`` of ``split(key, n)`` is ``(y0, y1)`` of the same hash; ``fold_in``
 hashes the counter ``(0, data)``.
+
+The float draws (`uniform`, `laplace`, `normal`) are jax's algorithms on
+those bits: 23 random mantissa bits under the exponent of 1.0, minus 1,
+scaled. `uniform` equals jax.random.uniform bit for bit; `laplace` and
+`normal` go through log1p and erfinv, which torch and XLA compute with
+other approximations (tests/test_torch_random.py states the tolerances).
 
 Keys are ``(2,)`` uint32 tensors on any device. torch's uint32 dtype lacks
 most arithmetic, so the hash runs on int64 tensors masked to 32 bits; no
@@ -25,6 +32,7 @@ from __future__ import annotations
 import math
 from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -125,3 +133,41 @@ def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int) -> torch.
     offset = ((hi % span) * multiplier) & _MASK
     offset = ((offset + lo % span) & _MASK) % span
     return (offset + minval).to(torch.int32)
+
+
+_ONE_BITS = 0x3F800000                  # the f32 bit pattern of 1.0
+_F32_EPSNEG = 2.0 ** -24                # jnp.finfo(float32).epsneg
+
+
+def uniform(key: torch.Tensor, shape: Shape = (), minval=0.0, maxval=1.0) -> torch.Tensor:
+    """jax.random.uniform(key, shape, float32, minval, maxval).
+
+    The top 23 bits of each word become the mantissa of a float in [1, 2);
+    minus 1, times (maxval - minval), plus minval, then max(minval, .), all
+    in f32 as jax computes them."""
+    shape = _shape(shape)
+    words = _bits_i64(key, shape)
+    floats = ((words >> 9) | _ONE_BITS).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    # XLA contracts floats * (hi - lo) + lo into one fused multiply-add. A
+    # product of two f32 values is exact in f64, so one f64 multiply-add
+    # rounded to f32 gives the fused result (up to a double rounding at an
+    # exact f32 midpoint)
+    scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, scaled)
+
+
+def laplace(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """jax.random.laplace(key, shape, float32): u uniform on
+    [-1 + epsneg, 1), then sign(u) * log1p(-|u|)."""
+    u = uniform(key, shape, -1.0 + _F32_EPSNEG, 1.0)
+    return torch.sign(u) * torch.log1p(-torch.abs(u))
+
+
+def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """jax.random.normal(key, shape, float32): sqrt(2) * erfinv(u), u
+    uniform on [nextafter(-1, 0), 1)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0)
+    return torch.erfinv(u) * float(np.float32(math.sqrt(2.0)))

@@ -358,14 +358,19 @@ def test_entry_points_without_device_raise_without_cuda(entry):
         calls[entry]()
 
 
-def test_unported_modes_raise():
+def test_unported_modes_raise(toy_case):
+    # the pytree path and the flat reference mode run; example granularity
+    # on the fused flat engine is refused
+    params, data, _ = toy_case
     fed = Federation([DataOwner(n=10, epsilon=1.0, xi=1.0)], FederationConfig(horizon=3),
                      device=CPU)
-    with pytest.raises(NotImplementedError):
-        fed.make_step(_toy_loss_torch)                       # pytree path
-    with pytest.raises(NotImplementedError):
-        fed.make_step(_toy_loss_torch, pack_params=True,
-                      privatizer=PrivatizerConfig(xi=1.0, fused_kernel=False))
+    fed.make_step(_toy_loss_torch, pack_params=True,
+                  privatizer=PrivatizerConfig(xi=1.0, granularity="example",
+                                              fused_kernel=True))
+    state = fed.init_state(_torch_params(params))
+    with pytest.raises(NotImplementedError, match="example"):
+        fed.step(state, {k: torch.from_numpy(v[0]) for k, v in data.items()}, 0,
+                 trandom.PRNGKey(0, device=CPU))
     with pytest.raises(ValueError):
         Federation([DataOwner(n=10, epsilon=1.0, xi=1.0)], FederationConfig(horizon=3),
                    mechanism="strict", device=CPU)
