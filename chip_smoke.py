@@ -6,9 +6,9 @@
 Phases (any mismatch raises and the run exits non-zero):
 
 1. build   — compile every CUDA source of the paths with nvcc (all started
-             at once: dp_clip_noise.cu, bank_codec.cu and tree_noise.cu)
-             into build/repro_torch/, print the seconds and ptxas' register
-             report.
+             at once: dp_clip_noise.cu, bank_codec.cu, tree_noise.cu,
+             flash_attention.cu and ssm_scan.cu) into build/repro_torch/,
+             print the seconds and ptxas' register report.
 2. kernels — hold each kernel, through the wrappers the paths call,
              against its plain PyTorch version on the card at the main
              path's width (P = 152,783,616) and at a ragged P: dp_round
@@ -23,7 +23,18 @@ Phases (any mismatch raises and the run exits non-zero):
              of one input give the same bits; scale_noise through
              fused_scale_noise_tree and dp_privatize_tree on the 12
              DENSE_124M leaves and on one leaf of P = 1,000,003, bit for
-             bit on every leaf.
+             bit on every leaf; flash_attention, causal, at zamba2's shape
+             (B 2, S 4096, H = Kv = 32, hd 80), yi-6b's (B 1, S 4096, H 32,
+             Kv 4, hd 128), the same with window 1024 and a ragged S 1000 at
+             hd 64, each in f32 (within 1e-4) and bf16 (one bf16 step plus
+             1e-4), two launches bit-identical; ssd_chunk_scan at zamba2's
+             shape (B 2, S 4096, H 80, N = P = 64, chunk 256, B and C
+             broadcast over the heads), a ragged S 4000 from a random
+             initial state, and the mLSTM form (per-head k and q, N = P =
+             128): the kernel's four outputs against their plain version,
+             then y and the final state of ops.ssd_chunked against the
+             plain scan, within 1e-4 + 5e-5 of the largest value (the f32
+             prefix sums of the log-decays round differently).
 3. main    — the user's path at full width: DENSE_124M f32, 16 owners x
              10,000 records, eps = 1, batch 4 x seq 128, G = 2 microbatches,
              f32 bank; four run_rounds dispatches of K = 8 timed with the
@@ -59,6 +70,24 @@ Phases (any mismatch raises and the run exits non-zero):
              configuration (fused_kernel=False, the jnp-equivalent draw:
              no kernel launch) on a fresh pytree state, the second's ms
              per round.
+   serve   — zamba2-2.7b at full width (2,343,741,088 parameters, f32,
+             random weights from a seed): prefill of B 2 x S 4096 with
+             attn_backend="pallas", three timed (the first warms up) and
+             one under torch.profiler, with the launch counters set to 0
+             just before and read just after: 9 flash_attention and 54
+             ssd_chunk_scan launches per prefill and none of the seven
+             federation kernels. Prints ms per prefill, prefill tokens/s,
+             device time by kernel group (GEMM, flash, SSD, other), the
+             idle share and peak memory. Then the same prefill with
+             attn_backend="jnp" (blockwise attention; 0 flash launches) and
+             a ragged prefill of S 4000 with both backends, their
+             last-position logits within 1e-3 of each other; decode against
+             the forward at full width and 6 layers (one shared-attention
+             application) over S 320 (a chunk of 256 and a ragged one),
+             every position within 5e-3 (the reference test's bound);
+             greedy_decode at full depth, B 2, prompt 16, gen 32: ms per
+             step, 0 kernel launches (decode reaches no kernel, as in the
+             reference) and one profiled step's device kernels.
 4. refusal — a reduced model with schedule-drawn owners, on an f32 and an
              int8 bank, under the paper mechanism (horizon 2) and the tree
              (depth 2, horizon 8, capacity 3), and on pytree states under
@@ -83,7 +112,12 @@ Phases (any mismatch raises and the run exits non-zero):
              events, beside the bound; encode and decode on an int8 row
              for the `kernels` line, and again on an fp8 row, printed;
              tree_delta at depth 4 for r = 0 (the `kernels` row), 1 and 2;
-             scale_noise over the 12 DENSE_124M leaves (12 launches).
+             scale_noise over the 12 DENSE_124M leaves (12 launches);
+             flash_attention at zamba2's prefill shape beside
+             torch's scaled_dot_product_attention (timed only) and
+             ssd_chunk_scan at zamba2's prefill shape (no library call),
+             each beside its bound: operations over 67 TFLOP/s of f32
+             against bytes over 3.35 TB/s, whichever is larger.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -104,8 +138,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 P_FULL = 152_783_616                 # DENSE_124M
 P_RAGGED = 1_000_003
+F32_FLOP_PER_S = 67e12              # H100 SXM data sheet, f32 outside the tensor cores
 ROUND = dict(sigma=1e-2, lr_own=0.3, lr_l=0.2, n_owners=16, theta_max=2.0)
 FMTS = ("int8", "fp8")
+# the federation kernels, which the serve path must not launch, and the two
+# model kernels, which the federation paths must not launch
+FED_KERNELS = ("dp_round", "sqnorm", "scale_noise", "absmax", "encode", "decode", "tree_delta")
+MODEL_KERNELS = ("flash_attention", "ssd_chunk_scan")
+# zamba2-2.7b's prefill in phase serve: batch 2 x 4096 tokens
+PREFILL_B, PREFILL_S = 2, 4096
 
 
 def check(cond, msg):
@@ -129,8 +170,10 @@ def cuda_ms(torch, fn, iters):
 def _kernel_modules():
     from repro_torch.kernels.bank_codec import kernel as bank_codec
     from repro_torch.kernels.dp_clip_noise import kernel as dp_clip_noise
+    from repro_torch.kernels.flash_attention import kernel as flash_attention
+    from repro_torch.kernels.ssm_scan import kernel as ssm_scan
     from repro_torch.kernels.tree_noise import kernel as tree_noise
-    return dp_clip_noise, bank_codec, tree_noise
+    return dp_clip_noise, bank_codec, tree_noise, flash_attention, ssm_scan
 
 
 def _reset_launches():
@@ -195,9 +238,144 @@ def phase_kernels(torch, dev):
     err.update(_check_bank_codec(torch, dev))
     err.update(_check_tree_delta(torch, dev))
     err.update(_check_scale_noise(torch, dev))
+    err.update(_check_flash(torch, dev))
+    err.update(_check_ssd(torch, dev))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return err
+
+
+# (what, B, S, H, Kv, hd, window): zamba2's shared block at prefill, yi-6b's
+# attention with and without a window, and a ragged S
+FLASH_CASES = (("zamba2-2.7b", 2, 4096, 32, 32, 80, None),
+               ("yi-6b", 1, 4096, 32, 4, 128, None),
+               ("yi-6b, window 1024", 1, 4096, 32, 4, 128, 1024),
+               ("ragged", 1, 1000, 8, 2, 64, None))
+
+
+def _bf16_close(torch, out, plain, what):
+    """bf16 outputs against the plain version of the same bf16 inputs: both
+    sides compute in f32 and round to bf16, so they may sit one bf16 step
+    apart (at most 2^-7 of the value) where the f32 values straddle a
+    rounding boundary; plus the f32 bound of 1e-4 for the differences
+    beneath, which matters only for outputs near 0."""
+    torch.testing.assert_close(out.float(), plain.float(), rtol=2 ** -7, atol=1e-4,
+                               msg=lambda m: f"{what} (bf16) differs from its plain version: {m}")
+
+
+def _check_flash(torch, dev):
+    """flash attention through its entry point against its plain version
+    (the whole (S, Skv) score matrix in f32, GQA heads repeated) on the same
+    CUDA tensors, causal, at every FLASH_CASES shape in f32 and bf16. f32
+    within 1e-4: softmax sums of up to 4096 terms in other orders (about
+    1e-5 seen), outputs up to about 4. bf16: `_bf16_close`. Two launches on
+    one input give the same bits."""
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+    err = 0.0
+    before = dict(kernel.launches)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for what, B, S, H, Kv, hd, win in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, device=dev, generator=gen).to(dtype)
+                       for shape in ((B, S, H, hd), (B, S, Kv, hd), (B, S, Kv, hd)))
+            out = ops.flash_attention(q, k, v, causal=True, window=win)
+            again = ops.flash_attention(q, k, v, causal=True, window=win)
+            check(torch.equal(out, again), f"two flash_attention launches differ ({what})")
+            plain = ref.flash_attention_ref(q, k, v, causal=True, window=win)
+            e = float((out.float() - plain.float()).abs().max())
+            if dtype == torch.float32:
+                err = max(err, e)
+                check(e <= 1e-4, f"flash_attention ({what}, f32) differs from its plain "
+                      f"version by {e:.3e}")
+            else:
+                _bf16_close(torch, out, plain, f"flash_attention ({what})")
+            print(f"[kernels] flash_attention {what} (B {B}, S {S}, H {H}, Kv {Kv}, hd {hd}, "
+                  f"window {win}) {str(dtype)[6:]}: max |kernel - plain| {e:.3e}; two launches "
+                  f"give the same bits")
+            del q, k, v, out, again, plain
+            torch.cuda.empty_cache()
+    got = _diff(dict(kernel.launches), before)
+    check(got == {"flash_attention": 2 * 2 * len(FLASH_CASES)}, f"flash_attention launched {got}")
+    return {"flash_attention": err}
+
+
+# (what, B, S, H, N, P, chunk, k and q broadcast over the heads): zamba2's
+# Mamba2 layers at prefill (B and C shared by the 80 heads), a ragged S, and
+# the mLSTM form (per-head keys and queries)
+SSD_CASES = (("zamba2-2.7b", 2, 4096, 80, 64, 64, 256, True),
+             ("zamba2-2.7b, ragged S", 2, 4000, 80, 64, 64, 256, True),
+             ("mLSTM form", 2, 2048, 8, 128, 128, 256, False))
+
+
+def _ssd_inputs(torch, dev, B, S, H, N, P, bcast, gen):
+    """Mamba2-like scan inputs on the card: k and q as stride-0 views over
+    the heads when `bcast`, ld = -softplus(x) and g = sigmoid(x) for
+    normal x (the reference's test distribution)."""
+    v = torch.randn((B, S, H, P), device=dev, generator=gen)
+    if bcast:
+        k, q = (torch.randn((B, S, 1, N), device=dev, generator=gen).expand(B, S, H, N)
+                for _ in range(2))
+    else:
+        k, q = (torch.randn((B, S, H, N), device=dev, generator=gen) for _ in range(2))
+    ld = -torch.nn.functional.softplus(torch.randn((B, S, H), device=dev, generator=gen))
+    g = torch.sigmoid(torch.randn((B, S, H), device=dev, generator=gen))
+    return v, ld, k, q, g
+
+
+def _scan_err(out, plain):
+    """|out - plain| over the largest |plain|: the scan's decays exp(cum_i -
+    cum_j) take differences of f32 prefix sums of up to 256 log-decays (|cum|
+    up to about 200), which the kernel's warp scan and torch.cumsum round
+    differently by up to about 2e-4, a relative error of as much in every
+    decay; so each output is held within 1e-4 + 5e-5 * max |plain|."""
+    e = float((out - plain).abs().max())
+    return e, 1e-4 + 5e-5 * float(plain.abs().max())
+
+
+def _check_ssd(torch, dev):
+    """The SSD scan on the card at every SSD_CASES shape (f32, the path's
+    dtype): the kernel's four outputs (y_intra, h_add, cum, tot) against
+    their plain version, then ops.ssd_chunked (the kernel and the torch
+    recurrence between chunks) against the plain scan, y and the final
+    state, from zero and (ragged case) from a random initial state; two
+    launches give the same bits. Tolerance: `_scan_err`."""
+    from repro_torch.kernels.ssm_scan import kernel, ops, ref
+    err = 0.0
+    before = dict(kernel.launches)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n = 0
+    for what, B, S, H, N, P, Q, bcast in SSD_CASES:
+        v, ld, k, q, g = _ssd_inputs(torch, dev, B, S, H, N, P, bcast, gen)
+        h0 = (torch.randn((B, H, N, P), device=dev, generator=gen) if "ragged" in what
+              else None)
+        parts = kernel.ssd_chunk_scan_cuda(v, ld, k, q, g, Q)
+        plain_parts = ref.ssd_chunk_scan_ref(v, ld, k, q, g, Q)
+        worst = []
+        for name, a, b in zip(("y_intra", "h_add", "cum", "tot"), parts, plain_parts):
+            e, tol = _scan_err(a, b)
+            check(e <= tol, f"ssd_chunk_scan {name} ({what}) differs from its plain version by "
+                  f"{e:.3e} (bound {tol:.3e})")
+            worst.append(f"{name} {e:.2e}")
+        y, h = ops.ssd_chunked(v, ld, k, q, g, chunk=Q, h0=h0)
+        y2, h2 = ops.ssd_chunked(v, ld, k, q, g, chunk=Q, h0=h0)
+        n += 3
+        check(torch.equal(y, y2) and torch.equal(h, h2), f"two ssd_chunked calls differ ({what})")
+        py, ph = ref.ssd_chunked(v, ld, k, q, g, chunk=Q, h0=h0)
+        for name, a, b in (("y", y, py), ("h_final", h, ph)):
+            e, tol = _scan_err(a, b)
+            check(e <= tol, f"ssd_chunked {name} ({what}) differs from the plain scan by "
+                  f"{e:.3e} (bound {tol:.3e})")
+            worst.append(f"{name} {e:.2e} (bound {tol:.2e})")
+            err = max(err, e)
+        print(f"[kernels] ssd_chunk_scan {what} (B {B}, S {S}, H {H}, N {N}, P {P}, chunk {Q}, "
+              f"{'B/C broadcast' if bcast else 'per-head k/q'}"
+              f"{', h0' if h0 is not None else ''}): max |kernel - plain| " + ", ".join(worst)
+              + "; two launches give the same bits")
+        del v, ld, k, q, g, parts, plain_parts, y, y2, py, h, h2, ph
+        torch.cuda.empty_cache()
+    got = _diff(dict(kernel.launches), before)
+    check(got == {"ssd_chunk_scan": n}, f"ssd_chunk_scan launched {got}")
+    return {"ssd_chunk_scan": err}
 
 
 def _dense_leaves(torch, dev, seed):
@@ -390,6 +568,10 @@ def _kernel_group(name):
         return "bank codec kernels"
     if "tree_delta" in low:
         return "tree_delta kernel"
+    if "flash_attention" in low:
+        return "flash kernel"
+    if "ssd_chunk" in low:
+        return "SSD kernel"
     if "gemm" in low or "cutlass" in low or "xmma" in low:
         return "GEMM"
     return "other"
@@ -526,13 +708,14 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
     if pack_params:
         per_dispatch = {"sqnorm": K * G, "dp_round": K * (not tree), "scale_noise": 0,
                         "absmax": K * quant, "encode": K * quant, "decode": K * quant,
-                        "tree_delta": K * tree}
+                        "tree_delta": K * tree, "flash_attention": 0, "ssd_chunk_scan": 0}
     else:
         # the pytree privatizer: a clip norm per leaf and group, one
         # scale_noise pass per leaf
         n_leaves = len(_leaves(state.theta_L))
         per_dispatch = {"sqnorm": K * G * n_leaves, "dp_round": 0, "scale_noise": K * n_leaves,
-                        "absmax": 0, "encode": 0, "decode": 0, "tree_delta": 0}
+                        "absmax": 0, "encode": 0, "decode": 0, "tree_delta": 0,
+                        "flash_attention": 0, "ssd_chunk_scan": 0}
     held_out = np.random.default_rng(99).integers(0, cfg.vocab, (batch, seq),
                                                   dtype=np.int32)
     eval_batch = _torch_batches(torch, {"tokens": held_out,
@@ -649,7 +832,8 @@ def phase_quant(torch, dev, cfg=None, n_owners=128, records=10_000, seq=128):
     dt = (time.perf_counter() - t0) * 1e3
     got = _launches()
     check(got == {"sqnorm": K * G, "dp_round": K, "scale_noise": 0, "absmax": K, "encode": K,
-                  "decode": K, "tree_delta": 0}, f"fp8 dispatch launched {got}")
+                  "decode": K, "tree_delta": 0, "flash_attention": 0, "ssd_chunk_scan": 0},
+          f"fp8 dispatch launched {got}")
     check(not bool(ms["refused"].any()) and _state_finite(torch, state), "fp8 dispatch")
     print(f"[quant] fp8: one dispatch of K={K} on a fresh state, {dt:.1f} ms "
           f"({dt / K:.1f} ms/round, the first dispatch of its state), launches {got}, "
@@ -697,6 +881,173 @@ def phase_pytree(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128):
           f"second is kept), launches {got}, peak memory {_peak_gb(torch, dev):.2f} GB")
     del state, fed
     return launches, prof, per_round[1]
+
+
+def _first_layers(tree, n):
+    """The first n layers of a tree of stacked (L, ...) leaves, as views."""
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(None if t is None else t[:n] for t in tree))
+    return tree[:n]
+
+
+# prefill logits of the two attention backends: f32 throughout, and the two
+# paths differ only in summation order (about 1e-6 relative per attention
+# application); 1e-3 on logits of about 1 leaves room for 54 layers to grow
+# that, while a wrong mask or a skipped tile moves them by far more
+PREFILL_TOL = 1e-3
+# decode against the forward, the bound of the reference's own test
+# (tests/test_arch_smoke.py:100)
+DECODE_TOL = 5e-3
+
+
+def phase_serve(torch, dev, cfg=None, batch=PREFILL_B, seq=PREFILL_S, ragged=4000,
+                decode_layers=6, decode_seq=320, serve_batch=2, prompt_len=16, gen=32):
+    """zamba2-2.7b served at full width (f32, random weights from a seed):
+    prefill with the flash kernel (attn_backend "pallas") and the SSD scan
+    kernel, three timed (the first warms up) and one profiled, with the
+    launch counters set to 0 just before and read just after; the same
+    prefill with attn_backend "jnp" and a ragged one, each against the
+    kernel path's logits; decode against the forward on the first
+    `decode_layers` layers; greedy serving at full depth. Returns the
+    launches of the four kernel prefills."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.launch.steps import prefill_logits
+    from repro_torch.models import LM
+    cfg = get_config("zamba2-2.7b") if cfg is None else cfg
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, attn_backend="pallas")
+    params = lm.init(seed=0, device=dev)
+    n_params = sum(leaf.numel() for leaf in _leaves(params))
+    check(n_params == cfg.param_count(), f"{n_params} parameters, expected {cfg.param_count()}")
+    _sync(torch, dev)
+    print(f"[serve] {cfg.name}: {n_params:,} parameters ({n_params * 4 / 1e9:.2f} GB f32), "
+          f"{cfg.n_layers} Mamba2 layers, the shared attention block after every "
+          f"{cfg.attn_every}; random weights from seed 0, drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    n_apps = cfg.n_layers // cfg.attn_every
+    gen_t = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (batch, seq), generator=gen_t, dtype=torch.int32).to(dev)
+    zero = {k: 0 for k in FED_KERNELS + MODEL_KERNELS}
+    per_prefill = dict(zero, flash_attention=n_apps, ssd_chunk_scan=cfg.n_layers)
+
+    def prefill(model, tokens):
+        with torch.no_grad():
+            return prefill_logits(model, params, {"tokens": tokens})
+
+    # the main path: kernel prefills, counted from 0
+    _reset_launches()
+    times = []
+    for _ in range(3):
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        logits = prefill(lm, toks)
+        _sync(torch, dev)
+        times.append((time.perf_counter() - t1) * 1e3)
+    _, busy, groups, kernels = _profiled(torch, dev, lambda: prefill(lm, toks), 1)
+    launches = _launches()
+    check(launches == {k: 4 * n for k, n in per_prefill.items()},
+          f"four prefills launched {launches}, expected 4 x {per_prefill}")
+    check(tuple(logits.shape) == (batch, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          "prefill logits are not finite (B, V)")
+    ms = statistics.median(times[1:])
+    peak = _peak_gb(torch, dev)
+    print(f"[serve] prefill B {batch} x S {seq} (attn_backend 'pallas'): {times[0]:.1f} ms "
+          f"warm-up, then {times[1]:.1f} and {times[2]:.1f} ms; {batch * seq / ms * 1e3:,.0f} "
+          f"prefill tokens/s; per prefill {n_apps} flash_attention and {cfg.n_layers} "
+          f"ssd_chunk_scan launches and none of the federation kernels")
+    print(f"[profile] serve prefill: device busy {busy:.2f} of {ms:.2f} ms: the device idles "
+          f"{1 - busy / ms:.1%}; {kernels:.0f} device kernels; peak memory {peak:.2f} GB; by "
+          f"group " + ", ".join(f"{g} {t:.2f} ms" for g, t in sorted(groups.items())))
+
+    # the same prefill through the blockwise attention (no flash launch)
+    _reset_launches()
+    plain_logits = prefill(LM(cfg, attn_backend="jnp"), toks)
+    got = _launches()
+    check(got == dict(per_prefill, flash_attention=0), f"the 'jnp' prefill launched {got}")
+    e = float((logits - plain_logits).abs().max())
+    check(e <= PREFILL_TOL, f"prefill logits: 'pallas' and 'jnp' differ by {e:.3e}")
+    print(f"[serve] prefill logits, 'pallas' against 'jnp': max difference {e:.3e} (bound "
+          f"{PREFILL_TOL}; max |logit| {float(logits.abs().max()):.3f})")
+    del plain_logits
+
+    # a ragged prefill, both backends
+    short = toks[:, :ragged]
+    _reset_launches()
+    ragged_k = prefill(lm, short)
+    ragged_j = prefill(LM(cfg, attn_backend="jnp"), short)
+    got = _launches()
+    check(got == dict(per_prefill, flash_attention=n_apps, ssd_chunk_scan=2 * cfg.n_layers),
+          f"the ragged prefills launched {got}")
+    e = float((ragged_k - ragged_j).abs().max())
+    check(e <= PREFILL_TOL and bool(torch.isfinite(ragged_k).all()),
+          f"ragged prefill logits: 'pallas' and 'jnp' differ by {e:.3e}")
+    print(f"[serve] ragged prefill S {ragged}: 'pallas' against 'jnp' max difference {e:.3e}")
+    del ragged_k, ragged_j
+
+    # decode against the forward at full width, `decode_layers` deep
+    cut = dataclasses.replace(cfg, n_layers=decode_layers)
+    lm_cut = LM(cut, attn_backend="pallas")
+    p_cut = dict(params, blocks=_first_layers(params["blocks"], decode_layers))
+    dtoks = toks[:, :decode_seq]
+    _reset_launches()
+    with torch.no_grad():
+        full = torch.einsum("bsd,dv->bsv", lm_cut.forward(p_cut, {"tokens": dtoks}),
+                            lm_cut._unembed(p_cut))
+        got = _launches()
+        cache = lm_cut.init_cache(batch, decode_seq, dtype=torch.float32, device=dev)
+        err = 0.0
+        for t in range(decode_seq):
+            lg, cache = lm_cut.decode_step(p_cut, cache, dtoks[:, t:t + 1], t)
+            err = max(err, float((lg[:, 0] - full[:, t]).abs().max()))
+    check(got == dict(zero, flash_attention=decode_layers // cfg.attn_every,
+                      ssd_chunk_scan=decode_layers), f"the {decode_layers}-layer forward "
+          f"launched {got}")
+    check(_launches() == got, "decode launched a kernel")
+    check(err <= DECODE_TOL, f"decode differs from the forward by {err:.3e}")
+    print(f"[serve] decode against the forward, {decode_layers} layers at full width, S "
+          f"{decode_seq} ({-(-decode_seq // cfg.ssm.chunk)} chunks, the last ragged): max "
+          f"|logit difference| {err:.3e} over every position (bound {DECODE_TOL})")
+    del full, cache, p_cut
+
+    # greedy serving at full depth; the decode path reaches no kernel
+    total = prompt_len + gen
+    prompt = torch.randint(0, cfg.vocab, (serve_batch, prompt_len), generator=gen_t,
+                           dtype=torch.int32).to(dev)
+    cache = lm.init_cache(serve_batch, total, dtype=torch.float32, device=dev)
+    _reset_launches()
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        seqs, step_logits = greedy_decode(lm, params, cache, prompt, gen)
+    _sync(torch, dev)
+    dt = time.perf_counter() - t1
+    got = _launches()
+    check(got == zero, f"serving launched {got}")
+    check(tuple(seqs.shape) == (serve_batch, total) and torch.equal(seqs[:, :prompt_len], prompt)
+          and bool(torch.isfinite(step_logits).all()), "greedy decode output")
+    steps = total - 1
+    cache = lm.init_cache(serve_batch, 1, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        _, step_busy, _, step_kernels = _profiled(
+            torch, dev, lambda: lm.decode_step(params, cache, prompt[:, :1], 0), 1, top=3)
+    print(f"[serve] greedy decode B {serve_batch}, prompt {prompt_len}, gen {gen}: {steps} "
+          f"steps in {dt * 1e3:.1f} ms, {dt * 1e3 / steps:.2f} ms per step "
+          f"({serve_batch * steps / dt:.1f} tokens/s); {sum(got.values())} kernel launches (the "
+          f"decode path reaches no kernel, as in the reference); one profiled step: "
+          f"{step_kernels:.0f} "
+          f"device kernels, device busy {step_busy:.2f} ms")
+    del params, cache, seqs, step_logits, logits
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches
 
 
 def _host(t):
@@ -931,6 +1282,8 @@ def phase_timing(torch, dev, launches, errs):
     rows += _time_scale_noise(torch, dev, launches, errs)
     rows += _time_bank_codec(torch, dev, launches, errs)
     rows += _time_tree_delta(torch, dev, launches, errs)
+    rows += _time_flash(torch, dev, launches, errs)
+    rows += _time_ssd(torch, dev, launches, errs)
     for r in rows:
         print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
               f"{r['bound_ms'] / r['ms']:.1%} of it), plain {r['plain_ms']:.4f} ms, "
@@ -1061,6 +1414,86 @@ def _time_tree_delta(torch, dev, launches, errs):
     return rows
 
 
+def _bytes(t):
+    """The bytes a function must move for `t`: each distinct element once
+    (a stride-0 broadcast axis counts once)."""
+    n = t.element_size()
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n
+
+
+def _time_flash(torch, dev, launches, errs):
+    """flash attention at zamba2's prefill shape (B 2, S 4096, H = Kv = 32,
+    hd 80, causal, f32) through its entry point, its plain version, and
+    torch's scaled_dot_product_attention on the same inputs in the (B, H, S,
+    hd) layout it takes (the library yardstick, timed only). Bound: the
+    causal work 4 B H hd S (S + 1) / 2 over the f32 rate (no tensor cores),
+    against q, k, v and o once over the memory rate."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    B, S, H, hd = PREFILL_B, PREFILL_S, 32, 80
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q, k, v = (torch.randn((B, S, H, hd), device=dev, generator=gen) for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flops = 4 * B * H * hd * S * (S + 1) / 2
+    moved = sum(_bytes(x) for x in (q, k, v, q))
+    row = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:103",
+        launches=launches["flash_attention"], max_abs_err=errs["flash_attention"],
+        ms=cuda_ms(torch, lambda: ops.flash_attention(q, k, v), 10),
+        plain_ms=cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v), 3),
+        bound_ms=max(flops / F32_FLOP_PER_S, moved / HBM_BYTES_PER_S) * 1e3,
+        bound_by="operations" if flops / F32_FLOP_PER_S > moved / HBM_BYTES_PER_S else "bytes",
+        library_ms=cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True), 10))
+    print(f"[timing] flash_attention at B {B}, S {S}, H {H}, hd {hd}: {flops / 1e9:.1f} GFLOP "
+          f"and {moved / 1e6:.1f} MB; {flops / row['ms'] / 1e9:.1f} TFLOP/s achieved")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return [row]
+
+
+def _time_ssd(torch, dev, launches, errs):
+    """The SSD chunk kernel at zamba2's prefill shape (B 2, S 4096, H 80,
+    N = P = 64, chunk 256, B and C broadcast over the heads, f32) through
+    its wrapper, beside its plain version (ssd_chunk_scan_ref); the whole
+    entry point (the kernel and the torch recurrence between chunks) and
+    the plain scan are printed. No single PyTorch call computes it. Bound:
+    per chunk of Qv valid rows, Qv (Qv + 1) / 2 (N + P) 2 + Qv N P 2
+    operations with the upper triangle skipped, over the f32 rate, against
+    the inputs (each distinct element once) and the four outputs over the
+    memory rate."""
+    from repro_torch.kernels.ssm_scan import kernel, ops, ref
+    B, S, H, N, P, Q = PREFILL_B, PREFILL_S, 80, 64, 64, 256
+    v, ld, k, q, g = _ssd_inputs(torch, dev, B, S, H, N, P, True,
+                                 torch.Generator(device=dev).manual_seed(15))
+    outs = kernel.ssd_chunk_scan_cuda(v, ld, k, q, g, Q)
+    rows = [min(Q, S - c) for c in range(0, S, Q)]
+    flops = B * H * sum(r * (r + 1) / 2 * (N + P) * 2 + r * N * P * 2 for r in rows)
+    moved = sum(_bytes(x) for x in (v, ld, k, q, g, *outs))
+    row = dict(
+        name="ssd_chunk_scan", route="cuda",
+        source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan/kernel.py:63",
+        launches=launches["ssd_chunk_scan"], max_abs_err=errs["ssd_chunk_scan"],
+        ms=cuda_ms(torch, lambda: kernel.ssd_chunk_scan_cuda(v, ld, k, q, g, Q), 20),
+        plain_ms=cuda_ms(torch, lambda: ref.ssd_chunk_scan_ref(v, ld, k, q, g, Q), 3),
+        bound_ms=max(flops / F32_FLOP_PER_S, moved / HBM_BYTES_PER_S) * 1e3,
+        bound_by="operations" if flops / F32_FLOP_PER_S > moved / HBM_BYTES_PER_S else "bytes",
+        library_ms=None)
+    whole = cuda_ms(torch, lambda: ops.ssd_chunked(v, ld, k, q, g, chunk=Q), 10)
+    whole_plain = cuda_ms(torch, lambda: ref.ssd_chunked(v, ld, k, q, g, chunk=Q), 3)
+    print(f"[timing] ssd_chunk_scan at B {B}, S {S}, H {H}, N {N}, P {P}, chunk {Q}: "
+          f"{flops / 1e9:.2f} GFLOP and {moved / 1e6:.1f} MB; "
+          f"{flops / row['ms'] / 1e9:.2f} TFLOP/s achieved; the whole ops.ssd_chunked "
+          f"(kernel + torch recurrence) {whole:.4f} ms, the plain scan {whole_plain:.4f} ms")
+    del v, ld, k, q, g, outs
+    torch.cuda.empty_cache()
+    return [row]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1112,16 +1545,21 @@ def main():
           f"{py_prof['peak']:.2f} vs {main_prof['peak']:.2f} GB; by group, pytree minus "
           f"main: " + ", ".join(f"{g} {ms:+.3f}" for g, ms in sorted(extra.items()))
           + f"; fused_kernel=False {unfused_ms:.2f} ms/round")
+    serve_launches = phase_serve(torch, dev)
+    check(all(serve_launches[k] > 0 for k in MODEL_KERNELS)
+          and not any(serve_launches[k] for k in FED_KERNELS),
+          "the serve path launched no flash or SSD kernel, or a federation kernel")
     for bank_dtype in (None, "int8"):
         phase_refusal(torch, dev, bank_dtype=bank_dtype)
         phase_refusal(torch, dev, bank_dtype=bank_dtype, tree_depth=2)
     phase_refusal(torch, dev, pack_params=False)
     phase_refusal(torch, dev, pack_params=False, tree_depth=2, fused=False)
     # each kernel's launches on its own path: rows 1-2 from main, 3 from
-    # pytree, 4-6 from quant, 7 from tree
+    # pytree, 4-6 from quant, 7 from tree, 8-9 from serve
     launches = dict(main_launches, tree_delta=tree_launches["tree_delta"],
                     scale_noise=py_launches["scale_noise"],
-                    **{k: quant_launches[k] for k in ("absmax", "encode", "decode")})
+                    **{k: quant_launches[k] for k in ("absmax", "encode", "decode")},
+                    **{k: serve_launches[k] for k in MODEL_KERNELS})
     rows = phase_timing(torch, dev, launches, errs)
     print(f"[env] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,0 +1,15 @@
+"""Yi-6B — llama-architecture dense GQA [arXiv:2403.04652]. A copy of
+``repro/configs/yi_6b.py``."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-6b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=4,
+    d_ff=11008,
+    vocab=64000,
+    source="arXiv:2403.04652",
+)

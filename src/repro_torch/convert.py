@@ -2,6 +2,7 @@
 
     np_params = jax.tree_util.tree_map(np.asarray, jax_params)   # caller side
     params = params_from_numpy(np_params)              # on CUDA; device="cpu" for the CPU
+    cache = cache_from_numpy(jax.tree_util.tree_map(np.asarray, jax_cache))  # decode caches
     bank = quant_bank_from_numpy(np.asarray(qb.codes), np.asarray(qb.scales),
                                  np.asarray(qb.residual), qb.codec.fmt)
     tree = tree_noise_from_numpy(np.asarray(tn.nodes), np.asarray(tn.counts), tn.depth)
@@ -10,8 +11,10 @@
 The input is the reference's parameter tree with every array mapped to
 numpy: nested dicts, lists/tuples and NamedTuples (read through their
 ``_asdict()``, so no jax import is needed here). NamedTuples become the
-port's class of the same name (`AttnParams`, `MLPParams`), None fields stay
-None, and every array becomes a tensor with the same values and shape.
+port's class of the same name (`AttnParams`, `MLPParams`, `Mamba2Params`;
+in a cache also `KVCache` and `Mamba2State`), None fields stay None, and
+every array becomes a tensor with the same values, shape and dtype (a
+bfloat16 array, numpy's ml_dtypes kind, is carried by its bits).
 """
 from __future__ import annotations
 
@@ -24,11 +27,13 @@ from repro_torch.device import resolve_device
 from repro_torch.federation.deep import AsyncDPState, TreeNoise
 from repro_torch.federation.flatten import BankCodec, QuantBank
 from repro_torch.federation.privacy import DeviceLedger
-from repro_torch.models.attention import AttnParams
+from repro_torch.models.attention import AttnParams, KVCache
 from repro_torch.models.mlp import MLPParams
+from repro_torch.models.ssm import Mamba2Params, Mamba2State
 from repro_torch.tree_util import tree_flatten
 
-_NAMEDTUPLES = {cls.__name__: cls for cls in (AttnParams, MLPParams)}
+_PARAMS = {cls.__name__: cls for cls in (AttnParams, MLPParams, Mamba2Params)}
+_CACHES = {cls.__name__: cls for cls in (KVCache, Mamba2State)}
 
 
 def params_from_numpy(tree: Any, device=None) -> Any:
@@ -36,20 +41,36 @@ def params_from_numpy(tree: Any, device=None) -> Any:
     return _convert(tree, resolve_device(device))
 
 
-def _convert(tree: Any, device: torch.device) -> Any:
+def cache_from_numpy(tree: Any, device=None) -> Any:
+    """The port's decode cache on `device` (CUDA when None) from a
+    reference cache (`LM.init_cache`'s dict of `KVCache`s and lists of
+    `Mamba2State`s), so that a decode can go on from the reference's
+    state."""
+    return _convert(tree, resolve_device(device), _CACHES)
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _convert(tree: Any, device: torch.device, classes=None) -> Any:
+    classes = _PARAMS if classes is None else classes
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: _convert(v, device) for k, v in tree.items()}
+        return {k: _convert(v, device, classes) for k, v in tree.items()}
     if hasattr(tree, "_asdict"):
         name = type(tree).__name__
-        if name not in _NAMEDTUPLES:
-            raise TypeError(f"no port counterpart for NamedTuple {name!r}")
-        return _NAMEDTUPLES[name](**{k: _convert(v, device)
-                                     for k, v in tree._asdict().items()})
+        if name not in classes:
+            raise TypeError(f"no port counterpart for NamedTuple {name!r} here")
+        return classes[name](**{k: _convert(v, device, classes)
+                                for k, v in tree._asdict().items()})
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_convert(v, device) for v in tree)
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+        return type(tree)(_convert(v, device, classes) for v in tree)
+    return _tensor(tree, device)
 
 
 def quant_bank_from_numpy(codes: np.ndarray, scales: np.ndarray, residual: np.ndarray,

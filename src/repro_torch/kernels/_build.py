@@ -17,8 +17,8 @@ imported, so the CPU tests import every module without nvcc. `build_all`
 starts one nvcc per source at once and waits for all of them; a failed
 build raises with the compiler's output.
 
-`require` and `raise_on` are the checks every ctypes wrapper makes before
-and after a launch.
+`require`, `rows_aligned` and `raise_on` are the checks ctypes wrappers make
+before and after a launch.
 """
 from __future__ import annotations
 
@@ -116,6 +116,13 @@ def require(t: torch.Tensor, what: str, dtype: torch.dtype, device: torch.device
     if t.numel() != numel or not t.is_contiguous():
         raise ValueError(f"{what} must be a contiguous tensor of {numel} "
                          f"elements, got shape {tuple(t.shape)}")
+
+
+def rows_aligned(t: torch.Tensor) -> bool:
+    """True when every row of a (B, S, heads, F) tensor's last axis starts
+    on a 16-byte boundary (the kernels' vector loads need it)."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all((s * size) % 16 == 0 for s in t.stride()[:3])
 
 
 def raise_on(err: int, kernel: str) -> None:

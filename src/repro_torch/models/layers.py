@@ -5,7 +5,7 @@ Counterpart of ``repro/models/layers.py``; same math, same layouts.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -49,12 +49,15 @@ def truncated_normal(shape: Sequence[int], generator: torch.Generator) -> torch.
 
 
 def dense_init(shape: Sequence[int], generator: torch.Generator,
-               dtype=torch.float32) -> torch.Tensor:
-    """Truncated-normal fan-in init (fan-in = product of all but the last
-    dimension, the reference's rule)."""
-    fan_in = math.prod(shape[:-1]) if len(shape) > 1 else shape[0]
-    return (truncated_normal(shape, generator)
-            / math.sqrt(max(fan_in, 1))).to(dtype)
+               dtype=torch.float32, scale: Optional[float] = None) -> torch.Tensor:
+    """Truncated-normal init with standard deviation `scale`, by default
+    1/sqrt(fan-in) (fan-in = product of all but the last dimension, the
+    reference's rule)."""
+    if scale is None:
+        fan_in = math.prod(shape[:-1]) if len(shape) > 1 else shape[0]
+        return (truncated_normal(shape, generator)
+                / math.sqrt(max(fan_in, 1))).to(dtype)
+    return (scale * truncated_normal(shape, generator)).to(dtype)
 
 
 def embed_init(shape: Sequence[int], generator: torch.Generator,

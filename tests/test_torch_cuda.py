@@ -17,6 +17,17 @@ the CPU BLAS sum in other orders; the tree's nodes are Laplace draws,
 log1pf against log1p); integer results are exact. On an int8 bank the two
 may differ by one quantization step where such a difference flipped a
 stochastic rounding decision.
+
+Flash attention sums in other orders than its plain version: f32 within
+2e-5 (outputs about 1). The SSD scan's decays exp(cum_i - cum_j) take the
+difference of two f32 prefix sums of up to Q = 256 log-decays, which the
+kernel (a warp scan) and torch.cumsum round differently, by up to about
+2e-4 at |cum| near 200 (chip_smoke.py on an H100): every decay carries that
+relative error, so y and the final state are held within 1e-4 plus 5e-5
+of their largest value. bf16 outputs are also allowed one bf16 step
+(relative 2^-7), since both sides round their f32 results to bf16. Two launches give the same bits. The reduced zamba2 on the card
+agrees with the CPU within 1e-4 (two layers of f32 matmuls in other
+orders).
 """
 import pytest
 import torch
@@ -32,6 +43,12 @@ from repro_torch.kernels.bank_codec import ref as bref
 from repro_torch.kernels.dp_clip_noise import kernel as tkernel
 from repro_torch.kernels.dp_clip_noise import ops as tops
 from repro_torch.kernels.dp_clip_noise import ref as tref
+from repro_torch.kernels.flash_attention import kernel as fkernel
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.flash_attention import ref as fref
+from repro_torch.kernels.ssm_scan import kernel as skernel
+from repro_torch.kernels.ssm_scan import ops as sops
+from repro_torch.kernels.ssm_scan import ref as sref
 from repro_torch.kernels.tree_noise import kernel as nkernel
 from repro_torch.kernels.tree_noise import ops as nops
 from repro_torch.kernels.tree_noise import ref as nref
@@ -349,3 +366,130 @@ def test_pack_of_pytree_equals_flat_reference_mode_on_the_card():
     assert torch.equal(flat(p_state.bank, 1), f_state.bank)
     assert torch.equal(flat(p_state.tree.nodes, 2), f_state.tree.nodes)
     assert torch.equal(p_state.tree.counts, f_state.tree.counts)
+
+
+def _close(out, plain, scan=False):
+    """The kernels' tolerances against their plain versions (see above)."""
+    atol = 1e-4 + 5e-5 * float(plain.abs().max()) if scan else 2e-5
+    if out.dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), plain.float(), rtol=2 ** -7, atol=atol)
+    else:
+        torch.testing.assert_close(out, plain, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Kv,hd,win,causal", [
+    (2, 128, 4, 2, 64, None, True), (1, 100, 4, 1, 32, 16, True), (2, 97, 2, 2, 80, None, False),
+    (1, 200, 8, 2, 128, 64, True), (1, 70, 2, 2, 8, None, True), (1, 65, 2, 1, 96, 7, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain_version(B, S, H, Kv, hd, win, causal, dtype):
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(S + hd)
+    q, k, v = (torch.randn(shape, device=dev, generator=gen).to(dtype)
+               for shape in ((B, S, H, hd), (B, S, Kv, hd), (B, S, Kv, hd)))
+    before = fkernel.launches["flash_attention"]
+    out = fops.flash_attention(q, k, v, causal=causal, window=win)
+    again = fops.flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert fkernel.launches["flash_attention"] == before + 2
+    assert out.dtype == dtype and out.shape == q.shape and torch.equal(out, again)
+    _close(out, fref.flash_attention_ref(q, k, v, causal=causal, window=win))
+
+
+@pytest.mark.cuda
+def test_flash_attention_through_strides_and_unaligned_rows():
+    """q, k, v as views of one packed (B, S, 3, H, hd) tensor (strided), and
+    rows that start 4 bytes off a 16-byte boundary (no vector loads)."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    qkv = torch.randn((2, 90, 3, 4, 40), device=dev, generator=gen)
+    q, k, v = qkv.unbind(2)
+    torch.testing.assert_close(fops.flash_attention(q, k, v, window=33),
+                               fref.flash_attention_ref(q, k, v, window=33), rtol=0, atol=2e-5)
+    flat = torch.randn(2 * 50 * 2 * 24 + 1, device=dev, generator=gen)
+    x = flat[1:].view(2, 50, 2, 24)
+    torch.testing.assert_close(fops.flash_attention(x, x, x), fref.flash_attention_ref(x, x, x),
+                               rtol=0, atol=2e-5)
+
+
+def _ssd_inputs(dev, B, S, H, N, P, bcast, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn((B, S, H, P), device=dev, generator=gen).to(dtype)
+    if bcast:       # Mamba2: B and C shared by the heads, as stride-0 views
+        k, q = (torch.randn((B, S, 1, N), device=dev, generator=gen).to(dtype).expand(B, S, H, N)
+                for _ in range(2))
+    else:           # mLSTM: per-head keys and queries
+        k, q = (torch.randn((B, S, H, N), device=dev, generator=gen).to(dtype) for _ in range(2))
+    ld = -torch.nn.functional.softplus(torch.randn((B, S, H), device=dev, generator=gen))
+    g = torch.sigmoid(torch.randn((B, S, H), device=dev, generator=gen))
+    return v, ld, k, q, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,N,P,Q,bcast", [
+    (2, 128, 3, 16, 32, 32, False), (1, 100, 2, 8, 16, 32, True), (2, 300, 4, 64, 64, 256, True),
+    (1, 256, 2, 128, 128, 64, False), (1, 10, 2, 16, 32, 32, True), (1, 130, 2, 24, 40, 100, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunked_matches_plain_version(B, S, H, N, P, Q, bcast, dtype):
+    dev = _device()
+    v, ld, k, q, g = _ssd_inputs(dev, B, S, H, N, P, bcast, dtype, seed=S + N)
+    h0 = torch.randn((B, H, N, P), device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    before = skernel.launches["ssd_chunk_scan"]
+    parts = skernel.ssd_chunk_scan_cuda(v, ld, k, q, g, min(Q, S))
+    for got, want in zip(parts, sref.ssd_chunk_scan_ref(v, ld, k, q, g, min(Q, S))):
+        _close(got, want, scan=True)
+    for init in (None, h0):
+        y, h = sops.ssd_chunked(v, ld, k, q, g, chunk=Q, h0=init)
+        y2, h2 = sops.ssd_chunked(v, ld, k, q, g, chunk=Q, h0=init)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y2) and torch.equal(h, h2)
+        py, ph = sref.ssd_chunked(v, ld, k, q, g, chunk=Q, h0=init)
+        assert y.dtype == dtype and h.dtype == torch.float32
+        _close(y, py, scan=True)
+        _close(h, ph, scan=True)
+    assert skernel.launches["ssd_chunk_scan"] == before + 5
+
+
+@pytest.mark.cuda
+def test_kernel_entry_points_raise_under_autograd():
+    dev = _device()
+    q = torch.randn((1, 16, 2, 8), device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        fops.flash_attention(q, q, q)
+    v, ld, k, qq, g = _ssd_inputs(dev, 1, 16, 2, 8, 8, True, torch.float32, seed=0)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        sops.ssd_chunked(v.requires_grad_(), ld, k, qq, g, chunk=8)
+    with torch.no_grad():
+        fops.flash_attention(q, q, q)
+        sops.ssd_chunked(v, ld, k, qq, g, chunk=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+def test_reduced_zamba2_on_the_card_matches_the_cpu(backend):
+    """The hybrid forward and decode on the card against the CPU, and its
+    launches: one SSD scan per Mamba2 layer, one flash attention per
+    application of the shared block (backend "pallas" only)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import greedy_decode
+    dev = _device()
+    cfg = get_config("zamba2-2.7b").reduced()
+    lm = LM(cfg, attn_backend=backend)
+    params = lm.init(seed=5)
+    cpu_params = lm.init(seed=5, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 80), generator=torch.Generator().manual_seed(5))
+    before = (skernel.launches["ssd_chunk_scan"], fkernel.launches["flash_attention"])
+    with torch.no_grad():
+        x = lm.forward(params, {"tokens": toks.to(dev)})
+    assert (skernel.launches["ssd_chunk_scan"] - before[0],
+            fkernel.launches["flash_attention"] - before[1]) == (2, int(backend == "pallas"))
+    torch.testing.assert_close(x.cpu(), lm.forward(cpu_params, {"tokens": toks}), rtol=0,
+                               atol=1e-4)
+    prompt = toks[:, :4].to(torch.int32)
+    with torch.no_grad():
+        seqs, logits = greedy_decode(lm, params, lm.init_cache(2, 10, dtype=torch.float32),
+                                     prompt.to(dev), 6)
+    cpu_seqs, cpu_logits = greedy_decode(
+        lm, cpu_params, lm.init_cache(2, 10, dtype=torch.float32, device="cpu"), prompt, 6)
+    torch.testing.assert_close(logits.cpu(), cpu_logits, rtol=0, atol=1e-4)
+    assert torch.equal(seqs.cpu(), cpu_seqs)

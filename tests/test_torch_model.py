@@ -1,10 +1,12 @@
 """The port's dense LM against repro.models on the reduced DENSE_124M
-(2 layers, d 256, vocab 512, S 16), weights converted from the reference.
+(2 layers, d 256, vocab 512, S 16), weights converted from the reference,
+and the dense decode path on the reduced yi-6b (2 layers, d 256, MQA).
 
 Tolerances: the loss within 1e-5 (one f32 forward, other summation orders
 in the matmuls and reductions); the packed flat gradient within 1e-4
 relative to its largest element (two autodiff systems over the same
-graph). The building blocks are compared one by one at tighter bounds.
+graph); decode logits within 1e-5 per step (f32, logits about 0.3). The
+building blocks are compared one by one at tighter bounds.
 """
 import jax
 import jax.numpy as jnp
@@ -19,8 +21,10 @@ from repro.models import build_model as jax_build_model
 from repro.models import layers as jlayers
 from repro.models import mlp as jmlp
 from repro.models.model import chunked_lm_loss as jax_chunked_lm_loss
+from repro.configs import get_config as jax_get_config
+from repro_torch.configs import get_config
 from repro_torch.configs.base import DENSE_124M
-from repro_torch.convert import params_from_numpy
+from repro_torch.convert import cache_from_numpy, params_from_numpy
 from repro_torch.federation import flatten as tflatten
 from repro_torch.models import LM
 from repro_torch.models import attention as tattn
@@ -112,8 +116,9 @@ def test_causal_gqa_attention_equals_blockwise_attention():
     ref = np.asarray(jattn.blockwise_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_positions=jnp.asarray(pos),
         kv_positions=jnp.asarray(pos), causal=True))
-    out = tattn.causal_attention(torch.from_numpy(q), torch.from_numpy(k),
-                                 torch.from_numpy(v), torch.from_numpy(pos)).numpy()
+    out = tattn.blockwise_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v), q_positions=torch.from_numpy(pos),
+                                    kv_positions=torch.from_numpy(pos), causal=True).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
 
 
@@ -160,3 +165,65 @@ def test_port_init_is_seeded_and_sized():
     assert sum(x.numel() for x in la) == DENSE_124M.reduced().param_count()
     wq = a["blocks"]["attn"].wq
     assert wq.abs().max() <= 2.0 / (256 * 4) ** 0.5 + 1e-6    # truncated at 2 std
+
+
+@pytest.fixture(scope="module")
+def yi_case():
+    jcfg = jax_get_config("yi-6b").reduced()
+    jlm = jax_build_model(jcfg, remat=False)
+    jparams = jlm.init(jax.random.PRNGKey(1), jnp.float32)
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), device=CPU)
+    return jlm, jparams, params
+
+
+def test_yi_reduced_config_matches_reference(yi_case):
+    _, jparams, _ = yi_case
+    t, j = get_config("yi-6b").reduced(), jax_get_config("yi-6b").reduced()
+    for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab", "head_dim",
+              "sliding_window", "long_context_override"):
+        assert getattr(t, f) == getattr(j, f), f
+    assert t.param_count() == sum(x.size for x in jax.tree_util.tree_leaves(jparams))
+    # the reference's analytic count leaves out the final norm's d_model
+    assert get_config("yi-6b").param_count() == jax_get_config("yi-6b").param_count() + 4096
+
+
+@pytest.mark.parametrize("window", [None, 4])
+def test_dense_decode_matches_reference(yi_case, window):
+    """Decode 10 tokens on a full cache (capacity 10) and on a ring cache
+    (window 4, capacity 4), the second half from the reference's cache
+    carried across with cache_from_numpy: logits within 1e-5 per step."""
+    jlm, jparams, params = yi_case
+    lm = LM(get_config("yi-6b").reduced())
+    Bd, S = 2, 10
+    toks = np.random.default_rng(7).integers(0, 512, size=(Bd, S), dtype=np.int32)
+    jcache = jlm.init_cache(Bd, S, window=window, dtype=jnp.float32)
+    cache = lm.init_cache(Bd, S, window=window, dtype=torch.float32, device=CPU)
+    assert tuple(cache["kv"].k.shape) == jcache["kv"].k.shape
+    assert cache["kv"].k.shape[2] == (4 if window else S)
+    err = 0.0
+    for t in range(S):
+        if t == S // 2:
+            cache = cache_from_numpy(jax.tree_util.tree_map(np.asarray, jcache), device=CPU)
+            assert isinstance(cache["kv"], tattn.KVCache)
+        jl, jcache = jlm.decode_step(jparams, jcache, jnp.asarray(toks[:, t:t + 1]),
+                                     jnp.int32(t), window=window)
+        tl, cache = lm.decode_step(params, cache, torch.from_numpy(toks[:, t:t + 1]), t,
+                                   window=window)
+        err = max(err, float(np.abs(tl.numpy() - np.asarray(jl)).max()))
+    assert err < 1e-5, err
+
+
+@pytest.mark.parametrize("window", [None, 4])
+def test_dense_decode_matches_forward_inside_the_port(yi_case, window):
+    """Inside the port, decode equals the forward with the same window
+    within 5e-3 (the reference's own test's bound)."""
+    _, _, params = yi_case
+    lm = LM(get_config("yi-6b").reduced(), attn_backend="pallas")
+    toks = torch.from_numpy(np.random.default_rng(8).integers(0, 512, size=(2, 12),
+                                                              dtype=np.int32))
+    full = torch.einsum("bsd,dv->bsv", lm.forward(params, {"tokens": toks}, window=window),
+                        lm._unembed(params))
+    cache = lm.init_cache(2, 12, window=window, dtype=torch.float32, device=CPU)
+    for t in range(12):
+        lg, cache = lm.decode_step(params, cache, toks[:, t:t + 1], t, window=window)
+        assert float((lg[:, 0] - full[:, t]).abs().max()) < 5e-3
