@@ -8,7 +8,8 @@ Phases (any mismatch raises and the run exits non-zero):
 1. build   — compile every CUDA source of the paths with nvcc (all started
              at once: dp_clip_noise.cu, bank_codec.cu, tree_noise.cu,
              flash_attention.cu and ssm_scan.cu) into build/repro_torch/,
-             print the seconds and ptxas' register report.
+             print the seconds and, per kernel, ptxas' registers, stack
+             and spills.
 2. kernels — hold each kernel, through the wrappers the paths call,
              against its plain PyTorch version on the card at the main
              path's width (P = 152,783,616) and at a ragged P: dp_round
@@ -27,14 +28,26 @@ Phases (any mismatch raises and the run exits non-zero):
              (B 2, S 4096, H = Kv = 32, hd 80), yi-6b's (B 1, S 4096, H 32,
              Kv 4, hd 128), the same with window 1024 and a ragged S 1000 at
              hd 64, each in f32 (within 1e-4) and bf16 (one bf16 step plus
-             1e-4), two launches bit-identical; ssd_chunk_scan at zamba2's
+             1e-4), two launches bit-identical, and the backend and device
+             kernel that scaled_dot_product_attention runs on zamba2's f32
+             shape (one profiled call); ssd_chunk_scan at zamba2's
              shape (B 2, S 4096, H 80, N = P = 64, chunk 256, B and C
              broadcast over the heads), a ragged S 4000 from a random
              initial state, and the mLSTM form (per-head k and q, N = P =
              128): the kernel's four outputs against their plain version,
              then y and the final state of ops.ssd_chunked against the
              plain scan, within 1e-4 + 5e-5 of the largest value (the f32
-             prefix sums of the log-decays round differently).
+             prefix sums of the log-decays round differently);
+             ssd_chunk_scan_bwd at phase train's microbatch (B 2, S 1024),
+             zamba2's prefill shape, a ragged S 1000 and the mLSTM form:
+             its five outputs against ssd_chunk_scan_bwd_ref, and the
+             gradient of ops.ssd_chunked (both kernels and autograd
+             through the torch recurrence) against autograd through the
+             plain scan, each within the same bound, two launches
+             bit-identical; the hybrid's loss gradient on one microbatch,
+             kernels against the plain scan, both on the card, for the
+             reduced zamba2 and zamba2 at full width cut to 6 layers (S
+             1024), each leaf within 1e-3 of its largest |gradient|.
 3. main    — the user's path at full width: DENSE_124M f32, 16 owners x
              10,000 records, eps = 1, batch 4 x seq 128, G = 2 microbatches,
              f32 bank; four run_rounds dispatches of K = 8 timed with the
@@ -88,6 +101,15 @@ Phases (any mismatch raises and the run exits non-zero):
              greedy_decode at full depth, B 2, prompt 16, gen 32: ms per
              step, 0 kernel launches (decode reaches no kernel, as in the
              reference) and one profiled step's device kernels.
+   train   — training the hybrid on the card: main's flat fused engine
+             (batch 4, G = 2, K = 8, eps = 1, horizon 1000) over
+             zamba2-2.7b at full width cut to its first 12 of 54 Mamba2
+             layers (P = 668,655,424; the one cut, for memory), 4 owners
+             on a 10.7 GB f32 bank, S 1024 (four SSD chunks); phase
+             main's dispatches, profile, steps and reconcile. Launch
+             counts per dispatch must be K*G*12 ssd_chunk_scan and
+             ssd_chunk_scan_bwd, K*G sqnorm, K dp_round and 0
+             flash_attention (one kv chunk: plain attention).
 4. refusal — a reduced model with schedule-drawn owners, on an f32 and an
              int8 bank, under the paper mechanism (horizon 2) and the tree
              (depth 2, horizon 8, capacity 3), and on pytree states under
@@ -114,10 +136,11 @@ Phases (any mismatch raises and the run exits non-zero):
              tree_delta at depth 4 for r = 0 (the `kernels` row), 1 and 2;
              scale_noise over the 12 DENSE_124M leaves (12 launches);
              flash_attention at zamba2's prefill shape beside
-             torch's scaled_dot_product_attention (timed only) and
-             ssd_chunk_scan at zamba2's prefill shape (no library call),
-             each beside its bound: operations over 67 TFLOP/s of f32
-             against bytes over 3.35 TB/s, whichever is larger.
+             torch's scaled_dot_product_attention (timed only), ssd_chunk_scan at
+             zamba2's prefill shape and ssd_chunk_scan_bwd at phase
+             train's microbatch (no library call), each beside its bound:
+             operations over 67 TFLOP/s of f32 against bytes over 3.35
+             TB/s, whichever is larger.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -144,7 +167,10 @@ FMTS = ("int8", "fp8")
 # the federation kernels, which the serve path must not launch, and the two
 # model kernels, which the federation paths must not launch
 FED_KERNELS = ("dp_round", "sqnorm", "scale_noise", "absmax", "encode", "decode", "tree_delta")
-MODEL_KERNELS = ("flash_attention", "ssd_chunk_scan")
+# the kernels of a hybrid forward (serve), and with the scan's backward those
+# of a hybrid training step (train)
+SERVE_KERNELS = ("flash_attention", "ssd_chunk_scan")
+MODEL_KERNELS = SERVE_KERNELS + ("ssd_chunk_scan_bwd",)
 # zamba2-2.7b's prefill in phase serve: batch 2 x 4096 tokens
 PREFILL_B, PREFILL_S = 2, 4096
 
@@ -199,8 +225,23 @@ def phase_build():
     built = _build.build_all({mod.NAME: mod.SOURCE for mod in _kernel_modules()})
     print(f"[build] {time.perf_counter() - t0:.2f} s for {sorted(built) or 'nothing'}")
     for name, (sec, out) in built.items():
-        regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
-        print(f"[build] {name}: nvcc {sec:.2f} s; " + " | ".join(regs))
+        print(f"[build] {name}: nvcc {sec:.2f} s")
+        for kern, regs, spill in _ptxas_report(out):
+            print(f"[build]   {kern}: {regs} registers, {spill}")
+
+
+def _ptxas_report(out):
+    """(kernel, registers, its stack and spill line) for each entry function
+    in ptxas' -v output."""
+    rows, kern, spill = [], "?", ""
+    for ln in out.splitlines():
+        if "Compiling entry function" in ln:
+            kern = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            rows.append((kern, int(ln.split("Used")[1].split()[0]), spill))
+    return rows
 
 
 def phase_kernels(torch, dev):
@@ -240,6 +281,8 @@ def phase_kernels(torch, dev):
     err.update(_check_scale_noise(torch, dev))
     err.update(_check_flash(torch, dev))
     err.update(_check_ssd(torch, dev))
+    err.update(_check_ssd_bwd(torch, dev))
+    _check_hybrid_grad(torch, dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return err
@@ -296,7 +339,31 @@ def _check_flash(torch, dev):
             torch.cuda.empty_cache()
     got = _diff(dict(kernel.launches), before)
     check(got == {"flash_attention": 2 * 2 * len(FLASH_CASES)}, f"flash_attention launched {got}")
+    if dev.type == "cuda":
+        _sdpa_kernels(torch, dev)
     return {"flash_attention": err}
+
+
+def _sdpa_kernels(torch, dev):
+    """Which backend and device kernels torch's scaled_dot_product_attention
+    runs on f32 inputs of zamba2's prefill shape (the library yardstick of
+    the flash row): printed, from one profiled call. Profiled here, in the
+    run's first profiler session: a late session in a long run has come
+    back without device events."""
+    from torch.nn.attention import SDPBackend
+    qt, kt, vt = (torch.randn((PREFILL_B, 32, PREFILL_S, 80), device=dev) for _ in range(3))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa(qt, kt, vt, is_causal=True)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        sdpa(qt, kt, vt, is_causal=True)
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    backend = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, is_causal=True)).name
+    print(f"[kernels] scaled_dot_product_attention on f32 (B {PREFILL_B}, H 32, S {PREFILL_S}, "
+          f"hd 80, causal; TF32 matmul allowed: {torch.backends.cuda.matmul.allow_tf32}): "
+          f"backend {backend}, device kernels {[n[:90] for n in names]}")
 
 
 # (what, B, S, H, N, P, chunk, k and q broadcast over the heads): zamba2's
@@ -374,8 +441,86 @@ def _check_ssd(torch, dev):
         del v, ld, k, q, g, parts, plain_parts, y, y2, py, h, h2, ph
         torch.cuda.empty_cache()
     got = _diff(dict(kernel.launches), before)
-    check(got == {"ssd_chunk_scan": n}, f"ssd_chunk_scan launched {got}")
+    check(got == {"ssd_chunk_scan": n, "ssd_chunk_scan_bwd": 0}, f"ssd_chunk_scan launched {got}")
     return {"ssd_chunk_scan": err}
+
+
+# (what, B, S, H, N, P, chunk, k and q broadcast over the heads): phase
+# train's microbatch (four chunks), zamba2's prefill shape, a ragged S, and
+# the mLSTM form (per-head k and q, N = P = 128)
+SSD_BWD_CASES = (("train microbatch", 2, 1024, 80, 64, 64, 256, True),
+                 ("zamba2-2.7b prefill", 2, 4096, 80, 64, 64, 256, True),
+                 ("ragged S", 2, 1000, 80, 64, 64, 256, True),
+                 ("mLSTM form", 1, 1024, 8, 128, 128, 256, False))
+
+
+def _grad_leaves(torch, k, q, bcast):
+    """Leaves for k and q: their (B, S, 1, N) bases when they broadcast over
+    the heads (so that expand's backward sums dk and dq), else copies."""
+    if bcast:
+        return k[:, :, :1].clone().requires_grad_(), q[:, :, :1].clone().requires_grad_()
+    return k.clone().requires_grad_(), q.clone().requires_grad_()
+
+
+def _check_ssd_bwd(torch, dev):
+    """The backward of the SSD scan on the card at every SSD_BWD_CASES shape
+    (f32, the training path's dtype). The kernel's five outputs (dv, dld, dk,
+    dq, dg) against ssd_chunk_scan_bwd_ref on the same inputs and random
+    cotangents, two launches bit-identical; then the whole gradient of
+    ops.ssd_chunked (the forward kernel, the torch recurrence between
+    chunks and the backward kernel, through SSDChunkScan and autograd) from
+    a random initial state, against autograd through the plain scan. Each
+    within `_scan_err`'s bound: the cotangents of the decays carry the same
+    rounding of the f32 prefix sums as the forward."""
+    from repro_torch.kernels.ssm_scan import kernel, ops, ref
+    err = 0.0
+    before = dict(kernel.launches)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    for what, B, S, H, N, P, Q, bcast in SSD_BWD_CASES:
+        v, ld, k, q, g = _ssd_inputs(torch, dev, B, S, H, N, P, bcast, gen)
+        nc = -(-S // Q)
+        cots = [torch.randn(shape, device=dev, generator=gen)
+                for shape in ((B, S, H, P), (B, nc, H, N, P), (B, S, H), (B, nc, H))]
+        got = kernel.ssd_chunk_scan_bwd_cuda(*cots, v, ld, k, q, g, Q)
+        again = kernel.ssd_chunk_scan_bwd_cuda(*cots, v, ld, k, q, g, Q)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"two ssd_chunk_scan_bwd launches differ ({what})")
+        plain = ref.ssd_chunk_scan_bwd_ref(*cots, v, ld, k, q, g, Q)
+        worst = []
+        for name, a, b in zip(("dv", "dld", "dk", "dq", "dg"), got, plain):
+            e, tol = _scan_err(a, b)
+            check(a.shape == b.shape and e <= tol, f"ssd_chunk_scan_bwd {name} ({what}) differs "
+                  f"from its plain version by {e:.3e} (bound {tol:.3e})")
+            worst.append(f"{name} {e:.2e}")
+            err = max(err, e)
+        del got, again, plain, cots
+        # the scan's gradient through SSDChunkScan against the plain scan's
+        h0 = torch.randn((B, H, N, P), device=dev, generator=gen)
+        ry = torch.randn((B, S, H, P), device=dev, generator=gen)
+        rh = torch.randn((B, H, N, P), device=dev, generator=gen)
+        grads = []
+        for scan in (ops.ssd_chunked, ref.ssd_chunked):
+            leaves = [t.clone().requires_grad_() for t in (v, ld, g, h0)]
+            kl, ql = _grad_leaves(torch, k, q, bcast)
+            kk, qq = (x.expand(B, S, H, N) for x in (kl, ql))
+            y, h = scan(leaves[0], leaves[1], kk, qq, leaves[2], chunk=Q, h0=leaves[3])
+            loss = (y * ry).sum() + (h * rh).sum()
+            grads.append(torch.autograd.grad(loss, leaves + [kl, ql]))
+        for name, a, b in zip(("v", "ld", "g", "h0", "k", "q"), *grads):
+            e, tol = _scan_err(a, b)
+            check(e <= tol, f"the gradient of ssd_chunked wrt {name} ({what}) differs from "
+                  f"the plain scan's by {e:.3e} (bound {tol:.3e})")
+            worst.append(f"grad {name} {e:.2e} (bound {tol:.2e})")
+        print(f"[kernels] ssd_chunk_scan_bwd {what} (B {B}, S {S}, H {H}, N {N}, P {P}, chunk "
+              f"{Q}, {'B/C broadcast' if bcast else 'per-head k/q'}): max |kernel - plain| "
+              + ", ".join(worst) + "; two launches give the same bits")
+        del v, ld, k, q, g, h0, ry, rh, grads
+        torch.cuda.empty_cache()
+    got = _diff(dict(kernel.launches), before)
+    n = len(SSD_BWD_CASES)
+    check(got == {"ssd_chunk_scan": n, "ssd_chunk_scan_bwd": 3 * n},
+          f"the SSD backward checks launched {got}")
+    return {"ssd_chunk_scan_bwd": err}
 
 
 def _dense_leaves(torch, dev, seed):
@@ -705,17 +850,20 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
     state = fed.init_state(lm.init(seed=0, device=dev))
     P = _model_size(state.theta_L)
     check(P == cfg.param_count(), f"P = {P}")
+    # a hybrid model's microbatch runs one SSD scan forward and backward per
+    # Mamba2 layer (its attention, one kv chunk at these lengths, no flash)
+    scans = K * G * cfg.n_layers if cfg.family == "hybrid" else 0
+    model = {"flash_attention": 0, "ssd_chunk_scan": scans, "ssd_chunk_scan_bwd": scans}
     if pack_params:
         per_dispatch = {"sqnorm": K * G, "dp_round": K * (not tree), "scale_noise": 0,
                         "absmax": K * quant, "encode": K * quant, "decode": K * quant,
-                        "tree_delta": K * tree, "flash_attention": 0, "ssd_chunk_scan": 0}
+                        "tree_delta": K * tree, **model}
     else:
         # the pytree privatizer: a clip norm per leaf and group, one
         # scale_noise pass per leaf
         n_leaves = len(_leaves(state.theta_L))
         per_dispatch = {"sqnorm": K * G * n_leaves, "dp_round": 0, "scale_noise": K * n_leaves,
-                        "absmax": 0, "encode": 0, "decode": 0, "tree_delta": 0,
-                        "flash_attention": 0, "ssd_chunk_scan": 0}
+                        "absmax": 0, "encode": 0, "decode": 0, "tree_delta": 0, **model}
     held_out = np.random.default_rng(99).integers(0, cfg.vocab, (batch, seq),
                                                   dtype=np.int32)
     eval_batch = _torch_batches(torch, {"tokens": held_out,
@@ -832,7 +980,8 @@ def phase_quant(torch, dev, cfg=None, n_owners=128, records=10_000, seq=128):
     dt = (time.perf_counter() - t0) * 1e3
     got = _launches()
     check(got == {"sqnorm": K * G, "dp_round": K, "scale_noise": 0, "absmax": K, "encode": K,
-                  "decode": K, "tree_delta": 0, "flash_attention": 0, "ssd_chunk_scan": 0},
+                  "decode": K, "tree_delta": 0, "flash_attention": 0, "ssd_chunk_scan": 0,
+                  "ssd_chunk_scan_bwd": 0},
           f"fp8 dispatch launched {got}")
     check(not bool(ms["refused"].any()) and _state_finite(torch, state), "fp8 dispatch")
     print(f"[quant] fp8: one dispatch of K={K} on a fresh state, {dt:.1f} ms "
@@ -1048,6 +1197,92 @@ def phase_serve(torch, dev, cfg=None, batch=PREFILL_B, seq=PREFILL_S, ragged=400
     if on_card:
         torch.cuda.empty_cache()
     return launches
+
+
+# phase train: zamba2-2.7b at full width cut to the first 12 of its 54
+# Mamba2 layers (two applications of the shared block): P = 668,655,424
+TRAIN_LAYERS = 12
+
+
+def phase_train(torch, dev, cfg=None, n_owners=4, seq=1024, **kw):
+    """Training the hybrid on the card: phase_main's flat fused engine (batch
+    4, G = 2 microbatches, K = 8) over zamba2-2.7b at full width and
+    TRAIN_LAYERS deep, 4 owners on an f32 bank, S 1024 (four SSD chunks, so
+    the backward runs through the recurrence between chunks). Each
+    microbatch runs one ssd_chunk_scan and one ssd_chunk_scan_bwd per layer
+    and no flash_attention (one kv chunk: plain attention). Returns
+    phase_main's result."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    if cfg is None:
+        cfg = dataclasses.replace(get_config("zamba2-2.7b"), n_layers=TRAIN_LAYERS)
+    return phase_main(torch, dev, cfg=cfg, n_owners=n_owners, seq=seq, tag="train", **kw)
+
+
+# one microbatch's loss gradient, scan kernels against the plain scan on
+# the card: f32 in both, the scan's outputs 5e-5 of their largest value
+# apart (`_scan_err`), and that relative difference carried through the
+# layers' backward; each leaf within HYBRID_GRAD_RTOL of its largest |grad|
+HYBRID_GRAD_RTOL = 1e-3
+
+
+def _check_hybrid_grad(torch, dev, cases=None):
+    """The hybrid's loss gradient on one microbatch (B 2), through the SSD
+    kernels (ops.ssd_chunked on the card: forward and backward kernel)
+    against the same gradient with ops.ssd_chunked pointed at the plain scan
+    for the comparison, both on the card, attn_backend "jnp" (the training
+    path). `cases`: (what, config, S); by default the reduced zamba2 at S 80
+    and zamba2 at full width cut to 6 layers (one application of the shared
+    block) at S 1024. Kernel launches: one scan forward and backward per
+    layer on the kernel side, none on the plain side."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import kernel, ops, ref
+    from repro_torch.models import LM
+    from repro_torch.tree_util import tree_flatten, tree_unflatten
+    full = get_config("zamba2-2.7b")
+    if cases is None:
+        cases = (("reduced zamba2", full.reduced(), 80),
+                 ("zamba2 at full width, 6 layers", dataclasses.replace(full, n_layers=6), 1024))
+    worst_all = 0.0
+    for what, cfg, S in cases:
+        lm = LM(cfg, attn_backend="jnp")
+        leaves, treedef = tree_flatten(lm.init(seed=3, device=dev))
+        toks = torch.randint(0, cfg.vocab, (2, S), generator=torch.Generator().manual_seed(S),
+                             dtype=torch.int32)
+        batch = {"tokens": toks.to(dev), "labels": torch.roll(toks, -1, dims=1).to(dev)}
+        grads, counts = [], []
+        for scan in (ops.ssd_chunked, ref.ssd_chunked):
+            live = [x.detach().requires_grad_(True) for x in leaves]
+            before = dict(kernel.launches)
+            kernel_scan, ops.ssd_chunked = ops.ssd_chunked, scan
+            try:
+                loss = lm.loss(tree_unflatten(treedef, live), batch)[0]
+                grads.append(torch.autograd.grad(loss, live))
+            finally:
+                ops.ssd_chunked = kernel_scan
+            _sync(torch, dev)
+            counts.append(_diff(dict(kernel.launches), before))
+        n = cfg.n_layers
+        check(counts == [{"ssd_chunk_scan": n, "ssd_chunk_scan_bwd": n},
+                         {"ssd_chunk_scan": 0, "ssd_chunk_scan_bwd": 0}],
+              f"the hybrid gradients launched {counts}")
+        worst = 0.0
+        for a, b in zip(*grads):
+            scale = float(b.abs().max())
+            e = float((a - b).abs().max())
+            check(bool(torch.isfinite(a).all()) and e <= HYBRID_GRAD_RTOL * scale + 1e-12,
+                  f"{what}: a gradient leaf {tuple(b.shape)} differs by {e:.3e} (largest "
+                  f"|grad| {scale:.3e})")
+            worst = max(worst, e / max(scale, 1e-30))
+        worst_all = max(worst_all, worst)
+        print(f"[kernels] hybrid loss gradient, {what} (P = {sum(x.numel() for x in leaves):,}, "
+              f"B 2, S {S}): kernels against the plain scan on the card, every leaf within "
+              f"{worst:.2e} of its largest |grad| (bound {HYBRID_GRAD_RTOL}); launches "
+              f"{counts[0]}")
+        del leaves, grads, lm
+        torch.cuda.empty_cache()
+    return worst_all
 
 
 def _host(t):
@@ -1284,6 +1519,7 @@ def phase_timing(torch, dev, launches, errs):
     rows += _time_tree_delta(torch, dev, launches, errs)
     rows += _time_flash(torch, dev, launches, errs)
     rows += _time_ssd(torch, dev, launches, errs)
+    rows += _time_ssd_bwd(torch, dev, launches, errs)
     for r in rows:
         print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
               f"{r['bound_ms'] / r['ms']:.1%} of it), plain {r['plain_ms']:.4f} ms, "
@@ -1449,7 +1685,9 @@ def _time_flash(torch, dev, launches, errs):
         bound_by="operations" if flops / F32_FLOP_PER_S > moved / HBM_BYTES_PER_S else "bytes",
         library_ms=cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True), 10))
     print(f"[timing] flash_attention at B {B}, S {S}, H {H}, hd {hd}: {flops / 1e9:.1f} GFLOP "
-          f"and {moved / 1e6:.1f} MB; {flops / row['ms'] / 1e9:.1f} TFLOP/s achieved")
+          f"and {moved / 1e6:.1f} MB; {flops / row['ms'] / 1e9:.1f} TFLOP/s achieved, "
+          f"{row['bound_ms'] / row['ms']:.1%} of the bound; scaled_dot_product_attention "
+          f"{row['library_ms']:.4f} ms ({row['library_ms'] / row['ms']:.3f}x the kernel's time)")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return [row]
@@ -1490,6 +1728,44 @@ def _time_ssd(torch, dev, launches, errs):
           f"{flops / row['ms'] / 1e9:.2f} TFLOP/s achieved; the whole ops.ssd_chunked "
           f"(kernel + torch recurrence) {whole:.4f} ms, the plain scan {whole_plain:.4f} ms")
     del v, ld, k, q, g, outs
+    torch.cuda.empty_cache()
+    return [row]
+
+
+def _time_ssd_bwd(torch, dev, launches, errs):
+    """The SSD backward kernel at phase train's microbatch (B 2, S 1024, H
+    80, N = P = 64, chunk 256, B and C broadcast over the heads, f32)
+    through its wrapper, beside its plain version (ssd_chunk_scan_bwd_ref);
+    no single PyTorch call computes it. Bound: per chunk of Qv valid rows
+    the five triangle products, Qv (Qv + 1) / 2 (3 N + 2 P) 2, and the h_add
+    terms, 2 Qv N P 2, over the f32 rate, against the inputs (each distinct
+    element once), the cotangents and the five outputs over the memory
+    rate."""
+    from repro_torch.kernels.ssm_scan import kernel, ref
+    B, S, H, N, P, Q = 2, 1024, 80, 64, 64, 256
+    gen = torch.Generator(device=dev).manual_seed(17)
+    v, ld, k, q, g = _ssd_inputs(torch, dev, B, S, H, N, P, True, gen)
+    nc = -(-S // Q)
+    cots = [torch.randn(shape, device=dev, generator=gen)
+            for shape in ((B, S, H, P), (B, nc, H, N, P), (B, S, H), (B, nc, H))]
+    outs = kernel.ssd_chunk_scan_bwd_cuda(*cots, v, ld, k, q, g, Q)
+    rows = [min(Q, S - c) for c in range(0, S, Q)]
+    flops = B * H * sum(r * (r + 1) / 2 * (3 * N + 2 * P) * 2 + 2 * r * N * P * 2 for r in rows)
+    moved = sum(_bytes(x) for x in (*cots, v, ld, k, q, g, *outs))
+    row = dict(
+        name="ssd_chunk_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        replaces="none (the port's own backward of src/repro/kernels/ssm_scan/kernel.py:63)",
+        launches=launches["ssd_chunk_scan_bwd"], max_abs_err=errs["ssd_chunk_scan_bwd"],
+        ms=cuda_ms(torch, lambda: kernel.ssd_chunk_scan_bwd_cuda(*cots, v, ld, k, q, g, Q), 20),
+        plain_ms=cuda_ms(torch, lambda: ref.ssd_chunk_scan_bwd_ref(*cots, v, ld, k, q, g, Q), 3),
+        bound_ms=max(flops / F32_FLOP_PER_S, moved / HBM_BYTES_PER_S) * 1e3,
+        bound_by="operations" if flops / F32_FLOP_PER_S > moved / HBM_BYTES_PER_S else "bytes",
+        library_ms=None)
+    print(f"[timing] ssd_chunk_scan_bwd at B {B}, S {S}, H {H}, N {N}, P {P}, chunk {Q}: "
+          f"{flops / 1e9:.2f} GFLOP and {moved / 1e6:.1f} MB; "
+          f"{flops / row['ms'] / 1e9:.2f} TFLOP/s achieved")
+    del v, ld, k, q, g, cots, outs
     torch.cuda.empty_cache()
     return [row]
 
@@ -1546,20 +1822,27 @@ def main():
           f"main: " + ", ".join(f"{g} {ms:+.3f}" for g, ms in sorted(extra.items()))
           + f"; fused_kernel=False {unfused_ms:.2f} ms/round")
     serve_launches = phase_serve(torch, dev)
-    check(all(serve_launches[k] > 0 for k in MODEL_KERNELS)
-          and not any(serve_launches[k] for k in FED_KERNELS),
-          "the serve path launched no flash or SSD kernel, or a federation kernel")
+    check(all(serve_launches[k] > 0 for k in SERVE_KERNELS)
+          and not any(serve_launches[k] for k in FED_KERNELS + ("ssd_chunk_scan_bwd",)),
+          "the serve path launched no flash or SSD kernel, or a federation kernel or a backward")
+    train_launches, _, _, _, _ = phase_train(torch, dev)
+    torch.cuda.empty_cache()
+    check(train_launches["ssd_chunk_scan_bwd"] > 0 and train_launches["dp_round"] > 0
+          and train_launches["flash_attention"] == 0,
+          "the train path launched no SSD backward or dp_round, or a flash_attention")
     for bank_dtype in (None, "int8"):
         phase_refusal(torch, dev, bank_dtype=bank_dtype)
         phase_refusal(torch, dev, bank_dtype=bank_dtype, tree_depth=2)
     phase_refusal(torch, dev, pack_params=False)
     phase_refusal(torch, dev, pack_params=False, tree_depth=2, fused=False)
     # each kernel's launches on its own path: rows 1-2 from main, 3 from
-    # pytree, 4-6 from quant, 7 from tree, 8-9 from serve
+    # pytree, 4-6 from quant, 7 from tree, 8-9 from serve, the SSD
+    # backward from train
     launches = dict(main_launches, tree_delta=tree_launches["tree_delta"],
                     scale_noise=py_launches["scale_noise"],
                     **{k: quant_launches[k] for k in ("absmax", "encode", "decode")},
-                    **{k: serve_launches[k] for k in MODEL_KERNELS})
+                    **{k: serve_launches[k] for k in SERVE_KERNELS},
+                    ssd_chunk_scan_bwd=train_launches["ssd_chunk_scan_bwd"])
     rows = phase_timing(torch, dev, launches, errs)
     print(f"[env] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -33,8 +33,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cuda":
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
             raise NotImplementedError(
-                "flash_attention has no backward on CUDA (nor in the reference); training "
-                "through it waits for the slice that trains the hybrid on the card")
+                "flash_attention has no backward on CUDA (nor in the reference); train "
+                "with attn_backend 'jnp', as the reference does")
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
     raise ValueError(f"flash_attention: tensors on {q.device} are not supported "
                      "(cpu runs the plain version, cuda the kernel)")

@@ -1,12 +1,16 @@
-"""CUDA kernel of the intra-chunk SSD contraction, bound with ctypes.
+"""CUDA kernels of the intra-chunk SSD contraction and of its backward,
+bound with ctypes.
 
-The counterpart of ``repro/kernels/ssm_scan/kernel.py``; the source is
-``csrc/ssm_scan.cu`` (what it replaces, its bound and its design are noted
-there). The wrapper launches on PyTorch's current stream, allocates its
-outputs with ``torch.empty``, never synchronises, and raises when the
-launch is refused. It adds one to `launches["ssd_chunk_scan"]` when it
-launches, and nowhere else, so a caller can show that a run went through
-the kernel.
+`ssd_chunk_scan_cuda` is the counterpart of
+``repro/kernels/ssm_scan/kernel.py``; `ssd_chunk_scan_bwd_cuda` is the
+port's own (the reference has no backward kernel: jax differentiates its
+plain scan). The source of both is ``csrc/ssm_scan.cu`` (what they
+replace, their bounds and their designs are noted there). The wrappers
+launch on PyTorch's current stream, allocate their outputs with
+``torch.empty``, never synchronise, and raise when a launch is refused.
+Each adds one to its own count, `launches["ssd_chunk_scan"]` or
+`launches["ssd_chunk_scan_bwd"]`, when it launches, and nowhere else, so a
+caller can show that a run went through the kernels.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from repro_torch.kernels import _build
 NAME = "ssm_scan"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 
-launches: Dict[str, int] = {"ssd_chunk_scan": 0}
+launches: Dict[str, int] = {"ssd_chunk_scan": 0, "ssd_chunk_scan_bwd": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -40,22 +44,19 @@ def _library() -> ctypes.CDLL:
     # of v, ld, k, q, g; B, S, H, N, P, Q, dtype, vec, device; the stream
     lib.ssd_chunk_scan_launch.argtypes = [_P] * 9 + [_I64] * 15 + [_I] * 9 + [_P]
     lib.ssd_chunk_scan_launch.restype = _I
+    # dy, dh, dcum, dtot, v, ld, k, q, g, dv, dld, dk, dq, dg; the (batch,
+    # sequence, head) strides of v, ld, k, q, g; B, S, H, N, P, Q, dtype,
+    # vec, device; the stream
+    lib.ssd_chunk_scan_bwd_launch.argtypes = [_P] * 14 + [_I64] * 15 + [_I] * 9 + [_P]
+    lib.ssd_chunk_scan_bwd_launch.restype = _I
     return lib
 
 
-def ssd_chunk_scan_cuda(v: torch.Tensor, ld: torch.Tensor, k: torch.Tensor, q: torch.Tensor,
-                        g: torch.Tensor, chunk: int
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One launch over every (batch, head, chunk of `chunk` positions).
-
-    v (B, S, H, P); k and q (B, S, H, N), any strides with the last axis
-    contiguous (a head stride of 0 broadcasts); ld and g (B, S, H) f32. v,
-    k, q are f32 or bf16 alike; N and P multiples of 8 up to 128. Returns
-    (y_intra (B, S, H, P), h_add (B, nc, H, N, P), cum (B, S, H),
-    tot (B, nc, H)), all f32, with nc = ceil(S / chunk)."""
+def _check_inputs(v, ld, k, q, g, chunk, what):
+    """The checks both kernels make on the forward's inputs."""
     dev = v.device
     if dev.type != "cuda" or any(t.device != dev for t in (ld, k, q, g)):
-        raise ValueError("ssd_chunk_scan_cuda needs v, ld, k, q, g on one CUDA device")
+        raise ValueError(f"{what} needs v, ld, k, q, g on one CUDA device")
     if v.dtype not in _DTYPES or k.dtype != v.dtype or q.dtype != v.dtype:
         raise TypeError(f"v, k, q must be f32 or bf16 alike, got {v.dtype}, {k.dtype}, "
                         f"{q.dtype}")
@@ -77,7 +78,21 @@ def ssd_chunk_scan_cuda(v: torch.Tensor, ld: torch.Tensor, k: torch.Tensor, q: t
         raise ValueError("v, k and q must be contiguous in their last axis")
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    nc = -(-S // chunk)
+    return B, S, H, N, P, -(-S // chunk)
+
+
+def ssd_chunk_scan_cuda(v: torch.Tensor, ld: torch.Tensor, k: torch.Tensor, q: torch.Tensor,
+                        g: torch.Tensor, chunk: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch over every (batch, head, chunk of `chunk` positions).
+
+    v (B, S, H, P); k and q (B, S, H, N), any strides with the last axis
+    contiguous (a head stride of 0 broadcasts); ld and g (B, S, H) f32. v,
+    k, q are f32 or bf16 alike; N and P multiples of 8 up to 128. Returns
+    (y_intra (B, S, H, P), h_add (B, nc, H, N, P), cum (B, S, H),
+    tot (B, nc, H)), all f32, with nc = ceil(S / chunk)."""
+    B, S, H, N, P, nc = _check_inputs(v, ld, k, q, g, chunk, "ssd_chunk_scan_cuda")
+    dev = v.device
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
     h_add = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=dev)
     cum = torch.empty((B, S, H), dtype=torch.float32, device=dev)
@@ -93,3 +108,43 @@ def ssd_chunk_scan_cuda(v: torch.Tensor, ld: torch.Tensor, k: torch.Tensor, q: t
     _build.raise_on(err, "ssd_chunk_scan")
     launches["ssd_chunk_scan"] += 1
     return y, h_add, cum, tot
+
+
+def ssd_chunk_scan_bwd_cuda(dy: torch.Tensor, dh: torch.Tensor, dcum: torch.Tensor,
+                            dtot: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
+                            k: torch.Tensor, q: torch.Tensor, g: torch.Tensor, chunk: int
+                            ) -> Tuple[torch.Tensor, ...]:
+    """One launch over every (batch, head, chunk): the backward of
+    `ssd_chunk_scan_cuda` at the same inputs (v, ld, k, q, g, chunk, taken
+    as that function takes them), from the cotangents of its four outputs
+    (dy (B, S, H, P), dh (B, nc, H, N, P), dcum (B, S, H), dtot (B, nc,
+    H), any float dtype and strides: they are made contiguous f32 here).
+    Returns (dv, dld, dk, dq, dg): dv (B, S, H, P) in v's dtype, dk and dq
+    dense (B, S, H, N) in k's dtype (also where k and q broadcast), dld
+    and dg (B, S, H) f32."""
+    B, S, H, N, P, nc = _check_inputs(v, ld, k, q, g, chunk, "ssd_chunk_scan_bwd_cuda")
+    dev = v.device
+    cots = []
+    for t, shape, what in ((dy, (B, S, H, P), "dy"), (dh, (B, nc, H, N, P), "dh"),
+                           (dcum, (B, S, H), "dcum"), (dtot, (B, nc, H), "dtot")):
+        if t.device != dev or tuple(t.shape) != shape:
+            raise ValueError(f"{what} {tuple(t.shape)} on {t.device} does not fit "
+                             f"{shape} on {dev}")
+        cots.append(t.to(torch.float32).contiguous())
+    dv = torch.empty((B, S, H, P), dtype=v.dtype, device=dev)
+    dk = torch.empty((B, S, H, N), dtype=k.dtype, device=dev)
+    dq = torch.empty((B, S, H, N), dtype=q.dtype, device=dev)
+    dld = torch.empty((B, S, H), dtype=torch.float32, device=dev)
+    dg = torch.empty((B, S, H), dtype=torch.float32, device=dev)
+    if dv.numel() == 0:
+        return dv, dld, dk, dq, dg
+    vec = int(all(_build.rows_aligned(t) for t in (v, k, q)))
+    strides = [s for t in (v, ld, k, q, g) for s in t.stride()[:3]]
+    err = _library().ssd_chunk_scan_bwd_launch(
+        *(t.data_ptr() for t in cots), v.data_ptr(), ld.data_ptr(), k.data_ptr(), q.data_ptr(),
+        g.data_ptr(), dv.data_ptr(), dld.data_ptr(), dk.data_ptr(), dq.data_ptr(),
+        dg.data_ptr(), *strides, B, S, H, N, P, chunk, _DTYPES[v.dtype], vec, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on(err, "ssd_chunk_scan_bwd")
+    launches["ssd_chunk_scan_bwd"] += 1
+    return dv, dld, dk, dq, dg

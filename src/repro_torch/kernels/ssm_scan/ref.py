@@ -116,3 +116,72 @@ def ssd_chunk_scan_ref(v: torch.Tensor, ld: torch.Tensor, k: torch.Tensor, q: to
         hs.append(torch.einsum("bshn,bshp->bhnp", kc[:, c] * w[..., None], vf[:, c]))
     y = torch.stack(ys, dim=1).reshape(B, nc * chunk, H, P)[:, :S]
     return y, torch.stack(hs, dim=1), cum.reshape(B, nc * chunk, H)[:, :S], tot
+
+
+def ssd_chunk_scan_bwd_ref(dy: torch.Tensor, dh: torch.Tensor, dcum: torch.Tensor,
+                           dtot: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
+                           k: torch.Tensor, q: torch.Tensor, g: torch.Tensor, chunk: int
+                           ) -> Tuple[torch.Tensor, ...]:
+    """The backward of `ssd_chunk_scan_ref`: the cotangents (dy (B,S,H,P),
+    dh (B,nc,H,N,P), dcum (B,S,H), dtot (B,nc,H)) of its four outputs to
+    those of its inputs, (dv, dld, dk, dq, dg) in the inputs' shapes and
+    dtypes (dk and dq dense, also where k and q broadcast). Per chunk, with
+    u_j = g_j v_j, L_ij = exp(cum_i - cum_j) for j <= i (0 above the
+    diagonal), S_ij = q_i . k_j, w_j = exp(tot - cum_j) and
+    A_ij = L_ij S_ij (dy_i . u_j):
+
+        dq_i = sum_j L_ij (dy_i . u_j) k_j
+        dk_j = sum_i L_ij (dy_i . u_j) q_i + w_j dh u_j
+        du_j = sum_i L_ij S_ij dy_i + w_j dh^T k_j      dv = g du, dg = v . du
+        c_i  = dcum_i + sum_j A_ij - sum_i' A_i'i - w_i k_i^T dh u_i
+               (the last row also gets dtot + sum_j w_j k_j^T dh u_j)
+        dld  = the reverse cumsum of c within the chunk
+
+    A ragged last chunk is zero-padded as in the forward, so its tot is the
+    cum of its last valid row and the padded rows add nothing."""
+    B, S, H, P = v.shape
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+
+    def chunked(a):
+        a = F.pad(a.to(torch.float32), (0, 0) * (a.dim() - 2) + (0, pad))
+        return a.reshape((B, nc, chunk) + tuple(a.shape[2:]))
+
+    vc, gc = chunked(v), chunked(g)
+    uf = vc * gc[..., None]
+    kc, qc, dyc, dcc = chunked(k), chunked(q), chunked(dy), chunked(dcum)
+    cum = torch.cumsum(chunked(ld), dim=2)                         # (B,nc,Q,H)
+    tot = cum[:, :, -1]
+    dh, dtot = dh.to(torch.float32), dtot.to(torch.float32)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=v.device))
+    last = (torch.arange(chunk, device=v.device) == chunk - 1).to(torch.float32)
+    dus, dks, dqs, cs = [], [], [], []
+    for c in range(nc):
+        u, kj, qj, dyj, cumj = uf[:, c], kc[:, c], qc[:, c], dyc[:, c], cum[:, c]
+        delta = cumj[:, :, None, :] - cumj[:, None, :, :]             # (B,i,j,H)
+        L = torch.exp(torch.where(tri[None, :, :, None], delta, -torch.inf))
+        Sij = torch.einsum("bihn,bjhn->bijh", qj, kj)
+        LD = L * torch.einsum("bihp,bjhp->bijh", dyj, u)
+        A = LD * Sij
+        w = torch.exp(tot[:, c, None, :] - cumj)                       # (B,Q,H)
+        dhu = torch.einsum("bhnp,bjhp->bjhn", dh[:, c], u)             # dh u_j
+        wt = w * torch.einsum("bjhn,bjhn->bjh", kj, dhu)               # w_j k_j^T dh u_j
+        dqs.append(torch.einsum("bijh,bjhn->bihn", LD, kj))
+        dks.append(torch.einsum("bijh,bihn->bjhn", LD, qj) + w[..., None] * dhu)
+        dus.append(torch.einsum("bijh,bihp->bjhp", L * Sij, dyj)
+                   + w[..., None] * torch.einsum("bhnp,bjhn->bjhp", dh[:, c], kj))
+        # tot is the last row's cum: its cotangent joins that row's
+        cs.append(dcc[:, c] + A.sum(dim=2) - A.sum(dim=1) - wt
+                  + last[None, :, None] * (dtot[:, c] + wt.sum(dim=1))[:, None, :])
+
+    def unchunk(parts):
+        x = torch.stack(parts, dim=1)
+        return x.reshape((B, nc * chunk) + tuple(x.shape[3:]))[:, :S]
+
+    du = torch.stack(dus, dim=1)                                       # (B,nc,Q,H,P)
+    c_all = torch.stack(cs, dim=1)                                     # (B,nc,Q,H)
+    dld = torch.flip(torch.cumsum(torch.flip(c_all, (2,)), dim=2), (2,))
+    dv = (du * gc[..., None]).reshape(B, nc * chunk, H, P)[:, :S]
+    dg = (du * vc).sum(dim=-1).reshape(B, nc * chunk, H)[:, :S]
+    return (dv.to(v.dtype), dld.reshape(B, nc * chunk, H)[:, :S].to(ld.dtype),
+            unchunk(dks).to(k.dtype), unchunk(dqs).to(q.dtype), dg.to(g.dtype))

@@ -9,7 +9,8 @@ g = dt, ld = dt * A) and the mLSTM (k, q per head, g the input gate, ld the
 log forget gate). `ssd_chunked` and `ssd_step` are the plain versions, kept
 beside the kernel in ``kernels/ssm_scan/ref.py``; `mamba2_forward` calls
 ``kernels.ssm_scan.ops.ssd_chunked``, which runs the plain version on a CPU
-tensor and the Hopper kernel on a CUDA tensor.
+tensor and the Hopper kernels on a CUDA tensor: the forward kernel, and
+under autograd the backward kernel, so the hybrid trains on the card.
 """
 from __future__ import annotations
 
@@ -117,8 +118,9 @@ def _gate_out(p: Mamba2Params, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor
 
 def mamba2_forward(p: Mamba2Params, x: torch.Tensor, s: SSMConfig) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d). The SSD scan goes through the kernel's
-    entry point (plain version on the CPU, the Hopper kernel on CUDA); B
-    and C reach it broadcast over the heads as stride-0 views."""
+    entry point (plain version on the CPU, the Hopper kernels forward and
+    backward on CUDA); B and C reach it broadcast over the heads as
+    stride-0 views, and autograd sums their gradients over the heads."""
     B_, S, d = x.shape
     d_in, H = mamba2_dims(d, s)
     N, P = s.d_state, s.head_dim

@@ -27,7 +27,10 @@ relative error, so y and the final state are held within 1e-4 plus 5e-5
 of their largest value. bf16 outputs are also allowed one bf16 step
 (relative 2^-7), since both sides round their f32 results to bf16. Two launches give the same bits. The reduced zamba2 on the card
 agrees with the CPU within 1e-4 (two layers of f32 matmuls in other
-orders).
+orders). The SSD backward kernel, and the scan's gradient through it, are
+held to the scan's bound against their plain versions; the reduced
+zamba2's loss gradient on the card to 1e-3 of each leaf's largest value
+against the CPU's.
 """
 import pytest
 import torch
@@ -452,16 +455,131 @@ def test_ssd_chunked_matches_plain_version(B, S, H, N, P, Q, bcast, dtype):
 
 @pytest.mark.cuda
 def test_kernel_entry_points_raise_under_autograd():
+    """flash_attention has no backward (nor in the reference): under
+    autograd on the card it raises, under no_grad it runs."""
     dev = _device()
     q = torch.randn((1, 16, 2, 8), device=dev, requires_grad=True)
     with pytest.raises(NotImplementedError, match="no backward"):
         fops.flash_attention(q, q, q)
-    v, ld, k, qq, g = _ssd_inputs(dev, 1, 16, 2, 8, 8, True, torch.float32, seed=0)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        sops.ssd_chunked(v.requires_grad_(), ld, k, qq, g, chunk=8)
     with torch.no_grad():
         fops.flash_attention(q, q, q)
-        sops.ssd_chunked(v, ld, k, qq, g, chunk=8)
+
+
+def _ssd_grads(scan, v, ld, k, q, g, h0, chunk, ry, rh):
+    """d/d(v, ld, g, h0, k's and q's (B, S, 1, N) bases) of y . ry + h . rh
+    for the scan `scan`, k and q broadcast over the heads."""
+    B, S, H, N = k.shape
+    leaves = [t.detach().clone().requires_grad_() for t in (v, ld, g, h0)]
+    kb, qb = (t[:, :, :1].detach().clone().requires_grad_() for t in (k, q))
+    y, h = scan(leaves[0], leaves[1], kb.expand(B, S, H, N), qb.expand(B, S, H, N), leaves[2],
+                chunk=chunk, h0=leaves[3])
+    loss = (y.float() * ry).sum() + (h * rh).sum()
+    return torch.autograd.grad(loss, leaves + [kb, qb])
+
+
+@pytest.mark.cuda
+def test_ssd_chunked_gradient_flows_on_the_card():
+    """Under autograd on the card ops.ssd_chunked runs the forward kernel and,
+    on backward, the backward kernel (one launch each), and its gradient
+    equals autograd through the plain scan within the scan's bound."""
+    dev = _device()
+    B, S, H, N, P, Q = 1, 40, 2, 8, 8, 16
+    v, ld, k, q, g = _ssd_inputs(dev, B, S, H, N, P, True, torch.float32, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    h0, rh = (torch.randn((B, H, N, P), device=dev, generator=gen) for _ in range(2))
+    ry = torch.randn((B, S, H, P), device=dev, generator=gen)
+    before = dict(skernel.launches)
+    got = _ssd_grads(sops.ssd_chunked, v, ld, k, q, g, h0, Q, ry, rh)
+    assert {n: skernel.launches[n] - before[n] for n in before} == {
+        "ssd_chunk_scan": 1, "ssd_chunk_scan_bwd": 1}
+    for a, b in zip(got, _ssd_grads(sref.ssd_chunked, v, ld, k, q, g, h0, Q, ry, rh)):
+        _close(a, b, scan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,N,P,Q,bcast", [
+    (2, 128, 3, 16, 32, 32, False), (1, 100, 2, 8, 16, 32, True), (2, 300, 4, 64, 64, 256, True),
+    (1, 256, 2, 128, 128, 64, False), (1, 10, 2, 16, 32, 32, True), (1, 130, 2, 24, 40, 100, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_scan_bwd_matches_plain_version(B, S, H, N, P, Q, bcast, dtype):
+    """The backward kernel against ssd_chunk_scan_bwd_ref on the same inputs
+    and cotangents: every output in its input's dtype (dk, dq dense), within
+    the scan's bound (and one bf16 step for bf16 outputs); two launches give
+    the same bits."""
+    dev = _device()
+    v, ld, k, q, g = _ssd_inputs(dev, B, S, H, N, P, bcast, dtype, seed=S + N + 1)
+    nc = -(-S // Q)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cots = [torch.randn(shape, device=dev, generator=gen)
+            for shape in ((B, S, H, P), (B, nc, H, N, P), (B, S, H), (B, nc, H))]
+    before = skernel.launches["ssd_chunk_scan_bwd"]
+    got = skernel.ssd_chunk_scan_bwd_cuda(*cots, v, ld, k, q, g, Q)
+    again = skernel.ssd_chunk_scan_bwd_cuda(*cots, v, ld, k, q, g, Q)
+    torch.cuda.synchronize()
+    assert skernel.launches["ssd_chunk_scan_bwd"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = sref.ssd_chunk_scan_bwd_ref(*cots, v, ld, k, q, g, Q)
+    for a, b, dt in zip(got, want, (dtype, torch.float32, dtype, dtype, torch.float32)):
+        assert a.dtype == b.dtype == dt and a.shape == b.shape and a.is_contiguous()
+        _close(a, b, scan=True)
+
+
+@pytest.mark.cuda
+def test_vmap_grad_through_the_scan_function_on_the_card():
+    """torch.func.vmap(torch.func.grad(...)) through SSDChunkScan on the
+    card (the "example" granularity): the vmap rules fold the mapped axis
+    into the batch, so each kernel launches once for all examples, and
+    every example's gradient equals its own single-example gradient."""
+    dev = _device()
+    n, S, H, N, P, Q = 3, 40, 2, 8, 16, 16
+    v, ld, k, q, g = _ssd_inputs(dev, n, S, H, N, P, True, torch.float32, seed=4)
+    kb = k[:, :, :1].clone()
+
+    def loss(v1, kb1, ld1, q1, g1):
+        kk = kb1[None].expand(1, S, H, N)
+        parts = sops.SSDChunkScan.apply(v1[None], ld1[None], kk, q1[None], g1[None], Q)
+        y, h = sops.combine_chunks(*parts, q1[None], Q)
+        return (y ** 2).sum() + h.sum()
+
+    before = dict(skernel.launches)
+    gv, gk = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)))(v, kb, ld, q, g)
+    torch.cuda.synchronize()
+    assert {m: skernel.launches[m] - before[m] for m in before} == {
+        "ssd_chunk_scan": 1, "ssd_chunk_scan_bwd": 1}
+    for i in range(n):
+        vi, ki = v[i].clone().requires_grad_(), kb[i].clone().requires_grad_()
+        a, b = torch.autograd.grad(loss(vi, ki, ld[i], q[i], g[i]), (vi, ki))
+        _close(gv[i], a, scan=True)
+        _close(gk[i], b, scan=True)
+
+
+@pytest.mark.cuda
+def test_reduced_zamba2_loss_gradient_on_the_card_matches_the_cpu():
+    """The hybrid's loss gradient on the card (SSD forward and backward
+    kernels, the training path's attention) against the CPU's plain scan,
+    same weights and tokens: every leaf within 1e-3 of its largest
+    |gradient| (f32 through two layers; the scan's own bound is 5e-5 of its
+    largest value, and cuBLAS and the CPU BLAS sum in other orders)."""
+    from repro_torch.configs import get_config
+    from repro_torch.tree_util import tree_flatten, tree_unflatten
+    dev = _device()
+    cfg = get_config("zamba2-2.7b").reduced()
+    lm = LM(cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 80), generator=torch.Generator().manual_seed(6))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    grads = []
+    before = dict(skernel.launches)
+    for device in (dev, torch.device("cpu")):
+        leaves, treedef = tree_flatten(lm.init(seed=6, device=device))
+        live = [x.requires_grad_(True) for x in leaves]
+        on_device = {k: t.to(device) for k, t in batch.items()}
+        loss = lm.loss(tree_unflatten(treedef, live), on_device)[0]
+        grads.append([x.cpu() for x in torch.autograd.grad(loss, live)])
+    assert {m: skernel.launches[m] - before[m] for m in before} == {
+        "ssd_chunk_scan": cfg.n_layers, "ssd_chunk_scan_bwd": cfg.n_layers}
+    for a, b in zip(*grads):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * float(b.abs().max()) + 1e-12)
 
 
 @pytest.mark.cuda

@@ -243,3 +243,106 @@ def test_unported_families_and_bad_settings_raise():
         LM(cfg, attn_backend="flash")
     with pytest.raises(ValueError, match="attn_every"):
         LM(dataclasses.replace(cfg, n_layers=3))
+
+
+def _through_the_op(v, ld, k, q, g, *, chunk, h0=None):
+    """ops.ssd_chunked's CUDA route on CPU tensors: the intra-chunk part
+    through the SSDChunkScan op (its plain bodies here), then
+    combine_chunks, so that autograd runs the op's backward."""
+    from repro_torch.kernels.ssm_scan import ops
+    Q = min(chunk, v.shape[1])
+    parts = ops.SSDChunkScan.apply(v, ld.to(torch.float32), k, q, g.to(torch.float32), Q)
+    y, h = ops.combine_chunks(*parts, q, Q, h0)
+    return y.to(v.dtype), h
+
+
+@pytest.fixture(params=["plain scan", "SSDChunkScan"])
+def scan_route(request, monkeypatch):
+    """The port's scan on the CPU as it is (the plain whole scan: None), or
+    routed as on the card through the autograd op (a list that counts the
+    scans taken that way)."""
+    if request.param == "plain scan":
+        return None
+    from repro_torch.kernels.ssm_scan import ops
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return _through_the_op(*args, **kw)
+
+    monkeypatch.setattr(ops, "ssd_chunked", counted)
+    return calls
+
+
+def test_loss_gradient_matches_reference(case, scan_route):
+    """The reduced zamba2's loss gradient (S 40: a chunk of 32 and a ragged
+    one) against jax.grad of the reference's loss: every leaf within 1e-4
+    of its largest |gradient| (f32 through two Mamba2 layers and the shared
+    block, other summation orders in the two autodiff systems)."""
+    from repro_torch.tree_util import tree_flatten, tree_unflatten
+    jlm, jparams, params = case
+    toks = _tokens(40, seed=9)
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    jgrads = jax.grad(lambda p: jlm.loss(p, {k: jnp.asarray(v) for k, v in batch.items()})[0])(
+        jparams)
+    lm = LM(get_config(ARCH).reduced())
+    leaves, treedef = tree_flatten(params)
+    live = [x.detach().clone().requires_grad_(True) for x in leaves]
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss = lm.loss(tree_unflatten(treedef, live), tbatch)[0]
+    grads = torch.autograd.grad(loss, live)
+    assert scan_route is None or len(scan_route) == lm.cfg.n_layers
+    jleaves = jax.tree_util.tree_leaves(jgrads)
+    assert len(jleaves) == len(grads)
+    for g, jg in zip(grads, jleaves):
+        want = np.asarray(jg)
+        np.testing.assert_allclose(g.numpy(), want, rtol=0,
+                                   atol=1e-4 * float(np.abs(want).max()) + 1e-12)
+
+
+def test_federated_rounds_match_reference(case, scan_route):
+    """A few rounds of the flat fused engine over the reduced hybrid in both
+    packages, same weights, batches, owners and keys (horizon 2, so
+    refusals bite): owner sequences, refusals and the reconciled ledger
+    exactly; theta_L and the bank within rtol 1e-4, atol 1e-6 (the
+    tolerance of tests/test_torch_federation.py: two autodiff systems sum
+    in other orders, and the Laplace transform's log1p may differ by an
+    ulp)."""
+    import repro.federation as jfed
+    import repro_torch.federation as tfed
+    from repro_torch import random as trandom
+    jlm, jparams, params = case
+    n_owners, K, G = 3, 5, 2
+    toks = np.random.default_rng(12).integers(0, 512, size=(K, 4, 40), dtype=np.int32)
+    data = {"tokens": toks, "labels": np.roll(toks, -1, axis=2)}
+
+    def setup(mod, **kw):
+        fed = mod.Federation([mod.DataOwner(n=100 * (i + 1), epsilon=1.0, xi=1.0)
+                              for i in range(n_owners)],
+                             mod.FederationConfig.from_target_lr(
+                                 0.05, n_owners=n_owners, horizon=2, sigma=1e-2,
+                                 theta_max=100.0), **kw)
+        return fed, mod.PrivatizerConfig(xi=1.0, granularity="microbatch", n_microbatches=G,
+                                         fused_kernel=True)
+
+    jf, jpriv = setup(jfed)
+    jf.make_step(lambda p, b: jlm.loss(p, b)[0], privatizer=jpriv, pack_params=True)
+    js, jm = jf.run_rounds(jf.init_state(jparams), {k: jnp.asarray(v) for k, v in data.items()},
+                           key=jax.random.PRNGKey(3))
+    jf.reconcile(js)
+    lm = LM(get_config(ARCH).reduced())
+    tf, tpriv = setup(tfed, device=CPU)
+    tf.make_step(lambda p, b: lm.loss(p, b)[0], privatizer=tpriv, pack_params=True)
+    ts, tm = tf.run_rounds(tf.init_state(params), {k: torch.from_numpy(v) for k, v in data.items()},
+                           key=trandom.PRNGKey(3, device=CPU))
+    tf.reconcile(ts)
+    assert scan_route is None or len(scan_route) == K * G * lm.cfg.n_layers
+    np.testing.assert_array_equal(tm["owner"].numpy(), np.asarray(jm["owner"]))
+    np.testing.assert_array_equal(tm["refused"].numpy(), np.asarray(jm["refused"]))
+    assert tm["refused"].any()
+    jled = jf.ledger()
+    for i, row in tf.ledger().items():
+        assert row == {k: jled[i][k] for k in row}, i
+    np.testing.assert_allclose(ts.theta_L.buf.numpy(), np.asarray(js.theta_L.buf), rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose(ts.bank.numpy(), np.asarray(js.bank), rtol=1e-4, atol=1e-6)
