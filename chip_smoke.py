@@ -8,8 +8,8 @@ Phases (any mismatch raises and the run exits non-zero):
 1. build   — compile every CUDA source of the paths with nvcc (all started
              at once: dp_clip_noise.cu, bank_codec.cu, tree_noise.cu,
              flash_attention.cu and ssm_scan.cu) into build/repro_torch/,
-             print the seconds and, per kernel, ptxas' registers, stack
-             and spills.
+             print the seconds and, per kernel and template
+             instantiation, ptxas' registers, stack and spills.
 2. kernels — hold each kernel, through the wrappers the paths call,
              against its plain PyTorch version on the card at the main
              path's width (P = 152,783,616) and at a ragged P: dp_round
@@ -33,14 +33,15 @@ Phases (any mismatch raises and the run exits non-zero):
              shape (one profiled call); ssd_chunk_scan at zamba2's
              shape (B 2, S 4096, H 80, N = P = 64, chunk 256, B and C
              broadcast over the heads), a ragged S 4000 from a random
-             initial state, and the mLSTM form (per-head k and q, N = P =
-             128): the kernel's four outputs against their plain version,
-             then y and the final state of ops.ssd_chunked against the
-             plain scan, within 1e-4 + 5e-5 of the largest value (the f32
-             prefix sums of the log-decays round differently);
-             ssd_chunk_scan_bwd at phase train's microbatch (B 2, S 1024),
-             zamba2's prefill shape, a ragged S 1000 and the mLSTM form:
-             its five outputs against ssd_chunk_scan_bwd_ref, and the
+             initial state, the mLSTM form (per-head k and q, N = P =
+             128) and log-decays 20x stronger (|cum| in the thousands
+             within a chunk): the kernel's four outputs against their plain
+             version, finite, then y and the final state of
+             ops.ssd_chunked against the plain scan, within 1e-4 + 5e-5 of
+             the largest value; ssd_chunk_scan_bwd at phase train's
+             microbatch (B 2, S 1024), zamba2's prefill shape, a ragged S
+             1000, the mLSTM form and the strong log-decays: its five
+             outputs, finite, against ssd_chunk_scan_bwd_ref, and the
              gradient of ops.ssd_chunked (both kernels and autograd
              through the torch recurrence) against autograd through the
              plain scan, each within the same bound, two launches
@@ -140,7 +141,8 @@ Phases (any mismatch raises and the run exits non-zero):
              zamba2's prefill shape and ssd_chunk_scan_bwd at phase
              train's microbatch (no library call), each beside its bound:
              operations over 67 TFLOP/s of f32 against bytes over 3.35
-             TB/s, whichever is larger.
+             TB/s, whichever is larger; the forward's TFLOP/s also at phase
+             train's microbatch (printed, not a row).
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -232,7 +234,7 @@ def phase_build():
 
 def _ptxas_report(out):
     """(kernel, registers, its stack and spill line) for each entry function
-    in ptxas' -v output."""
+    in ptxas' -v output (template instantiations by their mangled names)."""
     rows, kern, spill = [], "?", ""
     for ln in out.splitlines():
         if "Compiling entry function" in ln:
@@ -366,35 +368,37 @@ def _sdpa_kernels(torch, dev):
           f"backend {backend}, device kernels {[n[:90] for n in names]}")
 
 
-# (what, B, S, H, N, P, chunk, k and q broadcast over the heads): zamba2's
-# Mamba2 layers at prefill (B and C shared by the 80 heads), a ragged S, and
-# the mLSTM form (per-head keys and queries)
-SSD_CASES = (("zamba2-2.7b", 2, 4096, 80, 64, 64, 256, True),
-             ("zamba2-2.7b, ragged S", 2, 4000, 80, 64, 64, 256, True),
-             ("mLSTM form", 2, 2048, 8, 128, 128, 256, False))
+# (what, B, S, H, N, P, chunk, k and q broadcast over the heads, decay):
+# zamba2's Mamba2 layers at prefill (B and C shared by the 80 heads), a ragged S, the
+# mLSTM form (per-head keys and queries), and log-decays 20x stronger
+# (|cum| in the thousands within a chunk)
+SSD_CASES = (("zamba2-2.7b", 2, 4096, 80, 64, 64, 256, True, 1.0),
+             ("zamba2-2.7b, ragged S", 2, 4000, 80, 64, 64, 256, True, 1.0),
+             ("mLSTM form", 2, 2048, 8, 128, 128, 256, False, 1.0),
+             ("zamba2-2.7b, strong decay", 2, 1024, 80, 64, 64, 256, True, 20.0))
 
 
-def _ssd_inputs(torch, dev, B, S, H, N, P, bcast, gen):
+def _ssd_inputs(torch, dev, B, S, H, N, P, bcast, gen, decay=1.0):
     """Mamba2-like scan inputs on the card: k and q as stride-0 views over
-    the heads when `bcast`, ld = -softplus(x) and g = sigmoid(x) for
-    normal x (the reference's test distribution)."""
+    the heads when `bcast`, ld = -decay * softplus(x) and g = sigmoid(x)
+    for normal x (decay 1 is the reference's test distribution)."""
     v = torch.randn((B, S, H, P), device=dev, generator=gen)
     if bcast:
         k, q = (torch.randn((B, S, 1, N), device=dev, generator=gen).expand(B, S, H, N)
                 for _ in range(2))
     else:
         k, q = (torch.randn((B, S, H, N), device=dev, generator=gen) for _ in range(2))
-    ld = -torch.nn.functional.softplus(torch.randn((B, S, H), device=dev, generator=gen))
+    ld = -decay * torch.nn.functional.softplus(torch.randn((B, S, H), device=dev, generator=gen))
     g = torch.sigmoid(torch.randn((B, S, H), device=dev, generator=gen))
     return v, ld, k, q, g
 
 
 def _scan_err(out, plain):
-    """|out - plain| over the largest |plain|: the scan's decays exp(cum_i -
-    cum_j) take differences of f32 prefix sums of up to 256 log-decays (|cum|
-    up to about 200), which the kernel's warp scan and torch.cumsum round
-    differently by up to about 2e-4, a relative error of as much in every
-    decay; so each output is held within 1e-4 + 5e-5 * max |plain|."""
+    """The largest |out - plain| and its bound, 1e-4 + 5e-5 * max |plain|:
+    the kernels add each output's f32 products (up to a chunk's 256 rows
+    times a depth of up to 128) in another order than the plain version's
+    einsums, and dld is a reverse cumsum of such sums over the chunk; cum
+    itself is equal bit for bit."""
     e = float((out - plain).abs().max())
     return e, 1e-4 + 5e-5 * float(plain.abs().max())
 
@@ -411,8 +415,8 @@ def _check_ssd(torch, dev):
     before = dict(kernel.launches)
     gen = torch.Generator(device=dev).manual_seed(13)
     n = 0
-    for what, B, S, H, N, P, Q, bcast in SSD_CASES:
-        v, ld, k, q, g = _ssd_inputs(torch, dev, B, S, H, N, P, bcast, gen)
+    for what, B, S, H, N, P, Q, bcast, decay in SSD_CASES:
+        v, ld, k, q, g = _ssd_inputs(torch, dev, B, S, H, N, P, bcast, gen, decay)
         h0 = (torch.randn((B, H, N, P), device=dev, generator=gen) if "ragged" in what
               else None)
         parts = kernel.ssd_chunk_scan_cuda(v, ld, k, q, g, Q)
@@ -420,6 +424,7 @@ def _check_ssd(torch, dev):
         worst = []
         for name, a, b in zip(("y_intra", "h_add", "cum", "tot"), parts, plain_parts):
             e, tol = _scan_err(a, b)
+            check(bool(torch.isfinite(a).all()), f"ssd_chunk_scan {name} ({what}) is not finite")
             check(e <= tol, f"ssd_chunk_scan {name} ({what}) differs from its plain version by "
                   f"{e:.3e} (bound {tol:.3e})")
             worst.append(f"{name} {e:.2e}")
@@ -445,13 +450,14 @@ def _check_ssd(torch, dev):
     return {"ssd_chunk_scan": err}
 
 
-# (what, B, S, H, N, P, chunk, k and q broadcast over the heads): phase
-# train's microbatch (four chunks), zamba2's prefill shape, a ragged S, and
-# the mLSTM form (per-head k and q, N = P = 128)
-SSD_BWD_CASES = (("train microbatch", 2, 1024, 80, 64, 64, 256, True),
-                 ("zamba2-2.7b prefill", 2, 4096, 80, 64, 64, 256, True),
-                 ("ragged S", 2, 1000, 80, 64, 64, 256, True),
-                 ("mLSTM form", 1, 1024, 8, 128, 128, 256, False))
+# as SSD_CASES: phase train's microbatch (four chunks), zamba2's prefill
+# shape, a ragged S, the mLSTM form (per-head k and q, N = P = 128), and the
+# strong log-decays
+SSD_BWD_CASES = (("train microbatch", 2, 1024, 80, 64, 64, 256, True, 1.0),
+                 ("zamba2-2.7b prefill", 2, 4096, 80, 64, 64, 256, True, 1.0),
+                 ("ragged S", 2, 1000, 80, 64, 64, 256, True, 1.0),
+                 ("mLSTM form", 1, 1024, 8, 128, 128, 256, False, 1.0),
+                 ("strong decay", 2, 1024, 80, 64, 64, 256, True, 20.0))
 
 
 def _grad_leaves(torch, k, q, bcast):
@@ -476,8 +482,8 @@ def _check_ssd_bwd(torch, dev):
     err = 0.0
     before = dict(kernel.launches)
     gen = torch.Generator(device=dev).manual_seed(16)
-    for what, B, S, H, N, P, Q, bcast in SSD_BWD_CASES:
-        v, ld, k, q, g = _ssd_inputs(torch, dev, B, S, H, N, P, bcast, gen)
+    for what, B, S, H, N, P, Q, bcast, decay in SSD_BWD_CASES:
+        v, ld, k, q, g = _ssd_inputs(torch, dev, B, S, H, N, P, bcast, gen, decay)
         nc = -(-S // Q)
         cots = [torch.randn(shape, device=dev, generator=gen)
                 for shape in ((B, S, H, P), (B, nc, H, N, P), (B, S, H), (B, nc, H))]
@@ -489,6 +495,8 @@ def _check_ssd_bwd(torch, dev):
         worst = []
         for name, a, b in zip(("dv", "dld", "dk", "dq", "dg"), got, plain):
             e, tol = _scan_err(a, b)
+            check(bool(torch.isfinite(a).all()), f"ssd_chunk_scan_bwd {name} ({what}) is not "
+                  "finite")
             check(a.shape == b.shape and e <= tol, f"ssd_chunk_scan_bwd {name} ({what}) differs "
                   f"from its plain version by {e:.3e} (bound {tol:.3e})")
             worst.append(f"{name} {e:.2e}")
@@ -1728,6 +1736,18 @@ def _time_ssd(torch, dev, launches, errs):
           f"{flops / row['ms'] / 1e9:.2f} TFLOP/s achieved; the whole ops.ssd_chunked "
           f"(kernel + torch recurrence) {whole:.4f} ms, the plain scan {whole_plain:.4f} ms")
     del v, ld, k, q, g, outs
+    # the same kernel at phase train's microbatch (B 2, S 1024), for the
+    # training path's share: printed, not a `kernels` row
+    S = 1024
+    v, ld, k, q, g = _ssd_inputs(torch, dev, B, S, H, N, P, True,
+                                 torch.Generator(device=dev).manual_seed(18))
+    flops = B * H * sum(r * (r + 1) / 2 * (N + P) * 2 + r * N * P * 2
+                        for r in (min(Q, S - c) for c in range(0, S, Q)))
+    ms = cuda_ms(torch, lambda: kernel.ssd_chunk_scan_cuda(v, ld, k, q, g, Q), 20)
+    print(f"[timing] ssd_chunk_scan at phase train's microbatch (B {B}, S {S}): {ms:.4f} ms, "
+          f"{flops / 1e9:.2f} GFLOP, {flops / ms / 1e9:.2f} TFLOP/s achieved, "
+          f"{flops / F32_FLOP_PER_S * 1e3 / ms:.1%} of its bound")
+    del v, ld, k, q, g
     torch.cuda.empty_cache()
     return [row]
 

@@ -19,13 +19,13 @@ may differ by one quantization step where such a difference flipped a
 stochastic rounding decision.
 
 Flash attention sums in other orders than its plain version: f32 within
-2e-5 (outputs about 1). The SSD scan's decays exp(cum_i - cum_j) take the
-difference of two f32 prefix sums of up to Q = 256 log-decays, which the
-kernel (a warp scan) and torch.cumsum round differently, by up to about
-2e-4 at |cum| near 200 (chip_smoke.py on an H100): every decay carries that
-relative error, so y and the final state are held within 1e-4 plus 5e-5
-of their largest value. bf16 outputs are also allowed one bf16 step
-(relative 2^-7), since both sides round their f32 results to bf16. Two launches give the same bits. The reduced zamba2 on the card
+2e-5 (outputs about 1). The SSD kernels add each output's f32 products (up
+to a chunk's 256 rows times a depth of up to 128) in another order than the
+plain version's einsums, and dld is a reverse cumsum of such sums over the
+chunk (cum itself is equal bit for bit): y and the final state are held
+within 1e-4 plus 5e-5 of their largest value. bf16 outputs are also allowed
+one bf16 step (relative 2^-7), since both sides round their f32 results to
+bf16. Two launches give the same bits. The reduced zamba2 on the card
 agrees with the CPU within 1e-4 (two layers of f32 matmuls in other
 orders). The SSD backward kernel, and the scan's gradient through it, are
 held to the scan's bound against their plain versions; the reduced
@@ -415,7 +415,8 @@ def test_flash_attention_through_strides_and_unaligned_rows():
                                rtol=0, atol=2e-5)
 
 
-def _ssd_inputs(dev, B, S, H, N, P, bcast, dtype, seed):
+def _ssd_inputs(dev, B, S, H, N, P, bcast, dtype, seed, decay=1.0):
+    """Mamba2-like scan inputs: ld = -decay * softplus(x) for normal x."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     v = torch.randn((B, S, H, P), device=dev, generator=gen).to(dtype)
     if bcast:       # Mamba2: B and C shared by the heads, as stride-0 views
@@ -423,7 +424,7 @@ def _ssd_inputs(dev, B, S, H, N, P, bcast, dtype, seed):
                 for _ in range(2))
     else:           # mLSTM: per-head keys and queries
         k, q = (torch.randn((B, S, H, N), device=dev, generator=gen).to(dtype) for _ in range(2))
-    ld = -torch.nn.functional.softplus(torch.randn((B, S, H), device=dev, generator=gen))
+    ld = -decay * torch.nn.functional.softplus(torch.randn((B, S, H), device=dev, generator=gen))
     g = torch.sigmoid(torch.randn((B, S, H), device=dev, generator=gen))
     return v, ld, k, q, g
 
@@ -431,7 +432,13 @@ def _ssd_inputs(dev, B, S, H, N, P, bcast, dtype, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,N,P,Q,bcast", [
     (2, 128, 3, 16, 32, 32, False), (1, 100, 2, 8, 16, 32, True), (2, 300, 4, 64, 64, 256, True),
-    (1, 256, 2, 128, 128, 64, False), (1, 10, 2, 16, 32, 32, True), (1, 130, 2, 24, 40, 100, True)])
+    (1, 256, 2, 128, 128, 64, False), (1, 10, 2, 16, 32, 32, True), (1, 130, 2, 24, 40, 100, True),
+    # a chunk that is no multiple of the 64-row tile and spans two row
+    # passes; a ragged last chunk shorter than one tile (90 = 80 + 10);
+    # N != P at the widest variant; a chunk over 256 (the wide backward)
+    (2, 500, 3, 64, 64, 200, True), (1, 90, 2, 64, 64, 80, True),
+    (1, 300, 2, 128, 64, 256, False), (1, 300, 2, 64, 128, 256, True),
+    (1, 700, 2, 64, 64, 512, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_chunked_matches_plain_version(B, S, H, N, P, Q, bcast, dtype):
     dev = _device()
@@ -499,7 +506,13 @@ def test_ssd_chunked_gradient_flows_on_the_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,N,P,Q,bcast", [
     (2, 128, 3, 16, 32, 32, False), (1, 100, 2, 8, 16, 32, True), (2, 300, 4, 64, 64, 256, True),
-    (1, 256, 2, 128, 128, 64, False), (1, 10, 2, 16, 32, 32, True), (1, 130, 2, 24, 40, 100, True)])
+    (1, 256, 2, 128, 128, 64, False), (1, 10, 2, 16, 32, 32, True), (1, 130, 2, 24, 40, 100, True),
+    # a chunk that is no multiple of the 64-row tile and spans two row
+    # passes; a ragged last chunk shorter than one tile (90 = 80 + 10);
+    # N != P at the widest variant; a chunk over 256 (the wide backward)
+    (2, 500, 3, 64, 64, 200, True), (1, 90, 2, 64, 64, 80, True),
+    (1, 300, 2, 128, 64, 256, False), (1, 300, 2, 64, 128, 256, True),
+    (1, 700, 2, 64, 64, 512, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_chunk_scan_bwd_matches_plain_version(B, S, H, N, P, Q, bcast, dtype):
     """The backward kernel against ssd_chunk_scan_bwd_ref on the same inputs
@@ -521,6 +534,32 @@ def test_ssd_chunk_scan_bwd_matches_plain_version(B, S, H, N, P, Q, bcast, dtype
     want = sref.ssd_chunk_scan_bwd_ref(*cots, v, ld, k, q, g, Q)
     for a, b, dt in zip(got, want, (dtype, torch.float32, dtype, dtype, torch.float32)):
         assert a.dtype == b.dtype == dt and a.shape == b.shape and a.is_contiguous()
+        _close(a, b, scan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,N,P,Q,bcast", [(2, 600, 4, 64, 64, 256, True),
+                                               (1, 300, 2, 128, 128, 256, False)])
+def test_ssd_kernels_stay_finite_under_strong_decay(B, S, H, N, P, Q, bcast):
+    """ld = -20 softplus(x): |cum| reaches thousands within a chunk, so a
+    decay factored through exp(+cum) would overflow. Both kernels stay
+    finite and within the scan's bound of their plain versions."""
+    dev = _device()
+    v, ld, k, q, g = _ssd_inputs(dev, B, S, H, N, P, bcast, torch.float32, seed=S + 7, decay=20.0)
+    nc = -(-S // Q)
+    parts = skernel.ssd_chunk_scan_cuda(v, ld, k, q, g, Q)
+    for got, want in zip(parts, sref.ssd_chunk_scan_ref(v, ld, k, q, g, Q)):
+        assert bool(torch.isfinite(got).all())
+        _close(got, want, scan=True)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cots = [torch.randn(shape, device=dev, generator=gen)
+            for shape in ((B, S, H, P), (B, nc, H, N, P), (B, S, H), (B, nc, H))]
+    got = skernel.ssd_chunk_scan_bwd_cuda(*cots, v, ld, k, q, g, Q)
+    again = skernel.ssd_chunk_scan_bwd_cuda(*cots, v, ld, k, q, g, Q)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for a, b in zip(got, sref.ssd_chunk_scan_bwd_ref(*cots, v, ld, k, q, g, Q)):
+        assert bool(torch.isfinite(a).all())
         _close(a, b, scan=True)
 
 
