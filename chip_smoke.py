@@ -111,6 +111,37 @@ Phases (any mismatch raises and the run exits non-zero):
              counts per dispatch must be K*G*12 ssd_chunk_scan and
              ssd_chunk_scan_bwd, K*G sqnorm, K dp_round and 0
              flash_attention (one kv chunk: plain attention).
+   convex  — the paper's Section 5 at its own size through Federation.run:
+             lending and health, p = 10, 10,000 records per owner, T =
+             1000, rho 1, sigma 2e-5, reg 1e-5, theta_max 2; for N in (2,
+             5, 10, 25, 50) x eps in (1, 2.5, 10) one timed session of 100
+             replicas (host clock around a synchronize) and one profiled
+             (device kernels per step, idle share); psi's median at k =
+             10, 500 and 1000 and collab_wins against owner 0's isolated
+             model; the fitted (c1bar, c2bar) of eq. (11) and
+             min_owners_for_benefit (Fig. 6's forecast). The N = 50 cell on
+             the card and on the CPU under the uniform, Poisson and
+             availability-trace schedules, sampled and replayed: owner
+             sequences bit for bit, theta_L, bank and psi within 1e-5 +
+             1e-4 x. A ledgered run's ledger equals the bincount of its
+             owners; under per_owner_rounds (cap_slack 1) no owner passes
+             its cap and each refused step of 100 replicas leaves theta_L
+             and the bank bit-equal; run_sync under per_owner_rounds, both
+             engines under the tree and a second ledgered run raise; strict
+             scales equal paper x sqrt(10). run_sync (lr 0.4) at N = 5,
+             50,000 records, T = 800 charges every owner T and is timed
+             beside run and the capped run (10 replicas each).
+   sync    — the deep synchronous baseline at full width: DENSE_124M, 16
+             owners x 10,000 records, eps 1, batch 4 x seq 128, G = 2, the
+             fused privatizer, through Federation(strategy="sync").make_step
+             and sync_round: three timed rounds and one profiled (ms per
+             round, device time, idle share, peak memory), each with N*G*12
+             = 384 sqnorm and N*12 = 192 scale_noise launches and no other
+             kernel; the profiled round's params, batches and key through
+             both privatizers at noise scale 0 agree within rtol 1e-4, atol
+             1e-6; params stay finite; the ledger charges each owner once a
+             round; with a horizon of one round, the second round refuses
+             every owner and returns its input params, launching nothing.
 4. refusal — a reduced model with schedule-drawn owners, on an f32 and an
              int8 bank, under the paper mechanism (horizon 2) and the tree
              (depth 2, horizon 8, capacity 3), and on pytree states under
@@ -193,6 +224,14 @@ def cuda_ms(torch, fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _steady_ms(torch, what, fn, iters, repeats=5):
+    """The median of `repeats` cuda_ms readings, each printed."""
+    reps = [cuda_ms(torch, fn, iters) for _ in range(repeats)]
+    print(f"[timing] {what}: {repeats} readings of {iters} launches each "
+          f"{', '.join(f'{ms:.4f}' for ms in reps)} ms, median {statistics.median(reps):.4f}")
+    return statistics.median(reps)
 
 
 def _kernel_modules():
@@ -730,11 +769,12 @@ def _kernel_group(name):
     return "other"
 
 
-def _profiled(torch, dev, run, rounds, top=12):
-    """run() once under torch.profiler; prints where the device time went
-    and returns (run()'s result, device busy ms per round, {kernel group:
-    ms per round}, device kernels per round)."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
+def _device_profile(torch, dev, run, cpu_ops=True):
+    """run() once under torch.profiler; returns (its result, wall ms with the
+    profiler on, {device kernel name: ms}, {device kernel name: launches}).
+    cpu_ops=False traces the device alone (no host op events: a run of tens
+    of thousands of launches then takes seconds less to read back)."""
+    acts = [torch.profiler.ProfilerActivity.CPU] if cpu_ops or dev.type != "cuda" else []
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
@@ -747,6 +787,14 @@ def _profiled(torch, dev, run, rounds, top=12):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             per_name[e.name] += e.time_range.elapsed_us() / 1e3
             calls[e.name] += 1
+    return out, wall_ms, per_name, calls
+
+
+def _profiled(torch, dev, run, rounds, top=12):
+    """run() once under torch.profiler; prints where the device time went
+    and returns (run()'s result, device busy ms per round, {kernel group:
+    ms per round}, device kernels per round)."""
+    out, wall_ms, per_name, calls = _device_profile(torch, dev, run)
     busy_ms = sum(per_name.values())
     n_launch = sum(calls.values())
     print(f"[profile] {rounds} rounds: wall {wall_ms:.1f} ms with the profiler on, "
@@ -1227,6 +1275,428 @@ def phase_train(torch, dev, cfg=None, n_owners=4, seq=1024, **kw):
     return phase_main(torch, dev, cfg=cfg, n_owners=n_owners, seq=seq, tag="train", **kw)
 
 
+# the paper's Section 5 at its own size (benchmarks/bench_collaboration.py's
+# grid): p = 10, 10,000 records per owner, T = 1000, 100 replicas a session
+CONVEX_NS = (2, 5, 10, 25, 50)
+CONVEX_EPS = (1.0, 2.5, 10.0)
+CONVEX_CFG = dict(horizon=1000, rho=1.0, sigma=2e-5)
+CONVEX_PROBLEM = dict(reg=1e-5, theta_max=2.0)
+# the card against the port's CPU run on the same keys: owner sequences bit
+# for bit; theta_L, the bank and psi through T steps of f32 products summed
+# in other orders (cuBLAS against the CPU's) and Laplace draws whose log1p
+# may differ by an ulp
+CONVEX_RTOL, CONVEX_ATOL = 1e-4, 1e-5
+
+
+def _convex_problem(dataset, n_owners, n_per, dev, seed=2, heterogeneity=0.3):
+    from repro_torch.data import owner_shards
+    from repro_torch.federation import federate_problem
+    shards = owner_shards(dataset, [n_per] * n_owners, seed=seed, heterogeneity=heterogeneity)
+    prob, owners = federate_problem(shards, 1.0, device=dev, **CONVEX_PROBLEM)
+    return shards, prob, owners
+
+
+def _isolated_psi(torch, prob, shards):
+    """psi, on the global problem, of owner 0's exact non-private model
+    trained alone (benchmarks/bench_collaboration.py's psi_iso)."""
+    from repro_torch.federation import relative_fitness
+    X0, y0 = shards[0]
+    n, p = X0.shape
+    theta = np.linalg.solve(X0.T @ X0 / n + CONVEX_PROBLEM["reg"] * np.eye(p), X0.T @ y0 / n)
+    return float(relative_fitness(prob, torch.tensor(theta, dtype=torch.float32,
+                                                     device=prob.G.device)))
+
+
+def _convex_session(torch, dev, fed, key, prob, runs):
+    """One session of `runs` replicas timed by the host clock around a
+    synchronize; returns (trace, ms)."""
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    trace = fed.run(key, prob, n_runs=runs)
+    _sync(torch, dev)
+    return trace, (time.perf_counter() - t0) * 1e3
+
+
+def _convex_cross_device(torch, dev, n_owners, n_per, runs):
+    """The N = n_owners cell on the card and on the CPU, same keys, under
+    every schedule: owner sequences bit for bit, theta_L, bank and psi
+    within CONVEX_RTOL and CONVEX_ATOL."""
+    from repro_torch import random
+    from repro_torch.data import owner_shards
+    from repro_torch.federation import (AvailabilityTraceSchedule, Federation,
+                                        FederationConfig, PoissonSchedule, UniformSchedule,
+                                        federate_problem)
+    cpu = torch.device("cpu")
+    shards = owner_shards("lending", [n_per] * n_owners, seed=2)
+    # windows of 0.2 of a 12-hour period, staggered over [0.5, 1.2): some wrap
+    # round the period's end, and phases in [0.4, 0.5) find nobody (the
+    # everyone-available fallback)
+    windows = tuple(((0.7 * i / n_owners + 0.5) % 1.0, (0.7 * i / n_owners + 0.7) % 1.0)
+                    for i in range(n_owners))
+    trace = tuple(np.random.default_rng(5).integers(0, n_owners, 777).tolist())
+    schedules = {"uniform": UniformSchedule(), "poisson": PoissonSchedule(rate=0.5),
+                 "availability": AvailabilityTraceSchedule(windows=windows, period=12.0),
+                 "replay": AvailabilityTraceSchedule(windows=windows, period=12.0,
+                                                     trace=trace)}
+    sides = {d: federate_problem(shards, 1.0, device=d, **CONVEX_PROBLEM) for d in (dev, cpu)}
+    for name, sched in schedules.items():
+        out = {}
+        for d, (prob, owners) in sides.items():
+            fed = Federation(owners, FederationConfig(**CONVEX_CFG), schedule=sched, device=d)
+            t0 = time.perf_counter()
+            out[d.type] = fed.run(random.PRNGKey(0, device=d), prob, n_runs=runs)
+            _sync(torch, d)
+            out[d.type + "_ms"] = (time.perf_counter() - t0) * 1e3
+        card, host = out[dev.type], out["cpu"]
+        check(torch.equal(card.owners_seq.cpu(), host.owners_seq),
+              f"{name}: the card's owner sequences differ from the CPU's")
+        errs = {}
+        for f in ("theta_L", "theta_bank", "psi"):
+            a, b = getattr(card, f).cpu(), getattr(host, f)
+            errs[f] = float((a - b).abs().max())
+            check(torch.allclose(a, b, rtol=CONVEX_RTOL, atol=CONVEX_ATOL),
+                  f"{name}: {f} on the card differs from the CPU's by {errs[f]}")
+        seq = host.owners_seq.numpy()
+        print(f"[convex] card == CPU, {name} schedule, N={n_owners}, {runs} replicas: "
+              f"owner sequences equal bit for bit ({seq.size} draws, owner counts "
+              f"{np.bincount(seq.reshape(-1), minlength=n_owners).min()} to "
+              f"{np.bincount(seq.reshape(-1), minlength=n_owners).max()}); max |diff| "
+              + ", ".join(f"{f} {e:.3e}" for f, e in errs.items())
+              + f" (bound {CONVEX_ATOL} + {CONVEX_RTOL} x); CPU {out['cpu_ms']:.0f} ms, card "
+              f"{out[dev.type + '_ms']:.0f} ms")
+
+
+def _convex_accounting(torch, dev, n_owners=5, n_per=10_000, runs=100, cap_slack=1.0):
+    """The ledger, the cap, the refused step and the raising cases."""
+    from repro_torch import random
+    from repro_torch.federation import (Federation, FederationConfig, PaperMechanism,
+                                        StrictMechanism, convex, stack_gram)
+    T = CONVEX_CFG["horizon"]
+    _, prob, owners = _convex_problem("lending", n_owners, n_per, dev)
+    cfg = FederationConfig(**CONVEX_CFG)
+    key = random.PRNGKey(1, device=dev)
+    fed = Federation(owners, cfg, device=dev)
+    trace = fed.run(key, prob)
+    counts = np.bincount(trace.owners_seq.cpu().numpy(), minlength=n_owners)
+    led = fed.ledger()
+    check([led[i]["responses"] for i in range(n_owners)] == counts.tolist()
+          and all(r["refused"] == 0 for r in led.values()),
+          "the ledgered run's ledger differs from the bincount of its owners")
+    try:
+        fed.run(key, prob)
+        check(False, "a second ledgered run did not raise")
+    except RuntimeError:
+        pass
+    # per_owner_rounds at a cap that bites: no owner passes it
+    capped = Federation(owners, cfg, mechanism="per_owner_rounds", cap_slack=cap_slack,
+                        device=dev)
+    cap = capped.mechanism.cap
+    trace = capped.run(key, prob)
+    counts = np.bincount(trace.owners_seq.cpu().numpy(), minlength=n_owners)
+    led = capped.ledger()
+    check([led[i]["responses"] for i in range(n_owners)] == np.minimum(counts, cap).tolist()
+          and [led[i]["refused"] for i in range(n_owners)]
+          == np.maximum(counts - cap, 0).tolist() and max(counts) > cap,
+          f"per_owner_rounds ledger {led} for counts {counts.tolist()} and cap {cap}")
+    # every refused step of `runs` capped replicas leaves theta_L and the bank
+    # bit-equal (one read back, after the loop)
+    A, b, n_i = stack_gram([o.gram for o in owners])
+    keys = random.split(random.PRNGKey(2, device=dev), runs)
+    seq_dev, noise = convex._draws(keys, n_owners, A.shape[1], T,
+                                   capped.mechanism.scales(p=A.shape[1], device=dev), None)
+    seq = seq_dev.cpu().numpy()
+    refused, seen, rows = np.zeros(seq.shape, bool), np.zeros((runs, n_owners), int), \
+        np.arange(runs)
+    for k in range(T):
+        refused[:, k] = seen[rows, seq[:, k]] >= cap
+        seen[rows, seq[:, k]] += 1
+    refused_dev = torch.from_numpy(refused).to(dev)
+    theta_L = torch.zeros((runs, A.shape[1]), device=dev)
+    bank = torch.zeros((runs, n_owners, A.shape[1]), device=dev)
+    cnt = torch.zeros((runs, n_owners), dtype=torch.int32, device=dev)
+    bad = torch.zeros((), dtype=torch.bool, device=dev)
+    prev_L, prev_bank = theta_L, bank.clone()
+    for k, (theta_L, bank) in enumerate(convex._steps(
+            prob, A, b, n_i, seq_dev, noise, theta_L, bank, cnt, rho=cfg.rho,
+            sigma=cfg.sigma, lr_scale=1.0, cap=cap)):
+        same = (theta_L == prev_L).all(-1) & (bank == prev_bank).flatten(1).all(-1)
+        bad |= (refused_dev[:, k] & ~same).any()
+        prev_L, prev_bank = theta_L, bank.clone()
+    check(not bool(bad), "a refused step changed theta_L or the bank")
+    check(cnt.cpu().numpy().tolist() == np.minimum(seen, cap).tolist(),
+          "the engine's response counts differ from the host's")
+    print(f"[convex] per_owner_rounds (cap {cap} of T={T}, N={n_owners}): ledger == host "
+          f"({counts.tolist()} drawn); {int(refused.sum())} refused steps over {runs} "
+          f"replicas, each leaving theta_L and the bank bit-equal")
+    for what, call in (
+            ("run_sync under per_owner_rounds",
+             lambda: Federation(owners, cfg, mechanism="per_owner_rounds", strategy="sync",
+                                device=dev).run_sync(key, prob, lr=0.4)),
+            ("run under the tree",
+             lambda: Federation(owners, cfg, mechanism="tree", tree_depth=4,
+                                device=dev).run(key, prob)),
+            ("run_sync under the tree",
+             lambda: Federation(owners, cfg, mechanism="tree", strategy="sync",
+                                device=dev).run_sync(key, prob, lr=0.4))):
+        try:
+            call()
+            check(False, f"{what} did not raise")
+        except ValueError:
+            pass
+    paper = PaperMechanism(owners, cfg).scales(device=dev)
+    strict = StrictMechanism(owners, cfg).scales(p=10, device=dev)
+    check(torch.allclose(strict, paper * math.sqrt(10), rtol=1e-6, atol=0),
+          "strict scales differ from paper x sqrt(10)")
+    print("[convex] a second ledgered run, run_sync under per_owner_rounds and both engines "
+          "under the tree raise; strict scales == paper x sqrt(10)")
+
+
+def _convex_sync_timing(torch, dev, n_owners=5, n_per=50_000, horizon=800, runs=10):
+    """benchmarks/bench_async_vs_sync.py's setting: the ledgered run_sync
+    charges every owner T; then run, the capped run and run_sync, `runs`
+    replicas each, timed in turns (host clock around a synchronize)."""
+    import dataclasses
+    from repro_torch import random
+    from repro_torch.federation import Federation, FederationConfig
+    _, prob, owners = _convex_problem("lending", n_owners, n_per, dev, seed=4,
+                                      heterogeneity=0.0)
+    cfg = FederationConfig(**dict(CONVEX_CFG, horizon=horizon))
+    fed = Federation(owners, cfg, strategy="sync", device=dev)
+    trace = fed.run_sync(random.PRNGKey(100, device=dev), prob, lr=0.4)
+    led = fed.ledger()
+    check(all(r["responses"] == horizon and r["refused"] == 0 for r in led.values()),
+          f"run_sync charged {led}")
+    check(bool(torch.isfinite(trace.psi).all()), "run_sync: non-finite psi")
+    out = {}
+    for name, make, call in (
+            ("async", lambda: Federation(owners, cfg, device=dev),
+             lambda f: f.run(random.PRNGKey(0, device=dev), prob, n_runs=runs)),
+            ("async capped", lambda: Federation(owners, cfg, mechanism="per_owner_rounds",
+                                                device=dev),
+             lambda f: f.run(random.PRNGKey(0, device=dev), prob, n_runs=runs)),
+            ("sync", lambda: Federation(owners, cfg, strategy="sync", device=dev),
+             lambda f: f.run_sync(random.PRNGKey(100, device=dev), prob, lr=0.4,
+                                  n_runs=runs))):
+        f = make()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        tr = call(f)
+        _sync(torch, dev)
+        out[name] = ((time.perf_counter() - t0) * 1e3, float(tr.psi[:, -1].mean()))
+    print(f"[convex] async vs sync (N={n_owners} x {n_per} records, eps 1, T={horizon}, "
+          f"{runs} replicas, lr 0.4): ledgered run_sync charged every owner {horizon}; "
+          + "; ".join(f"{k} {ms:.1f} ms per session, mean final psi {psi:.5f}"
+                      for k, (ms, psi) in out.items()))
+    return out
+
+
+def phase_convex(torch, dev, ns=CONVEX_NS, eps_grid=CONVEX_EPS, n_per=10_000, runs=100,
+                 datasets=("lending", "health"), **sub):
+    """Algorithm 1 at the paper's size through Federation.run on the card:
+    for each dataset, one profiled session (N = ns[-1], eps_grid[0]: device
+    kernels per step and device busy time, which depend on R, T and p, not
+    on N or eps), then N owners x eps, one timed session of `runs`
+    replicas per cell, its idle share against the profiled busy time;
+    psi's median at k = 10, 500 and T; collab_wins against the isolated
+    owner-0 model; then the fitted (c1bar, c2bar) of eq. (11) and
+    min_owners_for_benefit (Fig. 6's forecast). Then the card against the
+    CPU at N = ns[-1], the accounting checks and async vs sync. `sub`
+    passes sizes to the last two (for a rehearsal on the CPU)."""
+    from repro_torch import random
+    from repro_torch.core import budget_sum, fit_constants, min_owners_for_benefit
+    from repro_torch.federation import Federation, FederationConfig, with_budgets
+    T = CONVEX_CFG["horizon"]
+    at = [k for k in (10, 500, T) if k <= T]
+    cfg = FederationConfig(**CONVEX_CFG)
+    # one session first warms the allocator and cuBLAS's small products
+    _, prob, owners = _convex_problem("lending", ns[0], n_per, dev)
+    Federation(owners, cfg, device=dev).run(random.PRNGKey(0, device=dev), prob, n_runs=runs)
+    cells = []
+    for dataset in datasets:
+        obs, iso = [], {}
+        _, prob, owners = _convex_problem(dataset, ns[-1], n_per, dev)
+        fed = Federation(with_budgets(owners, eps_grid[0]), cfg, device=dev)
+        _, wall, per_name, calls = _device_profile(
+            torch, dev, lambda: fed.run(random.PRNGKey(0, device=dev), prob, n_runs=runs),
+            cpu_ops=False)
+        busy, kernels = sum(per_name.values()), sum(calls.values())
+        print(f"[convex] {dataset}: one profiled session (N={ns[-1]}, eps {eps_grid[0]}, "
+              f"{runs} replicas x T={T}): {kernels} device kernels ({kernels / T:.1f} per "
+              f"step), device busy {busy:.2f} ms, wall {wall:.1f} ms with the profiler on; "
+              f"the kernels " + ", ".join(f"{n[:40]} {calls[n]}x {ms:.2f} ms"
+                                          for n, ms in per_name.most_common(4)))
+        for N in ns:
+            shards, prob, owners = _convex_problem(dataset, N, n_per, dev)
+            iso[N] = _isolated_psi(torch, prob, shards)
+            for eps in eps_grid:
+                fed = Federation(with_budgets(owners, eps), cfg, device=dev)
+                trace, ms = _convex_session(torch, dev, fed, random.PRNGKey(0, device=dev),
+                                            prob, runs)
+                psi = trace.psi.cpu().numpy()
+                check(psi.shape == (runs, T) and np.isfinite(psi).all() and psi.min() > -1e-4,
+                      f"{dataset} N={N} eps={eps}: psi out of range")
+                check(float(trace.theta_bank.abs().max()) <= np.float32(prob.theta_max),
+                      "a model left Theta")
+                med = np.median(psi, axis=0)
+                final = float(psi[:, -1].mean())
+                wins = final < iso[N]
+                obs.append((N, eps, final))
+                cells.append(dict(dataset=dataset, N=N, eps=eps, ms=ms, busy=busy,
+                                  kernels_per_step=kernels / T, final=final, wins=wins))
+                print(f"[convex] {dataset} N={N:2d} eps={eps:4.1f}: {ms:8.1f} ms per session "
+                      f"({runs} replicas x T={T}; idle {1 - busy / ms:.1%} against the "
+                      f"profiled {busy:.1f} ms); psi median "
+                      + " ".join(f"k={k} {med[k - 1]:.5f}" for k in at)
+                      + f"; mean final psi {final:.5f} vs isolated owner-0 "
+                      f"{iso[N]:.5f}: collab_wins={int(wins)}")
+        ns_arr = np.array([N * n_per for N, _, _ in obs], float)
+        sums = np.array([budget_sum([e] * N) for N, e, _ in obs])
+        c1, c2 = fit_constants(ns_arr, sums, np.array([o for *_, o in obs]))
+        pilot = ns[min(1, len(ns) - 1)]
+        forecast = {e: min_owners_for_benefit(iso[pilot], n_per, e, c1, c2) for e in eps_grid}
+        print(f"[convex] {dataset}: eq. (11) fitted to the {len(obs)} cells: c1bar {c1:.6g}, "
+              f"c2bar {c2:.6g}; Fig. 6's forecast against the isolated owner-0 psi "
+              f"{iso[pilot]:.5f} of the N={pilot} problem, min owners for collaboration to "
+              f"win: " + ", ".join(f"eps {e}: {n}" for e, n in forecast.items()))
+    ms = [c["ms"] for c in cells]
+    print(f"[convex] {len(cells)} cells: {statistics.median(ms):.1f} ms per session "
+          f"(median; {min(ms):.1f} to {max(ms):.1f}), "
+          f"{statistics.median(c['kernels_per_step'] for c in cells):.1f} device kernels per "
+          f"step, idle {statistics.median(1 - c['busy'] / c['ms'] for c in cells):.1%} "
+          f"(median); the headline, N > 10 at eps >= 1 beats the isolated model: "
+          f"{sum(c['wins'] for c in cells if c['N'] > 10)} of "
+          f"{sum(c['N'] > 10 for c in cells)} such cells")
+    _convex_cross_device(torch, dev, ns[-1], n_per, runs)
+    _convex_accounting(torch, dev, **sub.get("accounting", {}))
+    _convex_sync_timing(torch, dev, **sub.get("sync", {}))
+    return cells
+
+
+SYNC_LR = 0.05
+
+
+def phase_sync(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, rounds=3):
+    """The deep synchronous baseline at full width: DENSE_124M, every owner
+    privatizing its batch (4 x seq, G = 2 microbatches) each round with the
+    fused privatizer, through Federation(strategy="sync").make_step and
+    sync_round; `rounds` timed and one profiled, with the launch counters
+    set to 0 just before and read just after each. Then the profiled round
+    again with fused_kernel=False from the same params, batches and key; and
+    a horizon-1 federation whose second round refuses every owner. Returns
+    the launches of the fused rounds."""
+    from repro_torch import random
+    from repro_torch.configs import DENSE_124M
+    from repro_torch.data import OwnerDataPipeline, synthetic_owner_shards
+    from repro_torch.federation import (DataOwner, Federation, FederationConfig,
+                                        PrivatizerConfig)
+    from repro_torch.models import LM
+    cfg = DENSE_124M if cfg is None else cfg
+    batch, G = 4, 2
+    lm = LM(cfg)
+
+    def loss_fn(p, b):
+        return lm.loss(p, b)[0]
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    shards = synthetic_owner_shards(n_owners, records, seq, cfg.vocab, seed=0)
+    pipe = OwnerDataPipeline(shards, batch, seed=0)
+    owners = [DataOwner(n=s, epsilon=1.0, xi=1.0) for s in pipe.owner_sizes]
+    everyone = np.arange(n_owners)
+
+    def federation(fused, horizon=1000, noiseless=False):
+        fed = Federation(owners, FederationConfig(horizon=horizon, sigma=1e-2, theta_max=100.0,
+                                                  noiseless=noiseless),
+                         strategy="sync", device=dev)
+        fed.make_step(loss_fn, lr=SYNC_LR, privatizer=PrivatizerConfig(
+            xi=1.0, granularity="microbatch", n_microbatches=G, fused_kernel=fused))
+        return fed
+
+    fed = federation(True)
+    params = lm.init(seed=0, device=dev)
+    n_leaves = len(_leaves(params))
+    expected = dict.fromkeys(_launches(), 0)
+    expected.update(sqnorm=n_owners * G * n_leaves, scale_noise=n_owners * n_leaves)
+    held_out = np.random.default_rng(99).integers(0, cfg.vocab, (batch, seq), dtype=np.int32)
+    eval_batch = {k: v.to(dev) for k, v in _torch_batches(
+        torch, {"tokens": held_out, "labels": np.roll(held_out, -1, axis=1)}).items()}
+    with torch.no_grad():
+        loss0 = float(loss_fn(params, eval_batch))
+    _reset_launches()
+    total = dict.fromkeys(expected, 0)
+
+    def one_round(fed, params, batches, key, want):
+        before = _launches()
+        out = fed.sync_round(params, batches, key)
+        got = _diff(_launches(), before)
+        check(got == want, f"one sync round launched {got}, expected {want}")
+        for k, v in got.items():
+            total[k] += v
+        return out
+
+    key = random.PRNGKey(0, device=dev)
+    per_round = []
+    for r in range(rounds):
+        key, sub = random.split(key)
+        batches = _torch_batches(torch, pipe.batches_for(everyone))
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        params = one_round(fed, params, batches, sub, expected)
+        _sync(torch, dev)
+        per_round.append((time.perf_counter() - t0) * 1e3)
+    median = statistics.median(per_round)
+    key, sub = random.split(key)
+    batches = _torch_batches(torch, pipe.batches_for(everyone))
+    before_prof = params
+    params, wall, per_name, calls = _device_profile(
+        torch, dev, lambda: one_round(fed, before_prof, batches, sub, expected), cpu_ops=False)
+    busy, kernels = sum(per_name.values()), sum(calls.values())
+    groups = collections.Counter()
+    for name, ms in per_name.items():
+        groups[_kernel_group(name)] += ms
+    print(f"[sync] {cfg.name}: {n_owners} owners x {records} records, batch {batch} x seq "
+          f"{seq}, G={G}, fused privatizer: {rounds} rounds "
+          f"{', '.join(f'{m:.1f}' for m in per_round)} ms (median {median:.1f} ms per round); profiled round: device busy {busy:.2f} ms, "
+          f"{kernels} device kernels, idle {1 - busy / median:.1%} of the median round; by "
+          f"group " + ", ".join(f"{g} {ms:.2f}" for g, ms in groups.most_common())
+          + f"; launches per round {expected['sqnorm']} sqnorm, {expected['scale_noise']} "
+          f"scale_noise; peak memory {_peak_gb(torch, dev):.2f} GB")
+    check(all(_finite(torch, leaf) for leaf in _leaves(params)), "non-finite params")
+    led = fed.ledger()
+    check(all(r["responses"] == rounds + 1 and r["refused"] == 0 for r in led.values()),
+          f"the sync ledger {led} after {rounds + 1} rounds")
+    # the profiled round's params, batches and key through both privatizers
+    # at noise scale 0: the two map the same bits to Laplace draws by other
+    # inverse CDFs (the kernels' on the top 24 bits, random.laplace jax's),
+    # so with noise they are two lawful draws; without it both compute the
+    # same clipped mean, the clip norms summed in other orders
+    quiet = dict.fromkeys(expected, 0)
+    fused = one_round(federation(True, noiseless=True), before_prof, batches, sub, expected)
+    unfused = one_round(federation(False, noiseless=True), before_prof, batches, sub, quiet)
+    worst = 0.0
+    for a, b in zip(_leaves(fused), _leaves(unfused)):
+        worst = max(worst, float((a - b).abs().max()))
+        check(torch.allclose(a, b, rtol=1e-4, atol=1e-6),
+              "the fused and unfused sync rounds disagree")
+    del fused
+    # a horizon of one round: the second round refuses every owner
+    short = federation(True, horizon=1)
+    p1 = one_round(short, params, batches, sub, expected)
+    p2 = one_round(short, p1, batches, sub, quiet)
+    check(p2 is p1 and all(r["responses"] == 1 and r["refused"] == 1
+                           for r in short.ledger().values()),
+          "a fully refused sync round changed the params or the ledger")
+    with torch.no_grad():
+        loss1 = float(loss_fn(params, eval_batch))
+    check(math.isfinite(loss1), "non-finite loss after the sync rounds")
+    print(f"[sync] at noise scale 0, fused == unfused within rtol 1e-4, atol 1e-6 (max "
+          f"|diff| {worst:.3e}); "
+          f"ledger {rounds + 1} responses per owner; a fully refused round returns its "
+          f"params and launches nothing; central loss {loss0:.4f} -> {loss1:.4f}")
+    del params, unfused, p1, p2, before_prof
+    return total, dict(median=median, busy=busy, kernels=kernels)
+
+
 # one microbatch's loss gradient, scan kernels against the plain scan on
 # the card: f32 in both, the scan's outputs 5e-5 of their largest value
 # apart (`_scan_err`), and that relative difference carried through the
@@ -1560,7 +2030,8 @@ def _time_scale_noise(torch, dev, launches, errs):
         source="src/repro_torch/kernels/dp_clip_noise/csrc/dp_clip_noise.cu",
         replaces="src/repro/kernels/dp_clip_noise/kernel.py:94",
         launches=launches["scale_noise"], max_abs_err=errs["scale_noise"],
-        ms=cuda_ms(torch, kernel_pass, 20), plain_ms=cuda_ms(torch, plain_pass, 3),
+        ms=_steady_ms(torch, "scale_noise", kernel_pass, 20),
+        plain_ms=cuda_ms(torch, plain_pass, 3),
         bound_ms=8 * P / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None)
     big = max(leaves, key=lambda x: x.numel())
     big_ms = cuda_ms(torch, lambda: ops.scale_noise(big, keys[0], cs, ns), 20)
@@ -1638,12 +2109,17 @@ def _time_tree_delta(torch, dev, launches, errs):
     rows = []
     for r, count in ((0, 0), (1, 1), (2, 3)):
         counts = torch.tensor([count], dtype=torch.int32, device=dev)
+
+        def launch():
+            return ops.tree_delta_(nodes, counts, owner, key, ns, grant)
+
         row = dict(
             name="tree_delta", route="cuda",
             source="src/repro_torch/kernels/tree_noise/csrc/tree_noise.cu",
             replaces="src/repro/kernels/tree_noise/kernel.py:64",
             launches=launches["tree_delta"], max_abs_err=errs["tree_delta"],
-            ms=cuda_ms(torch, lambda: ops.tree_delta_(nodes, counts, owner, key, ns, grant), 20),
+            ms=(_steady_ms(torch, "tree_delta (r = 0)", launch, 20) if r == 0
+                else cuda_ms(torch, launch, 20)),
             plain_ms=cuda_ms(torch, lambda: ref.tree_delta_inplace_ref(
                 nodes, counts, owner, random.bits(key, (P_FULL,)), ns, grant), 3),
             bound_ms=(8 * r + 8) * P_FULL / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -1850,6 +2326,14 @@ def main():
     check(train_launches["ssd_chunk_scan_bwd"] > 0 and train_launches["dp_round"] > 0
           and train_launches["flash_attention"] == 0,
           "the train path launched no SSD backward or dp_round, or a flash_attention")
+    phase_convex(torch, dev)
+    torch.cuda.empty_cache()
+    sync_launches, _ = phase_sync(torch, dev)
+    torch.cuda.empty_cache()
+    check(sync_launches["sqnorm"] > 0 and sync_launches["scale_noise"] > 0
+          and not any(sync_launches[k] for k in sync_launches
+                      if k not in ("sqnorm", "scale_noise")),
+          "the sync path launched no sqnorm or scale_noise, or another kernel")
     for bank_dtype in (None, "int8"):
         phase_refusal(torch, dev, bank_dtype=bank_dtype)
         phase_refusal(torch, dev, bank_dtype=bank_dtype, tree_depth=2)

@@ -1,5 +1,8 @@
-"""Owner-sharded data pipeline of the port."""
+"""Data of the port: the owner-sharded token pipeline of the deep path and
+the synthetic convex datasets (Lending Club and NY SPARCS stand-ins)."""
 from repro_torch.data.pipeline import (OwnerDataPipeline, OwnerShard,
                                       synthetic_owner_shards)
+from repro_torch.data.synthetic import GENERATORS, health, lending, owner_shards
 
-__all__ = ["OwnerDataPipeline", "OwnerShard", "synthetic_owner_shards"]
+__all__ = ["GENERATORS", "OwnerDataPipeline", "OwnerShard", "health", "lending",
+           "owner_shards", "synthetic_owner_shards"]

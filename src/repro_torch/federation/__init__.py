@@ -1,32 +1,50 @@
 """The federation API of the port: DataOwners + FederationConfig + a
-mechanism (paper, per_owner_rounds, tree) + the uniform schedule -> one
-Federation session over the deep engine, on pytree or flat states
-(counterpart of `repro.federation`)."""
+mechanism (paper, strict, per_owner_rounds, tree) + a schedule (uniform,
+Poisson, availability trace) -> one Federation session over the convex
+Algorithm-1 engine and the deep engine (pytree or flat states), with the
+asynchronous and the synchronous strategy (counterpart of
+`repro.federation`)."""
+from repro_torch.federation.clocks import (Schedule, owner_counts, poisson_schedule,
+                                           uniform_schedule)
 from repro_torch.federation.config import FederationConfig, paper_rates
+from repro_torch.federation.convex import (Algo1Config, Algo1Trace, SyncTrace,
+                                           run_algorithm1, run_many, scan_engine,
+                                           stack_gram, sync_scan_engine)
 from repro_torch.federation.deep import (AsyncDPConfig, AsyncDPState, TreeNoise, init_state,
                                          init_state_flat, init_tree_noise,
-                                         make_fused_rounds, make_train_step)
+                                         make_fused_rounds, make_sync_dp_step,
+                                         make_train_step)
 from repro_torch.federation.dp_sgd import PrivatizerConfig, clip_tree, private_grad
 from repro_torch.federation.flatten import (BankCodec, FlatSpec, ParamFlat, QuantBank,
                                             as_bank_codec, flatten_spec, init_flat_bank,
                                             pack_params)
+from repro_torch.federation.linear import (LinearProblem, Owner, fitness, make_problem,
+                                           owner_grad, record_grad_bound, relative_fitness)
 from repro_torch.federation.mechanisms import (CappedRoundsMechanism, LedgerDriftError,
-                                               PaperMechanism, TreeMechanism,
-                                               make_mechanism)
-from repro_torch.federation.owners import DataOwner
+                                               PaperMechanism, StrictMechanism,
+                                               TreeMechanism, make_mechanism)
+from repro_torch.federation.owners import DataOwner, federate_problem, with_budgets
 from repro_torch.federation.privacy import (DeviceLedger, PrivacyAccountant,
                                             capped_rounds, laplace_noise, laplace_noise_tree,
                                             laplace_scale_theorem1, make_device_ledger)
-from repro_torch.federation.schedules import UniformSchedule, as_owner_seq
+from repro_torch.federation.schedules import (AvailabilityTraceSchedule, PoissonSchedule,
+                                              ScheduleProtocol, UniformSchedule,
+                                              as_owner_seq)
 from repro_torch.federation.session import Federation
 
 __all__ = [
-    "AsyncDPConfig", "AsyncDPState", "BankCodec", "CappedRoundsMechanism", "DataOwner",
-    "DeviceLedger", "Federation", "FederationConfig", "FlatSpec", "LedgerDriftError",
-    "PaperMechanism", "ParamFlat", "PrivacyAccountant", "PrivatizerConfig", "QuantBank",
-    "TreeMechanism", "TreeNoise", "UniformSchedule", "as_bank_codec", "as_owner_seq",
-    "capped_rounds", "clip_tree", "flatten_spec", "init_flat_bank", "init_state",
-    "init_state_flat", "init_tree_noise", "laplace_noise", "laplace_noise_tree",
-    "laplace_scale_theorem1", "make_device_ledger", "make_fused_rounds",
-    "make_mechanism", "make_train_step", "pack_params", "paper_rates", "private_grad",
+    "Algo1Config", "Algo1Trace", "AsyncDPConfig", "AsyncDPState", "AvailabilityTraceSchedule",
+    "BankCodec", "CappedRoundsMechanism", "DataOwner", "DeviceLedger", "Federation",
+    "FederationConfig", "FlatSpec", "LedgerDriftError", "LinearProblem", "Owner",
+    "PaperMechanism", "ParamFlat", "PoissonSchedule", "PrivacyAccountant",
+    "PrivatizerConfig", "QuantBank", "Schedule", "ScheduleProtocol", "StrictMechanism",
+    "SyncTrace", "TreeMechanism", "TreeNoise", "UniformSchedule", "as_bank_codec",
+    "as_owner_seq", "capped_rounds", "clip_tree", "federate_problem", "fitness",
+    "flatten_spec", "init_flat_bank", "init_state", "init_state_flat", "init_tree_noise",
+    "laplace_noise", "laplace_noise_tree", "laplace_scale_theorem1", "make_device_ledger",
+    "make_fused_rounds", "make_mechanism", "make_problem", "make_sync_dp_step",
+    "make_train_step", "owner_counts", "owner_grad", "pack_params", "paper_rates",
+    "poisson_schedule", "private_grad", "record_grad_bound", "relative_fitness",
+    "run_algorithm1", "run_many", "scan_engine", "stack_gram", "sync_scan_engine",
+    "uniform_schedule", "with_budgets",
 ]

@@ -68,6 +68,9 @@ or pytree) the privatizer returns its Laplace draw, which becomes the
 fresh node; the fused pytree privatizer adds its noise in-kernel, so the
 tree with fused_kernel needs the flat engine, as in the reference.
 
+`make_sync_dp_step` is the synchronous baseline: every owner answers
+every round and the learner averages the privatized gradients.
+
 Example granularity on the fused flat engine and the fault, staleness,
 paging, grouped and mesh layers wait for later slices.
 """
@@ -78,6 +81,7 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch import random
 from repro_torch.device import resolve_device
 from repro_torch.federation.config import paper_rates
 from repro_torch.federation.dp_sgd import PrivatizerConfig, _group_batch, private_grad
@@ -645,3 +649,49 @@ def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
                        for name in per_round[0]}
 
     return run
+
+
+def make_sync_dp_step(loss_fn, cfg: AsyncDPConfig, lr: float,
+                      scales: Optional[torch.Tensor] = None, device=None):
+    """Synchronous DP-SGD baseline (the paper's related-work comparator,
+    [12]/[14]-style): every owner contributes a privatized gradient each
+    round; the learner averages them.
+
+    Returns step(params, batches, key, weights=None) -> params: `batches`
+    leaves carry a leading (N,) owner axis, `key` is the round's (2,) key
+    (owner i privatizes with row i of split(key, N)), and `weights` (N,)
+    rescales each owner's contribution (the session passes 0/1 liveness
+    there, so budget-exhausted owners drop out of the round). The owners'
+    `private_grad`s, weighted by w_i n_i / n, are accumulated in owner
+    order in f32, as the reference's scan does; then come the sigma * theta
+    regularizer, the step and the theta_max clip. With
+    `PrivatizerConfig(fused_kernel=True)` each owner's clip norms run
+    through the `sqnorm` kernel and its noise through one `scale_noise`
+    pass per leaf."""
+    if cfg.tree_depth is not None:
+        raise ValueError(
+            "the synchronous baseline draws independent per-round noise; "
+            "the tree mechanism (cfg.tree_depth) has no sync counterpart")
+    device = resolve_device(device)
+    scales = (_noise_scales(cfg, device) if scales is None
+              else scales.to(device=device, dtype=torch.float32))
+    n_i = torch.tensor(list(cfg.owner_sizes), dtype=torch.float32, device=device)
+    n = torch.full_like(n_i, float(cfg.n_total))
+
+    def step(params, batches: Dict[str, torch.Tensor], key: torch.Tensor,
+             weights: Optional[torch.Tensor] = None):
+        keys = random.split(key, cfg.n_owners)
+        w_all = n_i / n if weights is None else weights * n_i / n          # (N,)
+        acc = tree_map(lambda leaf: torch.zeros(leaf.shape, dtype=torch.float32,
+                                                device=leaf.device), params)
+        for i in range(cfg.n_owners):
+            q, _ = private_grad(loss_fn, params, {k: v[i] for k, v in batches.items()},
+                                keys[i], cfg=cfg.privatizer, noise_scale=scales[i])
+            w_i = w_all[i]
+            acc = tree_map(lambda a, g: a + w_i * g.to(torch.float32), acc, q)
+        new = tree_map(
+            lambda p, g: (p - lr * (g + cfg.sigma * p.to(torch.float32)).to(p.dtype)
+                          ).to(p.dtype), params, acc)
+        return tree_map(lambda leaf: torch.clamp(leaf, -cfg.theta_max, cfg.theta_max), new)
+
+    return step

@@ -6,14 +6,15 @@ PrivacyAccountant, so accounting cannot drift from the noise emitted;
 budget-exhausted owners are refused here.
 
   'paper'            — Theorem 1's exact scale b_i = 2 Xi T / (n_i eps_i).
+  'strict'           — the same times sqrt(p): the paper takes the L2 bound
+                       Xi as the L1 sensitivity, which sqrt(p) makes true
+                       for a p-dimensional query (p is required).
   'per_owner_rounds' — owners enforce a response cap R = ceil(slack*T/N),
                        so the same eps_i holds at 2 Xi R / (n_i eps_i).
   'tree'             — DP-FTRL binary-tree correlated noise (Kairouz et
                        al. 2021): per-node scale d * b(R) at R = min(T,
                        2^d - 1), the enforced cap. The node tensor lives
                        in the engine's state (deep.TreeNoise).
-
-The 'strict' mechanism waits for a later slice.
 """
 from __future__ import annotations
 
@@ -64,16 +65,18 @@ class _LedgeredMechanism:
         c = self.cap
         return c if c is not None else self.cfg.horizon
 
-    def _scale_one(self, owner: DataOwner, xi: float) -> float:
+    def _scale_one(self, owner: DataOwner, p: Optional[int], xi: float) -> float:
         raise NotImplementedError
 
-    def scales(self, clip_norm: Optional[float] = None, device=None) -> torch.Tensor:
-        """(N,) f32 per-owner noise scales. `clip_norm` overrides each
-        owner's Xi_i as the sensitivity bound (the deep path passes its
-        ENFORCED clip norm). On `device`, CUDA when None."""
+    def scales(self, p: Optional[int] = None, clip_norm: Optional[float] = None,
+               device=None) -> torch.Tensor:
+        """(N,) f32 per-owner noise scales. `p` is the query dimension
+        (dimension-aware mechanisms need it: 'strict'). `clip_norm`
+        overrides each owner's Xi_i as the sensitivity bound (the deep path
+        passes its ENFORCED clip norm). On `device`, CUDA when None."""
         return torch.tensor([
             0.0 if self.cfg.noiseless else
-            self._scale_one(o, clip_norm if clip_norm is not None else o.xi)
+            self._scale_one(o, p, clip_norm if clip_norm is not None else o.xi)
             for o in self.owners], dtype=torch.float32, device=resolve_device(device))
 
     def authorize(self, owner_idx: int) -> bool:
@@ -147,8 +150,18 @@ class _LedgeredMechanism:
 class PaperMechanism(_LedgeredMechanism):
     name = "paper"
 
-    def _scale_one(self, owner: DataOwner, xi: float) -> float:
+    def _scale_one(self, owner: DataOwner, p: Optional[int], xi: float) -> float:
         return laplace_scale_theorem1(xi, self.cfg.horizon, owner.n, owner.epsilon)
+
+
+class StrictMechanism(_LedgeredMechanism):
+    name = "strict"
+
+    def _scale_one(self, owner: DataOwner, p: Optional[int], xi: float) -> float:
+        if p is None:
+            raise ValueError("strict L1 slack needs the query dimension p")
+        return laplace_scale_theorem1(xi, self.cfg.horizon, owner.n, owner.epsilon,
+                                      p=p, l1_slack="strict")
 
 
 class CappedRoundsMechanism(_LedgeredMechanism):
@@ -157,7 +170,7 @@ class CappedRoundsMechanism(_LedgeredMechanism):
     def __init__(self, owners, cfg, *, cap_slack: float = 2.0):
         super().__init__(owners, cfg, composition="per_owner_rounds", cap_slack=cap_slack)
 
-    def _scale_one(self, owner: DataOwner, xi: float) -> float:
+    def _scale_one(self, owner: DataOwner, p: Optional[int], xi: float) -> float:
         return laplace_scale_theorem1(xi, self.effective_horizon(), owner.n, owner.epsilon)
 
 
@@ -195,7 +208,7 @@ class TreeMechanism(_LedgeredMechanism):
         """Leaves the tree holds before refusal (None: degenerate tree)."""
         return None if self.tree_depth == 0 else (1 << self.tree_depth) - 1
 
-    def _scale_one(self, owner: DataOwner, xi: float) -> float:
+    def _scale_one(self, owner: DataOwner, p: Optional[int], xi: float) -> float:
         levels = max(1, self.tree_depth)
         return levels * laplace_scale_theorem1(xi, self.effective_horizon(), owner.n,
                                                owner.epsilon)
@@ -203,6 +216,7 @@ class TreeMechanism(_LedgeredMechanism):
 
 _MECHANISMS = {
     "paper": PaperMechanism,
+    "strict": StrictMechanism,
     "per_owner_rounds": CappedRoundsMechanism,
     "tree": TreeMechanism,
 }
@@ -216,10 +230,10 @@ def make_mechanism(spec, owners: Sequence[DataOwner], cfg: FederationConfig, *,
         if tree_depth is not None:
             raise ValueError("tree_depth cannot be applied to a pre-built mechanism instance")
         return spec
-    if spec not in _MECHANISMS:
-        raise ValueError(f"mechanism {spec!r} is not ported yet; the port has "
-                         f"{sorted(_MECHANISMS)}")
-    cls = _MECHANISMS[spec]
+    try:
+        cls = _MECHANISMS[spec]
+    except KeyError:
+        raise ValueError(f"unknown mechanism {spec!r}; one of {sorted(_MECHANISMS)}")
     if tree_depth is not None and cls is not TreeMechanism:
         raise ValueError("tree_depth only applies to mechanism='tree'")
     if cls is CappedRoundsMechanism:

@@ -36,11 +36,21 @@ from repro_torch.tree_util import tree_flatten, tree_unflatten
 
 
 def laplace_scale_theorem1(xi: float, horizon: int, n_records: int,
-                           epsilon: float) -> float:
-    """Noise scale b_i of Theorem 1 (the paper's L1 slack)."""
+                           epsilon: float, *, p: Optional[int] = None,
+                           l1_slack: str = "paper") -> float:
+    """Noise scale b_i of Theorem 1. The paper takes Xi, a bound on the L2
+    norm, as the L1 sensitivity; l1_slack="strict" multiplies by sqrt(p),
+    which makes it a true L1 bound for a p-dimensional query."""
     if epsilon <= 0:
         raise ValueError("epsilon must be > 0")
-    return 2.0 * xi * horizon / (n_records * epsilon)
+    b = 2.0 * xi * horizon / (n_records * epsilon)
+    if l1_slack == "strict":
+        if p is None:
+            raise ValueError("strict L1 slack needs the dimension p")
+        b *= math.sqrt(p)
+    elif l1_slack != "paper":
+        raise ValueError(l1_slack)
+    return b
 
 
 def capped_rounds(horizon: int, n_owners: int, slack: float = 2.0) -> int:

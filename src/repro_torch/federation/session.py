@@ -1,8 +1,20 @@
-"""Federation: the session surface over the deep engine.
+"""Federation: the one session surface over the convex and deep engines.
 
-Counterpart of the deep-model half of ``repro/federation/session.py``:
+Counterpart of ``repro/federation/session.py``:
 
     fed = Federation(owners, FederationConfig(horizon=1000, sigma=2e-5))
+
+    # convex (a LinearProblem; Algorithm 1 on the device; Figs. 2/6/8)
+    trace = fed.run(key, prob)                  # one ledgered session
+    traces = fed.run(key, prob, n_runs=100)     # replicas for percentiles
+
+    # the synchronous baseline: every owner answers every round
+    fed = Federation(owners, config, strategy="sync")
+    trace = fed.run_sync(key, prob, lr=0.4)     # convex
+    fed.make_step(loss_fn, lr=1e-3)             # deep
+    params = fed.sync_round(params, batches, key)
+
+    # deep models, asynchronous
     fed.make_step(loss_fn, privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2))
     state = fed.init_state(params)         # a pytree state (the default)
     state, metrics = fed.step(state, batch, owner_idx, key)      # one round
@@ -41,24 +53,34 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import random
 from repro_torch.device import resolve_device
 from repro_torch.federation.config import FederationConfig
+from repro_torch.federation.convex import (Algo1Trace, SyncTrace, scan_engine, stack_gram,
+                                           sync_scan_engine)
 from repro_torch.federation.deep import (AsyncDPConfig, AsyncDPState, init_state,
-                                         init_state_flat, make_fused_rounds, make_train_step)
+                                         init_state_flat, make_fused_rounds,
+                                         make_sync_dp_step, make_train_step)
 from repro_torch.federation.dp_sgd import PrivatizerConfig
 from repro_torch.federation.flatten import ParamFlat, as_bank_codec
+from repro_torch.federation.linear import LinearProblem
 from repro_torch.federation.mechanisms import make_mechanism
 from repro_torch.federation.owners import DataOwner
 from repro_torch.federation.schedules import UniformSchedule, as_owner_seq
 
+_STRATEGIES = ("async", "sync")
+
 
 class Federation:
     def __init__(self, owners: Sequence[DataOwner], config: FederationConfig, *,
-                 mechanism="paper", schedule=None, cap_slack: Optional[float] = None,
-                 tree_depth: Optional[int] = None, device=None):
+                 mechanism="paper", schedule=None, strategy: str = "async",
+                 cap_slack: Optional[float] = None, tree_depth: Optional[int] = None,
+                 device=None):
+        if strategy not in _STRATEGIES:
+            raise ValueError(f"strategy must be one of {_STRATEGIES}")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # full f32 products, as the reference's einsums
@@ -67,12 +89,24 @@ class Federation:
         self.owners = list(owners)
         self.config = config
         self.schedule = schedule if schedule is not None else UniformSchedule()
+        self.strategy = strategy
         self.mechanism = make_mechanism(mechanism, self.owners, config,
                                         cap_slack=cap_slack, tree_depth=tree_depth)
         self._step_fn = None
         self._fused_fn = None
         self._pack_params = False
         self._bank_dtype = None
+        self._ran = False
+
+    def _claim_session(self):
+        # the engines start from fresh per-owner counters, so a second
+        # ledgered run would emit responses the cumulative ledger refuses:
+        # budget spend and accounting would drift apart
+        if self._ran:
+            raise RuntimeError(
+                "this Federation already ran its ledgered session; use n_runs for "
+                "statistical replicas or build a new Federation to renegotiate budgets")
+        self._ran = True
 
     @property
     def n_owners(self) -> int:
@@ -80,6 +114,84 @@ class Federation:
 
     def ledger(self) -> Dict[int, Dict]:
         return self.mechanism.ledger()
+
+    def _reject_tree(self, engine: str):
+        # the convex and sync engines draw independent per-round noise and
+        # carry no noise tree: under the tree mechanism they would emit the
+        # wrong mechanism
+        if getattr(self.mechanism, "tree_depth", None) is not None:
+            raise ValueError(f"{engine} draws independent per-round noise; the tree "
+                             "mechanism needs the deep path (make_step/run_rounds)")
+
+    # ------------------------------ convex --------------------------------
+    def _gram(self):
+        if any(o.gram is None for o in self.owners):
+            raise ValueError("convex path needs Gram payloads on every owner "
+                             "(DataOwner.from_arrays/from_gram)")
+        return tuple(t.to(self.device) for t in stack_gram([o.gram for o in self.owners]))
+
+    def _run_keys(self, key: torch.Tensor, n_runs: Optional[int]) -> torch.Tensor:
+        """The engines' key on the session's device: the key itself for one
+        run, split(key, n_runs) for replicas."""
+        key = key.to(self.device)
+        return key if n_runs is None else random.split(key, n_runs)
+
+    def run(self, key: torch.Tensor, problem: LinearProblem,
+            n_runs: Optional[int] = None) -> Algo1Trace:
+        """Run the asynchronous session on a LinearProblem, on the session's
+        device.
+
+        n_runs=None runs ONE ledgered session: every response and refusal
+        lands in .ledger(), from one read of the owner counts after the
+        run. n_runs=k runs k statistical replicas on keys split(key, k),
+        with a leading (k,) axis on every field of the trace; replicas model
+        hypothetical re-runs, so they are NOT ledgered."""
+        if self.strategy != "async":
+            raise ValueError("run() is the async path; use run_sync()")
+        self._reject_tree("the convex scan engine")
+        A, b, n_i = self._gram()
+        problem = problem.to(self.device)
+        scales = self.mechanism.scales(p=problem.G.shape[0], device=self.device)
+        cfg = self.config
+        if n_runs is None:
+            self._claim_session()
+        trace = scan_engine(self._run_keys(key, n_runs), problem, A, b, n_i, scales,
+                            horizon=cfg.horizon, rho=cfg.rho, sigma=cfg.sigma,
+                            lr_scale=cfg.lr_scale, draw=self.schedule.draw,
+                            cap=self.mechanism.cap)
+        if n_runs is None:
+            counts = np.bincount(trace.owners_seq.cpu().numpy(), minlength=self.n_owners)
+            for i, c in enumerate(counts):
+                self.mechanism.authorize_many(i, int(c))
+        return trace
+
+    def run_sync(self, key: torch.Tensor, problem: LinearProblem, lr: float,
+                 n_runs: Optional[int] = None) -> SyncTrace:
+        """The synchronous all-owners-per-round baseline on the same surface
+        (strategy='sync' federations only). A ledgered run charges every
+        owner T responses; n_runs as in run()."""
+        if self.strategy != "sync":
+            raise ValueError("run_sync() needs strategy='sync'")
+        self._reject_tree("the synchronous scan engine")
+        if self.mechanism.cap is not None:
+            raise ValueError(
+                "per_owner_rounds is an asynchronous composition: the sync engine "
+                "queries every owner all T rounds, so a capped noise scale would "
+                "violate the owners' budgets; use 'paper' or 'strict'")
+        A, b, n_i = self._gram()
+        problem = problem.to(self.device)
+        scales = self.mechanism.scales(p=problem.G.shape[0], device=self.device)
+        cfg = self.config
+        if n_runs is None:
+            self._claim_session()
+        trace = sync_scan_engine(self._run_keys(key, n_runs), problem, A, b, n_i, scales,
+                                 horizon=cfg.horizon, lr=lr)
+        if n_runs is None:
+            for i in range(self.n_owners):
+                self.mechanism.authorize_many(i, cfg.horizon)
+        return trace
+
+    # ------------------------------- deep ---------------------------------
 
     def as_async_config(self, privatizer: Optional[PrivatizerConfig] = None
                         ) -> AsyncDPConfig:
@@ -98,8 +210,14 @@ class Federation:
             tree_depth=getattr(self.mechanism, "tree_depth", None))
 
     def make_step(self, loss_fn, *, privatizer: Optional[PrivatizerConfig] = None,
+                  lr: Optional[float] = None, n_params: Optional[int] = None,
                   pack_params: bool = False, bank_dtype=None):
-        """Build (and keep for .step()/.run_rounds()) the round functions.
+        """Build (and keep for .step()/.run_rounds()/.sync_round()) the round
+        functions.
+
+        async: step(state, batch, owner_idx, key) -> (state, metrics)
+        sync:  step(params, batches, key[, weights]) -> params (needs lr)
+        `n_params` feeds dimension-aware mechanisms ('strict').
 
         loss_fn(params, batch) -> scalar tensor, params the model tree. The
         built functions serve BOTH state representations (they dispatch on
@@ -117,7 +235,14 @@ class Federation:
         self._pack_params = pack_params
         self._bank_dtype = bank_dtype
         acfg = self.as_async_config(privatizer)
-        scales = self.mechanism.scales(clip_norm=acfg.privatizer.xi, device=self.device)
+        scales = self.mechanism.scales(p=n_params, clip_norm=acfg.privatizer.xi,
+                                       device=self.device)
+        if self.strategy == "sync":
+            if lr is None:
+                raise ValueError("sync strategy needs an explicit lr")
+            self._step_fn = make_sync_dp_step(loss_fn, acfg, lr, scales=scales,
+                                              device=self.device)
+            return self._step_fn
         self._step_fn = make_train_step(loss_fn, acfg, scales=scales, device=self.device)
         self._fused_fn = make_fused_rounds(loss_fn, acfg, scales=scales,
                                            device=self.device)
@@ -165,6 +290,8 @@ class Federation:
              ) -> Tuple[AsyncDPState, Dict[str, Any]]:
         """One ledgered round. A budget-exhausted owner is refused: the
         state comes back untouched and the refusal lands in the ledger."""
+        if self.strategy != "async":
+            raise ValueError("step() is the async path; use sync_round()")
         self._require_step()
         i = int(owner_idx)
         if not self.mechanism.authorize(i):
@@ -188,6 +315,8 @@ class Federation:
         bit for bit. Refusals stay on the device until `reconcile(state)`.
         Metrics are stacked (K,) device tensors (refused mask, owner,
         clip_frac, max_grad_norm, grad_noise_scale)."""
+        if self.strategy != "async":
+            raise ValueError("run_rounds() is the async path")
         self._require_step()
         if key is None:
             raise ValueError("run_rounds needs an explicit key")
@@ -211,3 +340,18 @@ class Federation:
         if state.ledger is None:
             raise ValueError("state carries no device ledger")
         return self.mechanism.reconcile(state.ledger)
+
+    def sync_round(self, params, batches, key: torch.Tensor):
+        """One ledgered synchronous round: every live owner contributes and
+        exhausted owners are zero-weighted out. A fully refused round is a
+        no-op that returns `params` itself (the regularizer must not keep
+        shrinking a model nobody is training). `batches` leaves carry a
+        leading (N,) owner axis."""
+        if self.strategy != "sync":
+            raise ValueError("sync_round() needs strategy='sync'")
+        self._require_step()
+        live = [self.mechanism.authorize(i) for i in range(self.n_owners)]
+        if not any(live):
+            return params
+        return self._step_fn(params, self._on_device(batches), key.to(self.device),
+                             torch.tensor(live, dtype=torch.float32, device=self.device))

@@ -23,9 +23,18 @@ scaled. `uniform` equals jax.random.uniform bit for bit; `laplace` and
 `normal` go through log1p and erfinv, which torch and XLA compute with
 other approximations (tests/test_torch_random.py states the tolerances).
 
-Keys are ``(2,)`` uint32 tensors on any device. torch's uint32 dtype lacks
-most arithmetic, so the hash runs on int64 tensors masked to 32 bits; no
-intermediate exceeds 2**62, so nothing overflows.
+`exponential` and `gumbel` are jax's formulas too, each log taken in f64
+and rounded to f32 (jax rounds each log to f32): the draw is then the same
+on every device, which the schedules' owner sequences rely on.
+
+Keys are ``(2,)`` uint32 tensors on any device. Every function also takes a
+batch of keys, a ``(..., 2)`` tensor, in place of ``vmap`` over keys: the
+result gains the key's leading axes, and each key gives what it gives
+alone (``split(keys, n)`` is ``(..., n, 2)``, ``bits(keys, shape)`` is
+``(..., *shape)``; `fold_in` broadcasts its data against the key's leading
+axes). torch's uint32 dtype lacks most arithmetic, so the hash runs on
+int64 tensors masked to 32 bits; no intermediate exceeds 2**62, so nothing
+overflows.
 """
 from __future__ import annotations
 
@@ -64,10 +73,12 @@ def threefry2x32(k0, k1, x0, x1):
 
 
 def _words(key: torch.Tensor):
-    if key.shape != (2,):
-        raise ValueError(f"a key is a (2,) tensor, got shape {tuple(key.shape)}")
+    """The two key words of a (..., 2) key tensor, each (...,) int64."""
+    if key.dim() == 0 or key.shape[-1] != 2:
+        raise ValueError(f"a key is a (2,) tensor (or a (..., 2) batch), got shape "
+                         f"{tuple(key.shape)}")
     k = key.to(torch.int64) & _MASK
-    return k[0], k[1]
+    return k[..., 0], k[..., 1]
 
 
 def _as_key(y0: torch.Tensor, y1: torch.Tensor) -> torch.Tensor:
@@ -85,14 +96,16 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """jax.random.split: (num, 2) uint32 keys."""
+    """jax.random.split: (num, 2) uint32 keys ((..., num, 2) for a batch)."""
     k0, k1 = _words(key)
     lo = torch.arange(int(num), dtype=torch.int64, device=key.device)
-    return _as_key(*threefry2x32(k0, k1, torch.zeros_like(lo), lo))
+    return _as_key(*threefry2x32(k0.unsqueeze(-1), k1.unsqueeze(-1), torch.zeros_like(lo), lo))
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
-    """jax.random.fold_in: a (2,) key derived from `key` and a 32-bit int."""
+    """jax.random.fold_in: a (2,) key derived from `key` and a 32-bit int.
+    `data` may be an int tensor; it broadcasts against the key's leading
+    axes (fold_in(key, arange(T)) is the (T, 2) keys of T fold-ins)."""
     k0, k1 = _words(key)
     d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
     return _as_key(*threefry2x32(k0, k1, torch.zeros_like(d), d))
@@ -101,12 +114,13 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
 def _bits_i64(key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
     k0, k1 = _words(key)
     idx = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device)
-    y0, y1 = threefry2x32(k0, k1, idx >> 32, idx & _MASK)
-    return (y0 ^ y1).reshape(shape)
+    y0, y1 = threefry2x32(k0.unsqueeze(-1), k1.unsqueeze(-1), idx >> 32, idx & _MASK)
+    return (y0 ^ y1).reshape(tuple(k0.shape) + shape)
 
 
 def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
-    """jax.random.bits(key, shape) with the default uint32 width."""
+    """jax.random.bits(key, shape) with the default uint32 width ((...,
+    *shape) for a batch of keys)."""
     return _bits_i64(key, _shape(shape)).to(torch.uint32)
 
 
@@ -124,8 +138,8 @@ def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int) -> torch.
     shape = _shape(shape)
     span = maxval - minval
     keys = split(key)
-    hi = _bits_i64(keys[0], shape)
-    lo = _bits_i64(keys[1], shape)
+    hi = _bits_i64(keys[..., 0, :], shape)
+    lo = _bits_i64(keys[..., 1, :], shape)
     # every product wraps at 32 bits as in jax's uint32 arithmetic; span <
     # 2**31 keeps the int64 products below 2**62
     multiplier = (1 << 16) % span
@@ -171,3 +185,22 @@ def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0)
     return torch.erfinv(u) * float(np.float32(math.sqrt(2.0)))
+
+
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def exponential(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """jax.random.exponential(key, shape, float32): -log1p(-u), u uniform on
+    [0, 1); the log1p in f64, rounded once to f32."""
+    u = uniform(key, shape)
+    return -torch.log1p(-u.double()).float()
+
+
+def gumbel(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """jax.random.gumbel(key, shape, float32) in its default mode "low":
+    -log(-log(u)), u uniform on [tiny, 1); each log in f64, rounded to f32
+    as jax rounds it."""
+    u = uniform(key, shape, _F32_TINY, 1.0)
+    inner = torch.log(u.double()).float()
+    return -torch.log(-inner.double()).float()

@@ -650,3 +650,91 @@ def test_reduced_zamba2_on_the_card_matches_the_cpu(backend):
         lm, cpu_params, lm.init_cache(2, 10, dtype=torch.float32, device="cpu"), prompt, 6)
     torch.testing.assert_close(logits.cpu(), cpu_logits, rtol=0, atol=1e-4)
     assert torch.equal(seqs.cpu(), cpu_seqs)
+
+
+# ------------------------- the convex engine and the sync baseline -------------------------
+def _convex_pair(dev, n_owners=6, n_per=1500):
+    from repro_torch.data import owner_shards
+    from repro_torch.federation import federate_problem
+    shards = owner_shards("lending", [n_per] * n_owners, seed=1)
+    return {d: federate_problem(shards, 1.0, reg=1e-5, theta_max=2.0, device=d)
+            for d in (dev, torch.device("cpu"))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["uniform", "poisson", "availability", "replay"])
+@pytest.mark.parametrize("mechanism", ["paper", "per_owner_rounds"])
+def test_convex_run_on_the_card_matches_the_cpu(schedule, mechanism):
+    """Owner sequences and ledgers bit for bit; theta_L, bank and psi
+    within 1e-5 + 1e-4 x (f32 products in other orders, log1p within an
+    ulp)."""
+    from repro_torch.federation import (AvailabilityTraceSchedule, PoissonSchedule,
+                                        UniformSchedule)
+    dev = _device()
+    windows = tuple(((0.7 * i / 6 + 0.5) % 1.0, (0.7 * i / 6 + 0.7) % 1.0) for i in range(6))
+    sched = {"uniform": UniformSchedule(), "poisson": PoissonSchedule(rate=0.5),
+             "availability": AvailabilityTraceSchedule(windows=windows, period=2.0),
+             "replay": AvailabilityTraceSchedule(windows=windows, trace=(5, 0, 2, 2, 4))
+             }[schedule]
+    out, ledgers = {}, {}
+    for d, (prob, owners) in _convex_pair(dev).items():
+        for n_runs in (None, 5):
+            fed = Federation(owners, FederationConfig(horizon=300, sigma=2e-5), schedule=sched,
+                             mechanism=mechanism, cap_slack=1.0 if mechanism != "paper" else None,
+                             device=d)
+            out[d.type, n_runs] = fed.run(trandom.PRNGKey(3, device=d), prob, n_runs=n_runs)
+            if n_runs is None:
+                ledgers[d.type] = fed.ledger()
+    assert ledgers["cuda"] == ledgers["cpu"]
+    for n_runs in (None, 5):
+        card, cpu = out["cuda", n_runs], out["cpu", n_runs]
+        assert card.owners_seq.device.type == "cuda"
+        assert torch.equal(card.owners_seq.cpu(), cpu.owners_seq)
+        for f in ("theta_L", "theta_bank", "psi"):
+            torch.testing.assert_close(getattr(card, f).cpu(), getattr(cpu, f), rtol=1e-4,
+                                       atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_run_sync_on_the_card_matches_the_cpu():
+    dev = _device()
+    out = {}
+    for d, (prob, owners) in _convex_pair(dev).items():
+        fed = Federation(owners, FederationConfig(horizon=200, sigma=2e-5), strategy="sync",
+                         device=d)
+        out[d.type] = fed.run_sync(trandom.PRNGKey(4, device=d), prob, lr=0.4, n_runs=3)
+        assert all(r["responses"] == 0 for r in fed.ledger().values())
+    for f in ("theta_L", "psi"):
+        torch.testing.assert_close(getattr(out["cuda"], f).cpu(), getattr(out["cpu"], f),
+                                   rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_sync_round_launches_sqnorm_and_scale_noise_and_matches_the_cpu():
+    """N x G x leaves sqnorm and N x leaves scale_noise launches a round and
+    nothing else; the card's round against the CPU's (the plain versions)
+    within rtol 1e-4, atol 1e-5 (GEMMs and norms in other orders); a fully
+    refused round returns its input."""
+    dev = _device()
+    lm = LM(DENSE_124M.reduced())
+    n, G = 3, 2
+    toks = torch.randint(0, lm.cfg.vocab, (n, 4, 16), generator=torch.Generator().manual_seed(1))
+    batches = {"tokens": toks, "labels": torch.roll(toks, -1, dims=2)}
+    owners = [DataOwner(n=1000, epsilon=1.0, xi=1.0) for _ in range(n)]
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        fed = Federation(owners, FederationConfig(horizon=1, sigma=1e-2, theta_max=100.0),
+                         strategy="sync", device=d)
+        fed.make_step(lambda p, b: lm.loss(p, b)[0], lr=0.05, privatizer=PrivatizerConfig(
+            xi=1.0, granularity="microbatch", n_microbatches=G, fused_kernel=True))
+        params = lm.init(seed=2, device=d)
+        before = dict(tkernel.launches)
+        out[d.type] = fed.sync_round(params, batches, trandom.PRNGKey(5, device=d))
+        if d.type == "cuda":
+            n_leaves = len(tree_flatten(params)[0])
+            assert tkernel.launches == {"dp_round": before["dp_round"],
+                                        "sqnorm": before["sqnorm"] + n * G * n_leaves,
+                                        "scale_noise": before["scale_noise"] + n * n_leaves}
+        assert fed.sync_round(out[d.type], batches, trandom.PRNGKey(6, device=d)) is out[d.type]
+    for a, b in zip(tree_flatten(out["cuda"])[0], tree_flatten(out["cpu"])[0]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)

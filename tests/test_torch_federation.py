@@ -360,7 +360,8 @@ def test_entry_points_without_device_raise_without_cuda(entry):
 
 def test_unported_modes_raise(toy_case):
     # the pytree path and the flat reference mode run; example granularity
-    # on the fused flat engine is refused
+    # on the fused flat engine is refused, and so is a mechanism neither
+    # package has
     params, data, _ = toy_case
     fed = Federation([DataOwner(n=10, epsilon=1.0, xi=1.0)], FederationConfig(horizon=3),
                      device=CPU)
@@ -371,9 +372,9 @@ def test_unported_modes_raise(toy_case):
     with pytest.raises(NotImplementedError, match="example"):
         fed.step(state, {k: torch.from_numpy(v[0]) for k, v in data.items()}, 0,
                  trandom.PRNGKey(0, device=CPU))
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="unknown mechanism"):
         Federation([DataOwner(n=10, epsilon=1.0, xi=1.0)], FederationConfig(horizon=3),
-                   mechanism="strict", device=CPU)
+                   mechanism="gaussian", device=CPU)
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():

@@ -6,9 +6,15 @@ float draws are jax's algorithms on those bits: `uniform` matches exactly
 (XLA's fused multiply-add of the scaling included); `laplace` within 1 ulp
 (torch's log1p against XLA's); `normal` within rtol 1e-4, because torch's
 erfinv and XLA's single-precision erf_inv polynomial part by up to 6.7e-5
-relative in the tails (|x| near 3.8, measured over 8 x 2^20 draws).
+relative in the tails (|x| near 3.8, measured over 8 x 2^20 draws);
+`exponential` within 1 ulp (a correctly rounded log1p against XLA's);
+`gumbel` within 1e-6 absolute (its values reach about 15, where one ulp is
+1e-6; near 0 the ulp count of a 1e-7 difference is meaningless). A batch of
+keys gives, key for key, what jax's vmap over the keys gives: exactly for
+the integer streams and uniform, within the same bounds for the rest.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -131,3 +137,57 @@ def test_normal(seed):
     ref = np.asarray(jax.random.normal(jk, (1 << 18,)))
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-6)
     assert np.isfinite(out).all() and abs(out.std() - 1.0) < 0.01
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+def test_exponential_within_one_ulp(seed):
+    jk, tk = _key_pair(seed)
+    out = trandom.exponential(tk, (1 << 18,)).numpy()
+    ref = np.asarray(jax.random.exponential(jk, (1 << 18,)))
+    assert _ulps(out, ref).max() <= 1 and (out == ref).mean() > 0.9
+    assert out.min() >= 0.0 and abs(out.mean() - 1.0) < 0.01
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+def test_gumbel_within_1e6(seed):
+    jk, tk = _key_pair(seed)
+    out = trandom.gumbel(tk, (1 << 18,)).numpy()
+    ref = np.asarray(jax.random.gumbel(jk, (1 << 18,)))
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+    assert (out == ref).mean() > 0.7 and abs(out.mean() - 0.5772) < 0.01
+
+
+def test_batched_keys_match_vmap():
+    jk, tk = _key_pair(21)
+    jks, tks = jax.random.split(jk, 6), trandom.split(tk, 6)
+    grid_j, grid_t = jks.reshape(2, 3, 2), tks.reshape(2, 3, 2)
+
+    def vmap2(fn):
+        return np.asarray(jax.vmap(jax.vmap(fn))(grid_j))
+
+    np.testing.assert_array_equal(trandom.split(grid_t, 4).numpy(),
+                                  vmap2(lambda k: jax.random.split(k, 4)))
+    np.testing.assert_array_equal(trandom.fold_in(grid_t, 77).numpy(),
+                                  vmap2(lambda k: jax.random.fold_in(k, 77)))
+    np.testing.assert_array_equal(trandom.bits(grid_t, (5, 2)).numpy(),
+                                  vmap2(lambda k: jax.random.bits(k, (5, 2))))
+    np.testing.assert_array_equal(trandom.randint(grid_t, (9,), -3, 11).numpy(),
+                                  vmap2(lambda k: jax.random.randint(k, (9,), -3, 11)))
+    np.testing.assert_array_equal(trandom.uniform(grid_t, (7,), 0.5, 3.0).numpy(),
+                                  vmap2(lambda k: jax.random.uniform(k, (7,), minval=0.5,
+                                                                     maxval=3.0)))
+    assert _ulps(trandom.laplace(grid_t, (4, 3)).numpy(),
+                 vmap2(lambda k: jax.random.laplace(k, (4, 3)))).max() <= 1
+    assert _ulps(trandom.exponential(grid_t, (50,)).numpy(),
+                 vmap2(lambda k: jax.random.exponential(k, (50,)))).max() <= 1
+    np.testing.assert_allclose(trandom.gumbel(grid_t, (50,)).numpy(),
+                               vmap2(lambda k: jax.random.gumbel(k, (50,))), rtol=0, atol=1e-6)
+    # fold_in broadcasts its data against the key's leading axes
+    steps = np.arange(5)
+    np.testing.assert_array_equal(
+        trandom.fold_in(tks[:, None, :], torch.from_numpy(steps)).numpy(),
+        np.asarray(jax.vmap(lambda k: jax.vmap(lambda d: jax.random.fold_in(k, d))(
+            jnp.asarray(steps)))(jks)))
+    # each key of a batch gives what it gives alone
+    for r in range(6):
+        assert torch.equal(trandom.laplace(tks, (3,))[r], trandom.laplace(tks[r], (3,)))
