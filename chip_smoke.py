@@ -21,7 +21,11 @@ Phases (any mismatch raises and the run exits non-zero):
              tree_delta at depth 4 for counts 0, 1, 2, 3, 6, 7 and 14
              (r = 0 to 3 retired levels), granted and refused, bit for bit
              on delta and the whole node tensor, and two launches on copies
-             of one input give the same bits; scale_noise through
+             of one input give the same bits; the member axis of the
+             grouped driver, one launch each: dp_round_rows and
+             fused_sqnorm_rows over 8 rows of P = 152,783,616 and 3 of P
+             = 1,000,003, tree_delta_rows_ over 3 owners at depth 4, row m
+             bit for bit the single launch on row m; scale_noise through
              fused_scale_noise_tree and dp_privatize_tree on the 12
              DENSE_124M leaves and on one leaf of P = 1,000,003, bit for
              bit on every leaf; flash_attention, causal, at zamba2's shape
@@ -57,6 +61,19 @@ Phases (any mismatch raises and the run exits non-zero):
              kernel group, the device's idle share), two step() calls,
              reconcile. Launch counts must be K*G sqnorm and K dp_round per
              dispatch, and no bank codec or tree_delta launch.
+   grouped — main's path under the owner-parallel grouped driver,
+             run_rounds(owner_parallel=True): main's model, 16 owners, f32
+             bank, fused, with K = 32 rounds a dispatch drawn from the
+             uniform schedule under fixed keys; for max_group="auto" and
+             8, four timed dispatches (the first warms up) and one
+             profiled, each with exactly one dp_round and G sqnorm
+             launches per group and no other kernel; ms, device ms,
+             device kernels, idle share, mean group size and peak memory
+             per round beside main's. Then the sequential driver on the
+             first sequence, batches and key from a fresh state: refusals,
+             device ledger and step equal the grouped run's, the largest
+             theta_L difference printed, the reconciled ledger equal to
+             the host's count.
    quant   — the quantized bank at full width: the same model and rounds
              with 128 owners x 10,000 records on an int8 bank (78.2 GB in
              f32, which would not fit); launch counts per dispatch must be
@@ -157,7 +174,11 @@ Phases (any mismatch raises and the run exits non-zero):
              depth-0 tree equals the paper mechanism bit for bit. On the
              card, `spec.pack` of a pytree run equals the flat engine's
              reference mode (fused_kernel=False) bit for bit, under the
-             paper mechanism and the tree.
+             paper mechanism and the tree. On the f32 bank (paper and
+             tree) the same run again under the grouped driver on the card
+             (unbounded groups): refusals and the ledger equal the
+             sequential run's, and the leaf counts and nodes bit for bit;
+             one dp_round (tree: tree_delta) and 2 sqnorm per group.
 5. timing  — each kernel (through the wrapper the main path calls), its
              plain version and the one PyTorch call computing the same
              function where there is one (torch.dot for sqnorm,
@@ -173,7 +194,10 @@ Phases (any mismatch raises and the run exits non-zero):
              train's microbatch (no library call), each beside its bound:
              operations over 67 TFLOP/s of f32 against bytes over 3.35
              TB/s, whichever is larger; the forward's TFLOP/s also at phase
-             train's microbatch (printed, not a row).
+             train's microbatch (printed, not a row); the member axis
+             (dp_round and sqnorm over 8 rows, tree_delta over 4 owners at
+             r = 0, at P = 152,783,616) beside as many single launches and
+             its byte bound (printed, not rows).
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -319,6 +343,7 @@ def phase_kernels(torch, dev):
     check(got == {"dp_round": 4, "scale_noise": 0, "sqnorm": 4}, f"the wrappers launched {got}")
     err.update(_check_bank_codec(torch, dev))
     err.update(_check_tree_delta(torch, dev))
+    _check_rows(torch, dev)
     err.update(_check_scale_noise(torch, dev))
     err.update(_check_flash(torch, dev))
     err.update(_check_ssd(torch, dev))
@@ -675,6 +700,67 @@ def _check_tree_delta(torch, dev):
     got = _diff(dict(kernel.launches), before)
     check(got == {"tree_delta": 2 * 2 * 2 * len(TREE_COUNTS)}, f"tree_delta launched {got}")
     return {"tree_delta": err}
+
+
+ROWS_G = 8          # members per batched launch: the grouped phase's max_group=8
+
+
+def _check_rows(torch, dev):
+    """The member axis of the grouped driver, through the wrappers it calls:
+    dp_round_rows and fused_sqnorm_rows over ROWS_G rows of P_FULL and 3 rows
+    of P_RAGGED (whose rows past the first are not 16-byte aligned), and
+    tree_delta_rows_ over 3 distinct owners of 4 at depth 4 (r = 0, 1, 3,
+    the last refused), each ONE launch whose row m equals the single launch
+    on row m bit for bit (sqnorm on the same view)."""
+    from repro_torch import random
+    from repro_torch.kernels.dp_clip_noise import ops as dops
+    from repro_torch.kernels.tree_noise import ops as nops
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def one_launch_each(got, names):
+        check(got == {k: int(k in names) for k in got},
+              f"the batched wrappers launched {got}, expected one each of {names}")
+
+    for g, p in ((ROWS_G, P_FULL), (3, P_RAGGED)):
+        tb = torch.randn((g, p), device=dev, generator=gen)
+        acc = torch.randn((g, p), device=dev, generator=gen)
+        keys = random.split(random.PRNGKey(p + g, device=dev), g)
+        gain, ns, w = (torch.rand(g, device=dev, generator=gen) for _ in range(3))
+        before = _launches()
+        new_l, new_i = dops.dp_round_rows(tb, acc, keys, gain, ns, w, **ROUND)
+        sq = dops.fused_sqnorm_rows(acc)
+        one_launch_each(_diff(_launches(), before), ("dp_round", "sqnorm"))
+        for m in range(g):
+            one_l, one_i = dops.dp_round_flat(tb[m], acc[m], keys[m], gain[m:m + 1],
+                                              ns[m:m + 1], w[m:m + 1], **ROUND)
+            one_sq = dops.fused_sqnorm(acc[m])
+            check(torch.equal(new_l[m], one_l) and torch.equal(new_i[m], one_i)
+                  and torch.equal(sq[m], one_sq),
+                  f"row {m} of the batched dp_round/sqnorm (g={g}, P={p}) differs from a "
+                  f"single launch on it")
+            del one_l, one_i
+        print(f"[kernels] g={g} x P={p}: dp_round_rows and fused_sqnorm_rows, one launch "
+              f"each, equal {g} single launches row by row, bit for bit")
+        del tb, acc, new_l, new_i
+        nodes = torch.randn((4, TREE_DEPTH, p), device=dev, generator=gen)
+        counts = torch.tensor([0, 1, 5, 3], dtype=torch.int32, device=dev)
+        owners = torch.tensor([3, 0, 1], dtype=torch.int64, device=dev)
+        grant = torch.tensor([1, 1, 0], dtype=torch.int32, device=dev)
+        batched, single = nodes.clone(), nodes.clone()
+        before = _launches()
+        delta = nops.tree_delta_rows_(batched, counts, owners, keys[:3], ns[:3], grant)
+        one_launch_each(_diff(_launches(), before), ("tree_delta",))
+        for m in range(3):
+            one = nops.tree_delta_(single, counts, owners[m:m + 1], keys[m], ns[m:m + 1],
+                                   grant[m:m + 1])
+            check(torch.equal(delta[m], one), f"member {m} of the batched tree_delta (P={p}) "
+                  "differs from a single launch")
+        check(torch.equal(batched, single), f"the batched tree_delta's nodes (P={p}) differ "
+              "from three single launches'")
+        print(f"[kernels] 3 owners x depth {TREE_DEPTH} x P={p}: tree_delta_rows_ (r = 3, 0, "
+              f"1; one refused), one launch, equals 3 single launches bit for bit, delta and "
+              f"nodes")
+        del nodes, batched, single, delta
 
 
 def _check_bank_codec(torch, dev):
@@ -1086,6 +1172,137 @@ def phase_pytree(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128):
           f"second is kept), launches {got}, peak memory {_peak_gb(torch, dev):.2f} GB")
     del state, fed
     return launches, prof, per_round[1]
+
+
+GROUPED_K = 32                   # rounds a dispatch in phase grouped
+GROUPED_CAPS = ("auto", ROWS_G)  # max_group of its two settings
+
+
+def phase_grouped(torch, dev, main_prof, cfg=None, n_owners=16, records=10_000, seq=128,
+                  K=GROUPED_K, dispatches=4, caps=GROUPED_CAPS):
+    """Main's path (flat f32 bank, fused, batch 4 x seq 128, G = 2) under
+    the owner-parallel grouped driver, run_rounds(owner_parallel=True), with
+    K = 32 rounds a dispatch. The owner sequences are the uniform schedule's
+    under fixed keys (the same for every setting). For each max_group in
+    `caps`: `dispatches` timed dispatches (the first warms up) and one
+    profiled, each launching exactly one dp_round and G sqnorm per group;
+    ms, device ms, device kernels, idle share, mean group size and peak
+    memory per round, beside main's. Then the sequential driver on the
+    first dispatch's sequence, batches and key from a fresh state: its
+    refusals, device ledger and step counter must equal the grouped run's,
+    and the largest theta_L difference is printed. Returns (the launches of
+    the timed grouped dispatches, {cap: profile})."""
+    from repro_torch import random
+    from repro_torch.configs import DENSE_124M
+    from repro_torch.data import OwnerDataPipeline, synthetic_owner_shards
+    from repro_torch.federation import (DataOwner, Federation, FederationConfig,
+                                        PrivatizerConfig, UniformSchedule, auto_max_group,
+                                        partition_conflict_free)
+    from repro_torch.models import LM
+    cfg = DENSE_124M if cfg is None else cfg
+    batch, G = 4, 2
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    shards = synthetic_owner_shards(n_owners, records, seq, cfg.vocab, seed=0)
+    pipe = OwnerDataPipeline(shards, batch, seed=0)
+    fed = Federation([DataOwner(n=s, epsilon=1.0, xi=1.0) for s in pipe.owner_sizes],
+                     FederationConfig.from_target_lr(0.05, n_owners=n_owners, horizon=1000,
+                                                     sigma=1e-2, theta_max=100.0), device=dev)
+    fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True,
+                  privatizer=PrivatizerConfig(xi=1.0, granularity="microbatch",
+                                              n_microbatches=G, fused_kernel=True))
+    params = lm.init(seed=0, device=dev)
+    # drawn on the device, one copy each to the host for the batches
+    seqs = [UniformSchedule().draw(random.PRNGKey(1000 + d, device=dev), n_owners, K)
+            .cpu().numpy() for d in range(dispatches + 1)]
+    data = [_torch_batches(torch, pipe.batches_for(o)) for o in seqs]
+    keys = [random.PRNGKey(2000 + d, device=dev) for d in range(dispatches + 1)]
+    print(f"[grouped] {cfg.name}: {n_owners} owners, K={K} rounds a dispatch, set-up "
+          f"{time.perf_counter() - t0:.1f} s; conflict-free runs of the sequences "
+          f"{[[n for _, n in partition_conflict_free(o)] for o in seqs]}")
+
+    def dispatch(state, d, cap):
+        """One dispatch of sequence d: grouped under max_group=cap, or the
+        sequential driver when cap is False. Checks its launches."""
+        before = _launches()
+        state, ms = fed.run_rounds(state, data[d], seqs[d], key=keys[d],
+                                   owner_parallel=cap is not False,
+                                   max_group=None if cap is False else cap)
+        got = _diff(_launches(), before)
+        if cap is False:
+            n_groups = K
+        else:
+            n_groups = len(partition_conflict_free(
+                seqs[d], auto_max_group(seqs[d]) if cap == "auto" else cap))
+        want = {k: 0 for k in got}
+        want.update(sqnorm=G * n_groups, dp_round=n_groups)
+        check(got == want, f"launches {got} in one dispatch of {n_groups} groups, "
+              f"expected {want}")
+        check(not bool(ms["refused"].any()), "a round was refused under a long horizon")
+        return state, ms, n_groups, got
+
+    stats, launches, first = {}, None, None
+    for cap in caps:
+        state = fed.init_state(params)
+        _sync(torch, dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        per_round, sizes = [], []
+        for d in range(dispatches):
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            state, ms, n_groups, got = dispatch(state, d, cap)
+            _sync(torch, dev)
+            dt = (time.perf_counter() - t1) * 1e3
+            per_round.append(dt / K)
+            sizes.append(K / n_groups)
+            launches = got if launches is None else {k: launches[k] + got[k] for k in got}
+            print(f"[grouped] max_group={cap}, dispatch {d}: {n_groups} groups (mean "
+                  f"{K / n_groups:.2f} members), {dt:.1f} ms ({dt / K:.2f} ms/round), "
+                  f"launches {got}")
+            if first is None:
+                first = (ms["refused"].cpu(), state.ledger.spent.clone(),
+                         state.ledger.refused.clone(), int(state.step),
+                         state.theta_L.buf.clone())
+        median = statistics.median(per_round[1:] or per_round)
+        (state, _, n_groups, _), busy, groups, per_round_launches = _profiled(
+            torch, dev, lambda: dispatch(state, dispatches, cap), K)
+        sizes.append(K / n_groups)
+        check(_state_finite(torch, state), "non-finite state")
+        peak = _peak_gb(torch, dev)
+        stats[cap] = dict(busy=busy, median=median, groups=groups,
+                          launches=per_round_launches, peak=peak,
+                          mean_group=statistics.mean(sizes))
+        print(f"[grouped] max_group={cap} against main (K=8, sequential) in this call, per "
+              f"round: wall (median) {median:.2f} vs {main_prof['median']:.2f} ms; device "
+              f"busy {busy:.3f} vs {main_prof['busy']:.3f} ms; device kernels "
+              f"{per_round_launches:.0f} vs {main_prof['launches']:.0f}; idle share "
+              f"{1 - busy / median:.1%} vs {1 - main_prof['busy'] / main_prof['median']:.1%}; "
+              f"mean group {statistics.mean(sizes):.2f} members; peak memory {peak:.2f} vs "
+              f"{main_prof['peak']:.2f} GB")
+        del state
+    # the sequential driver on dispatch 0's sequence, batches and key
+    state = fed.init_state(params)
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    state, ms, _, _ = dispatch(state, 0, False)
+    _sync(torch, dev)
+    seq_ms = (time.perf_counter() - t1) * 1e3 / K
+    refused, spent, refused_led, step, theta = first
+    check(torch.equal(ms["refused"].cpu(), refused) and torch.equal(state.ledger.spent, spent)
+          and torch.equal(state.ledger.refused, refused_led) and int(state.step) == step,
+          "the grouped dispatch's refusals or device ledger differ from the sequential one's")
+    dtheta = float((state.theta_L.buf - theta).abs().max())
+    ledger = fed.reconcile(state)
+    counts = np.bincount(seqs[0], minlength=n_owners).tolist()
+    check([r["responses"] for r in ledger.values()] == counts,
+          "reconciled ledger differs from the host's count of the drawn owners")
+    print(f"[grouped] sequential driver on dispatch 0 ({seq_ms:.2f} ms/round, warm): refused, "
+          f"ledger spent/refused and step == the grouped run's (max_group={caps[0]}); "
+          f"max |theta_L grouped - sequential| {dtheta:.3e} (theta_L max "
+          f"{float(theta.abs().max()):.3e}); reconciled responses {counts}")
+    del state, theta, first
+    return launches, stats
 
 
 def _first_layers(tree, n):
@@ -1902,6 +2119,9 @@ def phase_refusal(torch, dev, bank_dtype=None, tree_depth=None, pack_params=True
         torch.testing.assert_close(bank[1], c_bank[1], rtol=1e-6, atol=0.0)
         torch.testing.assert_close(bank[2], c_bank[2], rtol=0.0, atol=step)
 
+    if pack_params and bank_dtype is None:
+        _grouped_refusal(torch, dev, session, data, owners, runs[0], tag, tree_depth)
+
     # the host-authorized step loop under the same keys, bit for bit
     tensors = _state_tensors(sessions[0][1])
     fed, state = session(dev)
@@ -1962,6 +2182,44 @@ def phase_refusal(torch, dev, bank_dtype=None, tree_depth=None, pack_params=True
               f"{', nodes, counts' if tree_depth is not None else ''}, refusals, ledger)")
 
 
+def _grouped_refusal(torch, dev, session, data, owners, sequential, tag, tree_depth):
+    """phase_refusal's run again under the grouped driver on the card
+    (owner_parallel=True, unbounded groups; the same key draws the same
+    owners): refusals and the reconciled ledger equal the sequential run's,
+    and under the tree the leaf counts and the nodes too, bit for bit; one
+    dp_round (tree: one tree_delta) and G = 2 sqnorm launches per group."""
+    from repro_torch import random
+    from repro_torch.federation import partition_conflict_free
+    s_owners, s_refused, s_ledger, s_parts = sequential
+    groups = partition_conflict_free(owners)
+    check(max(n for _, n in groups) > 1, f"no group of two or more in {owners.tolist()}")
+    fed, state = session(dev)
+    before = _launches()
+    state, ms = fed.run_rounds(state, _torch_batches(torch, data),
+                               key=random.PRNGKey(21, device=dev), owner_parallel=True,
+                               max_group=None)
+    got = _diff(_launches(), before)
+    tree = tree_depth is not None
+    want = {k: 0 for k in got}
+    want.update(sqnorm=2 * len(groups), dp_round=0 if tree else len(groups),
+                tree_delta=len(groups) if tree else 0)
+    check(got == want, f"grouped launches {got}, expected {want}")
+    parts = _state_parts(state)
+    check(np.array_equal(ms["owner"].cpu().numpy(), s_owners)
+          and np.array_equal(ms["refused"].cpu().numpy(), s_refused)
+          and fed.reconcile(state) == s_ledger,
+          "the grouped run's owners, refusals or ledger differ from the sequential run's")
+    if tree:
+        check(torch.equal(parts["counts"][0], s_parts["counts"][0])
+              and _bit_equal(torch, parts["nodes"], s_parts["nodes"]),
+              "the grouped run's leaf counts or nodes differ from the sequential run's")
+    print(f"[refusal] {tag}, grouped: groups {[n for _, n in groups]}, launches {got}; "
+          f"refused and ledger == the sequential run's"
+          + ("; leaf counts and nodes bit for bit" if tree else "")
+          + f"; max |theta_L grouped - sequential| "
+          f"{_max_diff(parts['theta'], s_parts['theta']):.3e}")
+
+
 def phase_timing(torch, dev, launches, errs):
     from repro_torch import random
     from repro_torch.kernels.dp_clip_noise import ops, ref
@@ -1995,6 +2253,7 @@ def phase_timing(torch, dev, launches, errs):
     rows += _time_scale_noise(torch, dev, launches, errs)
     rows += _time_bank_codec(torch, dev, launches, errs)
     rows += _time_tree_delta(torch, dev, launches, errs)
+    _time_rows(torch, dev)
     rows += _time_flash(torch, dev, launches, errs)
     rows += _time_ssd(torch, dev, launches, errs)
     rows += _time_ssd_bwd(torch, dev, launches, errs)
@@ -2132,6 +2391,54 @@ def _time_tree_delta(torch, dev, launches, errs):
                   f"plain {row['plain_ms']:.4f} ms")
     del nodes
     return rows
+
+
+def _time_rows(torch, dev):
+    """[timing] lines for the member axis at full width: dp_round_rows and
+    fused_sqnorm_rows over g = ROWS_G rows of P_FULL, and tree_delta_rows_
+    over 4 owners at depth 4 (r = 0), one launch each, beside g single
+    launches on the same rows and the byte bound (16, 4 and 8 B per
+    element and member)."""
+    from repro_torch import random
+    from repro_torch.kernels.dp_clip_noise import ops as dops
+    from repro_torch.kernels.tree_noise import ops as nops
+    g, P = ROWS_G, P_FULL
+    gen = torch.Generator(device=dev).manual_seed(12)
+    tb = torch.randn((g, P), device=dev, generator=gen)
+    acc = torch.randn((g, P), device=dev, generator=gen)
+    keys = random.split(random.PRNGKey(13, device=dev), g)
+    gain, ns, w = (torch.rand(g, device=dev, generator=gen) for _ in range(3))
+
+    def line(what, batched, single, bytes_per):
+        bound = bytes_per * g_of[what] * P / HBM_BYTES_PER_S * 1e3
+        print(f"[timing] {what} over g = {g_of[what]} members x P = {P}: one batched launch "
+              f"{batched:.4f} ms ({bound / batched:.1%} of its bound {bound:.4f} ms), "
+              f"{g_of[what]} single launches {single:.4f} ms")
+
+    g_of = {"dp_round": g, "sqnorm": g, "tree_delta": 4}
+    line("dp_round",
+         _steady_ms(torch, f"dp_round_rows (g = {g})",
+                    lambda: dops.dp_round_rows(tb, acc, keys, gain, ns, w, **ROUND), 10),
+         cuda_ms(torch, lambda: [dops.dp_round_flat(tb[m], acc[m], keys[m], gain[m:m + 1],
+                                                    ns[m:m + 1], w[m:m + 1], **ROUND)
+                                 for m in range(g)], 5), 16)
+    line("sqnorm",
+         _steady_ms(torch, f"fused_sqnorm_rows (g = {g})", lambda: dops.fused_sqnorm_rows(acc),
+                    20),
+         cuda_ms(torch, lambda: [dops.fused_sqnorm(acc[m]) for m in range(g)], 10), 4)
+    del tb, acc
+    nodes = torch.randn((4, TREE_DEPTH, P), device=dev, generator=gen)
+    counts = torch.zeros(4, dtype=torch.int32, device=dev)      # r = 0: no level retires
+    owners = torch.arange(4, dtype=torch.int64, device=dev)
+    grant = torch.ones(4, dtype=torch.int32, device=dev)
+    line("tree_delta",
+         _steady_ms(torch, "tree_delta_rows_ (g = 4, r = 0)",
+                    lambda: nops.tree_delta_rows_(nodes, counts, owners, keys[:4], ns[:4],
+                                                  grant), 10),
+         cuda_ms(torch, lambda: [nops.tree_delta_(nodes, counts, owners[m:m + 1], keys[m],
+                                                  ns[m:m + 1], grant[m:m + 1])
+                                 for m in range(4)], 5), 8)
+    del nodes
 
 
 def _bytes(t):
@@ -2286,6 +2593,10 @@ def main():
     torch.cuda.empty_cache()
     check(main_launches["sqnorm"] > 0 and main_launches["dp_round"] > 0,
           "main path launched no kernel")
+    grouped_launches, _ = phase_grouped(torch, dev, main_prof)
+    torch.cuda.empty_cache()
+    check(grouped_launches["sqnorm"] > 0 and grouped_launches["dp_round"] > 0,
+          "the grouped path launched no sqnorm or dp_round")
     quant_launches = phase_quant(torch, dev)
     torch.cuda.empty_cache()
     check(all(quant_launches[k] > 0 for k in ("absmax", "encode", "decode")),

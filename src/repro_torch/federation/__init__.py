@@ -12,8 +12,8 @@ from repro_torch.federation.convex import (Algo1Config, Algo1Trace, SyncTrace,
                                            stack_gram, sync_scan_engine)
 from repro_torch.federation.deep import (AsyncDPConfig, AsyncDPState, TreeNoise, init_state,
                                          init_state_flat, init_tree_noise,
-                                         make_fused_rounds, make_sync_dp_step,
-                                         make_train_step)
+                                         make_fused_rounds, make_group_rounds,
+                                         make_sync_dp_step, make_train_step)
 from repro_torch.federation.dp_sgd import PrivatizerConfig, clip_tree, private_grad
 from repro_torch.federation.flatten import (BankCodec, FlatSpec, ParamFlat, QuantBank,
                                             as_bank_codec, flatten_spec, init_flat_bank,
@@ -29,22 +29,23 @@ from repro_torch.federation.privacy import (DeviceLedger, PrivacyAccountant,
                                             laplace_scale_theorem1, make_device_ledger)
 from repro_torch.federation.schedules import (AvailabilityTraceSchedule, PoissonSchedule,
                                               ScheduleProtocol, UniformSchedule,
-                                              as_owner_seq)
+                                              as_owner_seq, auto_max_group, pack_groups,
+                                              partition_conflict_free)
 from repro_torch.federation.session import Federation
 
 __all__ = [
     "Algo1Config", "Algo1Trace", "AsyncDPConfig", "AsyncDPState", "AvailabilityTraceSchedule",
     "BankCodec", "CappedRoundsMechanism", "DataOwner", "DeviceLedger", "Federation",
     "FederationConfig", "FlatSpec", "LedgerDriftError", "LinearProblem", "Owner",
-    "PaperMechanism", "ParamFlat", "PoissonSchedule", "PrivacyAccountant",
-    "PrivatizerConfig", "QuantBank", "Schedule", "ScheduleProtocol", "StrictMechanism",
-    "SyncTrace", "TreeMechanism", "TreeNoise", "UniformSchedule", "as_bank_codec",
-    "as_owner_seq", "capped_rounds", "clip_tree", "federate_problem", "fitness",
+    "PaperMechanism", "ParamFlat", "PoissonSchedule", "PrivacyAccountant", "PrivatizerConfig",
+    "QuantBank", "Schedule", "ScheduleProtocol", "StrictMechanism", "SyncTrace",
+    "TreeMechanism", "TreeNoise", "UniformSchedule", "as_bank_codec", "as_owner_seq",
+    "auto_max_group", "capped_rounds", "clip_tree", "federate_problem", "fitness",
     "flatten_spec", "init_flat_bank", "init_state", "init_state_flat", "init_tree_noise",
     "laplace_noise", "laplace_noise_tree", "laplace_scale_theorem1", "make_device_ledger",
-    "make_fused_rounds", "make_mechanism", "make_problem", "make_sync_dp_step",
-    "make_train_step", "owner_counts", "owner_grad", "pack_params", "paper_rates",
-    "poisson_schedule", "private_grad", "record_grad_bound", "relative_fitness",
-    "run_algorithm1", "run_many", "scan_engine", "stack_gram", "sync_scan_engine",
-    "uniform_schedule", "with_budgets",
+    "make_fused_rounds", "make_group_rounds", "make_mechanism", "make_problem",
+    "make_sync_dp_step", "make_train_step", "owner_counts", "owner_grad", "pack_groups",
+    "pack_params", "paper_rates", "partition_conflict_free", "poisson_schedule",
+    "private_grad", "record_grad_bound", "relative_fitness", "run_algorithm1", "run_many",
+    "scan_engine", "stack_gram", "sync_scan_engine", "uniform_schedule", "with_budgets",
 ]

@@ -37,7 +37,7 @@ codec's salt (`bank_codec.ref.CODEC_SALT`), so an int8 run draws the same
 Laplace noise as an f32 run under the same keys. A refused round leaves
 codes, scales and residual bit-exact. Pytree banks are dense only.
 
-Two drivers share the round (`_round_compute`, which dispatches on the
+Three drivers share the round (`_round_compute`, which dispatches on the
 state's representation):
 
   make_train_step   — one host-authorized round per call (the session's
@@ -49,6 +49,18 @@ state's representation):
                       the K-round loop reads a value back to the host.
                       Equal bit for bit to the per-round loop under the
                       same per-round keys.
+  make_group_rounds — owner-parallel: the K rounds split into groups of
+                      consecutive rounds with DISTINCT owners
+                      (`schedules.partition_conflict_free`), each group
+                      computed from the group-entry state as one batch.
+                      On the fused flat engine a group is one vmapped
+                      gradient per microbatch, one batched `sqnorm` per
+                      microbatch and one batched `dp_round` (or, under the
+                      tree, one batched `tree_delta`); the other states
+                      run the members one after another through the
+                      round. The ledger spend is the sequential driver's
+                      exactly; theta_L takes one inertia reduction per
+                      group (see make_group_rounds).
 
 The bank rows, the noise trees and the device ledger are updated IN PLACE
 (the reference's jitted drivers donate the state for the same reason: the
@@ -72,13 +84,15 @@ tree with fused_kernel needs the flat engine, as in the reference.
 every round and the learner averages the privatized gradients.
 
 Example granularity on the fused flat engine and the fault, staleness,
-paging, grouped and mesh layers wait for later slices.
+paging and mesh layers wait for later slices, and so do bf16 banks under
+the grouped driver.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch import random
@@ -89,8 +103,9 @@ from repro_torch.federation.flatten import ParamFlat, QuantBank, init_flat_bank,
 from repro_torch.federation.privacy import (DeviceLedger, laplace_scale_theorem1,
                                             make_device_ledger)
 from repro_torch.kernels.bank_codec.ops import decode_row, encode_row
-from repro_torch.kernels.dp_clip_noise.ops import dp_round_flat, fused_sqnorm
-from repro_torch.kernels.tree_noise.ops import tree_delta_
+from repro_torch.kernels.dp_clip_noise.ops import (dp_round_flat, dp_round_rows, fused_sqnorm,
+                                                   fused_sqnorm_rows)
+from repro_torch.kernels.tree_noise.ops import tree_delta_, tree_delta_rows_
 from repro_torch.kernels.tree_noise.ref import tree_masks_ref
 from repro_torch.tree_util import tree_flatten, tree_map
 
@@ -280,6 +295,15 @@ def _gather_row(bank: Bank, owner_idx: torch.Tensor) -> torch.Tensor:
     return bank.index_select(0, owner_idx).reshape(-1).to(torch.float32)
 
 
+def _gather_rows(bank: Bank, owners: torch.Tensor) -> torch.Tensor:
+    """The (g, P) f32 copies of g owners: quantized rows decoded one member
+    after another, dense rows gathered at once."""
+    if isinstance(bank, QuantBank):
+        return torch.stack([_decode_bank_row(bank, owners[m:m + 1])
+                            for m in range(owners.numel())])
+    return bank.index_select(0, owners).to(torch.float32)
+
+
 def _tree_row_of(tree: TreeNoise, owner_idx: torch.Tensor):
     """(a copy of the owner's node row: (depth, P) flat or a tree of
     (depth, *leaf.shape) leaves, its (1,) int32 leaf count)."""
@@ -373,6 +397,49 @@ def _flat_clipped_grad_acc(loss_fn, spec, pcfg: PrivatizerConfig,
     return acc, gain, {"clip_frac": nclip / G, "max_grad_norm": mx}
 
 
+def _flat_clipped_grad_acc_rows(loss_fn, spec, pcfg: PrivatizerConfig,
+                                tb: torch.Tensor, batch: Dict[str, torch.Tensor]):
+    """`_flat_clipped_grad_acc` for g members at once: tb (g, P), batch
+    leaves (g, B, ...). Per microbatch the loss is `torch.func.vmap`ped
+    over the members and autograd takes ONE backward of their sum (a
+    batched backward, not g of them): member m's loss reads only row m, so
+    row m of the gradient is its own. Then one batched `sqnorm`; the clip
+    scale is applied per row. Returns acc (g, P), gain (g,) and the (g,)
+    clip metrics.
+
+    vmap of the loss with autograd's backward, rather than vmap of
+    `torch.func.grad`: the same batched kernels, without the functorch
+    transform wrapping every op of the backward, whose host time is what
+    limits a round on the card (PERF.md)."""
+    G = pcfg.n_microbatches
+    g, B = next(iter(batch.values())).shape[:2]
+    if pcfg.granularity != "microbatch":
+        raise NotImplementedError(f"granularity {pcfg.granularity!r} on the fused flat "
+                                  "engine waits for a later slice")
+    if not pcfg.pre_grouped and B % G:
+        raise ValueError(f"batch of {B} does not split into {G} microbatches")
+    dev = tb.device
+    xi = torch.full((), pcfg.xi, dtype=torch.float32, device=dev)
+    losses = torch.func.vmap(lambda t, mb: loss_fn(spec.unpack(t), mb))
+    leaf = tb.detach().requires_grad_(True)
+    xs = batch if pcfg.pre_grouped else {
+        k: a.reshape((g, G, B // G) + tuple(a.shape[2:])) for k, a in batch.items()}
+    acc = torch.zeros_like(tb)
+    nclip = torch.zeros(g, dtype=torch.float32, device=dev)
+    mx = torch.zeros(g, dtype=torch.float32, device=dev)
+    for gi in range(G):
+        leaf.grad = None
+        losses(leaf, {k: a[:, gi] for k, a in xs.items()}).sum().backward()
+        gm = leaf.grad
+        norm = torch.sqrt(fused_sqnorm_rows(gm))
+        acc = acc + gm * torch.clamp(xi / torch.clamp(norm, min=1e-12), max=1.0)[:, None]
+        leaf.grad = gm = None
+        nclip = nclip + (norm > xi)
+        mx = torch.maximum(mx, norm)
+    gain = torch.full((g,), 1.0 / G, dtype=torch.float32, device=dev)
+    return acc, gain, {"clip_frac": nclip / G, "max_grad_norm": mx}
+
+
 class _RoundConsts:
     """The per-owner scalars of a round on the device, built once per
     driver: the noise scales, the owner weights w_i = n_i / n (a true f32
@@ -392,6 +459,10 @@ class _RoundConsts:
         """(noise scale, w_i) of the (1,) int64 owner index, as 0-d tensors."""
         return (self.scales.index_select(0, owner_idx).reshape(()),
                 self.w.index_select(0, owner_idx).reshape(()))
+
+    def of_rows(self, owners: torch.Tensor):
+        """(noise scales, w) of the (g,) int64 owners, each (g,)."""
+        return self.scales.index_select(0, owners), self.w.index_select(0, owners)
 
 
 def _round_math(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
@@ -466,6 +537,19 @@ def _round_math(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
     return compute
 
 
+def _tree_epilogue(cfg: AsyncDPConfig, consts: _RoundConsts, tb, acc, gain, delta, w):
+    """(new_L, new_i) of the fused flat round under the tree: q = acc * gain
+    + delta (eq. 4), then eqs. (5) and (7) and the projection in
+    `dp_round`'s op order; gain and w broadcast against tb (one round's
+    scalars, or a group's (g, 1) columns)."""
+    q = acc * gain + delta                                               # (4)
+    g_reg = cfg.sigma * tb
+    new_i = torch.clamp(tb - consts.lr_own * (g_reg * (1.0 / (2 * cfg.n_owners)) + w * q),
+                        -cfg.theta_max, cfg.theta_max)                   # (5)
+    new_L = torch.clamp(tb - consts.lr_L * g_reg, -cfg.theta_max, cfg.theta_max)  # (7)
+    return new_L, new_i
+
+
 def _round_math_flat(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts, tree_inner):
     """The inertia round on the flat representation.
 
@@ -516,11 +600,7 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts, tree_inn
         if tree_on:
             delta = tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns.reshape(1),
                                 grant)
-            q = acc * gain + delta                                   # (4)
-            g_reg = cfg.sigma * tb
-            new_i = torch.clamp(tb - consts.lr_own * (g_reg * (1.0 / (2 * N)) + w_i * q),
-                                -cfg.theta_max, cfg.theta_max)       # (5)
-            new_L = torch.clamp(tb - consts.lr_L * g_reg, -cfg.theta_max, cfg.theta_max)  # (7)
+            new_L, new_i = _tree_epilogue(cfg, consts, tb, acc, gain, delta, w_i)
         else:
             new_L, new_i = dp_round_flat(                       # (4)+(5)+(7)+Pi
                 tb, acc, key, gain, ns.reshape(1), w_i.reshape(1), sigma=cfg.sigma,
@@ -533,31 +613,105 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts, tree_inn
     return compute
 
 
+def _round_math_flat_rows(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
+    """The fused flat round for the g members of a group, all from the
+    group-entry theta_L and bank.
+
+    Returns compute_rows(theta_L, bank, batch_g, owners, keys_g, tree=None,
+    grant=None) -> (new_L, new_i, theta_i, metrics), each stacked on a
+    leading (g,) axis; owners (g,) int64 distinct, keys_g (g, 2), grant
+    (g,) int32. The gradient is vmapped over the members and clipped by
+    one batched `sqnorm` per microbatch; then one batched `dp_round`, or
+    under the tree one batched `tree_delta` (nodes advanced in place,
+    masked by each grant) and `_round_math_flat`'s epilogue per row."""
+    N = cfg.n_owners
+
+    def compute_rows(theta_L: ParamFlat, bank, batch_g, owners, keys_g,
+                     tree: Optional[TreeNoise] = None, grant: Optional[torch.Tensor] = None):
+        if cfg.privatizer.mechanism != "laplace":
+            raise ValueError("fused_kernel implements the laplace mechanism")
+        theta_i = _gather_rows(bank, owners)                            # (g, P) f32
+        tb = 0.5 * (theta_L.buf + theta_i)                               # (6)
+        ns, w = consts.of_rows(owners)
+        acc, gain, pm = _flat_clipped_grad_acc_rows(loss_fn, theta_L.spec, cfg.privatizer,
+                                                    tb, batch_g)
+        if tree is not None and cfg.tree_depth:
+            delta = tree_delta_rows_(tree.nodes, tree.counts, owners, keys_g, ns, grant)
+            new_L, new_i = _tree_epilogue(cfg, consts, tb, acc, gain[:, None], delta,
+                                          w[:, None])
+        else:
+            new_L, new_i = dp_round_rows(                                # (4)+(5)+(7)+Pi
+                tb, acc, keys_g, gain, ns, w, sigma=cfg.sigma, lr_own=consts.lr_own,
+                lr_l=consts.lr_L, n_owners=N, theta_max=cfg.theta_max)
+        metrics = {"clip_frac": pm["clip_frac"], "max_grad_norm": pm["max_grad_norm"],
+                   "grad_noise_scale": ns}
+        return new_L, new_i, theta_i, metrics
+
+    return compute_rows
+
+
+def _stack_members(values):
+    """Per-member results -> one leading (g,) axis: ParamFlats by their
+    buffers, trees leaf by leaf, tensors as they are."""
+    if isinstance(values[0], ParamFlat):
+        return torch.stack([v.buf for v in values])
+    return tree_map(lambda *xs: torch.stack(xs), *values)
+
+
 def _round_compute(loss_fn, cfg: AsyncDPConfig, scales: Optional[torch.Tensor],
                    device=None):
-    """The round shared VERBATIM by both drivers (which is what makes them
-    equal bit for bit), dispatching on the state: a ParamFlat theta_L runs
-    the flat engine, a model tree the pytree path. Checks the tree config
-    when the drivers are built."""
+    """The round shared VERBATIM by the drivers (which is what makes the
+    sequential ones equal bit for bit), dispatching on the state: a
+    ParamFlat theta_L runs the flat engine, a model tree the pytree path;
+    `compute.rows` runs a group's members. Checks the tree config when the
+    drivers are built."""
     _check_tree_config(cfg)
     consts = _RoundConsts(cfg, scales, resolve_device(device))
     tree_c = _round_math(loss_fn, cfg, consts)
     flat_c = _round_math_flat(loss_fn, cfg, consts, tree_c.inner)
+    flat_rows = _round_math_flat_rows(loss_fn, cfg, consts)
 
     def compute(theta_L, bank, batch, owner_idx, key, tree=None, grant=None):
         run = flat_c if isinstance(theta_L, ParamFlat) else tree_c
         return run(theta_L, bank, batch, owner_idx, key, tree=tree, grant=grant)
 
+    def rows(theta_L, bank, batch_g, owners, keys_g, tree=None, grant=None):
+        """The g members of a group from the group-entry state (owners
+        distinct) -> (new_L, new_i, theta_i, metrics) stacked on a leading
+        (g,) axis ((g, P) on flat states, (g, *leaf.shape) leaves on pytree
+        states). The fused flat engine batches the members; every other
+        state runs them one after another through `compute`."""
+        if isinstance(theta_L, ParamFlat) and cfg.privatizer.fused_kernel:
+            return flat_rows(theta_L, bank, batch_g, owners, keys_g, tree=tree, grant=grant)
+        outs = [compute(theta_L, bank, {k: v[m] for k, v in batch_g.items()},
+                        owners[m:m + 1], keys_g[m], tree=tree,
+                        grant=None if grant is None else grant[m:m + 1])
+                for m in range(owners.numel())]
+        return (_stack_members([o[0] for o in outs]), _stack_members([o[1] for o in outs]),
+                _stack_members([o[2] for o in outs]),
+                {name: torch.stack([o[3][name] for o in outs]) for name in outs[0][3]})
+
+    compute.rows = rows
     return compute
 
 
-def _write_bank(bank, value, owner_idx: torch.Tensor):
-    """Write one owner's copy IN PLACE, narrowed to the bank's dtype: one
-    row of a dense (N, P) bank, or one row of every leaf of a pytree bank
-    (owner_idx: (1,) int64 device index)."""
-    for leaf, v in zip(tree_flatten(bank)[0], tree_flatten(value)[0]):
-        leaf.index_copy_(0, owner_idx, v.to(leaf.dtype).unsqueeze(0))
+def _write_bank_rows(bank, rows, owner_idx: torch.Tensor):
+    """Write g owners' copies IN PLACE, narrowed to the bank's dtype: rows
+    of a dense (N, P) bank, or rows of every leaf of a pytree bank
+    (owner_idx: (g,) int64 device indices, distinct; `rows` (g, ...))."""
+    for leaf, v in zip(tree_flatten(bank)[0], tree_flatten(rows)[0]):
+        leaf.index_copy_(0, owner_idx, v.to(leaf.dtype))
     return bank
+
+
+def _write_bank(bank, value, owner_idx: torch.Tensor):
+    """Write one owner's copy IN PLACE (owner_idx: (1,) int64)."""
+    return _write_bank_rows(bank, tree_map(lambda v: v.unsqueeze(0), value), owner_idx)
+
+
+def _member_mask(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(g,) bool -> broadcastable against a (g, ...) stacked leaf."""
+    return mask.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
 def _select(ok: torch.Tensor, new, old):
@@ -647,6 +801,111 @@ def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
             return state, {}
         return state, {name: torch.stack([m[name] for m in per_round])
                        for name in per_round[0]}
+
+    return run
+
+
+def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
+                      scales: Optional[torch.Tensor] = None, device=None):
+    """Owner-parallel multi-round driver: conflict-free groups of rounds,
+    each computed as one batch of its members.
+
+    Returns run(state, batches, owner_seq, keys, group_idx, group_valid) ->
+    (state, metrics): batches, owner_seq and keys are `make_fused_rounds`'
+    (K,)-leading inputs, and (group_idx, group_valid) the host (n_groups,
+    G_max) arrays of `schedules.pack_groups`: row g lists the round indices
+    of group g, a consecutive run of rounds with distinct owners, then
+    padding. Each group runs at its own length (no padding executes;
+    torch has no compile cache to keep shapes stable for), from views of
+    the (K,) inputs, so nothing is copied to or from the host. Metrics come
+    back group after group, each (K,); the groups are consecutive and in
+    order, so that is round order.
+
+    Semantics against the sequential driver, for groups of distinct owners
+    (the reference's `make_group_rounds`):
+
+      * The ledger spend is EXACTLY sequential: authorization depends only
+        on the owner's prior grants, and an owner appears at most once per
+        group. `spent`, `refused` and the tree's leaf counts land by a
+        disjoint scatter. The tree nodes do not depend on theta, so they
+        equal the sequential driver's bit for bit.
+      * Bank rows are disjoint: each granted member writes its eq. (5) copy,
+        computed from the group-entry theta_L; a refused member writes its
+        own row back. A quantized bank encodes the members in round order
+        against the carried error-feedback residual, advancing it only on
+        a grant, as the sequential driver does.
+      * theta_L takes ONE inertia reduction per group: the mean of the
+        granted members' eq. (7) targets (kept when none was granted). For
+        one granted member that is its sequential update; for more, every
+        member reads the group-entry theta_L: a bounded deviation of the
+        kind of the paper's own asynchrony (stale reads), not a change to
+        the noise or the accounting.
+
+    bf16 banks (ROADMAP queue 1, item 2), faults and staleness (item 4),
+    paged banks (item 5) and the mesh (item 7) wait for their slices."""
+    compute = _round_compute(loss_fn, cfg, scales, device)
+
+    def reduce_theta(ok: torch.Tensor, stacked: torch.Tensor, base: torch.Tensor):
+        n_ok = torch.sum(ok, dtype=torch.float32)
+        s = torch.sum(torch.where(_member_mask(ok, stacked), stacked, 0.0), dim=0)
+        s = s / torch.clamp(n_ok, min=1.0)
+        return torch.where(n_ok > 0, s.to(base.dtype), base)
+
+    def body(state: AsyncDPState, batch_g, owners: torch.Tensor, keys_g: torch.Tensor):
+        led, tree, bank = state.ledger, state.tree, state.bank
+        ok = led.spent.index_select(0, owners) < led.cap.index_select(0, owners)     # (g,)
+        oki = ok.to(torch.int32)
+        new_L, new_i, theta_i, metrics = compute.rows(state.theta_L, bank, batch_g, owners,
+                                                      keys_g, tree=tree, grant=oki)
+        if isinstance(bank, QuantBank):
+            # the error-feedback chain in round order; same key as the
+            # round's by contract (the codec folds in its CODEC_SALT)
+            for m in range(owners.numel()):
+                _quant_write(bank, new_i[m], owners[m:m + 1], keys_g[m],  # dpcheck: ignore[DPC105]
+                             ok=ok[m])
+        else:
+            # refused members write their own row back unchanged
+            _write_bank_rows(bank, tree_map(
+                lambda a, b: torch.where(_member_mask(ok, a), a, b), new_i, theta_i), owners)
+        del new_i, theta_i
+        if tree is not None:
+            tree.counts.index_add_(0, owners, oki)
+        if isinstance(state.theta_L, ParamFlat):
+            theta_L = state.theta_L.replace_buf(reduce_theta(ok, new_L, state.theta_L.buf))
+        else:
+            theta_L = tree_map(lambda a, b: reduce_theta(ok, a, b), new_L, state.theta_L)
+        led.spent.index_add_(0, owners, oki)
+        led.refused.index_add_(0, owners, 1 - oki)
+        metrics = dict(metrics, refused=~ok, owner=owners.to(torch.int32))
+        return AsyncDPState(theta_L, bank, state.step + torch.sum(oki, dtype=torch.int32),
+                            led, tree), metrics
+
+    def run(state: AsyncDPState, batches: Dict[str, torch.Tensor], owner_seq: torch.Tensor,
+            keys: torch.Tensor, group_idx, group_valid):
+        if state.ledger is None:
+            raise ValueError("grouped rounds need a device ledger on the state; "
+                             "build it with Federation.init_state")
+        if isinstance(state.bank, torch.Tensor) and state.bank.dtype != torch.float32:
+            raise NotImplementedError(
+                f"a {state.bank.dtype} bank under the grouped driver waits for a later "
+                "slice (ROADMAP queue 1, item 2); run owner_parallel=False")
+        _require_tree(cfg, state)
+        idx, valid = np.asarray(group_idx), np.asarray(group_valid, bool)
+        owners = owner_seq.to(torch.int64)
+        per_group = []
+        for row, ok in zip(idx, valid):
+            n, start = int(ok.sum()), int(row[0])
+            if not (n and ok[:n].all() and np.array_equal(row[:n], np.arange(start, start + n))):
+                raise ValueError("each group must be a consecutive run of rounds followed "
+                                 "by padding, as schedules.pack_groups builds it")
+            sl = slice(start, start + n)
+            state, m = body(state, {k: v[sl] for k, v in batches.items()}, owners[sl],
+                            keys[sl])
+            per_group.append(m)
+        if not per_group:
+            return state, {}
+        return state, {name: torch.cat([m[name] for m in per_group])
+                       for name in per_group[0]}
 
     return run
 

@@ -20,15 +20,16 @@ owner sequence exactly.
                               that instant (a Gumbel argmax), or replayed
                               from a recorded trace.
 
-`as_owner_seq` normalizes hand-rolled sequences. The reference's
-grouping helpers (`partition_conflict_free`, `pack_groups`,
-`auto_max_group`) and `TraceRing` serve its owner-parallel rounds and its
-paged bank, which the port does not have yet.
+`as_owner_seq` normalizes hand-rolled sequences. `partition_conflict_free`,
+`pack_groups` and `auto_max_group` are the host-side analysis behind
+`Federation.run_rounds(..., owner_parallel=True)`: numpy logic, equal to
+the reference's output exactly. `TraceRing` serves the reference's paged
+bank, which the port does not have yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Protocol, Tuple, runtime_checkable
+from typing import List, Optional, Protocol, Tuple, runtime_checkable
 
 import numpy as np
 import torch
@@ -60,6 +61,74 @@ def as_owner_seq(seq, n_owners: int, device=None) -> torch.Tensor:
         if lo < 0 or hi >= n_owners:
             raise ValueError(f"owner sequence out of range for {n_owners} owners")
     return seq.to(device=resolve_device(device), dtype=torch.int32)
+
+
+# ------------------ schedule analysis: conflict-free groups ----------------
+# Rounds touching DISTINCT owners interact only through theta_L (each reads
+# and writes its own bank row), so a run of consecutive rounds with no
+# repeated owner can execute as one owner-parallel group.
+
+def partition_conflict_free(owner_seq, max_group: Optional[int] = None
+                            ) -> List[Tuple[int, int]]:
+    """Greedy maximal partition of a host (K,) owner sequence into
+    consecutive (start, length) groups of distinct owners.
+
+    Greedy left to right gives the fewest groups: a group ends exactly when
+    the next owner would repeat. `max_group` caps the length (1 is the
+    sequential schedule). Run once per dispatch on the host."""
+    seq = np.asarray(owner_seq)
+    if seq.ndim != 1:
+        raise ValueError(f"owner sequence must be 1-D, got {seq.shape}")
+    if max_group is not None and max_group < 1:
+        raise ValueError(f"max_group must be >= 1, got {max_group}")
+    groups: List[Tuple[int, int]] = []
+    start, seen = 0, set()
+    for k, o in enumerate(seq.tolist()):
+        if o in seen or (max_group is not None and k - start >= max_group):
+            groups.append((start, k - start))
+            start, seen = k, {o}
+        else:
+            seen.add(o)
+    if len(seq) > start:
+        groups.append((start, len(seq) - start))
+    return groups
+
+
+def auto_max_group(owner_seq, step_overhead: float = 4.0, cap: int = 16) -> int:
+    """The group cap of `max_group="auto"`, from the sequence's own repeats.
+
+    Each cap c of the ladder (1, 2, 3, 4, 6, 8, 12, 16), up to the longest
+    conflict-free run and `cap`, is scored by partitioning the sequence:
+    n_groups(c) * (c + step_overhead), a fixed cost per group plus the
+    member compute padded to c slots. Ties go to the smaller cap. Returns 1
+    when grouping cannot win (a single-owner schedule, an empty one)."""
+    seq = np.asarray(owner_seq)
+    if seq.size == 0:
+        return 1
+    longest = max(length for _, length in partition_conflict_free(seq))
+    best_c, best_cost = 1, float("inf")
+    for c in (1, 2, 3, 4, 6, 8, 12, 16):
+        if c > min(longest, cap):
+            break
+        cost = len(partition_conflict_free(seq, c)) * (c + step_overhead)
+        if cost < best_cost:
+            best_c, best_cost = c, cost
+    return best_c
+
+
+def pack_groups(groups: List[Tuple[int, int]]) -> Tuple[np.ndarray, np.ndarray]:
+    """(start, length) groups -> (idx, valid), both (n_groups, G_max):
+    idx[g, j] is the round index of member j of group g; padding repeats
+    round 0 with valid False."""
+    if not groups:
+        return np.zeros((0, 1), np.int32), np.zeros((0, 1), bool)
+    gmax = max(length for _, length in groups)
+    idx = np.zeros((len(groups), gmax), np.int32)
+    valid = np.zeros((len(groups), gmax), bool)
+    for g, (start, length) in enumerate(groups):
+        idx[g, :length] = np.arange(start, start + length)
+        valid[g, :length] = True
+    return idx, valid
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,6 +19,8 @@ Counterpart of ``repro/federation/session.py``:
     state = fed.init_state(params)         # a pytree state (the default)
     state, metrics = fed.step(state, batch, owner_idx, key)      # one round
     state, metrics = fed.run_rounds(state, batches, owner_seq, key)  # K rounds
+    state, metrics = fed.run_rounds(state, batches, owner_seq, key,
+                                    owner_parallel=True)  # conflict-free groups
     fed.reconcile(state)                   # fold the device ledger -> host
     fed.ledger()                           # per-owner spend + refusals
 
@@ -51,7 +53,7 @@ device ledger and noise trees are updated in place).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -63,13 +65,15 @@ from repro_torch.federation.convex import (Algo1Trace, SyncTrace, scan_engine, s
                                            sync_scan_engine)
 from repro_torch.federation.deep import (AsyncDPConfig, AsyncDPState, init_state,
                                          init_state_flat, make_fused_rounds,
-                                         make_sync_dp_step, make_train_step)
+                                         make_group_rounds, make_sync_dp_step,
+                                         make_train_step)
 from repro_torch.federation.dp_sgd import PrivatizerConfig
 from repro_torch.federation.flatten import ParamFlat, as_bank_codec
 from repro_torch.federation.linear import LinearProblem
 from repro_torch.federation.mechanisms import make_mechanism
 from repro_torch.federation.owners import DataOwner
-from repro_torch.federation.schedules import UniformSchedule, as_owner_seq
+from repro_torch.federation.schedules import (UniformSchedule, as_owner_seq, auto_max_group,
+                                              pack_groups, partition_conflict_free)
 
 _STRATEGIES = ("async", "sync")
 
@@ -94,6 +98,7 @@ class Federation:
                                         cap_slack=cap_slack, tree_depth=tree_depth)
         self._step_fn = None
         self._fused_fn = None
+        self._group_fn = None
         self._pack_params = False
         self._bank_dtype = None
         self._ran = False
@@ -246,6 +251,8 @@ class Federation:
         self._step_fn = make_train_step(loss_fn, acfg, scales=scales, device=self.device)
         self._fused_fn = make_fused_rounds(loss_fn, acfg, scales=scales,
                                            device=self.device)
+        self._group_fn = make_group_rounds(loss_fn, acfg, scales=scales,
+                                           device=self.device)
         return self._step_fn
 
     def _require_step(self):
@@ -304,17 +311,33 @@ class Federation:
         return new_state, metrics
 
     def run_rounds(self, state: AsyncDPState, batches, owner_seq=None,
-                   key: Optional[torch.Tensor] = None
+                   key: Optional[torch.Tensor] = None, *, owner_parallel: bool = False,
+                   max_group: Union[int, str, None] = "auto"
                    ) -> Tuple[AsyncDPState, Dict[str, torch.Tensor]]:
         """K rounds in one call with authorization on the device.
 
         `batches` leaves carry a leading (K,) round axis. `owner_seq` is a
-        (K,) int sequence; None draws it from the schedule (on the device,
-        never copied to the host). Per-round keys are `random.split(key,
-        K)`: a `step()` loop driven with the same split reproduces this call
-        bit for bit. Refusals stay on the device until `reconcile(state)`.
-        Metrics are stacked (K,) device tensors (refused mask, owner,
-        clip_frac, max_grad_norm, grad_noise_scale)."""
+        (K,) int sequence; None draws it from the schedule (on the device).
+        Per-round keys are `random.split(key, K)`: a `step()` loop driven
+        with the same split reproduces the sequential call bit for bit.
+        Refusals stay on the device until `reconcile(state)`. Metrics are
+        stacked (K,) device tensors in round order (refused mask, owner,
+        clip_frac, max_grad_norm, grad_noise_scale).
+
+        `owner_parallel=True` runs the owner-parallel grouped driver
+        (`deep.make_group_rounds`): the sequence is partitioned on the host
+        into maximal runs of consecutive rounds with DISTINCT owners
+        (`schedules.partition_conflict_free`), each run one batch with one
+        theta_L inertia reduction. `max_group` caps the group length:
+        "auto" (the default) picks the cap from the sequence's own repeats
+        (`schedules.auto_max_group`), None leaves groups unbounded, an int
+        is a hard cap. The ledger spend equals the sequential driver's
+        exactly; theta_L deviates boundedly for groups of more than one.
+        When every group has length 1 the sequential driver runs: bit for
+        bit the same. The dispatch then costs one copy of the owner
+        sequence to the host (none when the caller passed it from the
+        host), shared by the cap and the partition; without
+        owner_parallel a drawn sequence never leaves the device."""
         if self.strategy != "async":
             raise ValueError("run_rounds() is the async path")
         self._require_step()
@@ -323,16 +346,32 @@ class Federation:
         batches = self._on_device(batches)
         k_rounds = next(iter(batches.values())).shape[0]
         key = key.to(self.device)
+        seq_host = None
         if owner_seq is None:
             k_sched, key = random.split(key)
             owner_seq = self.schedule.draw(k_sched, self.n_owners, k_rounds)
         else:
+            if owner_parallel:
+                # the one host copy, validated and uploaded by as_owner_seq
+                seq_host = np.asarray(owner_seq.cpu() if isinstance(owner_seq, torch.Tensor)
+                                      else owner_seq)
+                owner_seq = seq_host
             owner_seq = as_owner_seq(owner_seq, self.n_owners, self.device)
         if any(v.shape[0] != owner_seq.shape[0] for v in batches.values()):
             raise ValueError(f"batches carry {k_rounds} rounds, the owner sequence "
                              f"{owner_seq.shape[0]}")
         keys = random.split(key, k_rounds)
-        return self._fused_fn(state, batches, owner_seq, keys)
+        if not owner_parallel:
+            return self._fused_fn(state, batches, owner_seq, keys)
+        if seq_host is None:
+            seq_host = owner_seq.cpu().numpy()
+        if max_group == "auto":
+            max_group = auto_max_group(seq_host)
+        groups = partition_conflict_free(seq_host, max_group)
+        if all(length <= 1 for _, length in groups):
+            # single-round groups: the sequential driver IS the grouped run
+            return self._fused_fn(state, batches, owner_seq, keys)
+        return self._group_fn(state, batches, owner_seq, keys, *pack_groups(groups))
 
     def reconcile(self, state: AsyncDPState) -> Dict[int, Dict]:
         """Fold the state's device ledger into the host accountant

@@ -40,6 +40,19 @@
 // float4 for scale_noise and sqnorm) per thread per step, no shared-memory
 // staging.
 //
+// Member axis (the owner-parallel grouped driver, which the reference runs
+// under jax.vmap, one grid axis more): dp_round_rows and sqnorm_rows take g
+// contiguous rows of P elements, blockIdx.y is the row (member), and row m
+// reads its own key, gain, noise scale and weight. A row is computed exactly
+// as a single launch on it: dp_round is elementwise and hashes
+// threefry(key_m, i) for element i of its row; sqnorm gives every row the
+// grid of a single launch over P (the same partials, each summed in the
+// same order), and takes the float4 path where the row's own pointer is
+// 16-byte aligned, as a single launch on that row decides. So row m of a
+// batched launch equals a single launch on row m bit for bit, and a
+// member's result does not depend on g. A single row is the launch with
+// one row.
+//
 // The per-round scalars (gain or clip scale, noise scale, owner weight) and
 // the key are read from device memory, so the caller never syncs with the
 // host. The float arithmetic uses the _rn intrinsics op for op in the order
@@ -61,6 +74,7 @@ constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 4096;
 constexpr int kMaxPartials = 1024;
 constexpr int kFinalThreads = 1024;
+constexpr long long kMaxRows = 65535;   // gridDim.y
 
 __global__ void __launch_bounds__(kThreads)
 dp_round_kernel(const float* __restrict__ tb, const float* __restrict__ acc,
@@ -69,11 +83,17 @@ dp_round_kernel(const float* __restrict__ tb, const float* __restrict__ acc,
                 float* __restrict__ out_l, float* __restrict__ out_i, int64_t n,
                 float sigma, float lr_own, float lr_l, float inv_2n,
                 float theta_max) {
-  const uint32_t k0 = key[0];
-  const uint32_t k1 = key[1];
-  const float g = *gain;
-  const float s = *ns;
-  const float wv = *w;
+  // row blockIdx.y: its own buffers, key and scalars
+  const int64_t m = blockIdx.y;
+  tb += m * n;
+  acc += m * n;
+  out_l += m * n;
+  out_i += m * n;
+  const uint32_t k0 = key[2 * m];
+  const uint32_t k1 = key[2 * m + 1];
+  const float g = gain[m];
+  const float s = ns[m];
+  const float wv = w[m];
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        i < n; i += stride) {
@@ -144,8 +164,13 @@ __device__ __forceinline__ float block_sum(float v) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-sqnorm_partial_kernel(const float* __restrict__ g, int64_t n, int vec,
+sqnorm_partial_kernel(const float* __restrict__ g, int64_t n,
                       float* __restrict__ partial) {
+  // row blockIdx.y: its elements, its gridDim.x partials; the float4 path
+  // where the row's own pointer allows it, as a launch on that row alone
+  g += static_cast<int64_t>(blockIdx.y) * n;
+  partial += static_cast<int64_t>(blockIdx.y) * gridDim.x;
+  const int vec = (reinterpret_cast<uintptr_t>(g) & 15u) == 0;
   float acc = 0.f;
   const int64_t start = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
@@ -173,28 +198,32 @@ sqnorm_partial_kernel(const float* __restrict__ g, int64_t n, int vec,
 __global__ void __launch_bounds__(kFinalThreads)
 sqnorm_final_kernel(const float* __restrict__ partial, int nparts,
                     float* __restrict__ out) {
+  // one block per row
+  partial += static_cast<int64_t>(blockIdx.x) * nparts;
   float acc = 0.f;
   for (int i = threadIdx.x; i < nparts; i += kFinalThreads) acc += partial[i];
   acc = block_sum(acc);
-  if (threadIdx.x == 0) *out = acc;
+  if (threadIdx.x == 0) out[blockIdx.x] = acc;
 }
 
 }  // namespace
 
 extern "C" {
 
-int dp_round_launch(const float* tb, const float* acc, const uint32_t* key,
-                    const float* gain, const float* ns, const float* w,
-                    float* out_l, float* out_i, long long n, float sigma,
-                    float lr_own, float lr_l, float inv_2n, float theta_max,
-                    int device, void* stream) {
+// rows x n elements, row m with key[2m:2m+2], gain[m], ns[m] and w[m]
+int dp_round_rows_launch(const float* tb, const float* acc, const uint32_t* key,
+                         const float* gain, const float* ns, const float* w,
+                         float* out_l, float* out_i, long long rows, long long n,
+                         float sigma, float lr_own, float lr_l, float inv_2n,
+                         float theta_max, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
+  if (rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0 && rows > 0) {
     long long blocks = (n + kThreads - 1) / kThreads;
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-    dp_round_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+    dp_round_kernel<<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(rows)),
+                      kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         tb, acc, key, gain, ns, w, out_l, out_i, n, sigma, lr_own, lr_l,
         inv_2n, theta_max);
   }
@@ -228,19 +257,23 @@ int sqnorm_num_partials(long long n) {
   return static_cast<int>(parts < kMaxPartials ? parts : kMaxPartials);
 }
 
-int sqnorm_launch(const float* g, long long n, float* partial, float* out,
-                  int device, void* stream) {
+// rows x n elements -> out[rows]; partial holds rows * sqnorm_num_partials(n)
+int sqnorm_rows_launch(const float* g, long long rows, long long n, float* partial,
+                       float* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int parts = sqnorm_num_partials(n);
   if (parts > 0) {
-    const int vec = (reinterpret_cast<uintptr_t>(g) & 15u) == 0;
-    sqnorm_partial_kernel<<<parts, kThreads, 0, s>>>(g, n, vec, partial);
+    sqnorm_partial_kernel<<<dim3(parts, static_cast<unsigned>(rows)), kThreads, 0, s>>>(
+        g, n, partial);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  sqnorm_final_kernel<<<1, kFinalThreads, 0, s>>>(partial, parts, out);
+  sqnorm_final_kernel<<<static_cast<unsigned>(rows), kFinalThreads, 0, s>>>(partial, parts,
+                                                                            out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,9 @@ design are noted there). These functions launch on PyTorch's current
 stream, allocate their outputs and scratch with ``torch.empty``, never
 synchronise, and raise when the launch is refused. Each adds one to its
 entry of `launches` when it launches, and nowhere else, so a caller can
-show that a run went through the kernels.
+show that a run went through the kernels. The `*_rows_cuda` forms take a
+member axis (g contiguous rows, one launch for all of them) and count one
+launch under the same name.
 """
 from __future__ import annotations
 
@@ -36,45 +38,64 @@ def reset_launches() -> None:
 
 def _library() -> ctypes.CDLL:
     lib = _build.load(NAME, SOURCE)
-    lib.dp_round_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _F, _F,
-                                    _F, _F, _F, _I, _P]
-    lib.dp_round_launch.restype = _I
+    lib.dp_round_rows_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _F,
+                                         _F, _F, _F, _F, _I, _P]
+    lib.dp_round_rows_launch.restype = _I
     lib.scale_noise_launch.argtypes = [_P, _P, _P, _P, _P, _I64, _I, _P]
     lib.scale_noise_launch.restype = _I
     lib.sqnorm_num_partials.argtypes = [_I64]
     lib.sqnorm_num_partials.restype = _I
-    lib.sqnorm_launch.argtypes = [_P, _I64, _P, _P, _I, _P]
-    lib.sqnorm_launch.restype = _I
+    lib.sqnorm_rows_launch.argtypes = [_P, _I64, _I64, _P, _P, _I, _P]
+    lib.sqnorm_rows_launch.restype = _I
     return lib
 
 
-def dp_round_cuda(tb: torch.Tensor, acc: torch.Tensor, key: torch.Tensor,
-                  gain: torch.Tensor, noise_scale: torch.Tensor, w: torch.Tensor,
-                  *, sigma: float, lr_own: float, lr_l: float, inv_2n: float,
-                  theta_max: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the fused round on a (P,) f32 buffer -> (new_L, new_i).
+def _rows_of(x: torch.Tensor, what: str) -> Tuple[int, int]:
+    """(g, P) of a 2-d tensor; raises otherwise."""
+    if x.dim() != 2:
+        raise ValueError(f"{what} must be (g, P), got shape {tuple(x.shape)}")
+    return x.shape[0], x.shape[1]
 
-    `key` is the round's (2,) uint32 key; `gain`, `noise_scale` and `w` are
-    one-element f32 tensors, all on the buffer's device."""
+
+def dp_round_rows_cuda(tb: torch.Tensor, acc: torch.Tensor, keys: torch.Tensor,
+                       gain: torch.Tensor, noise_scale: torch.Tensor, w: torch.Tensor,
+                       *, sigma: float, lr_own: float, lr_l: float, inv_2n: float,
+                       theta_max: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the fused round over g members -> (new_L, new_i), each
+    (g, P): row m of `tb` and `acc` (g, P) f32 with key `keys[m]` ((g, 2)
+    uint32) and the m-th of `gain`, `noise_scale` and `w` ((g,) f32), all on
+    the buffers' device. Row m equals dp_round_cuda on row m bit for bit."""
     dev = tb.device
     if dev.type != "cuda":
-        raise ValueError(f"dp_round_cuda needs CUDA tensors, got {dev}")
-    n = tb.numel()
-    _build.require(tb, "theta_bar", torch.float32, dev, n)
-    _build.require(acc, "acc", torch.float32, dev, n)
-    _build.require(key, "key", torch.uint32, dev, 2)
+        raise ValueError(f"dp_round_rows_cuda needs CUDA tensors, got {dev}")
+    g, n = _rows_of(tb, "theta_bar")
+    _build.require(tb, "theta_bar", torch.float32, dev, g * n)
+    _build.require(acc, "acc", torch.float32, dev, g * n)
+    _build.require(keys, "keys", torch.uint32, dev, 2 * g)
     for what, s in (("gain", gain), ("noise_scale", noise_scale), ("w", w)):
-        _build.require(s, what, torch.float32, dev, 1)
+        _build.require(s, what, torch.float32, dev, g)
     new_l = torch.empty_like(tb)
     new_i = torch.empty_like(tb)
-    err = _library().dp_round_launch(
-        tb.data_ptr(), acc.data_ptr(), key.data_ptr(), gain.data_ptr(),
+    err = _library().dp_round_rows_launch(
+        tb.data_ptr(), acc.data_ptr(), keys.data_ptr(), gain.data_ptr(),
         noise_scale.data_ptr(), w.data_ptr(), new_l.data_ptr(), new_i.data_ptr(),
-        n, sigma, lr_own, lr_l, inv_2n, theta_max, dev.index,
+        g, n, sigma, lr_own, lr_l, inv_2n, theta_max, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on(err, "dp_round")
     launches["dp_round"] += 1
     return new_l, new_i
+
+
+def dp_round_cuda(tb: torch.Tensor, acc: torch.Tensor, key: torch.Tensor,
+                  gain: torch.Tensor, noise_scale: torch.Tensor, w: torch.Tensor,
+                  **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused round on one (P,) f32 buffer -> (new_L, new_i): the
+    batched launch with one row. `key` is the round's (2,) uint32 key;
+    `gain`, `noise_scale` and `w` are one-element f32 tensors, all on the
+    buffer's device; `kw` as dp_round_rows_cuda's."""
+    new_l, new_i = dp_round_rows_cuda(tb.view(1, -1), acc.view(1, -1), key, gain,
+                                      noise_scale, w, **kw)
+    return new_l[0], new_i[0]
 
 
 def scale_noise_cuda(g: torch.Tensor, key: torch.Tensor, clip_scale: torch.Tensor,
@@ -102,19 +123,26 @@ def scale_noise_cuda(g: torch.Tensor, key: torch.Tensor, clip_scale: torch.Tenso
     return out
 
 
-def sqnorm_cuda(g: torch.Tensor) -> torch.Tensor:
-    """Deterministic sum of g*g over a contiguous f32 tensor -> 0-d tensor
-    on the same device."""
+def sqnorm_rows_cuda(g: torch.Tensor) -> torch.Tensor:
+    """Deterministic sum of squares of each row of a contiguous (rows, P)
+    f32 tensor -> (rows,), in one launch; row m equals sqnorm_cuda on the
+    view g[m] bit for bit."""
     dev = g.device
     if dev.type != "cuda":
-        raise ValueError(f"sqnorm_cuda needs a CUDA tensor, got {dev}")
-    n = g.numel()
-    _build.require(g, "g", torch.float32, dev, n)
+        raise ValueError(f"sqnorm_rows_cuda needs a CUDA tensor, got {dev}")
+    rows, n = _rows_of(g, "g")
+    _build.require(g, "g", torch.float32, dev, rows * n)
     lib = _library()
-    partial = torch.empty(lib.sqnorm_num_partials(n), dtype=torch.float32, device=dev)
-    out = torch.empty((), dtype=torch.float32, device=dev)
-    err = lib.sqnorm_launch(g.data_ptr(), n, partial.data_ptr(), out.data_ptr(),
-                            dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    partial = torch.empty(rows * lib.sqnorm_num_partials(n), dtype=torch.float32, device=dev)
+    out = torch.empty(rows, dtype=torch.float32, device=dev)
+    err = lib.sqnorm_rows_launch(g.data_ptr(), rows, n, partial.data_ptr(), out.data_ptr(),
+                                 dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on(err, "sqnorm")
     launches["sqnorm"] += 1
     return out
+
+
+def sqnorm_cuda(g: torch.Tensor) -> torch.Tensor:
+    """Deterministic sum of g*g over a contiguous f32 tensor of any shape ->
+    0-d tensor on the same device: the batched launch with one row."""
+    return sqnorm_rows_cuda(g.view(1, -1))[0]

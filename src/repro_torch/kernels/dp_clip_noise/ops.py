@@ -4,6 +4,12 @@
 
     noisy = dp_privatize_tree(grads, key, xi, noise_scale)   # clip + noise a tree
 
+`dp_round_rows` and `fused_sqnorm_rows` are the owner-parallel grouped
+driver's forms (the reference's vmap of `dp_round_2d` and `sqnorm_2d`): a
+leading member axis of g rows, one launch for all of them on CUDA, and
+row m equal to the single-row entry point on row m bit for bit on either
+backend.
+
 The counterpart of ``repro/kernels/dp_clip_noise/ops.py``. The backend
 follows the tensor: a CPU tensor runs the plain version from ``ref.py``; a
 CUDA tensor launches the kernel from ``kernel.py``, and a failed build or
@@ -25,9 +31,12 @@ import torch
 
 from repro_torch import random
 from repro_torch.tree_util import tree_flatten, tree_unflatten
-from repro_torch.kernels.dp_clip_noise.kernel import (dp_round_cuda, scale_noise_cuda,
-                                                      sqnorm_cuda)
-from repro_torch.kernels.dp_clip_noise.ref import dp_round_ref, scale_noise_ref, sqnorm_ref
+from repro_torch.kernels.dp_clip_noise.kernel import (dp_round_cuda, dp_round_rows_cuda,
+                                                      scale_noise_cuda, sqnorm_cuda,
+                                                      sqnorm_rows_cuda)
+from repro_torch.kernels.dp_clip_noise.ref import (dp_round_ref, dp_round_rows_ref,
+                                                   scale_noise_ref, sqnorm_ref,
+                                                   sqnorm_rows_ref)
 
 
 def _unsupported(t: torch.Tensor, op: str) -> ValueError:
@@ -62,6 +71,33 @@ def fused_sqnorm(g: torch.Tensor) -> torch.Tensor:
     if g.device.type == "cuda":
         return sqnorm_cuda(g)
     raise _unsupported(g, "fused_sqnorm")
+
+
+def dp_round_rows(tb: torch.Tensor, acc: torch.Tensor, keys: torch.Tensor,
+                  gain: torch.Tensor, noise_scale: torch.Tensor, w: torch.Tensor, *,
+                  sigma: float, lr_own: float, lr_l: float, n_owners: int,
+                  theta_max: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`dp_round_flat` over g members -> (new_L, new_i), each (g, P): tb and
+    acc (g, P) f32, keys (g, 2) uint32 (row m draws random.bits(keys[m],
+    (P,))), gain, noise_scale and w (g,) f32 device tensors."""
+    kw = dict(sigma=sigma, lr_own=lr_own, lr_l=lr_l, theta_max=theta_max)
+    if tb.device.type == "cpu":
+        return dp_round_rows_ref(tb, acc, random.bits(keys, (tb.shape[-1],)), gain,
+                                 noise_scale, w, n_owners=n_owners, **kw)
+    if tb.device.type == "cuda":
+        return dp_round_rows_cuda(tb, acc, keys, gain, noise_scale, w,
+                                  inv_2n=1.0 / (2 * n_owners), **kw)
+    raise _unsupported(tb, "dp_round_rows")
+
+
+def fused_sqnorm_rows(g: torch.Tensor) -> torch.Tensor:
+    """Squared L2 norm of each row of a (g, P) f32 tensor -> (g,): the clip
+    norms of g members' microbatch gradients, in one launch on CUDA."""
+    if g.device.type == "cpu":
+        return sqnorm_rows_ref(g)
+    if g.device.type == "cuda":
+        return sqnorm_rows_cuda(g)
+    raise _unsupported(g, "fused_sqnorm_rows")
 
 
 def _scalar(v, like: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,12 @@ def sqnorm_ref(g: torch.Tensor) -> torch.Tensor:
     return torch.sum(gf * gf)
 
 
+def sqnorm_rows_ref(g: torch.Tensor) -> torch.Tensor:
+    """(rows, P) -> (rows,): sqnorm_ref of each row, one after another, so
+    row m is bit for bit sqnorm_ref(g[m])."""
+    return torch.stack([sqnorm_ref(row) for row in g])
+
+
 def dp_round_ref(tb: torch.Tensor, acc: torch.Tensor, bits: torch.Tensor,
                  gain, noise_scale, w, *, sigma: float, lr_own: float,
                  lr_l: float, n_owners: int, theta_max: float):
@@ -49,3 +55,14 @@ def dp_round_ref(tb: torch.Tensor, acc: torch.Tensor, bits: torch.Tensor,
                         -theta_max, theta_max)
     new_l = torch.clamp(tbf - lr_l * g_reg, -theta_max, theta_max)
     return new_l, new_i
+
+
+def dp_round_rows_ref(tb: torch.Tensor, acc: torch.Tensor, bits: torch.Tensor,
+                      gain: torch.Tensor, noise_scale: torch.Tensor, w: torch.Tensor,
+                      **kw):
+    """dp_round_ref over g members -> (new_L, new_i), each (g, P): row m of
+    tb, acc and bits (g, P) with the m-th of gain, noise_scale and w ((g,)),
+    one member after another, so row m is bit for bit dp_round_ref on it."""
+    outs = [dp_round_ref(tb[m], acc[m], bits[m], gain[m:m + 1], noise_scale[m:m + 1],
+                         w[m:m + 1], **kw) for m in range(tb.shape[0])]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])

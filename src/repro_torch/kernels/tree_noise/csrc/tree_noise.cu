@@ -31,6 +31,15 @@
 // writes delta (the caller's update is masked). The caller bumps the count
 // afterwards on the same stream.
 //
+// Member axis (the owner-parallel grouped driver, which the reference runs
+// under jax.vmap): tree_delta_rows advances g owners in one launch,
+// blockIdx.y the member m, with its own owner index, key, noise scale and
+// grant, writing row m of a (g, P) delta. The owners must be distinct (the
+// conflict-free partition's invariant), so no two members touch one node
+// row; the kernel assumes it. Each element is computed as in a single
+// launch on that owner, so a member's result does not depend on g. One
+// owner is the launch with one member.
+//
 // Design, in a grid-stride loop of four elements (one float4 per level) per
 // thread per step where the row and delta are 16-byte aligned, one element
 // per step on the tail, no shared memory: each step first loads the r
@@ -55,6 +64,7 @@ using threefry::threefry_bits;
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 4096;
+constexpr long long kMaxRows = 65535;   // gridDim.y
 
 __device__ __forceinline__ float draw(float s, uint32_t k0, uint32_t k1, int64_t i) {
   return __fmul_rn(s, from_bits(threefry_bits(k0, k1, static_cast<uint64_t>(i))));
@@ -70,7 +80,13 @@ tree_delta_kernel(float* __restrict__ nodes, const int32_t* __restrict__ counts,
                   const int64_t* __restrict__ owner, const uint32_t* __restrict__ key,
                   const float* __restrict__ ns, const int32_t* __restrict__ grant,
                   float* __restrict__ delta, int64_t n, int depth, int vec) {
-  const int64_t o = *owner;
+  // member blockIdx.y: its owner, key, scale, grant and delta row
+  const int64_t m = blockIdx.y;
+  const int64_t o = owner[m];
+  key += 2 * m;
+  ns += m;
+  if (grant != nullptr) grant += m;
+  delta += m * n;
   const int64_t t1 = static_cast<int64_t>(counts[o]) + 1;
   // level l retires iff (t+1) mod 2^(l+1) == 0 (a prefix 0..r-1 of the
   // levels) and is fresh iff (t+1) mod 2^(l+1) == 2^l (level r, if any)
@@ -134,20 +150,24 @@ tree_delta_kernel(float* __restrict__ nodes, const int32_t* __restrict__ counts,
 
 extern "C" {
 
-int tree_delta_launch(float* nodes, const int32_t* counts, const int64_t* owner,
-                      const uint32_t* key, const float* ns, const int32_t* grant,
-                      float* delta, long long n, int depth, int device, void* stream) {
+// rows members: owner[m], key[2m:2m+2], ns[m], grant[m] (grant may be null:
+// all granted), delta row m of rows x n
+int tree_delta_rows_launch(float* nodes, const int32_t* counts, const int64_t* owner,
+                           const uint32_t* key, const float* ns, const int32_t* grant,
+                           float* delta, long long rows, long long n, int depth,
+                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
+  if (rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0 && rows > 0) {
     const int vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(nodes) & 15u) == 0 &&
                     (reinterpret_cast<uintptr_t>(delta) & 15u) == 0;
     const long long per_thread = vec ? 4 : 1;
     long long blocks = (n / per_thread + kThreads - 1) / kThreads;
     if (blocks < 1) blocks = 1;
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-    tree_delta_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+    tree_delta_kernel<<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(rows)),
+                        kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         nodes, counts, owner, key, ns, grant, delta, n, depth, vec);
   }
   return static_cast<int>(cudaGetLastError());

@@ -2,6 +2,7 @@
 tree by one leaf.
 
     delta = tree_delta_(nodes, counts, owner_idx, key, noise_scale, grant)  # engine
+    deltas = tree_delta_rows_(nodes, counts, owners, keys, noise_scales, grants)  # a group
     delta, new_nodes = tree_delta_row(nodes_row, count, key, noise_scale)
 
 The counterpart of ``repro/kernels/tree_noise/ops.py``. The backend
@@ -17,7 +18,10 @@ them, the kernel hashes each element's index in-kernel.
 `tree_delta_` updates the owner's row of the (N, depth, P) node tensor IN
 PLACE (masked by the grant) and leaves the leaf counter to the caller: the
 reference's gather, where and scatter of the whole (depth, P) row would
-cost three row-sized transients per round.
+cost three row-sized transients per round. `tree_delta_rows_` is the
+owner-parallel grouped driver's form (the reference's vmap of
+`tree_delta_2d`): g distinct owners in one launch on CUDA, each member
+bit for bit what `tree_delta_` gives it.
 """
 from __future__ import annotations
 
@@ -26,8 +30,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import random
-from repro_torch.kernels.tree_noise.kernel import tree_delta_cuda
-from repro_torch.kernels.tree_noise.ref import tree_delta_inplace_ref
+from repro_torch.kernels.tree_noise.kernel import tree_delta_cuda, tree_delta_rows_cuda
+from repro_torch.kernels.tree_noise.ref import (tree_delta_inplace_ref,
+                                               tree_delta_rows_inplace_ref)
 
 
 def tree_delta_(nodes: torch.Tensor, counts: torch.Tensor, owner_idx: torch.Tensor,
@@ -44,6 +49,28 @@ def tree_delta_(nodes: torch.Tensor, counts: torch.Tensor, owner_idx: torch.Tens
     if nodes.device.type == "cuda":
         return tree_delta_cuda(nodes, counts, owner_idx, key, noise_scale, grant)
     raise ValueError(f"tree_delta_: tensors on {nodes.device} are not supported "
+                     "(cpu runs the plain version, cuda the kernel)")
+
+
+def tree_delta_rows_(nodes: torch.Tensor, counts: torch.Tensor, owner_idx: torch.Tensor,
+                     keys: torch.Tensor, noise_scale: torch.Tensor,
+                     grant: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Advance g DISTINCT owners (`owner_idx` (g,) int64) by one leaf each:
+    member m's row of `nodes` is updated in place unless grant[m] ((g,)
+    int32; None = all granted) is 0, drawing random.bits(keys[m], (P,))
+    ((g, 2) keys) at noise_scale[m] ((g,)); returns delta (g, P). Distinct
+    owners are the conflict-free partition's invariant: checked on the CPU,
+    assumed on CUDA (a check there would read the owners back)."""
+    if nodes.device.type == "cpu":
+        if torch.unique(owner_idx).numel() != owner_idx.numel():
+            raise ValueError(f"tree_delta_rows_ needs distinct owners, got "
+                             f"{owner_idx.tolist()}")
+        return tree_delta_rows_inplace_ref(nodes, counts, owner_idx,
+                                           random.bits(keys, (nodes.shape[-1],)),
+                                           noise_scale, grant)
+    if nodes.device.type == "cuda":
+        return tree_delta_rows_cuda(nodes, counts, owner_idx, keys, noise_scale, grant)
+    raise ValueError(f"tree_delta_rows_: tensors on {nodes.device} are not supported "
                      "(cpu runs the plain version, cuda the kernel)")
 
 

@@ -74,3 +74,16 @@ def tree_delta_inplace_ref(nodes: torch.Tensor, counts: torch.Tensor,
             new_row = torch.where(grant.reshape(()) != 0, new_row, row)
         nodes.index_copy_(0, owner_idx, new_row.unsqueeze(0))
     return delta
+
+
+def tree_delta_rows_inplace_ref(nodes: torch.Tensor, counts: torch.Tensor,
+                                owner_idx: torch.Tensor, bits: torch.Tensor,
+                                noise_scale: torch.Tensor,
+                                grant: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`tree_delta_inplace_ref` for g distinct owners ((g,) int64), one
+    after another: member m draws from bits[m] ((g, P)) with noise_scale[m]
+    and grant[m]; returns delta (g, P), row m bit for bit the single call's."""
+    return torch.stack([tree_delta_inplace_ref(nodes, counts, owner_idx[m:m + 1], bits[m],
+                                               noise_scale[m:m + 1],
+                                               None if grant is None else grant[m:m + 1])
+                        for m in range(owner_idx.numel())])

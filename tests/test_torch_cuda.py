@@ -10,8 +10,11 @@ Tolerances: the kernels use the plain versions' op order with
 round-to-nearest intrinsics, so only log1pf could differ (1e-6); the
 squared norm sums in another order (rtol 1e-5); the bank codec kernels
 (absmax, encode, decode), tree_delta and scale_noise equal their plain
-versions bit for bit. Inside the port, `spec.pack` of a pytree session
-equals the flat engine's reference mode bit for bit on the card too. The
+versions bit for bit; their batched forms (the grouped driver's member
+axis) equal g single launches bit for bit. Inside the port, `spec.pack`
+of a pytree session equals the flat engine's reference mode bit for bit
+on the card too, and a grouped dispatch's ledger and noise tree equal the
+sequential dispatch's. The
 session on the card and on the CPU agree to 1e-5 (cuBLAS and
 the CPU BLAS sum in other orders; the tree's nodes are Laplace draws,
 log1pf against log1p); integer results are exact. On an int8 bank the two
@@ -38,7 +41,7 @@ import torch
 from repro_torch import random as trandom
 from repro_torch.configs import DENSE_124M
 from repro_torch.federation import (DataOwner, Federation, FederationConfig, PrivatizerConfig,
-                                    QuantBank)
+                                    QuantBank, partition_conflict_free)
 from repro_torch.tree_util import tree_flatten
 from repro_torch.kernels.bank_codec import kernel as bkernel
 from repro_torch.kernels.bank_codec import ops as bops
@@ -229,6 +232,109 @@ def test_tree_session_on_the_card_matches_the_cpu(bank_dtype):
     assert torch.equal(out[0][2], out[1][2])
     torch.testing.assert_close(out[0][3], out[1][3], rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(out[0][4], out[1][4], rtol=1e-4, atol=1e-5 + out[1][5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [4099, 3 * 1024 * 1024 + 76])
+@pytest.mark.parametrize("g", [1, 3, 8])
+def test_batched_kernels_equal_single_launches(g, p):
+    # the member axis of the grouped driver: one launch for g rows, row m
+    # bit for bit the single launch on row m (sqnorm on the same view, so
+    # the same float4 decision) and the plain versions' row loop
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(g * p)
+    tb = torch.randn(g, p, device=dev, generator=gen)
+    acc = torch.randn(g, p, device=dev, generator=gen)
+    keys = trandom.split(trandom.PRNGKey(g, device=dev), g)
+    gain, ns, w = (torch.rand(g, device=dev, generator=gen) for _ in range(3))
+    before = {**tkernel.launches, **nkernel.launches}
+    new_l, new_i = tops.dp_round_rows(tb, acc, keys, gain, ns, w, **ROUND)
+    sq = tops.fused_sqnorm_rows(acc)
+    nodes = torch.randn(10, 4, p, device=dev, generator=gen)
+    counts = torch.tensor([0, 1, 3, 2, 5, 6, 0, 7, 2, 3], dtype=torch.int32, device=dev)
+    owners = torch.randperm(10, device=dev, generator=gen)[:g]
+    grant = (torch.arange(g, device=dev) % 3 != 2).to(torch.int32)
+    batched = nodes.clone()
+    delta = nops.tree_delta_rows_(batched, counts, owners, keys, ns, grant)
+    after = {**tkernel.launches, **nkernel.launches}
+    assert {k: after[k] - before[k] for k in ("dp_round", "sqnorm", "tree_delta")} == {
+        "dp_round": 1, "sqnorm": 1, "tree_delta": 1}
+    single = nodes.clone()
+    for m in range(g):
+        one_l, one_i = tops.dp_round_flat(tb[m], acc[m], keys[m], gain[m:m + 1], ns[m:m + 1],
+                                          w[m:m + 1], **ROUND)
+        assert torch.equal(new_l[m], one_l) and torch.equal(new_i[m], one_i), m
+        assert torch.equal(sq[m], tops.fused_sqnorm(acc[m])), m
+        one = nops.tree_delta_(single, counts, owners[m:m + 1], keys[m], ns[m:m + 1],
+                               grant[m:m + 1])
+        assert torch.equal(delta[m], one), m
+    assert torch.equal(batched, single)
+    bits = trandom.bits(keys, (p,))
+    ref_l, ref_i = tref.dp_round_rows_ref(tb, acc, bits, gain, ns, w, **ROUND)
+    assert torch.equal(new_l, ref_l) and torch.equal(new_i, ref_i)
+    torch.testing.assert_close(sq, tref.sqnorm_rows_ref(acc), rtol=1e-5, atol=0.0)
+    plain = nodes.clone()
+    ref_delta = nref.tree_delta_rows_inplace_ref(plain, counts, owners, bits, ns, grant)
+    assert torch.equal(delta, ref_delta) and torch.equal(batched, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["f32", "tree"])
+def test_grouped_session_on_the_card(form):
+    # the grouped dispatch on the card: one dp_round (tree: one tree_delta)
+    # and G sqnorm launches per group; the ledger and the tree equal the
+    # sequential dispatch's on the card (the nodes bit for bit), and theta_L
+    # and the bank agree with the grouped dispatch on the CPU
+    dev = _device()
+    cfg = DENSE_124M.reduced()
+    lm = LM(cfg)
+    params = lm.init(seed=2)
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (12, 4, 16), generator=gen, dtype=torch.int32)
+    batches = {"tokens": toks, "labels": torch.roll(toks, -1, dims=2)}
+    seq = [0, 1, 2, 3, 1, 0, 3, 2, 2, 2, 1, 0]              # groups of 4, 4, 1 and 3
+    n_groups = len(partition_conflict_free(seq))
+    tree = form == "tree"
+    mech = dict(mechanism="tree", tree_depth=2) if tree else {}
+    out = {}
+    for role, device, grouped in (("card", dev, True), ("sequential", dev, False),
+                                  ("cpu", torch.device("cpu"), True)):
+        fed = Federation([DataOwner(n=100 * (i + 1), epsilon=1.0, xi=1.0) for i in range(4)],
+                         FederationConfig.from_target_lr(0.05, n_owners=4,
+                                                         horizon=8 if tree else 2,
+                                                         sigma=1e-2),
+                         device=device, **mech)
+        fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True,
+                      privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2,
+                                                  fused_kernel=True))
+        before = {**tkernel.launches, **nkernel.launches}
+        state, ms = fed.run_rounds(fed.init_state(params), batches, seq,
+                                   key=trandom.PRNGKey(5, device=device),
+                                   owner_parallel=grouped, max_group=None)
+        after = {**tkernel.launches, **nkernel.launches}
+        if role == "card":
+            rounds = n_groups
+            assert {k: after[k] - before[k] for k in ("dp_round", "sqnorm", "tree_delta")} == {
+                "dp_round": 0 if tree else rounds, "sqnorm": 2 * rounds,
+                "tree_delta": rounds if tree else 0}
+        out[role] = dict(
+            refused=ms["refused"].cpu(), owner=ms["owner"].cpu(), ledger=fed.reconcile(state),
+            theta=state.theta_L.buf.cpu(), bank=state.bank.cpu(),
+            counts=state.tree.counts.cpu() if tree else None,
+            nodes=state.tree.nodes.cpu() if tree else None)
+    card, seq_run, cpu = out["card"], out["sequential"], out["cpu"]
+    assert bool(card["refused"].any())
+    for other in (seq_run, cpu):
+        assert torch.equal(card["refused"], other["refused"])
+        assert torch.equal(card["owner"], other["owner"])
+        assert card["ledger"] == other["ledger"]
+    if tree:
+        assert torch.equal(card["counts"], seq_run["counts"])
+        assert torch.equal(card["counts"], cpu["counts"])
+        assert torch.equal(card["nodes"], seq_run["nodes"])
+        torch.testing.assert_close(card["nodes"], cpu["nodes"], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(card["theta"], cpu["theta"], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(card["bank"], cpu["bank"], rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.cuda
