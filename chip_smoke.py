@@ -74,6 +74,25 @@ Phases (any mismatch raises and the run exits non-zero):
              device ledger and step equal the grouped run's, the largest
              theta_L difference printed, the reconciled ledger equal to
              the host's count.
+   faults  — main's path with the fault layer and the asynchronous runtime
+             armed: FaultPlan(drop, stale, nonfinite, corrupt = 0.05 each),
+             FaultPolicy(max_faults 3, window 16), StalenessPolicy(deadline
+             1, max_retries 2, backoff_cap 4, decay 0.9), LatencyPlan(16
+             per-owner bases in 0.2 to 0.9, jitter 0.3); K = 32 rounds a
+             dispatch. The codes and latencies drawn on the card equal the
+             CPU draw bit for bit. The sequential driver, then the grouped
+             one (max_group 8), each from a fresh state: three timed
+             dispatches and one profiled on the same sequences and keys,
+             each with K dp_round and K*G sqnorm (one dp_round and G sqnorm
+             per group) and no other kernel, its seven ledger columns,
+             FaultState and StalenessState equal to a plain host replay of
+             the outcome algebra (`_Replay`), and bank_checksums over the
+             9.78 GB bank equal to the stored checksums; the two drivers'
+             counters equal each other and the reconciled tallies the
+             device columns. ms, device ms by kernel group, device kernels,
+             idle share and peak memory per round beside main's. Then one
+             dispatch of an explicit code trace on a horizon-4 session hits
+             every ledger column, quarantine included.
    quant   — the quantized bank at full width: the same model and rounds
              with 128 owners x 10,000 records on an int8 bank (78.2 GB in
              f32, which would not fit); launch counts per dispatch must be
@@ -179,6 +198,18 @@ Phases (any mismatch raises and the run exits non-zero):
              (unbounded groups): refusals and the ledger equal the
              sequential run's, and the leaf counts and nodes bit for bit;
              one dp_round (tree: tree_delta) and 2 sqnorm per group.
+   fault refusal — the fault-armed dispatch (a FaultPlan and a LatencyPlan,
+             staleness with decay) at phase refusal's reduced size on the
+             f32 and int8 banks, the depth-2 tree and the pytree state, on
+             the card and on the CPU: owners, ledger columns, fault and
+             runtime counters, outcome masks and the reconciled ledger
+             equal; theta_L, the bank and the nodes within phase refusal's
+             tolerances; the stored checksums equal bank_checksums; on flat
+             states the grouped driver's counters equal the sequential
+             run's (under the tree, nodes and counts bit for bit), with two
+             tree_delta launches a round and a group; and a zero FaultPlan
+             under the default StalenessPolicy equals the fault-off engine
+             bit for bit on the card.
 5. timing  — each kernel (through the wrapper the main path calls), its
              plain version and the one PyTorch call computing the same
              function where there is one (torch.dot for sqnorm,
@@ -876,11 +907,11 @@ def _device_profile(torch, dev, run, cpu_ops=True):
     return out, wall_ms, per_name, calls
 
 
-def _profiled(torch, dev, run, rounds, top=12):
+def _profiled(torch, dev, run, rounds, top=12, cpu_ops=True):
     """run() once under torch.profiler; prints where the device time went
     and returns (run()'s result, device busy ms per round, {kernel group:
-    ms per round}, device kernels per round)."""
-    out, wall_ms, per_name, calls = _device_profile(torch, dev, run)
+    ms per round}, device kernels per round). cpu_ops as _device_profile."""
+    out, wall_ms, per_name, calls = _device_profile(torch, dev, run, cpu_ops=cpu_ops)
     busy_ms = sum(per_name.values())
     n_launch = sum(calls.values())
     print(f"[profile] {rounds} rounds: wall {wall_ms:.1f} ms with the profiler on, "
@@ -1303,6 +1334,310 @@ def phase_grouped(torch, dev, main_prof, cfg=None, n_owners=16, records=10_000, 
           f"{float(theta.abs().max()):.3e}); reconciled responses {counts}")
     del state, theta, first
     return launches, stats
+
+
+FAULTS_K = 32                    # rounds a dispatch in phase faults
+FAULTS_PLAN = dict(drop=0.05, stale=0.05, nonfinite=0.05, corrupt=0.05)
+FAULTS_POLICY = dict(max_faults=3, window=16)
+FAULTS_RUNTIME = dict(deadline=1.0, max_retries=2, backoff_cap=4, decay=0.9)
+FAULTS_JITTER = 0.3
+FAULT_COLUMNS = ("spent", "refused", "dropped", "faulted", "quarantined", "timed_out",
+                 "retried")
+# fault codes, as the port numbers them
+F_OK, F_DROP, F_STALE, F_NONFINITE, F_CORRUPT, F_TIMEOUT = range(6)
+
+
+class _Replay:
+    """The outcome algebra of the fault-armed drivers replayed on the host in
+    plain Python, from the owner sequence, the fault codes (timeouts
+    merged) and the caps, for a finite model whose resident rows are
+    intact: the seven ledger columns, the fault windows and the runtime
+    counters, and each round's outcome."""
+
+    def __init__(self, caps, policy, runtime):
+        n = len(caps)
+        self.cap = list(caps)
+        self.policy, self.runtime = policy, runtime
+        self.cols = {c: [0] * n for c in FAULT_COLUMNS}
+        self.win, self.contacts, self.quar = [0] * n, [0] * n, [False] * n
+        self.clock, self.step = 0, 0
+        self.last, self.cool, self.back = [0] * n, [0] * n, [0] * n
+        self.left = [runtime["max_retries"]] * n
+
+    def run(self, owners, codes):
+        """Replay rounds; returns {outcome: [bool per round]} (the ledger
+        columns' outcomes, and "applied")."""
+        out = collections.defaultdict(list)
+        for i, c in zip((int(o) for o in owners), (int(c) for c in codes)):
+            q, inb = self.quar[i], self.cool[i] > 0
+            retry, avail = (not q) and inb, (not q) and not inb
+            auth = self.cols["spent"][i] < self.cap[i]
+            drop = auth and avail and c == F_DROP
+            ans = auth and avail and not drop
+            guard = c not in (F_STALE, F_NONFINITE, F_CORRUPT)
+            apply = ans and guard and c != F_TIMEOUT
+            timed = ans and c == F_TIMEOUT
+            rej = ans and c != F_TIMEOUT and not guard
+            for col, v in (("spent", ans), ("refused", avail and not auth), ("dropped", drop),
+                           ("faulted", rej), ("quarantined", q), ("timed_out", timed),
+                           ("retried", retry)):
+                self.cols[col][i] += int(v)
+                out[col].append(bool(v))
+            out["applied"].append(apply)
+            if avail:                              # the fault window
+                base = 0 if self.contacts[i] % self.policy["window"] == 0 else self.win[i]
+                self.win[i] = base + int(rej or drop)
+                self.contacts[i] += 1
+                self.quar[i] = self.win[i] >= self.policy["max_faults"]
+            sched = timed and self.left[i] > 0     # the runtime
+            bo = self.back[i]
+            if sched:
+                self.cool[i] = 1 << min(bo, self.runtime["backoff_cap"])
+                self.back[i], self.left[i] = bo + 1, self.left[i] - 1
+            else:
+                self.cool[i] -= int(retry)
+                if apply:
+                    self.back[i], self.left[i] = 0, self.runtime["max_retries"]
+            if apply:
+                self.last[i] = self.clock
+            self.clock += 1
+            self.step += int(apply)
+        return out
+
+    def counters(self):
+        """{name: list} in the device state's terms."""
+        out = {f"ledger.{c}": v for c, v in self.cols.items()}
+        out.update({"faults.win_faults": self.win, "faults.contacts": self.contacts,
+                    "faults.quarantined": self.quar, "stale.clock": self.clock,
+                    "stale.last_grant": self.last, "stale.cooldown": self.cool,
+                    "stale.backoff": self.back, "stale.retry_left": self.left,
+                    "step": self.step})
+        return out
+
+
+def _device_counters(torch, state):
+    """The fault-armed state's counters, read back in one copy, as
+    _Replay.counters names them."""
+    led, fs, ss = state.ledger, state.faults, state.stale
+    cols = torch.stack([getattr(led, c) for c in FAULT_COLUMNS]
+                       + [fs.win_faults, fs.contacts, fs.quarantined.to(torch.int32),
+                          ss.last_grant, ss.cooldown, ss.backoff, ss.retry_left]).cpu().tolist()
+    names = ([f"ledger.{c}" for c in FAULT_COLUMNS]
+             + ["faults.win_faults", "faults.contacts", "faults.quarantined", "stale.last_grant",
+                "stale.cooldown", "stale.backoff", "stale.retry_left"])
+    out = dict(zip(names, cols))
+    out["faults.quarantined"] = [bool(v) for v in out["faults.quarantined"]]
+    out["stale.clock"], out["step"] = int(ss.clock), int(state.step)
+    return out
+
+
+def _check_replay(torch, state, ms, replay, outcomes, what):
+    got, want = _device_counters(torch, state), replay.counters()
+    bad = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+    check(not bad, f"{what}: device counters differ from the host replay: {bad}")
+    for col, metric in (("refused", "refused"), ("dropped", "dropped"), ("faulted", "faulted"),
+                        ("quarantined", "quarantined"), ("timed_out", "timed_out"),
+                        ("retried", "retried")):
+        check(ms[metric].cpu().tolist() == outcomes[col],
+              f"{what}: the {metric} mask differs from the host replay")
+
+
+def _trace(n_owners, K):
+    """An explicit (owners, codes) trace of K rounds that reaches every
+    ledger column under FAULTS_POLICY, FAULTS_RUNTIME and a cap of 4:
+    owner 0 faults three times (quarantined) and comes back twice; owner 1
+    drops, times out (a backoff of one round), is retried and then
+    applies; owner 2 answers five times (the fifth refused); the other
+    owners answer once or twice."""
+    queues = {0: [F_NONFINITE, F_STALE, F_CORRUPT, F_OK, F_OK],
+              1: [F_DROP, F_TIMEOUT, F_OK, F_OK], 2: [F_OK] * 5}
+    rest = K - sum(len(q) for q in queues.values())
+    for j in range(rest):
+        queues.setdefault(3 + j % (n_owners - 3), []).append(F_OK)
+    owners, codes = [], []
+    while any(queues.values()):
+        for i in sorted(queues):
+            if queues[i]:
+                owners.append(i)
+                codes.append(queues[i].pop(0))
+    return np.asarray(owners, np.int32), np.asarray(codes, np.int8)
+
+
+def phase_faults(torch, dev, main_prof, cfg=None, n_owners=16, records=10_000, seq=128,
+                 K=FAULTS_K, dispatches=3, max_group=ROWS_G):
+    """Main's path (DENSE_124M, flat f32 bank, fused, batch 4 x seq 128, G =
+    2, 16 owners) with the fault layer and the runtime armed:
+    FaultPlan(FAULTS_PLAN), FaultPolicy(FAULTS_POLICY),
+    StalenessPolicy(FAULTS_RUNTIME) and a LatencyPlan of 16 per-owner bases
+    in 0.2 to 0.9 with jitter 0.3, K = 32 rounds a dispatch. The fault codes
+    and latencies drawn on the card equal the port's CPU draw bit for bit.
+    Each driver (sequential, then grouped with max_group=8) runs from a
+    fresh state `dispatches` timed dispatches and one profiled, on the same
+    sequences, batches and keys; after each: launches (K dp_round and K*G
+    sqnorm; one dp_round and G sqnorm per group), the seven ledger columns,
+    the FaultState and the StalenessState against the host replay, the
+    outcome masks, and bank_checksums(bank) == the stored checksums over
+    the whole bank. The two drivers' counters equal each other, and the
+    reconciled tallies the device columns. Then one dispatch of an explicit
+    code trace (`_trace`) on a fresh horizon-4 session reaches every ledger
+    column. Returns {driver: profile}."""
+    from repro_torch import random
+    from repro_torch.configs import DENSE_124M
+    from repro_torch.data import OwnerDataPipeline, synthetic_owner_shards
+    from repro_torch.federation import (DataOwner, FaultPlan, FaultPolicy, Federation,
+                                        FederationConfig, LatencyPlan, PrivatizerConfig,
+                                        StalenessPolicy, bank_checksums, merge_timeout_codes,
+                                        partition_conflict_free)
+    from repro_torch.federation.faults import row_checksum
+    from repro_torch.models import LM
+    cfg = DENSE_124M if cfg is None else cfg
+    batch, G = 4, 2
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    shards = synthetic_owner_shards(n_owners, records, seq, cfg.vocab, seed=0)
+    pipe = OwnerDataPipeline(shards, batch, seed=0)
+    base = np.random.default_rng(5).permutation(np.linspace(0.2, 0.9, n_owners)).tolist()
+    plan, latency = FaultPlan(**FAULTS_PLAN), LatencyPlan(base=base, jitter=FAULTS_JITTER)
+    policy, runtime = FaultPolicy(**FAULTS_POLICY), StalenessPolicy(**FAULTS_RUNTIME)
+
+    def session(horizon=1000):
+        fed = Federation([DataOwner(n=s, epsilon=1.0, xi=1.0) for s in pipe.owner_sizes],
+                         FederationConfig.from_target_lr(0.05, n_owners=n_owners,
+                                                         horizon=horizon, sigma=1e-2,
+                                                         theta_max=100.0),
+                         fault_policy=policy, staleness=runtime, device=dev)
+        fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True,
+                      privatizer=PrivatizerConfig(xi=1.0, granularity="microbatch",
+                                                  n_microbatches=G, fused_kernel=True))
+        return fed
+
+    params = lm.init(seed=0, device=dev)
+    n_disp = dispatches + 1                       # the last one profiled
+    seqs = [pipe.schedule(K) for _ in range(n_disp)]
+    data = [_torch_batches(torch, pipe.batches_for(o)) for o in seqs]
+    keys = [random.PRNGKey(3000 + d, device=dev) for d in range(n_disp)]
+    codes = []
+    for d in range(n_disp):
+        owners = torch.from_numpy(np.asarray(seqs[d]))
+        c_dev, l_dev = plan.draw(keys[d], K), latency.draw(keys[d], owners.to(dev))
+        kc = keys[d].cpu()
+        c_cpu, l_cpu = plan.draw(kc, K), latency.draw(kc, owners)
+        check(torch.equal(c_dev.cpu(), c_cpu) and torch.equal(l_dev.cpu(), l_cpu),
+              f"dispatch {d}: the fault codes or latencies drawn on the card differ from "
+              "the CPU draw")
+        codes.append(merge_timeout_codes(c_dev, l_dev, runtime.deadline).cpu().numpy())
+    tally = collections.Counter(int(c) for cs in codes for c in cs)
+    print(f"[faults] {cfg.name}: {n_owners} owners, K={K} rounds a dispatch, set-up "
+          f"{time.perf_counter() - t0:.1f} s; codes drawn on the card == the CPU draw bit for "
+          f"bit (codes and latencies, {n_disp} dispatches); merged codes by value "
+          f"{dict(sorted(tally.items()))}")
+
+    def dispatch(fed, state, d, grouped, seq_d=None, data_d=None, codes_d=None):
+        seq_d = seqs[d] if seq_d is None else seq_d
+        before = _launches()
+        if codes_d is None:
+            state, ms = fed.run_rounds(state, data[d], seq_d, key=keys[d], faults=plan,
+                                       latency=latency, owner_parallel=grouped,
+                                       max_group=max_group)
+        else:
+            state, ms = fed.run_rounds(state, data_d, seq_d, key=keys[0], faults=codes_d)
+        got = _diff(_launches(), before)
+        n_groups = len(partition_conflict_free(seq_d, max_group)) if grouped else len(seq_d)
+        want = {k: 0 for k in got}
+        want.update(sqnorm=G * n_groups, dp_round=n_groups)
+        check(got == want, f"launches {got} in one fault-armed dispatch of {n_groups} "
+              f"groups, expected {want}")
+        return state, ms, n_groups, got
+
+    stats, final = {}, {}
+    for driver in ("sequential", "grouped"):
+        grouped = driver == "grouped"
+        fed = session()
+        state = fed.init_state(params)
+        replay = _Replay([1000] * n_owners, FAULTS_POLICY, FAULTS_RUNTIME)
+        _sync(torch, dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        per_round, sizes = [], []
+        for d in range(n_disp):
+            if d < dispatches:
+                _sync(torch, dev)
+                t1 = time.perf_counter()
+                state, ms, n_groups, got = dispatch(fed, state, d, grouped)
+                _sync(torch, dev)
+                dt = (time.perf_counter() - t1) * 1e3
+                per_round.append(dt / K)
+                print(f"[faults] {driver}, dispatch {d}: {n_groups} groups, {dt:.1f} ms "
+                      f"({dt / K:.2f} ms/round), launches {got}")
+            else:
+                # the device alone: 32 sequential rounds are 137k kernels
+                (state, ms, n_groups, got), busy, groups, per_round_launches = _profiled(
+                    torch, dev, lambda: dispatch(fed, state, d, grouped), K, cpu_ops=False)
+            sizes.append(K / n_groups)
+            outcomes = replay.run(seqs[d], codes[d])
+            _check_replay(torch, state, ms, replay, outcomes, f"{driver} dispatch {d}")
+            check(torch.equal(bank_checksums(state.bank), state.faults.checksum),
+                  f"{driver} dispatch {d}: the stored checksums differ from the bank's")
+        check(_state_finite(torch, state), f"{driver}: non-finite state")
+        final[driver] = _device_counters(torch, state)
+        ledger = fed.reconcile(state)
+        check(all([r[c] for r in ledger.values()] == final[driver][f"ledger.{c}"]
+                  for c in FAULT_COLUMNS[1:])
+              and [r["responses"] for r in ledger.values()] == final[driver]["ledger.spent"],
+              f"{driver}: the reconciled tallies differ from the device columns")
+        median = statistics.median(per_round[1:] or per_round)
+        peak = _peak_gb(torch, dev)
+        stats[driver] = dict(busy=busy, median=median, groups=groups,
+                             launches=per_round_launches, peak=peak,
+                             mean_group=statistics.mean(sizes))
+        totals = {c: sum(final[driver][f"ledger.{c}"]) for c in FAULT_COLUMNS}
+        print(f"[faults] {driver}: ledger totals {totals}, quarantined owners "
+              f"{[i for i, q in enumerate(final[driver]['faults.quarantined']) if q]}, "
+              f"step {final[driver]['step']} of {n_disp * K} rounds == the host replay; "
+              f"bank_checksums == stored after every dispatch; reconcile == device columns")
+        print(f"[faults] {driver} against main (K=8, fault-free) in this call, per round: "
+              f"wall (median) {median:.2f} vs {main_prof['median']:.2f} ms; device busy "
+              f"{busy:.3f} vs {main_prof['busy']:.3f} ms; device kernels "
+              f"{per_round_launches:.0f} vs {main_prof['launches']:.0f}; idle share "
+              f"{1 - busy / median:.1%} vs {1 - main_prof['busy'] / main_prof['median']:.1%}; "
+              f"mean group {statistics.mean(sizes):.2f} members; peak memory {peak:.2f} vs "
+              f"{main_prof['peak']:.2f} GB; by group, faults minus main: "
+              + ", ".join(f"{g} {groups.get(g, 0.0) - main_prof['groups'].get(g, 0.0):+.3f}"
+                          for g in sorted(set(groups) | set(main_prof["groups"]))))
+        if dev.type == "cuda" and driver == "sequential":
+            # a fault-armed round takes two row checksums (before and after
+            # its write): one beside the time to read the row once
+            row = torch.zeros(1, dtype=torch.int64, device=dev)
+            cs_ms = _steady_ms(torch, "row_checksum of one f32 bank row",
+                               lambda: row_checksum(state.bank, row), 5)
+            print(f"[faults] row_checksum {cs_ms:.4f} ms a row against "
+                  f"{4 * state.bank.shape[1] / HBM_BYTES_PER_S * 1e3:.4f} ms to read it once")
+        del state, fed
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    check(final["sequential"] == final["grouped"],
+          "the grouped driver's counters differ from the sequential driver's")
+    # every ledger column from an explicit trace, on a fresh horizon-4 session
+    fed = session(horizon=4)
+    state = fed.init_state(params)
+    t_owners, t_codes = _trace(n_owners, K)
+    state, ms, _, got = dispatch(fed, state, 0, False, seq_d=t_owners,
+                                 data_d=_torch_batches(torch, pipe.batches_for(t_owners)),
+                                 codes_d=t_codes)
+    replay = _Replay([4] * n_owners, FAULTS_POLICY, FAULTS_RUNTIME)
+    _check_replay(torch, state, ms, replay, replay.run(t_owners, t_codes), "the code trace")
+    check(torch.equal(bank_checksums(state.bank), state.faults.checksum),
+          "the code trace: the stored checksums differ from the bank's")
+    totals = {c: sum(replay.cols[c]) for c in FAULT_COLUMNS}
+    check(all(totals.values()), f"the code trace left a ledger column at 0: {totals}")
+    ledger = fed.reconcile(state)
+    check({c: sum(r[c] for r in ledger.values()) for c in FAULT_COLUMNS[1:]}
+          == {c: totals[c] for c in FAULT_COLUMNS[1:]}, "the code trace's reconciled ledger")
+    print(f"[faults] explicit code trace (horizon 4): every column hit {totals}, quarantined "
+          f"owners {[i for i, q in enumerate(replay.quar) if q]}; == host replay, launches "
+          f"{got}; the phase took {time.perf_counter() - t0:.1f} s")
+    del state, fed
+    return stats
 
 
 def _first_layers(tree, n):
@@ -2220,6 +2555,141 @@ def _grouped_refusal(torch, dev, session, data, owners, sequential, tag, tree_de
           f"{_max_diff(parts['theta'], s_parts['theta']):.3e}")
 
 
+def phase_fault_refusal(torch, dev, bank_dtype=None, tree_depth=None, pack_params=True):
+    """The fault-armed dispatch at a reduced size, card against CPU, in the
+    manner of phase_refusal: schedule-drawn owners, a FaultPlan and a
+    LatencyPlan on the f32 or int8 bank, the depth-2 tree (capacity 3) or
+    the pytree state. Card == CPU exactly on owners, the seven ledger
+    columns, the fault and runtime counters and the reconciled ledger (and
+    the leaf counts); theta_L, the bank and the nodes within phase_refusal's
+    tolerances. On the card: the stored checksums == bank_checksums; a
+    zero plan under the default StalenessPolicy equals the fault-off engine
+    bit for bit; on flat states the grouped driver's counters equal the
+    sequential run's and, under the tree, its nodes and counts bit for bit;
+    tree_delta launches twice a round (twice a group)."""
+    from repro_torch import random
+    from repro_torch.configs import DENSE_124M
+    from repro_torch.federation import (DataOwner, FaultPlan, FaultPolicy, Federation,
+                                        FederationConfig, LatencyPlan, PrivatizerConfig,
+                                        StalenessPolicy, bank_checksums,
+                                        partition_conflict_free)
+    from repro_torch.models import LM
+    n_owners, K = 4, 12
+    horizon = 8
+    cfg = DENSE_124M.reduced()
+    lm = LM(cfg)
+    params = lm.init(seed=1, device="cpu")
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (K, 4, 16), dtype=np.int32)
+    data = {"tokens": toks, "labels": np.roll(toks, -1, axis=2)}
+    tag = (("f32" if bank_dtype is None else str(bank_dtype))
+           + ("" if pack_params else " pytree")
+           + ("" if tree_depth is None else f", tree depth {tree_depth}"))
+    plan = FaultPlan(drop=0.1, stale=0.1, nonfinite=0.1, corrupt=0.1)
+    latency = LatencyPlan(base=[0.2, 0.5, 0.7, 0.9], jitter=0.3)
+
+    def session(device, armed=True, policy=None):
+        mech = {} if tree_depth is None else dict(mechanism="tree", tree_depth=tree_depth)
+        if armed:
+            mech.update(fault_policy=FaultPolicy(max_faults=2, window=8),
+                        staleness=StalenessPolicy(deadline=1.0, max_retries=2, backoff_cap=2,
+                                                  decay=0.9) if policy is None else policy)
+        fed = Federation([DataOwner(n=100 * (i + 1), epsilon=1.0, xi=1.0)
+                          for i in range(n_owners)],
+                         FederationConfig.from_target_lr(0.05, n_owners=n_owners,
+                                                         horizon=horizon, sigma=1e-2),
+                         device=device, **mech)
+        fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=pack_params,
+                      bank_dtype=bank_dtype if pack_params else None,
+                      privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2, fused_kernel=True))
+        return fed, fed.init_state(params)
+
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        fed, state = session(device)
+        before = _launches()
+        state, ms = fed.run_rounds(state, _torch_batches(torch, data), faults=plan,
+                                   latency=latency, key=random.PRNGKey(31, device=device))
+        got = _diff(_launches(), before)
+        check(torch.equal(bank_checksums(state.bank), state.faults.checksum),
+              f"{tag} on {device}: the stored checksums differ from the bank's")
+        runs.append((ms["owner"].cpu().numpy(), _device_counters(torch, state),
+                     fed.reconcile(state), _state_parts(state), got,
+                     {k: ms[k].cpu().numpy() for k in ("dropped", "faulted", "timed_out",
+                                                       "retried", "quarantined")}))
+    (owners, counters, ledger, parts, got, masks), (c_owners, c_counters, c_ledger,
+                                                     c_parts, _, c_masks) = runs
+    check(np.array_equal(owners, c_owners) and counters == c_counters and ledger == c_ledger
+          and all(np.array_equal(masks[k], c_masks[k]) for k in masks),
+          f"{tag}: card and CPU disagree on owners, counters, outcomes or the ledger")
+    if dev.type == "cuda" and pack_params:
+        tree = tree_depth is not None
+        want = {k: 0 for k in got}
+        want.update(sqnorm=2 * K, dp_round=0 if tree else K, tree_delta=2 * K if tree else 0)
+        if bank_dtype is not None:
+            want.update(absmax=K, encode=K, decode=K)
+        check(got == want, f"{tag}: fault-armed launches {got}, expected {want}")
+    theta, bank, c_theta, c_bank = parts["theta"], parts["bank"], c_parts["theta"], c_parts["bank"]
+    if tree_depth is not None:
+        check(torch.equal(parts["counts"][0], c_parts["counts"][0]), "leaf counts differ")
+        for a, b in zip(parts["nodes"], c_parts["nodes"]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    if bank_dtype is None:
+        for a, b in zip(theta + bank, c_theta + c_bank):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    else:
+        step = float(c_bank[1].max())
+        dcode = (bank[0].to(torch.int32) - c_bank[0].to(torch.int32)).abs()
+        check(int(dcode.max()) <= 1 and float((dcode > 0).float().mean()) <= 1e-4,
+              f"codes differ by up to {int(dcode.max())} at {int((dcode > 0).sum())} elements")
+        dtheta = (theta[0] - c_theta[0]).abs()
+        check(float((dtheta > 1e-5).float().mean()) <= 1e-4
+              and float(dtheta.max()) <= step / 2 + 1e-5,
+              f"theta_L differs by up to {float(dtheta.max()):.3e} (step {step:.3e})")
+        torch.testing.assert_close(bank[1], c_bank[1], rtol=1e-6, atol=0.0)
+        torch.testing.assert_close(bank[2], c_bank[2], rtol=0.0, atol=step)
+    totals = {c: sum(counters[f"ledger.{c}"]) for c in FAULT_COLUMNS}
+    print(f"[fault refusal] {tag}: owners {owners.tolist()}, ledger totals {totals}; card == "
+          f"CPU on the counters, the outcomes and the ledger; launches {got}; max |cuda - cpu| "
+          f"theta {_max_diff(theta, c_theta):.3e}")
+    if pack_params:
+        # the grouped driver on the card: counters equal, nodes bit for bit
+        groups = partition_conflict_free(owners)
+        fed, state = session(dev)
+        before = _launches()
+        state, ms = fed.run_rounds(state, _torch_batches(torch, data), faults=plan,
+                                   latency=latency, key=random.PRNGKey(31, device=dev),
+                                   owner_parallel=True, max_group=None)
+        g_got = _diff(_launches(), before)
+        g_parts = _state_parts(state)
+        check(_device_counters(torch, state) == counters,
+              f"{tag}: the grouped run's counters differ from the sequential run's")
+        if tree_depth is not None:
+            check(torch.equal(g_parts["counts"][0], parts["counts"][0])
+                  and _bit_equal(torch, g_parts["nodes"], parts["nodes"]),
+                  f"{tag}: the grouped run's nodes differ from the sequential run's")
+            if dev.type == "cuda":
+                check(g_got["tree_delta"] == 2 * len(groups),
+                      f"{tag}: grouped tree_delta launches {g_got['tree_delta']}, expected "
+                      f"{2 * len(groups)}")
+        print(f"[fault refusal] {tag}, grouped: groups {[n for _, n in groups]}, launches "
+              f"{g_got}; counters == the sequential run's"
+              + ("; leaf counts and nodes bit for bit" if tree_depth is not None else ""))
+    # a zero plan under the default runtime is the fault-off engine, bit for bit
+    out = []
+    for armed in (False, True):
+        fed, state = session(dev, armed=armed, policy=StalenessPolicy())
+        extra = dict(faults=FaultPlan(), latency=LatencyPlan()) if armed else {}
+        state, ms = fed.run_rounds(state, _torch_batches(torch, data),
+                                   key=random.PRNGKey(32, device=dev), **extra)
+        out.append((_state_parts(state), ms["refused"].cpu(), fed.reconcile(state)))
+    (p0, r0, l0), (p1, r1, l1) = out
+    check(all(_bit_equal(torch, p0[k], p1[k]) for k in p0) and torch.equal(r0, r1) and l0 == l1,
+          f"{tag}: a zero plan under the default StalenessPolicy differs from the fault-off "
+          "engine")
+    print(f"[fault refusal] {tag}: FaultPlan() + StalenessPolicy() == the fault-off engine "
+          "bit for bit on the card")
+
+
 def phase_timing(torch, dev, launches, errs):
     from repro_torch import random
     from repro_torch.kernels.dp_clip_noise import ops, ref
@@ -2587,20 +3057,35 @@ def main():
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        print(f"[env] {name} took {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
+
     phase_build()
+    lap("build")
     errs = phase_kernels(torch, dev)
+    lap("kernels")
     main_launches, _, _, _, main_prof = phase_main(torch, dev)
     torch.cuda.empty_cache()
     check(main_launches["sqnorm"] > 0 and main_launches["dp_round"] > 0,
           "main path launched no kernel")
+    lap("main")
     grouped_launches, _ = phase_grouped(torch, dev, main_prof)
     torch.cuda.empty_cache()
     check(grouped_launches["sqnorm"] > 0 and grouped_launches["dp_round"] > 0,
           "the grouped path launched no sqnorm or dp_round")
+    lap("grouped")
+    phase_faults(torch, dev, main_prof)
+    torch.cuda.empty_cache()
+    lap("faults")
     quant_launches = phase_quant(torch, dev)
     torch.cuda.empty_cache()
     check(all(quant_launches[k] > 0 for k in ("absmax", "encode", "decode")),
           "quant path launched no bank codec kernel")
+    lap("quant")
     tree_launches, _, _, _, tree_prof = phase_main(torch, dev, tree_depth=TREE_DEPTH, tag="tree")
     torch.cuda.empty_cache()
     check(tree_launches["tree_delta"] > 0 and tree_launches["dp_round"] == 0,
@@ -2612,6 +3097,7 @@ def main():
           f"tree minus main: " + ", ".join(f"{g} {ms:+.3f}" for g, ms in sorted(extra.items()))
           + f"; ms per round (median) {tree_prof['median']:.2f} against main's "
           f"{main_prof['median']:.2f}")
+    lap("tree")
     py_launches, py_prof, unfused_ms = phase_pytree(torch, dev)
     torch.cuda.empty_cache()
     check(py_launches["scale_noise"] > 0 and py_launches["sqnorm"] > 0
@@ -2628,28 +3114,39 @@ def main():
           f"{py_prof['peak']:.2f} vs {main_prof['peak']:.2f} GB; by group, pytree minus "
           f"main: " + ", ".join(f"{g} {ms:+.3f}" for g, ms in sorted(extra.items()))
           + f"; fused_kernel=False {unfused_ms:.2f} ms/round")
+    lap("pytree")
     serve_launches = phase_serve(torch, dev)
     check(all(serve_launches[k] > 0 for k in SERVE_KERNELS)
           and not any(serve_launches[k] for k in FED_KERNELS + ("ssd_chunk_scan_bwd",)),
           "the serve path launched no flash or SSD kernel, or a federation kernel or a backward")
+    lap("serve")
     train_launches, _, _, _, _ = phase_train(torch, dev)
     torch.cuda.empty_cache()
     check(train_launches["ssd_chunk_scan_bwd"] > 0 and train_launches["dp_round"] > 0
           and train_launches["flash_attention"] == 0,
           "the train path launched no SSD backward or dp_round, or a flash_attention")
+    lap("train")
     phase_convex(torch, dev)
     torch.cuda.empty_cache()
+    lap("convex")
     sync_launches, _ = phase_sync(torch, dev)
     torch.cuda.empty_cache()
     check(sync_launches["sqnorm"] > 0 and sync_launches["scale_noise"] > 0
           and not any(sync_launches[k] for k in sync_launches
                       if k not in ("sqnorm", "scale_noise")),
           "the sync path launched no sqnorm or scale_noise, or another kernel")
+    lap("sync")
     for bank_dtype in (None, "int8"):
         phase_refusal(torch, dev, bank_dtype=bank_dtype)
         phase_refusal(torch, dev, bank_dtype=bank_dtype, tree_depth=2)
     phase_refusal(torch, dev, pack_params=False)
     phase_refusal(torch, dev, pack_params=False, tree_depth=2, fused=False)
+    lap("refusal")
+    for bank_dtype in (None, "int8"):
+        phase_fault_refusal(torch, dev, bank_dtype=bank_dtype)
+    phase_fault_refusal(torch, dev, tree_depth=2)
+    phase_fault_refusal(torch, dev, pack_params=False)
+    lap("fault refusal")
     # each kernel's launches on its own path: rows 1-2 from main, 3 from
     # pytree, 4-6 from quant, 7 from tree, 8-9 from serve, the SSD
     # backward from train
@@ -2659,6 +3156,7 @@ def main():
                     **{k: serve_launches[k] for k in SERVE_KERNELS},
                     ssd_chunk_scan_bwd=train_launches["ssd_chunk_scan_bwd"])
     rows = phase_timing(torch, dev, launches, errs)
+    lap("timing")
     print(f"[env] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -7,6 +7,9 @@
                                  np.asarray(qb.residual), qb.codec.fmt)
     tree = tree_noise_from_numpy(np.asarray(tn.nodes), np.asarray(tn.counts), tn.depth)
     state = pytree_state_from_numpy(np_theta_L, np_bank, step, tree=tree)  # a pytree state
+    faults = fault_state_from_numpy(*map(np.asarray, fs))          # a FaultState
+    stale = staleness_state_from_numpy(*map(np.asarray, ss))       # a StalenessState
+    ledger = device_ledger_from_numpy(spent, cap, refused, dropped=..., sid=led.sid)
 
 The input is the reference's parameter tree with every array mapped to
 numpy: nested dicts, lists/tuples and NamedTuples (read through their
@@ -25,8 +28,10 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.federation.deep import AsyncDPState, TreeNoise
+from repro_torch.federation.faults import FaultState
 from repro_torch.federation.flatten import BankCodec, QuantBank
 from repro_torch.federation.privacy import DeviceLedger
+from repro_torch.federation.staleness import StalenessState
 from repro_torch.models.attention import AttnParams, KVCache
 from repro_torch.models.mlp import MLPParams
 from repro_torch.models.ssm import Mamba2Params, Mamba2State
@@ -116,16 +121,68 @@ def tree_noise_from_numpy(nodes, counts: np.ndarray, depth: int, device=None) ->
     return TreeNoise(tensors, torch.from_numpy(counts.copy()).to(device), int(depth))
 
 
+def _int_column(a, dtype=np.int32) -> np.ndarray:
+    return np.array(a, dtype=dtype, copy=True)
+
+
+def fault_state_from_numpy(checksum, win_faults, contacts, quarantined,
+                           device=None) -> FaultState:
+    """A port FaultState on `device` (CUDA when None) from a reference
+    FaultState's arrays: (N,) int32 checksums, window faults and contacts,
+    and the (N,) bool quarantine flags."""
+    device = resolve_device(device)
+    cols = [_int_column(checksum), _int_column(win_faults), _int_column(contacts),
+            _int_column(quarantined, bool)]
+    if len({c.shape for c in cols}) != 1 or cols[0].ndim != 1:
+        raise ValueError(f"fault columns of shapes {[c.shape for c in cols]} are not (N,)")
+    return FaultState(*(torch.from_numpy(c).to(device) for c in cols))
+
+
+def staleness_state_from_numpy(clock, last_grant, cooldown, backoff, retry_left,
+                               device=None) -> StalenessState:
+    """A port StalenessState on `device` (CUDA when None) from a reference
+    StalenessState's arrays: the () int32 clock and the (N,) int32
+    last-grant stamps, cooldowns, backoff exponents and retry budgets."""
+    device = resolve_device(device)
+    cols = [_int_column(c) for c in (last_grant, cooldown, backoff, retry_left)]
+    if len({c.shape for c in cols}) != 1 or cols[0].ndim != 1:
+        raise ValueError(f"runtime columns of shapes {[c.shape for c in cols]} are not (N,)")
+    return StalenessState(torch.from_numpy(_int_column(clock).reshape(())).to(device),
+                          *(torch.from_numpy(c).to(device) for c in cols))
+
+
+def device_ledger_from_numpy(spent, cap, refused, dropped=None, faulted=None,
+                             quarantined=None, timed_out=None, retried=None, sid: int = 0,
+                             device=None) -> DeviceLedger:
+    """A port DeviceLedger on `device` (CUDA when None) from a reference
+    DeviceLedger's (N,) int32 columns (spent, cap, refused and the five
+    fault and staleness columns; an absent one is zeros) and its snapshot
+    id."""
+    device = resolve_device(device)
+
+    def col(a):
+        return None if a is None else torch.from_numpy(_int_column(a)).to(device)
+
+    return DeviceLedger(col(spent), col(cap), col(refused), dropped=col(dropped),
+                        faulted=col(faulted), quarantined=col(quarantined),
+                        timed_out=col(timed_out), retried=col(retried), sid=int(sid))
+
+
 def pytree_state_from_numpy(theta_L: Any, bank: Any, step: int = 0,
                             tree: Optional[TreeNoise] = None,
                             ledger: Optional[DeviceLedger] = None,
+                            faults: Optional[FaultState] = None,
+                            stale: Optional[StalenessState] = None,
                             device=None) -> AsyncDPState:
     """A port pytree state on `device` (CUDA when None) from a reference
     pytree state's arrays: theta_L the model tree, `bank` the same tree with
     (N, *leaf.shape) leaves, the granted-round count `step`, and the noise
-    trees (`tree_noise_from_numpy`) under the tree mechanism. The ledger is
+    trees (`tree_noise_from_numpy`) under the tree mechanism, and the
+    fault and runtime counters (`fault_state_from_numpy`,
+    `staleness_state_from_numpy`) when the session arms them. The ledger is
     the session's to give (`Federation.init_state` seeds one from the live
-    accountant); None leaves it out."""
+    accountant; `device_ledger_from_numpy` carries a reference's); None
+    leaves it out."""
     device = resolve_device(device)
     theta = _convert(theta_L, device)
     owners = _convert(bank, device)
@@ -137,4 +194,4 @@ def pytree_state_from_numpy(theta_L: Any, bank: Any, step: int = 0,
             raise ValueError(f"a bank leaf of shape {tuple(leaf.shape)} does not hold "
                              f"rows of {tuple(row.shape)}")
     return AsyncDPState(theta, owners, torch.tensor(int(step), dtype=torch.int32, device=device),
-                        ledger, tree)
+                        ledger, tree, faults, stale)

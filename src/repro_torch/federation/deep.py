@@ -80,12 +80,28 @@ or pytree) the privatizer returns its Laplace draw, which becomes the
 fresh node; the fused pytree privatizer adds its noise in-kernel, so the
 tree with fused_kernel needs the flat engine, as in the reference.
 
+The fault layer (`AsyncDPConfig.fault_policy`, `federation.faults`) and
+the asynchronous runtime (`AsyncDPConfig.staleness`,
+`federation.staleness`) arm every driver on every state: the state gains
+`faults` (per-owner row checksums, fault windows, quarantine flags) and
+`stale` (the round clock, ages, backoff cooldowns, retry budgets), and
+each driver takes per-round fault codes. A fault-armed round
+(`_guarded_round`) runs the round's kernels whatever its outcome, then
+applies it only if the owner answered (authorized, not quarantined, not in
+backoff, not dropped), its resident row matches its checksum, the update
+is finite, the answer is not a stale replay and came before the deadline;
+otherwise it is a bit-exact no-op on theta_L, the bank and the noise tree,
+and the ledger's fault columns say why. Under the staleness decay the
+round runs against theta_L + decay**age * (theta_i - theta_L). On a tree
+state the fused flat engine launches `tree_delta` twice: with grant 0 for
+the round's delta, then with the round's `apply` to advance the node row,
+which is known only after the guards have seen the result.
+
 `make_sync_dp_step` is the synchronous baseline: every owner answers
 every round and the learner averages the privatized gradients.
 
-Example granularity on the fused flat engine and the fault, staleness,
-paging and mesh layers wait for later slices, and so do bf16 banks under
-the grouped driver.
+Example granularity on the fused flat engine, paging and the mesh wait
+for later slices, and so do bf16 banks under the grouped driver.
 """
 from __future__ import annotations
 
@@ -98,10 +114,15 @@ import torch
 from repro_torch import random
 from repro_torch.device import resolve_device
 from repro_torch.federation.config import paper_rates
+from repro_torch.federation import faults as _faults
 from repro_torch.federation.dp_sgd import PrivatizerConfig, _group_batch, private_grad
+from repro_torch.federation.faults import FaultPolicy, FaultState, init_fault_state
 from repro_torch.federation.flatten import ParamFlat, QuantBank, init_flat_bank, pack_params
 from repro_torch.federation.privacy import (DeviceLedger, laplace_scale_theorem1,
                                             make_device_ledger)
+from repro_torch.federation.staleness import (StalenessPolicy, StalenessState, deadline_guard,
+                                              init_staleness_state, staleness_tick,
+                                              staleness_weight)
 from repro_torch.kernels.bank_codec.ops import decode_row, encode_row
 from repro_torch.kernels.dp_clip_noise.ops import (dp_round_flat, dp_round_rows, fused_sqnorm,
                                                    fused_sqnorm_rows)
@@ -128,6 +149,16 @@ class AsyncDPConfig:
     # the active-node-sum delta at per-node scale d * b(R), R = min(cap,
     # 2^d - 1); d = 0 is the degenerate tree, bit for bit the paper's.
     tree_depth: Optional[int] = None
+    # the fault layer (federation.faults): None = off, and every driver
+    # runs the fault-free round; a FaultPolicy arms the guards (payload
+    # checksums, non-finite detection, stale rejection) and the quarantine
+    # windows, and the state gains a FaultState (AsyncDPState.faults)
+    fault_policy: Optional[FaultPolicy] = None
+    # the asynchronous runtime (federation.staleness): None = off; a
+    # StalenessPolicy adds the TIMEOUT outcome, per-owner retry backoff and
+    # the decay**age weight, and the state gains a StalenessState
+    # (AsyncDPState.stale). Needs fault_policy (TIMEOUT is a fault code).
+    staleness: Optional[StalenessPolicy] = None
 
     @property
     def n_total(self) -> int:
@@ -168,6 +199,8 @@ class AsyncDPState(NamedTuple):
     step: torch.Tensor                 # () int32 granted rounds
     ledger: Optional[DeviceLedger] = None
     tree: Optional[TreeNoise] = None   # the noise trees when cfg.tree_depth is set
+    faults: Optional[FaultState] = None        # when cfg.fault_policy is set
+    stale: Optional[StalenessState] = None     # when cfg.staleness is set
 
 
 def init_tree_noise(cfg: AsyncDPConfig, theta_L) -> Optional[TreeNoise]:
@@ -217,13 +250,36 @@ def _check_tree_config(cfg: AsyncDPConfig) -> None:
                 f"reach {max(cfg.effective_caps)}; lower cfg.caps or deepen the tree")
 
 
+def _init_staleness(cfg: AsyncDPConfig, device) -> Optional[StalenessState]:
+    """Fresh runtime counters when cfg.staleness is armed; refuses a
+    staleness config without the fault layer (TIMEOUT is a fault code, and
+    the drivers' staleness algebra lives in their fault-armed rounds)."""
+    if cfg.staleness is None:
+        return None
+    if cfg.fault_policy is None:
+        raise ValueError(
+            "cfg.staleness rides on the fault algebra (TIMEOUT is a fault "
+            "code); arm cfg.fault_policy too — a never-quarantine "
+            "FaultPolicy(max_faults=2**30, window=2**30) changes nothing")
+    return init_staleness_state(cfg.n_owners, cfg.staleness, device)
+
+
+def _armed(cfg: AsyncDPConfig, bank, device) -> Tuple[Optional[FaultState],
+                                                      Optional[StalenessState]]:
+    """The fault and staleness states a fresh state carries under cfg."""
+    stale = _init_staleness(cfg, device)
+    faults = None if cfg.fault_policy is None else init_fault_state(bank, cfg.n_owners)
+    return faults, stale
+
+
 def init_state(params, cfg: AsyncDPConfig, device=None) -> AsyncDPState:
     """Pytree state on `device` (CUDA when None): theta_L a copy of the
     model tree, every bank leaf (N_owners, *leaf.shape) with each owner's
     row a copy of the leaf (materialized: an in-place row write must not
     land in a broadcast view), a fresh device ledger (every owner capped
-    at its effective cap) and, under the tree mechanism, all-zero noise
-    trees."""
+    at its effective cap), under the tree mechanism all-zero noise trees,
+    and under cfg.fault_policy / cfg.staleness fresh fault and runtime
+    counters (the checksums of the bank's rows)."""
     device = resolve_device(device)
     theta = tree_map(lambda leaf: leaf.detach().to(device=device, copy=True), params)
     bank = tree_map(lambda leaf: torch.empty((cfg.n_owners,) + tuple(leaf.shape),
@@ -231,14 +287,14 @@ def init_state(params, cfg: AsyncDPConfig, device=None) -> AsyncDPState:
                     theta)
     return AsyncDPState(theta, bank, torch.zeros((), dtype=torch.int32, device=device),
                         make_device_ledger(cfg.effective_caps, device=device),
-                        init_tree_noise(cfg, theta))
+                        init_tree_noise(cfg, theta), *_armed(cfg, bank, device))
 
 
 def init_state_flat(params, cfg: AsyncDPConfig, device=None, bank_dtype=None) -> AsyncDPState:
     """Flat state on `device` (CUDA when None): theta_L packed into one
     (P,) buffer, every bank row a copy of it, a fresh device ledger (every
-    owner capped at its effective cap) and, under the tree mechanism,
-    all-zero noise trees.
+    owner capped at its effective cap), under the tree mechanism all-zero
+    noise trees, and the fault and runtime counters when cfg arms them.
 
     `bank_dtype` (None = float32) is the bank's storage only: torch.bfloat16
     halves it; "int8"/"fp8" (or a flatten.BankCodec) build the quantized
@@ -246,10 +302,10 @@ def init_state_flat(params, cfg: AsyncDPConfig, device=None, bank_dtype=None) ->
     bit parity with the f32 reference; the others round the owner copies."""
     device = resolve_device(device)
     flat = pack_params(params, device=device)
-    return AsyncDPState(flat, init_flat_bank(flat, cfg.n_owners, bank_dtype),
-                        torch.zeros((), dtype=torch.int32, device=device),
+    bank = init_flat_bank(flat, cfg.n_owners, bank_dtype)
+    return AsyncDPState(flat, bank, torch.zeros((), dtype=torch.int32, device=device),
                         make_device_ledger(cfg.effective_caps, device=device),
-                        init_tree_noise(cfg, flat))
+                        init_tree_noise(cfg, flat), *_armed(cfg, bank, device))
 
 
 def _decode_bank_row(bank: QuantBank, owner_idx: torch.Tensor) -> torch.Tensor:
@@ -322,6 +378,15 @@ def _tree_write(tree: TreeNoise, new_row, row, owner_idx: torch.Tensor,
         if grant is not None:
             new = torch.where(grant.reshape(()) != 0, new, old)
         nodes.index_copy_(0, owner_idx, new.unsqueeze(0))
+
+
+def _write_or_defer(tree: TreeNoise, new_row, row, owner_idx: torch.Tensor, grant):
+    """Write the new node row now (masked by `grant`, as _tree_write), or,
+    with grant=_DEFER, return commit(grant) that writes it later."""
+    if grant is _DEFER:
+        return lambda g: _tree_write(tree, new_row, row, owner_idx, g)
+    _tree_write(tree, new_row, row, owner_idx, grant)
+    return None
 
 
 def _retired_sum(row: torch.Tensor, retired: torch.Tensor) -> torch.Tensor:
@@ -454,6 +519,12 @@ class _RoundConsts:
         self.two_n = torch.full((), 2 * cfg.n_owners, dtype=torch.float32, device=device)
         self.lr_own, self.lr_L = paper_rates(cfg.n_owners, cfg.horizon, cfg.rho, cfg.sigma,
                                              cfg.lr_scale)
+        self._zeros = torch.zeros(cfg.n_owners, dtype=torch.int32, device=device)
+
+    def no_grant(self, g: int) -> torch.Tensor:
+        """(g,) int32 zeros: the grant of a tree launch that only computes
+        delta (a deferred write)."""
+        return self._zeros[:g]
 
     def of(self, owner_idx: torch.Tensor):
         """(noise scale, w_i) of the (1,) int64 owner index, as 0-d tensors."""
@@ -465,12 +536,30 @@ class _RoundConsts:
         return self.scales.index_select(0, owners), self.w.index_select(0, owners)
 
 
+# `grant` of a round compute that leaves the noise tree as it was and hands
+# the write back to the caller: a fault-armed round knows whether it
+# applies only after its guards have seen the round's result
+_DEFER = object()
+
+
+def _decayed(theta_L: torch.Tensor, theta_i: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """theta_L + w * (theta_i - theta_L) in f32, in the reference's op order
+    (not torch.lerp, which switches formulas at w >= 0.5), cast to the
+    row's dtype: the staleness-decayed inertia target. `w` broadcasts (one
+    round's 0-d weight, or a group's (g, 1) column)."""
+    lf = theta_L.to(torch.float32)
+    return (lf + w * (theta_i.to(torch.float32) - lf)).to(theta_i.dtype)
+
+
 def _round_math(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
     """The paper's inertia round (eqs. 5-7) on pytree states.
 
     Returns compute(theta_L, bank, batch, owner_idx, key, tree=None,
-    grant=None) -> (new_L, new_i, theta_i, metrics), `owner_idx` a (1,)
-    int64 device index and `key` the round's (2,) uint32 key. The core
+    grant=None, stale_w=None) -> (new_L, new_i, theta_i, metrics, commit),
+    `owner_idx` a (1,) int64 device index and `key` the round's (2,) uint32
+    key. `stale_w` (the staleness decay, a 0-d f32 weight) makes the round
+    run against theta_L + w * (theta_i - theta_L); the RAW theta_i comes
+    back, for the masked write-backs. The core
     without the bank gather is `compute.inner(theta_L, theta_i, batch,
     owner_idx, key, noise_extra=None) -> (new_L, new_i, metrics, zeta)`:
     the flat engine's reference mode runs that SAME function on views of
@@ -481,7 +570,9 @@ def _round_math(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
 
     With a `tree` (cfg.tree_depth >= 1) compute advances the owner's node
     row in place, unless the one-element int32 `grant` is 0; the caller
-    bumps the leaf count."""
+    bumps the leaf count. With grant=_DEFER the row stays as it was and
+    `commit(grant)` writes it (a fault-armed round calls it once its guards
+    have decided); commit is None otherwise."""
     pcfg = cfg.privatizer
 
     def project(tree):
@@ -512,13 +603,15 @@ def _round_math(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
         return new_L, new_i, metrics, zeta
 
     def compute(theta_L, bank, batch, owner_idx, key, tree: Optional[TreeNoise] = None,
-                grant: Optional[torch.Tensor] = None):
+                grant=None, stale_w: Optional[torch.Tensor] = None):
         theta_i = tree_map(lambda leaf: leaf.index_select(0, owner_idx)[0], bank)
+        theta_eff = theta_i if stale_w is None else tree_map(
+            lambda l, i: _decayed(l, i, stale_w), theta_L, theta_i)
         d = cfg.tree_depth
         if tree is None or not d:
             # no tree, or the degenerate depth-0 tree: the independent round
-            new_L, new_i, metrics, _ = inner(theta_L, theta_i, batch, owner_idx, key)
-            return new_L, new_i, theta_i, metrics
+            new_L, new_i, metrics, _ = inner(theta_L, theta_eff, batch, owner_idx, key)
+            return new_L, new_i, theta_i, metrics, None
         if pcfg.fused_kernel:
             raise ValueError(
                 "tree mechanism with fused_kernel needs the flat engine "
@@ -527,11 +620,11 @@ def _round_math(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
         row, count = _tree_row_of(tree, owner_idx)
         retired, fresh = tree_masks_ref(count, d)                 # (d,) bool
         extra = tree_map(lambda nd: -_retired_sum(nd, retired), row)
-        new_L, new_i, metrics, zeta = inner(theta_L, theta_i, batch, owner_idx, key,
+        new_L, new_i, metrics, zeta = inner(theta_L, theta_eff, batch, owner_idx, key,
                                             noise_extra=extra)
         new_row = tree_map(lambda nd, z: _advance_row(nd, z, retired, fresh), row, zeta)
-        _tree_write(tree, new_row, row, owner_idx, grant)
-        return new_L, new_i, theta_i, metrics
+        return new_L, new_i, theta_i, metrics, _write_or_defer(tree, new_row, row, owner_idx,
+                                                               grant)
 
     compute.inner = inner
     return compute
@@ -554,7 +647,8 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts, tree_inn
     """The inertia round on the flat representation.
 
     Returns compute(theta_L, bank, batch, owner_idx, key, tree=None,
-    grant=None) -> (new_L, new_i, theta_i, metrics), as `_round_math`.
+    grant=None, stale_w=None) -> (new_L, new_i, theta_i, metrics, commit),
+    as `_round_math` (stale_w and grant=_DEFER included).
     The per-round scalars (group gain, the owner's noise scale and weight)
     stay on the device and reach the kernels as pointers.
 
@@ -562,7 +656,11 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts, tree_inn
     one `dp_round` pass. With a `tree` (cfg.tree_depth >= 1) the round key
     feeds only the tree op instead: `tree_delta` advances the owner's node
     row in place, unless `grant` is 0, the response adds its delta, and the
-    epilogue repeats dp_round's op order as torch ops.
+    epilogue repeats dp_round's op order as torch ops. Deferred, the kernel
+    runs with grant 0 (delta only, the row untouched) and commit(grant)
+    launches it again with the real grant: its draw depends only on the
+    key, the count and the row, so the second launch writes what a masked
+    single launch would, and the (depth, P) row is never copied.
 
     fused_kernel=False, the REFERENCE mode: the row is gathered (decoded on
     a quantized bank), theta_L and the row are unpacked into views, and
@@ -574,10 +672,13 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts, tree_inn
     N = cfg.n_owners
 
     def compute(theta_L: ParamFlat, bank, batch, owner_idx, key,
-                tree: Optional[TreeNoise] = None, grant: Optional[torch.Tensor] = None):
+                tree: Optional[TreeNoise] = None, grant=None,
+                stale_w: Optional[torch.Tensor] = None):
         spec = theta_L.spec
         theta_i = _gather_row(bank, owner_idx)                       # (P,) f32 copy
+        theta_eff = theta_i if stale_w is None else _decayed(theta_L.buf, theta_i, stale_w)
         tree_on = tree is not None and bool(cfg.tree_depth)
+        commit = None
         if not pcfg.fused_kernel:
             extra = None
             if tree_on:
@@ -585,21 +686,26 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts, tree_inn
                 retired, fresh = tree_masks_ref(count, cfg.tree_depth)
                 extra = spec.unpack_f32(-_retired_sum(row, retired))
             new_L_t, new_i_t, metrics, zeta = tree_inner(
-                spec.unpack(theta_L.buf), spec.unpack(theta_i), batch, owner_idx, key,
+                spec.unpack(theta_L.buf), spec.unpack(theta_eff), batch, owner_idx, key,
                 noise_extra=extra)
             if tree_on:
-                _tree_write(tree, _advance_row(row, spec.pack_f32(zeta), retired, fresh),
-                            row, owner_idx, grant)
+                commit = _write_or_defer(
+                    tree, _advance_row(row, spec.pack_f32(zeta), retired, fresh), row,
+                    owner_idx, grant)
             return (ParamFlat(spec.pack(new_L_t), spec), spec.pack(new_i_t), theta_i,
-                    metrics)
+                    metrics, commit)
         if pcfg.mechanism != "laplace":
             raise ValueError("fused_kernel implements the laplace mechanism")
-        tb = 0.5 * (theta_L.buf + theta_i)                           # (6)
+        tb = 0.5 * (theta_L.buf + theta_eff)                         # (6)
         ns, w_i = consts.of(owner_idx)
         acc, gain, pm = _flat_clipped_grad_acc(loss_fn, spec, pcfg, tb, batch)
         if tree_on:
-            delta = tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns.reshape(1),
-                                grant)
+            ns1 = ns.reshape(1)
+            delta = tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns1,
+                                consts.no_grant(1) if grant is _DEFER else grant)
+            if grant is _DEFER:
+                def commit(g):
+                    tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns1, g)
             new_L, new_i = _tree_epilogue(cfg, consts, tb, acc, gain, delta, w_i)
         else:
             new_L, new_i = dp_round_flat(                       # (4)+(5)+(7)+Pi
@@ -608,7 +714,7 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts, tree_inn
                 theta_max=cfg.theta_max)
         metrics = {"clip_frac": pm["clip_frac"], "max_grad_norm": pm["max_grad_norm"],
                    "grad_noise_scale": ns}
-        return ParamFlat(new_L, spec), new_i, theta_i, metrics
+        return ParamFlat(new_L, spec), new_i, theta_i, metrics, commit
 
     return compute
 
@@ -618,25 +724,36 @@ def _round_math_flat_rows(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
     group-entry theta_L and bank.
 
     Returns compute_rows(theta_L, bank, batch_g, owners, keys_g, tree=None,
-    grant=None) -> (new_L, new_i, theta_i, metrics), each stacked on a
-    leading (g,) axis; owners (g,) int64 distinct, keys_g (g, 2), grant
-    (g,) int32. The gradient is vmapped over the members and clipped by
-    one batched `sqnorm` per microbatch; then one batched `dp_round`, or
-    under the tree one batched `tree_delta` (nodes advanced in place,
-    masked by each grant) and `_round_math_flat`'s epilogue per row."""
+    grant=None, stale_w=None) -> (new_L, new_i, theta_i, metrics, commit),
+    each stacked on a leading (g,) axis; owners (g,) int64 distinct, keys_g
+    (g, 2), grant (g,) int32 or _DEFER, stale_w (g,) f32. The gradient is
+    vmapped over the members and clipped by one batched `sqnorm` per
+    microbatch; then one batched `dp_round`, or under the tree one batched
+    `tree_delta` (nodes advanced in place, masked by each grant; deferred,
+    a second batched launch in commit) and `_round_math_flat`'s epilogue
+    per row."""
     N = cfg.n_owners
 
     def compute_rows(theta_L: ParamFlat, bank, batch_g, owners, keys_g,
-                     tree: Optional[TreeNoise] = None, grant: Optional[torch.Tensor] = None):
+                     tree: Optional[TreeNoise] = None, grant=None,
+                     stale_w: Optional[torch.Tensor] = None):
         if cfg.privatizer.mechanism != "laplace":
             raise ValueError("fused_kernel implements the laplace mechanism")
         theta_i = _gather_rows(bank, owners)                            # (g, P) f32
-        tb = 0.5 * (theta_L.buf + theta_i)                               # (6)
+        theta_eff = (theta_i if stale_w is None
+                     else _decayed(theta_L.buf, theta_i, stale_w[:, None]))
+        tb = 0.5 * (theta_L.buf + theta_eff)                             # (6)
         ns, w = consts.of_rows(owners)
         acc, gain, pm = _flat_clipped_grad_acc_rows(loss_fn, theta_L.spec, cfg.privatizer,
                                                     tb, batch_g)
+        commit = None
         if tree is not None and cfg.tree_depth:
-            delta = tree_delta_rows_(tree.nodes, tree.counts, owners, keys_g, ns, grant)
+            delta = tree_delta_rows_(tree.nodes, tree.counts, owners, keys_g, ns,
+                                     consts.no_grant(owners.numel()) if grant is _DEFER
+                                     else grant)
+            if grant is _DEFER:
+                def commit(g):
+                    tree_delta_rows_(tree.nodes, tree.counts, owners, keys_g, ns, g)
             new_L, new_i = _tree_epilogue(cfg, consts, tb, acc, gain[:, None], delta,
                                           w[:, None])
         else:
@@ -645,7 +762,7 @@ def _round_math_flat_rows(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
                 lr_l=consts.lr_L, n_owners=N, theta_max=cfg.theta_max)
         metrics = {"clip_frac": pm["clip_frac"], "max_grad_norm": pm["max_grad_norm"],
                    "grad_noise_scale": ns}
-        return new_L, new_i, theta_i, metrics
+        return new_L, new_i, theta_i, metrics, commit
 
     return compute_rows
 
@@ -671,25 +788,37 @@ def _round_compute(loss_fn, cfg: AsyncDPConfig, scales: Optional[torch.Tensor],
     flat_c = _round_math_flat(loss_fn, cfg, consts, tree_c.inner)
     flat_rows = _round_math_flat_rows(loss_fn, cfg, consts)
 
-    def compute(theta_L, bank, batch, owner_idx, key, tree=None, grant=None):
+    def compute(theta_L, bank, batch, owner_idx, key, tree=None, grant=None, stale_w=None):
         run = flat_c if isinstance(theta_L, ParamFlat) else tree_c
-        return run(theta_L, bank, batch, owner_idx, key, tree=tree, grant=grant)
+        return run(theta_L, bank, batch, owner_idx, key, tree=tree, grant=grant,
+                   stale_w=stale_w)
 
-    def rows(theta_L, bank, batch_g, owners, keys_g, tree=None, grant=None):
+    def rows(theta_L, bank, batch_g, owners, keys_g, tree=None, grant=None, stale_w=None):
         """The g members of a group from the group-entry state (owners
-        distinct) -> (new_L, new_i, theta_i, metrics) stacked on a leading
-        (g,) axis ((g, P) on flat states, (g, *leaf.shape) leaves on pytree
-        states). The fused flat engine batches the members; every other
-        state runs them one after another through `compute`."""
+        distinct) -> (new_L, new_i, theta_i, metrics, commit) stacked on a
+        leading (g,) axis ((g, P) on flat states, (g, *leaf.shape) leaves on
+        pytree states); `stale_w` (g,) and grant=_DEFER as in compute, the
+        commit taking a (g,) grant. The fused flat engine batches the
+        members; every other state runs them one after another through
+        `compute`."""
         if isinstance(theta_L, ParamFlat) and cfg.privatizer.fused_kernel:
-            return flat_rows(theta_L, bank, batch_g, owners, keys_g, tree=tree, grant=grant)
+            return flat_rows(theta_L, bank, batch_g, owners, keys_g, tree=tree, grant=grant,
+                             stale_w=stale_w)
         outs = [compute(theta_L, bank, {k: v[m] for k, v in batch_g.items()},
                         owners[m:m + 1], keys_g[m], tree=tree,
-                        grant=None if grant is None else grant[m:m + 1])
+                        grant=grant if grant is None or grant is _DEFER else grant[m:m + 1],
+                        stale_w=None if stale_w is None else stale_w[m])
                 for m in range(owners.numel())]
+        commits = [o[4] for o in outs]
+        commit = None
+        if any(c is not None for c in commits):
+            def commit(g):
+                for m, c in enumerate(commits):
+                    c(g[m:m + 1])
         return (_stack_members([o[0] for o in outs]), _stack_members([o[1] for o in outs]),
                 _stack_members([o[2] for o in outs]),
-                {name: torch.stack([o[3][name] for o in outs]) for name in outs[0][3]})
+                {name: torch.stack([o[3][name] for o in outs]) for name in outs[0][3]},
+                commit)
 
     compute.rows = rows
     return compute
@@ -722,23 +851,205 @@ def _select(ok: torch.Tensor, new, old):
     return tree_map(lambda a, b: torch.where(ok, a, b), new, old)
 
 
+def _require_fault_policy(cfg: AsyncDPConfig, state: AsyncDPState) -> Optional[FaultPolicy]:
+    """cfg.fault_policy, checked against the state: a state with fault
+    counters needs the policy it was built under."""
+    if state.faults is not None and cfg.fault_policy is None:
+        raise ValueError("the state carries fault counters but cfg.fault_policy is None; "
+                         "build the driver and the state from the same config")
+    return cfg.fault_policy
+
+
+def _require_staleness(cfg: AsyncDPConfig, state: AsyncDPState) -> Optional[StalenessPolicy]:
+    """cfg.staleness, checked against the state: both armed or both absent,
+    and the runtime only on a fault-armed state."""
+    if (state.stale is None) != (cfg.staleness is None):
+        raise ValueError("cfg.staleness and the state's runtime counters must be armed "
+                         "together; build the driver and the state from the same config")
+    if state.stale is not None and state.faults is None:
+        raise ValueError("the staleness runtime rides on the fault algebra; the state "
+                         "must carry a FaultState (arm cfg.fault_policy)")
+    return cfg.staleness
+
+
+def _decay_weight(state: AsyncDPState, spolicy: Optional[StalenessPolicy], owners, t):
+    """The rounds' decay**age weights, or None when no decay is armed (the
+    undecayed round is then computed as it is without staleness)."""
+    if state.stale is None or spolicy.decay == 1.0:
+        return None
+    return staleness_weight(state.stale, owners, t, spolicy)
+
+
+def _no_faults_armed(fault_codes) -> None:
+    if fault_codes is not None:
+        raise ValueError("fault codes need a fault-armed state; build the config with "
+                         "fault_policy=FaultPolicy(...)")
+
+
+def _masked_write(state: AsyncDPState, owner_idx: torch.Tensor, key: torch.Tensor):
+    """write(new_L, new_i, theta_i, ok) -> (theta_L, bank) for one round of
+    `owner_idx`: where `ok` (0-d bool) the round's theta_L and the owner's
+    new row land, else theta_L stays and the owner's own copy is written
+    back (a quantized bank keeps its codes, scales and residual)."""
+    def write(new_L, new_i, theta_i, ok):
+        theta_L = _select(ok, new_L, state.theta_L)
+        if isinstance(state.bank, QuantBank):
+            # same key as compute() by contract (see make_train_step)
+            bank = _quant_write(state.bank, new_i, owner_idx, key, ok=ok)  # dpcheck: ignore[DPC105]
+        else:
+            bank = _write_bank(state.bank, _select(ok, new_i, theta_i), owner_idx)
+        return theta_L, bank
+    return write
+
+
+def _guarded_round(round_fn, write, state: AsyncDPState, batch, owners: torch.Tensor,
+                   keys: torch.Tensor, fcodes: torch.Tensor, answered: torch.Tensor,
+                   stale_w: Optional[torch.Tensor] = None):
+    """One fault-guarded round of one owner, or of a group of distinct
+    owners on a member axis (reference: deep._guarded_round, and the
+    guards of its make_group_rounds).
+
+    `fcodes` is 0-d for one round (`owners` (1,), `keys` (2,)) and (g,) for
+    a group (`owners` (g,), `keys` (g, 2)); `round_fn` is the matching
+    `_round_compute` entry (compute, or compute.rows) and `write` lands the
+    members whose mask is set (`_masked_write`, or the grouped driver's
+    write_members). `answered` (same shape as `fcodes`) is the caller's
+    grant: authorized, not quarantined, not in backoff, not dropped. The
+    guards verify each owner's resident row against its stored checksum
+    (on the PRE-round bank: what the round consumed), NaN-poison the update
+    on NONFINITE_GRAD, reject STALE replays, and the deadline guard rejects
+    TIMEOUT. The round's kernels run whatever the outcome; a rejected round
+    is then a bit-exact no-op on theta_L, the bank (codes, scales,
+    residual) and the noise tree (nodes and count), and its stored checksum
+    stays. The noise tree and the fault state are written in place.
+
+    Returns (theta_L, bank, metrics, apply, guard_rej, timed), bools shaped
+    as `fcodes`: `guard_rej` answered on time and rejected
+    (metrics["faulted"]), `timed` answered late (metrics["timed_out"]):
+    epsilon spent either way."""
+    fs, tree, bank = state.faults, state.tree, state.bank
+    corrupt = fcodes == _faults.CORRUPT_PAYLOAD
+    if fcodes.dim() == 0:
+        payload_ok = _faults.verify_row(fs.checksum, bank, owners, corrupt)
+        finite = _faults.finite_guard
+    else:
+        payload_ok = torch.stack([_faults.verify_row(fs.checksum, bank, owners[m:m + 1],
+                                                     corrupt[m]) for m in range(owners.numel())])
+        finite = _faults.finite_guard_rows
+    new_L, new_i, theta_i, metrics, commit = round_fn(
+        state.theta_L, bank, batch, owners, keys, tree=tree, grant=_DEFER, stale_w=stale_w)
+    new_i = _faults.inject_nonfinite(new_i, fcodes == _faults.NONFINITE_GRAD)
+    guard_ok = payload_ok & finite((new_i, new_L)) & (fcodes != _faults.STALE)
+    on_time = deadline_guard(fcodes)
+    apply = answered & guard_ok & on_time
+    timed = answered & ~on_time
+    guard_rej = answered & on_time & ~guard_ok
+    theta_L, bank = write(new_L, new_i, theta_i, apply)
+    del new_L, new_i, theta_i
+    applied = apply.to(torch.int32).reshape(-1)
+    if tree is not None:
+        if commit is not None:
+            commit(applied)
+        tree.counts.index_add_(0, owners, applied)
+    # the stored checksum follows the POST-write row; a masked round keeps it
+    _faults.update_checksum(fs, bank, owners, apply)
+    metrics = dict(metrics, faulted=guard_rej, timed_out=timed)
+    return theta_L, bank, metrics, apply, guard_rej, timed
+
+
+def _faulted_round(cfg: AsyncDPConfig, round_fn, write, state: AsyncDPState, batch,
+                   owners: torch.Tensor, keys: torch.Tensor, fcodes: torch.Tensor,
+                   led_auth: torch.Tensor, t, active: torch.Tensor):
+    """A device-authorized fault-armed round (or group, as in
+    `_guarded_round`) of the K-round drivers: the outcome algebra with the
+    precedence quarantine > backoff > budget > drop, then the guarded round,
+    the ledger's columns, the fault window and the runtime counters, all
+    IN PLACE. `led_auth` is the ledger's grant, `t` the round clock (a
+    group's per-member clocks), `active` all-true of `fcodes`' shape.
+
+    Returns (theta_L, bank, metrics, apply)."""
+    led, fs, ss = state.ledger, state.faults, state.stale
+    quar = fs.quarantined.index_select(0, owners).reshape(fcodes.shape)
+    is_retry = None
+    if ss is not None:
+        in_backoff = (ss.cooldown.index_select(0, owners) > 0).reshape(fcodes.shape)
+        is_retry = ~quar & in_backoff
+        avail = ~quar & ~in_backoff
+    else:
+        avail = ~quar
+    auth = led_auth & avail
+    dropped = auth & (fcodes == _faults.DROP)
+    answered = auth & ~dropped
+    stale_w = _decay_weight(state, cfg.staleness, owners, t)
+    theta_L, bank, metrics, apply, guard_rej, timed = _guarded_round(
+        round_fn, write, state, batch, owners, keys, fcodes, answered, stale_w)
+    refused = avail & ~led_auth
+    cols = dict(spent=answered, refused=refused, dropped=dropped, faulted=guard_rej,
+                quarantined=quar, timed_out=timed)
+    if ss is not None:
+        cols["retried"] = is_retry
+    _add_columns(led, owners, cols)
+    # timeouts and retries are not quarantine events (slowness has its
+    # own escalation, the backoff), and a backed-off round is no contact
+    _faults.fault_tick(fs, owners, guard_rej | dropped, cfg.fault_policy, active=avail)
+    metrics.update(refused=refused, dropped=dropped, quarantined=quar,
+                   owner=owners.reshape(fcodes.shape).to(torch.int32))
+    if ss is not None:
+        metrics["retried"] = is_retry
+        staleness_tick(ss, owners, t, is_retry=is_retry, apply=apply, timed=timed,
+                       policy=cfg.staleness, active=active, ticks=fcodes.numel())
+    return theta_L, bank, metrics, apply
+
+
 def make_train_step(loss_fn, cfg: AsyncDPConfig,
                     scales: Optional[torch.Tensor] = None, device=None):
-    """Returns step(state, batch, owner_idx, key) -> (state, metrics).
+    """Returns step(state, batch, owner_idx, key, fault_code=None) ->
+    (state, metrics).
 
     One host-authorized round: the caller (the session's mechanism) has
     already granted it, so the update lands unmasked, the device ledger
     passes through untouched and a noise tree takes its leaf. `owner_idx`
     is a one-element int device tensor; the bank row and the tree are
-    written in place. Flat and pytree states both run."""
-    compute = _round_compute(loss_fn, cfg, scales, device)
-    one = torch.ones(1, dtype=torch.int32, device=resolve_device(device))
+    written in place. Flat and pytree states both run.
 
-    def step(state: AsyncDPState, batch, owner_idx: torch.Tensor,
-             key: torch.Tensor) -> Tuple[AsyncDPState, Dict[str, Any]]:
+    On a fault-armed state (cfg.fault_policy) the session has already
+    handled quarantine, backoff, refusal and DROP on the host, so the round
+    is answered and only the guards decide (`_guarded_round`): `fault_code`
+    (an int, or a 0-d int8 device tensor; None = OK) injects one fault, the
+    fault window ticks, and under cfg.staleness the runtime counters tick.
+    metrics then also carry "faulted" and "timed_out"."""
+    dev = resolve_device(device)
+    compute = _round_compute(loss_fn, cfg, scales, device)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    true = torch.ones((), dtype=torch.bool, device=dev)
+
+    def step(state: AsyncDPState, batch, owner_idx: torch.Tensor, key: torch.Tensor,
+             fault_code=None) -> Tuple[AsyncDPState, Dict[str, Any]]:
         tree = _require_tree(cfg, state)
         o = owner_idx.reshape(1).to(torch.int64)
-        new_L, new_i, _, metrics = compute(state.theta_L, state.bank, batch, o, key, tree=tree)
+        if state.faults is not None:
+            policy = _require_fault_policy(cfg, state)
+            spolicy = _require_staleness(cfg, state)
+            ss = state.stale
+            fcode = torch.as_tensor(_faults.OK if fault_code is None else fault_code,
+                                    device=dev).to(torch.int8).reshape(())
+            stale_w = _decay_weight(state, spolicy, o, None if ss is None else ss.clock)
+            # the write keys the codec with the round's key by contract
+            # (see the fault-off branch below)
+            theta_L, bank, metrics, apply, guard_rej, timed = _guarded_round(
+                compute, _masked_write(state, o, key),  # dpcheck: ignore[DPC105]
+                state, batch, o, key, fcode, true, stale_w)
+            _faults.fault_tick(state.faults, o, guard_rej, policy, active=true)
+            if ss is not None:
+                # a dispatched round is never a retry: the session masks the
+                # rounds of an owner in backoff before calling the step
+                staleness_tick(ss, o, ss.clock, is_retry=~true, apply=apply, timed=timed,
+                               policy=spolicy, active=true, ticks=1)
+            return AsyncDPState(theta_L, bank, state.step + apply.to(torch.int32),
+                                state.ledger, tree, state.faults, ss), metrics
+        _no_faults_armed(fault_code)
+        new_L, new_i, _, metrics, _ = compute(state.theta_L, state.bank, batch, o, key,
+                                              tree=tree)
         if isinstance(state.bank, QuantBank):
             # same key as compute() by contract: the codec folds in its
             # CODEC_SALT, so its rounding bits never touch the privacy stream
@@ -747,55 +1058,96 @@ def make_train_step(loss_fn, cfg: AsyncDPConfig,
             bank = _write_bank(state.bank, new_i, o)
         if tree is not None:
             tree.counts.scatter_add_(0, o, one)
-        return AsyncDPState(new_L, bank, state.step + 1, state.ledger, tree), metrics
+        return AsyncDPState(new_L, bank, state.step + 1, state.ledger, tree, state.faults,
+                            state.stale), metrics
 
     return step
+
+
+def _add_columns(led: DeviceLedger, owners: torch.Tensor, cols: Dict[str, torch.Tensor]):
+    """led.<name>[owners] += cols[name] (bools counted as 0/1), in place."""
+    for name, v in cols.items():
+        getattr(led, name).index_add_(0, owners, v.to(torch.int32).reshape(-1))
 
 
 def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
                       scales: Optional[torch.Tensor] = None, device=None):
     """Device-authorized multi-round driver: K rounds in one call.
 
-    Returns run(state, batches, owner_seq, keys) -> (state, metrics): every
-    batch leaf carries a leading (K,) round axis, owner_seq is (K,) int on
-    the device, keys is (K, 2) uint32, and metrics are stacked (K,) device
-    tensors. A refused round runs the same round math, then keeps theta_L,
-    writes the owner's own copy back (every leaf of a pytree bank), leaves
-    its noise tree (nodes and count) as it was and lands in
-    `ledger.refused` for `Federation.reconcile()`; no value is read back
-    to the host."""
+    Returns run(state, batches, owner_seq, keys, fault_codes=None) ->
+    (state, metrics): every batch leaf carries a leading (K,) round axis,
+    owner_seq is (K,) int on the device, keys is (K, 2) uint32, and
+    metrics are stacked (K,) device tensors. A refused round runs the same
+    round math, then keeps theta_L, writes the owner's own copy back (every
+    leaf of a pytree bank), leaves its noise tree (nodes and count) as it
+    was and lands in `ledger.refused` for `Federation.reconcile()`; no
+    value is read back to the host.
+
+    On a fault-armed state, `fault_codes` ((K,) int8 on the device; None =
+    all OK) drive the reference's outcome algebra in each round, with the
+    precedence quarantine > backoff > budget > drop: a quarantined owner's
+    round is masked and ledgered in `quarantined` (no epsilon, no refusal);
+    under cfg.staleness an owner in backoff gives a masked re-dispatch
+    (`retried`, no epsilon); a DROP of an authorized owner spends nothing
+    (`dropped`); every answered round is charged (`spent`) even when a
+    guard rejects it (`faulted`) or it came late (`timed_out`). A masked
+    round still runs the round's kernels."""
+    dev = resolve_device(device)
     compute = _round_compute(loss_fn, cfg, scales, device)
+    true = torch.ones((), dtype=torch.bool, device=dev)
 
     def body(state: AsyncDPState, batch, owner_idx: torch.Tensor, key: torch.Tensor):
         led, tree = state.ledger, state.tree
         ok = led.authorized(owner_idx)
         oki = ok.to(torch.int32)
-        new_L, new_i, theta_i, metrics = compute(state.theta_L, state.bank, batch,
-                                                 owner_idx, key, tree=tree, grant=oki)
-        theta_L = _select(ok, new_L, state.theta_L)
-        if isinstance(state.bank, QuantBank):
-            # same key as compute() by contract (see make_train_step)
-            bank = _quant_write(state.bank, new_i, owner_idx, key, ok=ok)  # dpcheck: ignore[DPC105]
-        else:
-            bank = _write_bank(state.bank, _select(ok, new_i, theta_i), owner_idx)
+        new_L, new_i, theta_i, metrics, _ = compute(state.theta_L, state.bank, batch,
+                                                    owner_idx, key, tree=tree, grant=oki)
+        # same key as compute() by contract (see make_train_step)
+        theta_L, bank = _masked_write(state, owner_idx, key)(  # dpcheck: ignore[DPC105]
+            new_L, new_i, theta_i, ok)
+        del new_L, new_i, theta_i
         if tree is not None:
             tree.counts.scatter_add_(0, owner_idx, oki.reshape(1))
         led.spent.scatter_add_(0, owner_idx, oki.reshape(1))
         led.refused.scatter_add_(0, owner_idx, (1 - oki).reshape(1))
         metrics = dict(metrics, refused=~ok, owner=owner_idx.reshape(()).to(torch.int32))
-        return AsyncDPState(theta_L, bank, state.step + oki, led, tree), metrics
+        return AsyncDPState(theta_L, bank, state.step + oki, led, tree, state.faults,
+                            state.stale), metrics
+
+    def body_faulted(state: AsyncDPState, batch, owner_idx: torch.Tensor, key: torch.Tensor,
+                     fcode: torch.Tensor):
+        ss = state.stale
+        # same key as compute() by contract (see make_train_step)
+        theta_L, bank, metrics, apply = _faulted_round(
+            cfg, compute, _masked_write(state, owner_idx, key),  # dpcheck: ignore[DPC105]
+            state, batch, owner_idx, key, fcode, state.ledger.authorized(owner_idx),
+            None if ss is None else ss.clock, true)
+        return AsyncDPState(theta_L, bank, state.step + apply.to(torch.int32), state.ledger,
+                            state.tree, state.faults, ss), metrics
 
     def run(state: AsyncDPState, batches: Dict[str, torch.Tensor],
-            owner_seq: torch.Tensor, keys: torch.Tensor):
+            owner_seq: torch.Tensor, keys: torch.Tensor, fault_codes=None):
         if state.ledger is None:
             raise ValueError("fused rounds need a device ledger on the state; "
                              "build it with Federation.init_state")
         _require_tree(cfg, state)
         owners = owner_seq.to(torch.int64)
+        if state.faults is None:
+            _no_faults_armed(fault_codes)
+        else:
+            _require_fault_policy(cfg, state)
+            _require_staleness(cfg, state)
+            if fault_codes is None:
+                fault_codes = torch.zeros(owners.shape, dtype=torch.int8, device=owners.device)
+            fault_codes = fault_codes.to(device=owners.device, dtype=torch.int8)
         per_round = []
         for k in range(owners.shape[0]):
-            state, m = body(state, {name: v[k] for name, v in batches.items()},
-                            owners[k:k + 1], keys[k])
+            args = (state, {name: v[k] for name, v in batches.items()}, owners[k:k + 1],
+                    keys[k])
+            if fault_codes is None:
+                state, m = body(*args)
+            else:
+                state, m = body_faulted(*args, fault_codes[k])
             per_round.append(m)
         if not per_round:
             return state, {}
@@ -810,16 +1162,17 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
     """Owner-parallel multi-round driver: conflict-free groups of rounds,
     each computed as one batch of its members.
 
-    Returns run(state, batches, owner_seq, keys, group_idx, group_valid) ->
-    (state, metrics): batches, owner_seq and keys are `make_fused_rounds`'
-    (K,)-leading inputs, and (group_idx, group_valid) the host (n_groups,
-    G_max) arrays of `schedules.pack_groups`: row g lists the round indices
-    of group g, a consecutive run of rounds with distinct owners, then
-    padding. Each group runs at its own length (no padding executes;
-    torch has no compile cache to keep shapes stable for), from views of
-    the (K,) inputs, so nothing is copied to or from the host. Metrics come
-    back group after group, each (K,); the groups are consecutive and in
-    order, so that is round order.
+    Returns run(state, batches, owner_seq, keys, group_idx, group_valid,
+    fault_codes=None) -> (state, metrics): batches, owner_seq, keys and
+    fault_codes are `make_fused_rounds`' (K,)-leading inputs, and
+    (group_idx, group_valid) the host (n_groups, G_max) arrays of
+    `schedules.pack_groups`: row g lists the round indices of group g, a
+    consecutive run of rounds with distinct owners, then padding. Each
+    group runs at its own length (no padding executes; torch has no
+    compile cache to keep shapes stable for), from views of the (K,)
+    inputs, so nothing is copied to or from the host. Metrics come back
+    group after group, each (K,); the groups are consecutive and in order,
+    so that is round order.
 
     Semantics against the sequential driver, for groups of distinct owners
     (the reference's `make_group_rounds`):
@@ -841,8 +1194,16 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
         kind of the paper's own asynchrony (stale reads), not a change to
         the noise or the accounting.
 
-    bf16 banks (ROADMAP queue 1, item 2), faults and staleness (item 4),
-    paged banks (item 5) and the mesh (item 7) wait for their slices."""
+    On a fault-armed state each member goes through the fused driver's
+    outcome algebra, vectorized over the group: the quarantine flags,
+    cooldowns, checksums and windows are group-entry reads (exact, the
+    owners being distinct), member m's round clock is `clock + m`, the
+    guards run per member, a quantized member writes with its `apply`
+    (so a poisoned member never advances the residual), and theta_L
+    averages the applied members' targets.
+
+    bf16 banks (ROADMAP queue 1, item 2), paged banks (item 5) and the mesh
+    (item 7) wait for their slices."""
     compute = _round_compute(loss_fn, cfg, scales, device)
 
     def reduce_theta(ok: torch.Tensor, stacked: torch.Tensor, base: torch.Tensor):
@@ -851,12 +1212,10 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
         s = s / torch.clamp(n_ok, min=1.0)
         return torch.where(n_ok > 0, s.to(base.dtype), base)
 
-    def body(state: AsyncDPState, batch_g, owners: torch.Tensor, keys_g: torch.Tensor):
-        led, tree, bank = state.ledger, state.tree, state.bank
-        ok = led.spent.index_select(0, owners) < led.cap.index_select(0, owners)     # (g,)
-        oki = ok.to(torch.int32)
-        new_L, new_i, theta_i, metrics = compute.rows(state.theta_L, bank, batch_g, owners,
-                                                      keys_g, tree=tree, grant=oki)
+    def write_members(state: AsyncDPState, new_L, new_i, theta_i, owners, keys_g, ok):
+        """Write the members' rows (those with `ok`; the others write their
+        own row back) and reduce theta_L over the `ok` members."""
+        bank = state.bank
         if isinstance(bank, QuantBank):
             # the error-feedback chain in round order; same key as the
             # round's by contract (the codec folds in its CODEC_SALT)
@@ -864,24 +1223,51 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
                 _quant_write(bank, new_i[m], owners[m:m + 1], keys_g[m],  # dpcheck: ignore[DPC105]
                              ok=ok[m])
         else:
-            # refused members write their own row back unchanged
             _write_bank_rows(bank, tree_map(
                 lambda a, b: torch.where(_member_mask(ok, a), a, b), new_i, theta_i), owners)
+        if isinstance(state.theta_L, ParamFlat):
+            return state.theta_L.replace_buf(reduce_theta(ok, new_L, state.theta_L.buf)), bank
+        return tree_map(lambda a, b: reduce_theta(ok, a, b), new_L, state.theta_L), bank
+
+    def body(state: AsyncDPState, batch_g, owners: torch.Tensor, keys_g: torch.Tensor):
+        led, tree = state.ledger, state.tree
+        ok = led.spent.index_select(0, owners) < led.cap.index_select(0, owners)     # (g,)
+        oki = ok.to(torch.int32)
+        new_L, new_i, theta_i, metrics, _ = compute.rows(state.theta_L, state.bank, batch_g,
+                                                         owners, keys_g, tree=tree, grant=oki)
+        # the round keys again by contract: a quantized bank's codec folds
+        # in its CODEC_SALT (see make_train_step)
+        theta_L, bank = write_members(  # dpcheck: ignore[DPC105]
+            state, new_L, new_i, theta_i, owners, keys_g, ok)
         del new_i, theta_i
         if tree is not None:
             tree.counts.index_add_(0, owners, oki)
-        if isinstance(state.theta_L, ParamFlat):
-            theta_L = state.theta_L.replace_buf(reduce_theta(ok, new_L, state.theta_L.buf))
-        else:
-            theta_L = tree_map(lambda a, b: reduce_theta(ok, a, b), new_L, state.theta_L)
         led.spent.index_add_(0, owners, oki)
         led.refused.index_add_(0, owners, 1 - oki)
         metrics = dict(metrics, refused=~ok, owner=owners.to(torch.int32))
         return AsyncDPState(theta_L, bank, state.step + torch.sum(oki, dtype=torch.int32),
-                            led, tree), metrics
+                            led, tree, state.faults, state.stale), metrics
+
+    def body_faulted(state: AsyncDPState, batch_g, owners: torch.Tensor,
+                     keys_g: torch.Tensor, fcodes: torch.Tensor):
+        led, ss = state.ledger, state.stale
+        g = owners.numel()
+        # member m is the group's m-th round: its clock is clock + m
+        t_g = (None if ss is None
+               else ss.clock + torch.arange(g, dtype=torch.int32, device=owners.device))
+
+        def write(new_L, new_i, theta_i, ok):
+            return write_members(state, new_L, new_i, theta_i, owners, keys_g, ok)
+
+        theta_L, bank, metrics, apply = _faulted_round(
+            cfg, compute.rows, write, state, batch_g, owners, keys_g, fcodes,
+            led.spent.index_select(0, owners) < led.cap.index_select(0, owners), t_g,
+            torch.ones(g, dtype=torch.bool, device=owners.device))
+        return AsyncDPState(theta_L, bank, state.step + torch.sum(apply, dtype=torch.int32),
+                            led, state.tree, state.faults, ss), metrics
 
     def run(state: AsyncDPState, batches: Dict[str, torch.Tensor], owner_seq: torch.Tensor,
-            keys: torch.Tensor, group_idx, group_valid):
+            keys: torch.Tensor, group_idx, group_valid, fault_codes=None):
         if state.ledger is None:
             raise ValueError("grouped rounds need a device ledger on the state; "
                              "build it with Federation.init_state")
@@ -890,8 +1276,16 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
                 f"a {state.bank.dtype} bank under the grouped driver waits for a later "
                 "slice (ROADMAP queue 1, item 2); run owner_parallel=False")
         _require_tree(cfg, state)
-        idx, valid = np.asarray(group_idx), np.asarray(group_valid, bool)
         owners = owner_seq.to(torch.int64)
+        if state.faults is None:
+            _no_faults_armed(fault_codes)
+        else:
+            _require_fault_policy(cfg, state)
+            _require_staleness(cfg, state)
+            if fault_codes is None:
+                fault_codes = torch.zeros(owners.shape, dtype=torch.int8, device=owners.device)
+            fault_codes = fault_codes.to(device=owners.device, dtype=torch.int8)
+        idx, valid = np.asarray(group_idx), np.asarray(group_valid, bool)
         per_group = []
         for row, ok in zip(idx, valid):
             n, start = int(ok.sum()), int(row[0])
@@ -899,8 +1293,11 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
                 raise ValueError("each group must be a consecutive run of rounds followed "
                                  "by padding, as schedules.pack_groups builds it")
             sl = slice(start, start + n)
-            state, m = body(state, {k: v[sl] for k, v in batches.items()}, owners[sl],
-                            keys[sl])
+            args = (state, {k: v[sl] for k, v in batches.items()}, owners[sl], keys[sl])
+            if fault_codes is None:
+                state, m = body(*args)
+            else:
+                state, m = body_faulted(*args, fault_codes[sl])
             per_group.append(m)
         if not per_group:
             return state, {}

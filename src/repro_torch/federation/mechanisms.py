@@ -20,7 +20,6 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
-import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -28,6 +27,10 @@ from repro_torch.federation.config import FederationConfig
 from repro_torch.federation.owners import DataOwner
 from repro_torch.federation.privacy import (DeviceLedger, PrivacyAccountant,
                                             laplace_scale_theorem1)
+
+
+# the device ledger's counting columns, in the order reconcile reads them
+_COLUMNS = ("spent", "refused", "dropped", "faulted", "quarantined", "timed_out", "retried")
 
 
 class LedgerDriftError(RuntimeError):
@@ -49,12 +52,27 @@ class _LedgeredMechanism:
             {i: o.epsilon for i, o in enumerate(self.owners)}, cfg.horizon,
             composition=composition, cap_slack=cap_slack, n_owners=len(self.owners),
             tree_depth=tree_depth)
-        self.refusals = {i: 0 for i in range(len(self.owners))}
-        # device counters already folded back by reconcile(): deltas
-        # against these make reconcile idempotent over chunked dispatches
-        self._folded_spent = {i: 0 for i in range(len(self.owners))}
-        self._folded_refused = {i: 0 for i in range(len(self.owners))}
+        n = len(self.owners)
+        self.refusals = {i: 0 for i in range(n)}
+        # fault and staleness outcomes. None touches the accountant:
+        # dropped, quarantined and retried rounds produced no response (no
+        # epsilon), and faulted and timed-out rounds are already in the
+        # spent count (epsilon is charged when the owner answers)
+        self.dropped_rounds = {i: 0 for i in range(n)}
+        self.faulted_rounds = {i: 0 for i in range(n)}
+        self.quarantined_rounds = {i: 0 for i in range(n)}
+        self.timed_out_rounds = {i: 0 for i in range(n)}
+        self.retried_rounds = {i: 0 for i in range(n)}
+        # device counters already folded back by reconcile(), one dict per
+        # device column: deltas against these make reconcile idempotent
+        # over chunked dispatches
+        self._folded = {col: {i: 0 for i in range(n)} for col in _COLUMNS}
         self._snapshot_sid = 0
+
+    def _tallies(self, col: str) -> Dict[int, int]:
+        """The host tally a device column folds into (`spent` has none: it
+        folds into the accountant)."""
+        return self.refusals if col == "refused" else getattr(self, f"{col}_rounds")
 
     @property
     def cap(self) -> Optional[int]:
@@ -85,6 +103,34 @@ class _LedgeredMechanism:
             self.refusals[int(owner_idx)] += 1
         return ok
 
+    def exhausted(self, owner_idx: int) -> bool:
+        """Is the owner's budget spent? (A peek: no refusal is recorded.)"""
+        return self._accountant.ledgers[int(owner_idx)].exhausted
+
+    def record_dropped(self, owner_idx: int) -> None:
+        """Tally a round lost BEFORE the owner answered (no epsilon)."""
+        self.dropped_rounds[int(owner_idx)] += 1
+
+    def record_faulted(self, owner_idx: int) -> None:
+        """Tally an answered-then-rejected round (its epsilon was charged by
+        authorize(); this records that it bought no progress)."""
+        self.faulted_rounds[int(owner_idx)] += 1
+
+    def record_quarantined(self, owner_idx: int) -> None:
+        """Tally a round masked because the owner was quarantined (no
+        answer, no epsilon, no refusal)."""
+        self.quarantined_rounds[int(owner_idx)] += 1
+
+    def record_timed_out(self, owner_idx: int) -> None:
+        """Tally a round answered past the deadline (its epsilon was charged
+        by authorize(); the answer came too late to apply)."""
+        self.timed_out_rounds[int(owner_idx)] += 1
+
+    def record_retried(self, owner_idx: int) -> None:
+        """Tally a round masked while the owner sat in retry backoff (never
+        dispatched: no answer, no epsilon, no refusal)."""
+        self.retried_rounds[int(owner_idx)] += 1
+
     def authorize_many(self, owner_idx: int, count: int) -> int:
         granted = self._accountant.record_responses(int(owner_idx), int(count))
         self.refusals[int(owner_idx)] += int(count) - granted
@@ -92,58 +138,69 @@ class _LedgeredMechanism:
 
     def ledger(self) -> Dict[int, Dict]:
         summary = self._accountant.summary()
-        for i, r in self.refusals.items():
-            summary[i]["refused"] = r
+        for i in self.refusals:
+            for col in _COLUMNS[1:]:
+                summary[i][col] = self._tallies(col)[i]
         return summary
 
     def device_ledger(self, device=None) -> DeviceLedger:
         """Snapshot the accountant as a DeviceLedger with a fresh generation
-        id; only the latest snapshot's state chain may reconcile."""
+        id, every column seeded from the current host totals; only the
+        latest snapshot's state chain may reconcile."""
         device = resolve_device(device)
         self._snapshot_sid += 1
         n = len(self.owners)
         led = self._accountant.device_ledger(device)
-        led = led.replace(refused=torch.tensor([self.refusals[i] for i in range(n)],
-                                               dtype=torch.int32, device=device),
-                          sid=self._snapshot_sid)
+        led = led.replace(sid=self._snapshot_sid, **{
+            col: torch.tensor([self._tallies(col)[i] for i in range(n)], dtype=torch.int32,
+                              device=device) for col in _COLUMNS[1:]})
         for i in range(n):
-            self._folded_spent[i] = self._accountant.ledgers[i].responses
-            self._folded_refused[i] = self.refusals[i]
+            self._folded["spent"][i] = self._accountant.ledgers[i].responses
+            for col in _COLUMNS[1:]:
+                self._folded[col][i] = self._tallies(col)[i]
         return led
 
     def reconcile(self, ledger: DeviceLedger) -> Dict[int, Dict]:
         """Fold the device counters back into the host accountant; any
-        disagreement raises LedgerDriftError and leaves the accountant
-        untouched (validate, then apply). One device->host copy."""
-        spent = np.asarray(ledger.spent.cpu())
-        refused = np.asarray(ledger.refused.cpu())
-        if spent.shape != (len(self.owners),):
-            raise ValueError(f"device ledger for {spent.shape[0]} owners, "
-                             f"mechanism has {len(self.owners)}")
+        disagreement (a device grant the host cap refuses, or a column that
+        went backwards) raises LedgerDriftError and leaves the accountant
+        untouched (validate, then apply). The seven columns come back in
+        one device->host copy."""
+        cols = torch.stack([getattr(ledger, col) for col in _COLUMNS]).cpu().numpy()
+        n = len(self.owners)
+        if cols.shape[1:] != (n,):
+            raise ValueError(f"device ledger for {cols.shape[1]} owners, "
+                             f"mechanism has {n}")
         if ledger.sid != self._snapshot_sid:
             raise LedgerDriftError(
                 f"state ledger is from snapshot {ledger.sid}, but the live "
                 f"snapshot is {self._snapshot_sid}: a newer init_state()/"
                 "device_ledger() superseded this state")
         deltas = []
-        for i in range(len(self.owners)):
-            d_spent = int(spent[i]) - self._folded_spent[i]
-            d_refused = int(refused[i]) - self._folded_refused[i]
-            if min(d_spent, d_refused) < 0:
-                raise LedgerDriftError(f"owner {i}: device counters went backwards")
+        for i in range(n):
+            d = {col: int(cols[c, i]) - self._folded[col][i] for c, col in enumerate(_COLUMNS)}
+            if min(d.values()) < 0:
+                raise LedgerDriftError(
+                    f"owner {i}: device counters went backwards (spent "
+                    f"{cols[0, i]} < folded {self._folded['spent'][i]}, refused "
+                    f"{cols[1, i]} < {self._folded['refused'][i]}, or a fault-outcome "
+                    "column shrank)")
             led_i = self._accountant.ledgers[i]
             room = led_i.effective_horizon - led_i.responses
-            if d_spent > room:
+            if d["spent"] > room:
                 raise LedgerDriftError(
-                    f"owner {i}: device granted {d_spent} responses but the "
+                    f"owner {i}: device granted {d['spent']} responses but the "
                     f"host cap admits only {max(0, room)}; the state ledger is "
                     "stale (host-authorized rounds ran after the snapshot)")
-            deltas.append((d_spent, d_refused))
-        for i, (d_spent, d_refused) in enumerate(deltas):
-            self._accountant.record_responses(i, d_spent)
-            self.refusals[i] += d_refused
-            self._folded_spent[i] = int(spent[i])
-            self._folded_refused[i] = int(refused[i])
+            deltas.append(d)
+        for i, d in enumerate(deltas):
+            self._accountant.record_responses(i, d["spent"])
+            # the outcome columns carry no epsilon of their own: they fold
+            # into the host tallies without touching the accountant
+            for col in _COLUMNS[1:]:
+                self._tallies(col)[i] += d[col]
+            for c, col in enumerate(_COLUMNS):
+                self._folded[col][i] = int(cols[c, i])
         return self.ledger()
 
 

@@ -74,6 +74,9 @@ def laplace_noise_tree(key: torch.Tensor, tree: Any, scale) -> Any:
                                     for k, leaf in zip(keys, leaves)])
 
 
+_FAULT_COLUMNS = ("dropped", "faulted", "quarantined", "timed_out", "retried")
+
+
 class DeviceLedger:
     """Device-resident mirror of the accountant's counters.
 
@@ -82,19 +85,39 @@ class DeviceLedger:
     `refused` (N,) int32 counts device refusals. `sid` is the snapshot
     generation: `reconcile` only accepts the lineage of the latest
     `device_ledger()` snapshot, so two live states of one session cannot
-    fold divergent counters against one baseline. The fused driver updates
-    the counters in place."""
+    fold divergent counters against one baseline. The drivers update the
+    counters in place, so every column is its own buffer.
+
+    The fault and staleness columns (epsilon is charged when the owner
+    ANSWERS): `spent` counts every answered round, also one a guard then
+    rejected. `dropped` counts rounds lost before the answer (no epsilon);
+    `faulted` answered-then-rejected rounds (non-finite update, checksum
+    mismatch, stale replay; a subset of spent's increments); `quarantined`
+    rounds masked because the owner was quarantined (no epsilon, no
+    refusal); `timed_out` rounds answered past the deadline (epsilon
+    spent, a subset of spent's increments); `retried` rounds masked while
+    the owner sat in its retry backoff (never dispatched, no epsilon)."""
 
     def __init__(self, spent: torch.Tensor, cap: torch.Tensor,
-                 refused: torch.Tensor, sid: int = 0):
+                 refused: torch.Tensor, dropped: Optional[torch.Tensor] = None,
+                 faulted: Optional[torch.Tensor] = None,
+                 quarantined: Optional[torch.Tensor] = None,
+                 timed_out: Optional[torch.Tensor] = None,
+                 retried: Optional[torch.Tensor] = None, sid: int = 0):
         self.spent = spent
         self.cap = cap
         self.refused = refused
+        # a distinct zero buffer per absent column
+        self.dropped = torch.zeros_like(spent) if dropped is None else dropped
+        self.faulted = torch.zeros_like(spent) if faulted is None else faulted
+        self.quarantined = torch.zeros_like(spent) if quarantined is None else quarantined
+        self.timed_out = torch.zeros_like(spent) if timed_out is None else timed_out
+        self.retried = torch.zeros_like(spent) if retried is None else retried
         self.sid = sid
 
     def replace(self, **kw) -> "DeviceLedger":
         fields = {"spent": self.spent, "cap": self.cap, "refused": self.refused,
-                  "sid": self.sid}
+                  **{c: getattr(self, c) for c in _FAULT_COLUMNS}, "sid": self.sid}
         fields.update(kw)
         return DeviceLedger(**fields)
 
@@ -106,18 +129,26 @@ class DeviceLedger:
 
 
 def make_device_ledger(caps: Sequence[int], spent: Optional[Sequence[int]] = None,
-                       refused: Optional[Sequence[int]] = None, sid: int = 0,
+                       refused: Optional[Sequence[int]] = None,
+                       dropped: Optional[Sequence[int]] = None,
+                       faulted: Optional[Sequence[int]] = None,
+                       quarantined: Optional[Sequence[int]] = None,
+                       timed_out: Optional[Sequence[int]] = None,
+                       retried: Optional[Sequence[int]] = None, sid: int = 0,
                        device=None) -> DeviceLedger:
     """Device counters on `device` (CUDA when None)."""
     device = resolve_device(device)
     caps = torch.tensor(list(caps), dtype=torch.int32, device=device)
 
     def col(v):
-        # a distinct buffer per column: the driver updates them in place
+        # a distinct buffer per column: the drivers update them in place
         return (torch.zeros_like(caps) if v is None
                 else torch.tensor(list(v), dtype=torch.int32, device=device))
 
-    return DeviceLedger(spent=col(spent), cap=caps, refused=col(refused), sid=sid)
+    return DeviceLedger(spent=col(spent), cap=caps, refused=col(refused),
+                        dropped=col(dropped), faulted=col(faulted),
+                        quarantined=col(quarantined), timed_out=col(timed_out),
+                        retried=col(retried), sid=sid)
 
 
 @dataclasses.dataclass

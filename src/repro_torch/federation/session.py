@@ -35,6 +35,15 @@ Counterpart of ``repro/federation/session.py``:
     # device, capped at its capacity 2^4 - 1 = 15 responses
     fed = Federation(owners, config, mechanism="tree", tree_depth=4)
 
+    # faults and the asynchronous runtime, on every driver and state
+    fed = Federation(owners, config, fault_policy=FaultPolicy(max_faults=3),
+                     staleness=StalenessPolicy(deadline=1.0, max_retries=2,
+                                               decay=0.9))
+    state, metrics = fed.run_rounds(state, batches, owner_seq, key,
+                                    faults=FaultPlan(drop=0.05, corrupt=0.05),
+                                    latency=LatencyPlan(base=0.5, jitter=0.3))
+    state, metrics = fed.step(state, batch, owner_idx, key, fault_code=DROP)
+
 As in the reference, `make_step` defaults to the pytree path
 (`pack_params=False`) and to the jnp-equivalent privatizer
 (`PrivatizerConfig(xi=xi)`, fused_kernel=False); the round functions serve
@@ -47,7 +56,9 @@ products are full f32 like the reference's einsums.
 
 The mechanism (noise calibration + PrivacyAccountant) is pluggable;
 budget-exhausted owners are refused at this layer by `step`, and on the
-device by `run_rounds`, whose refusals `reconcile` folds back bit-exactly.
+device by `run_rounds`, whose refusals `reconcile` folds back bit-exactly,
+with the fault and staleness outcomes (dropped, faulted, quarantined,
+timed_out, retried).
 A state passed to `step` or `run_rounds` is consumed (its bank rows,
 device ledger and noise trees are updated in place).
 """
@@ -68,12 +79,16 @@ from repro_torch.federation.deep import (AsyncDPConfig, AsyncDPState, init_state
                                          make_group_rounds, make_sync_dp_step,
                                          make_train_step)
 from repro_torch.federation.dp_sgd import PrivatizerConfig
+from repro_torch.federation.faults import (DROP, OK, FaultPlan, FaultPolicy, as_fault_codes,
+                                           fault_tick)
 from repro_torch.federation.flatten import ParamFlat, as_bank_codec
 from repro_torch.federation.linear import LinearProblem
 from repro_torch.federation.mechanisms import make_mechanism
 from repro_torch.federation.owners import DataOwner
 from repro_torch.federation.schedules import (UniformSchedule, as_owner_seq, auto_max_group,
                                               pack_groups, partition_conflict_free)
+from repro_torch.federation.staleness import (LatencyPlan, StalenessPolicy, as_tick_times,
+                                              merge_timeout_codes, staleness_tick)
 
 _STRATEGIES = ("async", "sync")
 
@@ -82,7 +97,8 @@ class Federation:
     def __init__(self, owners: Sequence[DataOwner], config: FederationConfig, *,
                  mechanism="paper", schedule=None, strategy: str = "async",
                  cap_slack: Optional[float] = None, tree_depth: Optional[int] = None,
-                 device=None):
+                 fault_policy: Optional[FaultPolicy] = None,
+                 staleness: Optional[StalenessPolicy] = None, device=None):
         if strategy not in _STRATEGIES:
             raise ValueError(f"strategy must be one of {_STRATEGIES}")
         self.device = resolve_device(device)
@@ -94,6 +110,17 @@ class Federation:
         self.config = config
         self.schedule = schedule if schedule is not None else UniformSchedule()
         self.strategy = strategy
+        # fault_policy arms the fault layer (deep path): states carry
+        # FaultState counters, the drivers take fault codes, and owners past
+        # the policy's fault budget are quarantined. staleness arms the
+        # runtime (deadlines -> TIMEOUT, retry backoff, decayed inertia); it
+        # rides on the fault algebra, so a staleness-only federation arms a
+        # never-quarantine fault policy, which changes nothing until codes
+        # are injected
+        self.fault_policy = fault_policy
+        self.staleness = staleness
+        if staleness is not None and fault_policy is None:
+            self.fault_policy = FaultPolicy(max_faults=2**30, window=2**30)
         self.mechanism = make_mechanism(mechanism, self.owners, config,
                                         cap_slack=cap_slack, tree_depth=tree_depth)
         self._step_fn = None
@@ -212,7 +239,8 @@ class Federation:
             privatizer=privatizer or PrivatizerConfig(xi=xi),
             lr_scale=cfg.lr_scale,
             caps=None if cap is None else (cap,) * self.n_owners,
-            tree_depth=getattr(self.mechanism, "tree_depth", None))
+            tree_depth=getattr(self.mechanism, "tree_depth", None),
+            fault_policy=self.fault_policy, staleness=self.staleness)
 
     def make_step(self, loss_fn, *, privatizer: Optional[PrivatizerConfig] = None,
                   lr: Optional[float] = None, n_params: Optional[int] = None,
@@ -293,25 +321,89 @@ class Federation:
     def _on_device(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
 
-    def step(self, state: AsyncDPState, batch, owner_idx: int, key: torch.Tensor
-             ) -> Tuple[AsyncDPState, Dict[str, Any]]:
+    def step(self, state: AsyncDPState, batch, owner_idx: int, key: torch.Tensor,
+             fault_code: Optional[int] = None) -> Tuple[AsyncDPState, Dict[str, Any]]:
         """One ledgered round. A budget-exhausted owner is refused: the
-        state comes back untouched and the refusal lands in the ledger."""
+        state comes back untouched and the refusal lands in the ledger.
+
+        On a fault-armed state `fault_code` injects one of faults.OK, DROP,
+        STALE, NONFINITE_GRAD, CORRUPT_PAYLOAD or TIMEOUT, and the host
+        decides in the fused driver's order (it reads the owner's
+        quarantine flag and cooldown back, one round at a time): a
+        quarantined owner is masked first (no epsilon, no refusal, no
+        window tick); under staleness an owner in backoff next (a retried
+        round: never dispatched, no epsilon, no window contact); a DROP of
+        an exhausted owner is a refusal (the budget check comes before the
+        contact); a DROP costs no epsilon; every answered round is charged
+        even when a guard then rejects it (metrics["faulted"]) or it came
+        late (metrics["timed_out"]). Masked rounds still tick the fault
+        window and the staleness clock as the fused driver's would."""
         if self.strategy != "async":
             raise ValueError("step() is the async path; use sync_round()")
         self._require_step()
         i = int(owner_idx)
-        if not self.mechanism.authorize(i):
-            return state, {"refused": True, "owner": i}
         owner = torch.full((), i, dtype=torch.int32, device=self.device)
+        if state.faults is None:
+            if fault_code is not None:
+                raise ValueError("fault injection needs a fault-armed state; build the "
+                                 "Federation with fault_policy=FaultPolicy(...)")
+            if not self.mechanism.authorize(i):
+                return state, {"refused": True, "owner": i}
+            new_state, metrics = self._step_fn(state, self._on_device(batch), owner,
+                                               key.to(self.device))
+            metrics = dict(metrics)
+            metrics.update(refused=False, owner=i)
+            return new_state, metrics
+
+        fc = OK if fault_code is None else int(fault_code)
+        flags = {"refused": False, "dropped": False, "faulted": False,
+                 "quarantined": False, "timed_out": False, "owner": i}
+        stale_armed = state.stale is not None and self.staleness is not None
+        if stale_armed:
+            flags["retried"] = False
+        o = owner.reshape(1).to(torch.int64)
+
+        def ticked(st, retry=False):
+            # a masked round still advances the staleness clock, as the
+            # fused driver's tick does
+            if stale_armed:
+                no = torch.zeros((), dtype=torch.bool, device=self.device)
+                staleness_tick(st.stale, o, st.stale.clock, is_retry=no | retry, apply=no,
+                               timed=no, policy=self.staleness, active=~no, ticks=1)
+            return st
+
+        def window(st, faulted):
+            fault_tick(st.faults, o, faulted, self.fault_policy, active=True)
+            return st
+
+        if bool(state.faults.quarantined[i]):
+            self.mechanism.record_quarantined(i)
+            return ticked(state), dict(flags, quarantined=True)
+        if stale_armed and int(state.stale.cooldown[i]) > 0:
+            self.mechanism.record_retried(i)
+            return ticked(state, retry=True), dict(flags, retried=True)
+        if fc == DROP:
+            if self.mechanism.exhausted(i):
+                self.mechanism.authorize(i)           # records the refusal
+                return ticked(window(state, False)), dict(flags, refused=True)
+            self.mechanism.record_dropped(i)          # no answer, no epsilon
+            return ticked(window(state, True)), dict(flags, dropped=True)
+        if not self.mechanism.authorize(i):
+            return ticked(window(state, False)), dict(flags, refused=True)
         new_state, metrics = self._step_fn(state, self._on_device(batch), owner,
-                                           key.to(self.device))
+                                           key.to(self.device), fc)
         metrics = dict(metrics)
-        metrics.update(refused=False, owner=i)
+        faulted, timed = bool(metrics["faulted"]), bool(metrics["timed_out"])
+        if faulted:
+            self.mechanism.record_faulted(i)          # epsilon already charged
+        if timed:
+            self.mechanism.record_timed_out(i)        # answered late: epsilon spent
+        metrics.update(flags, faulted=faulted, timed_out=timed)
         return new_state, metrics
 
     def run_rounds(self, state: AsyncDPState, batches, owner_seq=None,
-                   key: Optional[torch.Tensor] = None, *, owner_parallel: bool = False,
+                   key: Optional[torch.Tensor] = None, *, faults=None, latency=None,
+                   times=None, owner_parallel: bool = False,
                    max_group: Union[int, str, None] = "auto"
                    ) -> Tuple[AsyncDPState, Dict[str, torch.Tensor]]:
         """K rounds in one call with authorization on the device.
@@ -322,7 +414,9 @@ class Federation:
         with the same split reproduces the sequential call bit for bit.
         Refusals stay on the device until `reconcile(state)`. Metrics are
         stacked (K,) device tensors in round order (refused mask, owner,
-        clip_frac, max_grad_norm, grad_noise_scale).
+        clip_frac, max_grad_norm, grad_noise_scale; on a fault-armed state
+        also dropped, faulted, quarantined, timed_out and, under staleness,
+        retried).
 
         `owner_parallel=True` runs the owner-parallel grouped driver
         (`deep.make_group_rounds`): the sequence is partitioned on the host
@@ -337,7 +431,27 @@ class Federation:
         bit the same. The dispatch then costs one copy of the owner
         sequence to the host (none when the caller passed it from the
         host), shared by the cap and the partition; without
-        owner_parallel a drawn sequence never leaves the device."""
+        owner_parallel a drawn sequence never leaves the device.
+
+        `faults` (fault-armed federations) injects per-round faults: a
+        `FaultPlan` draws one int8 code per round from this call's key
+        (its FAULT_SALT stream is disjoint from the round keys, so every
+        driver sees the same faults), or a (K,) code trace replays. The
+        outcomes land in the device ledger's dropped / faulted /
+        quarantined columns and fold back on `reconcile(state)`.
+
+        `latency` (staleness-armed federations) models response time: a
+        `LatencyPlan` draws one latency per round from this call's key
+        (the STALE_SALT stream), or a (K,) array replays. Rounds later than
+        the policy's deadline become TIMEOUT (`merge_timeout_codes`):
+        epsilon spent, update masked, ledgered in `timed_out`. `times`
+        ((K,) arrival instants) tightens each round's deadline to the gap
+        before the next; with latency armed, owner_seq=None and a schedule
+        that has `draw_with_times`, the schedule's own times are used.
+
+        As in the reference, a schedule-drawn sequence takes its key from
+        split(key) first, and the fault codes, the latencies and the round
+        keys all come from the remaining key."""
         if self.strategy != "async":
             raise ValueError("run_rounds() is the async path")
         self._require_step()
@@ -347,9 +461,16 @@ class Federation:
         k_rounds = next(iter(batches.values())).shape[0]
         key = key.to(self.device)
         seq_host = None
+        user_times = times is not None
         if owner_seq is None:
             k_sched, key = random.split(key)
-            owner_seq = self.schedule.draw(k_sched, self.n_owners, k_rounds)
+            draw_wt = getattr(self.schedule, "draw_with_times", None)
+            if latency is not None and times is None and draw_wt is not None:
+                # the schedule's own clock feeds the deadline model
+                sched = draw_wt(k_sched, self.n_owners, k_rounds)
+                owner_seq, times = sched.owners.to(torch.int32), sched.times
+            else:
+                owner_seq = self.schedule.draw(k_sched, self.n_owners, k_rounds)
         else:
             if owner_parallel:
                 # the one host copy, validated and uploaded by as_owner_seq
@@ -360,9 +481,36 @@ class Federation:
         if any(v.shape[0] != owner_seq.shape[0] for v in batches.values()):
             raise ValueError(f"batches carry {k_rounds} rounds, the owner sequence "
                              f"{owner_seq.shape[0]}")
-        keys = random.split(key, k_rounds)
+        if user_times:
+            times = as_tick_times(times, k_rounds, device=self.device)
+        fault_codes = None
+        if faults is not None:
+            if state.faults is None:
+                raise ValueError("fault injection needs a fault-armed state; build the "
+                                 "Federation with fault_policy=FaultPolicy(...)")
+            fault_codes = (faults.draw(key, k_rounds) if isinstance(faults, FaultPlan)
+                           else as_fault_codes(faults, k_rounds, device=self.device))
+        if latency is not None:
+            if self.staleness is None:
+                raise ValueError("latency modeling needs a staleness-armed Federation; "
+                                 "pass staleness=StalenessPolicy(...) at construction")
+            if state.faults is None:
+                raise ValueError("latency injection needs a fault-armed state (TIMEOUT "
+                                 "is a fault code); rebuild the state from this "
+                                 "staleness-armed federation")
+            # the STALE_SALT stream of the same key as the fault codes
+            lat = (latency.draw(key, owner_seq)  # dpcheck: ignore[DPC105]
+                   if isinstance(latency, LatencyPlan)
+                   else torch.as_tensor(latency, dtype=torch.float32).to(self.device))
+            if fault_codes is None:
+                fault_codes = torch.full((k_rounds,), OK, dtype=torch.int8, device=self.device)
+            fault_codes = merge_timeout_codes(fault_codes, lat, self.staleness.deadline,
+                                              times=times)
+        # the same key as the fault draw by contract: it folds in FAULT_SALT
+        keys = random.split(key, k_rounds)  # dpcheck: ignore[DPC105]
+        codes = () if fault_codes is None else (fault_codes,)
         if not owner_parallel:
-            return self._fused_fn(state, batches, owner_seq, keys)
+            return self._fused_fn(state, batches, owner_seq, keys, *codes)
         if seq_host is None:
             seq_host = owner_seq.cpu().numpy()
         if max_group == "auto":
@@ -370,8 +518,8 @@ class Federation:
         groups = partition_conflict_free(seq_host, max_group)
         if all(length <= 1 for _, length in groups):
             # single-round groups: the sequential driver IS the grouped run
-            return self._fused_fn(state, batches, owner_seq, keys)
-        return self._group_fn(state, batches, owner_seq, keys, *pack_groups(groups))
+            return self._fused_fn(state, batches, owner_seq, keys, *codes)
+        return self._group_fn(state, batches, owner_seq, keys, *pack_groups(groups), *codes)
 
     def reconcile(self, state: AsyncDPState) -> Dict[int, Dict]:
         """Fold the state's device ledger into the host accountant

@@ -14,7 +14,7 @@ versions bit for bit; their batched forms (the grouped driver's member
 axis) equal g single launches bit for bit. Inside the port, `spec.pack`
 of a pytree session equals the flat engine's reference mode bit for bit
 on the card too, and a grouped dispatch's ledger and noise tree equal the
-sequential dispatch's. The
+sequential dispatch's, as do a fault-armed dispatch's counters. The
 session on the card and on the CPU agree to 1e-5 (cuBLAS and
 the CPU BLAS sum in other orders; the tree's nodes are Laplace draws,
 log1pf against log1p); integer results are exact. On an int8 bank the two
@@ -335,6 +335,94 @@ def test_grouped_session_on_the_card(form):
         torch.testing.assert_close(card["nodes"], cpu["nodes"], rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(card["theta"], cpu["theta"], rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(card["bank"], cpu["bank"], rtol=1e-4, atol=1e-5)
+
+
+FAULT_COLUMNS = ("spent", "refused", "dropped", "faulted", "quarantined", "timed_out",
+                 "retried")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("driver", ["sequential", "grouped"])
+@pytest.mark.parametrize("form", ["f32", "int8", "tree", "pytree"])
+def test_fault_armed_session_on_the_card_matches_the_cpu(form, driver):
+    # a FaultPlan and a LatencyPlan under FaultPolicy and StalenessPolicy
+    # (decay armed) on the card and on the CPU: the seven ledger columns,
+    # the fault and runtime counters, the outcome masks, the step and the
+    # reconciled ledger exactly; theta_L and the bank within the session's
+    # tolerances (int8: one quantization step); the stored checksums equal
+    # bank_checksums on the card; launches: K dp_round or 2K tree_delta a
+    # sequential dispatch, one dp_round or two tree_delta a group
+    from repro_torch.federation import (FaultPlan, FaultPolicy, LatencyPlan, StalenessPolicy,
+                                        bank_checksums)
+    dev = _device()
+    cfg = DENSE_124M.reduced()
+    lm = LM(cfg)
+    params = lm.init(seed=3, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    K = 12
+    toks = torch.randint(0, cfg.vocab, (K, 4, 16), generator=gen, dtype=torch.int32)
+    batches = {"tokens": toks, "labels": torch.roll(toks, -1, dims=2)}
+    seq = [0, 1, 2, 3, 1, 0, 3, 2, 2, 2, 1, 0]
+    grouped = driver == "grouped"
+    n_groups = len(partition_conflict_free(seq)) if grouped else K
+    tree, pack = form == "tree", form != "pytree"
+    out = []
+    for device in (dev, torch.device("cpu")):
+        fed = Federation([DataOwner(n=100 * (i + 1), epsilon=1.0, xi=1.0) for i in range(4)],
+                         FederationConfig.from_target_lr(0.05, n_owners=4, horizon=8,
+                                                         sigma=1e-2),
+                         fault_policy=FaultPolicy(max_faults=2, window=8),
+                         staleness=StalenessPolicy(deadline=1.0, max_retries=2, backoff_cap=2,
+                                                   decay=0.9),
+                         device=device, **(dict(mechanism="tree", tree_depth=3) if tree else {}))
+        fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=pack,
+                      bank_dtype="int8" if form == "int8" else None,
+                      privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2, fused_kernel=True))
+        before = {**tkernel.launches, **nkernel.launches}
+        state, ms = fed.run_rounds(fed.init_state(params), batches, seq,
+                                   key=trandom.PRNGKey(6, device=device),
+                                   faults=FaultPlan(drop=0.1, stale=0.1, nonfinite=0.1,
+                                                    corrupt=0.1),
+                                   latency=LatencyPlan(base=[0.2, 0.5, 0.7, 0.9], jitter=0.3),
+                                   owner_parallel=grouped, max_group=None)
+        after = {**tkernel.launches, **nkernel.launches}
+        if device.type == "cuda":
+            assert torch.equal(bank_checksums(state.bank), state.faults.checksum)
+            if pack:
+                assert {k: after[k] - before[k] for k in ("dp_round", "sqnorm", "tree_delta")} == {
+                    "dp_round": 0 if tree else n_groups, "sqnorm": 2 * n_groups,
+                    "tree_delta": 2 * n_groups if tree else 0}
+        bank = state.bank
+        out.append(dict(
+            masks={k: ms[k].cpu() for k in ("owner", "refused", "dropped", "faulted",
+                                            "quarantined", "timed_out", "retried")},
+            counters=[getattr(state.ledger, c).cpu() for c in FAULT_COLUMNS]
+            + [t.cpu() for t in state.faults[1:]] + [t.cpu() for t in state.stale]
+            + [state.step.cpu()] + ([state.tree.counts.cpu()] if tree else []),
+            ledger=fed.reconcile(state),
+            theta=[t.cpu() for t in ([state.theta_L.buf] if pack
+                                     else tree_flatten(state.theta_L)[0])],
+            bank=([bank.codes.cpu(), bank.scales.cpu(), bank.residual.cpu()]
+                  if isinstance(bank, QuantBank) else [t.cpu() for t in tree_flatten(bank)[0]]),
+            nodes=state.tree.nodes.cpu() if tree else None))
+    card, cpu = out
+    for k in card["masks"]:
+        assert torch.equal(card["masks"][k], cpu["masks"][k]), k
+    assert all(torch.equal(a, b) for a, b in zip(card["counters"], cpu["counters"]))
+    assert card["ledger"] == cpu["ledger"]
+    assert bool(card["masks"]["timed_out"].any()) and bool(card["masks"]["faulted"].any())
+    for a, b in zip(card["theta"], cpu["theta"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    if form == "int8":
+        step = float(cpu["bank"][1].max())
+        assert int((card["bank"][0].int() - cpu["bank"][0].int()).abs().max()) <= 1
+        torch.testing.assert_close(card["bank"][1], cpu["bank"][1], rtol=1e-6, atol=0.0)
+        torch.testing.assert_close(card["bank"][2], cpu["bank"][2], rtol=0.0, atol=step)
+    else:
+        for a, b in zip(card["bank"], cpu["bank"]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    if tree:
+        torch.testing.assert_close(card["nodes"], cpu["nodes"], rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.cuda
