@@ -93,6 +93,37 @@ Phases (any mismatch raises and the run exits non-zero):
              idle share and peak memory per round beside main's. Then one
              dispatch of an explicit code trace on a horizon-4 session hits
              every ledger column, quarantine included.
+   paged   — the paged owner bank (Federation.init_paged_state, OwnerPager,
+             TraceRing) at full width, main's batch, sequence and G, K =
+             32: (a) parity, 16 owners with n_hot 16 on an f32 bank, one
+             dispatch on a paged and on a flat state with the same key,
+             one of 8 rounds profiled on each (the lookup's kernels and
+             device time), then one under run_rounds(owner_parallel=True,
+             max_group=8): theta_L, the bank rows, the ledger and the
+             metrics bit for bit, the same launches; (b) scale, 4,096 owners (a flat f32
+             bank would be 2.50 TB, never allocated) with n_hot 16 (9.78
+             GB): five dispatches stream from a TraceRing over a recorded
+             trace of windows A, B, C, D, A of 8 distinct owners each, so
+             dispatches 3 to 5 each write 8 dirty rows back (4.89 GB D2H)
+             and load 8 (4.89 GB H2D), dispatch 5 reading written cold rows
+             back; per dispatch the prefetch's seconds, bytes and GB/s each
+             way, ms per round beside main's, the pager's stats, then one
+             profiled dispatch with its window resident; resident bytes
+             against the flat bank's, peak memory, K dp_round and K*G
+             sqnorm per dispatch, the reconciled ledger == the host's count
+             of the trace; (c) the same five dispatches on an int8 bank
+             with n_hot 64 (9.8 GB of codes): K absmax, encode and decode
+             per dispatch too.
+   checkpoint — crash-resume at full width: main's 16-owner f32 state
+             (10.39 GB) after one dispatch and a reconcile is saved with
+             save_session under build/ (free disk checked first, the
+             directory removed after), the session runs K = 8 more rounds;
+             a fresh Federation restores into a fresh state and runs the
+             same 8 rounds: theta_L, the bank and the reconciled ledger bit
+             for bit; save and restore seconds and GB/s. Then a paged
+             crash-resume at a reduced size (int8, n_hot 2 of 4, faults and
+             the runtime armed): save, run, drop the session, restore, run:
+             equal to the uninterrupted run bit for bit.
    quant   — the quantized bank at full width: the same model and rounds
              with 128 owners x 10,000 records on an int8 bank (78.2 GB in
              f32, which would not fit); launch counts per dispatch must be
@@ -210,6 +241,14 @@ Phases (any mismatch raises and the run exits non-zero):
              tree_delta launches a round and a group; and a zero FaultPlan
              under the default StalenessPolicy equals the fault-off engine
              bit for bit on the card.
+   paged refusal — a paged session (4 owners, n_hot 3: rows evict and
+             come back) against its flat twin on the card at the reduced
+             size, sequentially and grouped: the tree at depth 2 (with the
+             refusal phase) and the fault-armed f32 and int8 banks (with the
+             fault refusal phase): theta_L, every row, the nodes, the
+             counters, the refusals and the ledger bit for bit, the same
+             launches. The launches on the paged paths are printed as one
+             JSON line.
 5. timing  — each kernel (through the wrapper the main path calls), its
              plain version and the one PyTorch call computing the same
              function where there is one (torch.dot for sqnorm,
@@ -242,6 +281,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 
@@ -965,8 +1005,8 @@ def _finite(torch, t):
 
 
 def _state_finite(torch, state):
-    from repro_torch.federation import ParamFlat, QuantBank
-    bank = state.bank
+    from repro_torch.federation import PagedBank, ParamFlat, QuantBank
+    bank = state.bank.hot if isinstance(state.bank, PagedBank) else state.bank
     parts = (bank.scales, bank.residual) if isinstance(bank, QuantBank) else tuple(_leaves(bank))
     if state.tree is not None:
         parts += tuple(_leaves(state.tree.nodes))
@@ -2690,6 +2730,496 @@ def phase_fault_refusal(torch, dev, bank_dtype=None, tree_depth=None, pack_param
           "bit for bit on the card")
 
 
+PAGED_K = 32                     # rounds a dispatch in phase paged
+PAGED_OWNERS = 4096              # the scale run's federation (a flat f32 bank: 2.50 TB)
+PAGED_HOT = {None: 16, "int8": 64}    # hot rows: about 9.8 GB on either bank
+PAGED_WINDOW = 8                 # distinct owners a window of the recorded trace
+# rounds of the profiled parity dispatch: main's K (a 32-round profile of
+# 130k kernels takes about 25 s to read back)
+PARITY_PROFILED_K = 8
+
+
+def _owner_batches(torch, cfg, owner_seq, drawn, batch=4, seq=128, seed=0):
+    """(K, batch, seq) token batches for a (K,) owner sequence, each owner's
+    records drawn on demand from (seed, owner, how many it gave before):
+    the federation's users each hold 10,000 records, which a run of a few
+    rounds never needs all of (4,096 owners would be 21 GB of tokens)."""
+    toks = np.empty((len(owner_seq), batch, seq), np.int32)
+    for k, o in enumerate(owner_seq):
+        o = int(o)
+        rng = np.random.default_rng((seed, o, drawn.get(o, 0)))
+        drawn[o] = drawn.get(o, 0) + 1
+        toks[k] = rng.integers(0, cfg.vocab, (batch, seq), dtype=np.int32)
+    return {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(np.roll(toks, -1, 2))}
+
+
+def _paged_fed(torch, dev, lm, n_owners, bank_dtype=None, G=2, records=10_000, horizon=1000,
+               **kw):
+    from repro_torch.federation import (DataOwner, Federation, FederationConfig,
+                                        PrivatizerConfig)
+    fed = Federation([DataOwner(n=records, epsilon=1.0, xi=1.0)] * n_owners,
+                     FederationConfig.from_target_lr(0.05, n_owners=n_owners, horizon=horizon,
+                                                     sigma=1e-2, theta_max=100.0),
+                     device=dev, **kw)
+    fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True, bank_dtype=bank_dtype,
+                  privatizer=PrivatizerConfig(xi=1.0, granularity="microbatch",
+                                              n_microbatches=G, fused_kernel=True))
+    return fed
+
+
+def _ledger_equal(torch, a, b):
+    return all(torch.equal(getattr(a, c), getattr(b, c)) for c in a.COLUMNS)
+
+
+def _paged_trace(n_owners, K, window, n_hot, seed=7):
+    """The recorded trace of the scale run: windows A, B, C, D, A of K
+    rounds, each over `window` distinct owners (each named K / window
+    times, shuffled), A to D disjoint and outside the initial residents
+    0..n_hot-1. With n_hot = 2 x window, dispatches 3 to 5 each evict the
+    window before last (dirty) and dispatch 5 loads A back from the cold
+    tier."""
+    rng = np.random.default_rng(seed)
+    owners = rng.choice(np.arange(n_hot, n_owners), 4 * window, replace=False)
+    wins = [owners[i * window:(i + 1) * window] for i in range(4)] + [owners[:window]]
+    return np.concatenate([rng.permutation(np.repeat(w, K // window)) for w in wins]), wins
+
+
+def _paged_parity(torch, dev, lm, cfg, params, K, n_owners, G, seq):
+    """Phase paged (a): K-round dispatches on a flat and on a paged state
+    (n_hot = n_owners) with the same keys and batches: one timed, one of
+    PARITY_PROFILED_K rounds profiled (device time and kernels a round: the
+    page-table lookup's cost) and one grouped (max_group 8), timed; each bit
+    for bit. Returns the paged launches."""
+    from repro_torch import random
+    from repro_torch.federation import partition_conflict_free
+    t0 = time.perf_counter()
+    feds = [_paged_fed(torch, dev, lm, n_owners) for _ in range(2)]
+    states = [feds[0].init_state(params), feds[1].init_paged_state(params, n_hot=n_owners)]
+    rng = np.random.default_rng(11)
+    out = {}
+    for d, mode in enumerate(("sequential", "profiled", "grouped")):
+        owner_seq = rng.integers(0, n_owners, PARITY_PROFILED_K if mode == "profiled" else K)
+        batches = _owner_batches(torch, cfg, owner_seq, {}, seq=seq)
+        key = random.PRNGKey(3100 + d, device=dev)
+        kw = dict(owner_parallel=True, max_group=ROWS_G) if mode == "grouped" else {}
+        res = []
+        for i, fed in enumerate(feds):
+            before = _launches()
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            if mode == "profiled":
+                (states[i], ms), busy, _, kernels = _profiled(
+                    torch, dev, lambda: fed.run_rounds(states[i], batches, owner_seq, key=key),
+                    len(owner_seq), cpu_ops=False)
+                cost = f"{busy:.3f} ms of device time and {kernels:.1f} kernels a round"
+            else:
+                states[i], ms = fed.run_rounds(states[i], batches, owner_seq, key=key, **kw)
+                _sync(torch, dev)
+                cost = f"{(time.perf_counter() - t1) * 1e3 / len(owner_seq):.2f} ms a round"
+            res.append((ms, _diff(_launches(), before), cost))
+        (mf, lf, cf), (mp, lp, cp) = res
+        sf, sp = states
+        n_groups = len(partition_conflict_free(owner_seq, ROWS_G)) if kw else len(owner_seq)
+        want = {k: 0 for k in lf}
+        want.update(dp_round=n_groups, sqnorm=G * n_groups)
+        check(lf == want and lp == want, f"parity launches {lf} flat, {lp} paged, expected {want}")
+        same = (torch.equal(sf.theta_L.buf, sp.theta_L.buf) and torch.equal(sf.bank, sp.bank.hot)
+                and _ledger_equal(torch, sf.ledger, sp.ledger) and int(sf.step) == int(sp.step)
+                and mf.keys() == mp.keys() and all(torch.equal(mf[k], mp[k]) for k in mf))
+        check(same, f"the paged dispatch differs from the flat one ({mode})")
+        out["parity " + mode] = lp
+        print(f"[paged] parity, {mode}{' (max_group 8)' if kw else ''}: {n_owners} owners, "
+              f"n_hot {n_owners}, K={len(owner_seq)}: theta_L, the bank rows, the ledger and the metrics of "
+              f"the paged dispatch == the flat one's bit for bit; launches {lp} ({n_groups} "
+              f"rounds or groups); paged {cp}, flat {cf}")
+    check(feds[0].reconcile(states[0]) == feds[1].reconcile(states[1]),
+          "reconciled ledgers differ")
+    print(f"[paged] parity took {time.perf_counter() - t0:.1f} s; reconciled ledgers equal")
+    return out
+
+
+def phase_paged(torch, dev, main_prof, cfg=None, K=PAGED_K, n_owners=PAGED_OWNERS,
+                parity_owners=16, hot=PAGED_HOT, window=PAGED_WINDOW, seq=128,
+                int8=True):
+    """The paged owner bank at full width (`Federation.init_paged_state`,
+    `TraceRing`, `OwnerPager`). (a) Parity: main's model, batch, sequence
+    and G, `parity_owners` owners, n_hot = parity_owners, f32: a K-round
+    dispatch on a paged state and on a flat state with the same key, one
+    profiled, then one under run_rounds(owner_parallel=True, max_group=8)
+    (`_paged_parity`): theta_L, the bank rows, the ledger and the metrics
+    bit for bit, with the same launches. (b) Scale: `n_owners` owners (a flat f32 bank would be
+    n_owners x P x 4 B, never allocated), n_hot = hot[None]: five
+    dispatches stream from a TraceRing over the recorded trace of
+    `_paged_trace`; per dispatch the prefetch's seconds, bytes and GB/s
+    each way, ms per round beside main's, the pager's stats and resident
+    bytes; then one profiled dispatch (the window resident: no paging),
+    and the reconciled ledger against the host's count of the trace.
+    (c) The same five dispatches once on an int8 bank, n_hot = hot["int8"]:
+    the bank codec's launches. Returns {path: launches a dispatch}."""
+    from repro_torch import random
+    from repro_torch.configs import DENSE_124M
+    from repro_torch.federation import AvailabilityTraceSchedule
+    from repro_torch.models import LM
+    cfg = DENSE_124M if cfg is None else cfg
+    G = 2
+    lm = LM(cfg)
+    params = lm.init(seed=0, device=dev)
+    P = cfg.param_count()
+    row = P * 4
+    out = {}
+
+    out.update(_paged_parity(torch, dev, lm, cfg, params, K, parity_owners, G, seq))
+    torch.cuda.empty_cache()
+
+    # ------------------------------ (b), (c) scale -----------------------------------
+    trace, wins = _paged_trace(n_owners, K, window, hot[None])
+    schedule = AvailabilityTraceSchedule(((0.0, 1.0),) * n_owners, trace=tuple(trace.tolist()))
+    for bank_dtype in ((None, "int8") if int8 else (None,)):
+        n_hot = hot[bank_dtype]
+        tag = "f32" if bank_dtype is None else bank_dtype
+        t0 = time.perf_counter()
+        fed = _paged_fed(torch, dev, lm, n_owners, bank_dtype=bank_dtype)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        state = fed.init_paged_state(params, n_hot=n_hot)
+        pager = fed.pager
+        ring = schedule.trace_ring(chunk=2 * K, device=dev)
+        resident = state.bank.nbytes
+        flat = n_owners * P * 4
+        print(f"[paged] scale, {tag}: {n_owners} owners, n_hot {n_hot}: resident "
+              f"{resident / 1e9:.3f} GB (hot tier + page table; {n_hot} rows) against "
+              f"{flat / 1e12:.3f} TB for a flat f32 bank, never allocated; set-up "
+              f"{time.perf_counter() - t0:.1f} s; windows "
+              f"{[sorted(int(o) for o in w) for w in wins]}")
+        check(resident == (state.bank.hot.nbytes if bank_dtype else n_hot * row) + 4 * n_hot,
+              f"resident bytes {resident}")
+        drawn = {}
+        want = {k: 0 for k in _launches()}
+        want.update(dp_round=K, sqnorm=G * K)
+        if bank_dtype is not None:
+            want.update(absmax=K, encode=K, decode=K)
+        per_round, dispatches = [], len(wins)
+        for d in range(dispatches + (bank_dtype is None)):
+            window_ids = ring.window(K)
+            batches = _owner_batches(torch, cfg, window_ids, drawn, seq=seq)
+            io0, st0 = dict(pager.io), dict(pager.stats)
+            key = random.PRNGKey(3200 + d, device=dev)
+            before = _launches()
+            if d == dispatches:
+                # the window is resident (A again): one profiled dispatch, no paging
+                # the device alone: 32 sequential rounds are 130k kernels
+                (state, ms), busy, groups, kernels = _profiled(
+                    torch, dev, lambda: fed.run_rounds(state, batches, ring, key=key), K,
+                    cpu_ops=False)
+                check(pager.io == io0, "the profiled dispatch paged")
+                print(f"[paged] scale, {tag}: profiled dispatch (no paging): device "
+                      f"{busy:.3f} ms and {kernels:.0f} kernels a round against main's "
+                      f"{main_prof['busy']:.3f} and {main_prof['launches']:.0f}")
+                out[f"profile {tag}"] = dict(busy=busy, launches=kernels)
+                got = _diff(_launches(), before)
+                check(got == want, f"launches {got}, expected {want}")
+                continue
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            state, ms = fed.run_rounds(state, batches, ring, key=key)
+            _sync(torch, dev)
+            dt = time.perf_counter() - t1
+            got = _diff(_launches(), before)
+            check(got == want, f"scale {tag} dispatch {d}: launches {got}, expected {want}")
+            check(not bool(ms["refused"].any()), "a round was refused (a page miss?)")
+            check(np.array_equal(ms["owner"].cpu().numpy(), window_ids),
+                  "the dispatch ran another sequence than the ring's window")
+            io = {k: pager.io[k] - io0[k] for k in io0}
+            st = {k: pager.stats[k] - st0[k] for k in st0}
+            rows_moved = st["writebacks"], st["loads"]
+            if d >= 2 and bank_dtype is None:
+                check(rows_moved == (window, window),
+                      f"dispatch {d} wrote back and loaded {rows_moved} rows")
+            page_s = io["d2h_s"] + io["h2d_s"]
+            per_round.append((dt - page_s) * 1e3 / K)
+            out[f"scale {tag}"] = got
+            print(f"[paged] scale, {tag}, dispatch {d}: {dt * 1e3:.1f} ms; prefetch "
+                  f"{page_s:.3f} s: D2H {io['d2h_bytes'] / 1e9:.3f} GB in {io['d2h_s']:.3f} s "
+                  f"({io['d2h_bytes'] / 1e9 / max(io['d2h_s'], 1e-9):.2f} GB/s), H2D "
+                  f"{io['h2d_bytes'] / 1e9:.3f} GB in {io['h2d_s']:.3f} s "
+                  f"({io['h2d_bytes'] / 1e9 / max(io['h2d_s'], 1e-9):.2f} GB/s); rounds "
+                  f"{(dt - page_s) * 1e3 / K:.2f} ms/round without it, "
+                  f"{dt * 1e3 / K:.2f} with it (main {main_prof['median']:.2f}); stats {st}; "
+                  f"peak memory {_peak_gb(torch, dev):.2f} GB; launches {got}")
+        stats = dict(pager.stats)
+        want_stats = ({"prefetches": dispatches + 1, "loads": dispatches * window,
+                       "evictions": dispatches * window, "writebacks": 3 * window}
+                      if bank_dtype is None else None)
+        if want_stats is not None:
+            check(stats == want_stats, f"pager stats {stats}, expected {want_stats}")
+        cold = {n: s.written for n, s in pager.stores.items()}
+        ledger = fed.reconcile(state)
+        ran = trace[:K * dispatches].tolist() + (trace[:K].tolist() if bank_dtype is None
+                                                   else [])
+        counts = np.bincount(ran, minlength=n_owners)
+        check([r["responses"] for r in ledger.values()] == counts.tolist()
+              and sum(r["refused"] for r in ledger.values()) == 0,
+              "the reconciled ledger differs from the host's count of the trace")
+        check(_state_finite(torch, state), "non-finite paged state")
+        peak = _peak_gb(torch, dev)
+        print(f"[paged] scale, {tag}: median {statistics.median(per_round[1:]):.2f} ms/round "
+              f"without paging over dispatches 1..{dispatches - 1} (main "
+              f"{main_prof['median']:.2f}); "
+              f"pager stats {stats}; io {dict((k, round(v, 3)) for k, v in pager.io.items())}; "
+              f"cold tier written rows {cold}; ring resident {ring.resident_bytes} B; peak "
+              f"memory {peak:.2f} GB; ledger == host count of the trace "
+              f"({int(counts.sum())} responses over {int((counts > 0).sum())} owners)")
+        del state, fed, pager
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_paged_refusal(torch, dev, bank_dtype=None, tree_depth=None, faults=False):
+    """A paged session against its flat twin on the card, at a reduced size:
+    4 owners, n_hot 3 (rows evict to the cold tier and come back), explicit
+    dispatches of 4 rounds over at most 3 owners, under the paper mechanism
+    (horizon 2: refusals) or the tree (depth 2, horizon 8, capacity 3), with
+    or without the fault layer (phase_fault_refusal's plan, policy, runtime
+    and latencies); each sequentially and under the grouped driver. theta_L,
+    every owner's row (the pager's snapshot), the nodes and counts, the
+    ledger, the fault and runtime counters and the refused mask bit for bit;
+    the same launches. Returns the paged run's launches by driver."""
+    from repro_torch import random
+    from repro_torch.configs import DENSE_124M
+    from repro_torch.federation import (FaultPlan, FaultPolicy, LatencyPlan, QuantBank,
+                                        StalenessPolicy)
+    from repro_torch.models import LM
+    n_owners, n_hot = 4, 3
+    cfg = DENSE_124M.reduced()
+    lm = LM(cfg)
+    params = lm.init(seed=1, device="cpu")
+    chunks = ([0, 1, 0, 2], [3, 1, 3, 3], [2, 0, 0, 2], [1, 3, 1, 0])
+    toks = np.random.default_rng(6).integers(0, cfg.vocab, (16, 4, 16), dtype=np.int32)
+    data = {"tokens": toks, "labels": np.roll(toks, -1, axis=2)}
+    tag = (("f32" if bank_dtype is None else bank_dtype)
+           + ("" if tree_depth is None else f", tree depth {tree_depth}")
+           + (", faults" if faults else ""))
+    kw = {} if tree_depth is None else dict(mechanism="tree", tree_depth=tree_depth)
+    if faults:
+        kw.update(fault_policy=FaultPolicy(max_faults=2, window=8),
+                  staleness=StalenessPolicy(deadline=1.0, max_retries=2, backoff_cap=2,
+                                            decay=0.9))
+    horizon = 8 if (tree_depth or faults) else 2
+    out = {}
+    for grouped in (False, True):
+        runs = []
+        for paged in (False, True):
+            fed = _paged_fed(torch, dev, lm, n_owners, bank_dtype=bank_dtype, records=100,
+                             horizon=horizon, **kw)
+            state = (fed.init_paged_state(params, n_hot=n_hot) if paged
+                     else fed.init_state(params))
+            before = _launches()
+            refused = []
+            for c, owners in enumerate(chunks):
+                extra = {}
+                if faults:
+                    extra = dict(faults=FaultPlan(drop=0.1, stale=0.1, nonfinite=0.1,
+                                                  corrupt=0.1),
+                                 latency=LatencyPlan(base=[0.2, 0.5, 0.7, 0.9], jitter=0.3))
+                if grouped:
+                    extra.update(owner_parallel=True, max_group=None)
+                state, ms = fed.run_rounds(
+                    state, _torch_batches(torch, {k: v[4 * c:4 * c + 4] for k, v in data.items()}),
+                    owners, key=random.PRNGKey(40 + c, device=dev), **extra)
+                refused.append(ms["refused"].cpu())
+            got = _diff(_launches(), before)
+            if paged:
+                check(fed.pager.stats["evictions"] > 0 and fed.pager.stats["writebacks"] > 0,
+                      f"{tag}: the paged run evicted nothing")
+                snap = fed.pager.snapshot(state)
+                rows = tuple(torch.from_numpy(snap[k]) for k in sorted(snap) if k != "tree")
+                nodes = torch.from_numpy(snap["tree"]) if "tree" in snap else None
+                hot = state.bank.hot
+                resid = (_host(hot.residual),) if isinstance(hot, QuantBank) else ()
+            else:
+                bank = state.bank
+                rows = ((_host(bank.codes), _host(bank.scales)) if isinstance(bank, QuantBank)
+                        else (_host(bank),))
+                resid = (_host(bank.residual),) if isinstance(bank, QuantBank) else ()
+                nodes = _host(state.tree.nodes) if state.tree is not None else None
+            counters = _device_counters(torch, state) if faults else None
+            runs.append(dict(theta=_host(state.theta_L.buf), rows=rows, resid=resid,
+                             nodes=nodes, refused=torch.cat(refused),
+                             counts=None if state.tree is None else _host(state.tree.counts),
+                             ledger=fed.reconcile(state), counters=counters, launches=got,
+                             stats=dict(fed.pager.stats) if paged else None))
+        f, p = runs
+        check(torch.equal(f["theta"], p["theta"]) and _bit_equal(torch, f["rows"], p["rows"])
+              and _bit_equal(torch, f["resid"], p["resid"])
+              and torch.equal(f["refused"], p["refused"]) and f["ledger"] == p["ledger"]
+              and f["counters"] == p["counters"] and f["launches"] == p["launches"],
+              f"{tag}{', grouped' if grouped else ''}: the paged run differs from its flat twin")
+        if tree_depth is not None:
+            check(torch.equal(f["nodes"], p["nodes"]) and torch.equal(f["counts"], p["counts"]),
+                  f"{tag}: the paged tree differs from its flat twin")
+        check(bool(f["refused"].any()) or faults, f"{tag}: nothing was refused")
+        kernel = "tree_delta" if tree_depth else "dp_round"
+        check(p["launches"][kernel] > 0 and p["launches"]["sqnorm"] > 0
+              and (bank_dtype is None or all(p["launches"][k] > 0
+                                             for k in ("absmax", "encode", "decode"))),
+              f"{tag}: launches {p['launches']}")
+        out["grouped" if grouped else "sequential"] = p["launches"]
+        print(f"[paged refusal] {tag}{', grouped' if grouped else ''}: n_hot {n_hot} of "
+              f"{n_owners}, pager stats {p['stats']}; theta_L, the rows"
+              + (", the nodes and counts" if tree_depth is not None else "")
+              + (", the fault and runtime counters" if faults else "")
+              + f", refusals ({int(p['refused'].sum())}) and the ledger == the flat twin's "
+              f"bit for bit; launches {p['launches']}")
+    return out
+
+
+def phase_checkpoint(torch, dev, cfg=None, n_owners=16, K=8, seq=128, root=None):
+    """Crash-resume at full width: main's state (`n_owners` owners, f32
+    bank) after one K-round dispatch and a reconcile is saved with
+    `Federation.save_session` into a directory under the checkout's build/
+    (the free disk is checked first, the directory removed afterwards),
+    then the session runs K more rounds, uninterrupted; a fresh Federation
+    restores the checkpoint into a fresh `like` state (`restore_session`)
+    and runs the same K rounds: theta_L, the bank and the reconciled ledger
+    bit for bit. Save and restore seconds and GB/s. Then a paged crash-
+    resume at a reduced size: save, run, crash (the session is dropped),
+    restore, run: equal to the uninterrupted run."""
+    import shutil
+    from repro_torch import random
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.configs import DENSE_124M
+    from repro_torch.models import LM
+    cfg = DENSE_124M if cfg is None else cfg
+    lm = LM(cfg)
+    params = lm.init(seed=0, device=dev)
+    root = os.path.join(ROOT, "build", "chip_smoke_checkpoint") if root is None else root
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        fed_a = _paged_fed(torch, dev, lm, n_owners)
+        state = fed_a.init_state(params)
+        nbytes = sum(t.numel() * t.element_size() for t in flatten_with_paths(state).values())
+        free = shutil.disk_usage(root).free
+        print(f"[checkpoint] {cfg.name}: {n_owners} owners, f32 bank; state "
+              f"{nbytes / 1e9:.3f} GB; free disk under build/ {free / 1e9:.1f} GB")
+        check(free > 2 * nbytes, f"{free / 1e9:.1f} GB free on disk for a {nbytes / 1e9:.1f} "
+              "GB checkpoint")
+        rng = np.random.default_rng(21)
+        drawn = {}
+        seqs = [rng.integers(0, n_owners, K) for _ in range(2)]
+        data = [_owner_batches(torch, cfg, s, drawn, seq=seq) for s in seqs]
+        keys = [random.PRNGKey(3300 + i, device=dev) for i in range(2)]
+        state, _ = fed_a.run_rounds(state, data[0], seqs[0], key=keys[0])
+        fed_a.reconcile(state)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        step = fed_a.save_session(root, state)
+        save_s = time.perf_counter() - t0
+        on_disk = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root)
+                      for f in fs)
+        state, _ = fed_a.run_rounds(state, data[1], seqs[1], key=keys[1])   # uninterrupted
+        led_a = fed_a.reconcile(state)
+        theta_a, bank_a = state.theta_L.buf, state.bank
+        del state
+        fed_b = _paged_fed(torch, dev, lm, n_owners)
+        like = fed_b.init_state(params)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        restored = fed_b.restore_session(root, like)
+        _sync(torch, dev)
+        restore_s = time.perf_counter() - t0
+        del like
+        check(int(restored.step) == step, "restored step")
+        restored, _ = fed_b.run_rounds(restored, data[1], seqs[1], key=keys[1])
+        check(torch.equal(restored.theta_L.buf, theta_a) and torch.equal(restored.bank, bank_a)
+              and fed_b.reconcile(restored) == led_a,
+              "the restored session's K rounds differ from the uninterrupted run's")
+        print(f"[checkpoint] save_session {save_s:.2f} s ({on_disk / 1e9:.3f} GB on disk, "
+              f"{on_disk / 1e9 / save_s:.2f} GB/s), restore_session {restore_s:.2f} s "
+              f"({on_disk / 1e9 / restore_s:.2f} GB/s); the restored session's {K} rounds == "
+              f"the uninterrupted run's bit for bit (theta_L, bank, reconciled ledger)")
+        # where the time goes, on one bank row: its pageable copies each way,
+        # and the CRC-32 that np.savez and np.load each compute over it
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        host = restored.bank[0].cpu()
+        d2h_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zlib.crc32(host.numpy())
+        crc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host.to(dev)
+        _sync(torch, dev)
+        h2d_s = time.perf_counter() - t0
+        gb = host.numel() * 4 / 1e9
+        print(f"[checkpoint] one bank row of {gb:.3f} GB: pageable D2H {d2h_s:.2f} s "
+              f"({gb / d2h_s:.2f} GB/s), zlib.crc32 {crc_s:.2f} s ({gb / crc_s:.2f} GB/s), "
+              f"pageable H2D {h2d_s:.2f} s ({gb / h2d_s:.2f} GB/s)")
+        del host
+        del restored, theta_a, bank_a, fed_a, fed_b
+        torch.cuda.empty_cache()
+        _paged_crash_resume(torch, dev, os.path.join(root, "paged"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(save_s=save_s, restore_s=restore_s, bytes=on_disk)
+
+
+def _paged_crash_resume(torch, dev, directory):
+    """Reduced: a paged int8 session (4 owners, n_hot 2, faults and the
+    runtime armed) saves after two dispatches, runs two more and "crashes"
+    (is dropped); a fresh session restores and runs the two again: theta_L,
+    every row, the counters and the reconciled ledger equal the
+    uninterrupted run's."""
+    from repro_torch import random
+    from repro_torch.configs import DENSE_124M
+    from repro_torch.federation import (FaultPlan, FaultPolicy, LatencyPlan, StalenessPolicy)
+    from repro_torch.models import LM
+    cfg = DENSE_124M.reduced()
+    lm = LM(cfg)
+    params = lm.init(seed=1, device="cpu")
+    chunks = ([0, 1, 0], [1, 2, 2], [0, 0, 1], [2, 3, 2])     # at most n_hot = 2 owners each
+    toks = np.random.default_rng(8).integers(0, cfg.vocab, (12, 4, 16), dtype=np.int32)
+    data = {"tokens": toks, "labels": np.roll(toks, -1, axis=2)}
+    plan = FaultPlan(drop=0.2, stale=0.2)
+    lat = LatencyPlan(base=[0.2, 2.0, 0.2, 0.5], jitter=0.5)
+
+    def make():
+        fed = _paged_fed(torch, dev, lm, 4, bank_dtype="int8", records=200, horizon=16,
+                         fault_policy=FaultPolicy(max_faults=4, window=8),
+                         staleness=StalenessPolicy(deadline=1.0, max_retries=2, decay=0.9))
+        return fed, fed.init_paged_state(params, n_hot=2)
+
+    def run(fed, state, cs):
+        for c in cs:
+            state, _ = fed.run_rounds(
+                state, _torch_batches(torch, {k: v[3 * c:3 * c + 3] for k, v in data.items()}),
+                chunks[c], key=random.PRNGKey(60 + c, device=dev), faults=plan, latency=lat)
+        return state
+
+    fed_a, s_a = make()
+    s_a = run(fed_a, s_a, range(4))
+    led_a = fed_a.reconcile(s_a)
+    fed_b, s_b = make()
+    s_b = run(fed_b, s_b, range(2))
+    fed_b.reconcile(s_b)
+    fed_b.save_session(directory, s_b)
+    run(fed_b, s_b, range(2, 4))
+    del fed_b, s_b                                  # the crash
+    fed_c, like = make()
+    s_c = run(fed_c, fed_c.restore_session(directory, like), range(2, 4))
+    snap_a, snap_c = fed_a.pager.snapshot(s_a), fed_c.pager.snapshot(s_c)
+    check(torch.equal(s_a.theta_L.buf, s_c.theta_L.buf)
+          and all(np.array_equal(snap_a[k], snap_c[k]) for k in snap_a)
+          and torch.equal(s_a.bank.hot.residual, s_c.bank.hot.residual)
+          and _device_counters(torch, s_a) == _device_counters(torch, s_c)
+          and fed_c.reconcile(s_c) == led_a,
+          "the paged crash-resume differs from the uninterrupted run")
+    print(f"[checkpoint] paged crash-resume (reduced, int8, n_hot 2 of 4, faults and "
+          f"runtime): restored after 2 of 4 dispatches == the uninterrupted run bit for bit "
+          f"(theta_L, every row, residual, counters, ledger); pager stats "
+          f"{fed_c.pager.stats}")
+
+
 def phase_timing(torch, dev, launches, errs):
     from repro_torch import random
     from repro_torch.kernels.dp_clip_noise import ops, ref
@@ -3081,6 +3611,12 @@ def main():
     phase_faults(torch, dev, main_prof)
     torch.cuda.empty_cache()
     lap("faults")
+    paged_launches = phase_paged(torch, dev, main_prof)
+    torch.cuda.empty_cache()
+    lap("paged")
+    phase_checkpoint(torch, dev)
+    torch.cuda.empty_cache()
+    lap("checkpoint")
     quant_launches = phase_quant(torch, dev)
     torch.cuda.empty_cache()
     check(all(quant_launches[k] > 0 for k in ("absmax", "encode", "decode")),
@@ -3141,12 +3677,18 @@ def main():
         phase_refusal(torch, dev, bank_dtype=bank_dtype, tree_depth=2)
     phase_refusal(torch, dev, pack_params=False)
     phase_refusal(torch, dev, pack_params=False, tree_depth=2, fused=False)
+    paged_launches["refusal tree"] = phase_paged_refusal(torch, dev, tree_depth=2)
     lap("refusal")
     for bank_dtype in (None, "int8"):
         phase_fault_refusal(torch, dev, bank_dtype=bank_dtype)
     phase_fault_refusal(torch, dev, tree_depth=2)
     phase_fault_refusal(torch, dev, pack_params=False)
+    for bank_dtype in (None, "int8"):
+        paged_launches[f"fault refusal {bank_dtype or 'f32'}"] = phase_paged_refusal(
+            torch, dev, bank_dtype=bank_dtype, faults=True)
     lap("fault refusal")
+    # the kernels' launches on the paged paths (PERF.md section 6's rows)
+    print("[paged] launches on the paged paths: " + json.dumps(paged_launches))
     # each kernel's launches on its own path: rows 1-2 from main, 3 from
     # pytree, 4-6 from quant, 7 from tree, 8-9 from serve, the SSD
     # backward from train

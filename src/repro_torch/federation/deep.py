@@ -97,11 +97,23 @@ state the fused flat engine launches `tree_delta` twice: with grant 0 for
 the round's delta, then with the round's `apply` to advance the node row,
 which is known only after the guards have seen the result.
 
+A paged owner bank (`flatten.PagedBank`, built by
+`paging.init_paged_state`) keeps n_hot of the N rows on the device. Every
+driver resolves owner -> hot slot on the device (`_bank_slot`, a
+searchsorted over the sorted page table) and gathers and writes the row,
+the codes and scales, and the tree's node row at the slot, while the
+ledger, the leaf counts and the fault and runtime columns stay per owner.
+A round whose owner is not resident is folded into the grant: a bit-exact
+masked no-op that spends nothing and lands in `refused` (the host pager
+makes every dispatched owner resident first, so this never happens in a
+session driven through `Federation`). With n_hot >= N the paged engine
+equals the flat one bit for bit on all three drivers.
+
 `make_sync_dp_step` is the synchronous baseline: every owner answers
 every round and the learner averages the privatized gradients.
 
-Example granularity on the fused flat engine, paging and the mesh wait
-for later slices, and so do bf16 banks under the grouped driver.
+Example granularity on the fused flat engine and the mesh wait for later
+slices, and so do bf16 banks under the grouped driver (paged or not).
 """
 from __future__ import annotations
 
@@ -117,7 +129,8 @@ from repro_torch.federation.config import paper_rates
 from repro_torch.federation import faults as _faults
 from repro_torch.federation.dp_sgd import PrivatizerConfig, _group_batch, private_grad
 from repro_torch.federation.faults import FaultPolicy, FaultState, init_fault_state
-from repro_torch.federation.flatten import ParamFlat, QuantBank, init_flat_bank, pack_params
+from repro_torch.federation.flatten import (PagedBank, ParamFlat, QuantBank, init_flat_bank,
+                                            pack_params)
 from repro_torch.federation.privacy import (DeviceLedger, laplace_scale_theorem1,
                                             make_device_ledger)
 from repro_torch.federation.staleness import (StalenessPolicy, StalenessState, deadline_guard,
@@ -343,6 +356,23 @@ def _quant_write(bank: QuantBank, new_i: torch.Tensor, owner_idx: torch.Tensor,
     return bank
 
 
+def _hot(bank):
+    """The rows a driver indexes: a PagedBank's hot tier, any other bank
+    itself."""
+    return bank.hot if isinstance(bank, PagedBank) else bank
+
+
+def _bank_slot(bank, owner_idx: torch.Tensor):
+    """(row_idx, hit) of owner contacts: a PagedBank resolves owner -> hot
+    slot on the device (`PagedBank.lookup`), and the drivers fold `hit`
+    into their grant, so a non-resident owner's round is a bit-exact masked
+    no-op; any other bank indexes rows by owner: (None, None), and every
+    path runs as it does without paging."""
+    if isinstance(bank, PagedBank):
+        return bank.lookup(owner_idx)
+    return None, None
+
+
 def _gather_row(bank: Bank, owner_idx: torch.Tensor) -> torch.Tensor:
     """The owner's (P,) f32 copy: a decoded QuantBank row, or a dense row
     (a bf16 row upcast, which is exact)."""
@@ -360,32 +390,37 @@ def _gather_rows(bank: Bank, owners: torch.Tensor) -> torch.Tensor:
     return bank.index_select(0, owners).to(torch.float32)
 
 
-def _tree_row_of(tree: TreeNoise, owner_idx: torch.Tensor):
+def _tree_row_of(tree: TreeNoise, owner_idx: torch.Tensor,
+                 row_idx: Optional[torch.Tensor] = None):
     """(a copy of the owner's node row: (depth, P) flat or a tree of
-    (depth, *leaf.shape) leaves, its (1,) int32 leaf count)."""
-    row = tree_map(lambda nodes: nodes.index_select(0, owner_idx)[0], tree.nodes)
+    (depth, *leaf.shape) leaves, its (1,) int32 leaf count). `row_idx` (a
+    paged bank's hot slot) is the node row when it is not the owner's; the
+    count is the owner's."""
+    ridx = owner_idx if row_idx is None else row_idx
+    row = tree_map(lambda nodes: nodes.index_select(0, ridx)[0], tree.nodes)
     return row, tree.counts.index_select(0, owner_idx)
 
 
-def _tree_write(tree: TreeNoise, new_row, row, owner_idx: torch.Tensor,
+def _tree_write(tree: TreeNoise, new_row, row_idx: torch.Tensor,
                 grant: Optional[torch.Tensor] = None) -> None:
-    """Write an owner's new node row IN PLACE, leaf by leaf; with `grant`
-    (a one-element int32 tensor) 0 the old `row` is written back, so a
-    refused round is a bit-exact no-op on the nodes. The caller bumps the
-    leaf count."""
-    for nodes, new, old in zip(tree_flatten(tree.nodes)[0], tree_flatten(new_row)[0],
-                               tree_flatten(row)[0]):
+    """Write a node row IN PLACE at `row_idx` ((1,) int64: the owner, or
+    its hot slot), leaf by leaf; with `grant` (a one-element int32 tensor)
+    0 the row as it stands now is written back, so a refused round is a
+    bit-exact no-op on the nodes (also when an earlier member of a group
+    wrote the slot its missed owner clamped to). The caller bumps the leaf
+    count."""
+    for nodes, new in zip(tree_flatten(tree.nodes)[0], tree_flatten(new_row)[0]):
         if grant is not None:
-            new = torch.where(grant.reshape(()) != 0, new, old)
-        nodes.index_copy_(0, owner_idx, new.unsqueeze(0))
+            new = torch.where(grant.reshape(()) != 0, new, nodes.index_select(0, row_idx)[0])
+        nodes.index_copy_(0, row_idx, new.unsqueeze(0))
 
 
-def _write_or_defer(tree: TreeNoise, new_row, row, owner_idx: torch.Tensor, grant):
+def _write_or_defer(tree: TreeNoise, new_row, row_idx: torch.Tensor, grant):
     """Write the new node row now (masked by `grant`, as _tree_write), or,
     with grant=_DEFER, return commit(grant) that writes it later."""
     if grant is _DEFER:
-        return lambda g: _tree_write(tree, new_row, row, owner_idx, g)
-    _tree_write(tree, new_row, row, owner_idx, grant)
+        return lambda g: _tree_write(tree, new_row, row_idx, g)
+    _tree_write(tree, new_row, row_idx, grant)
     return None
 
 
@@ -555,9 +590,10 @@ def _round_math(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
     """The paper's inertia round (eqs. 5-7) on pytree states.
 
     Returns compute(theta_L, bank, batch, owner_idx, key, tree=None,
-    grant=None, stale_w=None) -> (new_L, new_i, theta_i, metrics, commit),
-    `owner_idx` a (1,) int64 device index and `key` the round's (2,) uint32
-    key. `stale_w` (the staleness decay, a 0-d f32 weight) makes the round
+    grant=None, stale_w=None, row_idx=None) -> (new_L, new_i, theta_i,
+    metrics, commit), `owner_idx` a (1,) int64 device index and `key` the
+    round's (2,) uint32 key. A pytree bank cannot page, so `row_idx` must
+    be None (a PagedBank raises). `stale_w` (the staleness decay, a 0-d f32 weight) makes the round
     run against theta_L + w * (theta_i - theta_L); the RAW theta_i comes
     back, for the masked write-backs. The core
     without the bank gather is `compute.inner(theta_L, theta_i, batch,
@@ -603,7 +639,10 @@ def _round_math(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
         return new_L, new_i, metrics, zeta
 
     def compute(theta_L, bank, batch, owner_idx, key, tree: Optional[TreeNoise] = None,
-                grant=None, stale_w: Optional[torch.Tensor] = None):
+                grant=None, stale_w: Optional[torch.Tensor] = None, row_idx=None):
+        if isinstance(bank, PagedBank) or row_idx is not None:
+            raise TypeError("PagedBank needs the flat engine (paging.init_paged_state "
+                            "builds ParamFlat states); the pytree path cannot page")
         theta_i = tree_map(lambda leaf: leaf.index_select(0, owner_idx)[0], bank)
         theta_eff = theta_i if stale_w is None else tree_map(
             lambda l, i: _decayed(l, i, stale_w), theta_L, theta_i)
@@ -623,8 +662,7 @@ def _round_math(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
         new_L, new_i, metrics, zeta = inner(theta_L, theta_eff, batch, owner_idx, key,
                                             noise_extra=extra)
         new_row = tree_map(lambda nd, z: _advance_row(nd, z, retired, fresh), row, zeta)
-        return new_L, new_i, theta_i, metrics, _write_or_defer(tree, new_row, row, owner_idx,
-                                                               grant)
+        return new_L, new_i, theta_i, metrics, _write_or_defer(tree, new_row, owner_idx, grant)
 
     compute.inner = inner
     return compute
@@ -647,8 +685,11 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts, tree_inn
     """The inertia round on the flat representation.
 
     Returns compute(theta_L, bank, batch, owner_idx, key, tree=None,
-    grant=None, stale_w=None) -> (new_L, new_i, theta_i, metrics, commit),
-    as `_round_math` (stale_w and grant=_DEFER included).
+    grant=None, stale_w=None, row_idx=None) -> (new_L, new_i, theta_i,
+    metrics, commit), as `_round_math` (stale_w and grant=_DEFER included).
+    On a PagedBank `row_idx` is the owner's hot slot ((1,) int64): the row
+    and the node row are read (and the node row written) there, while the
+    noise scale, the weight and the leaf count are the owner's.
     The per-round scalars (group gain, the owner's noise scale and weight)
     stay on the device and reach the kernels as pointers.
 
@@ -673,16 +714,17 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts, tree_inn
 
     def compute(theta_L: ParamFlat, bank, batch, owner_idx, key,
                 tree: Optional[TreeNoise] = None, grant=None,
-                stale_w: Optional[torch.Tensor] = None):
+                stale_w: Optional[torch.Tensor] = None, row_idx=None):
         spec = theta_L.spec
-        theta_i = _gather_row(bank, owner_idx)                       # (P,) f32 copy
+        ridx = owner_idx if row_idx is None else row_idx
+        theta_i = _gather_row(_hot(bank), ridx)                      # (P,) f32 copy
         theta_eff = theta_i if stale_w is None else _decayed(theta_L.buf, theta_i, stale_w)
         tree_on = tree is not None and bool(cfg.tree_depth)
         commit = None
         if not pcfg.fused_kernel:
             extra = None
             if tree_on:
-                row, count = _tree_row_of(tree, owner_idx)           # (d, P)
+                row, count = _tree_row_of(tree, owner_idx, ridx)     # (d, P)
                 retired, fresh = tree_masks_ref(count, cfg.tree_depth)
                 extra = spec.unpack_f32(-_retired_sum(row, retired))
             new_L_t, new_i_t, metrics, zeta = tree_inner(
@@ -690,8 +732,7 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts, tree_inn
                 noise_extra=extra)
             if tree_on:
                 commit = _write_or_defer(
-                    tree, _advance_row(row, spec.pack_f32(zeta), retired, fresh), row,
-                    owner_idx, grant)
+                    tree, _advance_row(row, spec.pack_f32(zeta), retired, fresh), ridx, grant)
             return (ParamFlat(spec.pack(new_L_t), spec), spec.pack(new_i_t), theta_i,
                     metrics, commit)
         if pcfg.mechanism != "laplace":
@@ -702,10 +743,10 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts, tree_inn
         if tree_on:
             ns1 = ns.reshape(1)
             delta = tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns1,
-                                consts.no_grant(1) if grant is _DEFER else grant)
+                                consts.no_grant(1) if grant is _DEFER else grant, row_idx)
             if grant is _DEFER:
                 def commit(g):
-                    tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns1, g)
+                    tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns1, g, row_idx)
             new_L, new_i = _tree_epilogue(cfg, consts, tb, acc, gain, delta, w_i)
         else:
             new_L, new_i = dp_round_flat(                       # (4)+(5)+(7)+Pi
@@ -724,9 +765,10 @@ def _round_math_flat_rows(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
     group-entry theta_L and bank.
 
     Returns compute_rows(theta_L, bank, batch_g, owners, keys_g, tree=None,
-    grant=None, stale_w=None) -> (new_L, new_i, theta_i, metrics, commit),
-    each stacked on a leading (g,) axis; owners (g,) int64 distinct, keys_g
-    (g, 2), grant (g,) int32 or _DEFER, stale_w (g,) f32. The gradient is
+    grant=None, stale_w=None, row_idx=None) -> (new_L, new_i, theta_i,
+    metrics, commit), each stacked on a leading (g,) axis; owners (g,)
+    int64 distinct, keys_g (g, 2), grant (g,) int32 or _DEFER, stale_w (g,)
+    f32, row_idx (g,) the hot slots on a PagedBank. The gradient is
     vmapped over the members and clipped by one batched `sqnorm` per
     microbatch; then one batched `dp_round`, or under the tree one batched
     `tree_delta` (nodes advanced in place, masked by each grant; deferred,
@@ -736,10 +778,10 @@ def _round_math_flat_rows(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
 
     def compute_rows(theta_L: ParamFlat, bank, batch_g, owners, keys_g,
                      tree: Optional[TreeNoise] = None, grant=None,
-                     stale_w: Optional[torch.Tensor] = None):
+                     stale_w: Optional[torch.Tensor] = None, row_idx=None):
         if cfg.privatizer.mechanism != "laplace":
             raise ValueError("fused_kernel implements the laplace mechanism")
-        theta_i = _gather_rows(bank, owners)                            # (g, P) f32
+        theta_i = _gather_rows(_hot(bank), owners if row_idx is None else row_idx)  # (g, P)
         theta_eff = (theta_i if stale_w is None
                      else _decayed(theta_L.buf, theta_i, stale_w[:, None]))
         tb = 0.5 * (theta_L.buf + theta_eff)                             # (6)
@@ -750,10 +792,10 @@ def _round_math_flat_rows(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
         if tree is not None and cfg.tree_depth:
             delta = tree_delta_rows_(tree.nodes, tree.counts, owners, keys_g, ns,
                                      consts.no_grant(owners.numel()) if grant is _DEFER
-                                     else grant)
+                                     else grant, row_idx)
             if grant is _DEFER:
                 def commit(g):
-                    tree_delta_rows_(tree.nodes, tree.counts, owners, keys_g, ns, g)
+                    tree_delta_rows_(tree.nodes, tree.counts, owners, keys_g, ns, g, row_idx)
             new_L, new_i = _tree_epilogue(cfg, consts, tb, acc, gain[:, None], delta,
                                           w[:, None])
         else:
@@ -788,26 +830,29 @@ def _round_compute(loss_fn, cfg: AsyncDPConfig, scales: Optional[torch.Tensor],
     flat_c = _round_math_flat(loss_fn, cfg, consts, tree_c.inner)
     flat_rows = _round_math_flat_rows(loss_fn, cfg, consts)
 
-    def compute(theta_L, bank, batch, owner_idx, key, tree=None, grant=None, stale_w=None):
+    def compute(theta_L, bank, batch, owner_idx, key, tree=None, grant=None, stale_w=None,
+                row_idx=None):
         run = flat_c if isinstance(theta_L, ParamFlat) else tree_c
         return run(theta_L, bank, batch, owner_idx, key, tree=tree, grant=grant,
-                   stale_w=stale_w)
+                   stale_w=stale_w, row_idx=row_idx)
 
-    def rows(theta_L, bank, batch_g, owners, keys_g, tree=None, grant=None, stale_w=None):
+    def rows(theta_L, bank, batch_g, owners, keys_g, tree=None, grant=None, stale_w=None,
+             row_idx=None):
         """The g members of a group from the group-entry state (owners
         distinct) -> (new_L, new_i, theta_i, metrics, commit) stacked on a
         leading (g,) axis ((g, P) on flat states, (g, *leaf.shape) leaves on
-        pytree states); `stale_w` (g,) and grant=_DEFER as in compute, the
-        commit taking a (g,) grant. The fused flat engine batches the
-        members; every other state runs them one after another through
-        `compute`."""
+        pytree states); `stale_w` (g,), `row_idx` (g,) and grant=_DEFER as
+        in compute, the commit taking a (g,) grant. The fused flat engine
+        batches the members; every other state runs them one after another
+        through `compute`."""
         if isinstance(theta_L, ParamFlat) and cfg.privatizer.fused_kernel:
             return flat_rows(theta_L, bank, batch_g, owners, keys_g, tree=tree, grant=grant,
-                             stale_w=stale_w)
+                             stale_w=stale_w, row_idx=row_idx)
         outs = [compute(theta_L, bank, {k: v[m] for k, v in batch_g.items()},
                         owners[m:m + 1], keys_g[m], tree=tree,
                         grant=grant if grant is None or grant is _DEFER else grant[m:m + 1],
-                        stale_w=None if stale_w is None else stale_w[m])
+                        stale_w=None if stale_w is None else stale_w[m],
+                        row_idx=None if row_idx is None else row_idx[m:m + 1])
                 for m in range(owners.numel())]
         commits = [o[4] for o in outs]
         commit = None
@@ -886,25 +931,31 @@ def _no_faults_armed(fault_codes) -> None:
                          "fault_policy=FaultPolicy(...)")
 
 
-def _masked_write(state: AsyncDPState, owner_idx: torch.Tensor, key: torch.Tensor):
+def _masked_write(state: AsyncDPState, owner_idx: torch.Tensor, key: torch.Tensor,
+                  row_idx: Optional[torch.Tensor] = None):
     """write(new_L, new_i, theta_i, ok) -> (theta_L, bank) for one round of
     `owner_idx`: where `ok` (0-d bool) the round's theta_L and the owner's
     new row land, else theta_L stays and the owner's own copy is written
-    back (a quantized bank keeps its codes, scales and residual)."""
+    back (a quantized bank keeps its codes, scales and residual). On a
+    PagedBank the row is written at the hot slot `row_idx`."""
+    widx = owner_idx if row_idx is None else row_idx
+
     def write(new_L, new_i, theta_i, ok):
         theta_L = _select(ok, new_L, state.theta_L)
-        if isinstance(state.bank, QuantBank):
+        hot = _hot(state.bank)
+        if isinstance(hot, QuantBank):
             # same key as compute() by contract (see make_train_step)
-            bank = _quant_write(state.bank, new_i, owner_idx, key, ok=ok)  # dpcheck: ignore[DPC105]
+            _quant_write(hot, new_i, widx, key, ok=ok)  # dpcheck: ignore[DPC105]
         else:
-            bank = _write_bank(state.bank, _select(ok, new_i, theta_i), owner_idx)
-        return theta_L, bank
+            _write_bank(hot, _select(ok, new_i, theta_i), widx)
+        return theta_L, state.bank
     return write
 
 
 def _guarded_round(round_fn, write, state: AsyncDPState, batch, owners: torch.Tensor,
                    keys: torch.Tensor, fcodes: torch.Tensor, answered: torch.Tensor,
-                   stale_w: Optional[torch.Tensor] = None):
+                   stale_w: Optional[torch.Tensor] = None,
+                   row_idx: Optional[torch.Tensor] = None):
     """One fault-guarded round of one owner, or of a group of distinct
     owners on a member axis (reference: deep._guarded_round, and the
     guards of its make_group_rounds).
@@ -922,6 +973,8 @@ def _guarded_round(round_fn, write, state: AsyncDPState, batch, owners: torch.Te
     is then a bit-exact no-op on theta_L, the bank (codes, scales,
     residual) and the noise tree (nodes and count), and its stored checksum
     stays. The noise tree and the fault state are written in place.
+    `row_idx` (a PagedBank's hot slots, shaped as `owners`) is where the
+    rows are read and written; the checksum column stays per owner.
 
     Returns (theta_L, bank, metrics, apply, guard_rej, timed), bools shaped
     as `fcodes`: `guard_rej` answered on time and rejected
@@ -930,14 +983,16 @@ def _guarded_round(round_fn, write, state: AsyncDPState, batch, owners: torch.Te
     fs, tree, bank = state.faults, state.tree, state.bank
     corrupt = fcodes == _faults.CORRUPT_PAYLOAD
     if fcodes.dim() == 0:
-        payload_ok = _faults.verify_row(fs.checksum, bank, owners, corrupt)
+        payload_ok = _faults.verify_row(fs.checksum, bank, owners, corrupt, row_idx)
         finite = _faults.finite_guard
     else:
-        payload_ok = torch.stack([_faults.verify_row(fs.checksum, bank, owners[m:m + 1],
-                                                     corrupt[m]) for m in range(owners.numel())])
+        payload_ok = torch.stack([_faults.verify_row(
+            fs.checksum, bank, owners[m:m + 1], corrupt[m],
+            None if row_idx is None else row_idx[m:m + 1]) for m in range(owners.numel())])
         finite = _faults.finite_guard_rows
     new_L, new_i, theta_i, metrics, commit = round_fn(
-        state.theta_L, bank, batch, owners, keys, tree=tree, grant=_DEFER, stale_w=stale_w)
+        state.theta_L, bank, batch, owners, keys, tree=tree, grant=_DEFER, stale_w=stale_w,
+        row_idx=row_idx)
     new_i = _faults.inject_nonfinite(new_i, fcodes == _faults.NONFINITE_GRAD)
     guard_ok = payload_ok & finite((new_i, new_L)) & (fcodes != _faults.STALE)
     on_time = deadline_guard(fcodes)
@@ -952,20 +1007,23 @@ def _guarded_round(round_fn, write, state: AsyncDPState, batch, owners: torch.Te
             commit(applied)
         tree.counts.index_add_(0, owners, applied)
     # the stored checksum follows the POST-write row; a masked round keeps it
-    _faults.update_checksum(fs, bank, owners, apply)
+    _faults.update_checksum(fs, bank, owners, apply, row_idx)
     metrics = dict(metrics, faulted=guard_rej, timed_out=timed)
     return theta_L, bank, metrics, apply, guard_rej, timed
 
 
 def _faulted_round(cfg: AsyncDPConfig, round_fn, write, state: AsyncDPState, batch,
                    owners: torch.Tensor, keys: torch.Tensor, fcodes: torch.Tensor,
-                   led_auth: torch.Tensor, t, active: torch.Tensor):
+                   led_auth: torch.Tensor, t, active: torch.Tensor,
+                   row_idx: Optional[torch.Tensor] = None):
     """A device-authorized fault-armed round (or group, as in
     `_guarded_round`) of the K-round drivers: the outcome algebra with the
     precedence quarantine > backoff > budget > drop, then the guarded round,
     the ledger's columns, the fault window and the runtime counters, all
-    IN PLACE. `led_auth` is the ledger's grant, `t` the round clock (a
-    group's per-member clocks), `active` all-true of `fcodes`' shape.
+    IN PLACE. `led_auth` is the ledger's grant (on a PagedBank with the page
+    table's hit folded in: a miss is refused), `t` the round clock (a
+    group's per-member clocks), `active` all-true of `fcodes`' shape,
+    `row_idx` the hot slots of a PagedBank.
 
     Returns (theta_L, bank, metrics, apply)."""
     led, fs, ss = state.ledger, state.faults, state.stale
@@ -982,7 +1040,7 @@ def _faulted_round(cfg: AsyncDPConfig, round_fn, write, state: AsyncDPState, bat
     answered = auth & ~dropped
     stale_w = _decay_weight(state, cfg.staleness, owners, t)
     theta_L, bank, metrics, apply, guard_rej, timed = _guarded_round(
-        round_fn, write, state, batch, owners, keys, fcodes, answered, stale_w)
+        round_fn, write, state, batch, owners, keys, fcodes, answered, stale_w, row_idx)
     refused = avail & ~led_auth
     cols = dict(spent=answered, refused=refused, dropped=dropped, faulted=guard_rej,
                 quarantined=quar, timed_out=timed)
@@ -1017,7 +1075,11 @@ def make_train_step(loss_fn, cfg: AsyncDPConfig,
     is answered and only the guards decide (`_guarded_round`): `fault_code`
     (an int, or a 0-d int8 device tensor; None = OK) injects one fault, the
     fault window ticks, and under cfg.staleness the runtime counters tick.
-    metrics then also carry "faulted" and "timed_out"."""
+    metrics then also carry "faulted" and "timed_out".
+
+    On a PagedBank the round works on the owner's hot slot, and residency
+    is the round's grant: a miss (an owner the pager did not make resident)
+    is a bit-exact masked no-op that takes no leaf and no step."""
     dev = resolve_device(device)
     compute = _round_compute(loss_fn, cfg, scales, device)
     one = torch.ones(1, dtype=torch.int32, device=dev)
@@ -1027,19 +1089,23 @@ def make_train_step(loss_fn, cfg: AsyncDPConfig,
              fault_code=None) -> Tuple[AsyncDPState, Dict[str, Any]]:
         tree = _require_tree(cfg, state)
         o = owner_idx.reshape(1).to(torch.int64)
+        slot, hit = _bank_slot(state.bank, o)
         if state.faults is not None:
             policy = _require_fault_policy(cfg, state)
             spolicy = _require_staleness(cfg, state)
             ss = state.stale
+            # the session has handled quarantine, backoff and DROP; on a
+            # PagedBank residency also gates the answer
+            answered = true if hit is None else hit.reshape(())
             fcode = torch.as_tensor(_faults.OK if fault_code is None else fault_code,
                                     device=dev).to(torch.int8).reshape(())
             stale_w = _decay_weight(state, spolicy, o, None if ss is None else ss.clock)
             # the write keys the codec with the round's key by contract
             # (see the fault-off branch below)
             theta_L, bank, metrics, apply, guard_rej, timed = _guarded_round(
-                compute, _masked_write(state, o, key),  # dpcheck: ignore[DPC105]
-                state, batch, o, key, fcode, true, stale_w)
-            _faults.fault_tick(state.faults, o, guard_rej, policy, active=true)
+                compute, _masked_write(state, o, key, slot),  # dpcheck: ignore[DPC105]
+                state, batch, o, key, fcode, answered, stale_w, slot)
+            _faults.fault_tick(state.faults, o, guard_rej, policy, active=answered)
             if ss is not None:
                 # a dispatched round is never a retry: the session masks the
                 # rounds of an owner in backoff before calling the step
@@ -1048,6 +1114,19 @@ def make_train_step(loss_fn, cfg: AsyncDPConfig,
             return AsyncDPState(theta_L, bank, state.step + apply.to(torch.int32),
                                 state.ledger, tree, state.faults, ss), metrics
         _no_faults_armed(fault_code)
+        if hit is not None:
+            # paged: residency is the only grant of a host-authorized round
+            grant = hit.to(torch.int32)
+            new_L, new_i, theta_i, metrics, _ = compute(state.theta_L, state.bank, batch, o,
+                                                        key, tree=tree, grant=grant,
+                                                        row_idx=slot)
+            # same key as compute() by contract (see below)
+            theta_L, bank = _masked_write(state, o, key, slot)(  # dpcheck: ignore[DPC105]
+                new_L, new_i, theta_i, hit.reshape(()))
+            if tree is not None:
+                tree.counts.scatter_add_(0, o, grant)
+            return AsyncDPState(theta_L, bank, state.step + grant.reshape(()), state.ledger,
+                                tree, state.faults, state.stale), metrics
         new_L, new_i, _, metrics, _ = compute(state.theta_L, state.bank, batch, o, key,
                                               tree=tree)
         if isinstance(state.bank, QuantBank):
@@ -1091,19 +1170,29 @@ def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
     (`retried`, no epsilon); a DROP of an authorized owner spends nothing
     (`dropped`); every answered round is charged (`spent`) even when a
     guard rejects it (`faulted`) or it came late (`timed_out`). A masked
-    round still runs the round's kernels."""
+    round still runs the round's kernels.
+
+    On a PagedBank each round looks its owner up in the page table; a miss
+    is folded into the grant before the ledger counts it: it spends
+    nothing and lands in `refused` (a session's pager prefetches every
+    dispatched owner, so a refusal there under an authorized schedule
+    would flag a pager fault, not a privacy event)."""
     dev = resolve_device(device)
     compute = _round_compute(loss_fn, cfg, scales, device)
     true = torch.ones((), dtype=torch.bool, device=dev)
 
     def body(state: AsyncDPState, batch, owner_idx: torch.Tensor, key: torch.Tensor):
         led, tree = state.ledger, state.tree
+        slot, hit = _bank_slot(state.bank, owner_idx)
         ok = led.authorized(owner_idx)
+        if hit is not None:
+            ok = ok & hit.reshape(())
         oki = ok.to(torch.int32)
         new_L, new_i, theta_i, metrics, _ = compute(state.theta_L, state.bank, batch,
-                                                    owner_idx, key, tree=tree, grant=oki)
+                                                    owner_idx, key, tree=tree, grant=oki,
+                                                    row_idx=slot)
         # same key as compute() by contract (see make_train_step)
-        theta_L, bank = _masked_write(state, owner_idx, key)(  # dpcheck: ignore[DPC105]
+        theta_L, bank = _masked_write(state, owner_idx, key, slot)(  # dpcheck: ignore[DPC105]
             new_L, new_i, theta_i, ok)
         del new_L, new_i, theta_i
         if tree is not None:
@@ -1117,11 +1206,16 @@ def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
     def body_faulted(state: AsyncDPState, batch, owner_idx: torch.Tensor, key: torch.Tensor,
                      fcode: torch.Tensor):
         ss = state.stale
+        slot, hit = _bank_slot(state.bank, owner_idx)
+        led_auth = state.ledger.authorized(owner_idx)
+        if hit is not None:
+            # a page miss refuses like an exhausted budget
+            led_auth = led_auth & hit.reshape(())
         # same key as compute() by contract (see make_train_step)
         theta_L, bank, metrics, apply = _faulted_round(
-            cfg, compute, _masked_write(state, owner_idx, key),  # dpcheck: ignore[DPC105]
-            state, batch, owner_idx, key, fcode, state.ledger.authorized(owner_idx),
-            None if ss is None else ss.clock, true)
+            cfg, compute, _masked_write(state, owner_idx, key, slot),  # dpcheck: ignore[DPC105]
+            state, batch, owner_idx, key, fcode, led_auth,
+            None if ss is None else ss.clock, true, slot)
         return AsyncDPState(theta_L, bank, state.step + apply.to(torch.int32), state.ledger,
                             state.tree, state.faults, ss), metrics
 
@@ -1202,8 +1296,12 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
     (so a poisoned member never advances the residual), and theta_L
     averages the applied members' targets.
 
-    bf16 banks (ROADMAP queue 1, item 2), paged banks (item 5) and the mesh
-    (item 7) wait for their slices."""
+    On a PagedBank the members look their owners up in the page table at
+    once; a member that misses is refused (its grant is 0) and its row
+    write is a no-op, which the per-member writes keep bit-exact also when
+    its clamped slot is a resident member's (each write reads the row as
+    it stands). bf16 banks, paged or not (ROADMAP queue 1, item 2), and the
+    mesh (item 7) wait for their slices."""
     compute = _round_compute(loss_fn, cfg, scales, device)
 
     def reduce_theta(ok: torch.Tensor, stacked: torch.Tensor, base: torch.Tensor):
@@ -1212,33 +1310,49 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
         s = s / torch.clamp(n_ok, min=1.0)
         return torch.where(n_ok > 0, s.to(base.dtype), base)
 
-    def write_members(state: AsyncDPState, new_L, new_i, theta_i, owners, keys_g, ok):
+    def write_members(state: AsyncDPState, new_L, new_i, theta_i, owners, keys_g, ok,
+                      slots=None):
         """Write the members' rows (those with `ok`; the others write their
-        own row back) and reduce theta_L over the `ok` members."""
-        bank = state.bank
-        if isinstance(bank, QuantBank):
+        own row back) and reduce theta_L over the `ok` members. `slots` (a
+        PagedBank's hot slots) are where the rows go: there a member that
+        missed can share its clamped slot with a resident member, so the
+        rows are written one member at a time, a masked one writing back
+        the row as it stands."""
+        hot = _hot(state.bank)
+        widx = owners if slots is None else slots
+        if isinstance(hot, QuantBank):
             # the error-feedback chain in round order; same key as the
             # round's by contract (the codec folds in its CODEC_SALT)
             for m in range(owners.numel()):
-                _quant_write(bank, new_i[m], owners[m:m + 1], keys_g[m],  # dpcheck: ignore[DPC105]
+                _quant_write(hot, new_i[m], widx[m:m + 1], keys_g[m],  # dpcheck: ignore[DPC105]
                              ok=ok[m])
+        elif slots is not None:
+            for m in range(owners.numel()):
+                w = widx[m:m + 1]
+                hot.index_copy_(0, w, torch.where(ok[m], new_i[m], hot.index_select(0, w)[0])
+                                .to(hot.dtype).unsqueeze(0))
         else:
-            _write_bank_rows(bank, tree_map(
+            _write_bank_rows(hot, tree_map(
                 lambda a, b: torch.where(_member_mask(ok, a), a, b), new_i, theta_i), owners)
         if isinstance(state.theta_L, ParamFlat):
-            return state.theta_L.replace_buf(reduce_theta(ok, new_L, state.theta_L.buf)), bank
-        return tree_map(lambda a, b: reduce_theta(ok, a, b), new_L, state.theta_L), bank
+            return (state.theta_L.replace_buf(reduce_theta(ok, new_L, state.theta_L.buf)),
+                    state.bank)
+        return tree_map(lambda a, b: reduce_theta(ok, a, b), new_L, state.theta_L), state.bank
 
     def body(state: AsyncDPState, batch_g, owners: torch.Tensor, keys_g: torch.Tensor):
         led, tree = state.ledger, state.tree
+        slots, hit = _bank_slot(state.bank, owners)
         ok = led.spent.index_select(0, owners) < led.cap.index_select(0, owners)     # (g,)
+        if hit is not None:
+            ok = ok & hit
         oki = ok.to(torch.int32)
         new_L, new_i, theta_i, metrics, _ = compute.rows(state.theta_L, state.bank, batch_g,
-                                                         owners, keys_g, tree=tree, grant=oki)
+                                                         owners, keys_g, tree=tree, grant=oki,
+                                                         row_idx=slots)
         # the round keys again by contract: a quantized bank's codec folds
         # in its CODEC_SALT (see make_train_step)
         theta_L, bank = write_members(  # dpcheck: ignore[DPC105]
-            state, new_L, new_i, theta_i, owners, keys_g, ok)
+            state, new_L, new_i, theta_i, owners, keys_g, ok, slots)
         del new_i, theta_i
         if tree is not None:
             tree.counts.index_add_(0, owners, oki)
@@ -1256,13 +1370,17 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
         t_g = (None if ss is None
                else ss.clock + torch.arange(g, dtype=torch.int32, device=owners.device))
 
+        slots, hit = _bank_slot(state.bank, owners)
+        led_auth = led.spent.index_select(0, owners) < led.cap.index_select(0, owners)
+        if hit is not None:
+            led_auth = led_auth & hit
+
         def write(new_L, new_i, theta_i, ok):
-            return write_members(state, new_L, new_i, theta_i, owners, keys_g, ok)
+            return write_members(state, new_L, new_i, theta_i, owners, keys_g, ok, slots)
 
         theta_L, bank, metrics, apply = _faulted_round(
-            cfg, compute.rows, write, state, batch_g, owners, keys_g, fcodes,
-            led.spent.index_select(0, owners) < led.cap.index_select(0, owners), t_g,
-            torch.ones(g, dtype=torch.bool, device=owners.device))
+            cfg, compute.rows, write, state, batch_g, owners, keys_g, fcodes, led_auth, t_g,
+            torch.ones(g, dtype=torch.bool, device=owners.device), slots)
         return AsyncDPState(theta_L, bank, state.step + torch.sum(apply, dtype=torch.int32),
                             led, state.tree, state.faults, ss), metrics
 
@@ -1271,9 +1389,10 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
         if state.ledger is None:
             raise ValueError("grouped rounds need a device ledger on the state; "
                              "build it with Federation.init_state")
-        if isinstance(state.bank, torch.Tensor) and state.bank.dtype != torch.float32:
+        hot = _hot(state.bank)
+        if isinstance(hot, torch.Tensor) and hot.dtype != torch.float32:
             raise NotImplementedError(
-                f"a {state.bank.dtype} bank under the grouped driver waits for a later "
+                f"a {hot.dtype} bank under the grouped driver waits for a later "
                 "slice (ROADMAP queue 1, item 2); run owner_parallel=False")
         _require_tree(cfg, state)
         owners = owner_seq.to(torch.int64)

@@ -31,8 +31,15 @@ a fixed nonzero delta, so detection is certain.
 
 The functions that update a `FaultState` (`update_checksum`,
 `fault_tick`) write its tensors IN PLACE and return the state, as the
-drivers update the bank and the ledger in place. The reference's
-`PagedBank` branches come with paging.
+drivers update the bank and the ledger in place.
+
+On a paged bank (`flatten.PagedBank`) the payload is the hot slot's row
+and the checksum column stays per owner: `verify_row` and
+`update_checksum` take the slot as `row_idx`, and `init_fault_state`
+tiles one row's sum over the (N,) column (every row, hot, cold or never
+written, is the default row at init), never an O(N*P) pass. A row's bits
+round-trip the cold tier exactly, so it keeps its checksum across an
+eviction and a reload.
 """
 from __future__ import annotations
 
@@ -44,7 +51,7 @@ import torch
 
 from repro_torch import random
 from repro_torch.device import resolve_device
-from repro_torch.federation.flatten import ParamFlat, QuantBank
+from repro_torch.federation.flatten import PagedBank, ParamFlat, QuantBank
 from repro_torch.tree_util import tree_flatten, tree_map
 
 # per-round fault codes (int8 on the device, plain ints here)
@@ -180,7 +187,11 @@ def row_checksum(bank, owner_idx: torch.Tensor) -> torch.Tensor:
     """() int32 checksum of one owner's resident row (`owner_idx` a (1,)
     int64 device index): the codes plus the scales of a QuantBank (the
     shared residual belongs to no owner and is left out), the row of a
-    dense (N, P) bank, or the rows of every leaf of a pytree bank."""
+    dense (N, P) bank, or the rows of every leaf of a pytree bank. On a
+    PagedBank `owner_idx` is the HOT SLOT (the caller resolves it with
+    `bank.lookup`)."""
+    if isinstance(bank, PagedBank):
+        return row_checksum(bank.hot, owner_idx)
     parts = ((bank.codes, bank.scales) if isinstance(bank, QuantBank)
              else tree_flatten(bank)[0])
     total = _row_sum64(parts[0], owner_idx)
@@ -214,10 +225,17 @@ def bank_checksums(bank) -> torch.Tensor:
 def init_fault_state(bank, n_owners: int) -> FaultState:
     """Fresh fault counters beside `bank`: its checksums, zero windows and
     contacts, nobody quarantined (a distinct buffer per field: the drivers
-    write them in place)."""
-    dev = _device_of(bank)
+    write them in place). On a PagedBank one row's checksum is tiled over
+    the (N,) column: at init every row is the default row."""
+    if isinstance(bank, PagedBank):
+        dev = _device_of(bank.hot)
+        one = row_checksum(bank.hot, torch.zeros(1, dtype=torch.int64, device=dev))
+        checksum = one.reshape(1).repeat(n_owners)
+    else:
+        dev = _device_of(bank)
+        checksum = bank_checksums(bank)
     return FaultState(
-        checksum=bank_checksums(bank),
+        checksum=checksum,
         win_faults=torch.zeros(n_owners, dtype=torch.int32, device=dev),
         contacts=torch.zeros(n_owners, dtype=torch.int32, device=dev),
         quarantined=torch.zeros(n_owners, dtype=torch.bool, device=dev))
@@ -228,12 +246,14 @@ def _as_bool(x, device) -> torch.Tensor:
 
 
 def verify_row(checksum: torch.Tensor, bank, owner_idx: torch.Tensor,
-               corrupt) -> torch.Tensor:
+               corrupt, row_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """0-d bool: does the owner's resident row match its stored checksum?
 
     `corrupt` (CORRUPT_PAYLOAD this round) offsets the OBSERVED sum by
-    CORRUPT_CSUM_DELTA, so detection is certain and the payload untouched."""
-    obs = row_checksum(bank, owner_idx)
+    CORRUPT_CSUM_DELTA, so detection is certain and the payload untouched.
+    `row_idx` (a paged bank's hot slot, (1,) int64) is where the payload
+    is read; the stored sum is the owner's."""
+    obs = row_checksum(bank, owner_idx if row_idx is None else row_idx)
     corrupt = _as_bool(corrupt, obs.device).reshape(())
     obs = torch.where(corrupt, obs + CORRUPT_CSUM_DELTA, obs)
     return obs == checksum.index_select(0, owner_idx).reshape(())
@@ -307,13 +327,17 @@ def _masked_set_(col: torch.Tensor, idx: torch.Tensor, value, mask) -> None:
     col.index_copy_(0, idx, torch.where(mask, value, old))
 
 
-def update_checksum(fs: FaultState, bank, owner_idx: torch.Tensor, apply) -> FaultState:
+def update_checksum(fs: FaultState, bank, owner_idx: torch.Tensor, apply,
+                    row_idx: Optional[torch.Tensor] = None) -> FaultState:
     """Re-derive the stored checksums from the POST-WRITE bank rows of one
     owner ((1,) index, `apply` 0-d) or a group of distinct owners ((g,),
     `apply` (g,)), IN PLACE; where `apply` is False the stored sum stays,
-    so a masked round leaves later verification untouched."""
+    so a masked round leaves later verification untouched. `row_idx` (the
+    hot slots of a paged bank, shaped as `owner_idx`) is where the rows are
+    read; the sums land in the owners' column."""
     idx = _owners(owner_idx)
-    new = torch.stack([row_checksum(bank, idx[m:m + 1]) for m in range(idx.numel())])
+    ridx = idx if row_idx is None else _owners(row_idx)
+    new = torch.stack([row_checksum(bank, ridx[m:m + 1]) for m in range(idx.numel())])
     _masked_set_(fs.checksum, idx, new, _as_bool(apply, idx.device).reshape(-1))
     return fs
 

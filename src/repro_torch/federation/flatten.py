@@ -10,10 +10,13 @@ matrix whose gather/scatter is a row copy:
     tree = flat.unpack()                # views of flat.buf
     noise = spec.unpack_f32(buf)        # f32 views (pack_f32 is its inverse)
     bank = init_flat_bank(flat, N)      # (N, P) f32; bf16, or "int8"/"fp8"
+    paged = PagedBank(hot, hot_ids, N)  # n_hot resident rows (federation.paging)
 
 The bank's storage follows `bank_dtype`: f32 (the default), a dense
 torch.bfloat16 matrix, or a `QuantBank` of 1-byte int8 / fp8 codes with
-one f32 scale per row and a shared error-feedback residual row.
+one f32 scale per row and a shared error-feedback residual row. A
+`PagedBank` keeps only n_hot of the N rows on the device, behind a page
+table (`federation.paging` moves rows between it and the host).
 
 Leaf order is jax.tree_util's, not torch's: dicts flatten in SORTED key
 order, NamedTuples (and tuples/lists) in field order, and None fields are
@@ -223,6 +226,74 @@ class QuantBank:
 
     def __repr__(self) -> str:
         return f"QuantBank(fmt={self.codec.fmt!r}, N={self.n_owners}, P={self.size})"
+
+
+class PagedBank:
+    """Paged owner bank: a device-resident working set of `n_hot` rows over
+    a host cold tier (see ``federation.paging``).
+
+    `hot` is the resident tier: a dense (n_hot, P) matrix or a QuantBank
+    with n_hot rows (its error-feedback residual belongs to the session,
+    not to an owner, and never pages). `hot_ids` is the page table on the
+    device: a SORTED (n_hot,) int32 vector of the owner resident in each
+    slot, with the sentinel `n_owners` in empty slots (it sorts after every
+    real id, so the table stays sorted). Resident bytes are O(n_hot * P),
+    whatever N is.
+
+    `lookup` resolves owner -> slot on the device with `torch.searchsorted`
+    over the table, with no host read, and returns a `hit` mask that the
+    drivers fold into their grant: a round of an owner that is not resident
+    is a bit-exact masked no-op, counted as a refusal."""
+
+    def __init__(self, hot, hot_ids: torch.Tensor, n_owners: int):
+        self.hot = hot
+        self.hot_ids = hot_ids
+        self.n_owners = n_owners
+
+    @property
+    def n_hot(self) -> int:
+        return self.hot_ids.shape[0]
+
+    @property
+    def size(self) -> int:
+        return self.hot.size if isinstance(self.hot, QuantBank) else self.hot.shape[-1]
+
+    @property
+    def codec(self) -> Optional[BankCodec]:
+        return self.hot.codec if isinstance(self.hot, QuantBank) else None
+
+    @property
+    def nbytes(self) -> int:
+        """Device-resident bytes: the hot tier and the page table."""
+        hot = (self.hot.nbytes if isinstance(self.hot, QuantBank)
+               else self.hot.numel() * self.hot.element_size())
+        return hot + self.hot_ids.numel() * self.hot_ids.element_size()
+
+    def lookup(self, owner_idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """owner ids (any shape, any int dtype, on the table's device) ->
+        (slot int64, hit bool), both shaped like `owner_idx`.
+
+        The slot is searchsorted's left insertion point (as
+        jnp.searchsorted's), clamped into [0, n_hot): always a safe gather
+        index. `hit` is False where the owner is not resident; the clamped
+        slot then holds another owner's row, which the drivers' masked
+        writes leave bit-exactly as it was. The query is cast to the
+        table's int32; the table itself is never cast."""
+        q = owner_idx.to(self.hot_ids.dtype)
+        slot = torch.searchsorted(self.hot_ids, q.reshape(-1))
+        slot = torch.clamp(slot, max=self.n_hot - 1)
+        hit = self.hot_ids.index_select(0, slot) == q.reshape(-1)
+        return slot.reshape(owner_idx.shape), hit.reshape(owner_idx.shape)
+
+    def replace(self, **kw) -> "PagedBank":
+        args = {"hot": self.hot, "hot_ids": self.hot_ids, "n_owners": self.n_owners}
+        args.update(kw)
+        return PagedBank(**args)
+
+    def __repr__(self) -> str:
+        fmt = self.codec.fmt if self.codec is not None else str(self.hot.dtype)
+        return (f"PagedBank(n_hot={self.n_hot}, N={self.n_owners}, P={self.size}, "
+                f"storage={fmt!r})")
 
 
 def init_flat_bank(flat: ParamFlat, n_owners: int, dtype=None):

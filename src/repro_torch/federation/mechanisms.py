@@ -15,10 +15,16 @@ budget-exhausted owners are refused here.
                        al. 2021): per-node scale d * b(R) at R = min(T,
                        2^d - 1), the enforced cap. The node tensor lives
                        in the engine's state (deep.TreeNoise).
+
+`Mechanism` is the protocol a pluggable mechanism satisfies: what the
+Federation session needs from one. The ledgered mechanisms also export and
+restore their host journal (`export_journal`, `restore_journal`), which
+`Federation.save_session` checkpoints beside the device ledger so a
+resumed session never charges epsilon twice.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Protocol, Sequence, runtime_checkable
 
 import torch
 
@@ -36,6 +42,54 @@ _COLUMNS = ("spent", "refused", "dropped", "faulted", "quarantined", "timed_out"
 class LedgerDriftError(RuntimeError):
     """The device ledger and the host accountant disagree (raised by
     reconcile() instead of absorbing the mismatch)."""
+
+
+@runtime_checkable
+class Mechanism(Protocol):
+    """What the Federation session needs from a privacy mechanism."""
+
+    name: str
+
+    @property
+    def cap(self) -> Optional[int]:
+        """Per-owner response cap the engine must enforce (None = T)."""
+        ...
+
+    def scales(self, p: Optional[int] = None, clip_norm: Optional[float] = None,
+               device=None) -> torch.Tensor:
+        """(N,) per-owner noise scales; p is the query dimension, clip_norm
+        the enforced clip norm that overrides each owner's Xi_i."""
+        ...
+
+    def authorize(self, owner_idx: int) -> bool:
+        """Ledger one response; False = refused (budget exhausted)."""
+        ...
+
+    def authorize_many(self, owner_idx: int, count: int) -> int:
+        """Ledger `count` responses at once; returns how many were granted."""
+        ...
+
+    def ledger(self) -> Dict[int, Dict]:
+        """Per-owner accounting summary, including refusals."""
+        ...
+
+    def device_ledger(self, device=None) -> DeviceLedger:
+        """Snapshot the accountant as device counters (the fused drivers
+        authorize on the device against these)."""
+        ...
+
+    def reconcile(self, ledger: DeviceLedger) -> Dict[int, Dict]:
+        """Fold a device ledger back into the host accountant bit-exactly;
+        returns the updated ledger() summary."""
+        ...
+
+
+# the journal's per-owner columns: (journal name, tally read by _tally)
+_JOURNAL_TALLIES = (("refusals", "refused"), ("dropped", "dropped"), ("faulted", "faulted"),
+                    ("quarantined", "quarantined"), ("timed_out", "timed_out"),
+                    ("retried", "retried"))
+# columns a journal saved before the staleness runtime lacks: read as zeros
+_LATER_COLUMNS = ("timed_out", "retried", "folded_timed_out", "folded_retried")
 
 
 class _LedgeredMechanism:
@@ -202,6 +256,49 @@ class _LedgeredMechanism:
             for c, col in enumerate(_COLUMNS):
                 self._folded[col][i] = int(cols[c, i])
         return self.ledger()
+
+
+    def export_journal(self) -> Dict:
+        """The host accountant's state for crash-resume, as the reference's
+        version-1 journal: per-owner responses and outcome tallies, the
+        folded-counter baselines and the snapshot generation, as lists
+        indexed by owner (msgpack map keys are strings). Saved beside the
+        device state by `Federation.save_session`, it lets a restored
+        session reconcile the restored ledger against the baseline the
+        crashed process had, so nothing is charged twice."""
+        n = len(self.owners)
+        journal = {"version": 1, "sid": int(self._snapshot_sid),
+                   "responses": [int(self._accountant.ledgers[i].responses) for i in range(n)]}
+        for name, col in _JOURNAL_TALLIES:
+            journal[name] = [int(self._tallies(col)[i]) for i in range(n)]
+        for col in _COLUMNS:
+            journal[f"folded_{col}"] = [int(self._folded[col][i]) for i in range(n)]
+        return journal
+
+    def restore_journal(self, journal: Dict) -> None:
+        """Rewind the host accountant to an export_journal() snapshot. The
+        mechanism must be built from the same owners and config (scales and
+        caps are derived again, not journaled). A journal saved before the
+        staleness columns existed reads them as zeros."""
+        if int(journal.get("version", -1)) != 1:
+            raise ValueError(f"unknown journal version {journal.get('version')!r}")
+        n = len(self.owners)
+        names = (["responses"] + [name for name, _ in _JOURNAL_TALLIES]
+                 + [f"folded_{col}" for col in _COLUMNS])
+        cols = {}
+        for name in names:
+            col = journal.get(name, [0] * n) if name in _LATER_COLUMNS else journal[name]
+            if len(col) != n:
+                raise ValueError(f"journal column {name!r} has {len(col)} owners, mechanism "
+                                 f"has {n} — restore with the same federation")
+            cols[name] = [int(v) for v in col]
+        for i in range(n):
+            self._accountant.ledgers[i].responses = cols["responses"][i]
+            for name, col in _JOURNAL_TALLIES:
+                self._tallies(col)[i] = cols[name][i]
+            for col in _COLUMNS:
+                self._folded[col][i] = cols[f"folded_{col}"][i]
+        self._snapshot_sid = int(journal["sid"])
 
 
 class PaperMechanism(_LedgeredMechanism):

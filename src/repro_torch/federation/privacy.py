@@ -98,6 +98,10 @@ class DeviceLedger:
     spent, a subset of spent's increments); `retried` rounds masked while
     the owner sat in its retry backoff (never dispatched, no epsilon)."""
 
+    # the eight columns in the order the reference's pytree flattens them
+    # (a checkpoint keys them ledger/0 ... ledger/7)
+    COLUMNS = ("spent", "cap", "refused") + _FAULT_COLUMNS
+
     def __init__(self, spent: torch.Tensor, cap: torch.Tensor,
                  refused: torch.Tensor, dropped: Optional[torch.Tensor] = None,
                  faulted: Optional[torch.Tensor] = None,

@@ -23,8 +23,9 @@ owner sequence exactly.
 `as_owner_seq` normalizes hand-rolled sequences. `partition_conflict_free`,
 `pack_groups` and `auto_max_group` are the host-side analysis behind
 `Federation.run_rounds(..., owner_parallel=True)`: numpy logic, equal to
-the reference's output exactly. `TraceRing` serves the reference's paged
-bank, which the port does not have yet.
+the reference's output exactly. `TraceRing` streams a recorded trace to
+the device a chunk at a time, for the paged owner bank
+(`federation.paging`): its host `window(k)` is what the pager prefetches.
 """
 from __future__ import annotations
 
@@ -213,12 +214,13 @@ class AvailabilityTraceSchedule:
     def draw(self, key: torch.Tensor, n_owners: int, horizon: int) -> torch.Tensor:
         return self.draw_with_times(key, n_owners, horizon).owners
 
-    def trace_ring(self, chunk: int = 4096):
-        """The reference streams a recorded trace through a device ring
-        buffer for its paged owner bank; the port has no paged bank yet."""
-        raise NotImplementedError(
-            "TraceRing streams a recorded trace for the paged owner bank, which the "
-            "port does not have yet; draw() replays the whole trace")
+    def trace_ring(self, chunk: int = 4096, device=None) -> "TraceRing":
+        """The recorded trace as a `TraceRing` (device buffer of `chunk`
+        ids on `device`, CUDA when None): what a paged session streams
+        instead of the tiled (K,) sequence `draw` makes."""
+        if self.trace is None:
+            raise ValueError("trace_ring needs a recorded trace (trace=...)")
+        return TraceRing(self.trace, chunk=chunk, device=device)
 
     def available(self, times: torch.Tensor, fallback: bool = False) -> torch.Tensor:
         """(..., T, N) availability mask at the given (..., T) instants.
@@ -236,3 +238,72 @@ class AvailabilityTraceSchedule:
         if fallback:
             inside = inside | ~inside.any(dim=-1, keepdim=True)
         return inside
+
+
+class TraceRing:
+    """A device ring buffer over a recorded owner trace.
+
+    A production trace can hold tens of millions of rounds; tiling it to a
+    dispatch's (K,) sequence on the device (what
+    `AvailabilityTraceSchedule.draw` does) costs memory and upload time in
+    the trace's length. The ring keeps the trace on the host and ONE
+    `chunk`-long int32 buffer on the device:
+
+      * ``next(k)`` returns the next k ids as a (k,) int32 view of that
+        buffer and advances the cursor, uploading a new chunk only when the
+        cursor crosses the chunk's end (one host-to-device copy per `chunk`
+        rounds);
+      * ``window(k)`` is the host peek the paging prefetcher keys on: the
+        next k ids, with no advance and no device read.
+
+    It wraps as ``np.resize`` tiles (the trace repeats end to end), so a
+    session streaming through the ring runs the sequence `draw` would."""
+
+    def __init__(self, trace, chunk: int = 4096, device=None):
+        trace = np.asarray(trace, np.int32).reshape(-1)
+        if trace.size == 0:
+            raise ValueError("an empty trace cannot schedule any round")
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        self._trace = trace
+        self.chunk = int(chunk)
+        self.device = resolve_device(device)
+        self.cursor = 0                 # absolute position in the tiling
+        self._chunk_start = 0           # absolute start of the resident chunk
+        self._buf: Optional[torch.Tensor] = None
+
+    def __len__(self) -> int:
+        return int(self._trace.size)
+
+    @property
+    def resident_bytes(self) -> int:
+        """Device bytes the ring holds: O(chunk), whatever the trace's
+        length."""
+        return 0 if self._buf is None else self._buf.numel() * self._buf.element_size()
+
+    def window(self, k: int) -> np.ndarray:
+        """(k,) int32 host view of the next k owner ids (no advance)."""
+        if k < 0:
+            raise ValueError(f"k must be >= 0, got {k}")
+        return np.take(self._trace, self.cursor + np.arange(k), mode="wrap")
+
+    def _refill(self, start: int) -> None:
+        idx = (start + np.arange(self.chunk)) % self._trace.size
+        self._buf = torch.from_numpy(self._trace[idx]).to(self.device)
+        self._chunk_start = start
+
+    def next(self, k: int) -> torch.Tensor:
+        """The next k owner ids as a (k,) int32 device tensor; advances the
+        cursor. k above the chunk uploads exactly those k ids (correct, not
+        buffered): size the chunk at or above the dispatch length."""
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        if k > self.chunk:
+            out = torch.from_numpy(self.window(k)).to(self.device)
+            self.cursor += k
+            return out
+        if self._buf is None or self.cursor + k > self._chunk_start + self.chunk:
+            self._refill(self.cursor)
+        off = self.cursor - self._chunk_start
+        self.cursor += k
+        return self._buf[off:off + k]

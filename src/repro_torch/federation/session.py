@@ -44,6 +44,16 @@ Counterpart of ``repro/federation/session.py``:
                                     latency=LatencyPlan(base=0.5, jitter=0.3))
     state, metrics = fed.step(state, batch, owner_idx, key, fault_code=DROP)
 
+    # a paged owner bank: n_hot rows on the device over a host cold tier;
+    # step() and run_rounds() prefetch each dispatch's owners
+    state = fed.init_paged_state(params, n_hot=16)
+    ring = AvailabilityTraceSchedule(windows, trace=trace).trace_ring(chunk=4096)
+    state, metrics = fed.run_rounds(state, batches, ring, key)
+
+    # crash-resume: the device state and the host journal together
+    fed.save_session(directory, state)
+    state = fed.restore_session(directory, fed.init_state(params))
+
 As in the reference, `make_step` defaults to the pytree path
 (`pack_params=False`) and to the jnp-equivalent privatizer
 (`PrivatizerConfig(xi=xi)`, fused_kernel=False); the round functions serve
@@ -70,6 +80,7 @@ import numpy as np
 import torch
 
 from repro_torch import random
+from repro_torch.checkpoint.store import from_storage
 from repro_torch.device import resolve_device
 from repro_torch.federation.config import FederationConfig
 from repro_torch.federation.convex import (Algo1Trace, SyncTrace, scan_engine, stack_gram,
@@ -85,8 +96,9 @@ from repro_torch.federation.flatten import ParamFlat, as_bank_codec
 from repro_torch.federation.linear import LinearProblem
 from repro_torch.federation.mechanisms import make_mechanism
 from repro_torch.federation.owners import DataOwner
-from repro_torch.federation.schedules import (UniformSchedule, as_owner_seq, auto_max_group,
-                                              pack_groups, partition_conflict_free)
+from repro_torch.federation.schedules import (TraceRing, UniformSchedule, as_owner_seq,
+                                              auto_max_group, pack_groups,
+                                              partition_conflict_free)
 from repro_torch.federation.staleness import (LatencyPlan, StalenessPolicy, as_tick_times,
                                               merge_timeout_codes, staleness_tick)
 
@@ -128,6 +140,7 @@ class Federation:
         self._group_fn = None
         self._pack_params = False
         self._bank_dtype = None
+        self._pager = None
         self._ran = False
 
     def _claim_session(self):
@@ -312,6 +325,34 @@ class Federation:
             state = init_state(params, acfg, device=self.device)
         return state._replace(ledger=self.mechanism.device_ledger(self.device))
 
+    def init_paged_state(self, params, n_hot: int, bank_dtype=None,
+                         cold_dir=None) -> AsyncDPState:
+        """A flat-engine state whose owner bank is PAGED: n_hot rows on the
+        device over a host cold tier, so device bytes are O(n_hot * P)
+        whatever N is (see federation.paging). The pager is attached to
+        this session: `step()` and `run_rounds()` prefetch the rows each
+        dispatch touches, and every driver resolves owner -> hot slot on the
+        device. With n_hot >= n_owners the paged engine equals the flat one
+        bit for bit. Needs a flat make_step (pack_params=True). `cold_dir`
+        puts the cold tier on disk (a memmap created at the first
+        eviction); None keeps it in host memory."""
+        if not self._pack_params:
+            raise ValueError("the paged bank is a flat-engine option; "
+                             "call make_step(..., pack_params=True) first")
+        if bank_dtype is None:
+            bank_dtype = self._bank_dtype
+        from repro_torch.federation.paging import init_paged_state
+        state, self._pager = init_paged_state(params, self.as_async_config(), n_hot,
+                                              bank_dtype=bank_dtype, device=self.device,
+                                              cold_dir=cold_dir)
+        return state._replace(ledger=self.mechanism.device_ledger(self.device))
+
+    @property
+    def pager(self):
+        """The OwnerPager that init_paged_state attached (None for a session
+        that does not page): resident_ids, stats, io, flush()."""
+        return self._pager
+
     def params_of(self, state: AsyncDPState):
         """The central model as a tree, whichever representation the state
         carries (a flat buffer is unpacked into views)."""
@@ -343,6 +384,10 @@ class Federation:
         self._require_step()
         i = int(owner_idx)
         owner = torch.full((), i, dtype=torch.int32, device=self.device)
+        if self._pager is not None:
+            # the round's row is made resident first; a refused or masked
+            # round leaves the extra residency behind, bit-exactly
+            state = self._pager.prefetch(state, np.asarray([i]))
         if state.faults is None:
             if fault_code is not None:
                 raise ValueError("fault injection needs a fault-armed state; build the "
@@ -418,6 +463,13 @@ class Federation:
         also dropped, faulted, quarantined, timed_out and, under staleness,
         retried).
 
+        `owner_seq` may also be a `TraceRing` (a recorded trace streamed
+        through a device chunk buffer): its host `window(K)` feeds the pager
+        and the partition, then `next(K)` gives the device sequence.
+
+        On a paged session (`init_paged_state`) the pager first makes every
+        owner of the dispatch resident, evicting rows to the cold tier.
+
         `owner_parallel=True` runs the owner-parallel grouped driver
         (`deep.make_group_rounds`): the sequence is partitioned on the host
         into maximal runs of consecutive rounds with DISTINCT owners
@@ -429,9 +481,10 @@ class Federation:
         exactly; theta_L deviates boundedly for groups of more than one.
         When every group has length 1 the sequential driver runs: bit for
         bit the same. The dispatch then costs one copy of the owner
-        sequence to the host (none when the caller passed it from the
-        host), shared by the cap and the partition; without
-        owner_parallel a drawn sequence never leaves the device.
+        sequence to the host (none when the caller passed it from the host
+        or a TraceRing), shared by the pager, the cap and the partition;
+        without owner_parallel or paging a drawn sequence never leaves the
+        device.
 
         `faults` (fault-armed federations) injects per-round faults: a
         `FaultPlan` draws one int8 code per round from this call's key
@@ -460,9 +513,17 @@ class Federation:
         batches = self._on_device(batches)
         k_rounds = next(iter(batches.values())).shape[0]
         key = key.to(self.device)
+        # the one host copy of the owner sequence a dispatch makes, shared by
+        # the pager's prefetch, auto_max_group and the partition
         seq_host = None
         user_times = times is not None
-        if owner_seq is None:
+        if isinstance(owner_seq, TraceRing):
+            seq_host = np.asarray(owner_seq.window(k_rounds), np.int32)
+            if seq_host.size and (seq_host.min() < 0 or seq_host.max() >= self.n_owners):
+                raise ValueError(f"trace names owners outside this federation "
+                                 f"(n_owners={self.n_owners})")
+            owner_seq = owner_seq.next(k_rounds).to(self.device)
+        elif owner_seq is None:
             k_sched, key = random.split(key)
             draw_wt = getattr(self.schedule, "draw_with_times", None)
             if latency is not None and times is None and draw_wt is not None:
@@ -472,7 +533,7 @@ class Federation:
             else:
                 owner_seq = self.schedule.draw(k_sched, self.n_owners, k_rounds)
         else:
-            if owner_parallel:
+            if owner_parallel or self._pager is not None:
                 # the one host copy, validated and uploaded by as_owner_seq
                 seq_host = np.asarray(owner_seq.cpu() if isinstance(owner_seq, torch.Tensor)
                                       else owner_seq)
@@ -483,6 +544,11 @@ class Federation:
                              f"{owner_seq.shape[0]}")
         if user_times:
             times = as_tick_times(times, k_rounds, device=self.device)
+        if self._pager is not None:
+            if seq_host is None:
+                seq_host = owner_seq.cpu().numpy()
+            # page in every row this dispatch touches before it launches
+            state = self._pager.prefetch(state, seq_host)
         fault_codes = None
         if faults is not None:
             if state.faults is None:
@@ -527,6 +593,102 @@ class Federation:
         if state.ledger is None:
             raise ValueError("state carries no device ledger")
         return self.mechanism.reconcile(state.ledger)
+
+    # ----------------------------- crash-resume ------------------------------
+    def _paging_manifest(self) -> Dict[str, Any]:
+        return {"stores": sorted(self._pager.stores),
+                "dtypes": {n: str(s.dtype) for n, s in self._pager.stores.items()}}
+
+    def save_session(self, directory, state: AsyncDPState, step: Optional[int] = None) -> int:
+        """Checkpoint the device state AND the host accountant together.
+
+        Atomically writes the whole AsyncDPState (params, bank, ledger, tree,
+        fault and runtime counters) and the mechanism's journal, everything
+        `reconcile` depends on, so a process killed at any time after this
+        call resumes through `restore_session` with exactly the accounting
+        it had. A PAGED state checkpoints both tiers: the resident rows are
+        flushed, so the cold tier is authoritative, and its written rows
+        ride in the same atomic shard as the hot state (never-written rows
+        are the default row). Returns the step the checkpoint was filed
+        under (state.step when not given)."""
+        from repro_torch.checkpoint import save_checkpoint
+        if step is None:
+            step = int(state.step)
+        extra: Dict[str, Any] = {}
+        aux = None
+        if self._pager is not None:
+            # after the flush the cold tier holds the exact bits of every
+            # resident row
+            self._pager.flush(state, only_dirty=False)
+            aux = {}
+            for name, store in self._pager.stores.items():
+                ids = store.written_ids
+                aux[f"cold/{name}/ids"] = ids
+                aux[f"cold/{name}/rows"] = from_storage(store.read_rows(ids), store.dtype)
+            extra["paging"] = dict(self._paging_manifest(), n_hot=self._pager.n_hot)
+        exp = getattr(self.mechanism, "export_journal", None)
+        if exp is not None:
+            extra["journal"] = exp()
+        save_checkpoint(directory, step, state, extra=extra or None, aux_arrays=aux)
+        return int(step)
+
+    def restore_session(self, directory, like: AsyncDPState,
+                        step: Optional[int] = None) -> AsyncDPState:
+        """Restore a save_session checkpoint into THIS federation.
+
+        `like` is a template state (e.g. a fresh `init_state(params)`) that
+        gives the structure, dtypes, device and static fields. The
+        mechanism's journal is replayed first, rewinding the host
+        accountant to the saved baselines, and the restored ledger adopts
+        the journaled snapshot generation, so `reconcile` after the resume
+        folds exactly the deltas the crashed process had not folded, never
+        charging epsilon twice. The federation must be built from the same
+        owners and config as the one that saved. Restoring into a PAGED
+        session (init_paged_state before this call, so `like` and the cold
+        stores exist) wipes the stores, writes the checkpoint's cold rows
+        and re-syncs the pager to the restored page table."""
+        from repro_torch.checkpoint import (latest_step, load_aux_arrays, load_checkpoint,
+                                            load_manifest)
+        if step is None:
+            step = latest_step(directory)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint under {directory!r}")
+        manifest = load_manifest(directory, step)
+        paging = (manifest.get("extra") or {}).get("paging")
+        if self._pager is None and paging is not None:
+            raise ValueError("checkpoint holds a paged bank; call init_paged_state first so "
+                             "this session has a pager and cold stores to restore into")
+        if self._pager is not None and paging is None:
+            raise ValueError("checkpoint carries no cold-tier snapshot (saved from a "
+                             "non-paged session); restore it into a non-paged state instead")
+        state = load_checkpoint(directory, step, like)
+        if self._pager is not None:
+            mine = self._paging_manifest()
+            theirs = {"stores": paging["stores"], "dtypes": paging.get("dtypes", mine["dtypes"])}
+            if mine != theirs:
+                raise ValueError(f"checkpoint cold tier has stores {theirs} but this session "
+                                 f"pages {mine} — codec/tree configuration mismatch")
+            aux = load_aux_arrays(directory, step)
+            for name, store in self._pager.stores.items():
+                # wipe first: rows written after the save read as the default
+                # row again, as they did at save time
+                store.clear()
+                ids = aux[f"cold/{name}/ids"].numpy()
+                if ids.size:
+                    store.write_rows(ids, aux[f"cold/{name}/rows"])
+            self._pager.adopt(state)
+        journal = (manifest.get("extra") or {}).get("journal")
+        if journal is not None:
+            rest = getattr(self.mechanism, "restore_journal", None)
+            if rest is None:
+                raise NotImplementedError(f"mechanism {self.mechanism.name!r} cannot replay "
+                                          "the checkpoint's dispatch journal")
+            rest(journal)
+            if state.ledger is not None:
+                # the snapshot id is static: it came from `like`; adopt the
+                # journaled generation
+                state = state._replace(ledger=state.ledger.replace(sid=int(journal["sid"])))
+        return state
 
     def sync_round(self, params, batches, key: torch.Tensor):
         """One ledgered synchronous round: every live owner contributes and

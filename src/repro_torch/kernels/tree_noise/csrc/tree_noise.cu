@@ -40,6 +40,12 @@
 // launch on that owner, so a member's result does not depend on g. One
 // owner is the launch with one member.
 //
+// Paged banks (the paged owner bank keeps n_hot rows resident, and the
+// tree's node rows page with them): `slot` (may be null) gives member m's
+// node row, its hot slot, apart from its owner index, which still reads
+// the per-owner (N,) count. A member whose owner is not resident has
+// grant 0, so it writes no node, whatever row its clamped slot names.
+//
 // Design, in a grid-stride loop of four elements (one float4 per level) per
 // thread per step where the row and delta are 16-byte aligned, one element
 // per step on the tail, no shared memory: each step first loads the r
@@ -77,12 +83,14 @@ __device__ __forceinline__ float4 sub4(float4 z, float4 sum) {
 
 __global__ void __launch_bounds__(kThreads)
 tree_delta_kernel(float* __restrict__ nodes, const int32_t* __restrict__ counts,
-                  const int64_t* __restrict__ owner, const uint32_t* __restrict__ key,
+                  const int64_t* __restrict__ owner, const int64_t* __restrict__ slot,
+                  const uint32_t* __restrict__ key,
                   const float* __restrict__ ns, const int32_t* __restrict__ grant,
                   float* __restrict__ delta, int64_t n, int depth, int vec) {
-  // member blockIdx.y: its owner, key, scale, grant and delta row
+  // member blockIdx.y: its owner, node row, key, scale, grant and delta row
   const int64_t m = blockIdx.y;
   const int64_t o = owner[m];
+  const int64_t ro = slot != nullptr ? slot[m] : o;
   key += 2 * m;
   ns += m;
   if (grant != nullptr) grant += m;
@@ -103,7 +111,7 @@ tree_delta_kernel(float* __restrict__ nodes, const int32_t* __restrict__ counts,
   const uint32_t k0 = key[0];
   const uint32_t k1 = key[1];
   const float s = *ns;
-  float* row = nodes + o * depth * n;
+  float* row = nodes + ro * depth * n;
   const int64_t start = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   int64_t tail = 0;
@@ -150,11 +158,13 @@ tree_delta_kernel(float* __restrict__ nodes, const int32_t* __restrict__ counts,
 
 extern "C" {
 
-// rows members: owner[m], key[2m:2m+2], ns[m], grant[m] (grant may be null:
-// all granted), delta row m of rows x n
+// rows members: owner[m], node row slot[m] (slot may be null: the owner's
+// own row), key[2m:2m+2], ns[m], grant[m] (grant may be null: all granted),
+// delta row m of rows x n
 int tree_delta_rows_launch(float* nodes, const int32_t* counts, const int64_t* owner,
-                           const uint32_t* key, const float* ns, const int32_t* grant,
-                           float* delta, long long rows, long long n, int depth,
+                           const int64_t* slot, const uint32_t* key, const float* ns,
+                           const int32_t* grant, float* delta, long long rows, long long n,
+                           int depth,
                            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -168,7 +178,7 @@ int tree_delta_rows_launch(float* nodes, const int32_t* counts, const int64_t* o
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
     tree_delta_kernel<<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(rows)),
                         kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        nodes, counts, owner, key, ns, grant, delta, n, depth, vec);
+        nodes, counts, owner, slot, key, ns, grant, delta, n, depth, vec);
   }
   return static_cast<int>(cudaGetLastError());
 }

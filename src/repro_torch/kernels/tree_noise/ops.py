@@ -21,7 +21,9 @@ reference's gather, where and scatter of the whole (depth, P) row would
 cost three row-sized transients per round. `tree_delta_rows_` is the
 owner-parallel grouped driver's form (the reference's vmap of
 `tree_delta_2d`): g distinct owners in one launch on CUDA, each member
-bit for bit what `tree_delta_` gives it.
+bit for bit what `tree_delta_` gives it. On a paged bank, `row_idx` names
+the node row (the owner's hot slot) apart from the owner, whose count is
+read.
 """
 from __future__ import annotations
 
@@ -37,39 +39,46 @@ from repro_torch.kernels.tree_noise.ref import (tree_delta_inplace_ref,
 
 def tree_delta_(nodes: torch.Tensor, counts: torch.Tensor, owner_idx: torch.Tensor,
                 key: torch.Tensor, noise_scale: torch.Tensor,
-                grant: Optional[torch.Tensor] = None) -> torch.Tensor:
+                grant: Optional[torch.Tensor] = None,
+                row_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Advance owner `owner_idx` ((1,) int64) by one leaf: its row of the
     (N, depth, P) f32 `nodes` is updated in place unless `grant` (a
     one-element int32 tensor; None = granted) is 0, and delta (P,) is
-    returned. `counts` (N,) int32 is read, not bumped."""
+    returned. `counts` (N,) int32 is read, not bumped. `row_idx` ((1,)
+    int64, or None) is the node row when it is not `owner_idx`'s own."""
     if nodes.device.type == "cpu":
         return tree_delta_inplace_ref(nodes, counts, owner_idx,
                                       random.bits(key, (nodes.shape[-1],)), noise_scale,
-                                      grant)
+                                      grant, row_idx)
     if nodes.device.type == "cuda":
-        return tree_delta_cuda(nodes, counts, owner_idx, key, noise_scale, grant)
+        return tree_delta_cuda(nodes, counts, owner_idx, key, noise_scale, grant, row_idx)
     raise ValueError(f"tree_delta_: tensors on {nodes.device} are not supported "
                      "(cpu runs the plain version, cuda the kernel)")
 
 
 def tree_delta_rows_(nodes: torch.Tensor, counts: torch.Tensor, owner_idx: torch.Tensor,
                      keys: torch.Tensor, noise_scale: torch.Tensor,
-                     grant: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     grant: Optional[torch.Tensor] = None,
+                     row_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Advance g DISTINCT owners (`owner_idx` (g,) int64) by one leaf each:
     member m's row of `nodes` is updated in place unless grant[m] ((g,)
     int32; None = all granted) is 0, drawing random.bits(keys[m], (P,))
     ((g, 2) keys) at noise_scale[m] ((g,)); returns delta (g, P). Distinct
     owners are the conflict-free partition's invariant: checked on the CPU,
-    assumed on CUDA (a check there would read the owners back)."""
+    assumed on CUDA (a check there would read the owners back). `row_idx`
+    ((g,) int64, or None) are the members' node rows on a paged bank: the
+    resident members' slots are distinct, and a member that missed the page
+    table has grant 0 and writes no node."""
     if nodes.device.type == "cpu":
         if torch.unique(owner_idx).numel() != owner_idx.numel():
             raise ValueError(f"tree_delta_rows_ needs distinct owners, got "
                              f"{owner_idx.tolist()}")
         return tree_delta_rows_inplace_ref(nodes, counts, owner_idx,
                                            random.bits(keys, (nodes.shape[-1],)),
-                                           noise_scale, grant)
+                                           noise_scale, grant, row_idx)
     if nodes.device.type == "cuda":
-        return tree_delta_rows_cuda(nodes, counts, owner_idx, keys, noise_scale, grant)
+        return tree_delta_rows_cuda(nodes, counts, owner_idx, keys, noise_scale, grant,
+                                    row_idx)
     raise ValueError(f"tree_delta_rows_: tensors on {nodes.device} are not supported "
                      "(cpu runs the plain version, cuda the kernel)")
 

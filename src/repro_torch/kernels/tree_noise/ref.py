@@ -61,29 +61,36 @@ def tree_delta_ref(nodes: torch.Tensor, bits: torch.Tensor, count, noise_scale
 
 def tree_delta_inplace_ref(nodes: torch.Tensor, counts: torch.Tensor,
                            owner_idx: torch.Tensor, bits: torch.Tensor, noise_scale,
-                           grant: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           grant: Optional[torch.Tensor] = None,
+                           row_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The engine's form: advance owner `owner_idx`'s row of the (N, depth,
     P) node tensor IN PLACE and return delta (P,). `counts` (N,) int32 is
     read, not bumped (the caller adds the grant afterwards); `owner_idx` is
     a (1,) int64 index. With `grant` (an int tensor of one element) 0 no
-    node changes; delta is returned all the same."""
-    row = nodes.index_select(0, owner_idx)[0]
+    node changes; delta is returned all the same. `row_idx` ((1,) int64,
+    or None: the owner's own) is the node row, a paged bank's hot slot;
+    the count is read by owner."""
+    ridx = owner_idx if row_idx is None else row_idx
+    row = nodes.index_select(0, ridx)[0]
     delta, new_row = tree_delta_ref(row, bits, counts.index_select(0, owner_idx), noise_scale)
     if nodes.shape[1]:
         if grant is not None:
             new_row = torch.where(grant.reshape(()) != 0, new_row, row)
-        nodes.index_copy_(0, owner_idx, new_row.unsqueeze(0))
+        nodes.index_copy_(0, ridx, new_row.unsqueeze(0))
     return delta
 
 
 def tree_delta_rows_inplace_ref(nodes: torch.Tensor, counts: torch.Tensor,
                                 owner_idx: torch.Tensor, bits: torch.Tensor,
                                 noise_scale: torch.Tensor,
-                                grant: Optional[torch.Tensor] = None) -> torch.Tensor:
+                                grant: Optional[torch.Tensor] = None,
+                                row_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """`tree_delta_inplace_ref` for g distinct owners ((g,) int64), one
-    after another: member m draws from bits[m] ((g, P)) with noise_scale[m]
-    and grant[m]; returns delta (g, P), row m bit for bit the single call's."""
+    after another: member m draws from bits[m] ((g, P)) with noise_scale[m],
+    grant[m] and node row row_idx[m]; returns delta (g, P), row m bit for
+    bit the single call's."""
     return torch.stack([tree_delta_inplace_ref(nodes, counts, owner_idx[m:m + 1], bits[m],
                                                noise_scale[m:m + 1],
-                                               None if grant is None else grant[m:m + 1])
+                                               None if grant is None else grant[m:m + 1],
+                                               None if row_idx is None else row_idx[m:m + 1])
                         for m in range(owner_idx.numel())])

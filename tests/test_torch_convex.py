@@ -230,8 +230,13 @@ def test_trace_replay_checks_caches_and_rejects_the_ring():
     assert sched == _schedules(T)["replay"]             # the cache is not a field
     with pytest.raises(ValueError, match="4 windows for 3 owners"):
         sched.draw(tk, 3, 10)
-    with pytest.raises(NotImplementedError, match="paged owner bank"):
-        sched.trace_ring()
+    # the recorded trace streams through a TraceRing (the paged bank's
+    # input) as draw tiles it; a schedule with no recorded trace has none
+    ring = sched.trace_ring(chunk=5, device=CPU)
+    assert ring.window(20).tolist() == list(np.resize(TRACE, 20))
+    assert ring.next(20).tolist() == list(np.resize(TRACE, 20))
+    with pytest.raises(ValueError, match="recorded trace"):
+        _schedules(T)["availability"].trace_ring(device=CPU)
 
 
 # ------------------------------- the convex engine --------------------------------

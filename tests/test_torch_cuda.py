@@ -932,3 +932,74 @@ def test_sync_round_launches_sqnorm_and_scale_noise_and_matches_the_cpu():
         assert fed.sync_round(out[d.type], batches, trandom.PRNGKey(6, device=d)) is out[d.type]
     for a, b in zip(tree_flatten(out["cuda"])[0], tree_flatten(out["cpu"])[0]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_paged_bank_lookup_on_the_card():
+    from repro_torch.federation import PagedBank
+    dev = _device()
+    ids = torch.tensor([2, 5, 9, 12, 20, 20], dtype=torch.int32, device=dev)
+    bank = PagedBank(torch.zeros((6, 3), device=dev), ids, 20)
+    owners = torch.arange(20, dtype=torch.int64, device=dev)
+    slot, hit = bank.lookup(owners)
+    assert slot.device.type == "cuda" and slot.dtype == torch.int64
+    assert bank.hot_ids.dtype == torch.int32
+    want_slot, want_hit = PagedBank(torch.zeros((6, 3)), ids.cpu(), 20).lookup(owners.cpu())
+    assert torch.equal(slot.cpu(), want_slot) and torch.equal(hit.cpu(), want_hit)
+    assert hit.cpu().nonzero().reshape(-1).tolist() == [2, 5, 9, 12]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["f32", "int8", "tree", "grouped", "faults"])
+def test_paged_dispatch_on_the_card(form):
+    # a paged session on the card (n_hot 3 of 5 owners, so rows evict and
+    # load between dispatches) equals the flat session on the card bit for
+    # bit, through the same kernels (tree: tree_delta at the hot slot)
+    dev = _device()
+    cfg = DENSE_124M.reduced()
+    lm = LM(cfg)
+    params = lm.init(seed=2)
+    gen = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (12, 4, 16), generator=gen, dtype=torch.int32)
+    batches = {"tokens": toks, "labels": torch.roll(toks, -1, dims=2)}
+    chunks = ([0, 1, 0, 2], [3, 4, 3, 4], [1, 0, 2, 2])
+    fkw = dict(mechanism="tree", tree_depth=2) if form == "tree" else {}
+    if form == "faults":
+        from repro_torch.federation import FaultPlan, FaultPolicy
+        fkw["fault_policy"] = FaultPolicy(max_faults=2, window=8)
+    out = {}
+    for paged in (False, True):
+        fed = Federation([DataOwner(n=100 * (i + 1), epsilon=1.0, xi=1.0) for i in range(5)],
+                         FederationConfig.from_target_lr(0.05, n_owners=5, horizon=3,
+                                                         sigma=1e-2), device=dev, **fkw)
+        fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True,
+                      bank_dtype="int8" if form == "int8" else None,
+                      privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2, fused_kernel=True))
+        state = fed.init_paged_state(params, n_hot=3) if paged else fed.init_state(params)
+        before = {**tkernel.launches, **bkernel.launches, **nkernel.launches}
+        for c, seq in enumerate(chunks):
+            kw = dict(owner_parallel=True, max_group=None) if form == "grouped" else {}
+            if form == "faults":
+                kw["faults"] = FaultPlan(drop=0.2, nonfinite=0.2, corrupt=0.2)
+            state, ms = fed.run_rounds(state, {k: v[4 * c:4 * c + 4] for k, v in batches.items()},
+                                       seq, key=trandom.PRNGKey(10 + c, device=dev), **kw)
+        after = {**tkernel.launches, **bkernel.launches, **nkernel.launches}
+        bank = state.bank
+        if paged:
+            assert fed.pager.stats["evictions"] > 0
+            snap = fed.pager.snapshot(state)
+            bank = snap["codes"] if form == "int8" else snap["rows"]
+        else:
+            bank = (bank.codes if form == "int8" else bank).cpu().numpy()
+        out[paged] = dict(theta=state.theta_L.buf.cpu(), bank=bank, refused=ms["refused"].cpu(),
+                          ledger=fed.reconcile(state),
+                          launches={k: after[k] - before[k] for k in after})
+    assert torch.equal(out[False]["theta"], out[True]["theta"])
+    assert (out[False]["bank"] == out[True]["bank"]).all()
+    assert torch.equal(out[False]["refused"], out[True]["refused"])
+    assert out[False]["ledger"] == out[True]["ledger"]
+    assert out[False]["launches"] == out[True]["launches"]
+    kernel = "tree_delta" if form == "tree" else "dp_round"
+    assert out[True]["launches"][kernel] > 0 and out[True]["launches"]["sqnorm"] > 0
+    if form == "int8":
+        assert all(out[True]["launches"][k] > 0 for k in ("absmax", "encode", "decode"))
