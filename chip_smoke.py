@@ -37,14 +37,19 @@ Phases (any mismatch raises and the run exits non-zero):
              shape (one profiled call); ssd_chunk_scan at zamba2's
              shape (B 2, S 4096, H 80, N = P = 64, chunk 256, B and C
              broadcast over the heads), a ragged S 4000 from a random
-             initial state, the mLSTM form (per-head k and q, N = P =
-             128) and log-decays 20x stronger (|cum| in the thousands
-             within a chunk): the kernel's four outputs against their plain
+             initial state, per-head k and q at N = P = 128, log-decays
+             20x stronger (|cum| in the thousands within a chunk), and the
+             mLSTM's own heads (the wide-head variant: per-head k and q, v
+             with a ones column; xlstm-125m's N 384 / P 385 at B 2 x S
+             4096, the reduced N 128 / P 129, a ragged S 1000): the
+             kernel's four outputs against their plain
              version, finite, then y and the final state of
              ops.ssd_chunked against the plain scan, within 1e-4 + 5e-5 of
              the largest value; ssd_chunk_scan_bwd at phase train's
              microbatch (B 2, S 1024), zamba2's prefill shape, a ragged S
-             1000, the mLSTM form and the strong log-decays: its five
+             1000, per-head k and q at N = P = 128, the strong log-decays
+             and the mLSTM's heads (N 384 / P 385 at phase xlstm's
+             microbatch B 2 x S 1024, N 128 / P 129, a ragged S): its five
              outputs, finite, against ssd_chunk_scan_bwd_ref, and the
              gradient of ops.ssd_chunked (both kernels and autograd
              through the torch recurrence) against autograd through the
@@ -178,6 +183,40 @@ Phases (any mismatch raises and the run exits non-zero):
              counts per dispatch must be K*G*12 ssd_chunk_scan and
              ssd_chunk_scan_bwd, K*G sqnorm, K dp_round and 0
              flash_attention (one kv chunk: plain attention).
+   xlstm   — xlstm-125m (arXiv:2405.04517) at full width and depth,
+             199,584,812 f32 parameters (11 mLSTM blocks with scan heads N
+             384 / P 385, the sLSTM at block 6): launch.steps.
+             build_train_step, 4 owners, batch 4 x S 1024, G = 2
+             pre-grouped microbatches: three timed rounds (the first warms
+             up) and one profiled, each with 22 ssd_chunk_scan and 22
+             ssd_chunk_scan_bwd launches (11 mLSTM layers x G) and no
+             other kernel; ms a round, device time, idle share, peak GB.
+             The loss gradient (B 2) through the kernels against the plain
+             scan on the card, each leaf within 1e-3 of its largest
+             |gradient|: the whole model at S 256, its 12 blocks all mLSTM
+             at S 1024 (four chunks); at S 1024 the whole model's gradient
+             is ill-conditioned in f32 through the sLSTM's recurrence, so
+             kernels against the plain scan and the plain scan at chunk
+             128 against 256 are printed there, not checked. The main path's flat fused engine over the
+             xLSTM at main's S 128 (phase main's dispatches at K = 8, two
+             timed and one profiled: K dp_round, K*G sqnorm and K*G*11 of
+             each SSD kernel a dispatch). Decode against the forward over S 300, within
+             5e-3. launch.train.main at its reduced default size on the
+             card (--steps 5, per-example granularity: vmap of the
+             gradient through the wide kernels), its checkpoint loaded
+             back bit for bit.
+   moe     — qwen3-moe-30b-a3b (hf:Qwen/Qwen3-30B-A3B) at full width, the
+             depth cut to fit one card: 4 of 48 layers (3.11 B parameters,
+             drawn on the card from a seed) for a prefill of B 2 x S 4096
+             through build_prefill_step with attn_backend "pallas" (4
+             flash_attention launches), three timed and one profiled,
+             against "jnp" (logits within two bf16 steps of the largest:
+             the onehot dispatch's bf16 casts); one layer's onehot dispatch
+             with a capacity that drops nothing against the ragged one;
+             then 1 of 48 layers (1.25 B parameters: 2 layers ran out
+             of memory) for two build_train_step rounds at microbatch
+             granularity (2 owners, batch 4 x S 1024, the ragged
+             dispatch) and one profiled, with peak GB.
    convex  — the paper's Section 5 at its own size through Federation.run:
              lending and health, p = 10, 10,000 records per owner, T =
              1000, rho 1, sigma 2e-5, reg 1e-5, theta_max 2; for N in (2,
@@ -263,7 +302,9 @@ Phases (any mismatch raises and the run exits non-zero):
              zamba2's prefill shape and ssd_chunk_scan_bwd at phase
              train's microbatch (no library call), each beside its bound:
              operations over 67 TFLOP/s of f32 against bytes over 3.35
-             TB/s, whichever is larger; the forward's TFLOP/s also at phase
+             TB/s, whichever is larger; both SSD kernels also at the
+             mLSTM's shapes (xlstm-125m's prefill and training microbatch,
+             the reduced head; printed, not rows); the forward's TFLOP/s also at phase
              train's microbatch (printed, not a row); the member axis
              (dp_round and sqnorm over 8 rows, tree_delta over 4 owners at
              r = 0, at P = 152,783,616) beside as many single launches and
@@ -504,20 +545,30 @@ def _sdpa_kernels(torch, dev):
 
 
 # (what, B, S, H, N, P, chunk, k and q broadcast over the heads, decay):
-# zamba2's Mamba2 layers at prefill (B and C shared by the 80 heads), a ragged S, the
-# mLSTM form (per-head keys and queries), and log-decays 20x stronger
-# (|cum| in the thousands within a chunk)
+# zamba2's Mamba2 layers at prefill (B and C shared by the 80 heads), a ragged S, per-head
+# keys and queries at the resident-tile variants' widest N = P = 128, and log-decays 20x
+# stronger (|cum| in the thousands within a chunk)
 SSD_CASES = (("zamba2-2.7b", 2, 4096, 80, 64, 64, 256, True, 1.0),
              ("zamba2-2.7b, ragged S", 2, 4000, 80, 64, 64, 256, True, 1.0),
-             ("mLSTM form", 2, 2048, 8, 128, 128, 256, False, 1.0),
+             ("per-head k/q, N = P = 128", 2, 2048, 8, 128, 128, 256, False, 1.0),
              ("zamba2-2.7b, strong decay", 2, 1024, 80, 64, 64, 256, True, 20.0))
+# (what, B, S, H, N, P, chunk): the mLSTM's own scan (the wide-head variant):
+# per-head k and q, N = dm / H and P = N + 1, v's last column the normalizer's
+# ones; xlstm-125m at full width (N 384, P 385) at prefill, the reduced
+# xLSTM's head (N 128, P 129) at the training microbatch, and a ragged S
+MLSTM_SSD_CASES = (("mLSTM xlstm-125m prefill", 2, 4096, 4, 384, 385, 256),
+                   ("mLSTM reduced xlstm-125m", 2, 1024, 4, 128, 129, 256),
+                   ("mLSTM xlstm-125m, ragged S", 2, 1000, 4, 384, 385, 256))
 
 
-def _ssd_inputs(torch, dev, B, S, H, N, P, bcast, gen, decay=1.0):
+def _ssd_inputs(torch, dev, B, S, H, N, P, bcast, gen, decay=1.0, ones=False):
     """Mamba2-like scan inputs on the card: k and q as stride-0 views over
     the heads when `bcast`, ld = -decay * softplus(x) and g = sigmoid(x)
-    for normal x (decay 1 is the reference's test distribution)."""
-    v = torch.randn((B, S, H, P), device=dev, generator=gen)
+    for normal x (decay 1 is the reference's test distribution). `ones`:
+    the mLSTM's v, whose last of P columns is ones (the normalizer)."""
+    v = torch.randn((B, S, H, P - ones), device=dev, generator=gen)
+    if ones:
+        v = torch.cat([v, torch.ones((B, S, H, 1), device=dev)], dim=-1)
     if bcast:
         k, q = (torch.randn((B, S, 1, N), device=dev, generator=gen).expand(B, S, H, N)
                 for _ in range(2))
@@ -550,8 +601,9 @@ def _check_ssd(torch, dev):
     before = dict(kernel.launches)
     gen = torch.Generator(device=dev).manual_seed(13)
     n = 0
-    for what, B, S, H, N, P, Q, bcast, decay in SSD_CASES:
-        v, ld, k, q, g = _ssd_inputs(torch, dev, B, S, H, N, P, bcast, gen, decay)
+    cases = [(c, False) for c in SSD_CASES] + [(c + (False, 1.0), True) for c in MLSTM_SSD_CASES]
+    for (what, B, S, H, N, P, Q, bcast, decay), ones in cases:
+        v, ld, k, q, g = _ssd_inputs(torch, dev, B, S, H, N, P, bcast, gen, decay, ones)
         h0 = (torch.randn((B, H, N, P), device=dev, generator=gen) if "ragged" in what
               else None)
         parts = kernel.ssd_chunk_scan_cuda(v, ld, k, q, g, Q)
@@ -575,7 +627,7 @@ def _check_ssd(torch, dev):
             worst.append(f"{name} {e:.2e} (bound {tol:.2e})")
             err = max(err, e)
         print(f"[kernels] ssd_chunk_scan {what} (B {B}, S {S}, H {H}, N {N}, P {P}, chunk {Q}, "
-              f"{'B/C broadcast' if bcast else 'per-head k/q'}"
+              f"{'B/C broadcast' if bcast else 'per-head k/q'}{', v with a ones column' * ones}"
               f"{', h0' if h0 is not None else ''}): max |kernel - plain| " + ", ".join(worst)
               + "; two launches give the same bits")
         del v, ld, k, q, g, parts, plain_parts, y, y2, py, h, h2, ph
@@ -586,13 +638,18 @@ def _check_ssd(torch, dev):
 
 
 # as SSD_CASES: phase train's microbatch (four chunks), zamba2's prefill
-# shape, a ragged S, the mLSTM form (per-head k and q, N = P = 128), and the
-# strong log-decays
+# shape, a ragged S, per-head k and q at N = P = 128, and the strong
+# log-decays
 SSD_BWD_CASES = (("train microbatch", 2, 1024, 80, 64, 64, 256, True, 1.0),
                  ("zamba2-2.7b prefill", 2, 4096, 80, 64, 64, 256, True, 1.0),
                  ("ragged S", 2, 1000, 80, 64, 64, 256, True, 1.0),
-                 ("mLSTM form", 1, 1024, 8, 128, 128, 256, False, 1.0),
+                 ("per-head k/q, N = P = 128", 1, 1024, 8, 128, 128, 256, False, 1.0),
                  ("strong decay", 2, 1024, 80, 64, 64, 256, True, 20.0))
+# as MLSTM_SSD_CASES: phase xlstm's training microbatch at full width (N
+# 384, P 385), the reduced head (N 128, P 129) and a ragged S
+MLSTM_SSD_BWD_CASES = (("mLSTM xlstm-125m train microbatch", 2, 1024, 4, 384, 385, 256),
+                       ("mLSTM reduced xlstm-125m", 2, 1024, 4, 128, 129, 256),
+                       ("mLSTM xlstm-125m, ragged S", 2, 1000, 4, 384, 385, 256))
 
 
 def _grad_leaves(torch, k, q, bcast):
@@ -617,8 +674,10 @@ def _check_ssd_bwd(torch, dev):
     err = 0.0
     before = dict(kernel.launches)
     gen = torch.Generator(device=dev).manual_seed(16)
-    for what, B, S, H, N, P, Q, bcast, decay in SSD_BWD_CASES:
-        v, ld, k, q, g = _ssd_inputs(torch, dev, B, S, H, N, P, bcast, gen, decay)
+    cases = ([(c, False) for c in SSD_BWD_CASES]
+             + [(c + (False, 1.0), True) for c in MLSTM_SSD_BWD_CASES])
+    for (what, B, S, H, N, P, Q, bcast, decay), ones in cases:
+        v, ld, k, q, g = _ssd_inputs(torch, dev, B, S, H, N, P, bcast, gen, decay, ones)
         nc = -(-S // Q)
         cots = [torch.randn(shape, device=dev, generator=gen)
                 for shape in ((B, S, H, P), (B, nc, H, N, P), (B, S, H), (B, nc, H))]
@@ -655,12 +714,13 @@ def _check_ssd_bwd(torch, dev):
                   f"the plain scan's by {e:.3e} (bound {tol:.3e})")
             worst.append(f"grad {name} {e:.2e} (bound {tol:.2e})")
         print(f"[kernels] ssd_chunk_scan_bwd {what} (B {B}, S {S}, H {H}, N {N}, P {P}, chunk "
-              f"{Q}, {'B/C broadcast' if bcast else 'per-head k/q'}): max |kernel - plain| "
+              f"{Q}, {'B/C broadcast' if bcast else 'per-head k/q'}"
+              f"{', v with a ones column' * ones}): max |kernel - plain| "
               + ", ".join(worst) + "; two launches give the same bits")
         del v, ld, k, q, g, h0, ry, rh, grads
         torch.cuda.empty_cache()
     got = _diff(dict(kernel.launches), before)
-    n = len(SSD_BWD_CASES)
+    n = len(cases)
     check(got == {"ssd_chunk_scan": n, "ssd_chunk_scan_bwd": 3 * n},
           f"the SSD backward checks launched {got}")
     return {"ssd_chunk_scan_bwd": err}
@@ -1024,12 +1084,13 @@ def _tree_view(counts, depth, eps, cap):
 
 
 def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispatches=4,
-               bank_dtype=None, tree_depth=None, pack_params=True, tag="main"):
+               bank_dtype=None, tree_depth=None, pack_params=True, tag="main", cpu_ops=True):
     """One full-width path: `dispatches` timed run_rounds calls of K = 8, one
     profiled, two step() calls and reconcile, with the launch counters set
     to 0 just before and read just after. `tree_depth` runs the tree
     mechanism at that depth; `pack_params=False` the pytree state (with the
-    fused privatizer: per leaf sqnorm and scale_noise). Returns (launches,
+    fused privatizer: per leaf sqnorm and scale_noise); `cpu_ops` as
+    `_device_profile`'s, for the profiled dispatch. Returns (launches,
     fed, pipe, lm, profile) with profile = {"busy": device ms per round,
     "median": ms per round, "groups": {kernel group: ms per round},
     "launches": device kernels per round, "peak": peak GB}."""
@@ -1064,8 +1125,9 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
     P = _model_size(state.theta_L)
     check(P == cfg.param_count(), f"P = {P}")
     # a hybrid model's microbatch runs one SSD scan forward and backward per
-    # Mamba2 layer (its attention, one kv chunk at these lengths, no flash)
-    scans = K * G * cfg.n_layers if cfg.family == "hybrid" else 0
+    # Mamba2 layer (its attention, one kv chunk at these lengths, no flash),
+    # an xLSTM's per mLSTM layer
+    scans = K * G * _scan_layers(cfg)
     model = {"flash_attention": 0, "ssd_chunk_scan": scans, "ssd_chunk_scan_bwd": scans}
     if pack_params:
         per_dispatch = {"sqnorm": K * G, "dp_round": K * (not tree), "scale_noise": 0,
@@ -1130,7 +1192,7 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
           f"those dispatches {_allocator_work(torch, dev)}")
     key, sub = random.split(key)
     (state, _, _, _), busy, groups, per_round_launches = _profiled(
-        torch, dev, lambda: dispatch(state, sub), K)
+        torch, dev, lambda: dispatch(state, sub), K, cpu_ops=cpu_ops)
     print(f"[profile] {tag}: device busy {busy:.2f} of the unprofiled median {median:.2f} "
           f"ms/round: the device idles {1 - busy / median:.1%} of a round")
     it = iter(pipe)
@@ -2296,7 +2358,17 @@ def phase_sync(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, round
 HYBRID_GRAD_RTOL = 1e-3
 
 
-def _check_hybrid_grad(torch, dev, cases=None):
+def _scan_layers(cfg):
+    """The layers of `cfg` that run the SSD scan: every Mamba2 layer of a
+    hybrid, every mLSTM layer of an xLSTM."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers
+    if cfg.family == "ssm":
+        return cfg.n_layers - len(cfg.xlstm.slstm_indices)
+    return 0
+
+
+def _check_hybrid_grad(torch, dev, cases=None, generator_device=None):
     """The hybrid's loss gradient on one microbatch (B 2), through the SSD
     kernels (ops.ssd_chunked on the card: forward and backward kernel)
     against the same gradient with ops.ssd_chunked pointed at the plain scan
@@ -2317,7 +2389,8 @@ def _check_hybrid_grad(torch, dev, cases=None):
     worst_all = 0.0
     for what, cfg, S in cases:
         lm = LM(cfg, attn_backend="jnp")
-        leaves, treedef = tree_flatten(lm.init(seed=3, device=dev))
+        leaves, treedef = tree_flatten(lm.init(seed=3, device=dev,
+                                               generator_device=generator_device))
         toks = torch.randint(0, cfg.vocab, (2, S), generator=torch.Generator().manual_seed(S),
                              dtype=torch.int32)
         batch = {"tokens": toks.to(dev), "labels": torch.roll(toks, -1, dims=1).to(dev)}
@@ -2333,7 +2406,7 @@ def _check_hybrid_grad(torch, dev, cases=None):
                 ops.ssd_chunked = kernel_scan
             _sync(torch, dev)
             counts.append(_diff(dict(kernel.launches), before))
-        n = cfg.n_layers
+        n = _scan_layers(cfg)
         check(counts == [{"ssd_chunk_scan": n, "ssd_chunk_scan_bwd": n},
                          {"ssd_chunk_scan": 0, "ssd_chunk_scan_bwd": 0}],
               f"the hybrid gradients launched {counts}")
@@ -2346,7 +2419,7 @@ def _check_hybrid_grad(torch, dev, cases=None):
                   f"|grad| {scale:.3e})")
             worst = max(worst, e / max(scale, 1e-30))
         worst_all = max(worst_all, worst)
-        print(f"[kernels] hybrid loss gradient, {what} (P = {sum(x.numel() for x in leaves):,}, "
+        print(f"[kernels] loss gradient, {what} (P = {sum(x.numel() for x in leaves):,}, "
               f"B 2, S {S}): kernels against the plain scan on the card, every leaf within "
               f"{worst:.2e} of its largest |grad| (bound {HYBRID_GRAD_RTOL}); launches "
               f"{counts[0]}")
@@ -3220,6 +3293,426 @@ def _paged_crash_resume(torch, dev, directory):
           f"{fed_c.pager.stats}")
 
 
+# phase xlstm: xlstm-125m at full width and depth (12 blocks, the sLSTM at 6),
+# f32; build_train_step's rounds at batch 4 x S 1024, G = 2, 4 owners
+XLSTM_SEQ = 1024
+XLSTM_DECODE_SEQ = 300           # a chunk of 256 and a ragged one
+XLSTM_TRAIN_STEPS = 5            # launch.train.main at its reduced default size
+# the whole model's gradient check runs at one chunk: over S 1024 the sLSTM's
+# recurrence (recurrent weights at std 0.3 over hd 192, a gain of about 4 a
+# position) amplifies f32 rounding differences until two plain scans that
+# differ only in their chunk length disagree on gradient leaves by percents
+# (`_xlstm_grad_conditioning` prints it); the mLSTM blocks alone are checked
+# at S 1024
+XLSTM_GRAD_SEQ = 256
+# phase moe: qwen3-moe-30b-a3b at full width, depth cut to fit one card: 4 of
+# 48 layers for the prefill (3.11 B leaves, 12.4 GB f32), 1 for the train
+# round (1.25 B leaves: theta_L and a bank of 2 owners, 15 GB, then the
+# round's theta_bar, gradients, mean and noise tree, 5 GB each, and the
+# Laplace draw's int64 words over the 311 M-element embedding tables; 2
+# layers ran out of the card's 80 GB)
+MOE_PREFILL_LAYERS = 4
+MOE_TRAIN_LAYERS = 1
+# the onehot dispatch rounds x and the combine weights to bf16 (the
+# reference's casts), each a relative error of up to 2^-8 (a bf16 step):
+# logits of the two attention backends, where the two f32 paths leave an
+# element on either side of a rounding boundary, and onehot (no capacity
+# drop) against the f32 ragged dispatch at one layer, are held within two
+# such steps of the largest value
+MOE_PREFILL_REL = 2.0 ** -7
+
+
+def _round_batches(torch, cfg, n, batch, seq, G, dev, seed):
+    """n microbatch-major (G, batch / G, seq) token batches on `dev`."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        toks = rng.integers(0, cfg.vocab, (G, batch // G, seq), dtype=np.int32)
+        out.append({k: torch.from_numpy(v).to(dev)
+                    for k, v in (("tokens", toks), ("labels", np.roll(toks, -1, axis=2)))})
+    return out
+
+
+def _xlstm_grad_conditioning(torch, dev, cfg, S, gen_dev=None):
+    """Printed, not checked: the whole xLSTM's loss gradient at S (B 2)
+    through the kernels against the plain scan, and the plain scan at chunk
+    128 against itself at chunk 256 (the same function, other rounding):
+    the largest leaf difference over that leaf's largest |gradient|, for
+    each pair. Where both pairs disagree alike, the gradient is
+    ill-conditioned in f32 and no scan implementation can meet a tight
+    bound there."""
+    from repro_torch.kernels.ssm_scan import ops, ref
+    from repro_torch.models import LM
+    from repro_torch.tree_util import tree_flatten, tree_unflatten
+    lm = LM(cfg)
+    leaves, treedef = tree_flatten(lm.init(seed=3, device=dev, generator_device=gen_dev))
+    toks = torch.randint(0, cfg.vocab, (2, S), generator=torch.Generator().manual_seed(S),
+                         dtype=torch.int32)
+    batch = {"tokens": toks.to(dev), "labels": torch.roll(toks, -1, dims=1).to(dev)}
+
+    def chunk128(v, ld, k, q, g, *, chunk, h0=None):
+        return ref.ssd_chunked(v, ld, k, q, g, chunk=min(chunk, 128), h0=h0)
+
+    grads, losses = [], []
+    for scan in (ops.ssd_chunked, ref.ssd_chunked, chunk128):
+        live = [x.detach().requires_grad_(True) for x in leaves]
+        kernel_scan, ops.ssd_chunked = ops.ssd_chunked, scan
+        try:
+            loss = lm.loss(tree_unflatten(treedef, live), batch)[0]
+            grads.append(torch.autograd.grad(loss, live))
+            losses.append(float(loss))
+        finally:
+            ops.ssd_chunked = kernel_scan
+
+    def worst(a, b):
+        return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                   for x, y in zip(a, b))
+
+    print(f"[xlstm] gradient conditioning at full width and depth, B 2 x S {S}: kernels "
+          f"against the plain scan, worst leaf {worst(grads[0], grads[1]):.2e} of its largest "
+          f"|gradient| (loss {losses[0]:.7f} vs {losses[1]:.7f}); the plain scan at chunk 128 "
+          f"against chunk 256, worst leaf {worst(grads[2], grads[1]):.2e} (loss "
+          f"{losses[2]:.7f})")
+    del leaves, grads
+
+
+def _train_step_rounds(torch, dev, tag, cfg, lm, holder, n_owners, batch, seq, G, rounds,
+                       per_round):
+    """launch.steps.build_train_step's step (the pytree state, G pre-grouped
+    microbatches, the reference privatizer) for `rounds` timed rounds (the
+    first warms up) and one profiled, each with exactly `per_round`
+    launches. `holder` is a list holding the initial params: they are taken
+    out of it once the state holds its copies, so that no third copy stays
+    on the card. Returns (ms per round, device busy ms, device kernels,
+    peak GB)."""
+    from repro_torch import random
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.federation.deep import init_state
+    from repro_torch.launch.steps import build_train_step, default_async_cfg
+    acfg = default_async_cfg(n_owners=n_owners, n_microbatches=G)
+    bundle = build_train_step(cfg, ShapeConfig(tag, seq, batch, "train"), None, model=lm,
+                              async_cfg=acfg, dtype=torch.float32, device=dev)
+    check(bundle.kind == "train" and tuple(bundle.args[1]["tokens"].shape)
+          == (G, batch // G, seq), f"the {tag} bundle's batch spec")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    state = init_state(holder.pop(), acfg, device=dev)
+    batches = _round_batches(torch, cfg, rounds + 1, batch, seq, G, dev, seed=5)
+    key = random.PRNGKey(11, device=dev)
+
+    def one(state, r, sub):
+        owner = torch.tensor([r % n_owners], dtype=torch.int32, device=dev)
+        before = _launches()
+        state, m = bundle.step(state, batches[r], owner, sub)
+        got = _diff(_launches(), before)
+        check(got == per_round, f"a {tag} round launched {got}, expected {per_round}")
+        return state, m
+
+    times = []
+    for r in range(rounds):
+        key, sub = random.split(key)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        state, m = one(state, r, sub)
+        _sync(torch, dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    key, sub = random.split(key)
+    (state, m), busy, groups, kernels = _profiled(torch, dev, lambda: one(state, rounds, sub), 1,
+                                                  top=6, cpu_ops=False)
+    # every leaf at once (`_state_finite` goes row by row through large
+    # leaves: 151,936 rows and host reads of the MoE's embedding bank)
+    check(int(state.step) == rounds + 1
+          and all(bool(torch.isfinite(leaf).all())
+                  for leaf in _leaves(state.theta_L) + _leaves(state.bank)),
+          f"the {tag} state after {rounds + 1} rounds")
+    ms = statistics.median(times[1:])
+    peak = _peak_gb(torch, dev)
+    print(f"[{tag}] build_train_step: {n_owners} owners, batch {batch} x S {seq}, G = {G}: "
+          f"rounds {', '.join(f'{t:.1f}' for t in times)} ms (the first warms up), median "
+          f"{ms:.1f} ms; per round {per_round}; device busy {busy:.2f} ms, the device idles "
+          f"{1 - busy / ms:.1%}, {kernels:.0f} device kernels a round; peak memory "
+          f"{peak:.2f} GB; clip_frac {float(m['clip_frac']):.2f}")
+    del state, batches
+    return ms, busy, kernels, peak
+
+
+def phase_xlstm(torch, dev, cfg=None, n_owners=4, batch=4, seq=XLSTM_SEQ, G=2, rounds=3,
+                fused_seq=128, fused_dispatches=2, decode_seq=XLSTM_DECODE_SEQ,
+                train_steps=XLSTM_TRAIN_STEPS, ckpt_root=None):
+    """xlstm-125m at full width and depth on the card (random weights from a
+    seed, f32): (1) build_train_step rounds, one SSD scan forward and
+    backward (the wide-head kernels, N 384 / P 385) per mLSTM layer and
+    microbatch; (2) the loss gradient through the kernels against the plain
+    scan, both on the card; (3) the main path's flat fused engine over the
+    xLSTM (phase_main: K = 8, dp_round and sqnorm on the xLSTM's flat row,
+    at main's sequence length, `fused_seq`: the sLSTM's per-position host
+    loop makes a round at S 1024 take seconds);
+    (4) decode against the forward; (5) launch.train.main at its reduced
+    default size on the card, its checkpoint loaded back bit for bit.
+    Returns the launches per round of (1)."""
+    import dataclasses
+    import shutil
+    from repro_torch.checkpoint import flatten_with_paths, load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import LM
+    cfg = get_config("xlstm-125m") if cfg is None else cfg
+    n_scan = _scan_layers(cfg)
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    # weights drawn on the card (seconds at full width on the host)
+    gen_dev = dev if dev.type == "cuda" else None
+    params = lm.init(seed=0, device=dev, generator_device=gen_dev)
+    n_params = sum(leaf.numel() for leaf in _leaves(params))
+    check(n_params == cfg.param_count(), f"{n_params} parameters, expected {cfg.param_count()}")
+    _sync(torch, dev)
+    print(f"[xlstm] {cfg.name}: {n_params:,} parameters, {cfg.n_layers} blocks ({n_scan} mLSTM "
+          f"with scan heads N {cfg.d_model * 2 // cfg.n_heads}, P "
+          f"{cfg.d_model * 2 // cfg.n_heads + 1}; the sLSTM at {cfg.xlstm.slstm_indices}); "
+          f"drawn in {time.perf_counter() - t0:.1f} s")
+    zero = {k: 0 for k in FED_KERNELS + MODEL_KERNELS}
+    per_round = dict(zero, ssd_chunk_scan=G * n_scan, ssd_chunk_scan_bwd=G * n_scan)
+    _reset_launches()
+    _train_step_rounds(torch, dev, "xlstm", cfg, lm, [params], n_owners, batch, seq, G, rounds,
+                       per_round)
+    # the loss gradient through the kernels against the plain scan: the whole
+    # model at one chunk, and its mLSTM blocks alone over four chunks
+    mlstm_only = dataclasses.replace(cfg, xlstm=dataclasses.replace(cfg.xlstm,
+                                                                    slstm_indices=()))
+    _check_hybrid_grad(torch, dev, cases=(
+        (f"{cfg.name} at full width and depth", cfg, XLSTM_GRAD_SEQ),
+        (f"{cfg.name} at full width, its {cfg.n_layers} blocks all mLSTM", mlstm_only, seq)),
+        generator_device=gen_dev)
+    _xlstm_grad_conditioning(torch, dev, cfg, seq, gen_dev)
+    print(f"[xlstm] {time.perf_counter() - t0:.1f} s into the phase")
+    # the profiled dispatch traces the device alone: its ~190 K kernels with
+    # their host ops took about a minute to read back
+    fused_launches, _, _, _, _ = phase_main(torch, dev, cfg=cfg, n_owners=n_owners,
+                                            seq=fused_seq, dispatches=fused_dispatches,
+                                            tag="xlstm fused", cpu_ops=False)
+    check(fused_launches["dp_round"] > 0 and fused_launches["sqnorm"] > 0
+          and fused_launches["ssd_chunk_scan_bwd"] > 0, "the fused xLSTM path launched "
+          f"{fused_launches}")
+    print(f"[xlstm] {time.perf_counter() - t0:.1f} s into the phase")
+    # decode against the forward at full width and depth
+    toks = torch.randint(0, cfg.vocab, (2, decode_seq), generator=torch.Generator().manual_seed(3),
+                         dtype=torch.int32).to(dev)
+    _reset_launches()
+    with torch.no_grad():
+        full = torch.einsum("bsd,dv->bsv", lm.forward(params, {"tokens": toks}),
+                            lm._unembed(params))
+        got = _launches()
+        cache = lm.init_cache(2, decode_seq, dtype=torch.float32, device=dev)
+        err = 0.0
+        for t in range(decode_seq):
+            lg, cache = lm.decode_step(params, cache, toks[:, t:t + 1], t)
+            err = max(err, float((lg[:, 0] - full[:, t]).abs().max()))
+    check(got == dict(zero, ssd_chunk_scan=n_scan), f"the xLSTM forward launched {got}")
+    check(_launches() == got, "xLSTM decode launched a kernel")
+    check(err <= DECODE_TOL and math.isfinite(err), f"xLSTM decode differs from the forward by "
+          f"{err:.3e}")
+    print(f"[xlstm] decode against the forward at full width, S {decode_seq}: max |logit "
+          f"difference| {err:.3e} over every position (bound {DECODE_TOL}; max |logit| "
+          f"{float(full.abs().max()):.3f}); the forward launched {n_scan} ssd_chunk_scan, "
+          f"decode none; {time.perf_counter() - t0:.1f} s into the phase")
+    del full, cache, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # the training launcher at its default (reduced) size on the card
+    root = ckpt_root or os.path.join(ROOT, "build", "chip_smoke_xlstm_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    _reset_launches()
+    t0 = time.perf_counter()
+    state = train_main(["--arch", "xlstm-125m", "--steps", str(train_steps), "--device",
+                        dev.type, "--ckpt-dir", root])
+    _sync(torch, dev)
+    dt = time.perf_counter() - t0
+    got = _launches()
+    check(int(state.step) == train_steps and _state_finite(torch, state),
+          "launch.train.main's state")
+    check(got["ssd_chunk_scan"] > 0 and got["ssd_chunk_scan_bwd"] > 0,
+          f"launch.train.main launched {got}")
+    back = load_checkpoint(root, train_steps, state)
+    mine, loaded = flatten_with_paths(state), flatten_with_paths(back)
+    check(list(mine) == list(loaded) and all(torch.equal(mine[k], loaded[k]) for k in mine),
+          "the launcher's checkpoint does not load back bit for bit")
+    print(f"[xlstm] launch.train.main --arch xlstm-125m (reduced: N 128, P 129) --steps "
+          f"{train_steps} --device {dev.type}: {dt:.1f} s, launches "
+          f"{ {k: v for k, v in got.items() if v} }; its checkpoint ({len(mine)} leaves, "
+          f"e.g. {next(k for k in mine if 'mlstm' in k)}) loads back bit for bit")
+    shutil.rmtree(root, ignore_errors=True)
+    return per_round
+
+
+def phase_moe(torch, dev, cfg=None, prefill_layers=MOE_PREFILL_LAYERS, batch=PREFILL_B,
+              seq=PREFILL_S, layer_seq=1024, train_layers=MOE_TRAIN_LAYERS, n_owners=2,
+              train_batch=4, train_seq=1024, G=2, rounds=2):
+    """qwen3-moe-30b-a3b at full width on the card (random weights drawn on
+    the card from a seed, f32), depth cut to `prefill_layers`: the prefill
+    through build_prefill_step with attn_backend "pallas" (flash on every
+    layer) against "jnp"; one full-width MoE layer's onehot dispatch with a
+    capacity that drops nothing against the ragged one; then one
+    build_train_step round at microbatch granularity (the ragged dispatch,
+    the launcher's) on the first `train_layers` layers. Returns the
+    prefill's launches."""
+    import dataclasses
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import LM
+    from repro_torch.models import moe as moe_mod
+    full = get_config("qwen3-moe-30b-a3b") if cfg is None else cfg
+    cut = dataclasses.replace(full, n_layers=prefill_layers)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    lm = LM(cut, attn_backend="pallas")
+    t0 = time.perf_counter()
+    params = lm.init(seed=0, device=dev, generator_device=dev if dev.type == "cuda" else None)
+    n_params = sum(leaf.numel() for leaf in _leaves(params))
+    check(n_params == cut.param_count(), f"{n_params} parameters, expected {cut.param_count()}")
+    _sync(torch, dev)
+    m = cut.moe
+    print(f"[moe] {full.name} at full width, {prefill_layers} of {full.n_layers} layers: "
+          f"{n_params:,} parameters ({n_params * 4 / 1e9:.2f} GB f32; all {full.n_layers} layers: "
+          f"{full.param_count():,}, {full.active_param_count():,} active a token), "
+          f"{m.n_experts} experts top-{m.top_k}, d_expert {m.d_expert}; drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    shape = ShapeConfig("moe_prefill", seq, batch, "prefill")
+    bundle = build_prefill_step(cut, shape, None, model=lm, dtype=torch.float32)
+    toks = torch.randint(0, cut.vocab, (batch, seq), generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32).to(dev)
+    zero = {k: 0 for k in FED_KERNELS + MODEL_KERNELS}
+    per_prefill = dict(zero, flash_attention=prefill_layers)
+    _reset_launches()
+    times = []
+    with torch.no_grad():
+        for _ in range(3):
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            logits = bundle.step(params, {"tokens": toks})
+            _sync(torch, dev)
+            times.append((time.perf_counter() - t1) * 1e3)
+        _, busy, groups, kernels = _profiled(
+            torch, dev, lambda: bundle.step(params, {"tokens": toks}), 1, top=6)
+    launches = _launches()
+    check(launches == {k: 4 * n for k, n in per_prefill.items()},
+          f"four MoE prefills launched {launches}, expected 4 x {per_prefill}")
+    check(tuple(logits.shape) == (batch, cut.vocab) and bool(torch.isfinite(logits).all()),
+          "MoE prefill logits are not finite (B, V)")
+    ms = statistics.median(times[1:])
+    print(f"[moe] prefill B {batch} x S {seq} (attn_backend 'pallas', onehot dispatch, "
+          f"groups of {lm.moe_group_tokens}): {times[0]:.1f} ms warm-up, then {times[1]:.1f} and "
+          f"{times[2]:.1f} ms; {batch * seq / ms * 1e3:,.0f} prefill tokens/s; "
+          f"{prefill_layers} flash_attention launches a prefill")
+    print(f"[profile] moe prefill: device busy {busy:.2f} of {ms:.2f} ms: the device idles "
+          f"{1 - busy / ms:.1%}; {kernels:.0f} device kernels; peak memory "
+          f"{_peak_gb(torch, dev):.2f} GB")
+    _reset_launches()
+    with torch.no_grad():
+        plain = build_prefill_step(cut, shape, None, model=LM(cut, attn_backend="jnp"),
+                                   dtype=torch.float32).step(params, {"tokens": toks})
+    check(_launches() == zero, "the 'jnp' MoE prefill launched a kernel")
+    e = float((logits - plain).abs().max())
+    bound = MOE_PREFILL_REL * float(plain.abs().max())
+    check(e <= bound, f"MoE prefill logits: 'pallas' and 'jnp' differ by {e:.3e} (bound "
+          f"{bound:.3e})")
+    print(f"[moe] prefill logits, 'pallas' against 'jnp': max difference {e:.3e} (bound "
+          f"{bound:.3e}: two bf16 steps of the largest logit, {float(plain.abs().max()):.3f}); "
+          f"{time.perf_counter() - t0:.1f} s into the phase")
+    del logits, plain
+    # one full-width MoE layer: onehot with a capacity of every choice of its
+    # group (nothing drops) against the ragged dispatch
+    p0 = moe_mod.MoEParams(*(t[0] for t in params["blocks"]["ffn"]))
+    x = torch.randn((batch, layer_seq, cut.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4))
+    with torch.no_grad():
+        y1, a1 = moe_mod.moe_forward(p0, x, m, mode="onehot", group_tokens=512,
+                                     capacity_factor=m.n_experts / m.top_k)
+        y2, a2 = moe_mod.moe_forward(p0, x, m, mode="ragged")
+    e = float((y1 - y2).abs().max())
+    bound = MOE_PREFILL_REL * float(y2.abs().max())
+    check(e <= bound and abs(float(a1) - float(a2)) <= 1e-6 and bool(torch.isfinite(y1).all()),
+          f"onehot (no drops) and ragged differ by {e:.3e} (bound {bound:.3e}), aux "
+          f"{float(a1)} vs {float(a2)}")
+    print(f"[moe] one layer, B {batch} x S {layer_seq}: onehot (capacity {512 * m.top_k}: no "
+          f"drops) against ragged: max difference {e:.3e} (bound {bound:.3e}, two bf16 steps), "
+          f"aux {float(a1):.6f} and {float(a2):.6f}; {time.perf_counter() - t0:.1f} s into the "
+          f"phase")
+    del x, y1, y2
+    # one train round at microbatch granularity on the first layers: their
+    # blocks copied out and the prefill's weights dropped, so the card holds
+    # theta_L, the bank and the round's transients
+    cut2 = dataclasses.replace(full, n_layers=train_layers)
+    p2 = dict(params, blocks=_first_layers(params["blocks"], train_layers))
+    p2["blocks"] = {k: (type(v)(*(None if t is None else t.clone() for t in v))
+                        if isinstance(v, tuple) else v.clone())
+                    for k, v in p2["blocks"].items()}
+    del params, bundle, lm
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    n2 = sum(leaf.numel() for leaf in _leaves(p2))
+    check(n2 == cut2.param_count(), f"{n2} train parameters")
+    print(f"[moe] train: {train_layers} of {full.n_layers} layers, {n2:,} parameters; the ragged "
+          f"dispatch (the launcher's)")
+    holder = [p2]
+    del p2
+    _train_step_rounds(torch, dev, "moe", cut2, LM(cut2, moe_mode="ragged"), holder, n_owners,
+                       train_batch, train_seq, G, rounds, zero)
+    print(f"[moe] {time.perf_counter() - t0:.1f} s into the phase")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _time_mlstm_ssd(torch, dev):
+    """Both SSD kernels at the mLSTM's shapes (the wide-head variant: per-head
+    k and q, v with a ones column), each beside its plain version and its
+    bound (as `_time_ssd`, `_time_ssd_bwd`): the forward at xlstm-125m's
+    prefill (B 2, S 4096, H 4, N 384, P 385), both at phase xlstm's training
+    microbatch (B 2, S 1024) and at the reduced head (N 128, P 129).
+    Printed, not `kernels` rows."""
+    from repro_torch.kernels.ssm_scan import kernel, ref
+    out = {}
+    for what, B, S, H, N, P, bwd in (("prefill", 2, 4096, 4, 384, 385, False),
+                                     ("train microbatch", 2, 1024, 4, 384, 385, True),
+                                     ("reduced head", 2, 1024, 4, 128, 129, True)):
+        Q = 256
+        gen = torch.Generator(device=dev).manual_seed(N + S)
+        v, ld, k, q, g = _ssd_inputs(torch, dev, B, S, H, N, P, False, gen, ones=True)
+        rows = [min(Q, S - c) for c in range(0, S, Q)]
+        nc = len(rows)
+        fwd_flops = B * H * sum(r * (r + 1) / 2 * (N + P) * 2 + r * N * P * 2 for r in rows)
+        outs = kernel.ssd_chunk_scan_cuda(v, ld, k, q, g, Q)
+        moved = sum(_bytes(x) for x in (v, ld, k, q, g, *outs))
+        bound = max(fwd_flops / F32_FLOP_PER_S, moved / HBM_BYTES_PER_S) * 1e3
+        ms = cuda_ms(torch, lambda: kernel.ssd_chunk_scan_cuda(v, ld, k, q, g, Q), 10)
+        plain = cuda_ms(torch, lambda: ref.ssd_chunk_scan_ref(v, ld, k, q, g, Q), 3)
+        out[f"ssd_chunk_scan {what}"] = (ms, bound, plain)
+        print(f"[timing] ssd_chunk_scan, mLSTM {what} (B {B}, S {S}, H {H}, N {N}, P {P}, "
+              f"chunk {Q}): {ms:.4f} ms, bound {bound:.4f} ms ({fwd_flops / 1e9:.2f} GFLOP; "
+              f"{bound / ms:.1%} of it, {fwd_flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms")
+        if bwd:
+            cots = [torch.randn(shape, device=dev, generator=gen)
+                    for shape in ((B, S, H, P), (B, nc, H, N, P), (B, S, H), (B, nc, H))]
+            grads = kernel.ssd_chunk_scan_bwd_cuda(*cots, v, ld, k, q, g, Q)
+            flops = B * H * sum(r * (r + 1) / 2 * (3 * N + 2 * P) * 2 + 2 * r * N * P * 2
+                                for r in rows)
+            moved = sum(_bytes(x) for x in (*cots, v, ld, k, q, g, *grads))
+            bound = max(flops / F32_FLOP_PER_S, moved / HBM_BYTES_PER_S) * 1e3
+            ms = cuda_ms(torch, lambda: kernel.ssd_chunk_scan_bwd_cuda(*cots, v, ld, k, q, g, Q),
+                         10)
+            plain = cuda_ms(torch, lambda: ref.ssd_chunk_scan_bwd_ref(*cots, v, ld, k, q, g, Q),
+                            3)
+            out[f"ssd_chunk_scan_bwd {what}"] = (ms, bound, plain)
+            print(f"[timing] ssd_chunk_scan_bwd, mLSTM {what} (B {B}, S {S}, H {H}, N {N}, P "
+                  f"{P}, chunk {Q}): {ms:.4f} ms, bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP; "
+                  f"{bound / ms:.1%} of it, {flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms")
+            del cots, grads
+        del v, ld, k, q, g, outs
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_timing(torch, dev, launches, errs):
     from repro_torch import random
     from repro_torch.kernels.dp_clip_noise import ops, ref
@@ -3257,6 +3750,7 @@ def phase_timing(torch, dev, launches, errs):
     rows += _time_flash(torch, dev, launches, errs)
     rows += _time_ssd(torch, dev, launches, errs)
     rows += _time_ssd_bwd(torch, dev, launches, errs)
+    _time_mlstm_ssd(torch, dev)
     for r in rows:
         print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
               f"{r['bound_ms'] / r['ms']:.1%} of it), plain {r['plain_ms']:.4f} ms, "
@@ -3662,6 +4156,13 @@ def main():
           and train_launches["flash_attention"] == 0,
           "the train path launched no SSD backward or dp_round, or a flash_attention")
     lap("train")
+    xlstm_round = phase_xlstm(torch, dev)
+    torch.cuda.empty_cache()
+    lap("xlstm")
+    moe_launches = phase_moe(torch, dev)
+    torch.cuda.empty_cache()
+    check(moe_launches["flash_attention"] > 0, "the MoE prefill launched no flash_attention")
+    lap("moe")
     phase_convex(torch, dev)
     torch.cuda.empty_cache()
     lap("convex")
@@ -3689,6 +4190,8 @@ def main():
     lap("fault refusal")
     # the kernels' launches on the paged paths (PERF.md section 6's rows)
     print("[paged] launches on the paged paths: " + json.dumps(paged_launches))
+    print("[xlstm] launches a build_train_step round: " + json.dumps(xlstm_round)
+          + "; [moe] launches over the four prefills: " + json.dumps(moe_launches))
     # each kernel's launches on its own path: rows 1-2 from main, 3 from
     # pytree, 4-6 from quant, 7 from tree, 8-9 from serve, the SSD
     # backward from train

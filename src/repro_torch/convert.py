@@ -14,8 +14,9 @@
 The input is the reference's parameter tree with every array mapped to
 numpy: nested dicts, lists/tuples and NamedTuples (read through their
 ``_asdict()``, so no jax import is needed here). NamedTuples become the
-port's class of the same name (`AttnParams`, `MLPParams`, `Mamba2Params`;
-in a cache also `KVCache` and `Mamba2State`), None fields stay None, and
+port's class of the same name (`AttnParams`, `MLPParams`, `Mamba2Params`,
+`MoEParams`, `MLSTMParams`, `SLSTMParams`; in a cache also `KVCache`,
+`Mamba2State`, `MLSTMState` and `SLSTMState`), None fields stay None, and
 every array becomes a tensor with the same values, shape and dtype (a
 bfloat16 array, numpy's ml_dtypes kind, is carried by its bits).
 """
@@ -34,11 +35,14 @@ from repro_torch.federation.privacy import DeviceLedger
 from repro_torch.federation.staleness import StalenessState
 from repro_torch.models.attention import AttnParams, KVCache
 from repro_torch.models.mlp import MLPParams
+from repro_torch.models.moe import MoEParams
 from repro_torch.models.ssm import Mamba2Params, Mamba2State
+from repro_torch.models.xlstm import MLSTMParams, MLSTMState, SLSTMParams, SLSTMState
 from repro_torch.tree_util import tree_flatten
 
-_PARAMS = {cls.__name__: cls for cls in (AttnParams, MLPParams, Mamba2Params)}
-_CACHES = {cls.__name__: cls for cls in (KVCache, Mamba2State)}
+_PARAMS = {cls.__name__: cls for cls in (AttnParams, MLPParams, Mamba2Params, MoEParams,
+                                         MLSTMParams, SLSTMParams)}
+_CACHES = {cls.__name__: cls for cls in (KVCache, Mamba2State, MLSTMState, SLSTMState)}
 
 
 def params_from_numpy(tree: Any, device=None) -> Any:
@@ -49,8 +53,8 @@ def params_from_numpy(tree: Any, device=None) -> Any:
 def cache_from_numpy(tree: Any, device=None) -> Any:
     """The port's decode cache on `device` (CUDA when None) from a
     reference cache (`LM.init_cache`'s dict of `KVCache`s and lists of
-    `Mamba2State`s), so that a decode can go on from the reference's
-    state."""
+    `Mamba2State`s, `MLSTMState`s and `SLSTMState`s), so that a decode can
+    go on from the reference's state."""
     return _convert(tree, resolve_device(device), _CACHES)
 
 

@@ -74,3 +74,11 @@ def owner_shards(dataset: str, sizes: List[int], seed: int = 0, p: int = 10,
         shards.append(gen(s, seed=seed + 13 * i, p=p, theta_shift=shift))
     return shards
 
+
+def token_batch(rng, batch: int, seq: int, vocab: int):
+    """Synthetic LM batch for deep-model examples and benchmarks: tokens
+    (batch, seq) int32 uniform in [0, vocab) from `rng` (a seed or a numpy
+    Generator), labels the tokens shifted left by one (rolled)."""
+    rng = np.random.default_rng(rng)
+    toks = rng.integers(0, vocab, size=(batch, seq), dtype=np.int32)
+    return {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}

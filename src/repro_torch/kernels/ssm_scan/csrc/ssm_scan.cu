@@ -92,6 +92,17 @@
 // k . dk (no A row or column sums). Nothing crosses blocks, no atomics,
 // every sum in a fixed order: two launches give the same bits.
 //
+// Wide heads. N and P that are not both multiples of 8 up to 128 (the
+// mLSTM's N = dm / H and P = N + 1: N 384 / P 385 at xlstm-125m's width, N
+// 128 / P 129 reduced) take the wide variant further down, any N and P up to
+// 512 with chunks up to 256: 64 x 64 tile products over 64-wide slices of N
+// and P, staged element by element (the P tail masked, not padded in
+// memory), one block per work item (a 64-row tile of y_intra, a 64-row
+// slice of h_add; dq, dk or du of a 64-row tile, then one warp per chunk for
+// dld). Bound at the xLSTM prefill (B 2, S 4096, H 4, N 384, P 385, Q 256):
+// Q (Q + 1) / 2 (N + P) 2 + Q N P 2 = 126.3 MFLOP a chunk, 16.2 GFLOP in
+// all, 0.241 ms at 67 TFLOP/s of f32.
+//
 // Registers and shared memory at N = P = 64 (ptxas, chip_smoke.py's build
 // phase): forward 255 registers, 103 KB at chunk 256; backward 254
 // registers, 209 KB; no spills in f32 or bf16, nor in any other variant.
@@ -1293,6 +1304,546 @@ int dispatch_bwd(const float* dy, const float* dh, const float* dcum, const floa
               stream);
 }
 
+// ---------------------------------------------------------------------------
+// The wide-head variant (the mLSTM's heads: N = dm / H, P = N + 1, e.g. N 384
+// / P 385 at xlstm-125m's width and N 128 / P 129 reduced): any N and P up to
+// kWideMax, chunks up to kWQ. The resident-tile design above pads N and P to
+// a compile-time width and keeps a 128-row tile of it in shared memory, which
+// at W = 384 alone would take 198 KB. Here every product is a sequence of
+// 64 x 64 x 64 tile products over 64-wide slices of N and P, staged element
+// by element from global memory (rows of 385 floats are not 16-byte aligned;
+// columns past N or P read as zero), so shared memory does not grow with N or
+// P. y_intra and h_add are linear in v's columns, so each P slice is exact.
+// Thread (ty, tx) = (t / 16, t % 16) of kWT owns rows ty + 16 a and columns
+// tx + 16 b (a, b < 4) of a tile. A block takes one work item of one (chunk,
+// head, batch); each item's sums run in a fixed order, nothing crosses
+// blocks, so two launches give the same bits.
+//   forward items: y_I for each 64-row tile I of the chunk (the decayed
+//     scores of I against every key tile J <= I, over N, kept in a 64 x Q
+//     strip, then applied to each P slice of v) with its rows' cum; and
+//     h_add for each 64-row slice of N (over every P slice and key tile).
+//   backward items, three kinds per 64-row tile T: dq of rows T (scores
+//     g_j L_ij (dy_i . v_j) over P, then applied to k over each N slice),
+//     dk of rows T (w_j dh v_j, then (L_ij (v_j . dy_i))^T applied to q, times
+//     g_j) and du of rows T (w_j dh^T k_j, then (L_ij (k_j . q_i))^T applied
+//     to dy; dv = g du, dg = v . du). q . dq, k . dk and w k^T dh u go to a
+//     (3, B, S, H) scratch, and a second kernel, one warp a chunk, forms
+//     dld as the narrow backward does.
+// ---------------------------------------------------------------------------
+constexpr int kWT = 256;                  // threads of a wide block
+constexpr int kWQ = 256;                  // longest chunk of the wide variant
+constexpr int kWideMax = 512;             // largest N and P of the wide variant
+constexpr int kOpLd = 65;                 // row stride of a 64 x 64 operand tile
+constexpr int kStripLd = kWQ + 4;         // row stride of the 64 x Q score strip
+constexpr size_t kWideSmem = sizeof(float) * (2 * kWQ + 64 * kStripLd + 2 * 64 * kOpLd);
+
+// dst[r][c] = x[row0 + r][col0 + c] for r, c < 64 as f32 (kOpLd floats a row),
+// zero where row0 + r >= n_rows or col0 + c >= width
+template <typename Tin>
+__device__ __forceinline__ void wstage(float* dst, const Tin* base, int64_t row_stride, int row0,
+                                       int n_rows, int col0, int width) {
+  for (int i = threadIdx.x; i < 64 * 64; i += kWT) {
+    const int r = i >> 6, c = i & 63;
+    float x = 0.f;
+    if (row0 + r < n_rows && col0 + c < width)
+      x = load1(base + static_cast<int64_t>(row0 + r) * row_stride + col0 + c);
+    dst[r * kOpLd + c] = x;
+  }
+}
+
+__device__ __forceinline__ void wzero(float (&acc)[4][4]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+}
+
+// acc[a][b] += sum_kk A[ty + 16 a][kk] B[tx + 16 b][kk] (both kOpLd a row)
+__device__ __forceinline__ void mm_nt(float (&acc)[4][4], const float* __restrict__ A,
+                                      const float* __restrict__ B) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll 4
+  for (int kk = 0; kk < 64; ++kk) {
+    float x[4], y[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) x[a] = A[(ty + 16 * a) * kOpLd + kk];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) y[b] = B[(tx + 16 * b) * kOpLd + kk];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(x[a], y[b], acc[a][b]);
+  }
+}
+
+// acc[a][b] += sum_kk A[ty + 16 a][kk] V[kk][tx + 16 b] (A lda a row, V kOpLd)
+__device__ __forceinline__ void mm_nn(float (&acc)[4][4], const float* __restrict__ A, int lda,
+                                      const float* __restrict__ V) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll 4
+  for (int kk = 0; kk < 64; ++kk) {
+    float x[4], y[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) x[a] = A[(ty + 16 * a) * lda + kk];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) y[b] = V[kk * kOpLd + tx + 16 * b];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(x[a], y[b], acc[a][b]);
+  }
+}
+
+// acc[a][b] += sum_kk (A[kk][ty + 16 a] w[kk]) V[kk][tx + 16 b] (both kOpLd)
+__device__ __forceinline__ void mm_tn(float (&acc)[4][4], const float* __restrict__ A,
+                                      const float* __restrict__ w,
+                                      const float* __restrict__ V) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll 4
+  for (int kk = 0; kk < 64; ++kk) {
+    const float f = w[kk];
+    float x[4], y[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) x[a] = A[kk * kOpLd + ty + 16 * a] * f;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) y[b] = V[kk * kOpLd + tx + 16 * b];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(x[a], y[b], acc[a][b]);
+  }
+}
+
+// sum over the 16 threads (consecutive lanes) that share a tile row
+__device__ __forceinline__ float row16_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < 16; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// exp(cum_i - cum_j) where j <= i, else 0; masked before the exp
+__device__ __forceinline__ float wdecay(const float* cum, int i, int j) {
+  return exp2f(j <= i ? (cum[i] - cum[j]) * kLog2e : -INFINITY);
+}
+
+template <typename Tin>
+__global__ void __launch_bounds__(kWT, 2)
+ssd_chunk_wide_kernel(const Tin* __restrict__ v, const float* __restrict__ ld,
+                      const Tin* __restrict__ k, const Tin* __restrict__ q,
+                      const float* __restrict__ g, float* __restrict__ y,
+                      float* __restrict__ hadd, float* __restrict__ cum_out,
+                      float* __restrict__ tot_out, int64_t svb, int64_t svs, int64_t svh,
+                      int64_t slb, int64_t sls, int64_t slh, int64_t skb, int64_t sks,
+                      int64_t skh, int64_t sqb, int64_t sqs, int64_t sqh, int64_t sgb,
+                      int64_t sgs, int64_t sgh, int S, int H, int N, int P, int Q, int nI,
+                      int nN) {
+  extern __shared__ __align__(16) float smem[];
+  float* cum = smem;                      // kWQ
+  float* gs = cum + kWQ;                  // g: kWQ
+  float* strip = gs + kWQ;                // 64 x kStripLd
+  float* ta = strip + 64 * kStripLd;      // 64 x kOpLd
+  float* tb = ta + 64 * kOpLd;            // 64 x kOpLd
+  const int items = nI + nN;
+  const int c = blockIdx.x / items, item = blockIdx.x % items;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.x / items;
+  const int s0 = c * Q;
+  const int nvalid = S - s0 < Q ? S - s0 : Q;
+  const int nIv = (nvalid + 63) / 64;
+  const int Qr = nI * 64;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  if (item < nI && item >= nIv) return;   // a tile past the ragged chunk's rows
+  const Tin* vb = v + b * svb + static_cast<int64_t>(s0) * svs + h * svh;
+  const Tin* kb = k + b * skb + static_cast<int64_t>(s0) * sks + h * skh;
+  const Tin* qb = q + b * sqb + static_cast<int64_t>(s0) * sqs + h * sqh;
+  load_rows<kWT>(cum, ld + b * slb + static_cast<int64_t>(s0) * sls + h * slh, sls, nvalid, Qr);
+  load_rows<kWT>(gs, g + b * sgb + static_cast<int64_t>(s0) * sgs + h * sgh, sgs, nvalid, Qr);
+  __syncthreads();
+  scan_cum(cum, Qr);
+  __syncthreads();
+  const float tot = cum[Qr - 1];
+  float acc[4][4];
+
+  if (item < nI) {                        // y_intra of rows I
+    const int I = item;
+    for (int J = 0; J <= I; ++J) {
+      wzero(acc);
+      for (int n0 = 0; n0 < N; n0 += 64) {
+        wstage(ta, qb, sqs, 64 * I, nvalid, n0, N);
+        wstage(tb, kb, sks, 64 * J, nvalid, n0, N);
+        __syncthreads();
+        mm_nt(acc, ta, tb);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb) {
+          const int i = 64 * I + ty + 16 * a, j = 64 * J + tx + 16 * bb;
+          strip[(ty + 16 * a) * kStripLd + 64 * J + tx + 16 * bb] =
+              acc[a][bb] * wdecay(cum, i, j) * gs[j];
+        }
+    }
+    __syncthreads();
+    for (int p0 = 0; p0 < P; p0 += 64) {
+      wzero(acc);
+      for (int J = 0; J <= I; ++J) {
+        wstage(ta, vb, svs, 64 * J, nvalid, p0, P);
+        __syncthreads();
+        mm_nn(acc, strip + 64 * J, kStripLd, ta);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int i = 64 * I + ty + 16 * a;
+        if (i >= nvalid) continue;
+        float* row = y + ((static_cast<int64_t>(b) * S + s0 + i) * H + h) * P;
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb) {
+          const int p = p0 + tx + 16 * bb;
+          if (p < P) row[p] = acc[a][bb];
+        }
+      }
+    }
+    for (int r = 64 * I + threadIdx.x; r < 64 * I + 64 && r < nvalid; r += kWT)
+      cum_out[(static_cast<int64_t>(b) * S + s0 + r) * H + h] = cum[r];
+    if (I == 0 && threadIdx.x == 0) tot_out[(static_cast<int64_t>(b) * nc + c) * H + h] = tot;
+    return;
+  }
+
+  // h_add rows n0 .. n0 + 63: sum_j (k_j exp(tot - cum_j) g_j) v_j^T, keys in row order
+  const int n0 = 64 * (item - nI);
+  float* wg = strip;                      // exp(tot - cum) g: Qr
+  for (int r = threadIdx.x; r < Qr; r += kWT) wg[r] = expf(tot - cum[r]) * gs[r];
+  __syncthreads();
+  float* hout = hadd + ((static_cast<int64_t>(b) * nc + c) * H + h) * N * P;
+  for (int p0 = 0; p0 < P; p0 += 64) {
+    wzero(acc);
+    for (int J = 0; J < nIv; ++J) {
+      wstage(ta, kb, sks, 64 * J, nvalid, n0, N);
+      wstage(tb, vb, svs, 64 * J, nvalid, p0, P);
+      __syncthreads();
+      mm_tn(acc, ta, wg + 64 * J, tb);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int n = n0 + ty + 16 * a;
+      if (n >= N) continue;
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) {
+        const int p = p0 + tx + 16 * bb;
+        if (p < P) hout[static_cast<int64_t>(n) * P + p] = acc[a][bb];
+      }
+    }
+  }
+}
+
+template <typename Tin>
+__global__ void __launch_bounds__(kWT, 2)
+ssd_chunk_bwd_heads_kernel(const float* __restrict__ dy, const float* __restrict__ dh,
+                           const Tin* __restrict__ v, const float* __restrict__ ld,
+                           const Tin* __restrict__ k, const Tin* __restrict__ q,
+                           const float* __restrict__ g, Tin* __restrict__ dv_out,
+                           Tin* __restrict__ dk_out, Tin* __restrict__ dq_out,
+                           float* __restrict__ dg_out, float* __restrict__ scratch, int64_t svb,
+                           int64_t svs, int64_t svh, int64_t slb, int64_t sls, int64_t slh,
+                           int64_t skb, int64_t sks, int64_t skh, int64_t sqb, int64_t sqs,
+                           int64_t sqh, int64_t sgb, int64_t sgs, int64_t sgh, int S, int H,
+                           int N, int P, int Q, int nI) {
+  extern __shared__ __align__(16) float smem[];
+  float* cum = smem;                      // kWQ
+  float* gs = cum + kWQ;                  // g: kWQ
+  float* strip = gs + kWQ;                // 64 x kStripLd
+  float* ta = strip + 64 * kStripLd;      // 64 x kOpLd
+  float* tb = ta + 64 * kOpLd;            // 64 x kOpLd
+  const int items = 3 * nI;
+  const int c = blockIdx.x / items, item = blockIdx.x % items;
+  const int kind = item / nI, T = item % nI;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.x / items;
+  const int s0 = c * Q;
+  const int nvalid = S - s0 < Q ? S - s0 : Q;
+  const int nIv = (nvalid + 63) / 64;
+  const int Qr = nI * 64;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  if (T >= nIv) return;                   // a tile past the ragged chunk's rows
+  const int64_t bsh = static_cast<int64_t>(gridDim.z) * S * H;
+  float* qdq = scratch;                   // q . dq
+  float* kdk = scratch + bsh;             // k . dk
+  float* wts = scratch + 2 * bsh;         // w k^T dh u
+  const Tin* vb = v + b * svb + static_cast<int64_t>(s0) * svs + h * svh;
+  const Tin* kb = k + b * skb + static_cast<int64_t>(s0) * sks + h * skh;
+  const Tin* qb = q + b * sqb + static_cast<int64_t>(s0) * sqs + h * sqh;
+  const int64_t dys = static_cast<int64_t>(H) * P;
+  const float* dyb = dy + (static_cast<int64_t>(b) * S + s0) * dys + static_cast<int64_t>(h) * P;
+  const float* dhb = dh + ((static_cast<int64_t>(b) * nc + c) * H + h) * N * P;
+  auto row_at = [&](int r) { return (static_cast<int64_t>(b) * S + s0 + r) * H + h; };
+  load_rows<kWT>(cum, ld + b * slb + static_cast<int64_t>(s0) * sls + h * slh, sls, nvalid, Qr);
+  load_rows<kWT>(gs, g + b * sgb + static_cast<int64_t>(s0) * sgs + h * sgh, sgs, nvalid, Qr);
+  __syncthreads();
+  scan_cum(cum, Qr);
+  __syncthreads();
+  const float tot = cum[Qr - 1];
+  float acc[4][4], dot[4] = {0.f, 0.f, 0.f, 0.f}, wdot[4] = {0.f, 0.f, 0.f, 0.f};
+
+  if (kind == 0) {                        // dq_i = sum_{j <= i} g_j L_ij (dy_i . v_j) k_j
+    const int I = T;
+    for (int J = 0; J <= I; ++J) {
+      wzero(acc);
+      for (int p0 = 0; p0 < P; p0 += 64) {
+        wstage(ta, dyb, dys, 64 * I, nvalid, p0, P);
+        wstage(tb, vb, svs, 64 * J, nvalid, p0, P);
+        __syncthreads();
+        mm_nt(acc, ta, tb);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb) {
+          const int i = 64 * I + ty + 16 * a, j = 64 * J + tx + 16 * bb;
+          strip[(ty + 16 * a) * kStripLd + 64 * J + tx + 16 * bb] =
+              acc[a][bb] * wdecay(cum, i, j) * gs[j];
+        }
+    }
+    __syncthreads();
+    for (int n0 = 0; n0 < N; n0 += 64) {
+      wzero(acc);
+      for (int J = 0; J <= I; ++J) {
+        wstage(ta, kb, sks, 64 * J, nvalid, n0, N);
+        __syncthreads();
+        mm_nn(acc, strip + 64 * J, kStripLd, ta);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int i = 64 * I + ty + 16 * a;
+        if (i >= nvalid) continue;
+        Tin* row = dq_out + row_at(i) * N;
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb) {
+          const int n = n0 + tx + 16 * bb;
+          if (n < N) {
+            store(row + n, acc[a][bb]);
+            dot[a] = fmaf(load1(qb + static_cast<int64_t>(i) * sqs + n), acc[a][bb], dot[a]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = 64 * I + ty + 16 * a;
+      const float s = row16_sum(dot[a]);
+      if (tx == 0 && i < nvalid) qdq[row_at(i)] = s;
+    }
+    return;
+  }
+
+  // dk (kind 1) and du (kind 2) of rows j of tile T, against the query
+  // tiles I >= T: the strip holds L_ij (v_j . dy_i) (dk) or L_ij (k_j . q_i)
+  // (du) at row j, column 64 (I - T) + i
+  const int J = T;
+  const bool dk = kind == 1;
+  for (int I = J; I < nIv; ++I) {
+    wzero(acc);
+    const int width = dk ? P : N;
+    for (int x0 = 0; x0 < width; x0 += 64) {
+      if (dk) {
+        wstage(ta, vb, svs, 64 * J, nvalid, x0, P);
+        wstage(tb, dyb, dys, 64 * I, nvalid, x0, P);
+      } else {
+        wstage(ta, kb, sks, 64 * J, nvalid, x0, N);
+        wstage(tb, qb, sqs, 64 * I, nvalid, x0, N);
+      }
+      __syncthreads();
+      mm_nt(acc, ta, tb);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) {
+        const int j = 64 * J + ty + 16 * a, i = 64 * I + tx + 16 * bb;
+        strip[(ty + 16 * a) * kStripLd + 64 * (I - J) + tx + 16 * bb] =
+            acc[a][bb] * wdecay(cum, i, j);
+      }
+  }
+  __syncthreads();
+  float wj[4], gj[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int j = 64 * J + ty + 16 * a;
+    wj[a] = expf(tot - cum[j]);
+    gj[a] = gs[j];
+  }
+  const int width = dk ? N : P;           // the output's columns
+  for (int o0 = 0; o0 < width; o0 += 64) {
+    wzero(acc);
+    if (dk) {                             // w_j dh v_j: sum_p v_j[p] dh[n][p]
+      for (int p0 = 0; p0 < P; p0 += 64) {
+        wstage(ta, vb, svs, 64 * J, nvalid, p0, P);
+        wstage(tb, dhb, P, o0, N, p0, P);
+        __syncthreads();
+        mm_nt(acc, ta, tb);
+        __syncthreads();
+      }
+    } else {                              // w_j dh^T k_j: sum_n k_j[n] dh[n][p]
+      for (int n0 = 0; n0 < N; n0 += 64) {
+        wstage(ta, kb, sks, 64 * J, nvalid, n0, N);
+        wstage(tb, dhb, P, n0, N, o0, P);
+        __syncthreads();
+        mm_nn(acc, ta, kOpLd, tb);
+        __syncthreads();
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int j = 64 * J + ty + 16 * a;
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) {
+        acc[a][bb] *= wj[a];
+        const int n = o0 + tx + 16 * bb;
+        if (dk && j < nvalid && n < N)
+          wdot[a] = fmaf(load1(kb + static_cast<int64_t>(j) * sks + n), acc[a][bb], wdot[a]);
+      }
+    }
+    for (int I = J; I < nIv; ++I) {
+      if (dk) wstage(ta, qb, sqs, 64 * I, nvalid, o0, N);
+      else wstage(ta, dyb, dys, 64 * I, nvalid, o0, P);
+      __syncthreads();
+      mm_nn(acc, strip + 64 * (I - J), kStripLd, ta);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int j = 64 * J + ty + 16 * a;
+      if (j >= nvalid) continue;
+      Tin* row = (dk ? dk_out + row_at(j) * N : dv_out + row_at(j) * P);
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) {
+        const int o = o0 + tx + 16 * bb;
+        if (o >= width) continue;
+        if (dk) {                         // dk = g_j (w_j dh v_j + sum_i ...); k . dk
+          const float d = gj[a] * acc[a][bb];
+          store(row + o, d);
+          dot[a] = fmaf(load1(kb + static_cast<int64_t>(j) * sks + o), d, dot[a]);
+        } else {                          // dv = g_j du; dg = v . du
+          store(row + o, gj[a] * acc[a][bb]);
+          dot[a] = fmaf(load1(vb + static_cast<int64_t>(j) * svs + o), acc[a][bb], dot[a]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int j = 64 * J + ty + 16 * a;
+    const float s = row16_sum(dot[a]);
+    const float w = row16_sum(wdot[a]);
+    if (tx == 0 && j < nvalid) {
+      if (dk) {
+        kdk[row_at(j)] = s;
+        wts[row_at(j)] = gj[a] * w;
+      } else {
+        dg_out[row_at(j)] = s;
+      }
+    }
+  }
+}
+
+// dld of the wide backward: one warp per (chunk, head, batch), as the
+// narrow backward's last step, from the scratch's q . dq, k . dk and w k^T dh u
+__global__ void __launch_bounds__(32)
+ssd_chunk_bwd_dld_kernel(const float* __restrict__ dcum, const float* __restrict__ dtot,
+                         const float* __restrict__ scratch, float* __restrict__ dld_out, int S,
+                         int H, int Q) {
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
+  const int lane = threadIdx.x;
+  const int s0 = c * Q;
+  const int nvalid = S - s0 < Q ? S - s0 : Q;
+  const int64_t bsh = static_cast<int64_t>(gridDim.z) * S * H;
+  const int64_t at = (static_cast<int64_t>(b) * S + s0) * H + h;
+  const float* qdq = scratch + at;
+  const float* kdk = scratch + bsh + at;
+  const float* wt = scratch + 2 * bsh + at;
+  const float* dcb = dcum + at;
+  float wsum = 0.f;
+  for (int r = lane; r < nvalid; r += 32) wsum += wt[static_cast<int64_t>(r) * H];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) wsum += __shfl_xor_sync(0xffffffffu, wsum, off);
+  const float dt = dtot[(static_cast<int64_t>(b) * nc + c) * H + h];
+  float carry = 0.f;
+  for (int base = (nvalid - 1) / 32 * 32; base >= 0; base -= 32) {
+    const int r = base + 31 - lane;       // lane 0 takes the chunk's last row
+    float x = 0.f;
+    if (r < nvalid) {
+      const int64_t o = static_cast<int64_t>(r) * H;
+      x = dcb[o] + qdq[o] - kdk[o];
+      if (r == nvalid - 1) x += dt + wsum;
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float up = __shfl_up_sync(0xffffffffu, x, off);
+      if (lane >= off) x += up;
+    }
+    x += carry;
+    if (r < nvalid) dld_out[at + static_cast<int64_t>(r) * H] = x;
+    carry = __shfl_sync(0xffffffffu, x, 31);
+  }
+}
+
+template <typename Tin>
+int launch_wide(const void* v, const float* ld, const void* k, const void* q, const float* g,
+                float* y, float* hadd, float* cum, float* tot, const long long* st, int B,
+                int S, int H, int N, int P, int Q, cudaStream_t stream) {
+  const int nc = (S + Q - 1) / Q;
+  const int nI = (Q + 63) / 64, nN = (N + 63) / 64;
+  auto* kern = ssd_chunk_wide_kernel<Tin>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kWideSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(nc * (nI + nN), H, B);
+  kern<<<grid, kWT, kWideSmem, stream>>>(
+      static_cast<const Tin*>(v), ld, static_cast<const Tin*>(k), static_cast<const Tin*>(q), g,
+      y, hadd, cum, tot, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      st[10], st[11], st[12], st[13], st[14], S, H, N, P, Q, nI, nN);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Tin>
+int launch_bwd_heads(const float* dy, const float* dh, const float* dcum, const float* dtot,
+                     const void* v, const float* ld, const void* k, const void* q,
+                     const float* g, void* dv, float* dld, void* dk, void* dq, float* dg,
+                     float* scratch, const long long* st, int B, int S, int H, int N, int P,
+                     int Q, cudaStream_t stream) {
+  const int nc = (S + Q - 1) / Q;
+  const int nI = (Q + 63) / 64;
+  auto* kern = ssd_chunk_bwd_heads_kernel<Tin>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kWideSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<dim3(nc * 3 * nI, H, B), kWT, kWideSmem, stream>>>(
+      dy, dh, static_cast<const Tin*>(v), ld, static_cast<const Tin*>(k),
+      static_cast<const Tin*>(q), g, static_cast<Tin*>(dv), static_cast<Tin*>(dk),
+      static_cast<Tin*>(dq), dg, scratch, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], st[9], st[10], st[11], st[12], st[13], st[14], S, H, N, P, Q, nI);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_chunk_bwd_dld_kernel<<<dim3(nc, H, B), 32, 0, stream>>>(dcum, dtot, scratch, dld, S, H, Q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether (N, P) take the resident-tile variants (multiples of 8 up to 128)
+// or the wide one
+bool narrow_heads(int N, int P) {
+  return N % 8 == 0 && P % 8 == 0 && N >= 8 && P >= 8 && N <= 128 && P <= 128;
+}
+
+bool heads_ok(int N, int P, int Q) {
+  return narrow_heads(N, P) ||
+         (N >= 1 && P >= 1 && N <= kWideMax && P <= kWideMax && Q <= kWQ);
+}
+
 bool fits_int(long long x) { return x >= 0 && x <= 0x7fffffffLL; }
 
 }  // namespace
@@ -1302,7 +1853,9 @@ extern "C" {
 // dtype 0: f32, 1: bf16 (of v, k and q; ld and g are f32). Strides are in
 // elements, (batch, sequence, head) of v, ld, k, q and g in that order; the
 // last axis of v, k and q is contiguous. vec 1 when every row of v, k and q
-// starts 16-byte aligned.
+// starts 16-byte aligned (the wide variant ignores it). N and P multiples of
+// 8 up to 128 take the resident-tile variants, any other N and P up to
+// kWideMax the wide one, whose chunks are at most kWQ.
 int ssd_chunk_scan_launch(const void* v, const float* ld, const void* k, const void* q,
                           const float* g, float* y, float* hadd, float* cum, float* tot,
                           long long svb, long long svs, long long svh, long long slb,
@@ -1312,12 +1865,20 @@ int ssd_chunk_scan_launch(const void* v, const float* ld, const void* k, const v
                           int N, int P, int Q, int dtype, int vec, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (N % 8 != 0 || P % 8 != 0 || N < 8 || P < 8 || N > 128 || P > 128 || Q < 1 ||
-      !fits_int(svs) || !fits_int(sks) || !fits_int(sqs) || !fits_int(1LL * H * P))
+  if (!heads_ok(N, P, Q) || Q < 1 || !fits_int(svs) || !fits_int(sks) || !fits_int(sqs) ||
+      !fits_int(1LL * H * P))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[15] = {svb, svs, svh, slb, sls, slh, skb, sks, skh,
                             sqb, sqs, sqh, sgb, sgs, sgh};
   auto s = static_cast<cudaStream_t>(stream);
+  if (!narrow_heads(N, P)) {
+    if (dtype == 0)
+      return launch_wide<float>(v, ld, k, q, g, y, hadd, cum, tot, st, B, S, H, N, P, Q, s);
+    if (dtype == 1)
+      return launch_wide<__nv_bfloat16>(v, ld, k, q, g, y, hadd, cum, tot, st, B, S, H, N, P,
+                                        Q, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == 0)
     return dispatch<float>(v, ld, k, q, g, y, hadd, cum, tot, st, B, S, H, N, P, Q, vec, s);
   if (dtype == 1)
@@ -1335,6 +1896,8 @@ extern "C" {
 // contiguous f32 cotangents dy (B, S, H, P), dh (B, nc, H, N, P), dcum
 // (B, S, H) and dtot (B, nc, H). Writes contiguous dv (B, S, H, P), dk and
 // dq (B, S, H, N) in the inputs' dtype, and dld, dg (B, S, H) in f32.
+// `scratch`, (3, B, S, H) f32, is used by the wide variant only (null
+// otherwise).
 int ssd_chunk_scan_bwd_launch(const float* dy, const float* dh, const float* dcum,
                               const float* dtot, const void* v, const float* ld, const void* k,
                               const void* q, const float* g, void* dv, float* dld, void* dk,
@@ -1343,15 +1906,25 @@ int ssd_chunk_scan_bwd_launch(const float* dy, const float* dh, const float* dcu
                               long long sks, long long skh, long long sqb, long long sqs,
                               long long sqh, long long sgb, long long sgs, long long sgh, int B,
                               int S, int H, int N, int P, int Q, int dtype, int vec, int device,
-                              void* stream) {
+                              void* stream, float* scratch) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (N % 8 != 0 || P % 8 != 0 || N < 8 || P < 8 || N > 128 || P > 128 || Q < 1 ||
-      !fits_int(svs) || !fits_int(sks) || !fits_int(sqs) || !fits_int(1LL * H * P))
+  if (!heads_ok(N, P, Q) || Q < 1 || !fits_int(svs) || !fits_int(sks) || !fits_int(sqs) ||
+      !fits_int(1LL * H * P))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[15] = {svb, svs, svh, slb, sls, slh, skb, sks, skh,
                             sqb, sqs, sqh, sgb, sgs, sgh};
   auto s = static_cast<cudaStream_t>(stream);
+  if (!narrow_heads(N, P)) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype == 0)
+      return launch_bwd_heads<float>(dy, dh, dcum, dtot, v, ld, k, q, g, dv, dld, dk, dq, dg,
+                                     scratch, st, B, S, H, N, P, Q, s);
+    if (dtype == 1)
+      return launch_bwd_heads<__nv_bfloat16>(dy, dh, dcum, dtot, v, ld, k, q, g, dv, dld, dk,
+                                             dq, dg, scratch, st, B, S, H, N, P, Q, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == 0)
     return dispatch_bwd<float>(dy, dh, dcum, dtot, v, ld, k, q, g, dv, dld, dk, dq, dg, st, B,
                                S, H, N, P, Q, vec, s);

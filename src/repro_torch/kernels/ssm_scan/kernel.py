@@ -46,10 +46,23 @@ def _library() -> ctypes.CDLL:
     lib.ssd_chunk_scan_launch.restype = _I
     # dy, dh, dcum, dtot, v, ld, k, q, g, dv, dld, dk, dq, dg; the (batch,
     # sequence, head) strides of v, ld, k, q, g; B, S, H, N, P, Q, dtype,
-    # vec, device; the stream
-    lib.ssd_chunk_scan_bwd_launch.argtypes = [_P] * 14 + [_I64] * 15 + [_I] * 9 + [_P]
+    # vec, device; the stream; the wide variant's (3, B, S, H) f32 scratch
+    lib.ssd_chunk_scan_bwd_launch.argtypes = [_P] * 14 + [_I64] * 15 + [_I] * 9 + [_P, _P]
     lib.ssd_chunk_scan_bwd_launch.restype = _I
     return lib
+
+
+# the wide variant's limits (ssm_scan.cu: kWideMax, kWQ)
+WIDE_MAX = 512
+WIDE_CHUNK = 256
+
+
+def narrow_heads(N: int, P: int) -> bool:
+    """Whether heads of d_state N and head dim P take the resident-tile
+    variants (both multiples of 8 up to 128) or the wide one (any other N
+    and P up to WIDE_MAX, chunks up to WIDE_CHUNK: the mLSTM's N = dm / H
+    and P = N + 1)."""
+    return N % 8 == 0 and P % 8 == 0 and 8 <= N <= 128 and 8 <= P <= 128
 
 
 def _check_inputs(v, ld, k, q, g, chunk, what):
@@ -71,9 +84,12 @@ def _check_inputs(v, ld, k, q, g, chunk, what):
     if tuple(k.shape[:3]) != (B, S, H) or tuple(ld.shape) != (B, S, H):
         raise ValueError(f"k {tuple(k.shape)} and ld {tuple(ld.shape)} do not fit v "
                          f"{tuple(v.shape)}")
-    if N % 8 or P % 8 or not (8 <= N <= 128 and 8 <= P <= 128):
-        raise ValueError(f"d_state N and head dim P must be multiples of 8 up to 128, got "
-                         f"{N}, {P}")
+    if not narrow_heads(N, P):
+        if not (1 <= N <= WIDE_MAX and 1 <= P <= WIDE_MAX):
+            raise ValueError(f"d_state N and head dim P must be at most {WIDE_MAX}, got {N}, {P}")
+        if chunk > WIDE_CHUNK:
+            raise ValueError(f"heads of N {N}, P {P} take chunks of at most {WIDE_CHUNK} "
+                             f"positions, got {chunk}")
     if any(t.stride(3) != 1 for t in (v, k, q)):
         raise ValueError("v, k and q must be contiguous in their last axis")
     if chunk < 1:
@@ -88,7 +104,8 @@ def ssd_chunk_scan_cuda(v: torch.Tensor, ld: torch.Tensor, k: torch.Tensor, q: t
 
     v (B, S, H, P); k and q (B, S, H, N), any strides with the last axis
     contiguous (a head stride of 0 broadcasts); ld and g (B, S, H) f32. v,
-    k, q are f32 or bf16 alike; N and P multiples of 8 up to 128. Returns
+    k, q are f32 or bf16 alike; N and P up to WIDE_MAX (`narrow_heads`
+    picks the variant; wide heads take chunks up to WIDE_CHUNK). Returns
     (y_intra (B, S, H, P), h_add (B, nc, H, N, P), cum (B, S, H),
     tot (B, nc, H)), all f32, with nc = ceil(S / chunk)."""
     B, S, H, N, P, nc = _check_inputs(v, ld, k, q, g, chunk, "ssd_chunk_scan_cuda")
@@ -140,11 +157,15 @@ def ssd_chunk_scan_bwd_cuda(dy: torch.Tensor, dh: torch.Tensor, dcum: torch.Tens
         return dv, dld, dk, dq, dg
     vec = int(all(_build.rows_aligned(t) for t in (v, k, q)))
     strides = [s for t in (v, ld, k, q, g) for s in t.stride()[:3]]
+    # the wide variant's q . dq, k . dk and w k^T dh u, between its two kernels
+    scratch = (None if narrow_heads(N, P)
+               else torch.empty((3, B, S, H), dtype=torch.float32, device=dev))
     err = _library().ssd_chunk_scan_bwd_launch(
         *(t.data_ptr() for t in cots), v.data_ptr(), ld.data_ptr(), k.data_ptr(), q.data_ptr(),
         g.data_ptr(), dv.data_ptr(), dld.data_ptr(), dk.data_ptr(), dq.data_ptr(),
         dg.data_ptr(), *strides, B, S, H, N, P, chunk, _DTYPES[v.dtype], vec, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream,
+        None if scratch is None else scratch.data_ptr())
     _build.raise_on(err, "ssd_chunk_scan_bwd")
     launches["ssd_chunk_scan_bwd"] += 1
     return dv, dld, dk, dq, dg

@@ -1,17 +1,54 @@
-"""Step bodies. Counterpart of ``repro/launch/steps.py``.
+"""Step builders: (arch x shape) -> a step function and stand-ins of its
+arguments. Counterpart of ``repro/launch/steps.py``.
 
-`prefill_logits` is the body of the reference's prefill step
-(`build_prefill_step`): the forward, then the last position against the
-unembedding. The reference's meshes and sharding specs wait for the
-port's sharding (ROADMAP item 13); here the step runs on one device.
+train   -> the paper's async-DP step (`federation.deep.make_train_step`,
+           the owner bank in the state)
+prefill -> full-sequence forward, last-position logits (`prefill_logits`)
+decode  -> one-token serve step against the KV/SSM cache
+
+A `StepBundle` carries the step and its arguments as meta-device tensors
+(`launch.specs`). The reference's meshes and sharding specs wait for the
+port's sharding (ROADMAP queue 1, item 7): the mesh argument must be None,
+`in_shardings` is None, and the step runs on one device.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.models.model import LM, Batch, Params
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.federation.deep import AsyncDPConfig, init_state, make_train_step
+from repro_torch.federation.dp_sgd import PrivatizerConfig
+from repro_torch.launch import specs as specs_mod
+from repro_torch.models.model import LM, Batch, Params, build_model
+
+
+@dataclasses.dataclass
+class StepBundle:
+    step: Callable                 # the step function
+    args: Tuple[Any, ...]          # meta-device stand-ins of its arguments, in order
+    in_shardings: Optional[Tuple[Any, ...]]   # None until the port shards
+    donate_argnums: Tuple[int, ...]
+    kind: str
+
+
+def default_async_cfg(n_owners: int = 4, horizon: int = 1000, n_microbatches: int = 8,
+                      xi: float = 1.0, pre_grouped: bool = True) -> AsyncDPConfig:
+    return AsyncDPConfig(
+        n_owners=n_owners, horizon=horizon, rho=1.0, sigma=1e-4,
+        epsilons=tuple([1.0] * n_owners),
+        owner_sizes=tuple([1_000_000] * n_owners), xi=xi, theta_max=100.0,
+        privatizer=PrivatizerConfig(xi=xi, granularity="microbatch",
+                                    n_microbatches=n_microbatches,
+                                    pre_grouped=pre_grouped))
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("the port runs a step on one device: sharding over a mesh "
+                                  "waits for ROADMAP queue 1, item 7 (pass mesh=None)")
 
 
 def prefill_logits(model: LM, params: Params, batch: Batch,
@@ -19,3 +56,79 @@ def prefill_logits(model: LM, params: Params, batch: Batch,
     """Logits (B, V) of the last position of `batch["tokens"]` (B, S)."""
     x = model.forward(params, batch, window=window)
     return torch.einsum("bd,dv->bv", x[:, -1], model._unembed(params))
+
+
+def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
+                     model: Optional[LM] = None, async_cfg: Optional[AsyncDPConfig] = None,
+                     dtype=torch.bfloat16, device=None) -> StepBundle:
+    """step(state, batch, owner_idx, noise_key) -> (state, metrics): one
+    host-authorized round of `make_train_step` on `device` (CUDA when
+    None), the loss at the shape's effective window. `owner_idx` is a
+    one-element int tensor and `noise_key` a (2,) uint32 key of
+    ``repro_torch.random``; under a pre-grouped microbatch privatizer the
+    batch is microbatch-major (G, B/G, S)."""
+    _no_mesh(mesh)
+    model = model or build_model(cfg)
+    acfg = async_cfg or default_async_cfg()
+    w = specs_mod.effective_window(cfg, shape)
+
+    def loss_fn(params, batch):
+        return model.loss(params, batch, window=w)[0]
+
+    step = make_train_step(loss_fn, acfg, device=device)
+    pcfg = acfg.privatizer
+    mb = pcfg.n_microbatches if pcfg.pre_grouped and pcfg.granularity == "microbatch" else 0
+    p_sds = specs_mod.params_specs(model, dtype)
+    state_sds = init_state(p_sds, acfg, device=specs_mod.META)
+    batch_sds = specs_mod.train_batch_specs(cfg, shape, microbatches=mb)
+    return StepBundle(step=step,
+                      args=(state_sds, batch_sds, specs_mod.meta((1,), torch.int32),
+                            specs_mod.meta((2,), torch.uint32)),
+                      in_shardings=None, donate_argnums=(0,), kind="train")
+
+
+def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
+                       model: Optional[LM] = None, dtype=torch.bfloat16) -> StepBundle:
+    """step(params, batch) -> the last position's logits (B, V)."""
+    _no_mesh(mesh)
+    model = model or build_model(cfg)
+    w = specs_mod.effective_window(cfg, shape)
+
+    def step(params, batch):
+        return prefill_logits(model, params, batch, window=w)
+
+    return StepBundle(step, (specs_mod.params_specs(model, dtype),
+                             specs_mod.train_batch_specs(cfg, shape, with_labels=False)),
+                      None, (), "prefill")
+
+
+def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
+                     model: Optional[LM] = None, dtype=torch.bfloat16) -> StepBundle:
+    """step(params, cache, tokens (B, 1), pos) -> (logits (B, 1, V), cache)."""
+    _no_mesh(mesh)
+    model = model or build_model(cfg)
+    w = specs_mod.effective_window(cfg, shape)
+
+    def step(params, cache, tokens, pos):
+        return model.decode_step(params, cache, tokens, pos, window=w)
+
+    tok_sds, pos_sds = specs_mod.decode_input_specs(cfg, shape)
+    return StepBundle(step, (specs_mod.params_specs(model, dtype),
+                             specs_mod.cache_specs_struct(model, shape, dtype), tok_sds, pos_sds),
+                      None, (1,), "decode")
+
+
+def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *, n_microbatches: int = 8,
+               model_kw: Optional[dict] = None, **kw) -> StepBundle:
+    """model_kw: LM construction knobs (attn_backend, moe_mode,
+    moe_group_tokens)."""
+    model = build_model(cfg, **(model_kw or {}))
+    if shape.kind == "train":
+        return build_train_step(
+            cfg, shape, mesh, model=model,
+            async_cfg=kw.pop("async_cfg", None)
+            or default_async_cfg(n_microbatches=n_microbatches), **kw)
+    kw.pop("device", None)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, shape, mesh, model=model, **kw)
+    return build_serve_step(cfg, shape, mesh, model=model, **kw)

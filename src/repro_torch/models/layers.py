@@ -38,9 +38,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
+class MetaGenerator:
+    """Stands in for a torch.Generator where init must draw nothing: every
+    initializer given it returns a tensor of the right shape and dtype on
+    the meta device (no storage, no draw)."""
+    device = torch.device("meta")
+
+
 def truncated_normal(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], by inverse CDF of a uniform,
-    drawn on the generator's device."""
+    drawn on the generator's device (a `MetaGenerator` draws nothing)."""
+    if generator.device.type == "meta":
+        return torch.empty(tuple(shape), device="meta")
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     hi = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
     u = torch.rand(tuple(shape), generator=generator, device=generator.device)

@@ -1,24 +1,36 @@
-"""The dense and hybrid LM families. Counterpart of ``repro/models/model.py``.
+"""The dense, moe, hybrid and ssm (xLSTM) LM families. Counterpart of
+``repro/models/model.py``.
 
-    lm = build_model(cfg)                           # family 'dense' or 'hybrid'
+    lm = build_model(cfg)                           # family 'dense', 'moe', 'hybrid' or 'ssm'
     params = lm.init(seed=0)                        # on CUDA; device="cpu" for the CPU
     loss, metrics = lm.loss(params, batch)          # train / prefill
+    x = lm.forward(params, batch)                   # final hiddens
+    x, aux = lm.forward_aux(params, batch)          # and the MoE load-balance loss
     cache = lm.init_cache(batch_size, max_seq, window=...)
     logits, cache = lm.decode_step(params, cache, tokens, pos, window=...)
 
 Params are a plain nested dict with the reference's structure and names:
-block params stay stacked with a leading (L,) layer axis, as the
-reference's `lax.scan` layout has them, so the flat buffer of one package
-is the flat buffer of the other (see `repro_torch.convert`). The forward
-walks the layers on per-layer views. `init` draws from its own torch
-generator, not from jax's key stream.
+the dense and moe families' block params, and the hybrid's Mamba2 blocks,
+stay stacked with a leading (L,) layer axis, as the reference's `lax.scan`
+layout has them; the xLSTM's blocks are a list of per-layer dicts
+({"mlstm": MLSTMParams} or {"slstm": SLSTMParams}), as the reference's.
+So the flat buffer of one package is the flat buffer of the other (see
+`repro_torch.convert`). The forward walks the layers on per-layer views.
+`init` draws from its own torch generator, not from jax's key stream;
+`init(device="meta")` draws and allocates nothing.
+
+The reference's `forward` returns (hiddens, aux); here `forward` returns
+the hiddens (what `prefill_logits` and decode checks read) and
+`forward_aux` the pair, which `loss` takes to add `load_balance_coef *
+aux` for the moe family (aux is 0 for the others).
 
 `attn_backend` is the reference's: "jnp" runs the blockwise attention of
 plain torch ops, "pallas" the flash kernel's entry point; every Mamba2
-layer's SSD scan goes through the ssm_scan kernel's entry point. Both
-entry points run their plain versions on CPU tensors and the Hopper
-kernels on CUDA tensors. The moe, vlm, audio and ssm (xLSTM) families
-wait for later slices.
+and mLSTM layer's SSD scan goes through the ssm_scan kernel's entry point.
+Both entry points run their plain versions on CPU tensors and the Hopper
+kernels on CUDA tensors. `moe_mode` and `moe_group_tokens` are the
+reference's ("onehot" capacity dispatch or the "ragged" sort). The vlm
+and audio families wait for later slices.
 """
 from __future__ import annotations
 
@@ -31,8 +43,10 @@ from repro_torch.configs.base import PORTED_FAMILIES, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import embed_init, rms_norm
+from repro_torch.models import xlstm as xlstm_mod
+from repro_torch.models.layers import MetaGenerator, embed_init, rms_norm
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
@@ -76,6 +90,15 @@ def _unbind(tree: Any, n_layers: int) -> List[Any]:
     return list(torch.unbind(tree))
 
 
+def _to(tree: Any, dev: torch.device) -> Any:
+    """A tree of dicts and NamedTuples of tensors, moved to `dev`."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(None if t is None else t.to(dev) for t in tree))
+    return tree.to(dev)
+
+
 def _stack(items: List[Any], dev: torch.device) -> Any:
     """Stack per-layer trees (dicts and NamedTuples of tensors) into one
     tree of (L, ...) leaves on `dev`."""
@@ -89,7 +112,8 @@ def _stack(items: List[Any], dev: torch.device) -> Any:
 
 
 class LM:
-    def __init__(self, cfg: ModelConfig, *, attn_backend: str = "jnp"):
+    def __init__(self, cfg: ModelConfig, *, attn_backend: str = "jnp",
+                 moe_mode: str = "onehot", moe_group_tokens: int = 512):
         if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} waits for a later slice of the port "
@@ -99,36 +123,60 @@ class LM:
         if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_every:
             raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a multiple of "
                              f"attn_every {cfg.attn_every}")
+        if moe_mode not in ("onehot", "ragged"):
+            raise ValueError(f"unknown MoE mode {moe_mode!r}")
         self.cfg = cfg
         self.attn_backend = attn_backend
+        self.moe_mode = moe_mode
+        self.moe_group_tokens = moe_group_tokens
 
     # ---------------- init -------------------------------------------
-    def init(self, seed: int = 0, device=None, dtype=torch.float32) -> Params:
+    def init(self, seed: int = 0, device=None, dtype=torch.float32,
+             generator_device=None) -> Params:
         """Random weights from `seed` on `device` (CUDA when None). They are
         drawn from a CPU generator and then moved, so a seed gives the same
-        weights on every device."""
+        weights on every device; `generator_device` (a CUDA device) draws
+        them on the card instead, in a fraction of the time at full width,
+        with other values. On the meta device nothing is drawn or allocated:
+        every leaf has its shape and dtype, no storage."""
         cfg = self.cfg
         dev = resolve_device(device)
-        gen = torch.Generator().manual_seed(int(seed))
+        if dev.type == "meta":
+            gen = MetaGenerator()
+        else:
+            gen = torch.Generator(device=resolve_device(generator_device or "cpu"))
+            gen.manual_seed(int(seed))
         L, d = cfg.n_layers, cfg.d_model
+
+        def ones(n):
+            return torch.ones(n, dtype=dtype, device=gen.device)
 
         def attention():
             return attn.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                                        cfg.qkv_bias, dtype)
 
-        if cfg.family == "dense":
-            layers = [{"ln1": torch.ones(d, dtype=dtype), "ln2": torch.ones(d, dtype=dtype),
-                       "attn": attention(),
-                       "ffn": mlp_mod.init_swiglu(gen, d, cfg.d_ff, dtype)} for _ in range(L)]
-        else:
-            layers = [{"ln": torch.ones(d, dtype=dtype),
-                       "mamba": ssm_mod.init_mamba2(gen, d, cfg.ssm, dtype)} for _ in range(L)]
+        def ffn():
+            if cfg.moe is not None:
+                return moe_mod.init_moe(gen, d, cfg.moe, dtype)
+            return mlp_mod.init_swiglu(gen, d, cfg.d_ff, dtype)
+
+        if cfg.family in ("dense", "moe"):
+            blocks = _stack([{"ln1": ones(d), "ln2": ones(d), "attn": attention(), "ffn": ffn()}
+                             for _ in range(L)], dev)
+        elif cfg.family == "hybrid":
+            blocks = _stack([{"ln": ones(d), "mamba": ssm_mod.init_mamba2(gen, d, cfg.ssm, dtype)}
+                             for _ in range(L)], dev)
+        else:                                       # ssm: the xLSTM's per-layer list
+            blocks = [_to({"slstm": xlstm_mod.init_slstm(gen, cfg, dtype)}
+                          if i in cfg.xlstm.slstm_indices
+                          else {"mlstm": xlstm_mod.init_mlstm(gen, cfg, dtype)}, dev)
+                      for i in range(L)]
         p: Params = {
             "embed": embed_init((cfg.vocab, d), gen, dtype).to(dev),
             "ln_f": torch.ones(d, dtype=dtype, device=dev),
-            "blocks": _stack(layers, dev),
+            "blocks": blocks,
         }
-        del layers
+        del blocks
         if not cfg.tie_embeddings:
             p["unembed"] = embed_init((d, cfg.vocab), gen, dtype).to(dev)
         if cfg.family == "hybrid":
@@ -144,27 +192,49 @@ class LM:
     def forward(self, params: Params, batch: Batch, *,
                 window: Optional[int] = None) -> torch.Tensor:
         """Final hiddens (B, S, d)."""
+        return self.forward_aux(params, batch, window=window)[0]
+
+    def forward_aux(self, params: Params, batch: Batch, *,
+                    window: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(final hiddens (B, S, d), the MoE load-balance loss: the mean over
+        the layers of each router's aux, a 0-d f32 tensor; 0 outside the
+        moe family), the reference's `forward`."""
         cfg = self.cfg
         window = window if window is not None else cfg.sliding_window
         tokens = batch["tokens"].to(torch.int64)
         x = F.embedding(tokens, params["embed"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        if cfg.family == "dense":
-            x = self._dense_stack(params["blocks"], x, positions, window)
-        else:
+        if cfg.family in ("dense", "moe"):
+            x, aux = self._dense_stack(params["blocks"], x, positions, window)
+        elif cfg.family == "hybrid":
             x = self._hybrid_stack(params, x, positions, window)
-        return rms_norm(x, params["ln_f"], cfg.norm_eps)
+        else:
+            x = self._xlstm_stack(params["blocks"], x)
+        return rms_norm(x, params["ln_f"], cfg.norm_eps), aux
 
     def _attention(self, p, x, positions, window):
         return attn.attention_forward(p, x, positions=positions, rope_theta=self.cfg.rope_theta,
                                       window=window, backend=self.attn_backend)
 
+    def _ffn(self, p, x, group_tokens):
+        """The block's feed-forward: (out, the router's aux or None)."""
+        m = self.cfg.moe
+        if m is None:
+            return mlp_mod.mlp_forward(p, x), None
+        return moe_mod.moe_forward(p, x, m, mode=self.moe_mode, group_tokens=group_tokens)
+
     def _dense_stack(self, blocks, x, positions, window):
-        eps = self.cfg.norm_eps
-        for blk in _unbind(blocks, self.cfg.n_layers):
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk in _unbind(blocks, cfg.n_layers):
             x = x + self._attention(blk["attn"], rms_norm(x, blk["ln1"], eps), positions, window)
-            x = x + mlp_mod.mlp_forward(blk["ffn"], rms_norm(x, blk["ln2"], eps))
-        return x
+            f, a = self._ffn(blk["ffn"], rms_norm(x, blk["ln2"], eps), self.moe_group_tokens)
+            x = x + f
+            if a is not None:
+                aux = aux + a
+        return x, aux / cfg.n_layers
 
     def _hybrid_stack(self, params, x, positions, window):
         """Zamba2: the Mamba2 layers in order; the SHARED attention block
@@ -179,28 +249,47 @@ class LM:
                                         window)
         return x
 
+    def _xlstm_stack(self, blocks, x):
+        """The xLSTM: each block's residual in order (no pre-norm, as the
+        reference's)."""
+        cfg = self.cfg
+        for blk in blocks:
+            if "slstm" in blk:
+                x = x + xlstm_mod.slstm_forward(blk["slstm"], x, cfg)
+            else:
+                x = x + xlstm_mod.mlstm_forward(blk["mlstm"], x, cfg)
+        return x
+
     # ---------------- loss -------------------------------------------
     def loss(self, params: Params, batch: Batch, *,
              window: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
-        ce = chunked_lm_loss(self.forward(params, batch, window=window), self._unembed(params),
-                             batch["labels"])
-        return ce, {"ce": ce}
+        x, aux = self.forward_aux(params, batch, window=window)
+        ce = chunked_lm_loss(x, self._unembed(params), batch["labels"])
+        lb = self.cfg.moe.load_balance_coef if self.cfg.moe else 0.0
+        return ce + lb * aux, {"ce": ce, "moe_aux": aux}
 
     # ---------------- decode -----------------------------------------
     def init_cache(self, batch: int, max_seq: int, *, window: Optional[int] = None,
                    dtype=torch.bfloat16, device=None) -> Any:
-        """Zeroed caches on `device` (CUDA when None): the dense family's
-        {"kv": KVCache of (L, B, C, Kv, hd)}, the hybrid's {"mamba": L
-        Mamba2States, "shared": one KVCache (B, C, Kv, hd) per application
-        of the shared block}; C = min(max_seq, window) under a window."""
+        """Zeroed caches on `device` (CUDA when None): the dense and moe
+        families' {"kv": KVCache of (L, B, C, Kv, hd)}, the hybrid's
+        {"mamba": L Mamba2States, "shared": one KVCache (B, C, Kv, hd) per
+        application of the shared block}, the xLSTM's {"states": one
+        MLSTMState (conv in `dtype`) or SLSTMState (f32) per layer}; C =
+        min(max_seq, window) under a window."""
         cfg = self.cfg
         dev = resolve_device(device)
         window = window if window is not None else cfg.sliding_window
         cap = min(max_seq, window) if window else max_seq
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             shape = (cfg.n_layers, batch, cap, cfg.n_kv_heads, cfg.head_dim)
             return {"kv": attn.KVCache(torch.zeros(shape, dtype=dtype, device=dev),
                                        torch.zeros(shape, dtype=dtype, device=dev))}
+        if cfg.family == "ssm":
+            return {"states": [xlstm_mod.init_slstm_state(batch, cfg, dev)
+                               if i in cfg.xlstm.slstm_indices
+                               else xlstm_mod.init_mlstm_state(batch, cfg, dtype, dev)
+                               for i in range(cfg.n_layers)]}
         return {
             "mamba": [ssm_mod.init_mamba2_state(batch, cfg.d_model, cfg.ssm, dtype, dev)
                       for _ in range(cfg.n_layers)],
@@ -211,8 +300,8 @@ class LM:
     def decode_step(self, params: Params, cache: Any, tokens: torch.Tensor, pos: int, *,
                     window: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
         """tokens: (B, 1) int; pos: the position (an int). Returns (logits
-        (B, 1, V), cache). KV caches are written in place; the Mamba2
-        states of the returned cache are new tensors."""
+        (B, 1, V), cache). KV caches are written in place; the Mamba2 and
+        xLSTM states of the returned cache are new tensors."""
         cfg = self.cfg
         eps = cfg.norm_eps
         window = window if window is not None else cfg.sliding_window
@@ -223,14 +312,25 @@ class LM:
             return attn.attention_decode(p, h, kv, pos, rope_theta=cfg.rope_theta, ring=ring,
                                          window=window)
 
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             kv = cache["kv"]
             for i, blk in enumerate(_unbind(params["blocks"], cfg.n_layers)):
                 a, _ = attend(blk["attn"], rms_norm(x, blk["ln1"], eps),
                               attn.KVCache(kv.k[i], kv.v[i]))
                 x = x + a
-                x = x + mlp_mod.mlp_forward(blk["ffn"], rms_norm(x, blk["ln2"], eps))
+                # one token a row: the batch is one group, as the reference's
+                x = x + self._ffn(blk["ffn"], rms_norm(x, blk["ln2"], eps), tokens.shape[0])[0]
             new_cache = {"kv": kv}
+        elif cfg.family == "ssm":
+            states = []
+            for blk, st in zip(params["blocks"], cache["states"]):
+                if "slstm" in blk:
+                    o, st = xlstm_mod.slstm_decode(blk["slstm"], x, st, cfg)
+                else:
+                    o, st = xlstm_mod.mlstm_decode(blk["mlstm"], x, st, cfg)
+                x = x + o
+                states.append(st)
+            new_cache = {"states": states}
         else:
             new_m, shared = [], cache["shared"]
             for i, blk in enumerate(_unbind(params["blocks"], cfg.n_layers)):

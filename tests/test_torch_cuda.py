@@ -846,6 +846,129 @@ def test_reduced_zamba2_on_the_card_matches_the_cpu(backend):
     assert torch.equal(seqs.cpu(), cpu_seqs)
 
 
+def _mlstm_inputs(dev, B, S, H, N, P, dtype, seed):
+    """The mLSTM's scan inputs: per-head k and q, v with a ones column
+    (the normalizer: P = N_v + 1, rows not 16-byte aligned), the log forget
+    gate and the input gate."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn((B, S, H, P - 1), device=dev, generator=gen)
+    v = torch.cat([v, torch.ones((B, S, H, 1), device=dev)], dim=-1).to(dtype)
+    k, q = (torch.randn((B, S, H, N), device=dev, generator=gen).to(dtype) for _ in range(2))
+    ld = -torch.nn.functional.softplus(torch.randn((B, S, H), device=dev, generator=gen) + 3)
+    g = torch.sigmoid(torch.randn((B, S, H), device=dev, generator=gen))
+    return v, ld, k, q, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,N,P,Q", [
+    (1, 300, 2, 128, 129, 256), (2, 600, 2, 384, 385, 256), (1, 70, 2, 40, 33, 70),
+    (2, 200, 3, 128, 129, 64), (1, 9, 1, 512, 7, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernels_at_wide_heads_match_plain_versions(B, S, H, N, P, Q, dtype):
+    """The wide-head variant (the mLSTM's N = dm / H, P = N + 1: 128 / 129
+    reduced, 384 / 385 at xlstm-125m's width; any N and P up to 512): both
+    kernels against their plain versions within the scan's bound, two
+    launches bit-identical, one count each."""
+    dev = _device()
+    v, ld, k, q, g = _mlstm_inputs(dev, B, S, H, N, P, dtype, seed=N + P)
+    before = dict(skernel.launches)
+    parts = skernel.ssd_chunk_scan_cuda(v, ld, k, q, g, Q)
+    again = skernel.ssd_chunk_scan_cuda(v, ld, k, q, g, Q)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(parts, again))
+    for got, want in zip(parts, sref.ssd_chunk_scan_ref(v, ld, k, q, g, Q)):
+        _close(got, want, scan=True)
+    nc = -(-S // Q)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cots = [torch.randn(shape, device=dev, generator=gen)
+            for shape in ((B, S, H, P), (B, nc, H, N, P), (B, S, H), (B, nc, H))]
+    got = skernel.ssd_chunk_scan_bwd_cuda(*cots, v, ld, k, q, g, Q)
+    again = skernel.ssd_chunk_scan_bwd_cuda(*cots, v, ld, k, q, g, Q)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = sref.ssd_chunk_scan_bwd_ref(*cots, v, ld, k, q, g, Q)
+    for a, b, dt in zip(got, want, (dtype, torch.float32, dtype, dtype, torch.float32)):
+        assert a.dtype == b.dtype == dt and a.shape == b.shape
+        _close(a, b, scan=True)
+    assert {n: skernel.launches[n] - before[n] for n in before} == {
+        "ssd_chunk_scan": 2, "ssd_chunk_scan_bwd": 2}
+
+
+@pytest.mark.cuda
+def test_wide_heads_refuse_long_chunks_and_wider_heads():
+    dev = _device()
+    v, ld, k, q, g = _mlstm_inputs(dev, 1, 600, 1, 128, 129, torch.float32, seed=1)
+    with pytest.raises(ValueError, match="chunks of at most 256"):
+        skernel.ssd_chunk_scan_cuda(v, ld, k, q, g, 512)
+    v, ld, k, q, g = _mlstm_inputs(dev, 1, 16, 1, 520, 8, torch.float32, seed=1)
+    with pytest.raises(ValueError, match="at most 512"):
+        skernel.ssd_chunk_scan_cuda(v, ld, k, q, g, 16)
+
+
+@pytest.mark.cuda
+def test_reduced_xlstm_on_the_card_matches_the_cpu():
+    """The reduced xLSTM (mLSTM head N 128 / P 129 through the wide kernels)
+    on the card against the CPU: the forward over S 300 (two chunks) within
+    1e-4, the loss gradient at S 40 (the CPU parity test's length: over
+    long sequences the sLSTM's recurrence makes the gradient ill-conditioned
+    in f32) within 1e-3 of each leaf's largest |gradient| (one scan forward
+    and backward per mLSTM layer), decode logits within 1e-4; then one
+    federated dispatch of the flat fused engine (K = 3, G = 2: dp_round,
+    sqnorm and the SSD kernels) on the card and on the CPU: owners,
+    refusals and ledger exact, theta_L within 1e-5 + 1e-4 x."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.tree_util import tree_unflatten
+    dev = _device()
+    cfg = get_config("xlstm-125m").reduced()
+    lm = LM(cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 300), generator=torch.Generator().manual_seed(8))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    n_m = cfg.n_layers - len(cfg.xlstm.slstm_indices)
+    outs, grads = [], []
+    before = dict(skernel.launches)
+    for device in (dev, torch.device("cpu")):
+        leaves, treedef = tree_flatten(lm.init(seed=8, device=device))
+        live = [x.requires_grad_(True) for x in leaves]
+        on_device = {k: t.to(device) for k, t in batch.items()}
+        params = tree_unflatten(treedef, live)
+        with torch.no_grad():
+            outs.append(lm.forward(params, on_device).cpu())
+        loss = lm.loss(params, {k: t[:, :40] for k, t in on_device.items()})[0]
+        grads.append([x.cpu() for x in torch.autograd.grad(loss, live)])
+    assert {m: skernel.launches[m] - before[m] for m in before} == {
+        "ssd_chunk_scan": 2 * n_m, "ssd_chunk_scan_bwd": n_m}
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=1e-4)
+    for a, b in zip(*grads):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * float(b.abs().max()) + 1e-12)
+    prompt = toks[:, :4].to(torch.int32)
+    logits = [greedy_decode(lm, lm.init(seed=8, device=d),
+                            lm.init_cache(2, 10, dtype=torch.float32, device=d),
+                            prompt.to(d), 6)[1].cpu() for d in (dev, "cpu")]
+    torch.testing.assert_close(logits[0], logits[1], rtol=0, atol=1e-4)
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        fed = Federation([DataOwner(n=100, epsilon=1.0, xi=1.0) for _ in range(3)],
+                         FederationConfig.from_target_lr(0.05, n_owners=3, horizon=2,
+                                                         sigma=1e-2, theta_max=100.0),
+                         device=device)
+        fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True,
+                      privatizer=PrivatizerConfig(xi=1.0, granularity="microbatch",
+                                                  n_microbatches=2, fused_kernel=True))
+        t3 = torch.randint(0, cfg.vocab, (3, 4, 40), generator=torch.Generator().manual_seed(9))
+        state, m = fed.run_rounds(fed.init_state(lm.init(seed=8, device=device)),
+                                  {"tokens": t3.to(device),
+                                   "labels": torch.roll(t3, -1, dims=2).to(device)},
+                                  key=trandom.PRNGKey(4, device=device))
+        fed.reconcile(state)
+        runs.append((m["owner"].cpu(), m["refused"].cpu(), fed.ledger(),
+                     state.theta_L.buf.cpu()))
+    (o1, r1, l1, t1), (o2, r2, l2, t2) = runs
+    assert torch.equal(o1, o2) and torch.equal(r1, r2) and l1 == l2
+    torch.testing.assert_close(t1, t2, rtol=1e-4, atol=1e-5)
+
+
 # ------------------------- the convex engine and the sync baseline -------------------------
 def _convex_pair(dev, n_owners=6, n_per=1500):
     from repro_torch.data import owner_shards

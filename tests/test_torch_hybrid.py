@@ -82,13 +82,18 @@ def test_reduced_config_and_sizes_match_reference(case):
 
 
 def test_registry():
-    assert list_archs() == ["yi-6b", "zamba2-2.7b"]
-    with pytest.raises(KeyError, match="moe"):
-        get_config("mixtral-8x22b")
+    assert list_archs() == ["mixtral-8x22b", "qwen3-moe-30b-a3b", "xlstm-125m", "yi-6b",
+                            "zamba2-2.7b"]
+    with pytest.raises(KeyError, match="vlm"):
+        get_config("internvl2-2b")
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-17")
-    for arch in ("qwen3-moe-30b-a3b", "xlstm-125m", "whisper-medium", "internvl2-2b"):
+    for arch in ("whisper-medium", "internvl2-2b", "qwen1.5-110b", "granite-20b",
+                 "command-r-35b"):
         with pytest.raises(KeyError, match="later slice"):
+            get_config(arch)
+    for arch in ("qwen1.5-110b", "granite-20b", "command-r-35b"):
+        with pytest.raises(KeyError, match="queue 1, item 7"):
             get_config(arch)
 
 
@@ -237,8 +242,9 @@ def test_serve_main_runs_on_the_cpu(capsys):
 def test_unported_families_and_bad_settings_raise():
     import dataclasses
     cfg = get_config(ARCH).reduced()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        LM(dataclasses.replace(cfg, family="moe"))
+    for family in ("vlm", "audio"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            LM(dataclasses.replace(cfg, family=family))
     with pytest.raises(ValueError, match="backend"):
         LM(cfg, attn_backend="flash")
     with pytest.raises(ValueError, match="attn_every"):
