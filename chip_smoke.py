@@ -30,9 +30,12 @@ Phases (any mismatch raises and the run exits non-zero):
              DENSE_124M leaves and on one leaf of P = 1,000,003, bit for
              bit on every leaf; flash_attention, causal, at zamba2's shape
              (B 2, S 4096, H = Kv = 32, hd 80), yi-6b's (B 1, S 4096, H 32,
-             Kv 4, hd 128), the same with window 1024 and a ragged S 1000 at
-             hd 64, each in f32 (within 1e-4) and bf16 (one bf16 step plus
-             1e-4), two launches bit-identical, and the backend and device
+             Kv 4, hd 128), the same with window 1024, a ragged S 1000 at
+             hd 64, internvl2-2b's prefill (B 2, S 4096, H 16, Kv 8, hd 128),
+             whisper-medium's decoder (B 4, S 448, H = Kv = 16, hd 64) and
+             granite-20b's MQA (B 1, S 4096, H 48, Kv 1, hd 128), each in
+             f32 (within 1e-4) and bf16 (one bf16 step plus 1e-4), two
+             launches bit-identical, and the backend and device
              kernel that scaled_dot_product_attention runs on zamba2's f32
              shape (one profiled call); ssd_chunk_scan at zamba2's
              shape (B 2, S 4096, H 80, N = P = 64, chunk 256, B and C
@@ -217,6 +220,34 @@ Phases (any mismatch raises and the run exits non-zero):
              of memory) for two build_train_step rounds at microbatch
              granularity (2 owners, batch 4 x S 1024, the ragged
              dispatch) and one profiled, with peak GB.
+   vlm     — internvl2-2b (arXiv:2404.16821) at full width and depth
+             (1,893,341,184 f32 parameters drawn on the card from a seed):
+             a prefill of B 2 x S 4096 (256 projected patches, drawn from a
+             seed, and 3,840 text tokens) through build_prefill_step with
+             attn_backend "pallas", three timed and one profiled, each with
+             24 flash_attention launches and no other kernel, against
+             "jnp" (logits within 1e-3); decode on the first 6 layers over
+             S 256 against the text-only forward of the same weights (the
+             dense path over `blocks`: the vlm's decode sees no patches, as
+             the reference's), within 5e-3; greedy_decode at full depth, B
+             2, prompt 16, gen 32, and one profiled decode step.
+   audio   — whisper-medium (arXiv:2212.04356) at full width and depth (24
+             encoder and 24 decoder layers, 812,523,520 parameters; 1,500
+             frames of the stub frontend drawn from a seed): a prefill of B
+             4 x 448 decoder tokens, three timed and one profiled with 24
+             flash launches each (the encoder and the cross-attention are
+             plain torch, as in the reference), against "jnp"; the encoder
+             alone, timed; prime_cross_cache, then decode on the first 6
+             decoder layers over S 128 against the forward, within 5e-3;
+             greedy serving at full depth; two build_train_step rounds at
+             microbatch granularity (4 owners, batch 4 x 448, G = 2, the
+             frames in the batch, "jnp" attention: no kernel) and one
+             profiled, at full depth.
+   zoo     — granite-20b (MQA), command-r-35b (tied embedding, RoPE theta
+             8e6) and qwen1.5-110b (qkv bias) at full width, each cut to 2
+             layers (qwen1.5: 5.21 B parameters): a prefill of B 2 x S
+             4096, two timed and one profiled with 2 flash launches each,
+             against "jnp" within 1e-3; each model freed before the next.
    convex  — the paper's Section 5 at its own size through Federation.run:
              lending and health, p = 10, 10,000 records per owner, T =
              1000, rho 1, sigma 2e-5, reg 1e-5, theta_max 2; for N in (2,
@@ -300,7 +331,9 @@ Phases (any mismatch raises and the run exits non-zero):
              flash_attention at zamba2's prefill shape beside
              torch's scaled_dot_product_attention (timed only), ssd_chunk_scan at
              zamba2's prefill shape and ssd_chunk_scan_bwd at phase
-             train's microbatch (no library call), each beside its bound:
+             train's microbatch (no library call), each beside its bound;
+             flash_attention also at internvl2-2b's prefill shape beside
+             its bound and SDPA (printed, not a row):
              operations over 67 TFLOP/s of f32 against bytes over 3.35
              TB/s, whichever is larger; both SSD kernels also at the
              mLSTM's shapes (xlstm-125m's prefill and training microbatch,
@@ -467,11 +500,17 @@ def phase_kernels(torch, dev):
 
 
 # (what, B, S, H, Kv, hd, window): zamba2's shared block at prefill, yi-6b's
-# attention with and without a window, and a ragged S
+# attention with and without a window, a ragged S, and the prefills of phases
+# vlm, audio and zoo: internvl2-2b's (256 patches + 3,840 tokens), whisper-
+# medium's decoder (its 448-token context) and granite-20b's MQA (one kv head
+# for 48 query heads)
 FLASH_CASES = (("zamba2-2.7b", 2, 4096, 32, 32, 80, None),
                ("yi-6b", 1, 4096, 32, 4, 128, None),
                ("yi-6b, window 1024", 1, 4096, 32, 4, 128, 1024),
-               ("ragged", 1, 1000, 8, 2, 64, None))
+               ("ragged", 1, 1000, 8, 2, 64, None),
+               ("internvl2-2b", 2, 4096, 16, 8, 128, None),
+               ("whisper-medium", 4, 448, 16, 16, 64, None),
+               ("granite-20b MQA", 1, 4096, 48, 1, 128, None))
 
 
 def _bf16_close(torch, out, plain, what):
@@ -1773,7 +1812,6 @@ def phase_serve(torch, dev, cfg=None, batch=PREFILL_B, seq=PREFILL_S, ragged=400
     launches of the four kernel prefills."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import greedy_decode
     from repro_torch.launch.steps import prefill_logits
     from repro_torch.models import LM
     cfg = get_config("zamba2-2.7b") if cfg is None else cfg
@@ -1802,29 +1840,10 @@ def phase_serve(torch, dev, cfg=None, batch=PREFILL_B, seq=PREFILL_S, ragged=400
             return prefill_logits(model, params, {"tokens": tokens})
 
     # the main path: kernel prefills, counted from 0
-    _reset_launches()
-    times = []
-    for _ in range(3):
-        _sync(torch, dev)
-        t1 = time.perf_counter()
-        logits = prefill(lm, toks)
-        _sync(torch, dev)
-        times.append((time.perf_counter() - t1) * 1e3)
-    _, busy, groups, kernels = _profiled(torch, dev, lambda: prefill(lm, toks), 1)
-    launches = _launches()
-    check(launches == {k: 4 * n for k, n in per_prefill.items()},
-          f"four prefills launched {launches}, expected 4 x {per_prefill}")
-    check(tuple(logits.shape) == (batch, cfg.vocab) and bool(torch.isfinite(logits).all()),
-          "prefill logits are not finite (B, V)")
-    ms = statistics.median(times[1:])
-    peak = _peak_gb(torch, dev)
-    print(f"[serve] prefill B {batch} x S {seq} (attn_backend 'pallas'): {times[0]:.1f} ms "
-          f"warm-up, then {times[1]:.1f} and {times[2]:.1f} ms; {batch * seq / ms * 1e3:,.0f} "
-          f"prefill tokens/s; per prefill {n_apps} flash_attention and {cfg.n_layers} "
-          f"ssd_chunk_scan launches and none of the federation kernels")
-    print(f"[profile] serve prefill: device busy {busy:.2f} of {ms:.2f} ms: the device idles "
-          f"{1 - busy / ms:.1%}; {kernels:.0f} device kernels; peak memory {peak:.2f} GB; by "
-          f"group " + ", ".join(f"{g} {t:.2f} ms" for g, t in sorted(groups.items())))
+    logits, _, launches = _prefill_runs(
+        torch, dev, "serve", lambda p, b: prefill_logits(lm, p, b), params, {"tokens": toks},
+        per_prefill, top=12)
+    check(tuple(logits.shape) == (batch, cfg.vocab), "prefill logits are not (B, V)")
 
     # the same prefill through the blockwise attention (no flash launch)
     _reset_launches()
@@ -1877,33 +1896,12 @@ def phase_serve(torch, dev, cfg=None, batch=PREFILL_B, seq=PREFILL_S, ragged=400
     del full, cache, p_cut
 
     # greedy serving at full depth; the decode path reaches no kernel
-    total = prompt_len + gen
     prompt = torch.randint(0, cfg.vocab, (serve_batch, prompt_len), generator=gen_t,
                            dtype=torch.int32).to(dev)
-    cache = lm.init_cache(serve_batch, total, dtype=torch.float32, device=dev)
-    _reset_launches()
-    _sync(torch, dev)
-    t1 = time.perf_counter()
-    with torch.no_grad():
-        seqs, step_logits = greedy_decode(lm, params, cache, prompt, gen)
-    _sync(torch, dev)
-    dt = time.perf_counter() - t1
-    got = _launches()
-    check(got == zero, f"serving launched {got}")
-    check(tuple(seqs.shape) == (serve_batch, total) and torch.equal(seqs[:, :prompt_len], prompt)
-          and bool(torch.isfinite(step_logits).all()), "greedy decode output")
-    steps = total - 1
-    cache = lm.init_cache(serve_batch, 1, dtype=torch.float32, device=dev)
-    with torch.no_grad():
-        _, step_busy, _, step_kernels = _profiled(
-            torch, dev, lambda: lm.decode_step(params, cache, prompt[:, :1], 0), 1, top=3)
-    print(f"[serve] greedy decode B {serve_batch}, prompt {prompt_len}, gen {gen}: {steps} "
-          f"steps in {dt * 1e3:.1f} ms, {dt * 1e3 / steps:.2f} ms per step "
-          f"({serve_batch * steps / dt:.1f} tokens/s); {sum(got.values())} kernel launches (the "
-          f"decode path reaches no kernel, as in the reference); one profiled step: "
-          f"{step_kernels:.0f} "
-          f"device kernels, device busy {step_busy:.2f} ms")
-    del params, cache, seqs, step_logits, logits
+    _greedy(torch, dev, "serve", lm, params,
+            lm.init_cache(serve_batch, prompt_len + gen, dtype=torch.float32, device=dev),
+            prompt, gen)
+    del params, logits
     if on_card:
         torch.cuda.empty_cache()
     return launches
@@ -3322,14 +3320,16 @@ MOE_TRAIN_LAYERS = 1
 MOE_PREFILL_REL = 2.0 ** -7
 
 
-def _round_batches(torch, cfg, n, batch, seq, G, dev, seed):
-    """n microbatch-major (G, batch / G, seq) token batches on `dev`."""
+def _round_batches(torch, cfg, n, batch, seq, G, dev, seed, extra=None):
+    """n microbatch-major (G, batch / G, seq) token batches on `dev`, each
+    also holding the tensors of `extra` (a stub frontend's output)."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
         toks = rng.integers(0, cfg.vocab, (G, batch // G, seq), dtype=np.int32)
-        out.append({k: torch.from_numpy(v).to(dev)
-                    for k, v in (("tokens", toks), ("labels", np.roll(toks, -1, axis=2)))})
+        out.append({**{k: torch.from_numpy(v).to(dev)
+                       for k, v in (("tokens", toks), ("labels", np.roll(toks, -1, axis=2)))},
+                    **(extra or {})})
     return out
 
 
@@ -3377,14 +3377,15 @@ def _xlstm_grad_conditioning(torch, dev, cfg, S, gen_dev=None):
 
 
 def _train_step_rounds(torch, dev, tag, cfg, lm, holder, n_owners, batch, seq, G, rounds,
-                       per_round):
+                       per_round, extra=None):
     """launch.steps.build_train_step's step (the pytree state, G pre-grouped
     microbatches, the reference privatizer) for `rounds` timed rounds (the
     first warms up) and one profiled, each with exactly `per_round`
     launches. `holder` is a list holding the initial params: they are taken
     out of it once the state holds its copies, so that no third copy stays
-    on the card. Returns (ms per round, device busy ms, device kernels,
-    peak GB)."""
+    on the card. `extra`: tensors added to every batch (the audio family's
+    frames). Returns (ms per round, device busy ms, device kernels, peak
+    GB)."""
     from repro_torch import random
     from repro_torch.configs import ShapeConfig
     from repro_torch.federation.deep import init_state
@@ -3397,7 +3398,7 @@ def _train_step_rounds(torch, dev, tag, cfg, lm, holder, n_owners, batch, seq, G
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     state = init_state(holder.pop(), acfg, device=dev)
-    batches = _round_batches(torch, cfg, rounds + 1, batch, seq, G, dev, seed=5)
+    batches = _round_batches(torch, cfg, rounds + 1, batch, seq, G, dev, seed=5, extra=extra)
     key = random.PRNGKey(11, device=dev)
 
     def one(state, r, sub):
@@ -3583,30 +3584,10 @@ def phase_moe(torch, dev, cfg=None, prefill_layers=MOE_PREFILL_LAYERS, batch=PRE
                          dtype=torch.int32).to(dev)
     zero = {k: 0 for k in FED_KERNELS + MODEL_KERNELS}
     per_prefill = dict(zero, flash_attention=prefill_layers)
-    _reset_launches()
-    times = []
-    with torch.no_grad():
-        for _ in range(3):
-            _sync(torch, dev)
-            t1 = time.perf_counter()
-            logits = bundle.step(params, {"tokens": toks})
-            _sync(torch, dev)
-            times.append((time.perf_counter() - t1) * 1e3)
-        _, busy, groups, kernels = _profiled(
-            torch, dev, lambda: bundle.step(params, {"tokens": toks}), 1, top=6)
-    launches = _launches()
-    check(launches == {k: 4 * n for k, n in per_prefill.items()},
-          f"four MoE prefills launched {launches}, expected 4 x {per_prefill}")
-    check(tuple(logits.shape) == (batch, cut.vocab) and bool(torch.isfinite(logits).all()),
-          "MoE prefill logits are not finite (B, V)")
-    ms = statistics.median(times[1:])
-    print(f"[moe] prefill B {batch} x S {seq} (attn_backend 'pallas', onehot dispatch, "
-          f"groups of {lm.moe_group_tokens}): {times[0]:.1f} ms warm-up, then {times[1]:.1f} and "
-          f"{times[2]:.1f} ms; {batch * seq / ms * 1e3:,.0f} prefill tokens/s; "
-          f"{prefill_layers} flash_attention launches a prefill")
-    print(f"[profile] moe prefill: device busy {busy:.2f} of {ms:.2f} ms: the device idles "
-          f"{1 - busy / ms:.1%}; {kernels:.0f} device kernels; peak memory "
-          f"{_peak_gb(torch, dev):.2f} GB")
+    print(f"[moe] the onehot dispatch in groups of {lm.moe_group_tokens} tokens")
+    logits, _, launches = _prefill_runs(torch, dev, "moe", bundle.step, params,
+                                        {"tokens": toks}, per_prefill)
+    check(tuple(logits.shape) == (batch, cut.vocab), "MoE prefill logits are not (B, V)")
     _reset_launches()
     with torch.no_grad():
         plain = build_prefill_step(cut, shape, None, model=LM(cut, attn_backend="jnp"),
@@ -3662,6 +3643,360 @@ def phase_moe(torch, dev, cfg=None, prefill_layers=MOE_PREFILL_LAYERS, batch=PRE
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return launches
+
+
+def _prefill_runs(torch, dev, tag, step, params, batch, per_prefill, timed=3, top=6):
+    """`timed` prefills step(params, batch) (the first warms up) and one
+    under torch.profiler, with the launch counters set to 0 just before and
+    read just after: each prefill must launch exactly `per_prefill`.
+    Returns (the last logits, ms per prefill (median after the warm-up),
+    the launches of all of them)."""
+    _reset_launches()
+    times = []
+    with torch.no_grad():
+        for _ in range(timed):
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            logits = step(params, batch)
+            _sync(torch, dev)
+            times.append((time.perf_counter() - t1) * 1e3)
+        _, busy, groups, kernels = _profiled(torch, dev, lambda: step(params, batch), 1, top=top)
+    launches = _launches()
+    n = timed + 1
+    check(launches == {k: n * v for k, v in per_prefill.items()},
+          f"{n} {tag} prefills launched {launches}, expected {n} x {per_prefill}")
+    check(bool(torch.isfinite(logits).all()), f"{tag} prefill logits are not finite")
+    ms = statistics.median(times[1:])
+    B, S = batch["tokens"].shape
+    print(f"[{tag}] prefill B {B} x S {S} tokens (attn_backend 'pallas'): "
+          f"{', '.join(f'{t:.1f}' for t in times)} ms (the first warms up); "
+          f"{B * S / ms * 1e3:,.0f} prefill tokens/s; per prefill "
+          + " and ".join(f"{v} {k}" for k, v in per_prefill.items() if v)
+          + " launches and no other kernel")
+    print(f"[profile] {tag} prefill: device busy {busy:.2f} of {ms:.2f} ms: the device idles "
+          f"{1 - busy / ms:.1%}; {kernels:.0f} device kernels; peak memory "
+          f"{_peak_gb(torch, dev):.2f} GB; by group "
+          + ", ".join(f"{g} {t:.2f} ms" for g, t in sorted(groups.items())))
+    return logits, ms, launches
+
+
+def _against_plain(torch, tag, cfg, shape, params, batch, logits):
+    """The same prefill through attn_backend "jnp" (no kernel launch):
+    last-position logits within PREFILL_TOL of the kernel path's."""
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import LM
+    _reset_launches()
+    with torch.no_grad():
+        plain = build_prefill_step(cfg, shape, None, model=LM(cfg, attn_backend="jnp"),
+                                   dtype=torch.float32).step(params, batch)
+    got = _launches()
+    check(not any(got.values()), f"the 'jnp' {tag} prefill launched {got}")
+    e = float((logits - plain).abs().max())
+    check(e <= PREFILL_TOL, f"{tag} prefill logits: 'pallas' and 'jnp' differ by {e:.3e}")
+    print(f"[{tag}] prefill logits, 'pallas' against 'jnp': max difference {e:.3e} (bound "
+          f"{PREFILL_TOL}; max |logit| {float(plain.abs().max()):.3f})")
+
+
+def _greedy(torch, dev, tag, lm, params, cache, prompt, gen):
+    """launch.serve.greedy_decode at full depth (no kernel launch: the decode
+    path reaches none), then one profiled decode step at position 0 of the
+    same cache."""
+    from repro_torch.launch.serve import greedy_decode
+    B, plen = prompt.shape
+    _reset_launches()
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        seqs, step_logits = greedy_decode(lm, params, cache, prompt, gen)
+    _sync(torch, dev)
+    dt = time.perf_counter() - t1
+    got = _launches()
+    check(not any(got.values()), f"{tag} serving launched {got}")
+    check(tuple(seqs.shape) == (B, plen + gen) and torch.equal(seqs[:, :plen], prompt)
+          and bool(torch.isfinite(step_logits).all()), f"{tag} greedy decode output")
+    steps = plen + gen - 1
+    with torch.no_grad():
+        _, step_busy, _, step_kernels = _profiled(
+            torch, dev, lambda: lm.decode_step(params, cache, prompt[:, :1], 0), 1, top=3)
+    ms = dt * 1e3 / steps
+    print(f"[{tag}] greedy decode B {B}, prompt {plen}, gen {gen}: {steps} steps in "
+          f"{dt * 1e3:.1f} ms, {ms:.2f} ms per step ({B * steps / dt:.1f} tokens/s), no kernel "
+          f"launch; one profiled step: {step_kernels:.0f} device kernels, device busy "
+          f"{step_busy:.2f} ms (the device idles {1 - step_busy / ms:.1%} of a step)")
+
+
+# phase vlm: internvl2-2b's prefill of 256 patches and 3,840 text tokens
+VLM_DECODE_LAYERS = 6
+VLM_DECODE_SEQ = 256
+
+
+def phase_vlm(torch, dev, cfg=None, batch=PREFILL_B, seq=PREFILL_S,
+              decode_layers=VLM_DECODE_LAYERS, decode_seq=VLM_DECODE_SEQ, serve_batch=2,
+              prompt_len=16, gen=32):
+    """internvl2-2b at full width and depth (random f32 weights drawn on the
+    card from a seed): the prefill of `seq` positions (n_patches projected
+    patches and seq - n_patches text tokens) through build_prefill_step
+    with attn_backend "pallas" (flash on every layer), against "jnp";
+    decode on the first `decode_layers` layers against the text-only
+    forward of the same weights (the vlm's decode sees no patches, as the
+    reference's); greedy serving at full depth. Returns the launches of the
+    kernel prefills."""
+    import dataclasses
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import LM
+    cfg = get_config("internvl2-2b") if cfg is None else cfg
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, attn_backend="pallas")
+    params = lm.init(seed=0, device=dev, generator_device=dev if dev.type == "cuda" else None)
+    n_params = sum(leaf.numel() for leaf in _leaves(params))
+    check(n_params == cfg.param_count(), f"{n_params} parameters, expected {cfg.param_count()}")
+    _sync(torch, dev)
+    print(f"[vlm] {cfg.name} ({cfg.source}): {n_params:,} parameters ({n_params * 4 / 1e9:.2f} "
+          f"GB f32), {cfg.n_layers} layers, H {cfg.n_heads}, Kv {cfg.n_kv_heads}, hd "
+          f"{cfg.head_dim}, {cfg.n_patches} patches; drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    shape = ShapeConfig("vlm_prefill", seq, batch, "prefill")
+    bundle = build_prefill_step(cfg, shape, None, model=lm, dtype=torch.float32)
+    s_txt = seq - cfg.n_patches
+    check({k: tuple(t.shape) for k, t in bundle.args[1].items()}
+          == {"tokens": (batch, s_txt), "patches": (batch, cfg.n_patches, cfg.d_model)},
+          f"the vlm prefill bundle's batch spec {bundle.args[1]}")
+    gen_t = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (batch, s_txt), generator=gen_t, dtype=torch.int32).to(dev)
+    patches = torch.randn((batch, cfg.n_patches, cfg.d_model), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(3))
+    inputs = {"tokens": toks, "patches": patches}
+    zero = {k: 0 for k in FED_KERNELS + MODEL_KERNELS}
+    per_prefill = dict(zero, flash_attention=cfg.n_layers)
+    logits, _, launches = _prefill_runs(torch, dev, "vlm", bundle.step, params, inputs,
+                                        per_prefill)
+    check(tuple(logits.shape) == (batch, cfg.vocab), "vlm prefill logits (B, V)")
+    _against_plain(torch, "vlm", cfg, shape, params, inputs, logits)
+    del logits
+
+    # decode on the first layers against the text-only forward: the dense
+    # path over the same blocks, without patch_proj
+    cut = dataclasses.replace(cfg, n_layers=decode_layers)
+    text = LM(dataclasses.replace(cut, family="dense", n_patches=0), attn_backend="pallas")
+    p_text = {k: v for k, v in params.items() if k != "patch_proj"}
+    p_text["blocks"] = _first_layers(params["blocks"], decode_layers)
+    lm_cut = LM(cut)
+    dtoks = toks[:, :decode_seq]
+    _reset_launches()
+    with torch.no_grad():
+        full = torch.einsum("bsd,dv->bsv", text.forward(p_text, {"tokens": dtoks}),
+                            text._unembed(p_text))
+        got = _launches()
+        cache = lm_cut.init_cache(batch, decode_seq, dtype=torch.float32, device=dev)
+        err = 0.0
+        for t in range(decode_seq):
+            lg, cache = lm_cut.decode_step(dict(p_text, patch_proj=params["patch_proj"]), cache,
+                                           dtoks[:, t:t + 1], t)
+            err = max(err, float((lg[:, 0] - full[:, t]).abs().max()))
+    check(got == dict(zero, flash_attention=decode_layers), f"the text forward launched {got}")
+    check(_launches() == got, "vlm decode launched a kernel")
+    check(err <= DECODE_TOL, f"vlm decode differs from the text forward by {err:.3e}")
+    print(f"[vlm] decode against the text-only forward, {decode_layers} layers at full width, "
+          f"S {decode_seq}: max |logit difference| {err:.3e} over every position (bound "
+          f"{DECODE_TOL})")
+    del full, cache, p_text
+
+    total = prompt_len + gen
+    prompt = torch.randint(0, cfg.vocab, (serve_batch, prompt_len), generator=gen_t,
+                           dtype=torch.int32).to(dev)
+    _greedy(torch, dev, "vlm", lm, params,
+            lm.init_cache(serve_batch, total, dtype=torch.float32, device=dev), prompt, gen)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[vlm] {time.perf_counter() - t0:.1f} s into the phase")
+    return launches
+
+
+# phase audio: whisper-medium's decoder context (448 tokens) against its
+# 1,500 encoder frames
+AUDIO_SEQ = 448
+AUDIO_DECODE_LAYERS = 6
+AUDIO_DECODE_SEQ = 128
+
+
+def phase_audio(torch, dev, cfg=None, batch=4, seq=AUDIO_SEQ,
+                decode_layers=AUDIO_DECODE_LAYERS, decode_seq=AUDIO_DECODE_SEQ, serve_batch=2,
+                prompt_len=16, gen=32, n_owners=4,
+                train_batch=4, G=2, rounds=2):
+    """whisper-medium at full width and depth (random f32 weights drawn on
+    the card from a seed, frames from the stub frontend drawn from a seed):
+    the prefill through build_prefill_step with attn_backend "pallas" (flash
+    on every decoder self-attention; the encoder and the cross-attention
+    are plain torch, as in the reference) against "jnp"; the encoder alone,
+    timed; prime_cross_cache, then decode on the first `decode_layers`
+    decoder layers against the forward; greedy serving at full depth; one
+    build_train_step round at microbatch granularity (G pre-grouped
+    microbatches, the frames in the batch). Returns the launches of the
+    kernel prefills."""
+    import dataclasses
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import LM
+    cfg = get_config("whisper-medium") if cfg is None else cfg
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, attn_backend="pallas")
+    params = lm.init(seed=0, device=dev, generator_device=dev if dev.type == "cuda" else None)
+    n_params = sum(leaf.numel() for leaf in _leaves(params))
+    check(n_params == cfg.param_count(), f"{n_params} parameters, expected {cfg.param_count()}")
+    _sync(torch, dev)
+    print(f"[audio] {cfg.name} ({cfg.source}): {n_params:,} parameters ({n_params * 4 / 1e9:.2f} "
+          f"GB f32), {cfg.enc_layers} encoder and {cfg.n_layers} decoder layers, H = Kv = "
+          f"{cfg.n_heads}, hd {cfg.head_dim}, {cfg.enc_seq} frames; drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    shape = ShapeConfig("audio_prefill", seq, batch, "prefill")
+    bundle = build_prefill_step(cfg, shape, None, model=lm, dtype=torch.float32)
+    check({k: tuple(t.shape) for k, t in bundle.args[1].items()}
+          == {"tokens": (batch, seq), "frames": (batch, cfg.enc_seq, cfg.d_model)},
+          f"the audio prefill bundle's batch spec {bundle.args[1]}")
+    gen_t = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (batch, seq), generator=gen_t, dtype=torch.int32).to(dev)
+    frames = torch.randn((batch, cfg.enc_seq, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    inputs = {"tokens": toks, "frames": frames}
+    zero = {k: 0 for k in FED_KERNELS + MODEL_KERNELS}
+    per_prefill = dict(zero, flash_attention=cfg.n_layers)
+    logits, ms, launches = _prefill_runs(torch, dev, "audio", bundle.step, params, inputs,
+                                         per_prefill)
+    check(tuple(logits.shape) == (batch, cfg.vocab), "audio prefill logits (B, V)")
+    _against_plain(torch, "audio", cfg, shape, params, inputs, logits)
+    del logits
+    times = []
+    with torch.no_grad():
+        for _ in range(3):
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            enc = lm._encode(params, frames)
+            _sync(torch, dev)
+            times.append((time.perf_counter() - t1) * 1e3)
+    enc_ms = statistics.median(times[1:])
+    print(f"[audio] the encoder alone (B {batch} x {cfg.enc_seq} frames, {cfg.enc_layers} layers "
+          f"of plain bidirectional attention and GELU MLPs): {enc_ms:.1f} ms, "
+          f"{enc_ms / ms:.1%} of a prefill")
+    del enc
+
+    # prime the cross cache, then decode the first layers against the forward
+    cut = dataclasses.replace(cfg, n_layers=decode_layers)
+    lm_cut = LM(cut, attn_backend="pallas")
+    p_cut = dict(params, blocks=_first_layers(params["blocks"], decode_layers))
+    dtoks = toks[:, :decode_seq]
+    _reset_launches()
+    with torch.no_grad():
+        full = torch.einsum("bsd,dv->bsv", lm_cut.forward(p_cut, {"tokens": dtoks,
+                                                                  "frames": frames}),
+                            lm_cut._unembed(p_cut))
+        got = _launches()
+        cache = lm_cut.prime_cross_cache(
+            p_cut, lm_cut.init_cache(batch, decode_seq, dtype=torch.float32, device=dev), frames)
+        err = 0.0
+        for t in range(decode_seq):
+            lg, cache = lm_cut.decode_step(p_cut, cache, dtoks[:, t:t + 1], t)
+            err = max(err, float((lg[:, 0] - full[:, t]).abs().max()))
+    check(got == dict(zero, flash_attention=decode_layers), f"the audio forward launched {got}")
+    check(_launches() == got, "prime_cross_cache or decode launched a kernel")
+    check(err <= DECODE_TOL, f"audio decode differs from the forward by {err:.3e}")
+    print(f"[audio] prime_cross_cache, then decode against the forward, {decode_layers} decoder "
+          f"layers at full width, S {decode_seq}: max |logit difference| {err:.3e} over every "
+          f"position (bound {DECODE_TOL})")
+    del full, cache, p_cut
+
+    total = prompt_len + gen
+    prompt = torch.randint(0, cfg.vocab, (serve_batch, prompt_len), generator=gen_t,
+                           dtype=torch.int32).to(dev)
+    with torch.no_grad():
+        cache = lm.prime_cross_cache(
+            params, lm.init_cache(serve_batch, total, dtype=torch.float32, device=dev),
+            frames[:serve_batch])
+    _greedy(torch, dev, "audio", lm, params, cache, prompt, gen)
+    del cache, bundle
+
+    # one train round at microbatch granularity ("jnp" attention: flash has
+    # no backward, as in the reference)
+    print(f"[audio] train: full depth, {cfg.n_layers} decoder and {cfg.enc_layers} encoder "
+          f"layers, {n_params:,} parameters")
+    mb_frames = torch.randn((G, train_batch // G, cfg.enc_seq, cfg.d_model), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(5))
+    holder = [params]
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    _train_step_rounds(torch, dev, "audio", cfg, LM(cfg), holder, n_owners, train_batch, seq,
+                       G, rounds, zero, extra={"frames": mb_frames})
+    del mb_frames
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[audio] {time.perf_counter() - t0:.1f} s into the phase")
+    return launches
+
+
+# phase zoo: the three dense archs registered last, at full width, each cut
+# to 2 layers to fit one card beside its embedding (qwen1.5-110b: 5.21 B
+# leaves, 20.8 GB f32)
+ZOO_ARCHS = ("granite-20b", "command-r-35b", "qwen1.5-110b")
+ZOO_LAYERS = 2
+
+
+def phase_zoo(torch, dev, cfgs=None, layers=ZOO_LAYERS, batch=PREFILL_B, seq=PREFILL_S):
+    """Each of ZOO_ARCHS (or `cfgs`) at full width cut to `layers` layers (random f32
+    weights drawn on the card from a seed): a prefill through
+    build_prefill_step with attn_backend "pallas" (one flash launch a
+    layer; granite's MQA, command-r's tied embedding and RoPE theta 8e6,
+    qwen1.5's qkv bias) twice (the first warms up) and once profiled,
+    against "jnp"; each model freed before the next is drawn. Returns the
+    launches."""
+    import dataclasses
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import LM
+    zero = {k: 0 for k in FED_KERNELS + MODEL_KERNELS}
+    total = dict(zero)
+    for full in cfgs or [get_config(a) for a in ZOO_ARCHS]:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        arch = full.name
+        cut = dataclasses.replace(full, n_layers=layers)
+        lm = LM(cut, attn_backend="pallas")
+        params = lm.init(seed=0, device=dev, generator_device=dev if dev.type == "cuda" else None)
+        n_params = sum(leaf.numel() for leaf in _leaves(params))
+        check(n_params == cut.param_count(), f"{arch}: {n_params} parameters, expected "
+              f"{cut.param_count()}")
+        shape = ShapeConfig("zoo_prefill", seq, batch, "prefill")
+        bundle = build_prefill_step(cut, shape, None, model=lm, dtype=torch.float32)
+        toks = torch.randint(0, cut.vocab, (batch, seq), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(6)).to(dev)
+        _sync(torch, dev)
+        print(f"[zoo] {arch} ({full.source}) at full width, {layers} of {full.n_layers} layers: "
+              f"{n_params:,} parameters ({n_params * 4 / 1e9:.2f} GB f32; all layers "
+              f"{full.param_count():,}), H {cut.n_heads}, Kv {cut.n_kv_heads}, hd "
+              f"{cut.head_dim}, qkv_bias {cut.qkv_bias}, tied {cut.tie_embeddings}, theta "
+              f"{cut.rope_theta:g}; drawn on the card in {time.perf_counter() - t0:.1f} s")
+        per_prefill = dict(zero, flash_attention=layers)
+        logits, _, launches = _prefill_runs(torch, dev, f"zoo {arch}", bundle.step, params,
+                                            {"tokens": toks}, per_prefill, timed=2)
+        check(tuple(logits.shape) == (batch, cut.vocab), f"{arch} prefill logits (B, V)")
+        for k, v in launches.items():
+            total[k] += v
+        _against_plain(torch, f"zoo {arch}", cut, shape, params, {"tokens": toks}, logits)
+        del params, logits, bundle, lm
+        print(f"[zoo] {arch}: {time.perf_counter() - t0:.1f} s, peak memory "
+              f"{_peak_gb(torch, dev):.2f} GB")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return total
 
 
 def _time_mlstm_ssd(torch, dev):
@@ -3747,7 +4082,9 @@ def phase_timing(torch, dev, launches, errs):
     rows += _time_bank_codec(torch, dev, launches, errs)
     rows += _time_tree_delta(torch, dev, launches, errs)
     _time_rows(torch, dev)
-    rows += _time_flash(torch, dev, launches, errs)
+    rows.append(_time_flash(torch, dev, launches, errs))
+    # internvl2-2b's shape (GQA, hd 128) is printed; the row stays zamba2's
+    _time_flash(torch, dev, launches, errs, "internvl2-2b", H=16, Kv=8, hd=128, seed=15)
     rows += _time_ssd(torch, dev, launches, errs)
     rows += _time_ssd_bwd(torch, dev, launches, errs)
     _time_mlstm_ssd(torch, dev)
@@ -3944,18 +4281,22 @@ def _bytes(t):
     return n
 
 
-def _time_flash(torch, dev, launches, errs):
-    """flash attention at zamba2's prefill shape (B 2, S 4096, H = Kv = 32,
-    hd 80, causal, f32) through its entry point, its plain version, and
-    torch's scaled_dot_product_attention on the same inputs in the (B, H, S,
-    hd) layout it takes (the library yardstick, timed only). Bound: the
+def _time_flash(torch, dev, launches, errs, name="zamba2", H=32, Kv=32, hd=80, seed=14):
+    """flash attention at a model's prefill shape (B 2, S 4096, causal, f32;
+    zamba2's H = Kv = 32, hd 80 by default) through its entry point, its
+    plain version, and torch's scaled_dot_product_attention on the same
+    inputs in the (B, H, S, hd) layout it takes, k and v repeated to H heads
+    beforehand (not timed; the library yardstick, timed only). Bound: the
     causal work 4 B H hd S (S + 1) / 2 over the f32 rate (no tensor cores),
-    against q, k, v and o once over the memory rate."""
+    against q, k, v and o once over the memory rate. Returns the kernels
+    line's row."""
     from repro_torch.kernels.flash_attention import ops, ref
-    B, S, H, hd = PREFILL_B, PREFILL_S, 32, 80
-    gen = torch.Generator(device=dev).manual_seed(14)
-    q, k, v = (torch.randn((B, S, H, hd), device=dev, generator=gen) for _ in range(3))
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    B, S = PREFILL_B, PREFILL_S
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, S, H, hd), device=dev, generator=gen)
+    k, v = (torch.randn((B, S, Kv, hd), device=dev, generator=gen) for _ in range(2))
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.transpose(1, 2).repeat_interleave(H // Kv, dim=1).contiguous() for x in (k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flops = 4 * B * H * hd * S * (S + 1) / 2
     moved = sum(_bytes(x) for x in (q, k, v, q))
@@ -3969,13 +4310,15 @@ def _time_flash(torch, dev, launches, errs):
         bound_ms=max(flops / F32_FLOP_PER_S, moved / HBM_BYTES_PER_S) * 1e3,
         bound_by="operations" if flops / F32_FLOP_PER_S > moved / HBM_BYTES_PER_S else "bytes",
         library_ms=cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True), 10))
-    print(f"[timing] flash_attention at B {B}, S {S}, H {H}, hd {hd}: {flops / 1e9:.1f} GFLOP "
-          f"and {moved / 1e6:.1f} MB; {flops / row['ms'] / 1e9:.1f} TFLOP/s achieved, "
-          f"{row['bound_ms'] / row['ms']:.1%} of the bound; scaled_dot_product_attention "
-          f"{row['library_ms']:.4f} ms ({row['library_ms'] / row['ms']:.3f}x the kernel's time)")
+    print(f"[timing] flash_attention at {name}'s prefill (B {B}, S {S}, H {H}, Kv {Kv}, hd {hd}, "
+          f"causal, f32): {row['ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+          f"({flops / 1e9:.1f} GFLOP, {moved / 1e6:.1f} MB), {row['bound_ms'] / row['ms']:.1%} "
+          f"of it, {flops / row['ms'] / 1e9:.1f} TFLOP/s; plain {row['plain_ms']:.4f} ms; "
+          f"scaled_dot_product_attention {row['library_ms']:.4f} ms "
+          f"({row['library_ms'] / row['ms']:.3f}x the kernel's time)")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    return [row]
+    return row
 
 
 def _time_ssd(torch, dev, launches, errs):
@@ -4163,6 +4506,14 @@ def main():
     torch.cuda.empty_cache()
     check(moe_launches["flash_attention"] > 0, "the MoE prefill launched no flash_attention")
     lap("moe")
+    family_launches = {}
+    for name, phase in (("vlm", phase_vlm), ("audio", phase_audio), ("zoo", phase_zoo)):
+        family_launches[name] = phase(torch, dev)
+        torch.cuda.empty_cache()
+        check(family_launches[name]["flash_attention"] > 0
+              and not any(v for k, v in family_launches[name].items() if k != "flash_attention"),
+              f"the {name} prefills launched no flash_attention, or another kernel")
+        lap(name)
     phase_convex(torch, dev)
     torch.cuda.empty_cache()
     lap("convex")
@@ -4192,6 +4543,8 @@ def main():
     print("[paged] launches on the paged paths: " + json.dumps(paged_launches))
     print("[xlstm] launches a build_train_step round: " + json.dumps(xlstm_round)
           + "; [moe] launches over the four prefills: " + json.dumps(moe_launches))
+    print("[vlm, audio, zoo] flash_attention launches over each phase's kernel prefills: "
+          + json.dumps({k: v["flash_attention"] for k, v in family_launches.items()}))
     # each kernel's launches on its own path: rows 1-2 from main, 3 from
     # pytree, 4-6 from quant, 7 from tree, 8-9 from serve, the SSD
     # backward from train

@@ -1,14 +1,14 @@
 """Model architecture and input-shape configs of the port: an own copy of
-the dense, hybrid, moe and ssm (xLSTM) subset of ``repro/configs/base.py``
-(`MoEConfig`, `SSMConfig`, `XLSTMConfig`, `ModelConfig`, `ShapeConfig`,
-`INPUT_SHAPES`) and the repo's deep example model.
+``repro/configs/base.py`` (`MoEConfig`, `SSMConfig`, `XLSTMConfig`,
+`ModelConfig`, `ShapeConfig`, `INPUT_SHAPES`) and the repo's deep example
+model.
 
 ``ModelConfig.reduced()`` gives the CPU-test variant exactly as the
 reference does (2 layers, d_model <= 256, <= 4 heads, vocab <= 512; for a
 hybrid d_state <= 16, SSD head dim 32, chunk 32 and a shared attention
 block every 2 layers; <= 4 experts, top-k <= 2, d_expert <= 128; the
-sLSTM at layer 1), so a reduced config describes the same parameter
-shapes in both packages.
+sLSTM at layer 1; 2 encoder layers over 16 frames; 4 patches), so a
+reduced config describes the same parameter shapes in both packages.
 """
 from __future__ import annotations
 
@@ -16,8 +16,8 @@ import dataclasses
 from typing import Optional, Tuple
 
 
-# the families the port runs; the others (vlm, audio) wait for later slices
-PORTED_FAMILIES = ("dense", "hybrid", "moe", "ssm")
+# the families the port runs: every family of the reference
+PORTED_FAMILIES = ("dense", "hybrid", "moe", "ssm", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +50,7 @@ class XLSTMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                             # 'dense', 'hybrid', 'moe' or 'ssm' in the port
+    family: str                             # 'dense', 'hybrid', 'moe', 'ssm', 'vlm' or 'audio'
     n_layers: int
     d_model: int
     n_heads: int
@@ -72,10 +72,12 @@ class ModelConfig:
     # hybrid (zamba2): a *shared* attention block applied after every
     # `attn_every` Mamba2 layers
     attn_every: Optional[int] = None
-    # enc-dec (whisper) and vlm (internvl2) fields, kept so that a config is
-    # the reference's field for field; their families wait for a later slice
+    # enc-dec (whisper): encoder depth and fixed encoder sequence length
+    # (frames after the stubbed conv frontend)
     enc_layers: int = 0
     enc_seq: int = 0
+    # vlm (internvl2): patch embeddings prepended by the stubbed vision
+    # frontend
     n_patches: int = 0
     source: str = ""                        # citation
 
@@ -96,20 +98,31 @@ class ModelConfig:
         leaves out w_dt, the conv, A_log, D, dt_bias and the norms; for the
         xLSTM it estimates a layer as 2 d dm + dm d / 2 (112,656,384 for
         xlstm-125m against the 199,584,812 leaves its init makes); for the
-        dense and moe families it leaves out the final norm."""
+        dense, moe and vlm families it leaves out the final norm, and for
+        the vlm `patch_proj` too; it counts the audio decoder as SwiGLU
+        dense blocks, without their cross-attention, third norm, `enc_pos`
+        and `enc_ln_f`."""
         d, hd, H, Kv = self.d_model, self.head_dim, self.n_heads, self.n_kv_heads
         emb = self.vocab * d
         out = 0 if self.tie_embeddings else self.vocab * d
         attn = d * H * hd + 2 * d * Kv * hd + H * hd * d
+        if self.family == "audio":
+            # whisper's attention blocks carry no bias, whatever qkv_bias says
+            gelu = 2 * d * self.d_ff
+            dec = 2 * attn + gelu + 3 * d
+            enc = attn + gelu + 2 * d
+            return (emb + out + self.n_layers * dec + self.enc_layers * enc
+                    + self.enc_seq * d + 2 * d)
         if self.qkv_bias:
             attn += (H + 2 * Kv) * hd
-        if self.family in ("dense", "moe"):
+        if self.family in ("dense", "moe", "vlm"):
             if self.moe is not None:
                 m = self.moe
                 ffn = m.n_experts * 3 * d * m.d_expert + d * m.n_experts
             else:
                 ffn = 3 * d * self.d_ff
-            return emb + out + self.n_layers * (attn + ffn + 2 * d) + d
+            patch = d * d if self.family == "vlm" else 0
+            return emb + out + self.n_layers * (attn + ffn + 2 * d) + d + patch
         if self.family == "hybrid":
             s = self.ssm
             d_in = s.expand * d
@@ -127,7 +140,7 @@ class ModelConfig:
             slstm = d * d * 4 + n_h * hd_s * hd_s * 4 + d * 4 + d + d * 2 * fs + fs * d
             n_s = sum(1 for i in range(self.n_layers) if i in x.slstm_indices)
             return emb + out + n_s * slstm + (self.n_layers - n_s) * mlstm + d
-        raise NotImplementedError(f"family {self.family!r} waits for a later slice of the port")
+        raise ValueError(f"unknown family {self.family!r}")
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE: top_k of n_experts), from

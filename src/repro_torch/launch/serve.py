@@ -7,8 +7,10 @@
 As in the reference, ``--reduced`` is a store_true flag whose default is
 True, so the driver always serves the reduced config; `greedy_decode` is
 the loop, callable at any width. Serving is DP-free: the trained model is
-the eps-DP artifact (post-processing invariance). The decode path reaches
-no kernel, as in the reference.
+the eps-DP artifact (post-processing invariance). An audio arch runs its
+encoder once over frames drawn from the seed (the stubbed frontend) to
+prime the cross-attention cache. The decode path reaches no kernel, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -70,6 +72,9 @@ def main(argv=None):
     total = args.prompt_len + args.gen
     cache = model.init_cache(B, total, window=args.window, dtype=torch.float32, device=dev)
     gen = torch.Generator().manual_seed(args.seed + 1)
+    if cfg.family == "audio":
+        frames = torch.randn((B, cfg.enc_seq, cfg.d_model), generator=gen).to(dev)
+        cache = model.prime_cross_cache(params, cache, frames)
     prompt = torch.randint(0, cfg.vocab, (B, args.prompt_len), generator=gen,
                            dtype=torch.int32).to(dev)
     t0 = time.time()

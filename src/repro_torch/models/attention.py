@@ -129,8 +129,10 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Small-S reference path (decode). GQA-aware; `mask` broadcasts
-    against the (B, Sq, Kv, G, Skv) scores."""
+    """The whole score matrix at once: decode, the encoder's bidirectional
+    attention, cross-attention, and the blockwise path's one-chunk case.
+    GQA-aware; `mask` (None: every key) broadcasts against the (B, Sq, Kv,
+    G, Skv) scores."""
     B, Sq, H, hd = q.shape
     Kv = k.shape[2]
     qg = q.reshape(B, Sq, Kv, H // Kv, hd).to(torch.float32)
@@ -162,6 +164,32 @@ def attention_forward(p: AttnParams, x: torch.Tensor, *, positions: torch.Tensor
     else:
         raise ValueError(f"unknown attention backend {backend!r} (expected 'jnp' or 'pallas')")
     return out_proj(p, o)
+
+
+def encoder_attention(p: AttnParams, x: torch.Tensor) -> torch.Tensor:
+    """Bidirectional, no RoPE (the whisper encoder adds learned absolute
+    positions)."""
+    q, k, v = qkv_proj(p, x)
+    return out_proj(p, plain_attention(q, k, v))
+
+
+def cross_attention(p: AttnParams, x: torch.Tensor, enc_k: torch.Tensor,
+                    enc_v: torch.Tensor) -> torch.Tensor:
+    """x's queries against the encoder's keys and values (`cross_kv`), no
+    mask."""
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    if p.bq is not None:
+        q = q + p.bq
+    return out_proj(p, plain_attention(q, enc_k, enc_v))
+
+
+def cross_kv(p: AttnParams, enc_out: torch.Tensor):
+    """The keys and values (B, S_enc, Kv, hd) of the encoder's output."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p.wk)
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p.wv)
+    if p.bk is not None:
+        k, v = k + p.bk, v + p.bv
+    return k, v
 
 
 # ---------------------------------------------------------------------------

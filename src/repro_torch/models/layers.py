@@ -1,4 +1,4 @@
-"""Shared primitives: RMSNorm, rotary embeddings, initializers.
+"""Shared primitives: RMSNorm, LayerNorm, rotary embeddings, initializers.
 
 Counterpart of ``repro/models/layers.py``; same math, same layouts.
 """
@@ -15,6 +15,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * scale.to(torch.float32)
+    return out.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with f32 statistics, cast back to the input dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * scale.to(torch.float32) + bias.to(torch.float32)
     return out.to(x.dtype)
 
 

@@ -1,4 +1,9 @@
-"""Feed-forward block: SwiGLU. Counterpart of ``repro/models/mlp.py``."""
+"""Feed-forward blocks: SwiGLU (llama family) and GELU (whisper).
+Counterpart of ``repro/models/mlp.py``.
+
+The GELU is the tanh form: the reference's `jax.nn.gelu` defaults to
+approximate=True, torch's `F.gelu` to the exact erf form, which differs
+from it by up to 4.7e-4."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -10,7 +15,7 @@ from repro_torch.models.layers import dense_init
 
 
 class MLPParams(NamedTuple):
-    w_gate: Optional[torch.Tensor]   # (d, f)
+    w_gate: Optional[torch.Tensor]   # (d, f) — None for the plain GELU MLP
     w_up: torch.Tensor               # (d, f)
     w_down: torch.Tensor             # (f, d)
 
@@ -22,9 +27,16 @@ def init_swiglu(generator: torch.Generator, d_model: int, d_ff: int,
                      dense_init((d_ff, d_model), generator, dtype))
 
 
+def init_gelu(generator: torch.Generator, d_model: int, d_ff: int,
+              dtype=torch.float32) -> MLPParams:
+    return MLPParams(None, dense_init((d_model, d_ff), generator, dtype),
+                     dense_init((d_ff, d_model), generator, dtype))
+
+
 def mlp_forward(p: MLPParams, x: torch.Tensor) -> torch.Tensor:
     up = torch.einsum("bsd,df->bsf", x, p.w_up)
     if p.w_gate is None:
-        raise NotImplementedError("the GELU MLP waits for a later slice")
-    gate = torch.einsum("bsd,df->bsf", x, p.w_gate)
-    return torch.einsum("bsf,fd->bsd", F.silu(gate) * up, p.w_down)
+        h = F.gelu(up, approximate="tanh")
+    else:
+        h = F.silu(torch.einsum("bsd,df->bsf", x, p.w_gate)) * up
+    return torch.einsum("bsf,fd->bsd", h, p.w_down)

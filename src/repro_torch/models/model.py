@@ -1,18 +1,24 @@
-"""The dense, moe, hybrid and ssm (xLSTM) LM families. Counterpart of
-``repro/models/model.py``.
+"""Every LM family of the reference: dense, moe, hybrid, ssm (xLSTM), vlm
+and audio. Counterpart of ``repro/models/model.py``.
 
-    lm = build_model(cfg)                           # family 'dense', 'moe', 'hybrid' or 'ssm'
+    lm = build_model(cfg)
     params = lm.init(seed=0)                        # on CUDA; device="cpu" for the CPU
     loss, metrics = lm.loss(params, batch)          # train / prefill
     x = lm.forward(params, batch)                   # final hiddens
     x, aux = lm.forward_aux(params, batch)          # and the MoE load-balance loss
     cache = lm.init_cache(batch_size, max_seq, window=...)
+    cache = lm.prime_cross_cache(params, cache, frames)   # audio: the encoder, once
     logits, cache = lm.decode_step(params, cache, tokens, pos, window=...)
 
+Batch dict: tokens (B, S) int, labels (B, S) int, + patches (B, n_patches,
+d) for the vlm, + frames (B, enc_seq, d) for audio (the stubbed frontends'
+outputs).
+
 Params are a plain nested dict with the reference's structure and names:
-the dense and moe families' block params, and the hybrid's Mamba2 blocks,
-stay stacked with a leading (L,) layer axis, as the reference's `lax.scan`
-layout has them; the xLSTM's blocks are a list of per-layer dicts
+the dense, moe and vlm families' block params, the audio's decoder and
+encoder blocks and the hybrid's Mamba2 blocks stay stacked with a leading
+layer axis, as the reference's `lax.scan` layout has them; the xLSTM's
+blocks are a list of per-layer dicts
 ({"mlstm": MLSTMParams} or {"slstm": SLSTMParams}), as the reference's.
 So the flat buffer of one package is the flat buffer of the other (see
 `repro_torch.convert`). The forward walks the layers on per-layer views.
@@ -30,7 +36,12 @@ and mLSTM layer's SSD scan goes through the ssm_scan kernel's entry point.
 Both entry points run their plain versions on CPU tensors and the Hopper
 kernels on CUDA tensors. `moe_mode` and `moe_group_tokens` are the
 reference's ("onehot" capacity dispatch or the "ragged" sort). The vlm
-and audio families wait for later slices.
+prepends its projected patches to the text and strips them before the LM
+head; its decode, as the reference's, sees no patches. The audio
+(whisper) family runs the encoder (bidirectional `encoder_attention`,
+learned positions) and a decoder of self-attention (RoPE, causal: flash
+under "pallas"), cross-attention and a GELU MLP; the encoder and
+cross-attention reach no kernel, as in the reference.
 """
 from __future__ import annotations
 
@@ -115,9 +126,8 @@ class LM:
     def __init__(self, cfg: ModelConfig, *, attn_backend: str = "jnp",
                  moe_mode: str = "onehot", moe_group_tokens: int = 512):
         if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} waits for a later slice of the port "
-                f"(the port runs {', '.join(PORTED_FAMILIES)})")
+            raise ValueError(f"unknown family {cfg.family!r} (expected one of "
+                             f"{', '.join(PORTED_FAMILIES)})")
         if attn_backend not in ("jnp", "pallas"):
             raise ValueError(f"unknown attention backend {attn_backend!r}")
         if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_every:
@@ -151,18 +161,31 @@ class LM:
         def ones(n):
             return torch.ones(n, dtype=dtype, device=gen.device)
 
-        def attention():
+        def attention(bias=cfg.qkv_bias):
             return attn.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                                       cfg.qkv_bias, dtype)
+                                       bias, dtype)
+
+        def gelu():
+            return mlp_mod.init_gelu(gen, d, cfg.d_ff, dtype)
 
         def ffn():
             if cfg.moe is not None:
                 return moe_mod.init_moe(gen, d, cfg.moe, dtype)
             return mlp_mod.init_swiglu(gen, d, cfg.d_ff, dtype)
 
-        if cfg.family in ("dense", "moe"):
+        extra: Params = {}
+        if cfg.family in ("dense", "moe", "vlm"):
             blocks = _stack([{"ln1": ones(d), "ln2": ones(d), "attn": attention(), "ffn": ffn()}
                              for _ in range(L)], dev)
+        elif cfg.family == "audio":             # whisper's attention has no bias
+            blocks = _stack([{"ln1": ones(d), "ln2": ones(d), "ln3": ones(d),
+                              "self": attention(False), "cross": attention(False),
+                              "mlp": gelu()} for _ in range(L)], dev)
+            extra["enc_blocks"] = _stack([{"ln1": ones(d), "ln2": ones(d),
+                                           "attn": attention(False), "mlp": gelu()}
+                                          for _ in range(cfg.enc_layers)], dev)
+            extra["enc_pos"] = embed_init((cfg.enc_seq, d), gen, dtype).to(dev)
+            extra["enc_ln_f"] = torch.ones(d, dtype=dtype, device=dev)
         elif cfg.family == "hybrid":
             blocks = _stack([{"ln": ones(d), "mamba": ssm_mod.init_mamba2(gen, d, cfg.ssm, dtype)}
                              for _ in range(L)], dev)
@@ -175,10 +198,13 @@ class LM:
             "embed": embed_init((cfg.vocab, d), gen, dtype).to(dev),
             "ln_f": torch.ones(d, dtype=dtype, device=dev),
             "blocks": blocks,
+            **extra,
         }
-        del blocks
+        del blocks, extra
         if not cfg.tie_embeddings:
             p["unembed"] = embed_init((d, cfg.vocab), gen, dtype).to(dev)
+        if cfg.family == "vlm":
+            p["patch_proj"] = embed_init((d, d), gen, dtype).to(dev)
         if cfg.family == "hybrid":
             p["shared_ln"] = torch.ones(d, dtype=dtype, device=dev)
             p["shared_attn"] = attn.AttnParams(*(None if t is None else t.to(dev)
@@ -191,7 +217,7 @@ class LM:
     # ---------------- forward (train / prefill) ----------------------
     def forward(self, params: Params, batch: Batch, *,
                 window: Optional[int] = None) -> torch.Tensor:
-        """Final hiddens (B, S, d)."""
+        """Final hiddens (B, S, d) of the text positions."""
         return self.forward_aux(params, batch, window=window)[0]
 
     def forward_aux(self, params: Params, batch: Batch, *,
@@ -204,14 +230,24 @@ class LM:
         tokens = batch["tokens"].to(torch.int64)
         x = F.embedding(tokens, params["embed"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-        if cfg.family in ("dense", "moe"):
+        if cfg.family == "vlm":
+            patches = torch.einsum("bpd,de->bpe", batch["patches"].to(x.dtype),
+                                   params["patch_proj"])
+            x = torch.cat([patches, x], dim=1)
+        positions = torch.arange(x.shape[1], device=tokens.device)
+        if cfg.family in ("dense", "moe", "vlm"):
             x, aux = self._dense_stack(params["blocks"], x, positions, window)
+        elif cfg.family == "audio":
+            x = self._audio_dec_stack(params["blocks"], x, self._encode(params, batch["frames"]),
+                                      positions, window)
         elif cfg.family == "hybrid":
             x = self._hybrid_stack(params, x, positions, window)
         else:
             x = self._xlstm_stack(params["blocks"], x)
-        return rms_norm(x, params["ln_f"], cfg.norm_eps), aux
+        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        if cfg.family == "vlm":                     # strip the patch positions for the LM head
+            x = x[:, batch["patches"].shape[1]:]
+        return x, aux
 
     def _attention(self, p, x, positions, window):
         return attn.attention_forward(p, x, positions=positions, rope_theta=self.cfg.rope_theta,
@@ -235,6 +271,30 @@ class LM:
             if a is not None:
                 aux = aux + a
         return x, aux / cfg.n_layers
+
+    def _encode(self, params, frames):
+        """Whisper's encoder over the stub frontend's frames (B, enc_seq, d):
+        learned positions, then pre-norm bidirectional attention and a GELU
+        MLP per layer, then its final norm."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        x = frames.to(params["enc_pos"].dtype) + params["enc_pos"][None]
+        for blk in _unbind(params["enc_blocks"], cfg.enc_layers):
+            x = x + attn.encoder_attention(blk["attn"], rms_norm(x, blk["ln1"], eps))
+            x = x + mlp_mod.mlp_forward(blk["mlp"], rms_norm(x, blk["ln2"], eps))
+        return rms_norm(x, params["enc_ln_f"], eps)
+
+    def _audio_dec_stack(self, blocks, x, enc, positions, window):
+        """Whisper's decoder: causal self-attention, cross-attention against
+        the encoder's output `enc`, a GELU MLP, each pre-norm."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        for blk in _unbind(blocks, cfg.n_layers):
+            x = x + self._attention(blk["self"], rms_norm(x, blk["ln1"], eps), positions, window)
+            x = x + attn.cross_attention(blk["cross"], rms_norm(x, blk["ln2"], eps),
+                                         *attn.cross_kv(blk["cross"], enc))
+            x = x + mlp_mod.mlp_forward(blk["mlp"], rms_norm(x, blk["ln3"], eps))
+        return x
 
     def _hybrid_stack(self, params, x, positions, window):
         """Zamba2: the Mamba2 layers in order; the SHARED attention block
@@ -271,8 +331,10 @@ class LM:
     # ---------------- decode -----------------------------------------
     def init_cache(self, batch: int, max_seq: int, *, window: Optional[int] = None,
                    dtype=torch.bfloat16, device=None) -> Any:
-        """Zeroed caches on `device` (CUDA when None): the dense and moe
-        families' {"kv": KVCache of (L, B, C, Kv, hd)}, the hybrid's
+        """Zeroed caches on `device` (CUDA when None): the dense, moe and
+        vlm families' {"kv": KVCache of (L, B, C, Kv, hd)}, the audio's
+        also "cross": KVCache of (L, B, enc_seq, Kv, hd) (filled by
+        `prime_cross_cache`), the hybrid's
         {"mamba": L Mamba2States, "shared": one KVCache (B, C, Kv, hd) per
         application of the shared block}, the xLSTM's {"states": one
         MLSTMState (conv in `dtype`) or SLSTMState (f32) per layer}; C =
@@ -281,10 +343,16 @@ class LM:
         dev = resolve_device(device)
         window = window if window is not None else cfg.sliding_window
         cap = min(max_seq, window) if window else max_seq
-        if cfg.family in ("dense", "moe"):
-            shape = (cfg.n_layers, batch, cap, cfg.n_kv_heads, cfg.head_dim)
-            return {"kv": attn.KVCache(torch.zeros(shape, dtype=dtype, device=dev),
-                                       torch.zeros(shape, dtype=dtype, device=dev))}
+
+        def kv(n):
+            shape = (cfg.n_layers, batch, n, cfg.n_kv_heads, cfg.head_dim)
+            return attn.KVCache(torch.zeros(shape, dtype=dtype, device=dev),
+                                torch.zeros(shape, dtype=dtype, device=dev))
+
+        if cfg.family in ("dense", "moe", "vlm"):
+            return {"kv": kv(cap)}
+        if cfg.family == "audio":
+            return {"kv": kv(cap), "cross": kv(cfg.enc_seq)}
         if cfg.family == "ssm":
             return {"states": [xlstm_mod.init_slstm_state(batch, cfg, dev)
                                if i in cfg.xlstm.slstm_indices
@@ -296,6 +364,19 @@ class LM:
             "shared": [attn.init_kv_cache(batch, cap, cfg.n_kv_heads, cfg.head_dim, dtype, dev)
                        for _ in range(cfg.n_layers // cfg.attn_every)],
         }
+
+    def prime_cross_cache(self, params: Params, cache: Any, frames: torch.Tensor) -> Any:
+        """Whisper: run the encoder once over `frames` (B, enc_seq, d) and
+        write every layer's cross-attention K/V, cast to the cache's dtype,
+        into `cache["cross"]` IN PLACE (as decode writes its KV); returns
+        the cache."""
+        enc = self._encode(params, frames)
+        cross = cache["cross"]
+        for i, blk in enumerate(_unbind(params["blocks"], self.cfg.n_layers)):
+            k, v = attn.cross_kv(blk["cross"], enc)
+            cross.k[i] = k.to(cross.k.dtype)
+            cross.v[i] = v.to(cross.v.dtype)
+        return cache
 
     def decode_step(self, params: Params, cache: Any, tokens: torch.Tensor, pos: int, *,
                     window: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
@@ -312,7 +393,7 @@ class LM:
             return attn.attention_decode(p, h, kv, pos, rope_theta=cfg.rope_theta, ring=ring,
                                          window=window)
 
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("dense", "moe", "vlm"):
             kv = cache["kv"]
             for i, blk in enumerate(_unbind(params["blocks"], cfg.n_layers)):
                 a, _ = attend(blk["attn"], rms_norm(x, blk["ln1"], eps),
@@ -321,6 +402,16 @@ class LM:
                 # one token a row: the batch is one group, as the reference's
                 x = x + self._ffn(blk["ffn"], rms_norm(x, blk["ln2"], eps), tokens.shape[0])[0]
             new_cache = {"kv": kv}
+        elif cfg.family == "audio":
+            kv, cross = cache["kv"], cache["cross"]
+            for i, blk in enumerate(_unbind(params["blocks"], cfg.n_layers)):
+                a, _ = attend(blk["self"], rms_norm(x, blk["ln1"], eps),
+                              attn.KVCache(kv.k[i], kv.v[i]))
+                x = x + a
+                x = x + attn.cross_attention(blk["cross"], rms_norm(x, blk["ln2"], eps),
+                                             cross.k[i], cross.v[i])
+                x = x + mlp_mod.mlp_forward(blk["mlp"], rms_norm(x, blk["ln3"], eps))
+            new_cache = {"kv": kv, "cross": cross}
         elif cfg.family == "ssm":
             states = []
             for blk, st in zip(params["blocks"], cache["states"]):

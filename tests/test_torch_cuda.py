@@ -609,6 +609,103 @@ def test_flash_attention_through_strides_and_unaligned_rows():
                                rtol=0, atol=2e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Kv,hd", [(2, 4096, 16, 8, 128), (4, 448, 16, 16, 64),
+                                         (1, 4096, 48, 1, 128)],
+                         ids=["internvl2-2b", "whisper-medium", "granite-20b-mqa"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_the_vlm_audio_and_mqa_prefill_shapes(B, S, H, Kv, hd, dtype):
+    """The prefills of internvl2-2b (GQA, hd 128), whisper-medium's decoder
+    (hd 64, its 448-token context) and granite-20b (MQA: one kv head for 48
+    query heads), causal. At S 4096 each softmax sums up to 4096 terms in
+    other orders than the plain version's, so f32 is held within 1e-4, as
+    chip_smoke.py holds these shapes; bf16 one bf16 step more."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(H + S)
+    q, k, v = (torch.randn(shape, device=dev, generator=gen).to(dtype)
+               for shape in ((B, S, H, hd), (B, S, Kv, hd), (B, S, Kv, hd)))
+    before = fkernel.launches["flash_attention"]
+    out = fops.flash_attention(q, k, v)
+    again = fops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fkernel.launches["flash_attention"] == before + 2
+    assert out.dtype == dtype and out.shape == q.shape and torch.equal(out, again)
+    plain = fref.flash_attention_ref(q, k, v)
+    torch.testing.assert_close(out.float(), plain.float(),
+                               rtol=2 ** -7 if dtype == torch.bfloat16 else 0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internvl2-2b", "whisper-medium"])
+def test_reduced_vlm_and_audio_forwards_on_the_card(arch):
+    """The reduced forward through the flash kernel against the plain path
+    ("jnp"), both on the card, and against the CPU, within 1e-4; one flash
+    launch a decoder layer and none on the plain path."""
+    from repro_torch.configs import get_config
+    dev = _device()
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator().manual_seed(6)
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=gen)
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((2, cfg.n_patches, cfg.d_model), generator=gen)
+    else:
+        batch["frames"] = torch.randn((2, cfg.enc_seq, cfg.d_model), generator=gen)
+    on_card = {k: t.to(dev) for k, t in batch.items()}
+    params = LM(cfg).init(seed=6)
+    outs = {}
+    for backend in ("pallas", "jnp"):
+        before = fkernel.launches["flash_attention"]
+        with torch.no_grad():
+            outs[backend] = LM(cfg, attn_backend=backend).forward(params, on_card)
+        assert fkernel.launches["flash_attention"] - before == (
+            cfg.n_layers if backend == "pallas" else 0)
+    assert tuple(outs["pallas"].shape) == (2, 40, cfg.d_model)
+    torch.testing.assert_close(outs["pallas"], outs["jnp"], rtol=0, atol=1e-4)
+    cpu = LM(cfg).forward(LM(cfg).init(seed=6, device="cpu"), batch)
+    torch.testing.assert_close(outs["pallas"].cpu(), cpu, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_audio_decode_after_prime_cross_cache_on_the_card():
+    """The reduced whisper on the card: prime_cross_cache, then decode
+    against the kernel forward within 5e-3 (the reference test's bound),
+    no kernel launch on the decode path; greedy serving's logits within
+    1e-4 of the CPU's and its tokens equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import greedy_decode
+    dev = _device()
+    cfg = get_config("whisper-medium").reduced()
+    lm = LM(cfg, attn_backend="pallas")
+    gen = torch.Generator().manual_seed(7)
+    toks = torch.randint(0, cfg.vocab, (2, 24), generator=gen).to(torch.int32)
+    frames = torch.randn((2, cfg.enc_seq, cfg.d_model), generator=gen)
+    params = lm.init(seed=7)
+    with torch.no_grad():
+        full = torch.einsum("bsd,dv->bsv",
+                            lm.forward(params, {"tokens": toks.to(dev), "frames": frames.to(dev)}),
+                            lm._unembed(params))
+        before = dict(fkernel.launches)
+        cache = lm.prime_cross_cache(params, lm.init_cache(2, 24, dtype=torch.float32),
+                                     frames.to(dev))
+        err = 0.0
+        for t in range(24):
+            lg, cache = lm.decode_step(params, cache, toks[:, t:t + 1].to(dev), t)
+            err = max(err, float((lg[:, 0] - full[:, t]).abs().max()))
+    assert dict(fkernel.launches) == before
+    assert err < 5e-3, err
+    out = []
+    for d in (dev, torch.device("cpu")):
+        p = lm.init(seed=7, device=d)
+        with torch.no_grad():
+            c = lm.prime_cross_cache(p, lm.init_cache(2, 10, dtype=torch.float32, device=d),
+                                     frames.to(d))
+            seqs, logits = greedy_decode(lm, p, c, toks[:, :4].to(d), 6)
+        out.append((seqs.cpu(), logits.cpu()))
+    torch.testing.assert_close(out[0][1], out[1][1], rtol=0, atol=1e-4)
+    assert torch.equal(out[0][0], out[1][0])
+
+
 def _ssd_inputs(dev, B, S, H, N, P, bcast, dtype, seed, decay=1.0):
     """Mamba2-like scan inputs: ld = -decay * softplus(x) for normal x."""
     gen = torch.Generator(device=dev).manual_seed(seed)

@@ -63,8 +63,8 @@ def _jshapes(tree):
 
 # ---------------------------------------------------------------- configs
 def test_registry_and_every_config_field_equal_the_reference():
-    assert tconfigs.list_archs() == ["mixtral-8x22b", "qwen3-moe-30b-a3b", "xlstm-125m",
-                                     "yi-6b", "zamba2-2.7b"]
+    assert tconfigs.list_archs() == jconfigs.list_archs()
+    assert len(tconfigs.list_archs()) == 10
     assert sorted(tconfigs.all_configs()) == tconfigs.list_archs()
     for arch in tconfigs.list_archs():
         for mine, ref in ((tconfigs.get_config(arch), jconfigs.get_config(arch)),
@@ -79,13 +79,11 @@ def test_registry_and_every_config_field_equal_the_reference():
     for mine, ref in ((tpaper.LENDING, jpaper.LENDING), (tpaper.HEALTH, jpaper.HEALTH),
                       (tpaper.CONFIG, jpaper.CONFIG)):
         assert dataclasses.asdict(mine) == dataclasses.asdict(ref) and mine.sigma == ref.sigma
-    for arch in ("internvl2-2b", "whisper-medium", "qwen1.5-110b", "granite-20b"):
-        with pytest.raises(KeyError, match="later slice"):
-            tconfigs.get_config(arch)
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-30b-a3b", "xlstm-125m", "yi-6b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "internvl2-2b", "whisper-medium",
+                                  "granite-20b", "command-r-35b", "qwen1.5-110b"])
 def test_param_count_is_the_leaves_of_init_at_full_width(arch):
     """`param_count` (the port's rule: every leaf its init makes) against
     the reference's init traced abstractly at full width, and the port's
