@@ -25,7 +25,12 @@ Phases (any mismatch raises and the run exits non-zero):
              grouped driver, one launch each: dp_round_rows and
              fused_sqnorm_rows over 8 rows of P = 152,783,616 and 3 of P
              = 1,000,003, tree_delta_rows_ over 3 owners at depth 4, row m
-             bit for bit the single launch on row m; scale_noise through
+             bit for bit the single launch on row m; the column offset of
+             a rank's slice on a device mesh: dp_round, encode (int8, fp8)
+             and tree_delta over P = 152,783,616 cut in two and in three
+             uneven parts, each part launched with col0 = its first column
+             equal to the full launch's columns bit for bit, and the
+             parts' absmax partials reduced to the row's scale; scale_noise through
              fused_scale_noise_tree and dp_privatize_tree on the 12
              DENSE_124M leaves and on one leaf of P = 1,000,003, bit for
              bit on every leaf; flash_attention, causal, at zamba2's shape
@@ -73,7 +78,8 @@ Phases (any mismatch raises and the run exits non-zero):
              run_rounds(owner_parallel=True): main's model, 16 owners, f32
              bank, fused, with K = 32 rounds a dispatch drawn from the
              uniform schedule under fixed keys; for max_group="auto" and
-             8, four timed dispatches (the first warms up) and one
+             8, three timed dispatches (the first warms up; cut from
+             four to make room for phase mesh) and one
              profiled, each with exactly one dp_round and G sqnorm
              launches per group and no other kernel; ms, device ms,
              device kernels, idle share, mean group size and peak memory
@@ -82,6 +88,21 @@ Phases (any mismatch raises and the run exits non-zero):
              device ledger and step equal the grouped run's, the largest
              theta_L difference printed, the reconciled ledger equal to
              the host's count.
+   mesh    — the federation engine on a device mesh: a world of one over
+             NCCL in this process (an in-memory store, no network) and the
+             1x1 (data, model) mesh of launch.mesh.make_host_mesh; main's
+             model, 16 owners, batch, G, K = 32 rounds a dispatch, one
+             dispatch each on a meshed state and its unmeshed twin (the
+             same sequence, batches and key): f32 and bf16 banks on the
+             sequential fused driver and on the grouped driver, an int8
+             bank and the tree at depth 2 on the sequential one. Each
+             meshed run equals its twin bit for bit (theta_L, the bank,
+             nodes and counts, the ledger's columns, the metrics, the
+             reconciled ledger) with the same launches; ms a round of both
+             (the host clock; they alternate which runs first), then each
+             FlatLayout collective timed alone on the one-rank groups (the
+             row pick and theta_bar's gather at P, the scalar reductions);
+             the process group is destroyed at the end.
    faults  — main's path with the fault layer and the asynchronous runtime
              armed: FaultPlan(drop, stale, nonfinite, corrupt = 0.05 each),
              FaultPolicy(max_faults 3, window 16), StalenessPolicy(deadline
@@ -89,8 +110,9 @@ Phases (any mismatch raises and the run exits non-zero):
              per-owner bases in 0.2 to 0.9, jitter 0.3); K = 32 rounds a
              dispatch. The codes and latencies drawn on the card equal the
              CPU draw bit for bit. The sequential driver, then the grouped
-             one (max_group 8), each from a fresh state: three timed
-             dispatches and one profiled on the same sequences and keys,
+             one (max_group 8), each from a fresh state: two timed
+             dispatches (three before phase mesh) and one profiled on the
+             same sequences and keys,
              each with K dp_round and K*G sqnorm (one dp_round and G sqnorm
              per group) and no other kernel, its seven ledger columns,
              FaultState and StalenessState equal to a plain host replay of
@@ -133,13 +155,14 @@ Phases (any mismatch raises and the run exits non-zero):
              the runtime armed): save, run, drop the session, restore, run:
              equal to the uninterrupted run bit for bit.
    quant   — the quantized bank at full width: the same model and rounds
+             (three dispatches and one profiled, one fewer than main's)
              with 128 owners x 10,000 records on an int8 bank (78.2 GB in
              f32, which would not fit); launch counts per dispatch must be
              also K decode, K encode and K absmax. Prints the bank's
              resident bytes, peak memory, ms per round and the idle share.
              Then one fp8 dispatch on a fresh state at the same size.
    tree    — the tree mechanism (DP-FTRL) at full width: main's model,
-             owners and rounds with mechanism="tree", tree_depth=4
+             owners and rounds (three dispatches and one profiled) with mechanism="tree", tree_depth=4
              (capacity 15 leaves per owner; the nodes are 16 x 4 x P x 4 B
              = 39.1 GB beside the 9.78 GB bank). Launch counts per dispatch
              must be K tree_delta, K*G sqnorm and 0 dp_round; the leaf
@@ -148,7 +171,7 @@ Phases (any mismatch raises and the run exits non-zero):
              memory, ms per round, the idle share, and the device time per
              round against main's, by kernel group.
    pytree  — the reference's default path at full width: main's model,
-             owners and rounds on a PYTREE state (make_step's default
+             owners and rounds (three dispatches and one profiled) on a PYTREE state (make_step's default
              pack_params=False: theta_L the model tree, a 9.78 GB bank of
              (16, *leaf.shape) leaves) with the fused privatizer. Launch
              counts per dispatch must be K*G*12 sqnorm, K*12 scale_noise
@@ -489,6 +512,7 @@ def phase_kernels(torch, dev):
     err.update(_check_bank_codec(torch, dev))
     err.update(_check_tree_delta(torch, dev))
     _check_rows(torch, dev)
+    _check_col0(torch, dev)
     err.update(_check_scale_noise(torch, dev))
     err.update(_check_flash(torch, dev))
     err.update(_check_ssd(torch, dev))
@@ -933,6 +957,74 @@ def _check_rows(torch, dev):
         del nodes, batched, single, delta
 
 
+# a rank's columns on a device mesh: P_FULL cut in two and in three uneven parts
+COL0_SPLITS = ((0, 50_000_017, P_FULL), (0, 40_000_001, 97_000_003, P_FULL))
+
+
+def _check_col0(torch, dev):
+    """The column offset of rows 1, 5 and 7 (dp_round, encode, tree_delta):
+    a launch over columns [c0, c1) of a P_FULL row with col0 = c0 equals
+    the full launch's columns bit for bit, for each part of COL0_SPLITS;
+    the parts' row_absmax partials reduce to the full row's scale."""
+    from repro_torch import random
+    from repro_torch.kernels.bank_codec import ops as cops
+    from repro_torch.kernels.dp_clip_noise import ops as dops
+    from repro_torch.kernels.tree_noise import ops as nops
+    gen = torch.Generator(device=dev).manual_seed(13)
+    p = P_FULL
+    key = random.PRNGKey(31, device=dev)
+    scal = [torch.tensor(v, device=dev) for v in (0.5, 0.9, 0.0625)]
+    tb = torch.randn(p, device=dev, generator=gen)
+    acc = torch.randn(p, device=dev, generator=gen)
+    n_parts = sum(len(c) - 1 for c in COL0_SPLITS)
+    before = _launches()
+    full = dops.dp_round_flat(tb, acc, key, *scal, **ROUND)
+    for cuts in COL0_SPLITS:
+        for c0, c1 in zip(cuts[:-1], cuts[1:]):
+            part = dops.dp_round_flat(tb[c0:c1], acc[c0:c1], key, *scal, col0=c0, **ROUND)
+            check(all(torch.equal(a, b[c0:c1]) for a, b in zip(part, full)),
+                  f"dp_round at col0 {c0} differs from the full launch's columns")
+            del part
+    del full, tb, acc
+    x = torch.randn(p, device=dev, generator=gen) * 0.05
+    for fmt in FMTS:
+        codes, scale, err = cops.encode_row(x, key, fmt)
+        for cuts in COL0_SPLITS:
+            parts = []
+            for c0, c1 in zip(cuts[:-1], cuts[1:]):
+                parts.append(cops.row_absmax(x[c0:c1]))
+                pc, _, pe = cops.encode_row(x[c0:c1], key, fmt, col0=c0, scale=scale)
+                check(torch.equal(pc, codes[c0:c1]) and torch.equal(pe, err[c0:c1]),
+                      f"encode {fmt} at col0 {c0} differs from the full launch's columns")
+            check(torch.equal(cops.scale_from_absmax(torch.stack(parts), fmt), scale),
+                  f"the {fmt} scale from the parts' absmax differs from the row's")
+        del codes, err
+    del x
+    nodes = torch.randn((2, TREE_DEPTH, p), device=dev, generator=gen)
+    counts = torch.tensor([5, 7], dtype=torch.int32, device=dev)     # owner 1: r = 3 retired
+    owner = torch.tensor([1], dtype=torch.int64, device=dev)
+    ns = torch.tensor([0.37], device=dev)
+    whole = nodes.clone()
+    delta = nops.tree_delta_(whole, counts, owner, key, ns)
+    for cuts in COL0_SPLITS:
+        for c0, c1 in zip(cuts[:-1], cuts[1:]):
+            part = nodes[:, :, c0:c1].contiguous()
+            d = nops.tree_delta_(part, counts, owner, key, ns, col0=c0)
+            check(torch.equal(d, delta[c0:c1]) and torch.equal(part, whole[:, :, c0:c1]),
+                  f"tree_delta at col0 {c0} differs from the full launch's columns")
+            del part, d
+    del nodes, whole, delta
+    got = _diff(_launches(), before)
+    want = dict(dp_round=1 + n_parts, tree_delta=1 + n_parts,
+                absmax=len(FMTS) * (1 + n_parts), encode=len(FMTS) * (1 + n_parts))
+    check({k: got[k] for k in want} == want and not any(
+        v for k, v in got.items() if k not in want), f"the col0 checks launched {got}")
+    print(f"[kernels] col0: dp_round, encode (int8, fp8) and tree_delta (depth {TREE_DEPTH}, "
+          f"r = 3) over P={p} cut at {[list(c[1:-1]) for c in COL0_SPLITS]}: every part "
+          f"equals the full launch's columns bit for bit; the parts' absmax give the row's "
+          f"scale")
+
+
 def _check_bank_codec(torch, dev):
     """absmax, encode and decode through their wrappers against the plain
     versions on the same CUDA tensors, bit for bit."""
@@ -1272,6 +1364,137 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
                                          launches=per_round_launches, peak=peak)
 
 
+MESH_K = 32                      # rounds a dispatch in phase mesh
+# phase mesh's runs: (tag, bank_dtype, tree depth, owner_parallel)
+MESH_RUNS = (("f32", None, None, False), ("f32", None, None, True),
+             ("bf16", "bfloat16", None, False), ("bf16", "bfloat16", None, True),
+             ("int8", "int8", None, False), ("tree", None, 2, False))
+
+
+def _time_collectives(torch, dev, lay, p):
+    """ms of each FlatLayout collective a round issues, on its groups, with
+    CUDA events (median of five readings): the row pick of one (1, P) f32
+    row, theta_bar's gather over the columns, and the scalar reductions."""
+    row = torch.randn((1, p), device=dev)
+    idx = torch.zeros(1, dtype=torch.int64, device=dev)
+    flag = torch.ones((), dtype=torch.bool, device=dev)
+    part = torch.ones(1, device=dev)
+    isum = torch.ones((), dtype=torch.int64, device=dev)
+    out = {}
+    for name, fn, iters in (("pick (1, P) f32", lambda: lay.pick(row, idx), 20),
+                            ("gather_cols (P,) f32", lambda: lay.gather_cols(row[0]), 20),
+                            ("max_cols (1,)", lambda: lay.max_cols(part), 50),
+                            ("sum_cols int64", lambda: lay.sum_cols(isum), 50),
+                            ("all_cols bool", lambda: lay.all_cols(flag), 50)):
+        out[name] = _steady_ms(torch, f"mesh {name}", fn, iters)
+    del row
+    return out
+
+
+def phase_mesh(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, K=MESH_K,
+               runs=MESH_RUNS):
+    """The federation engine on a device mesh: a world of one over NCCL
+    (gloo on the CPU) in this process and the 1x1 (data, model) mesh of
+    launch.mesh.make_host_mesh, at main's model, owners, batch and G. Each
+    run of `runs` is one dispatch of K rounds on a fresh meshed state and
+    one on a fresh unmeshed twin, with the same sequence, batches and key,
+    the launch counters read around each: theta_L, the bank (rows, or
+    codes, scales and residual), the tree's nodes and counts, the ledger's
+    columns, the metrics and the reconciled ledger bit for bit, and the
+    same launches. Prints each side's ms a round (the host clock around a
+    synchronize; the two alternate which runs first) and the collectives'
+    own ms on the one-rank groups, then tears the process group down.
+    Returns {tag: (meshed ms, unmeshed ms)}."""
+    import torch.distributed as dist
+
+    from repro_torch import random
+    from repro_torch.configs import DENSE_124M
+    from repro_torch.data import OwnerDataPipeline, synthetic_owner_shards
+    from repro_torch.federation import (DataOwner, Federation, FederationConfig,
+                                        PrivatizerConfig, QuantBank)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LM
+    from repro_torch.sharding.flat import layout_for
+    cfg = DENSE_124M if cfg is None else cfg
+    batch, G = 4, 2
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    check(not dist.is_initialized(), "a process group exists before phase mesh")
+    mesh = make_host_mesh(device_type=dev.type)
+    shards = synthetic_owner_shards(n_owners, records, seq, cfg.vocab, seed=0)
+    pipe = OwnerDataPipeline(shards, batch, seed=0)
+    params = lm.init(seed=0, device=dev)
+    owner_seq = pipe.schedule(K)
+    batches = _torch_batches(torch, pipe.batches_for(owner_seq))
+    key = random.PRNGKey(7, device=dev)
+    print(f"[mesh] {cfg.name}: world of {dist.get_world_size()} over "
+          f"{dist.get_backend()}, mesh {tuple(mesh.mesh.shape)} {mesh.mesh_dim_names}, "
+          f"{n_owners} owners, K={K}, set-up {time.perf_counter() - t0:.1f} s")
+
+    def one(tag, bank_dtype, depth, grouped, meshed):
+        mech = {} if depth is None else dict(mechanism="tree", tree_depth=depth)
+        fed = Federation([DataOwner(n=s, epsilon=1.0, xi=1.0) for s in pipe.owner_sizes],
+                         FederationConfig.from_target_lr(0.05, n_owners=n_owners, horizon=1000,
+                                                         sigma=1e-2, theta_max=100.0),
+                         device=dev, **mech)
+        dt = getattr(torch, bank_dtype) if bank_dtype == "bfloat16" else bank_dtype
+        fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True, bank_dtype=dt,
+                      mesh=mesh if meshed else None,
+                      privatizer=PrivatizerConfig(xi=1.0, granularity="microbatch",
+                                                  n_microbatches=G, fused_kernel=True))
+        state = fed.init_state(params)
+        check((state.theta_L.layout is not None) == meshed, "the state's layout")
+        _sync(torch, dev)
+        before = _launches()
+        t1 = time.perf_counter()
+        state, ms = fed.run_rounds(state, batches, owner_seq, key=key, owner_parallel=grouped)
+        _sync(torch, dev)
+        wall = (time.perf_counter() - t1) * 1e3 / K
+        got = _diff(_launches(), before)
+        check(_state_finite(torch, state), f"{tag}: non-finite state")
+        # the state's own tensors, compared on the card (a host copy of
+        # the bank and the nodes would take most of the phase)
+        bank = state.bank
+        parts = {"theta": (state.theta_L.buf,),
+                 "bank": ((bank.codes, bank.scales, bank.residual)
+                          if isinstance(bank, QuantBank) else (bank,)),
+                 "ledger": tuple(getattr(state.ledger, c) for c in state.ledger.COLUMNS),
+                 "metrics": tuple(ms[k] for k in sorted(ms))}
+        if state.tree is not None:
+            parts["nodes"] = (state.tree.nodes, state.tree.counts)
+        return parts, got, wall, fed.reconcile(state)
+
+    out = {}
+    for i, (tag, bank_dtype, depth, grouped) in enumerate(runs):
+        name = f"{tag} {'grouped' if grouped else 'sequential'}"
+        order = (True, False) if i % 2 else (False, True)
+        res = {m: one(tag, bank_dtype, depth, grouped, m) for m in order}
+        (pm, gm, wm, led_m), (pu, gu, wu, led_u) = res[True], res[False]
+        for part in pu:
+            check(_bit_equal(torch, pm[part], pu[part]),
+                  f"{name}: the 1x1 mesh's {part} differs from the unmeshed twin's")
+        check(gm == gu, f"{name}: launches {gm} on the mesh, {gu} unmeshed")
+        check(led_m == led_u, f"{name}: the reconciled ledgers differ")
+        check(gm["sqnorm"] > 0, f"{name}: no sqnorm launched")
+        compared = ", ".join(sorted(pu))
+        del res, pm, pu
+        out[name] = (wm, wu)
+        print(f"[mesh] {name}: 1x1 mesh == unmeshed bit for bit "
+              f"({compared}); {wm:.2f} ms/round meshed, {wu:.2f} unmeshed "
+              f"({wm - wu:+.2f}); launches per dispatch "
+              + json.dumps({k: v for k, v in gm.items() if v}))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if dev.type == "cuda":
+        lay = layout_for(mesh, n_owners, _model_size(params))
+        coll = _time_collectives(torch, dev, lay, lay.p)
+        print("[mesh] collectives on the one-rank groups (ms): " + json.dumps(
+            {k: round(v, 4) for k, v in coll.items()}))
+    dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived phase mesh")
+    return out
+
+
 def phase_quant(torch, dev, cfg=None, n_owners=128, records=10_000, seq=128):
     """The int8 bank at full width (phase_main), then one fp8 dispatch on a
     fresh state after the int8 one is freed. Returns the int8 run's launches."""
@@ -1279,7 +1502,7 @@ def phase_quant(torch, dev, cfg=None, n_owners=128, records=10_000, seq=128):
     K, G = 8, 2
     launches, fed, pipe, lm, _ = phase_main(torch, dev, cfg=cfg, n_owners=n_owners,
                                             records=records, seq=seq, bank_dtype="int8",
-                                            tag="quant")
+                                            dispatches=3, tag="quant")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1317,7 +1540,7 @@ def phase_pytree(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128):
     K, G = 8, 2
     launches, fed, pipe, lm, prof = phase_main(torch, dev, cfg=cfg, n_owners=n_owners,
                                                records=records, seq=seq, pack_params=False,
-                                               tag="pytree")
+                                               dispatches=3, tag="pytree")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1351,7 +1574,7 @@ GROUPED_CAPS = ("auto", ROWS_G)  # max_group of its two settings
 
 
 def phase_grouped(torch, dev, main_prof, cfg=None, n_owners=16, records=10_000, seq=128,
-                  K=GROUPED_K, dispatches=4, caps=GROUPED_CAPS):
+                  K=GROUPED_K, dispatches=3, caps=GROUPED_CAPS):
     """Main's path (flat f32 bank, fused, batch 4 x seq 128, G = 2) under
     the owner-parallel grouped driver, run_rounds(owner_parallel=True), with
     K = 32 rounds a dispatch. The owner sequences are the uniform schedule's
@@ -1605,7 +1828,7 @@ def _trace(n_owners, K):
 
 
 def phase_faults(torch, dev, main_prof, cfg=None, n_owners=16, records=10_000, seq=128,
-                 K=FAULTS_K, dispatches=3, max_group=ROWS_G):
+                 K=FAULTS_K, dispatches=2, max_group=ROWS_G):
     """Main's path (DENSE_124M, flat f32 bank, fused, batch 4 x seq 128, G =
     2, 16 owners) with the fault layer and the runtime armed:
     FaultPlan(FAULTS_PLAN), FaultPolicy(FAULTS_POLICY),
@@ -4445,6 +4668,9 @@ def main():
     check(grouped_launches["sqnorm"] > 0 and grouped_launches["dp_round"] > 0,
           "the grouped path launched no sqnorm or dp_round")
     lap("grouped")
+    phase_mesh(torch, dev)
+    torch.cuda.empty_cache()
+    lap("mesh")
     phase_faults(torch, dev, main_prof)
     torch.cuda.empty_cache()
     lap("faults")
@@ -4459,7 +4685,8 @@ def main():
     check(all(quant_launches[k] > 0 for k in ("absmax", "encode", "decode")),
           "quant path launched no bank codec kernel")
     lap("quant")
-    tree_launches, _, _, _, tree_prof = phase_main(torch, dev, tree_depth=TREE_DEPTH, tag="tree")
+    tree_launches, _, _, _, tree_prof = phase_main(torch, dev, tree_depth=TREE_DEPTH,
+                                                   dispatches=3, tag="tree")
     torch.cuda.empty_cache()
     check(tree_launches["tree_delta"] > 0 and tree_launches["dp_round"] == 0,
           "tree path launched no tree_delta, or a dp_round")

@@ -109,11 +109,23 @@ makes every dispatched owner resident first, so this never happens in a
 session driven through `Federation`). With n_hot >= N the paged engine
 equals the flat one bit for bit on all three drivers.
 
+A flat state on a device mesh (`init_state_flat(..., mesh=)`, the
+`sharding.rules.flat_shardings` layout) holds only this rank's block of
+theta_L, the bank, the residual and the tree nodes (`ParamFlat.layout`, a
+`sharding.flat.FlatLayout`): owner rows over the data axes, P over
+'model'. The drivers run it unchanged: the owner's row is gathered over
+the row group, theta_bar over the column group for the loss, every rank
+takes the whole gradient of the round's owner and keeps its own columns,
+the kernels draw the bits of those columns (col0), and only the rank
+holding a row writes it. The ledger, the leaf counts and the fault and
+runtime columns are replicated, computed on every rank from replicated
+inputs with no collective. A 1x1 mesh equals the unmeshed engine bit for
+bit; a larger one equals it block for block.
+
 `make_sync_dp_step` is the synchronous baseline: every owner answers
 every round and the learner averages the privatized gradients.
 
-Example granularity on the fused flat engine and the mesh wait for later
-slices, and so do bf16 banks under the grouped driver (paged or not).
+Example granularity on the fused flat engine waits for a later slice.
 """
 from __future__ import annotations
 
@@ -129,18 +141,20 @@ from repro_torch.federation.config import paper_rates
 from repro_torch.federation import faults as _faults
 from repro_torch.federation.dp_sgd import PrivatizerConfig, _group_batch, private_grad
 from repro_torch.federation.faults import FaultPolicy, FaultState, init_fault_state
-from repro_torch.federation.flatten import (PagedBank, ParamFlat, QuantBank, init_flat_bank,
-                                            pack_params)
+from repro_torch.federation.flatten import (PagedBank, ParamFlat, QuantBank, flatten_spec,
+                                            init_flat_bank, pack_params)
 from repro_torch.federation.privacy import (DeviceLedger, laplace_scale_theorem1,
                                             make_device_ledger)
 from repro_torch.federation.staleness import (StalenessPolicy, StalenessState, deadline_guard,
                                               init_staleness_state, staleness_tick,
                                               staleness_weight)
-from repro_torch.kernels.bank_codec.ops import decode_row, encode_row
+from repro_torch.kernels.bank_codec.ops import (decode_row, encode_row, row_absmax,
+                                                scale_from_absmax)
 from repro_torch.kernels.dp_clip_noise.ops import (dp_round_flat, dp_round_rows, fused_sqnorm,
                                                    fused_sqnorm_rows)
 from repro_torch.kernels.tree_noise.ops import tree_delta_, tree_delta_rows_
 from repro_torch.kernels.tree_noise.ref import tree_masks_ref
+from repro_torch.sharding.flat import FlatLayout, layout_for
 from repro_torch.tree_util import tree_flatten, tree_map
 
 
@@ -224,7 +238,8 @@ def init_tree_noise(cfg: AsyncDPConfig, theta_L) -> Optional[TreeNoise]:
     d, n = cfg.tree_depth, cfg.n_owners
     if isinstance(theta_L, ParamFlat):
         dev = theta_L.buf.device
-        nodes = torch.zeros((n, d, theta_L.size), dtype=torch.float32, device=dev)
+        rows = n if theta_L.layout is None else theta_L.layout.n_local
+        nodes = torch.zeros((rows, d, theta_L.buf.shape[0]), dtype=torch.float32, device=dev)
     else:
         dev = tree_flatten(theta_L)[0][0].device
         nodes = tree_map(lambda leaf: torch.zeros((n, d) + tuple(leaf.shape),
@@ -277,11 +292,13 @@ def _init_staleness(cfg: AsyncDPConfig, device) -> Optional[StalenessState]:
     return init_staleness_state(cfg.n_owners, cfg.staleness, device)
 
 
-def _armed(cfg: AsyncDPConfig, bank, device) -> Tuple[Optional[FaultState],
-                                                      Optional[StalenessState]]:
-    """The fault and staleness states a fresh state carries under cfg."""
+def _armed(cfg: AsyncDPConfig, bank, device, layout: Optional[FlatLayout] = None
+           ) -> Tuple[Optional[FaultState], Optional[StalenessState]]:
+    """The fault and staleness states a fresh state carries under cfg
+    (replicated (N,) columns on a mesh; `layout` reads the bank's block)."""
     stale = _init_staleness(cfg, device)
-    faults = None if cfg.fault_policy is None else init_fault_state(bank, cfg.n_owners)
+    faults = (None if cfg.fault_policy is None
+              else init_fault_state(bank, cfg.n_owners, layout=layout))
     return faults, stale
 
 
@@ -303,7 +320,8 @@ def init_state(params, cfg: AsyncDPConfig, device=None) -> AsyncDPState:
                         init_tree_noise(cfg, theta), *_armed(cfg, bank, device))
 
 
-def init_state_flat(params, cfg: AsyncDPConfig, device=None, bank_dtype=None) -> AsyncDPState:
+def init_state_flat(params, cfg: AsyncDPConfig, device=None, bank_dtype=None,
+                    mesh=None) -> AsyncDPState:
     """Flat state on `device` (CUDA when None): theta_L packed into one
     (P,) buffer, every bank row a copy of it, a fresh device ledger (every
     owner capped at its effective cap), under the tree mechanism all-zero
@@ -312,13 +330,22 @@ def init_state_flat(params, cfg: AsyncDPConfig, device=None, bank_dtype=None) ->
     `bank_dtype` (None = float32) is the bank's storage only: torch.bfloat16
     halves it; "int8"/"fp8" (or a flatten.BankCodec) build the quantized
     bank, about 4x below f32 (see flatten.QuantBank). Only f32 keeps the
-    bit parity with the f32 reference; the others round the owner copies."""
+    bit parity with the f32 reference; the others round the owner copies.
+
+    `mesh` (a named ("data", "model") DeviceMesh from launch.mesh; None =
+    one device) lays the state out under `sharding.rules.flat_shardings`:
+    this rank keeps only its block (`theta_L.layout`) of theta_L, the bank
+    (codes and scales), the residual and the tree nodes, owner rows over the
+    data axes and P over 'model'; the ledger, the leaf counts and the fault
+    and runtime columns are replicated. Every rank calls it, in the same
+    order (it creates the layout's process groups)."""
     device = resolve_device(device)
-    flat = pack_params(params, device=device)
+    layout = None if mesh is None else layout_for(mesh, cfg.n_owners, flatten_spec(params).size)
+    flat = pack_params(params, device=device, layout=layout)
     bank = init_flat_bank(flat, cfg.n_owners, bank_dtype)
     return AsyncDPState(flat, bank, torch.zeros((), dtype=torch.int32, device=device),
                         make_device_ledger(cfg.effective_caps, device=device),
-                        init_tree_noise(cfg, flat), *_armed(cfg, bank, device))
+                        init_tree_noise(cfg, flat), *_armed(cfg, bank, device, layout))
 
 
 def _decode_bank_row(bank: QuantBank, owner_idx: torch.Tensor) -> torch.Tensor:
@@ -328,31 +355,70 @@ def _decode_bank_row(bank: QuantBank, owner_idx: torch.Tensor) -> torch.Tensor:
                       bank.codec.fmt, block_elems=bank.codec.block_elems)
 
 
-def _encode_bank_row(bank: QuantBank, value: torch.Tensor, key: torch.Tensor):
+def _encode_bank_row(bank: QuantBank, value: torch.Tensor, key: torch.Tensor,
+                     lay: Optional[FlatLayout] = None):
     """Encode one f32 row (the EF residual already added to `value`) under
     the round key -> (codes (P,), scales (nb,), err (P,)). The codec folds
-    its own salt into the key (bank_codec.ref.CODEC_SALT)."""
-    return encode_row(value, key, bank.codec.fmt, block_elems=bank.codec.block_elems)
+    its own salt into the key (bank_codec.ref.CODEC_SALT). On a mesh
+    `value` is this rank's columns: the scale is the whole row's (the
+    partial absmaxes reduced over the column group, NaN kept) and each
+    column rounds with its own counter."""
+    if lay is None:
+        return encode_row(value, key, bank.codec.fmt, block_elems=bank.codec.block_elems)
+    if bank.codec.block_elems is not None:
+        raise NotImplementedError("per-block scales encode whole rows; a bank on a mesh "
+                                  "keeps one scale per row")
+    scale = scale_from_absmax(lay.max_cols(row_absmax(value)), bank.codec.fmt)
+    return encode_row(value, key, bank.codec.fmt, col0=lay.c0, scale=scale)
+
+
+def _write_rows_(buf: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
+                 lay: Optional[FlatLayout] = None, mask: Optional[torch.Tensor] = None
+                 ) -> None:
+    """buf[idx[m]] = rows[m] IN PLACE (narrowed to buf's dtype) where
+    mask[m] (None: every member), the row as it stands elsewhere. `idx` (g,)
+    are global rows; on a mesh only the rank that holds a row writes it, at
+    its local index, one member at a time (a member this rank does not hold
+    clamps onto a local row and writes it back as it stands, so the writes
+    never collide)."""
+    if lay is None and mask is None:
+        buf.index_copy_(0, idx, rows.to(buf.dtype))
+        return
+    if lay is None:
+        lidx, keep = idx, mask
+    else:
+        lidx, keep = lay.local(idx)
+        if mask is not None:
+            keep = keep & mask
+    shape = (1,) * (rows.dim() - 1)
+    for m in range(idx.numel()):
+        i = lidx[m:m + 1]
+        new = torch.where(keep[m].reshape(shape), rows[m].to(buf.dtype),
+                          buf.index_select(0, i)[0])
+        buf.index_copy_(0, i, new.unsqueeze(0))
 
 
 def _quant_write(bank: QuantBank, new_i: torch.Tensor, owner_idx: torch.Tensor,
-                 key: torch.Tensor, ok: Optional[torch.Tensor] = None) -> QuantBank:
+                 key: torch.Tensor, ok: Optional[torch.Tensor] = None,
+                 lay: Optional[FlatLayout] = None) -> QuantBank:
     """Write an owner update into a quantized bank, IN PLACE.
 
     The shared residual is added to the value BEFORE encoding (error
     feedback) and the fresh quantization error becomes the next residual.
     `ok` (the fused driver's grant) selects between the new row and the
     owner's stored codes and scales, and keeps the old residual on refusal,
-    so a refused round is a bit-exact no-op on the whole bank."""
-    codes_n, scales_n, err = _encode_bank_row(bank, new_i + bank.residual, key)
+    so a refused round is a bit-exact no-op on the whole bank. On a mesh
+    every rank of a column block encodes its columns and advances its
+    residual (replicated over the owner axis); only the rank holding the
+    owner's row writes its codes and scale."""
+    codes_n, scales_n, err = _encode_bank_row(bank, new_i + bank.residual, key, lay)
     if ok is None:
         bank.residual.copy_(err)
     else:
-        codes_n = torch.where(ok, codes_n, bank.codes.index_select(0, owner_idx).reshape(-1))
-        scales_n = torch.where(ok, scales_n, bank.scales.index_select(0, owner_idx).reshape(-1))
         torch.where(ok, err, bank.residual, out=bank.residual)
-    bank.codes.index_copy_(0, owner_idx, codes_n.reshape(1, -1))
-    bank.scales.index_copy_(0, owner_idx, scales_n.reshape(1, -1))
+    mask = None if ok is None else ok.reshape(1)
+    _write_rows_(bank.codes, owner_idx, codes_n.reshape(1, -1), lay, mask)
+    _write_rows_(bank.scales, owner_idx, scales_n.reshape(1, -1), lay, mask)
     return bank
 
 
@@ -373,55 +439,103 @@ def _bank_slot(bank, owner_idx: torch.Tensor):
     return None, None
 
 
-def _gather_row(bank: Bank, owner_idx: torch.Tensor) -> torch.Tensor:
+def _take_rows(buf: torch.Tensor, idx: torch.Tensor,
+               lay: Optional[FlatLayout] = None) -> torch.Tensor:
+    """Copies of rows `idx` ((g,) global rows) of a row-leading buffer (a
+    bank, the codes, scales or tree nodes): index_select, or on a mesh each
+    rank's candidates gathered over the row group (`FlatLayout.pick`)."""
+    if lay is None:
+        return buf.index_select(0, idx)
+    lidx, _ = lay.local(idx)
+    return lay.pick(buf.index_select(0, lidx), idx)
+
+
+def _gather_row(bank: Bank, owner_idx: torch.Tensor,
+                lay: Optional[FlatLayout] = None) -> torch.Tensor:
     """The owner's (P,) f32 copy: a decoded QuantBank row, or a dense row
-    (a bf16 row upcast, which is exact)."""
-    if isinstance(bank, QuantBank):
-        return _decode_bank_row(bank, owner_idx)
-    return bank.index_select(0, owner_idx).reshape(-1).to(torch.float32)
+    (a bf16 row upcast, which is exact). On a mesh, this rank's columns of
+    it."""
+    return _gather_rows(bank, owner_idx, lay)[0]
 
 
-def _gather_rows(bank: Bank, owners: torch.Tensor) -> torch.Tensor:
+def _gather_rows(bank: Bank, owners: torch.Tensor,
+                 lay: Optional[FlatLayout] = None) -> torch.Tensor:
     """The (g, P) f32 copies of g owners: quantized rows decoded one member
-    after another, dense rows gathered at once."""
+    after another, dense rows gathered at once (on a mesh, this rank's
+    columns: each rank decodes or upcasts its candidates, which are then
+    gathered over the row group)."""
+    idx = owners if lay is None else lay.local(owners)[0]
     if isinstance(bank, QuantBank):
-        return torch.stack([_decode_bank_row(bank, owners[m:m + 1])
-                            for m in range(owners.numel())])
-    return bank.index_select(0, owners).to(torch.float32)
+        local = torch.stack([_decode_bank_row(bank, idx[m:m + 1])
+                             for m in range(owners.numel())])
+    else:
+        local = bank.index_select(0, idx).to(torch.float32)
+    return local if lay is None else lay.pick(local, owners)
 
 
 def _tree_row_of(tree: TreeNoise, owner_idx: torch.Tensor,
-                 row_idx: Optional[torch.Tensor] = None):
+                 row_idx: Optional[torch.Tensor] = None, lay: Optional[FlatLayout] = None):
     """(a copy of the owner's node row: (depth, P) flat or a tree of
     (depth, *leaf.shape) leaves, its (1,) int32 leaf count). `row_idx` (a
     paged bank's hot slot) is the node row when it is not the owner's; the
-    count is the owner's."""
+    count is the owner's. On a mesh the row is this rank's columns."""
     ridx = owner_idx if row_idx is None else row_idx
-    row = tree_map(lambda nodes: nodes.index_select(0, ridx)[0], tree.nodes)
+    row = tree_map(lambda nodes: _take_rows(nodes, ridx, lay)[0], tree.nodes)
     return row, tree.counts.index_select(0, owner_idx)
 
 
 def _tree_write(tree: TreeNoise, new_row, row_idx: torch.Tensor,
-                grant: Optional[torch.Tensor] = None) -> None:
+                grant: Optional[torch.Tensor] = None, lay: Optional[FlatLayout] = None
+                ) -> None:
     """Write a node row IN PLACE at `row_idx` ((1,) int64: the owner, or
     its hot slot), leaf by leaf; with `grant` (a one-element int32 tensor)
     0 the row as it stands now is written back, so a refused round is a
     bit-exact no-op on the nodes (also when an earlier member of a group
-    wrote the slot its missed owner clamped to). The caller bumps the leaf
-    count."""
+    wrote the slot its missed owner clamped to). On a mesh only the rank
+    holding the row writes it. The caller bumps the leaf count."""
+    mask = None if grant is None else grant.reshape(1) != 0
     for nodes, new in zip(tree_flatten(tree.nodes)[0], tree_flatten(new_row)[0]):
-        if grant is not None:
-            new = torch.where(grant.reshape(()) != 0, new, nodes.index_select(0, row_idx)[0])
-        nodes.index_copy_(0, row_idx, new.unsqueeze(0))
+        _write_rows_(nodes, row_idx, new.unsqueeze(0), lay, mask)
 
 
-def _write_or_defer(tree: TreeNoise, new_row, row_idx: torch.Tensor, grant):
+def _write_or_defer(tree: TreeNoise, new_row, row_idx: torch.Tensor, grant,
+                    lay: Optional[FlatLayout] = None):
     """Write the new node row now (masked by `grant`, as _tree_write), or,
     with grant=_DEFER, return commit(grant) that writes it later."""
     if grant is _DEFER:
-        return lambda g: _tree_write(tree, new_row, row_idx, g)
-    _tree_write(tree, new_row, row_idx, grant)
+        return lambda g: _tree_write(tree, new_row, row_idx, g, lay)
+    _tree_write(tree, new_row, row_idx, grant, lay)
     return None
+
+
+def _tree_delta_at(tree: TreeNoise, owners: torch.Tensor, keys: torch.Tensor,
+                   ns: torch.Tensor, grant, row_idx: Optional[torch.Tensor],
+                   lay: FlatLayout, rows: bool):
+    """`tree_delta_` (or `tree_delta_rows_`) of the owners' node rows on a
+    mesh -> (delta (g, P_local), commit(grant) or None). Every rank of a
+    column block needs the delta, which reads the retired nodes of the
+    owner's row, so the rows are gathered over the row group into a work
+    buffer, the kernel advances the work rows (its bits drawn at this rank's
+    columns, col0), and the rank holding a row writes it back. With
+    grant=_DEFER the first launch has grant 0 and commit launches again."""
+    ridx = owners if row_idx is None else row_idx
+    work = _take_rows(tree.nodes, ridx, lay)                           # (g, d, Pl)
+    at = torch.arange(owners.numel(), dtype=torch.int64, device=owners.device)
+    op = tree_delta_rows_ if rows else tree_delta_
+
+    def launch(g):
+        return op(work, tree.counts, owners, keys, ns, g, at, col0=lay.c0)
+
+    def land(g):
+        launch(g)
+        _write_rows_(tree.nodes, ridx, work, lay, g != 0)
+
+    if grant is _DEFER:
+        return launch(torch.zeros(owners.numel(), dtype=torch.int32,
+                                  device=owners.device)).reshape(owners.numel(), -1), land
+    delta = launch(grant)
+    _write_rows_(tree.nodes, ridx, work, lay, None if grant is None else grant.reshape(-1) != 0)
+    return delta.reshape(owners.numel(), -1), None
 
 
 def _retired_sum(row: torch.Tensor, retired: torch.Tensor) -> torch.Tensor:
@@ -708,54 +822,72 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts, tree_inn
     `tree_inner` (the pytree path's `inner`) runs on them; its results are
     packed back. Under the tree the retired nodes and the fresh draw take
     the pytree path's elementwise ops on the flat row. So on f32 banks the
-    result is bit for bit `spec.pack` of the pytree path's."""
+    result is bit for bit `spec.pack` of the pytree path's.
+
+    On a mesh (`theta_L.layout` set) theta_L, the gathered row and the
+    round's outputs are this rank's columns. theta_bar (or, in the
+    reference mode, theta_L and the row) is gathered over the column group
+    and every rank computes the whole gradient of the round's owner, clips
+    it with `sqnorm` on the full vector (the clip norm of the unmeshed
+    run, bit for bit) and keeps its own columns; the kernels then draw the
+    bits of those columns (col0)."""
     pcfg = cfg.privatizer
     N = cfg.n_owners
 
     def compute(theta_L: ParamFlat, bank, batch, owner_idx, key,
                 tree: Optional[TreeNoise] = None, grant=None,
                 stale_w: Optional[torch.Tensor] = None, row_idx=None):
-        spec = theta_L.spec
+        spec, lay = theta_L.spec, theta_L.layout
         ridx = owner_idx if row_idx is None else row_idx
-        theta_i = _gather_row(_hot(bank), ridx)                      # (P,) f32 copy
+        theta_i = _gather_row(_hot(bank), ridx, lay)                 # (P,) f32 copy
         theta_eff = theta_i if stale_w is None else _decayed(theta_L.buf, theta_i, stale_w)
         tree_on = tree is not None and bool(cfg.tree_depth)
+        full = (lambda x: x) if lay is None else lay.gather_cols
+        mine = (lambda x: x) if lay is None else lay.col_slice
         commit = None
         if not pcfg.fused_kernel:
             extra = None
             if tree_on:
-                row, count = _tree_row_of(tree, owner_idx, ridx)     # (d, P)
+                row, count = _tree_row_of(tree, owner_idx, ridx, lay)  # (d, P)
                 retired, fresh = tree_masks_ref(count, cfg.tree_depth)
-                extra = spec.unpack_f32(-_retired_sum(row, retired))
+                extra = spec.unpack_f32(-_retired_sum(full(row), retired))
             new_L_t, new_i_t, metrics, zeta = tree_inner(
-                spec.unpack(theta_L.buf), spec.unpack(theta_eff), batch, owner_idx, key,
-                noise_extra=extra)
+                spec.unpack(full(theta_L.buf)), spec.unpack(full(theta_eff)), batch, owner_idx,
+                key, noise_extra=extra)
             if tree_on:
                 commit = _write_or_defer(
-                    tree, _advance_row(row, spec.pack_f32(zeta), retired, fresh), ridx, grant)
-            return (ParamFlat(spec.pack(new_L_t), spec), spec.pack(new_i_t), theta_i,
-                    metrics, commit)
+                    tree, _advance_row(row, mine(spec.pack_f32(zeta)), retired, fresh), ridx,
+                    grant, lay)
+            return (theta_L.replace_buf(mine(spec.pack(new_L_t))), mine(spec.pack(new_i_t)),
+                    theta_i, metrics, commit)
         if pcfg.mechanism != "laplace":
             raise ValueError("fused_kernel implements the laplace mechanism")
         tb = 0.5 * (theta_L.buf + theta_eff)                         # (6)
         ns, w_i = consts.of(owner_idx)
-        acc, gain, pm = _flat_clipped_grad_acc(loss_fn, spec, pcfg, tb, batch)
+        acc, gain, pm = _flat_clipped_grad_acc(loss_fn, spec, pcfg, full(tb), batch)
+        acc = mine(acc)
+        col0 = 0 if lay is None else lay.c0
         if tree_on:
             ns1 = ns.reshape(1)
-            delta = tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns1,
-                                consts.no_grant(1) if grant is _DEFER else grant, row_idx)
-            if grant is _DEFER:
-                def commit(g):
-                    tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns1, g, row_idx)
+            if lay is not None:
+                delta, commit = _tree_delta_at(tree, owner_idx, key, ns1, grant, row_idx, lay,
+                                               rows=False)
+                delta = delta[0]
+            else:
+                delta = tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns1,
+                                    consts.no_grant(1) if grant is _DEFER else grant, row_idx)
+                if grant is _DEFER:
+                    def commit(g):
+                        tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns1, g, row_idx)
             new_L, new_i = _tree_epilogue(cfg, consts, tb, acc, gain, delta, w_i)
         else:
             new_L, new_i = dp_round_flat(                       # (4)+(5)+(7)+Pi
                 tb, acc, key, gain, ns.reshape(1), w_i.reshape(1), sigma=cfg.sigma,
                 lr_own=consts.lr_own, lr_l=consts.lr_L, n_owners=N,
-                theta_max=cfg.theta_max)
+                theta_max=cfg.theta_max, col0=col0)
         metrics = {"clip_frac": pm["clip_frac"], "max_grad_norm": pm["max_grad_norm"],
                    "grad_noise_scale": ns}
-        return ParamFlat(new_L, spec), new_i, theta_i, metrics, commit
+        return theta_L.replace_buf(new_L), new_i, theta_i, metrics, commit
 
     return compute
 
@@ -781,27 +913,38 @@ def _round_math_flat_rows(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
                      stale_w: Optional[torch.Tensor] = None, row_idx=None):
         if cfg.privatizer.mechanism != "laplace":
             raise ValueError("fused_kernel implements the laplace mechanism")
-        theta_i = _gather_rows(_hot(bank), owners if row_idx is None else row_idx)  # (g, P)
+        lay = theta_L.layout
+        theta_i = _gather_rows(_hot(bank), owners if row_idx is None else row_idx,
+                               lay)                                      # (g, P)
         theta_eff = (theta_i if stale_w is None
                      else _decayed(theta_L.buf, theta_i, stale_w[:, None]))
         tb = 0.5 * (theta_L.buf + theta_eff)                             # (6)
         ns, w = consts.of_rows(owners)
-        acc, gain, pm = _flat_clipped_grad_acc_rows(loss_fn, theta_L.spec, cfg.privatizer,
-                                                    tb, batch_g)
+        acc, gain, pm = _flat_clipped_grad_acc_rows(
+            loss_fn, theta_L.spec, cfg.privatizer, tb if lay is None else lay.gather_cols(tb),
+            batch_g)
+        if lay is not None:
+            acc = lay.col_slice(acc)
         commit = None
         if tree is not None and cfg.tree_depth:
-            delta = tree_delta_rows_(tree.nodes, tree.counts, owners, keys_g, ns,
-                                     consts.no_grant(owners.numel()) if grant is _DEFER
-                                     else grant, row_idx)
-            if grant is _DEFER:
-                def commit(g):
-                    tree_delta_rows_(tree.nodes, tree.counts, owners, keys_g, ns, g, row_idx)
+            if lay is not None:
+                delta, commit = _tree_delta_at(tree, owners, keys_g, ns, grant, row_idx, lay,
+                                               rows=True)
+            else:
+                delta = tree_delta_rows_(tree.nodes, tree.counts, owners, keys_g, ns,
+                                         consts.no_grant(owners.numel()) if grant is _DEFER
+                                         else grant, row_idx)
+                if grant is _DEFER:
+                    def commit(g):
+                        tree_delta_rows_(tree.nodes, tree.counts, owners, keys_g, ns, g,
+                                         row_idx)
             new_L, new_i = _tree_epilogue(cfg, consts, tb, acc, gain[:, None], delta,
                                           w[:, None])
         else:
             new_L, new_i = dp_round_rows(                                # (4)+(5)+(7)+Pi
                 tb, acc, keys_g, gain, ns, w, sigma=cfg.sigma, lr_own=consts.lr_own,
-                lr_l=consts.lr_L, n_owners=N, theta_max=cfg.theta_max)
+                lr_l=consts.lr_L, n_owners=N, theta_max=cfg.theta_max,
+                col0=0 if lay is None else lay.c0)
         metrics = {"clip_frac": pm["clip_frac"], "max_grad_norm": pm["max_grad_norm"],
                    "grad_noise_scale": ns}
         return new_L, new_i, theta_i, metrics, commit
@@ -931,6 +1074,12 @@ def _no_faults_armed(fault_codes) -> None:
                          "fault_policy=FaultPolicy(...)")
 
 
+def _layout_of(theta_L) -> Optional[FlatLayout]:
+    """The mesh layout of a flat state's theta_L (None: unmeshed, or a
+    pytree state)."""
+    return theta_L.layout if isinstance(theta_L, ParamFlat) else None
+
+
 def _masked_write(state: AsyncDPState, owner_idx: torch.Tensor, key: torch.Tensor,
                   row_idx: Optional[torch.Tensor] = None):
     """write(new_L, new_i, theta_i, ok) -> (theta_L, bank) for one round of
@@ -939,13 +1088,16 @@ def _masked_write(state: AsyncDPState, owner_idx: torch.Tensor, key: torch.Tenso
     back (a quantized bank keeps its codes, scales and residual). On a
     PagedBank the row is written at the hot slot `row_idx`."""
     widx = owner_idx if row_idx is None else row_idx
+    lay = _layout_of(state.theta_L)
 
     def write(new_L, new_i, theta_i, ok):
         theta_L = _select(ok, new_L, state.theta_L)
         hot = _hot(state.bank)
         if isinstance(hot, QuantBank):
             # same key as compute() by contract (see make_train_step)
-            _quant_write(hot, new_i, widx, key, ok=ok)  # dpcheck: ignore[DPC105]
+            _quant_write(hot, new_i, widx, key, ok=ok, lay=lay)  # dpcheck: ignore[DPC105]
+        elif lay is not None:
+            _write_rows_(hot, widx, new_i.unsqueeze(0), lay, ok.reshape(1))
         else:
             _write_bank(hot, _select(ok, new_i, theta_i), widx)
         return theta_L, state.bank
@@ -981,20 +1133,22 @@ def _guarded_round(round_fn, write, state: AsyncDPState, batch, owners: torch.Te
     (metrics["faulted"]), `timed` answered late (metrics["timed_out"]):
     epsilon spent either way."""
     fs, tree, bank = state.faults, state.tree, state.bank
+    lay = _layout_of(state.theta_L)
     corrupt = fcodes == _faults.CORRUPT_PAYLOAD
     if fcodes.dim() == 0:
-        payload_ok = _faults.verify_row(fs.checksum, bank, owners, corrupt, row_idx)
+        payload_ok = _faults.verify_row(fs.checksum, bank, owners, corrupt, row_idx, lay)
         finite = _faults.finite_guard
     else:
         payload_ok = torch.stack([_faults.verify_row(
             fs.checksum, bank, owners[m:m + 1], corrupt[m],
-            None if row_idx is None else row_idx[m:m + 1]) for m in range(owners.numel())])
+            None if row_idx is None else row_idx[m:m + 1], lay)
+            for m in range(owners.numel())])
         finite = _faults.finite_guard_rows
     new_L, new_i, theta_i, metrics, commit = round_fn(
         state.theta_L, bank, batch, owners, keys, tree=tree, grant=_DEFER, stale_w=stale_w,
         row_idx=row_idx)
     new_i = _faults.inject_nonfinite(new_i, fcodes == _faults.NONFINITE_GRAD)
-    guard_ok = payload_ok & finite((new_i, new_L)) & (fcodes != _faults.STALE)
+    guard_ok = payload_ok & finite((new_i, new_L), lay) & (fcodes != _faults.STALE)
     on_time = deadline_guard(fcodes)
     apply = answered & guard_ok & on_time
     timed = answered & ~on_time
@@ -1007,7 +1161,7 @@ def _guarded_round(round_fn, write, state: AsyncDPState, batch, owners: torch.Te
             commit(applied)
         tree.counts.index_add_(0, owners, applied)
     # the stored checksum follows the POST-write row; a masked round keeps it
-    _faults.update_checksum(fs, bank, owners, apply, row_idx)
+    _faults.update_checksum(fs, bank, owners, apply, row_idx, lay)
     metrics = dict(metrics, faulted=guard_rej, timed_out=timed)
     return theta_L, bank, metrics, apply, guard_rej, timed
 
@@ -1059,8 +1213,21 @@ def _faulted_round(cfg: AsyncDPConfig, round_fn, write, state: AsyncDPState, bat
     return theta_L, bank, metrics, apply
 
 
+def _check_mesh(mesh, state: AsyncDPState) -> None:
+    """A driver built with `mesh` runs flat states laid out on that mesh
+    (a pytree state ignores it, as in the reference); a meshed state runs
+    on its own layout under any driver."""
+    if mesh is None or not isinstance(state.theta_L, ParamFlat):
+        return
+    lay = state.theta_L.layout
+    if lay is None or lay.mesh is not mesh:
+        raise ValueError("the driver was built for a device mesh but the state is not "
+                         "laid out on it; build the state with init_state(..., mesh=) "
+                         "on the same mesh")
+
+
 def make_train_step(loss_fn, cfg: AsyncDPConfig,
-                    scales: Optional[torch.Tensor] = None, device=None):
+                    scales: Optional[torch.Tensor] = None, device=None, mesh=None):
     """Returns step(state, batch, owner_idx, key, fault_code=None) ->
     (state, metrics).
 
@@ -1079,7 +1246,10 @@ def make_train_step(loss_fn, cfg: AsyncDPConfig,
 
     On a PagedBank the round works on the owner's hot slot, and residency
     is the round's grant: a miss (an owner the pager did not make resident)
-    is a bit-exact masked no-op that takes no leaf and no step."""
+    is a bit-exact masked no-op that takes no leaf and no step.
+
+    `mesh` (as init_state_flat's) checks that a flat state is laid out on
+    it; the round runs on the state's own layout."""
     dev = resolve_device(device)
     compute = _round_compute(loss_fn, cfg, scales, device)
     one = torch.ones(1, dtype=torch.int32, device=dev)
@@ -1087,6 +1257,7 @@ def make_train_step(loss_fn, cfg: AsyncDPConfig,
 
     def step(state: AsyncDPState, batch, owner_idx: torch.Tensor, key: torch.Tensor,
              fault_code=None) -> Tuple[AsyncDPState, Dict[str, Any]]:
+        _check_mesh(mesh, state)
         tree = _require_tree(cfg, state)
         o = owner_idx.reshape(1).to(torch.int64)
         slot, hit = _bank_slot(state.bank, o)
@@ -1129,10 +1300,14 @@ def make_train_step(loss_fn, cfg: AsyncDPConfig,
                                 tree, state.faults, state.stale), metrics
         new_L, new_i, _, metrics, _ = compute(state.theta_L, state.bank, batch, o, key,
                                               tree=tree)
+        lay = _layout_of(state.theta_L)
         if isinstance(state.bank, QuantBank):
             # same key as compute() by contract: the codec folds in its
             # CODEC_SALT, so its rounding bits never touch the privacy stream
-            bank = _quant_write(state.bank, new_i, o, key)  # dpcheck: ignore[DPC105]
+            bank = _quant_write(state.bank, new_i, o, key, lay=lay)  # dpcheck: ignore[DPC105]
+        elif lay is not None:
+            _write_rows_(state.bank, o, new_i.unsqueeze(0), lay)
+            bank = state.bank
         else:
             bank = _write_bank(state.bank, new_i, o)
         if tree is not None:
@@ -1150,7 +1325,7 @@ def _add_columns(led: DeviceLedger, owners: torch.Tensor, cols: Dict[str, torch.
 
 
 def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
-                      scales: Optional[torch.Tensor] = None, device=None):
+                      scales: Optional[torch.Tensor] = None, device=None, mesh=None):
     """Device-authorized multi-round driver: K rounds in one call.
 
     Returns run(state, batches, owner_seq, keys, fault_codes=None) ->
@@ -1176,7 +1351,8 @@ def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
     is folded into the grant before the ledger counts it: it spends
     nothing and lands in `refused` (a session's pager prefetches every
     dispatched owner, so a refusal there under an authorized schedule
-    would flag a pager fault, not a privacy event)."""
+    would flag a pager fault, not a privacy event). `mesh` as in
+    make_train_step."""
     dev = resolve_device(device)
     compute = _round_compute(loss_fn, cfg, scales, device)
     true = torch.ones((), dtype=torch.bool, device=dev)
@@ -1224,6 +1400,7 @@ def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
         if state.ledger is None:
             raise ValueError("fused rounds need a device ledger on the state; "
                              "build it with Federation.init_state")
+        _check_mesh(mesh, state)
         _require_tree(cfg, state)
         owners = owner_seq.to(torch.int64)
         if state.faults is None:
@@ -1252,7 +1429,7 @@ def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
 
 
 def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
-                      scales: Optional[torch.Tensor] = None, device=None):
+                      scales: Optional[torch.Tensor] = None, device=None, mesh=None):
     """Owner-parallel multi-round driver: conflict-free groups of rounds,
     each computed as one batch of its members.
 
@@ -1300,8 +1477,10 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
     once; a member that misses is refused (its grant is 0) and its row
     write is a no-op, which the per-member writes keep bit-exact also when
     its clamped slot is a resident member's (each write reads the row as
-    it stands). bf16 banks, paged or not (ROADMAP queue 1, item 2), and the
-    mesh (item 7) wait for their slices."""
+    it stands). A bf16 bank gathers its rows with the exact upcast and
+    writes them back narrowed, as the sequential driver does. On a mesh
+    the members' rows are written one member at a time by the ranks that
+    hold them; `mesh` as in make_train_step."""
     compute = _round_compute(loss_fn, cfg, scales, device)
 
     def reduce_theta(ok: torch.Tensor, stacked: torch.Tensor, base: torch.Tensor):
@@ -1320,17 +1499,17 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
         the row as it stands."""
         hot = _hot(state.bank)
         widx = owners if slots is None else slots
+        lay = _layout_of(state.theta_L)
         if isinstance(hot, QuantBank):
             # the error-feedback chain in round order; same key as the
             # round's by contract (the codec folds in its CODEC_SALT)
             for m in range(owners.numel()):
                 _quant_write(hot, new_i[m], widx[m:m + 1], keys_g[m],  # dpcheck: ignore[DPC105]
-                             ok=ok[m])
-        elif slots is not None:
-            for m in range(owners.numel()):
-                w = widx[m:m + 1]
-                hot.index_copy_(0, w, torch.where(ok[m], new_i[m], hot.index_select(0, w)[0])
-                                .to(hot.dtype).unsqueeze(0))
+                             ok=ok[m], lay=lay)
+        elif lay is not None or slots is not None:
+            # one member at a time (a missed owner's clamped slot, or a row
+            # another rank holds, is written back as it stands)
+            _write_rows_(hot, widx, new_i, lay, ok)
         else:
             _write_bank_rows(hot, tree_map(
                 lambda a, b: torch.where(_member_mask(ok, a), a, b), new_i, theta_i), owners)
@@ -1389,11 +1568,7 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
         if state.ledger is None:
             raise ValueError("grouped rounds need a device ledger on the state; "
                              "build it with Federation.init_state")
-        hot = _hot(state.bank)
-        if isinstance(hot, torch.Tensor) and hot.dtype != torch.float32:
-            raise NotImplementedError(
-                f"a {hot.dtype} bank under the grouped driver waits for a later "
-                "slice (ROADMAP queue 1, item 2); run owner_parallel=False")
+        _check_mesh(mesh, state)
         _require_tree(cfg, state)
         owners = owner_seq.to(torch.int64)
         if state.faults is None:

@@ -183,17 +183,29 @@ def _row_sum64(t: torch.Tensor, owner_idx: torch.Tensor) -> torch.Tensor:
     return total
 
 
-def row_checksum(bank, owner_idx: torch.Tensor) -> torch.Tensor:
+def row_checksum(bank, owner_idx: torch.Tensor, layout=None) -> torch.Tensor:
     """() int32 checksum of one owner's resident row (`owner_idx` a (1,)
     int64 device index): the codes plus the scales of a QuantBank (the
     shared residual belongs to no owner and is left out), the row of a
     dense (N, P) bank, or the rows of every leaf of a pytree bank. On a
     PagedBank `owner_idx` is the HOT SLOT (the caller resolves it with
-    `bank.lookup`)."""
+    `bank.lookup`).
+
+    On a device mesh (`layout`, a sharding.flat.FlatLayout) the bank is
+    this rank's block: the int64 partial of its columns (and the row's
+    scales, replicated over the columns) is taken from the rank holding
+    the row, the column partials are summed exactly over the column group,
+    and the total wraps to int32 as the unsharded sum does."""
     if isinstance(bank, PagedBank):
-        return row_checksum(bank.hot, owner_idx)
-    parts = ((bank.codes, bank.scales) if isinstance(bank, QuantBank)
-             else tree_flatten(bank)[0])
+        return row_checksum(bank.hot, owner_idx, layout)
+    quant = isinstance(bank, QuantBank)
+    parts = (bank.codes, bank.scales) if quant else tree_flatten(bank)[0]
+    if layout is not None:
+        lidx, _ = layout.local(owner_idx)
+        cols = _row_sum64(parts[0], lidx)
+        rest = _row_sum64(parts[1], lidx) if quant else torch.zeros_like(cols)
+        held = layout.pick(torch.stack([cols, rest]).unsqueeze(0), owner_idx.reshape(1))[0]
+        return _wrap32(layout.sum_cols(held[0]) + held[1])
     total = _row_sum64(parts[0], owner_idx)
     for t in parts[1:]:
         total = total + _row_sum64(t, owner_idx)
@@ -212,28 +224,30 @@ def _device_of(bank) -> torch.device:
     return tree_flatten(bank)[0][0].device
 
 
-def bank_checksums(bank) -> torch.Tensor:
-    """(N,) int32 checksums of every owner row (init and audit)."""
+def bank_checksums(bank, layout=None) -> torch.Tensor:
+    """(N,) int32 checksums of every owner row (init and audit); on a mesh
+    (`layout`) every rank gets all N, the bank being its block."""
     dev = _device_of(bank)
-    n = _n_owners(bank)
+    n = _n_owners(bank) if layout is None else layout.n
     if n == 0:
         return torch.zeros(0, dtype=torch.int32, device=dev)
     idx = torch.arange(n, dtype=torch.int64, device=dev)
-    return torch.stack([row_checksum(bank, idx[i:i + 1]) for i in range(n)])
+    return torch.stack([row_checksum(bank, idx[i:i + 1], layout) for i in range(n)])
 
 
-def init_fault_state(bank, n_owners: int) -> FaultState:
+def init_fault_state(bank, n_owners: int, layout=None) -> FaultState:
     """Fresh fault counters beside `bank`: its checksums, zero windows and
     contacts, nobody quarantined (a distinct buffer per field: the drivers
     write them in place). On a PagedBank one row's checksum is tiled over
-    the (N,) column: at init every row is the default row."""
+    the (N,) column: at init every row is the default row. On a mesh
+    (`layout`) the counters are replicated: every rank holds all N."""
     if isinstance(bank, PagedBank):
         dev = _device_of(bank.hot)
-        one = row_checksum(bank.hot, torch.zeros(1, dtype=torch.int64, device=dev))
+        one = row_checksum(bank.hot, torch.zeros(1, dtype=torch.int64, device=dev), layout)
         checksum = one.reshape(1).repeat(n_owners)
     else:
         dev = _device_of(bank)
-        checksum = bank_checksums(bank)
+        checksum = bank_checksums(bank, layout)
     return FaultState(
         checksum=checksum,
         win_faults=torch.zeros(n_owners, dtype=torch.int32, device=dev),
@@ -246,14 +260,14 @@ def _as_bool(x, device) -> torch.Tensor:
 
 
 def verify_row(checksum: torch.Tensor, bank, owner_idx: torch.Tensor,
-               corrupt, row_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+               corrupt, row_idx: Optional[torch.Tensor] = None, layout=None) -> torch.Tensor:
     """0-d bool: does the owner's resident row match its stored checksum?
 
     `corrupt` (CORRUPT_PAYLOAD this round) offsets the OBSERVED sum by
     CORRUPT_CSUM_DELTA, so detection is certain and the payload untouched.
     `row_idx` (a paged bank's hot slot, (1,) int64) is where the payload
-    is read; the stored sum is the owner's."""
-    obs = row_checksum(bank, owner_idx if row_idx is None else row_idx)
+    is read; the stored sum is the owner's. `layout` as in row_checksum."""
+    obs = row_checksum(bank, owner_idx if row_idx is None else row_idx, layout)
     corrupt = _as_bool(corrupt, obs.device).reshape(())
     obs = torch.where(corrupt, obs + CORRUPT_CSUM_DELTA, obs)
     return obs == checksum.index_select(0, owner_idx).reshape(())
@@ -290,8 +304,10 @@ def inject_nonfinite(tree, flag):
     return tree_map(poison, tree)
 
 
-def finite_guard(tree) -> torch.Tensor:
-    """0-d bool: every float leaf of `tree` is entirely finite."""
+def finite_guard(tree, layout=None) -> torch.Tensor:
+    """0-d bool: every float leaf of `tree` is entirely finite. On a mesh
+    (`layout`) the leaves are this rank's columns, and the flag is the
+    logical and over the column group."""
     ok = None
     for leaf in _leaves_of(tree):
         if leaf.is_floating_point():
@@ -299,12 +315,13 @@ def finite_guard(tree) -> torch.Tensor:
             ok = f if ok is None else ok & f
     if ok is None:
         raise ValueError("finite_guard needs a float leaf")
-    return ok
+    return ok if layout is None else layout.all_cols(ok)
 
 
-def finite_guard_rows(tree) -> torch.Tensor:
+def finite_guard_rows(tree, layout=None) -> torch.Tensor:
     """(g,) bool: member m's rows (the leading axis of every float leaf)
-    are entirely finite; `finite_guard` of each member, batched."""
+    are entirely finite; `finite_guard` of each member, batched (and on a
+    mesh and-ed over the column group)."""
     ok = None
     for leaf in _leaves_of(tree):
         if leaf.is_floating_point():
@@ -312,7 +329,7 @@ def finite_guard_rows(tree) -> torch.Tensor:
             ok = f if ok is None else ok & f
     if ok is None:
         raise ValueError("finite_guard_rows needs a float leaf")
-    return ok
+    return ok if layout is None else layout.all_cols(ok)
 
 
 def _owners(owner_idx: torch.Tensor) -> torch.Tensor:
@@ -328,16 +345,17 @@ def _masked_set_(col: torch.Tensor, idx: torch.Tensor, value, mask) -> None:
 
 
 def update_checksum(fs: FaultState, bank, owner_idx: torch.Tensor, apply,
-                    row_idx: Optional[torch.Tensor] = None) -> FaultState:
+                    row_idx: Optional[torch.Tensor] = None, layout=None) -> FaultState:
     """Re-derive the stored checksums from the POST-WRITE bank rows of one
     owner ((1,) index, `apply` 0-d) or a group of distinct owners ((g,),
     `apply` (g,)), IN PLACE; where `apply` is False the stored sum stays,
     so a masked round leaves later verification untouched. `row_idx` (the
     hot slots of a paged bank, shaped as `owner_idx`) is where the rows are
-    read; the sums land in the owners' column."""
+    read; the sums land in the owners' column. `layout` as in row_checksum."""
     idx = _owners(owner_idx)
     ridx = idx if row_idx is None else _owners(row_idx)
-    new = torch.stack([row_checksum(bank, ridx[m:m + 1]) for m in range(idx.numel())])
+    new = torch.stack([row_checksum(bank, ridx[m:m + 1], layout)
+                       for m in range(idx.numel())])
     _masked_set_(fs.checksum, idx, new, _as_bool(apply, idx.device).reshape(-1))
     return fs
 

@@ -12,6 +12,11 @@ matrix whose gather/scatter is a row copy:
     bank = init_flat_bank(flat, N)      # (N, P) f32; bf16, or "int8"/"fp8"
     paged = PagedBank(hot, hot_ids, N)  # n_hot resident rows (federation.paging)
 
+On a device mesh (`sharding.flat.FlatLayout`) every buffer is this rank's
+local block: `pack_params(..., layout=)` keeps the rank's columns of the
+packed row (`ParamFlat.layout` says which), and `init_flat_bank` builds
+the rank's rows of the bank over them.
+
 The bank's storage follows `bank_dtype`: f32 (the default), a dense
 torch.bfloat16 matrix, or a `QuantBank` of 1-byte int8 / fp8 codes with
 one f32 scale per row and a shared error-feedback residual row. A
@@ -108,31 +113,46 @@ def flatten_spec(tree) -> FlatSpec:
 
 
 class ParamFlat:
-    """One contiguous (P,) f32 master copy of a model tree plus its spec."""
+    """One contiguous (P,) f32 master copy of a model tree plus its spec.
 
-    def __init__(self, buf: torch.Tensor, spec: FlatSpec):
+    On a device mesh `layout` (a `sharding.flat.FlatLayout`) is set and
+    `buf` holds this rank's columns only, `layout.cols` of the (P,) row;
+    `size` stays the whole P. `full()` gathers the row (a collective)."""
+
+    def __init__(self, buf: torch.Tensor, spec: FlatSpec, layout=None):
         self.buf = buf
         self.spec = spec
+        self.layout = layout
 
     @property
     def size(self) -> int:
         return self.spec.size
 
+    def full(self) -> torch.Tensor:
+        """The whole (P,) buffer: `buf` itself, or on a mesh its columns
+        gathered over the layout's column group."""
+        return self.buf if self.layout is None else self.layout.gather_cols(self.buf)
+
     def unpack(self) -> Any:
-        return self.spec.unpack(self.buf)
+        return self.spec.unpack(self.full())
 
     def replace_buf(self, buf: torch.Tensor) -> "ParamFlat":
-        return ParamFlat(buf, self.spec)
+        return ParamFlat(buf, self.spec, self.layout)
 
     def __repr__(self) -> str:
-        return f"ParamFlat(P={self.spec.size}, n_leaves={self.spec.n_leaves})"
+        where = "" if self.layout is None else f", cols={self.layout.cols}"
+        return f"ParamFlat(P={self.spec.size}, n_leaves={self.spec.n_leaves}{where})"
 
 
-def pack_params(tree, spec: FlatSpec = None, device=None) -> ParamFlat:
+def pack_params(tree, spec: FlatSpec = None, device=None, layout=None) -> ParamFlat:
     """Pack a model tree into a ParamFlat on `device` (CUDA when None; spec
-    inferred if omitted)."""
+    inferred if omitted). With a `layout` the buffer is this rank's
+    columns."""
     spec = flatten_spec(tree) if spec is None else spec
-    return ParamFlat(spec.pack(tree).to(resolve_device(device)), spec)
+    buf = spec.pack(tree)
+    if layout is not None:
+        buf = layout.col_slice(buf).contiguous()
+    return ParamFlat(buf.to(resolve_device(device)), spec, layout)
 
 
 _QUANT_FMTS = ("int8", "fp8")
@@ -304,16 +324,31 @@ def init_flat_bank(flat: ParamFlat, n_owners: int, dtype=None):
     row round-trips exactly), or "int8"/"fp8"/a BankCodec for a QuantBank.
     The quantized bank encodes the central row ONCE with the deterministic
     round-to-nearest and copies its codes N times, so no (N, P) f32 tensor
-    ever exists; the residual starts at zero."""
+    ever exists; the residual starts at zero.
+
+    On a mesh (`flat.layout` set) the bank is this rank's block: its rows
+    of the N (`layout.n_local`) over the columns `flat.buf` holds; a
+    quantized row is encoded from its columns with the whole row's scale
+    (the partial absmaxes reduced over the column group)."""
     codec = as_bank_codec(dtype)
+    layout = flat.layout
+    n_rows = n_owners if layout is None else layout.n_local
+    p = flat.buf.shape[0]
     if codec is not None:
-        from repro_torch.kernels.bank_codec.ops import encode_row
+        from repro_torch.kernels.bank_codec.ops import encode_row, row_absmax, scale_from_absmax
+        kw = {}
+        if layout is not None:
+            if codec.block_elems is not None:
+                raise NotImplementedError("per-block scales encode whole rows; a bank on a "
+                                          "mesh keeps one scale per row")
+            kw = dict(col0=layout.c0, scale=scale_from_absmax(
+                layout.max_cols(row_absmax(flat.buf)), codec.fmt))
         codes_row, scales_row, _ = encode_row(flat.buf, None, codec.fmt,
                                               block_elems=codec.block_elems,
-                                              deterministic=True)
-        return QuantBank(codes_row.unsqueeze(0).expand(n_owners, flat.size).clone(),
-                         scales_row.unsqueeze(0).expand(n_owners, -1).clone(),
+                                              deterministic=True, **kw)
+        return QuantBank(codes_row.unsqueeze(0).expand(n_rows, p).clone(),
+                         scales_row.unsqueeze(0).expand(n_rows, -1).clone(),
                          torch.zeros_like(flat.buf), codec)
-    bank = torch.empty((n_owners, flat.size), dtype=torch.float32 if dtype is None else dtype,
+    bank = torch.empty((n_rows, p), dtype=torch.float32 if dtype is None else dtype,
                        device=flat.buf.device)
-    return bank.copy_(flat.buf.unsqueeze(0).expand(n_owners, flat.size))
+    return bank.copy_(flat.buf.unsqueeze(0).expand(n_rows, p))

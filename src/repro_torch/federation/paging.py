@@ -29,6 +29,15 @@ only between dispatches, never inside one. Inside the drivers a row's
 slot comes from ``PagedBank.lookup`` on the device, and an owner that is
 not resident is a bit-exact masked no-op counted as a refusal.
 
+On a device mesh (`init_paged_state(..., mesh=)`,
+`sharding.rules.paged_shardings`) the hot rows shard like bank rows with
+n_hot for N: each rank's hot tier is its block of slots and columns, the
+page table is replicated, and every rank's pager keeps the cold rows of
+its own columns. The pagers take the same decisions from the replicated
+schedule; a row that changes slot, or is written back, is gathered over
+the row group (the slot's holder has it), and each rank installs the rows
+of the slots it holds.
+
 Bit-exactness: rows round-trip the cold tier bit for bit for every
 storage (f32, bf16, the int8/fp8 codes and scales), the int8/fp8 error-
 feedback residual belongs to the session and never pages, and with
@@ -47,9 +56,13 @@ import torch
 from repro_torch.checkpoint import MemmapRowStore, MemoryRowStore
 from repro_torch.checkpoint.store import to_storage
 from repro_torch.device import resolve_device
-from repro_torch.federation.deep import AsyncDPConfig, AsyncDPState, TreeNoise, _armed
-from repro_torch.federation.flatten import PagedBank, QuantBank, init_flat_bank, pack_params
+from repro_torch.federation.deep import (AsyncDPConfig, AsyncDPState, TreeNoise, _armed,
+                                         _take_rows)
+from repro_torch.federation.flatten import (PagedBank, QuantBank, flatten_spec, init_flat_bank,
+                                            pack_params)
 from repro_torch.federation.privacy import make_device_ledger
+from repro_torch.sharding.flat import FlatLayout
+from repro_torch.sharding.rules import paged_shardings
 
 
 def _sync(dev: torch.device) -> None:
@@ -74,9 +87,10 @@ class OwnerPager:
     the scatter; the device synchronized at the end)."""
 
     def __init__(self, n_owners: int, n_hot: int, hot_ids: np.ndarray,
-                 stores: Dict[str, Any]):
+                 stores: Dict[str, Any], layout=None):
         self.n_owners = int(n_owners)
         self.n_hot = int(n_hot)
+        self.layout = layout                             # a FlatLayout on a mesh
         self._sentinel = self.n_owners
         self._hot_ids = np.array(hot_ids, np.int32)      # host mirror, sorted
         self.stores = stores                             # buffer name -> row store
@@ -116,8 +130,8 @@ class OwnerPager:
         CUDA) and the store's write."""
         t0 = time.perf_counter()
         for name, buf in self._buffers(state, self.stores).items():
-            rows = buf.index_select(0, torch.as_tensor(slots, dtype=torch.int64,
-                                                       device=buf.device))
+            rows = _take_rows(buf, torch.as_tensor(slots, dtype=torch.int64,
+                                                   device=buf.device), self.layout)
             if rows.is_cuda:
                 host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
                 host.copy_(rows)
@@ -145,11 +159,21 @@ class OwnerPager:
         src_d = torch.as_tensor(src[moved_pos], dtype=torch.int64, device=dev)
         dst_d = torch.as_tensor(moved_pos + list(fresh_pos), dtype=torch.int64, device=dev)
         n_moved, copied = len(moved_pos), 0
+        lay = self.layout
+        if lay is not None:
+            # this rank writes the destination slots it holds
+            dst_all = moved_pos + list(fresh_pos)
+            keep = [j for j, d in enumerate(dst_all) if lay.r0 <= d < lay.r0 + lay.n_local]
+            keep_d = torch.as_tensor(keep, dtype=torch.int64, device=dev)
+            dst_d = torch.as_tensor([dst_all[j] - lay.r0 for j in keep], dtype=torch.int64,
+                                    device=dev)
         for name, buf in bufs.items():
             store = self.stores[name]
-            stage = torch.empty((dst_d.numel(),) + tuple(buf.shape[1:]), dtype=buf.dtype,
-                                device=dev)
-            if n_moved:
+            stage = torch.empty((len(moved_pos) + len(fresh_pos),) + tuple(buf.shape[1:]),
+                                dtype=buf.dtype, device=dev)
+            if n_moved and lay is not None:
+                stage[:n_moved] = _take_rows(buf, src_d, lay)
+            elif n_moved:
                 torch.index_select(buf, 0, src_d, out=stage[:n_moved])
             if fresh_ids:
                 host = torch.empty((len(fresh_ids),) + tuple(buf.shape[1:]), dtype=buf.dtype,
@@ -162,6 +186,8 @@ class OwnerPager:
                         store.read_rows([o], out=rows[j:j + 1])
                 stage[n_moved:].copy_(host, non_blocking=True)
                 copied += host.numel() * host.element_size()
+            if lay is not None:
+                stage = stage.index_select(0, keep_d)
             buf.index_copy_(0, dst_d, stage)
             del stage
         state.bank.hot_ids.copy_(torch.from_numpy(np.asarray(new_ids, np.int32)))
@@ -267,7 +293,8 @@ class OwnerPager:
 
 
 def init_paged_state(params, cfg: AsyncDPConfig, n_hot: int, bank_dtype=None, device=None,
-                     cold_dir: Optional[str] = None) -> Tuple[AsyncDPState, OwnerPager]:
+                     cold_dir: Optional[str] = None, mesh=None
+                     ) -> Tuple[AsyncDPState, OwnerPager]:
     """A flat-engine state with a PAGED owner bank, and its host pager, on
     `device` (CUDA when None).
 
@@ -280,12 +307,21 @@ def init_paged_state(params, cfg: AsyncDPConfig, n_hot: int, bank_dtype=None, de
 
     At init every row, hot, cold or never written, is the default row (the
     packed params in the bank's storage), which is what lets the fault
-    layer tile one checksum over the (N,) column."""
+    layer tile one checksum over the (N,) column.
+
+    `mesh` lays the hot tier out on a device mesh
+    (`sharding.rules.paged_shardings`: hot rows like bank rows with n_hot
+    for N); each rank's cold tier keeps its columns. On disk, give each
+    rank its own `cold_dir`."""
     n_hot = int(n_hot)
     if n_hot < 1:
         raise ValueError(f"n_hot must be >= 1, got {n_hot}")
     device = resolve_device(device)
-    flat = pack_params(params, device=device)
+    layout = None
+    if mesh is not None:
+        p = flatten_spec(params).size
+        layout = FlatLayout(paged_shardings(mesh, n_hot, p), n_hot, p)
+    flat = pack_params(params, device=device, layout=layout)
     N = cfg.n_owners
     hot = init_flat_bank(flat, n_hot, bank_dtype)
     m = min(n_hot, N)
@@ -294,12 +330,13 @@ def init_paged_state(params, cfg: AsyncDPConfig, n_hot: int, bank_dtype=None, de
     bank = PagedBank(hot, torch.from_numpy(ids).to(device), N)
     tree = None
     if cfg.tree_depth is not None:
-        tree = TreeNoise(torch.zeros((n_hot, cfg.tree_depth, flat.size), dtype=torch.float32,
+        tree = TreeNoise(torch.zeros((n_hot if layout is None else layout.n_local,
+                                      cfg.tree_depth, flat.buf.shape[0]), dtype=torch.float32,
                                      device=device),
                          torch.zeros(N, dtype=torch.int32, device=device), cfg.tree_depth)
     # the fault checksums and the runtime counters are (N,) columns: they
     # stay resident
-    faults, stale = _armed(cfg, bank, device)
+    faults, stale = _armed(cfg, bank, device, layout)
 
     def make_store(name, default: torch.Tensor):
         arr, logical = to_storage(default)
@@ -314,12 +351,12 @@ def init_paged_state(params, cfg: AsyncDPConfig, n_hot: int, bank_dtype=None, de
     else:
         stores["rows"] = make_store("rows", hot[0])
     if tree is not None and cfg.tree_depth:
-        stores["tree"] = make_store("tree", torch.zeros((cfg.tree_depth, flat.size),
+        stores["tree"] = make_store("tree", torch.zeros((cfg.tree_depth, flat.buf.shape[0]),
                                                         dtype=torch.float32))
     state = AsyncDPState(flat, bank, torch.zeros((), dtype=torch.int32, device=device),
                          make_device_ledger(cfg.effective_caps, device=device), tree, faults,
                          stale)
-    return state, OwnerPager(N, n_hot, ids, stores)
+    return state, OwnerPager(N, n_hot, ids, stores, layout)
 
 
 __all__ = ["OwnerPager", "init_paged_state"]

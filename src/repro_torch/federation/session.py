@@ -31,6 +31,10 @@ Counterpart of ``repro/federation/session.py``:
                                               fused_kernel=True),
                   bank_dtype=None)      # or torch.bfloat16, "int8", "fp8"
 
+    # the flat engine on a device mesh (launch.mesh): each rank keeps its
+    # block of the state, a 1x1 mesh equals the unmeshed engine bit for bit
+    fed.make_step(loss_fn, pack_params=True, mesh=make_host_mesh(model=1))
+
     # DP-FTRL tree noise: every owner keeps a depth-4 noise tree on the
     # device, capped at its capacity 2^4 - 1 = 15 responses
     fed = Federation(owners, config, mechanism="tree", tree_depth=4)
@@ -105,6 +109,12 @@ from repro_torch.federation.staleness import (LatencyPlan, StalenessPolicy, as_t
 _STRATEGIES = ("async", "sync")
 
 
+def _no_meshed_checkpoint(state: AsyncDPState) -> None:
+    if isinstance(state.theta_L, ParamFlat) and state.theta_L.layout is not None:
+        raise NotImplementedError("checkpoints of a state on a device mesh wait for ROADMAP "
+                                  "queue 1, item 7; save an unmeshed state")
+
+
 class Federation:
     def __init__(self, owners: Sequence[DataOwner], config: FederationConfig, *,
                  mechanism="paper", schedule=None, strategy: str = "async",
@@ -140,6 +150,7 @@ class Federation:
         self._group_fn = None
         self._pack_params = False
         self._bank_dtype = None
+        self._mesh = None
         self._pager = None
         self._ran = False
 
@@ -257,7 +268,7 @@ class Federation:
 
     def make_step(self, loss_fn, *, privatizer: Optional[PrivatizerConfig] = None,
                   lr: Optional[float] = None, n_params: Optional[int] = None,
-                  pack_params: bool = False, bank_dtype=None):
+                  pack_params: bool = False, bank_dtype=None, mesh=None):
         """Build (and keep for .step()/.run_rounds()/.sync_round()) the round
         functions.
 
@@ -276,10 +287,22 @@ class Federation:
         `bank_dtype` (flat states only) is the owner bank's storage that
         `init_state` builds: None (f32), torch.bfloat16, or "int8"/"fp8" (or
         a flatten.BankCodec) for the error-feedback quantized bank, about 4x
-        below f32."""
+        below f32.
+
+        `mesh` (flat engine only: a named ("data", "model") DeviceMesh from
+        `launch.mesh`, e.g. `make_host_mesh()`) makes `init_state` and
+        `init_paged_state` lay the state out on it under
+        `sharding.rules.flat_shardings` (each rank keeps its block: owner
+        rows over the data axes, P over 'model'), and the drivers check
+        that their flat states are laid out on it. Every rank of the mesh
+        runs the same session calls. A 1x1 mesh equals the unmeshed engine
+        bit for bit."""
         as_bank_codec(bank_dtype)                       # validate early
+        if mesh is not None and not pack_params:
+            raise ValueError("mesh sharding is a flat-engine option; pass pack_params=True")
         self._pack_params = pack_params
         self._bank_dtype = bank_dtype
+        self._mesh = mesh
         acfg = self.as_async_config(privatizer)
         scales = self.mechanism.scales(p=n_params, clip_norm=acfg.privatizer.xi,
                                        device=self.device)
@@ -289,11 +312,12 @@ class Federation:
             self._step_fn = make_sync_dp_step(loss_fn, acfg, lr, scales=scales,
                                               device=self.device)
             return self._step_fn
-        self._step_fn = make_train_step(loss_fn, acfg, scales=scales, device=self.device)
+        self._step_fn = make_train_step(loss_fn, acfg, scales=scales, device=self.device,
+                                        mesh=mesh)
         self._fused_fn = make_fused_rounds(loss_fn, acfg, scales=scales,
-                                           device=self.device)
+                                           device=self.device, mesh=mesh)
         self._group_fn = make_group_rounds(loss_fn, acfg, scales=scales,
-                                           device=self.device)
+                                           device=self.device, mesh=mesh)
         return self._step_fn
 
     def _require_step(self):
@@ -301,7 +325,7 @@ class Federation:
             raise RuntimeError("call make_step(loss_fn) first")
 
     def init_state(self, params, pack_params: Optional[bool] = None,
-                   bank_dtype=None) -> AsyncDPState:
+                   bank_dtype=None, mesh=None) -> AsyncDPState:
         """The training state on the session's device, its device ledger
         seeded from the live accountant (in-graph authorization then
         refuses exactly where the host would) and, under the tree
@@ -309,23 +333,31 @@ class Federation:
         make_step (default a pytree state); True builds the flat state.
         `bank_dtype` (flat states only; None follows make_step) is the
         bank's storage, as in make_step; given explicitly for a pytree
-        state it raises, as in the reference."""
+        state it raises, as in the reference. `mesh` (flat states only; None
+        follows make_step) lays the state out on a device mesh, as in
+        make_step; the ledger is replicated on every rank."""
         pack = self._pack_params if pack_params is None else pack_params
         acfg = self.as_async_config()
         if pack:
             if bank_dtype is None:
                 bank_dtype = self._bank_dtype
-            state = init_state_flat(params, acfg, device=self.device, bank_dtype=bank_dtype)
+            if mesh is None:
+                mesh = self._mesh
+            state = init_state_flat(params, acfg, device=self.device, bank_dtype=bank_dtype,
+                                    mesh=mesh)
         else:
-            # make_step's bank_dtype does not apply to a pytree state; only
-            # an explicit request here is an error
+            # make_step's bank_dtype and mesh do not apply to a pytree
+            # state; only an explicit request here is an error
             if bank_dtype is not None:
                 raise ValueError("bank_dtype is a flat-engine option; "
+                                 "pass pack_params=True")
+            if mesh is not None:
+                raise ValueError("mesh sharding is a flat-engine option; "
                                  "pass pack_params=True")
             state = init_state(params, acfg, device=self.device)
         return state._replace(ledger=self.mechanism.device_ledger(self.device))
 
-    def init_paged_state(self, params, n_hot: int, bank_dtype=None,
+    def init_paged_state(self, params, n_hot: int, bank_dtype=None, mesh=None,
                          cold_dir=None) -> AsyncDPState:
         """A flat-engine state whose owner bank is PAGED: n_hot rows on the
         device over a host cold tier, so device bytes are O(n_hot * P)
@@ -335,16 +367,20 @@ class Federation:
         device. With n_hot >= n_owners the paged engine equals the flat one
         bit for bit. Needs a flat make_step (pack_params=True). `cold_dir`
         puts the cold tier on disk (a memmap created at the first
-        eviction); None keeps it in host memory."""
+        eviction); None keeps it in host memory. `mesh` (None follows
+        make_step) lays the hot tier out like bank rows with n_hot for N
+        (`sharding.rules.paged_shardings`)."""
         if not self._pack_params:
             raise ValueError("the paged bank is a flat-engine option; "
                              "call make_step(..., pack_params=True) first")
         if bank_dtype is None:
             bank_dtype = self._bank_dtype
+        if mesh is None:
+            mesh = self._mesh
         from repro_torch.federation.paging import init_paged_state
         state, self._pager = init_paged_state(params, self.as_async_config(), n_hot,
                                               bank_dtype=bank_dtype, device=self.device,
-                                              cold_dir=cold_dir)
+                                              mesh=mesh, cold_dir=cold_dir)
         return state._replace(ledger=self.mechanism.device_ledger(self.device))
 
     @property
@@ -612,6 +648,7 @@ class Federation:
         are the default row). Returns the step the checkpoint was filed
         under (state.step when not given)."""
         from repro_torch.checkpoint import save_checkpoint
+        _no_meshed_checkpoint(state)
         if step is None:
             step = int(state.step)
         extra: Dict[str, Any] = {}
@@ -649,6 +686,7 @@ class Federation:
         and re-syncs the pager to the restored page table."""
         from repro_torch.checkpoint import (latest_step, load_aux_arrays, load_checkpoint,
                                             load_manifest)
+        _no_meshed_checkpoint(like)
         if step is None:
             step = latest_step(directory)
             if step is None:

@@ -22,7 +22,8 @@
 //         of ref.counter_bits, seeded by bits(fold_in(key, salt), ()) with
 //         the caller's ref.CODEC_SALT, which every thread derives from the
 //         round key's device pointer (two threefry hashes, no launch of its
-//         own). `deterministic`
+//         own); a slice of a row (a rank's columns on a device mesh)
+//         passes col0 and hashes col0 + i. `deterministic`
 //         takes u = 0.5 exactly (ref.det_bits). Bound: bytes, 9 B/element
 //         (read 4, write 1 + 4).
 // decode  replaces kernel.py: _decode_kernel / decode_2d. code * scale;
@@ -147,7 +148,8 @@ absmax_final_kernel(const float* __restrict__ partial, int nparts, float qmax,
 __global__ void __launch_bounds__(kThreads)
 encode_kernel(const float* __restrict__ x, const float* __restrict__ scale,
               const uint32_t* __restrict__ key, uint32_t salt, int deterministic,
-              int fp8, uint8_t* __restrict__ codes, float* __restrict__ err, int64_t n) {
+              int fp8, uint8_t* __restrict__ codes, float* __restrict__ err, int64_t n,
+              int64_t col0) {
   const float s = *scale;
   uint32_t seed = 0;
   if (!deterministic) {
@@ -157,7 +159,8 @@ encode_kernel(const float* __restrict__ x, const float* __restrict__ scale,
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        i < n; i += stride) {
-    const float u = deterministic ? 0.5f : u01(counter_bits(seed, static_cast<uint32_t>(i)));
+    const float u =
+        deterministic ? 0.5f : u01(counter_bits(seed, static_cast<uint32_t>(i + col0)));
     const float xi = x[i];
     if (fp8) {
       const float y = nan_clip(__fdiv_rn(xi, s), -kFp8Max, kFp8Max);
@@ -233,15 +236,18 @@ int bank_absmax_launch(const float* x, long long n, float qmax, float* partial,
   return static_cast<int>(cudaGetLastError());
 }
 
+// element i rounds with the counter col0 + i (the columns [col0, col0 + n)
+// of a wider row)
 int bank_encode_launch(const float* x, const float* scale, const uint32_t* key,
                        unsigned salt, int deterministic, int fp8, void* codes,
-                       float* err_row, long long n, int device, void* stream) {
+                       float* err_row, long long n, long long col0, int device,
+                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
     encode_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         x, scale, key, salt, deterministic, fp8,
-        static_cast<uint8_t*>(codes), err_row, n);
+        static_cast<uint8_t*>(codes), err_row, n, col0);
   }
   return static_cast<int>(cudaGetLastError());
 }

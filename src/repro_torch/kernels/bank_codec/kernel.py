@@ -43,7 +43,7 @@ def _library() -> ctypes.CDLL:
     lib.bank_absmax_num_partials.restype = _I
     lib.bank_absmax_launch.argtypes = [_P, _I64, _F, _P, _P, _I, _P]
     lib.bank_absmax_launch.restype = _I
-    lib.bank_encode_launch.argtypes = [_P, _P, _P, _U, _I, _I, _P, _P, _I64, _I, _P]
+    lib.bank_encode_launch.argtypes = [_P, _P, _P, _U, _I, _I, _P, _P, _I64, _I64, _I, _P]
     lib.bank_encode_launch.restype = _I
     lib.bank_decode_launch.argtypes = [_P, _P, _I, _P, _I64, _I, _P]
     lib.bank_decode_launch.restype = _I
@@ -79,13 +79,18 @@ def row_scale_cuda(x: torch.Tensor, qmax: float) -> torch.Tensor:
 
 
 def encode_cuda(x: torch.Tensor, scale: torch.Tensor, key: Optional[torch.Tensor], fmt: str,
-                *, deterministic: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                *, deterministic: bool = False, col0: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pass -> (codes (P,), err (P,) f32). `scale` is the (1,) device
     scale; the rounding seed bits(fold_in(key, CODEC_SALT), ()) is derived
     in-kernel from the (2,) uint32 round `key` (unused when
-    `deterministic`)."""
+    `deterministic`). `col0` is the row's first column in a wider row:
+    element i rounds with the counter of column col0 + i."""
     dev = _cuda(x, "encode_cuda")
     n = x.numel()
+    if col0 < 0 or col0 + n > 1 << 32:
+        raise ValueError(f"encode_cuda: columns [{col0}, {col0 + n}) overflow the uint32 "
+                         "rounding counter")
     _build.require(x, "x", torch.float32, dev, n)
     _build.require(scale, "scale", torch.float32, dev, 1)
     if deterministic:
@@ -97,7 +102,8 @@ def encode_cuda(x: torch.Tensor, scale: torch.Tensor, key: Optional[torch.Tensor
     err_row = torch.empty(n, dtype=torch.float32, device=dev)
     err = _library().bank_encode_launch(
         x.data_ptr(), scale.data_ptr(), key_ptr, CODEC_SALT, int(deterministic),
-        int(fmt == "fp8"), codes.data_ptr(), err_row.data_ptr(), n, dev.index, _stream(dev))
+        int(fmt == "fp8"), codes.data_ptr(), err_row.data_ptr(), n, int(col0), dev.index,
+        _stream(dev))
     _build.raise_on(err, "encode")
     launches["encode"] += 1
     return codes, err_row

@@ -69,22 +69,48 @@ def row_scale(x: torch.Tensor, fmt: str) -> torch.Tensor:
     raise _unsupported(x, "row_scale")
 
 
+def row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """(1,) f32 max(max|x|, 1e-30) of a (P,) f32 row (NaN if x holds one):
+    a slice's partial of the row scale. The max of the slices' partials,
+    through `scale_from_absmax`, is bit for bit `row_scale` of the whole
+    row. On CUDA this is the absmax kernel at qmax 1."""
+    if x.device.type == "cpu":
+        return row_scales_ref(x.reshape(1, -1), 1.0)
+    if x.device.type == "cuda":
+        return kernel.row_scale_cuda(x, 1.0)
+    raise _unsupported(x, "row_absmax")
+
+
+def scale_from_absmax(partials: torch.Tensor, fmt: str) -> torch.Tensor:
+    """(1,) scale of a row from its slices' `row_absmax` partials (any
+    shape): max(max partials, 1e-30) / qmax, keeping a NaN as the absmax
+    kernel does."""
+    return row_scales_ref(partials.reshape(1, -1), QMAX[fmt])
+
+
 def encode_row(x: torch.Tensor, key: Optional[torch.Tensor], fmt: str, *,
-               block_elems: Optional[int] = None, deterministic: bool = False
+               block_elems: Optional[int] = None, deterministic: bool = False,
+               col0: int = 0, scale: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Quantize one (P,) f32 row -> (codes (P,), scales (nb,), err (P,)).
 
     err = x - decode(codes, scales) in f32, the error-feedback residual.
-    `key` is the (2,) uint32 round key (ignored when `deterministic`)."""
+    `key` is the (2,) uint32 round key (ignored when `deterministic`). A
+    slice of a wider row (a rank's columns on a device mesh) passes its
+    first column `col0`, so each element rounds with its column's bits,
+    and the whole row's (1,) `scale` (`scale_from_absmax`); None computes
+    the scale of `x`."""
     code_dtype(fmt)
     if x.device.type == "cpu":
         return encode_row_ref(x, key, fmt, block_elems=block_elems,
-                              deterministic=deterministic)
+                              deterministic=deterministic, col0=col0, scale=scale)
     if x.device.type == "cuda":
         if block_elems is not None:
             raise _per_block_on_cuda("encode_row")
-        scale = kernel.row_scale_cuda(x, QMAX[fmt])
-        codes, err = kernel.encode_cuda(x, scale, key, fmt, deterministic=deterministic)
+        if scale is None:
+            scale = kernel.row_scale_cuda(x, QMAX[fmt])
+        codes, err = kernel.encode_cuda(x, scale, key, fmt, deterministic=deterministic,
+                                        col0=col0)
         return codes, scale, err
     raise _unsupported(x, "encode_row")
 

@@ -53,14 +53,16 @@ def det_bits(shape, device=None) -> torch.Tensor:
     return torch.full(tuple(shape), 1 << 31, dtype=torch.int64, device=device).to(torch.uint32)
 
 
-def counter_bits(seed: torch.Tensor, n: int) -> torch.Tensor:
+def counter_bits(seed: torch.Tensor, n: int, start: int = 0) -> torch.Tensor:
     """(n,) uint32 words: murmur3's fmix32 over index * 0x9E3779B9 + seed,
     the reference's cheap stream for stochastic-rounding bits (they
     perturb storage precision, never the DP noise). `seed` is a () uint32
-    tensor; the index is a uint32 counter, so n < 2**32."""
-    if n >= 1 << 32:
-        raise ValueError(f"the counter stream indexes with uint32, got n = {n}")
-    i = torch.arange(n, dtype=torch.int64, device=seed.device)
+    tensor; the indices are start .. start + n - 1 (a slice of a wider
+    row), a uint32 counter, so start + n <= 2**32."""
+    if start < 0 or start + n > 1 << 32 or n >= 1 << 32:
+        raise ValueError(f"the counter stream indexes with uint32, got [{start}, "
+                         f"{start + n})")
+    i = torch.arange(start, start + n, dtype=torch.int64, device=seed.device)
     x = (_mul32(i, 0x9E3779B9) + (seed.to(torch.int64) & _MASK)) & _MASK
     x = x ^ (x >> 16)
     x = _mul32(x, 0x85EBCA6B)
@@ -179,18 +181,25 @@ def _blocks(x: torch.Tensor, block_elems: Optional[int]) -> torch.Tensor:
 
 
 def encode_row_ref(x: torch.Tensor, key: Optional[torch.Tensor], fmt: str, *,
-                   block_elems: Optional[int] = None, deterministic: bool = False
+                   block_elems: Optional[int] = None, deterministic: bool = False,
+                   col0: int = 0, scale: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One (P,) f32 row -> (codes (P,), scales (nb,), err (P,)), on x's
     device. The rounding bits are counter_bits(sr_seed(key)) at the
-    element index (ref.det_bits when `deterministic`, which ignores key)."""
+    element index (ref.det_bits when `deterministic`, which ignores key).
+    A slice of a wider row passes its first column `col0` (its elements
+    round with the counters of their columns) and the whole row's (1,)
+    `scale`; both need one scale per row."""
     p = x.shape[0]
+    if block_elems is not None and (col0 or scale is not None):
+        raise NotImplementedError("a slice of a row takes the row's one scale; per-block "
+                                  "scales encode whole rows only")
     x2 = _blocks(x.to(torch.float32), block_elems)
-    scales = row_scales_ref(x2, QMAX[fmt])
+    scales = row_scales_ref(x2, QMAX[fmt]) if scale is None else scale.reshape(1)
     if deterministic:
         bits = det_bits(x2.shape, device=x.device)
     else:
-        bits = counter_bits(sr_seed(key), x2.numel()).reshape(x2.shape)
+        bits = counter_bits(sr_seed(key), x2.numel(), col0).reshape(x2.shape)
     codes2, err2 = ENCODERS[fmt](x2, bits, scales[:, None])
     return codes2.reshape(-1)[:p], scales, err2.reshape(-1)[:p]
 

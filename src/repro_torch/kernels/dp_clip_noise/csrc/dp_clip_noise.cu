@@ -53,6 +53,11 @@
 // member's result does not depend on g. A single row is the launch with
 // one row.
 //
+// Column offset (a rank's slice of a row on a device mesh): dp_round takes
+// col0 and hashes threefry(key, col0 + i) for element i, so a launch over
+// columns [col0, col0 + n) draws exactly the bits of those columns of the
+// unsharded row; col0 = 0 is the unsharded launch.
+//
 // The per-round scalars (gain or clip scale, noise scale, owner weight) and
 // the key are read from device memory, so the caller never syncs with the
 // host. The float arithmetic uses the _rn intrinsics op for op in the order
@@ -81,7 +86,7 @@ dp_round_kernel(const float* __restrict__ tb, const float* __restrict__ acc,
                 const uint32_t* __restrict__ key, const float* __restrict__ gain,
                 const float* __restrict__ ns, const float* __restrict__ w,
                 float* __restrict__ out_l, float* __restrict__ out_i, int64_t n,
-                float sigma, float lr_own, float lr_l, float inv_2n,
+                int64_t col0, float sigma, float lr_own, float lr_l, float inv_2n,
                 float theta_max) {
   // row blockIdx.y: its own buffers, key and scalars
   const int64_t m = blockIdx.y;
@@ -98,7 +103,7 @@ dp_round_kernel(const float* __restrict__ tb, const float* __restrict__ acc,
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        i < n; i += stride) {
     const float lap = from_bits(
-        threefry_bits(k0, k1, static_cast<uint64_t>(i)));
+        threefry_bits(k0, k1, static_cast<uint64_t>(i + col0)));
     const float t = tb[i];
     const float q = __fadd_rn(__fmul_rn(acc[i], g), __fmul_rn(s, lap));
     const float g_reg = __fmul_rn(sigma, t);
@@ -210,11 +215,13 @@ sqnorm_final_kernel(const float* __restrict__ partial, int nparts,
 
 extern "C" {
 
-// rows x n elements, row m with key[2m:2m+2], gain[m], ns[m] and w[m]
+// rows x n elements, row m with key[2m:2m+2], gain[m], ns[m] and w[m];
+// element i hashes the counter col0 + i (the columns [col0, col0 + n) of a
+// wider row)
 int dp_round_rows_launch(const float* tb, const float* acc, const uint32_t* key,
                          const float* gain, const float* ns, const float* w,
                          float* out_l, float* out_i, long long rows, long long n,
-                         float sigma, float lr_own, float lr_l, float inv_2n,
+                         long long col0, float sigma, float lr_own, float lr_l, float inv_2n,
                          float theta_max, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -224,7 +231,7 @@ int dp_round_rows_launch(const float* tb, const float* acc, const uint32_t* key,
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
     dp_round_kernel<<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(rows)),
                       kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        tb, acc, key, gain, ns, w, out_l, out_i, n, sigma, lr_own, lr_l,
+        tb, acc, key, gain, ns, w, out_l, out_i, n, col0, sigma, lr_own, lr_l,
         inv_2n, theta_max);
   }
   return static_cast<int>(cudaGetLastError());

@@ -38,8 +38,8 @@ def reset_launches() -> None:
 
 def _library() -> ctypes.CDLL:
     lib = _build.load(NAME, SOURCE)
-    lib.dp_round_rows_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _F,
-                                         _F, _F, _F, _F, _I, _P]
+    lib.dp_round_rows_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                                         _F, _F, _F, _F, _F, _I, _P]
     lib.dp_round_rows_launch.restype = _I
     lib.scale_noise_launch.argtypes = [_P, _P, _P, _P, _P, _I64, _I, _P]
     lib.scale_noise_launch.restype = _I
@@ -60,11 +60,13 @@ def _rows_of(x: torch.Tensor, what: str) -> Tuple[int, int]:
 def dp_round_rows_cuda(tb: torch.Tensor, acc: torch.Tensor, keys: torch.Tensor,
                        gain: torch.Tensor, noise_scale: torch.Tensor, w: torch.Tensor,
                        *, sigma: float, lr_own: float, lr_l: float, inv_2n: float,
-                       theta_max: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                       theta_max: float, col0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the fused round over g members -> (new_L, new_i), each
     (g, P): row m of `tb` and `acc` (g, P) f32 with key `keys[m]` ((g, 2)
     uint32) and the m-th of `gain`, `noise_scale` and `w` ((g,) f32), all on
-    the buffers' device. Row m equals dp_round_cuda on row m bit for bit."""
+    the buffers' device. Row m equals dp_round_cuda on row m bit for bit.
+    `col0` is the rows' first column in a wider row: element i draws the
+    bits of column col0 + i."""
     dev = tb.device
     if dev.type != "cuda":
         raise ValueError(f"dp_round_rows_cuda needs CUDA tensors, got {dev}")
@@ -79,7 +81,7 @@ def dp_round_rows_cuda(tb: torch.Tensor, acc: torch.Tensor, keys: torch.Tensor,
     err = _library().dp_round_rows_launch(
         tb.data_ptr(), acc.data_ptr(), keys.data_ptr(), gain.data_ptr(),
         noise_scale.data_ptr(), w.data_ptr(), new_l.data_ptr(), new_i.data_ptr(),
-        g, n, sigma, lr_own, lr_l, inv_2n, theta_max, dev.index,
+        g, n, int(col0), sigma, lr_own, lr_l, inv_2n, theta_max, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on(err, "dp_round")
     launches["dp_round"] += 1

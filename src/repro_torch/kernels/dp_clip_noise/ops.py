@@ -46,20 +46,22 @@ def _unsupported(t: torch.Tensor, op: str) -> ValueError:
 
 def dp_round_flat(tb: torch.Tensor, acc: torch.Tensor, key: torch.Tensor,
                   gain, noise_scale, w, *, sigma: float, lr_own: float,
-                  lr_l: float, n_owners: int, theta_max: float
+                  lr_l: float, n_owners: int, theta_max: float, col0: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Whole inertia round on a (P,) f32 buffer -> (new_L, new_i): group
     mean (`gain`), the Laplace add (eq. 4), eqs. (5)/(7) and the theta_max
     projection in one pass. On CUDA, `gain`, `noise_scale` and `w` are
-    one-element device tensors."""
+    one-element device tensors. `col0` is the buffer's first column in a
+    wider row (a rank's slice on a device mesh): element i draws the bits
+    of column col0 + i, so the slices of a row equal its columns."""
     if tb.device.type == "cpu":
-        return dp_round_ref(tb, acc, random.bits(key, tb.shape), gain, noise_scale,
-                            w, sigma=sigma, lr_own=lr_own, lr_l=lr_l,
+        return dp_round_ref(tb, acc, random.bits_range(key, col0, col0 + tb.shape[0]), gain,
+                            noise_scale, w, sigma=sigma, lr_own=lr_own, lr_l=lr_l,
                             n_owners=n_owners, theta_max=theta_max)
     if tb.device.type == "cuda":
         return dp_round_cuda(tb, acc, key, gain, noise_scale, w, sigma=sigma,
                              lr_own=lr_own, lr_l=lr_l, inv_2n=1.0 / (2 * n_owners),
-                             theta_max=theta_max)
+                             theta_max=theta_max, col0=col0)
     raise _unsupported(tb, "dp_round_flat")
 
 
@@ -76,17 +78,18 @@ def fused_sqnorm(g: torch.Tensor) -> torch.Tensor:
 def dp_round_rows(tb: torch.Tensor, acc: torch.Tensor, keys: torch.Tensor,
                   gain: torch.Tensor, noise_scale: torch.Tensor, w: torch.Tensor, *,
                   sigma: float, lr_own: float, lr_l: float, n_owners: int,
-                  theta_max: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                  theta_max: float, col0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """`dp_round_flat` over g members -> (new_L, new_i), each (g, P): tb and
     acc (g, P) f32, keys (g, 2) uint32 (row m draws random.bits(keys[m],
-    (P,))), gain, noise_scale and w (g,) f32 device tensors."""
+    (P,)), from column `col0` of a wider row), gain, noise_scale and w (g,)
+    f32 device tensors."""
     kw = dict(sigma=sigma, lr_own=lr_own, lr_l=lr_l, theta_max=theta_max)
     if tb.device.type == "cpu":
-        return dp_round_rows_ref(tb, acc, random.bits(keys, (tb.shape[-1],)), gain,
-                                 noise_scale, w, n_owners=n_owners, **kw)
+        return dp_round_rows_ref(tb, acc, random.bits_range(keys, col0, col0 + tb.shape[-1]),
+                                 gain, noise_scale, w, n_owners=n_owners, **kw)
     if tb.device.type == "cuda":
         return dp_round_rows_cuda(tb, acc, keys, gain, noise_scale, w,
-                                  inv_2n=1.0 / (2 * n_owners), **kw)
+                                  inv_2n=1.0 / (2 * n_owners), col0=col0, **kw)
     raise _unsupported(tb, "dp_round_rows")
 
 

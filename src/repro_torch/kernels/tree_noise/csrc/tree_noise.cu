@@ -86,7 +86,8 @@ tree_delta_kernel(float* __restrict__ nodes, const int32_t* __restrict__ counts,
                   const int64_t* __restrict__ owner, const int64_t* __restrict__ slot,
                   const uint32_t* __restrict__ key,
                   const float* __restrict__ ns, const int32_t* __restrict__ grant,
-                  float* __restrict__ delta, int64_t n, int depth, int vec) {
+                  float* __restrict__ delta, int64_t n, int64_t col0, int depth,
+                  int vec) {
   // member blockIdx.y: its owner, node row, key, scale, grant and delta row
   const int64_t m = blockIdx.y;
   const int64_t o = owner[m];
@@ -130,7 +131,7 @@ tree_delta_kernel(float* __restrict__ nodes, const int32_t* __restrict__ counts,
         sum.z = __fadd_rn(sum.z, v.z);
         sum.w = __fadd_rn(sum.w, v.w);
       }
-      const int64_t i = j << 2;
+      const int64_t i = (j << 2) + col0;
       const float4 z = make_float4(draw(s, k0, k1, i), draw(s, k0, k1, i + 1),
                                    draw(s, k0, k1, i + 2), draw(s, k0, k1, i + 3));
       if (write) {
@@ -145,7 +146,7 @@ tree_delta_kernel(float* __restrict__ nodes, const int32_t* __restrict__ counts,
   for (int64_t i = tail + start; i < n; i += stride) {
     float sum = 0.f;
     for (int l = 0; l < r; ++l) sum = __fadd_rn(sum, __ldcs(row + l * n + i));
-    const float z = draw(s, k0, k1, i);
+    const float z = draw(s, k0, k1, i + col0);
     if (write) {
       for (int l = 0; l < r; ++l) __stcs(row + l * n + i, 0.f);
     }
@@ -160,11 +161,12 @@ extern "C" {
 
 // rows members: owner[m], node row slot[m] (slot may be null: the owner's
 // own row), key[2m:2m+2], ns[m], grant[m] (grant may be null: all granted),
-// delta row m of rows x n
+// delta row m of rows x n; element i draws the counter col0 + i (the columns
+// [col0, col0 + n) of a wider row)
 int tree_delta_rows_launch(float* nodes, const int32_t* counts, const int64_t* owner,
                            const int64_t* slot, const uint32_t* key, const float* ns,
                            const int32_t* grant, float* delta, long long rows, long long n,
-                           int depth,
+                           long long col0, int depth,
                            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -178,7 +180,7 @@ int tree_delta_rows_launch(float* nodes, const int32_t* counts, const int64_t* o
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
     tree_delta_kernel<<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(rows)),
                         kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        nodes, counts, owner, slot, key, ns, grant, delta, n, depth, vec);
+        nodes, counts, owner, slot, key, ns, grant, delta, n, col0, depth, vec);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,8 +37,8 @@ def reset_launches() -> None:
 
 def _library() -> ctypes.CDLL:
     lib = _build.load(NAME, SOURCE)
-    lib.tree_delta_rows_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I,
-                                           _I, _P]
+    lib.tree_delta_rows_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                                           _I, _I, _P]
     lib.tree_delta_rows_launch.restype = _I
     return lib
 
@@ -46,7 +46,8 @@ def _library() -> ctypes.CDLL:
 def tree_delta_rows_cuda(nodes: torch.Tensor, counts: torch.Tensor, owner_idx: torch.Tensor,
                          keys: torch.Tensor, noise_scale: torch.Tensor,
                          grant: Optional[torch.Tensor] = None,
-                         row_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         row_idx: Optional[torch.Tensor] = None, col0: int = 0
+                         ) -> torch.Tensor:
     """One launch for g owners: advance the rows of `owner_idx` ((g,) int64,
     DISTINCT: the kernel assumes it and does not check) of the (N, depth,
     P) f32 node tensor in place and return delta (g, P). Member m takes
@@ -54,7 +55,9 @@ def tree_delta_rows_cuda(nodes: torch.Tensor, counts: torch.Tensor, owner_idx: t
     ((g,) int32, or None: all granted); `counts` is read, not bumped. Row m
     equals tree_delta_cuda on owner_idx[m] bit for bit. `row_idx` ((g,)
     int64, or None: the owners' own rows) is each member's node row, the
-    hot slot of a paged bank; the counts are still read by owner."""
+    hot slot of a paged bank; the counts are still read by owner. `col0` is
+    the nodes' first column in a wider row: element i draws the bits of
+    column col0 + i."""
     dev = nodes.device
     if dev.type != "cuda":
         raise ValueError(f"tree_delta_rows_cuda needs CUDA tensors, got {dev}")
@@ -77,7 +80,8 @@ def tree_delta_rows_cuda(nodes: torch.Tensor, counts: torch.Tensor, owner_idx: t
         nodes.data_ptr(), counts.data_ptr(), owner_idx.data_ptr(),
         None if row_idx is None else row_idx.data_ptr(), keys.data_ptr(),
         noise_scale.data_ptr(), None if grant is None else grant.data_ptr(),
-        delta.data_ptr(), g, p, depth, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        delta.data_ptr(), g, p, int(col0), depth, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on(err, "tree_delta")
     launches["tree_delta"] += 1
     return delta
@@ -86,7 +90,7 @@ def tree_delta_rows_cuda(nodes: torch.Tensor, counts: torch.Tensor, owner_idx: t
 def tree_delta_cuda(nodes: torch.Tensor, counts: torch.Tensor, owner_idx: torch.Tensor,
                     key: torch.Tensor, noise_scale: torch.Tensor,
                     grant: Optional[torch.Tensor] = None,
-                    row_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    row_idx: Optional[torch.Tensor] = None, col0: int = 0) -> torch.Tensor:
     """Advance owner `owner_idx`'s row of the (N, depth, P) f32 node tensor
     in place and return delta (P,): the batched launch with one member.
 
@@ -96,4 +100,4 @@ def tree_delta_cuda(nodes: torch.Tensor, counts: torch.Tensor, owner_idx: torch.
     int32 tensor, all on the nodes' device; `row_idx` a (1,) int64 node
     row apart from the owner (a paged bank's hot slot), or None."""
     return tree_delta_rows_cuda(nodes, counts, owner_idx, key, noise_scale, grant,
-                                row_idx)[0]
+                                row_idx, col0)[0]

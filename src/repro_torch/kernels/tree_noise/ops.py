@@ -40,18 +40,22 @@ from repro_torch.kernels.tree_noise.ref import (tree_delta_inplace_ref,
 def tree_delta_(nodes: torch.Tensor, counts: torch.Tensor, owner_idx: torch.Tensor,
                 key: torch.Tensor, noise_scale: torch.Tensor,
                 grant: Optional[torch.Tensor] = None,
-                row_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                row_idx: Optional[torch.Tensor] = None, col0: int = 0) -> torch.Tensor:
     """Advance owner `owner_idx` ((1,) int64) by one leaf: its row of the
     (N, depth, P) f32 `nodes` is updated in place unless `grant` (a
     one-element int32 tensor; None = granted) is 0, and delta (P,) is
     returned. `counts` (N,) int32 is read, not bumped. `row_idx` ((1,)
-    int64, or None) is the node row when it is not `owner_idx`'s own."""
+    int64, or None) is the node row when it is not `owner_idx`'s own.
+    `col0` is the nodes' first column in a wider row (a rank's slice on a
+    device mesh): element i draws the bits of column col0 + i."""
     if nodes.device.type == "cpu":
+        p = nodes.shape[-1]
         return tree_delta_inplace_ref(nodes, counts, owner_idx,
-                                      random.bits(key, (nodes.shape[-1],)), noise_scale,
+                                      random.bits_range(key, col0, col0 + p), noise_scale,
                                       grant, row_idx)
     if nodes.device.type == "cuda":
-        return tree_delta_cuda(nodes, counts, owner_idx, key, noise_scale, grant, row_idx)
+        return tree_delta_cuda(nodes, counts, owner_idx, key, noise_scale, grant, row_idx,
+                               col0)
     raise ValueError(f"tree_delta_: tensors on {nodes.device} are not supported "
                      "(cpu runs the plain version, cuda the kernel)")
 
@@ -59,7 +63,7 @@ def tree_delta_(nodes: torch.Tensor, counts: torch.Tensor, owner_idx: torch.Tens
 def tree_delta_rows_(nodes: torch.Tensor, counts: torch.Tensor, owner_idx: torch.Tensor,
                      keys: torch.Tensor, noise_scale: torch.Tensor,
                      grant: Optional[torch.Tensor] = None,
-                     row_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     row_idx: Optional[torch.Tensor] = None, col0: int = 0) -> torch.Tensor:
     """Advance g DISTINCT owners (`owner_idx` (g,) int64) by one leaf each:
     member m's row of `nodes` is updated in place unless grant[m] ((g,)
     int32; None = all granted) is 0, drawing random.bits(keys[m], (P,))
@@ -68,17 +72,18 @@ def tree_delta_rows_(nodes: torch.Tensor, counts: torch.Tensor, owner_idx: torch
     assumed on CUDA (a check there would read the owners back). `row_idx`
     ((g,) int64, or None) are the members' node rows on a paged bank: the
     resident members' slots are distinct, and a member that missed the page
-    table has grant 0 and writes no node."""
+    table has grant 0 and writes no node. `col0` as in `tree_delta_`."""
     if nodes.device.type == "cpu":
         if torch.unique(owner_idx).numel() != owner_idx.numel():
             raise ValueError(f"tree_delta_rows_ needs distinct owners, got "
                              f"{owner_idx.tolist()}")
+        p = nodes.shape[-1]
         return tree_delta_rows_inplace_ref(nodes, counts, owner_idx,
-                                           random.bits(keys, (nodes.shape[-1],)),
+                                           random.bits_range(keys, col0, col0 + p),
                                            noise_scale, grant, row_idx)
     if nodes.device.type == "cuda":
         return tree_delta_rows_cuda(nodes, counts, owner_idx, keys, noise_scale, grant,
-                                    row_idx)
+                                    row_idx, col0)
     raise ValueError(f"tree_delta_rows_: tensors on {nodes.device} are not supported "
                      "(cpu runs the plain version, cuda the kernel)")
 

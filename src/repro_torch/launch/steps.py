@@ -47,8 +47,10 @@ def default_async_cfg(n_owners: int = 4, horizon: int = 1000, n_microbatches: in
 
 def _no_mesh(mesh) -> None:
     if mesh is not None:
-        raise NotImplementedError("the port runs a step on one device: sharding over a mesh "
-                                  "waits for ROADMAP queue 1, item 7 (pass mesh=None)")
+        raise NotImplementedError("the model zoo's steps run on one device: LM parameters "
+                                  "placed over a mesh (sharding.rules.param_specs) are the "
+                                  "rest of ROADMAP queue 1, item 7 (pass mesh=None; the "
+                                  "federation engine takes mesh= on its flat states)")
 
 
 def prefill_logits(model: LM, params: Params, batch: Batch,

@@ -111,9 +111,9 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return _as_key(*threefry2x32(k0, k1, torch.zeros_like(d), d))
 
 
-def _bits_i64(key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+def _bits_i64(key: torch.Tensor, shape: Tuple[int, ...], start: int = 0) -> torch.Tensor:
     k0, k1 = _words(key)
-    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device)
+    idx = torch.arange(start, start + math.prod(shape), dtype=torch.int64, device=key.device)
     y0, y1 = threefry2x32(k0.unsqueeze(-1), k1.unsqueeze(-1), idx >> 32, idx & _MASK)
     return (y0 ^ y1).reshape(tuple(k0.shape) + shape)
 
@@ -122,6 +122,16 @@ def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """jax.random.bits(key, shape) with the default uint32 width ((...,
     *shape) for a batch of keys)."""
     return _bits_i64(key, _shape(shape)).to(torch.uint32)
+
+
+def bits_range(key: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """Elements [start, stop) of a flat draw: bits(key, (n,))[start:stop] for
+    any n >= stop, computed for the slice alone ((..., stop - start) for a
+    batch of keys). A rank holding columns [start, stop) of a row draws
+    the bits of those columns of the unsharded row."""
+    if not 0 <= start <= stop:
+        raise ValueError(f"bits_range needs 0 <= start <= stop, got [{start}, {stop})")
+    return _bits_i64(key, (stop - start,), start).to(torch.uint32)
 
 
 def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int) -> torch.Tensor:

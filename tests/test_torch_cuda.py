@@ -1223,3 +1223,106 @@ def test_paged_dispatch_on_the_card(form):
     assert out[True]["launches"][kernel] > 0 and out[True]["launches"]["sqnorm"] > 0
     if form == "int8":
         assert all(out[True]["launches"][k] > 0 for k in ("absmax", "encode", "decode"))
+
+
+# ------------------------------------------ col0 and the mesh -------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("cuts", [(0, 2053, 4099), (0, 1000, 3001, 4099),
+                                  (0, 1_000_003, 3 * 1024 * 1024 + 77)])
+def test_col0_launches_equal_the_full_row_and_the_plain_versions(cuts):
+    """dp_round (single and rows), tree_delta (single and rows) and encode
+    over columns [c0, c1) with col0 = c0 equal the full launch's columns and
+    their plain versions at that col0, bit for bit (dp_round within the
+    log1pf bound against its plain version, as above)."""
+    dev = _device()
+    p = cuts[-1]
+    gen = torch.Generator(device=dev).manual_seed(p)
+    tb = torch.randn((3, p), device=dev, generator=gen)
+    acc = torch.randn((3, p), device=dev, generator=gen)
+    keys = trandom.split(trandom.PRNGKey(9, device=dev), 3)
+    gain, ns, w = (torch.rand(3, device=dev, generator=gen) for _ in range(3))
+    full = tops.dp_round_rows(tb, acc, keys, gain, ns, w, **ROUND)
+    nodes = torch.randn((4, 3, p), device=dev, generator=gen)
+    counts = torch.tensor([0, 1, 2, 6], dtype=torch.int32, device=dev)
+    owners = torch.tensor([1, 3, 0], dtype=torch.int64, device=dev)
+    whole = nodes.clone()
+    dfull = nops.tree_delta_rows_(whole, counts, owners, keys, ns)
+    x = torch.randn(p, device=dev, generator=gen) * 0.1
+    codes, scale, err = bops.encode_row(x, keys[0], "int8")
+    for c0, c1 in zip(cuts[:-1], cuts[1:]):
+        sl = slice(c0, c1)
+        rows = tops.dp_round_rows(tb[:, sl].contiguous(), acc[:, sl].contiguous(), keys, gain,
+                                  ns, w, col0=c0, **ROUND)
+        one = tops.dp_round_flat(tb[0, sl], acc[0, sl], keys[0], gain[:1], ns[:1], w[:1],
+                                 col0=c0, **ROUND)
+        plain = tref.dp_round_ref(tb[0, sl], acc[0, sl], trandom.bits_range(keys[0], c0, c1),
+                                  gain[:1], ns[:1], w[:1], **ROUND)
+        for a, b, c, d in zip(rows, full, one, plain):
+            assert torch.equal(a, b[:, sl]) and torch.equal(c, b[0, sl])
+            torch.testing.assert_close(c, d, rtol=1e-6, atol=1e-6)
+        part = nodes[:, :, sl].clone()
+        d = nops.tree_delta_rows_(part, counts, owners, keys, ns, col0=c0)
+        assert torch.equal(d, dfull[:, sl]) and torch.equal(part, whole[:, :, sl])
+        plain_nodes = nodes[:, :, sl].clone()
+        pd = nref.tree_delta_inplace_ref(plain_nodes, counts, owners[:1],
+                                         trandom.bits_range(keys[0], c0, c1), ns[:1])
+        assert torch.equal(d[0], pd)
+        pc, _, pe = bops.encode_row(x[sl], keys[0], "int8", col0=c0, scale=scale)
+        assert torch.equal(pc, codes[sl]) and torch.equal(pe, err[sl])
+        rc, _, re = bref.encode_row_ref(x[sl], keys[0], "int8", col0=c0, scale=scale)
+        assert torch.equal(pc, rc) and torch.equal(pe, re)
+        assert torch.equal(bops.row_absmax(x[sl]), bref.row_scales_ref(x[sl].reshape(1, -1),
+                                                                       1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8", "tree"])
+def test_one_by_one_nccl_mesh_equals_the_unmeshed_engine_on_the_card(form):
+    """A world of one over NCCL and the 1x1 mesh: sequential and grouped
+    dispatches equal their unmeshed twins on the card bit for bit, with the
+    same launches; the process group is torn down after."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = _device()
+    cfg = DENSE_124M.reduced()
+    lm = LM(cfg)
+    params = lm.init(seed=2, device=dev)
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (12, 4, 16), generator=gen, dtype=torch.int32)
+    batches = {"tokens": toks, "labels": torch.roll(toks, -1, dims=2)}
+    seq = [0, 1, 2, 3, 1, 0, 3, 2, 2, 2, 1, 0]
+    tree = form == "tree"
+    bank_dtype = {"bf16": torch.bfloat16, "int8": "int8"}.get(form)
+    mech = dict(mechanism="tree", tree_depth=2) if tree else {}
+    mesh = make_host_mesh()
+    try:
+        for grouped in (False, True):
+            out = []
+            for m in (None, mesh):
+                fed = Federation([DataOwner(n=100 * (i + 1), epsilon=1.0, xi=1.0)
+                                  for i in range(4)],
+                                 FederationConfig.from_target_lr(0.05, n_owners=4,
+                                                                 horizon=8 if tree else 2,
+                                                                 sigma=1e-2),
+                                 device=dev, **mech)
+                fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True,
+                              bank_dtype=bank_dtype, mesh=m,
+                              privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2,
+                                                          fused_kernel=True))
+                before = {**tkernel.launches, **nkernel.launches, **bkernel.launches}
+                state, ms = fed.run_rounds(fed.init_state(params), batches, seq,
+                                           key=trandom.PRNGKey(5, device=dev),
+                                           owner_parallel=grouped)
+                after = {**tkernel.launches, **nkernel.launches, **bkernel.launches}
+                bank = state.bank
+                parts = ([bank.codes, bank.scales, bank.residual]
+                         if isinstance(bank, QuantBank) else [bank])
+                parts += [state.theta_L.buf] + [ms[k] for k in sorted(ms)]
+                if tree:
+                    parts += [state.tree.nodes, state.tree.counts]
+                out.append(([t.cpu() for t in parts], fed.reconcile(state),
+                            {k: after[k] - before[k] for k in after}))
+            (a, la, ka), (b, lb, kb) = out
+            assert all(torch.equal(x, y) for x, y in zip(a, b)) and la == lb and ka == kb
+    finally:
+        dist.destroy_process_group()

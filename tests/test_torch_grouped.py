@@ -25,9 +25,9 @@ its single-row entry point called row by row.
 
 The reference's `test_owner_parallel_repeat_dispatches_reuse_compile_cache`
 has no counterpart: torch compiles nothing, so the port runs each group at
-its own length and pads nothing. Its mesh cases wait for the port's
-sharding (ROADMAP queue 1, item 7) and its bf16-bank case for the port's
-bf16 banks under this driver (item 2), which raise here.
+its own length and pads nothing. Its bf16-bank case is here
+(test_bf16_bank_under_grouped_owner_parallel); its mesh cases are in
+tests/test_torch_sharded_engine.py.
 """
 import jax
 import jax.numpy as jnp
@@ -395,11 +395,11 @@ def test_reduced_lm_grouped_rounds_match_reference():
 
 # ----------------------------------- raising cases ---------------------------------
 def _raises_bf16(toy):
+    # a bf16 bank is a flat-engine storage: asked of a pytree state it
+    # raises (the grouped driver itself runs bf16 banks, see below)
     params, data, seq = toy
-    fed = _fed(tfed, "f32", device=CPU)
-    st = fed.init_state(params_from_numpy(params, device=CPU), bank_dtype=torch.bfloat16)
-    fed.run_rounds(st, {k: torch.from_numpy(v) for k, v in data.items()}, seq,
-                   key=trandom.PRNGKey(0, device=CPU), owner_parallel=True)
+    fed = _fed(tfed, "pytree", device=CPU)
+    fed.init_state(params_from_numpy(params, device=CPU), bank_dtype=torch.bfloat16)
 
 
 def _raises_max_group(toy):
@@ -432,7 +432,7 @@ def _raises_repeated_owner(toy):
 
 
 RAISING = {
-    "bf16 bank": (_raises_bf16, NotImplementedError, "waits for a later slice"),
+    "bf16 bank": (_raises_bf16, ValueError, "bank_dtype is a flat-engine option"),
     "max_group 0": (_raises_max_group, ValueError, "max_group must be >= 1"),
     "group not a consecutive run": (_raises_scattered_group, ValueError, "consecutive run"),
     "no device ledger": (_raises_no_ledger, ValueError, "device ledger"),
@@ -445,3 +445,58 @@ def test_raising_cases(toy, case):
     fn, exc, match = RAISING[case]
     with pytest.raises(exc, match=match):
         fn(toy)
+
+
+# ------------------------------- bf16 banks under the grouped driver ----------------------
+def _bf16_run(mod, toy, owner_parallel, paged=False):
+    params, data, seq = toy
+    bf16 = torch.bfloat16 if mod is tfed else jnp.bfloat16
+    extra = dict(device=CPU) if mod is tfed else {}
+    fed = _fed(mod, "f32", **extra)
+    priv = mod.PrivatizerConfig(xi=1.0, granularity="microbatch", n_microbatches=2,
+                                fused_kernel=True)
+    fed.make_step(_LOSS[mod], privatizer=priv, pack_params=True, bank_dtype=bf16)
+    if mod is tfed:
+        p = params_from_numpy(params, device=CPU)
+        st = fed.init_paged_state(p, n_hot=N) if paged else fed.init_state(p)
+        st, ms = fed.run_rounds(st, {k: torch.from_numpy(v) for k, v in data.items()}, seq,
+                                key=trandom.PRNGKey(4, device=CPU),
+                                owner_parallel=owner_parallel)
+        return fed, st, {k: _np(v) for k, v in ms.items()}
+    st = fed.init_state({k: jnp.asarray(v) for k, v in params.items()})
+    st, ms = fed.run_rounds(st, {k: jnp.asarray(v) for k, v in data.items()}, jnp.asarray(seq),
+                            key=jax.random.PRNGKey(4), owner_parallel=owner_parallel)
+    return fed, st, {k: np.asarray(v) for k, v in ms.items()}
+
+
+_LOSS = {
+    jfed: lambda p, b: jnp.mean((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2),
+    tfed: lambda p, b: torch.mean((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2),
+}
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["flat", "paged"])
+def test_bf16_bank_under_grouped_owner_parallel(toy, paged):
+    """The reference's contract (tests/test_sharded_engine.py): the grouped
+    driver on a bf16 bank keeps the sequential bf16 run's refusal pattern
+    and ledger spend exactly, writes its rows back in bf16, and theta_L
+    stays finite within 2.0 of the sequential run; the refusals and the
+    reconciled ledger also equal the reference's grouped bf16 run."""
+    fs, ss, ms = _bf16_run(tfed, toy, owner_parallel=False, paged=paged)
+    fg, sg, mg = _bf16_run(tfed, toy, owner_parallel=True, paged=paged)
+    groups = tfed.partition_conflict_free(toy[2], tfed.auto_max_group(toy[2]))
+    assert max(n for _, n in groups) > 1
+    hot = sg.bank.hot if paged else sg.bank
+    assert hot.dtype == torch.bfloat16
+    assert ms["refused"].sum() > 0
+    np.testing.assert_array_equal(ms["refused"], mg["refused"])
+    np.testing.assert_array_equal(_np(ss.ledger.spent), _np(sg.ledger.spent))
+    led = fg.reconcile(sg)
+    assert led == fs.reconcile(ss)
+    g = _np(sg.theta_L.buf)
+    assert np.isfinite(g).all()
+    assert np.max(np.abs(_np(ss.theta_L.buf) - g)) < 2.0
+    jf, js, jm = _bf16_run(jfed, toy, owner_parallel=True)
+    np.testing.assert_array_equal(mg["refused"], jm["refused"])
+    np.testing.assert_array_equal(_np(sg.ledger.spent), np.asarray(js.ledger.spent))
+    _ledger_parity(led, jf.reconcile(js))

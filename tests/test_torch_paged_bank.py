@@ -7,8 +7,8 @@ cold-tier row stores round-trip f32, bf16, int8 and fp8 rows bit for bit
 sparse); the page table resolves owners with the sentinel padding; with
 every dispatched row resident the PAGED engine equals the FLAT one bit
 for bit on the step loop, `make_fused_rounds` and `make_group_rounds`,
-over f32, int8 and fp8 banks (bf16 on the sequential drivers; the grouped
-driver refuses bf16, paged or not), under refusals, under a FaultPlan and
+over f32, int8 and fp8 banks (bf16 too, the grouped driver included),
+under refusals, under a FaultPlan and
 under the tree; rows evicted to the cold tier (in memory and on disk)
 come back bit for bit; a TraceRing run equals the materialized trace; a
 round whose owner is not resident is refused, spends nothing and leaves
@@ -22,8 +22,8 @@ the reference's exactly; theta_L and the bank agree within the tolerances
 of tests/test_torch_federation.py (rtol 1e-4, atol 1e-6; int8 codes
 within one step).
 
-The reference's 1x1-mesh test of the paged engine waits for the port's
-sharding (ROADMAP queue 1, item 7).
+The reference's 1x1-mesh test of the paged engine has its counterpart in
+tests/test_torch_sharded_engine.py.
 """
 import os
 
@@ -308,12 +308,20 @@ def test_grouped_paged_matches_flat(toy, bank_dtype):
 
 
 def test_grouped_driver_refuses_a_paged_bf16_bank(toy):
+    # the grouped driver refused bf16 banks until they were ported; now a
+    # paged bf16 bank runs under it and equals the flat bf16 bank bit for
+    # bit, its rows staying bf16
     params, data = toy
-    fed = _fed(bank_dtype=torch.bfloat16)
-    sp = fed.init_paged_state(_params(tfed, params), n_hot=N)
-    with pytest.raises(NotImplementedError, match="grouped driver"):
-        fed.run_rounds(sp, _batches(tfed, data), np.arange(K) % N, key=_key(8),
-                       owner_parallel=True, max_group=4)
+    kw = dict(owner_parallel=True, max_group=4)
+    seq = np.arange(K) % N
+    fed_f = _fed(bank_dtype=torch.bfloat16)
+    sf, mf = fed_f.run_rounds(fed_f.init_state(_params(tfed, params)), _batches(tfed, data),
+                              seq, key=_key(8), **kw)
+    fed_p = _fed(bank_dtype=torch.bfloat16)
+    sp, mp = fed_p.run_rounds(fed_p.init_paged_state(_params(tfed, params), n_hot=N),
+                              _batches(tfed, data), seq, key=_key(8), **kw)
+    assert sp.bank.hot.dtype == torch.bfloat16
+    _assert_states_equal(sf, sp, mf, mp)
 
 
 @pytest.mark.parametrize("driver", ["sequential", "grouped", "step"])
