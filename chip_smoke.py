@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases (any mismatch raises and the run exits non-zero):
+Phases (any mismatch raises and the run exits non-zero; the profiled
+federation dispatches of every phase but main trace the device alone,
+without the host's op events, which no printed number reads):
 
 1. build   — compile every CUDA source of the paths with nvcc (all started
              at once: dp_clip_noise.cu, bank_codec.cu, tree_noise.cu,
@@ -91,7 +93,7 @@ Phases (any mismatch raises and the run exits non-zero):
    mesh    — the federation engine on a device mesh: a world of one over
              NCCL in this process (an in-memory store, no network) and the
              1x1 (data, model) mesh of launch.mesh.make_host_mesh; main's
-             model, 16 owners, batch, G, K = 32 rounds a dispatch, one
+             model, 16 owners, batch, G, K = 16 rounds a dispatch, one
              dispatch each on a meshed state and its unmeshed twin (the
              same sequence, batches and key): f32 and bf16 banks on the
              sequential fused driver and on the grouped driver, an int8
@@ -103,6 +105,26 @@ Phases (any mismatch raises and the run exits non-zero):
              FlatLayout collective timed alone on the one-rank groups (the
              row pick and theta_bar's gather at P, the scalar reductions);
              the process group is destroyed at the end.
+   example — per-example clipping on the fused flat engine
+             (PrivatizerConfig(granularity="example", fused_kernel=True)):
+             main's model and batch, 4 owners, K = 8 rounds a dispatch. A
+             warm, a timed and a profiled sequential dispatch, each with K
+             sqnorm (one row-axis launch over the 4 per-example gradients a
+             round) and K dp_round and nothing else; the warm dispatch's
+             rounds again as a step() loop from a fresh state: bit for bit;
+             a grouped dispatch at main's 16 owners, max_group "auto", over
+             8 distinct owners (groups as long as the free device memory
+             allows), with one sqnorm (g x 4 rows) and one dp_round a
+             group, and its peak; one dispatch of the model cast to bf16
+             (params_of in bf16) and one on an f16 bank; then on the 1x1
+             mesh of a fresh world of one, a meshed state's save_session
+             under build/ adds at most one piece (PIECE_BYTES) to the
+             device's peak and holds its unmeshed twin's arrays bit for bit
+             (keys, dtypes, every array), and the checkpoint restored on
+             the mesh runs the next dispatch as the uninterrupted session
+             does, bit for bit. Device ms a round,
+             launches and peak GB beside main's; fused_sqnorm_rows at (4,
+             P) timed beside fused_sqnorm at (P,).
    faults  — main's path with the fault layer and the asynchronous runtime
              armed: FaultPlan(drop, stale, nonfinite, corrupt = 0.05 each),
              FaultPolicy(max_faults 3, window 16), StalenessPolicy(deadline
@@ -125,7 +147,7 @@ Phases (any mismatch raises and the run exits non-zero):
              every ledger column, quarantine included.
    paged   — the paged owner bank (Federation.init_paged_state, OwnerPager,
              TraceRing) at full width, main's batch, sequence and G, K =
-             32: (a) parity, 16 owners with n_hot 16 on an f32 bank, one
+             16: (a) parity, 16 owners with n_hot 16 on an f32 bank, one
              dispatch on a paged and on a flat state with the same key,
              one of 8 rounds profiled on each (the lookup's kernels and
              device time), then one under run_rounds(owner_parallel=True,
@@ -144,8 +166,8 @@ Phases (any mismatch raises and the run exits non-zero):
              of the trace; (c) the same five dispatches on an int8 bank
              with n_hot 64 (9.8 GB of codes): K absmax, encode and decode
              per dispatch too.
-   checkpoint — crash-resume at full width: main's 16-owner f32 state
-             (10.39 GB) after one dispatch and a reconcile is saved with
+   checkpoint — crash-resume at full width: main's model on an 8-owner
+             f32 bank (5.5 GB) after one dispatch and a reconcile is saved with
              save_session under build/ (free disk checked first, the
              directory removed after), the session runs K = 8 more rounds;
              a fresh Federation restores into a fresh state and runs the
@@ -183,7 +205,7 @@ Phases (any mismatch raises and the run exits non-zero):
              no kernel launch) on a fresh pytree state, the second's ms
              per round.
    serve   — zamba2-2.7b at full width (2,343,741,088 parameters, f32,
-             random weights from a seed): prefill of B 2 x S 4096 with
+             random weights from a seed, drawn on the card): prefill of B 2 x S 4096 with
              attn_backend="pallas", three timed (the first warms up) and
              one under torch.profiler, with the launch counters set to 0
              just before and read just after: 9 flash_attention and 54
@@ -205,7 +227,8 @@ Phases (any mismatch raises and the run exits non-zero):
              zamba2-2.7b at full width cut to its first 12 of 54 Mamba2
              layers (P = 668,655,424; the one cut, for memory), 4 owners
              on a 10.7 GB f32 bank, S 1024 (four SSD chunks); phase
-             main's dispatches, profile, steps and reconcile. Launch
+             main's dispatches (three timed),
+             profile, steps and reconcile. Launch
              counts per dispatch must be K*G*12 ssd_chunk_scan and
              ssd_chunk_scan_bwd, K*G sqnorm, K dp_round and 0
              flash_attention (one kv chunk: plain attention).
@@ -1364,7 +1387,7 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
                                          launches=per_round_launches, peak=peak)
 
 
-MESH_K = 32                      # rounds a dispatch in phase mesh
+MESH_K = 16                      # rounds a dispatch in phase mesh
 # phase mesh's runs: (tag, bank_dtype, tree depth, owner_parallel)
 MESH_RUNS = (("f32", None, None, False), ("f32", None, None, True),
              ("bf16", "bfloat16", None, False), ("bf16", "bfloat16", None, True),
@@ -1495,6 +1518,268 @@ def phase_mesh(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, K=MES
     return out
 
 
+EXAMPLE_K = 8                    # rounds a dispatch in phase example
+EXAMPLE_OWNERS = 4               # owners of every dispatch but the grouped one (main's 16)
+
+
+def _example_fed(torch, dev, lm, n_owners, bank_dtype=None, mesh=None):
+    from repro_torch.federation import (DataOwner, Federation, FederationConfig,
+                                        PrivatizerConfig)
+    fed = Federation([DataOwner(n=10_000, epsilon=1.0, xi=1.0)] * n_owners,
+                     FederationConfig.from_target_lr(0.05, n_owners=n_owners, horizon=1000,
+                                                     sigma=1e-2, theta_max=100.0), device=dev)
+    fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True, bank_dtype=bank_dtype,
+                  mesh=mesh, privatizer=PrivatizerConfig(xi=1.0, granularity="example",
+                                                         fused_kernel=True))
+    return fed
+
+
+def _checkpoint_arrays(directory):
+    """(manifest, {npz key: array}) of the newest checkpoint under it."""
+    from repro_torch.checkpoint import latest_step, load_manifest
+    step = latest_step(directory)
+    with np.load(os.path.join(directory, f"step_{step:08d}", "arrays.npz")) as z:
+        return load_manifest(directory, step), {k: z[k] for k in z.files}
+
+
+def phase_example(torch, dev, cfg=None, n_owners=EXAMPLE_OWNERS, group_owners=16, seq=128,
+                  K=EXAMPLE_K, root=None):
+    """Per-example clipping on the fused flat engine
+    (`PrivatizerConfig(granularity="example", fused_kernel=True)`) at main's
+    model and batch (4 x seq), `n_owners` owners, K rounds a dispatch:
+
+    - sequential: a warm dispatch, a timed one and a profiled one, each
+      with K sqnorm (ONE row-axis launch over the B per-example gradients a
+      round) and K dp_round and no other kernel; then the first dispatch's
+      rounds as a `step()` loop from a fresh state under the same keys:
+      theta_L, the bank and the reconciled ledger bit for bit;
+    - grouped (`owner_parallel=True`) at `group_owners` owners (main's)
+      and the default max_group over K distinct owners: the groups are as
+      long as the free device memory allows (`deep.example_group_cap`),
+      with one sqnorm (g * B rows) and one dp_round a group; its peak;
+    - the model cast to bf16 (its leaves bf16, the buffer f32): one
+      dispatch, `params_of` in bf16, finite;
+    - an f16 bank: one dispatch, finite;
+    - a world of one and the 1x1 mesh: a meshed state and its unmeshed twin
+      run one dispatch; the meshed one's `save_session` under build/ holds
+      the twin state's arrays (keys, dtypes, every array) bit for bit; a
+      fresh session restores the checkpoint on the mesh and runs the next
+      dispatch as the uninterrupted meshed session does, bit for bit.
+
+    Then `fused_sqnorm_rows` at (B, P) is timed beside `fused_sqnorm` at
+    (P,) (row 2's single row). Returns (the sequential dispatches'
+    launches, the profile as phase_main's)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch import random
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.checkpoint.store import PIECE_BYTES, to_storage
+    from repro_torch.configs import DENSE_124M
+    from repro_torch.kernels.dp_clip_noise import ops as dops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LM
+    from repro_torch.tree_util import tree_map
+    cfg = DENSE_124M if cfg is None else cfg
+    batch = 4
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    params = lm.init(seed=0, device=dev)
+    P = _model_size(params)
+    rng = np.random.default_rng(25)
+    drawn = {}
+    seqs = [rng.integers(0, n_owners, K) for _ in range(5)]
+    data = [_owner_batches(torch, cfg, s, drawn, batch=batch, seq=seq) for s in seqs]
+    keys = [random.PRNGKey(2500 + i, device=dev) for i in range(5)]
+    quiet = {k: 0 for k in _launches()}
+    print(f"[example] {cfg.name}: P={P}, {n_owners} owners, batch {batch} x {seq}, K={K}, "
+          f"xi 1.0 per example, set-up {time.perf_counter() - t0:.1f} s")
+
+    def dispatch(fed, state, i, expect, **kw):
+        before = _launches()
+        state, ms = fed.run_rounds(state, data[i], seqs[i], key=keys[i], **kw)
+        got = _diff(_launches(), before)
+        check(got == dict(quiet, **expect), f"example: launches {got}, expected {expect}")
+        check(not bool(ms["refused"].any()), "example: a round was refused")
+        return state, ms, got
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    seq_expect = {"sqnorm": K, "dp_round": K}
+    fed = _example_fed(torch, dev, lm, n_owners)
+    state = fed.init_state(params)
+    state, ms0, _ = dispatch(fed, state, 0, seq_expect)          # warms up
+    after0 = _state_tensors(state)
+    led0 = fed.reconcile(state)
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    state, ms, seq_got = dispatch(fed, state, 1, seq_expect)
+    _sync(torch, dev)
+    wall = (time.perf_counter() - t1) * 1e3 / K
+    print(f"[example] sequential dispatch: {wall:.2f} ms/round, launches "
+          + json.dumps({k: v for k, v in seq_got.items() if v})
+          + f" (one sqnorm over {batch} rows a round), clip_frac "
+          f"{ms['clip_frac'].mean().item():.2f}, max_grad_norm "
+          f"{ms['max_grad_norm'].max().item():.3f}")
+    (state, _, _), busy, groups, per_round = _profiled(
+        torch, dev, lambda: dispatch(fed, state, 2, seq_expect), K, cpu_ops=False)
+    print(f"[profile] example: device busy {busy:.2f} of {wall:.2f} ms/round: the device "
+          f"idles {1 - busy / wall:.1%} of a round")
+    peak = _peak_gb(torch, dev)
+    check(_state_finite(torch, state), "example: non-finite state")
+    del state
+    # the step loop over dispatch 0's rounds, from a fresh state
+    loop = _example_fed(torch, dev, lm, n_owners)
+    ls = loop.init_state(params)
+    for k, kk in enumerate(random.split(keys[0], K)):
+        ls, m = loop.step(ls, {n: v[k] for n, v in data[0].items()}, int(seqs[0][k]), kk)
+        check(not m["refused"], "example: step refused")
+    check(_bit_equal(torch, _state_tensors(ls), after0) and loop.reconcile(ls) == led0,
+          "example: the step loop differs from run_rounds")
+    del ls, loop, after0
+    print(f"[example] the step loop over dispatch 0's {K} rounds == run_rounds bit for bit "
+          f"(theta_L, bank, reconciled ledger); peak {peak:.2f} GB")
+
+    # the grouped driver at main's owners and the default max_group ("auto"):
+    # K distinct owners make one conflict-free run, so the group cap is the
+    # one the free device memory gives (deep.example_group_cap); one sqnorm
+    # over g * B rows and one dp_round a group
+    from repro_torch.federation import auto_max_group, partition_conflict_free
+    from repro_torch.federation import session as fsession
+    gseq = rng.permutation(group_owners)[:K]
+    gdata = _owner_batches(torch, cfg, gseq, drawn, batch=batch, seq=seq)
+    gfed = _example_fed(torch, dev, lm, group_owners)
+    gstate = gfed.init_state(params)
+    caps, cap_fn = [], fsession.example_group_cap
+    fsession.example_group_cap = lambda *a: caps.append(cap_fn(*a)) or caps[-1]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 1e9 if dev.type == "cuda" else float("nan")
+    try:
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        before = _launches()
+        gstate, gms = gfed.run_rounds(gstate, gdata, gseq, key=keys[3], owner_parallel=True)
+        got = _diff(_launches(), before)
+        _sync(torch, dev)
+    finally:
+        fsession.example_group_cap = cap_fn
+    gwall = (time.perf_counter() - t1) * 1e3 / K
+    gpeak = _peak_gb(torch, dev)
+    cap = min(auto_max_group(gseq), caps[0]) if caps else auto_max_group(gseq)
+    check(dev.type != "cuda" or len(caps) == 1, "example grouped: no memory cap on the card")
+    groups_of = partition_conflict_free(gseq, cap)
+    check(got == dict(quiet, sqnorm=len(groups_of), dp_round=len(groups_of)),
+          f"example grouped: launches {got}, expected one sqnorm and one dp_round a group "
+          f"of {[n for _, n in groups_of]}")
+    check(not bool(gms["refused"].any()), "example grouped: a round was refused")
+    check(_state_finite(torch, gstate), "example grouped: non-finite state")
+    print(f"[example] grouped dispatch at {group_owners} owners, max_group auto: "
+          f"{auto_max_group(gseq)} from the sequence, memory cap "
+          f"{caps[0] if caps else 'none (host)'}: {len(groups_of)} groups of "
+          f"{[n for _, n in groups_of]} rounds, {gwall:.2f} ms/round (first call), launches "
+          + json.dumps({k: v for k, v in got.items() if v})
+          + f", peak {gpeak:.2f} GB over {base:.2f} GB resident "
+          f"({(gpeak - base) / max(n for _, n in groups_of):.2f} GB a member)")
+    del gstate, gfed, gdata, gms
+
+    # the model cast to bf16, and an f16 bank
+    for tag, p_in, bank_dtype in (("bf16 model", tree_map(lambda x: x.to(torch.bfloat16),
+                                                          params), None),
+                                  ("f16 bank", params, torch.float16)):
+        ofed = _example_fed(torch, dev, lm, n_owners, bank_dtype=bank_dtype)
+        ostate = ofed.init_state(p_in)
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        ostate, oms, got = dispatch(ofed, ostate, 4, seq_expect)
+        _sync(torch, dev)
+        owall = (time.perf_counter() - t1) * 1e3 / K
+        dtypes = sorted({str(leaf.dtype) for leaf in _leaves(ofed.params_of(ostate))})
+        check(_state_finite(torch, ostate), f"example {tag}: non-finite state")
+        check(dtypes == sorted({str(leaf.dtype) for leaf in _leaves(p_in)}),
+              f"example {tag}: params_of gives {dtypes}")
+        print(f"[example] {tag}: one dispatch {owall:.2f} ms/round (first call), bank "
+              f"{ostate.bank.dtype}, leaves {dtypes}, clip_frac "
+              f"{oms['clip_frac'].mean().item():.2f}")
+        del ostate, ofed
+
+    # checkpoints on the 1x1 mesh: the unmeshed twin's files, and a resume
+    check(not dist.is_initialized(), "a process group exists before phase example's mesh")
+    mesh = make_host_mesh(device_type=dev.type)
+    root = os.path.join(ROOT, "build", "chip_smoke_example") if root is None else root
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        saved = {}
+        for tag, m in (("mesh", mesh), ("twin", None)):
+            f = _example_fed(torch, dev, lm, n_owners, mesh=m)
+            st = f.init_state(params)
+            st, _, _ = dispatch(f, st, 0, seq_expect)
+            f.reconcile(st)
+            save_s = save_gb = 0.0
+            if m is not None:
+                _sync(torch, dev)
+                if dev.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
+                    held = torch.cuda.memory_allocated()
+                t1 = time.perf_counter()
+                f.save_session(os.path.join(root, tag), st)
+                save_s = time.perf_counter() - t1
+                if dev.type == "cuda":
+                    # the pieces reach the host a few rows at a time: the
+                    # save adds at most one piece to the device
+                    save_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+                    check(save_gb * 1e9 <= PIECE_BYTES, f"example: the meshed save took "
+                          f"{save_gb:.3f} GB of device memory beyond the state")
+            saved[tag] = (f, st, (save_s, save_gb))
+        # the meshed files hold the unmeshed twin's arrays, key for key
+        manifest, arrays = _checkpoint_arrays(os.path.join(root, "mesh"))
+        twin = {k: to_storage(v) for k, v in flatten_with_paths(saved.pop("twin")[1]).items()}
+        check(manifest["keys"] == list(twin)
+              and manifest["dtypes"] == {k: name for k, (_, name) in twin.items()}
+              and all(np.array_equal(arrays[k.replace("/", "__SL__")], a)
+                      and arrays[k.replace("/", "__SL__")].dtype == a.dtype
+                      for k, (a, _) in twin.items()),
+              "example: the 1x1 mesh's checkpoint differs from the unmeshed twin's state")
+        del manifest, arrays, twin
+        f, st, (save_s, save_gb) = saved.pop("mesh")
+        st, _, _ = dispatch(f, st, 1, seq_expect)                 # uninterrupted
+        whole, led_whole = _state_tensors(st), f.reconcile(st)
+        del st, f
+        f = _example_fed(torch, dev, lm, n_owners, mesh=mesh)
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        st = f.restore_session(os.path.join(root, "mesh"), f.init_state(params))
+        _sync(torch, dev)
+        restore_s = time.perf_counter() - t1
+        check(st.theta_L.layout is not None, "example: the restored state is not on the mesh")
+        st, _, _ = dispatch(f, st, 1, seq_expect)
+        check(_bit_equal(torch, _state_tensors(st), whole) and f.reconcile(st) == led_whole,
+              "example: the resumed meshed session differs from the uninterrupted one")
+        del st, f, whole
+        print(f"[example] 1x1 mesh: save_session {save_s:.2f} s ({save_gb:.3f} GB of device "
+              f"memory beyond the state), its arrays == the unmeshed "
+              f"twin's state bit for bit (keys, dtypes, every array); restore_session "
+              f"{restore_s:.2f} s and {K} rounds == the uninterrupted meshed run bit for bit")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived phase example")
+
+    if dev.type == "cuda":
+        gen = torch.Generator(device=dev).manual_seed(26)
+        x = torch.randn((batch, P), device=dev, generator=gen)
+        rows_ms = _steady_ms(torch, f"fused_sqnorm_rows ({batch}, P)",
+                             lambda: dops.fused_sqnorm_rows(x), 20)
+        one_ms = _steady_ms(torch, "fused_sqnorm (P,)", lambda: dops.fused_sqnorm(x[0]), 20)
+        bound = batch * P * 4 / HBM_BYTES_PER_S * 1e3
+        print(f"[timing] sqnorm at phase example's ({batch}, P = {P}): one row-axis launch "
+              f"{rows_ms:.4f} ms ({bound / rows_ms:.1%} of its bound {bound:.4f} ms); row 2's "
+              f"single row {one_ms:.4f} ms")
+        del x
+    return seq_got, dict(busy=busy, median=wall, groups=groups, launches=per_round, peak=peak)
+
+
 def phase_quant(torch, dev, cfg=None, n_owners=128, records=10_000, seq=128):
     """The int8 bank at full width (phase_main), then one fp8 dispatch on a
     fresh state after the int8 one is freed. Returns the int8 run's launches."""
@@ -1502,7 +1787,7 @@ def phase_quant(torch, dev, cfg=None, n_owners=128, records=10_000, seq=128):
     K, G = 8, 2
     launches, fed, pipe, lm, _ = phase_main(torch, dev, cfg=cfg, n_owners=n_owners,
                                             records=records, seq=seq, bank_dtype="int8",
-                                            dispatches=3, tag="quant")
+                                            dispatches=3, tag="quant", cpu_ops=False)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1540,7 +1825,7 @@ def phase_pytree(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128):
     K, G = 8, 2
     launches, fed, pipe, lm, prof = phase_main(torch, dev, cfg=cfg, n_owners=n_owners,
                                                records=records, seq=seq, pack_params=False,
-                                               dispatches=3, tag="pytree")
+                                               dispatches=3, tag="pytree", cpu_ops=False)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1661,7 +1946,7 @@ def phase_grouped(torch, dev, main_prof, cfg=None, n_owners=16, records=10_000, 
                          state.theta_L.buf.clone())
         median = statistics.median(per_round[1:] or per_round)
         (state, _, n_groups, _), busy, groups, per_round_launches = _profiled(
-            torch, dev, lambda: dispatch(state, dispatches, cap), K)
+            torch, dev, lambda: dispatch(state, dispatches, cap), K, cpu_ops=False)
         sizes.append(K / n_groups)
         check(_state_finite(torch, state), "non-finite state")
         peak = _peak_gb(torch, dev)
@@ -2044,7 +2329,8 @@ def phase_serve(torch, dev, cfg=None, batch=PREFILL_B, seq=PREFILL_S, ragged=400
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     lm = LM(cfg, attn_backend="pallas")
-    params = lm.init(seed=0, device=dev)
+    # drawn on the card: on the host the draw takes tens of seconds
+    params = lm.init(seed=0, device=dev, generator_device=dev if on_card else None)
     n_params = sum(leaf.numel() for leaf in _leaves(params))
     check(n_params == cfg.param_count(), f"{n_params} parameters, expected {cfg.param_count()}")
     _sync(torch, dev)
@@ -2147,6 +2433,7 @@ def phase_train(torch, dev, cfg=None, n_owners=4, seq=1024, **kw):
     from repro_torch.configs import get_config
     if cfg is None:
         cfg = dataclasses.replace(get_config("zamba2-2.7b"), n_layers=TRAIN_LAYERS)
+    kw.setdefault("cpu_ops", False)
     return phase_main(torch, dev, cfg=cfg, n_owners=n_owners, seq=seq, tag="train", **kw)
 
 
@@ -3024,7 +3311,7 @@ def phase_fault_refusal(torch, dev, bank_dtype=None, tree_depth=None, pack_param
           "bit for bit on the card")
 
 
-PAGED_K = 32                     # rounds a dispatch in phase paged
+PAGED_K = 16                     # rounds a dispatch in phase paged
 PAGED_OWNERS = 4096              # the scale run's federation (a flat f32 bank: 2.50 TB)
 PAGED_HOT = {None: 16, "int8": 64}    # hot rows: about 9.8 GB on either bank
 PAGED_WINDOW = 8                 # distinct owners a window of the recorded trace
@@ -4671,13 +4958,21 @@ def main():
     phase_mesh(torch, dev)
     torch.cuda.empty_cache()
     lap("mesh")
+    example_launches, example_prof = phase_example(torch, dev)
+    torch.cuda.empty_cache()
+    print(f"[example] against main in this call, per round: device busy "
+          f"{example_prof['busy']:.3f} vs {main_prof['busy']:.3f} ms "
+          f"({example_prof['busy'] - main_prof['busy']:+.3f}); device kernels "
+          f"{example_prof['launches']:.0f} vs {main_prof['launches']:.0f}; peak "
+          f"{example_prof['peak']:.2f} vs {main_prof['peak']:.2f} GB")
+    lap("example")
     phase_faults(torch, dev, main_prof)
     torch.cuda.empty_cache()
     lap("faults")
     paged_launches = phase_paged(torch, dev, main_prof)
     torch.cuda.empty_cache()
     lap("paged")
-    phase_checkpoint(torch, dev)
+    phase_checkpoint(torch, dev, n_owners=8)
     torch.cuda.empty_cache()
     lap("checkpoint")
     quant_launches = phase_quant(torch, dev)
@@ -4686,7 +4981,7 @@ def main():
           "quant path launched no bank codec kernel")
     lap("quant")
     tree_launches, _, _, _, tree_prof = phase_main(torch, dev, tree_depth=TREE_DEPTH,
-                                                   dispatches=3, tag="tree")
+                                                   dispatches=3, tag="tree", cpu_ops=False)
     torch.cuda.empty_cache()
     check(tree_launches["tree_delta"] > 0 and tree_launches["dp_round"] == 0,
           "tree path launched no tree_delta, or a dp_round")
@@ -4720,7 +5015,7 @@ def main():
           and not any(serve_launches[k] for k in FED_KERNELS + ("ssd_chunk_scan_bwd",)),
           "the serve path launched no flash or SSD kernel, or a federation kernel or a backward")
     lap("serve")
-    train_launches, _, _, _, _ = phase_train(torch, dev)
+    train_launches, _, _, _, _ = phase_train(torch, dev, dispatches=3)
     torch.cuda.empty_cache()
     check(train_launches["ssd_chunk_scan_bwd"] > 0 and train_launches["dp_round"] > 0
           and train_launches["flash_attention"] == 0,

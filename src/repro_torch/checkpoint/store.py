@@ -20,6 +20,15 @@ nodes, counts). So a flat f32 state gives ``theta_L/0``, ``bank``,
 depth, the ledger's snapshot id) are not saved: they come from `like` on
 load.
 
+A state on a device mesh is saved as its GLOBAL arrays, the unmeshed
+twin's: `Federation.save_session` hands `save_leaves` each block as a
+`Streamed` leaf, whose pieces (a few rows at a time) reach the one
+writing rank over `sharding.flat.FlatLayout.stream`, so no rank holds a
+global array. Members are stored uncompressed, as np.savez stores them,
+and read back as views of the file (`_Arrays`): `load_checkpoint`'s
+`block` slices a rank's block out of the view, so a restore reads only
+that block.
+
 Saves are atomic: the shard is written under ``_tmp_step_*`` and renamed
 into ``step_*``; overwriting a step first renames the old shard to
 ``_old_step_*``. Neither temporary name starts with ``step_``, so
@@ -40,9 +49,12 @@ uint16 / uint8 bits, with `dtype` naming the logical one).
 """
 from __future__ import annotations
 
+import math
 import os
 import shutil
-from typing import Any, Dict, Optional, Tuple
+import struct
+import zipfile
+from typing import Any, Callable, Dict, Iterable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -140,9 +152,15 @@ def flatten_with_paths(tree) -> Dict[str, Any]:
     return out
 
 
+def rebuild(like, leaves: Dict[str, torch.Tensor]):
+    """`like` with each leaf replaced by leaves[its key] (flatten_with_paths
+    keys); the static fields of the state classes (a ParamFlat's spec and
+    mesh layout, the codec, N, the depth, the ledger's snapshot id) come
+    from `like`."""
+    return _rebuild(like, "", leaves)
+
+
 def _rebuild(like, prefix: str, leaves: Dict[str, torch.Tensor]):
-    """`like` with each leaf replaced by leaves[its key]; the static fields
-    of the state classes come from `like`."""
     from repro_torch.federation.deep import TreeNoise
     from repro_torch.federation.flatten import PagedBank, ParamFlat, QuantBank
     from repro_torch.federation.privacy import DeviceLedger
@@ -153,7 +171,7 @@ def _rebuild(like, prefix: str, leaves: Dict[str, torch.Tensor]):
         return _rebuild(child, f"{prefix}/{name}" if prefix else name, leaves)
 
     if isinstance(like, ParamFlat):
-        return ParamFlat(sub("0", like.buf), like.spec)
+        return ParamFlat(sub("0", like.buf), like.spec, like.layout)
     if isinstance(like, QuantBank):
         return QuantBank(sub("0", like.codes), sub("1", like.scales), sub("2", like.residual),
                          like.codec)
@@ -179,6 +197,56 @@ def _step_dir(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step:08d}")
 
 
+# the most bytes of an array that a streamed save, or a restore of a paged
+# session's cold rows, holds at once (never less than one row)
+PIECE_BYTES = 64 << 20
+
+
+class Streamed(NamedTuple):
+    """A leaf written piece by piece: its shape and logical dtype, and CPU
+    tensors whose bytes, one after the other, are the array in C order."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    pieces: Iterable[torch.Tensor]
+
+
+def rows_per_piece(row_shape, dtype: torch.dtype) -> int:
+    """How many rows of `row_shape` a piece of PIECE_BYTES holds (>= 1)."""
+    row = math.prod(tuple(row_shape)) * torch.empty(0, dtype=dtype).element_size()
+    return max(1, PIECE_BYTES // max(1, row))
+
+
+def stream_rows(read: Callable[[int, int], torch.Tensor], n_rows: int, row_shape,
+                dtype: torch.dtype) -> Streamed:
+    """n_rows rows of `row_shape` as a Streamed array, read a few at a
+    time: read(a, b) gives rows [a, b)."""
+    k = rows_per_piece(row_shape, dtype)
+    return Streamed((int(n_rows),) + tuple(row_shape), dtype,
+                    (read(a, min(n_rows, a + k)) for a in range(0, n_rows, k)))
+
+
+def _write_member(zf: zipfile.ZipFile, name: str, v) -> Tuple[Tuple[int, ...], str]:
+    """One .npy member as np.savez writes it, a `Streamed` leaf piece by
+    piece; returns (its shape, its logical dtype name)."""
+    with zf.open(name + ".npy", "w", force_zip64=True) as f:
+        if not isinstance(v, Streamed):
+            a, logical = to_storage(v)
+            np.lib.format.write_array(f, a, allow_pickle=False)
+            return tuple(a.shape), logical
+        a0, logical = to_storage(torch.empty(0, dtype=v.dtype))
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": np.lib.format.dtype_to_descr(a0.dtype), "fortran_order": False,
+                "shape": tuple(v.shape)})
+        n = 0
+        for piece in v.pieces:
+            a = np.ascontiguousarray(to_storage(piece)[0])
+            f.write(memoryview(a).cast("B"))
+            n += a.size
+        if n != math.prod(v.shape):
+            raise ValueError(f"{name}: {n} elements streamed for shape {tuple(v.shape)}")
+        return tuple(v.shape), logical
+
+
 def save_checkpoint(directory: str, step: int, state: Any, extra: Optional[Dict] = None,
                     aux_arrays: Optional[Dict[str, Any]] = None) -> str:
     """Atomically write `state` (tensors on any device) under
@@ -190,23 +258,34 @@ def save_checkpoint(directory: str, step: int, state: Any, extra: Optional[Dict]
     paged session's cold-tier rows) go into the same npz under a reserved
     prefix, so the atomic rename covers them, and come back through
     load_aux_arrays()."""
+    return save_leaves(directory, step, flatten_with_paths(state), extra, aux_arrays)
+
+
+def save_leaves(directory: str, step: int, leaves: Dict[str, Any],
+                extra: Optional[Dict] = None,
+                aux_arrays: Optional[Dict[str, Any]] = None) -> str:
+    """`save_checkpoint` of a state given as its {key: leaf}
+    (flatten_with_paths keys, in its order), where a leaf or an aux array
+    may be `Streamed`. The leaves are written in order, then the aux
+    arrays in order, each streamed one consumed as it is written."""
     final = _step_dir(directory, step)
     tmp = os.path.join(directory, f"_tmp_step_{step:08d}.{os.getpid()}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    arrays = {k: to_storage(v) for k, v in flatten_with_paths(state).items()}
-    payload = {k.replace("/", "__SL__"): a for k, (a, _) in arrays.items()}
-    aux = {k: to_storage(v) for k, v in (aux_arrays or {}).items()}
-    payload.update({_AUX_PREFIX + k.replace("/", "__SL__"): a for k, (a, _) in aux.items()})
-    np.savez(os.path.join(tmp, "arrays.npz"), **payload)
+    aux = dict(aux_arrays or {})
+    with zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), mode="w",
+                         compression=zipfile.ZIP_STORED, allowZip64=True) as zf:
+        meta = {k: _write_member(zf, k.replace("/", "__SL__"), v) for k, v in leaves.items()}
+        aux_meta = {k: _write_member(zf, _AUX_PREFIX + k.replace("/", "__SL__"), v)
+                    for k, v in aux.items()}
     manifest = {"step": int(step),
-                "keys": list(arrays),
-                "dtypes": {k: name for k, (_, name) in arrays.items()},
-                "shapes": {k: list(a.shape) for k, (a, _) in arrays.items()}}
+                "keys": list(meta),
+                "dtypes": {k: name for k, (_, name) in meta.items()},
+                "shapes": {k: list(shape) for k, (shape, _) in meta.items()}}
     if aux:
-        manifest["aux_keys"] = list(aux)
-        manifest["aux_dtypes"] = {k: name for k, (_, name) in aux.items()}
+        manifest["aux_keys"] = list(aux_meta)
+        manifest["aux_dtypes"] = {k: name for k, (_, name) in aux_meta.items()}
     if extra is not None:
         manifest["extra"] = extra
     with open(os.path.join(tmp, "manifest.msgpack"), "wb") as f:
@@ -246,32 +325,83 @@ def load_manifest(directory: str, step: int) -> Dict:
         return unpackb(f.read())
 
 
-def load_aux_arrays(directory: str, step: int) -> Dict[str, torch.Tensor]:
-    """The aux arrays a save_checkpoint(aux_arrays=...) stored, as CPU
-    tensors in their logical dtypes ({} for a checkpoint without any)."""
+class _Arrays:
+    """The .npy members of a shard's arrays.npz by name. A member stored
+    uncompressed (as np.savez stores it) is read as a read-only view of
+    the file, so slicing it reads only the slice; any other is read whole."""
+
+    _READ_HEADER = {(1, 0): np.lib.format.read_array_header_1_0,
+                    (2, 0): np.lib.format.read_array_header_2_0}
+
+    def __init__(self, directory: str, step: int):
+        self._path = os.path.join(_step_dir(directory, step), "arrays.npz")
+        with zipfile.ZipFile(self._path) as zf:
+            self._info = {i.filename[:-4]: i for i in zf.infolist()
+                          if i.filename.endswith(".npy")}
+        self.files = list(self._info)
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        info = self._info[name]
+        if info.compress_type == zipfile.ZIP_STORED:
+            with open(self._path, "rb") as f:
+                f.seek(info.header_offset)
+                # the local header: 30 bytes, the name and extra lengths last
+                n_name, n_extra = struct.unpack("<HH", f.read(30)[26:30])
+                f.seek(info.header_offset + 30 + n_name + n_extra)
+                read = self._READ_HEADER.get(np.lib.format.read_magic(f))
+                if read is not None:
+                    shape, fortran, dtype = read(f)
+                    if not dtype.hasobject and int(np.prod(shape)) > 0:
+                        return np.memmap(self._path, dtype=dtype, mode="r", offset=f.tell(),
+                                         shape=shape, order="F" if fortran else "C")
+        with zipfile.ZipFile(self._path) as zf, zf.open(info) as f:
+            return np.lib.format.read_array(f, allow_pickle=False)
+
+
+def _tensor(a: np.ndarray, logical: Optional[str]) -> torch.Tensor:
+    """A CPU tensor holding a copy of `a` (a view of a file included)."""
+    return from_storage(np.array(a, order="C"), logical)
+
+
+def aux_views(directory: str, step: int) -> Dict[str, Tuple[np.ndarray, Optional[str]]]:
+    """{key: (the stored aux array as a view of the file, in its storage
+    dtype; its logical dtype name)}: a caller reads only what it slices."""
     manifest = load_manifest(directory, step)
-    data = np.load(os.path.join(_step_dir(directory, step), "arrays.npz"))
+    data = _Arrays(directory, step)
     dtypes = manifest.get("aux_dtypes") or {}
-    return {k: from_storage(data[_AUX_PREFIX + k.replace("/", "__SL__")], dtypes.get(k))
+    return {k: (data[_AUX_PREFIX + k.replace("/", "__SL__")], dtypes.get(k))
             for k in manifest.get("aux_keys") or []}
 
 
-def load_checkpoint(directory: str, step: int, like: Any) -> Any:
+def load_aux_arrays(directory: str, step: int) -> Dict[str, torch.Tensor]:
+    """The aux arrays a save_checkpoint(aux_arrays=...) stored, as CPU
+    tensors in their logical dtypes ({} for a checkpoint without any)."""
+    return {k: _tensor(a, logical) for k, (a, logical) in aux_views(directory, step).items()}
+
+
+def load_checkpoint(directory: str, step: int, like: Any,
+                    block: Optional[Callable[[str, np.ndarray], np.ndarray]] = None) -> Any:
     """Restore into the structure of `like`: every leaf checked against the
-    checkpoint's shape and cast to `like`'s dtype on `like`'s device."""
+    checkpoint's shape and cast to `like`'s dtype on `like`'s device.
+
+    `block(key, array)` (a meshed state's restore) maps a stored global
+    array, a view of the file in its storage dtype, to the part `like`
+    holds before the check; only that part is read."""
     manifest = load_manifest(directory, step)
-    data = np.load(os.path.join(_step_dir(directory, step), "arrays.npz"))
+    data = _Arrays(directory, step)
     stored = {k.replace("__SL__", "/") for k in data.files if not k.startswith(_AUX_PREFIX)}
     leaves = {}
     for key, leaf in flatten_with_paths(like).items():
         if key not in stored:
             raise KeyError(f"checkpoint missing leaf {key}")
-        arr = data[key.replace("/", "__SL__")]
-        if tuple(arr.shape) != tuple(leaf.shape):
-            raise ValueError(f"{key}: shape {arr.shape} != {tuple(leaf.shape)}")
-        t = from_storage(arr, manifest["dtypes"].get(key))
-        leaves[key] = t.to(device=leaf.device, dtype=leaf.dtype)
-    return _rebuild(like, "", leaves)
+        a = data[key.replace("/", "__SL__")]
+        if block is not None:
+            a = block(key, a)
+        if tuple(a.shape) != tuple(leaf.shape):
+            raise ValueError(f"{key}: shape {tuple(a.shape)} != {tuple(leaf.shape)}")
+        leaves[key] = _tensor(a, manifest["dtypes"].get(key)).to(device=leaf.device,
+                                                                 dtype=leaf.dtype)
+    return rebuild(like, leaves)
 
 
 # --------------------------- cold-tier row stores ---------------------------
@@ -430,6 +560,7 @@ class MemmapRowStore(_RowStore):
             self._mm.flush()
 
 
-__all__ = ["MemmapRowStore", "MemoryRowStore", "flatten_with_paths", "from_storage",
-           "latest_step", "load_aux_arrays", "load_checkpoint", "load_manifest",
-           "save_checkpoint", "to_storage"]
+__all__ = ["PIECE_BYTES", "MemmapRowStore", "MemoryRowStore", "Streamed", "aux_views",
+           "flatten_with_paths", "from_storage", "latest_step", "load_aux_arrays",
+           "load_checkpoint", "load_manifest", "rebuild", "rows_per_piece", "save_checkpoint",
+           "save_leaves", "stream_rows", "to_storage"]

@@ -7,6 +7,9 @@
                                  np.asarray(qb.residual), qb.codec.fmt)
     tree = tree_noise_from_numpy(np.asarray(tn.nodes), np.asarray(tn.counts), tn.depth)
     state = pytree_state_from_numpy(np_theta_L, np_bank, step, tree=tree)  # a pytree state
+    spec = flat_spec_from_numpy(np_params)          # leaf shapes and dtypes, no storage
+    state = flat_state_from_numpy(np_params, np.asarray(js.theta_L.buf),
+                                  np.asarray(js.bank), int(js.step))  # a flat state
     faults = fault_state_from_numpy(*map(np.asarray, fs))          # a FaultState
     stale = staleness_state_from_numpy(*map(np.asarray, ss))       # a StalenessState
     ledger = device_ledger_from_numpy(spent, cap, refused, dropped=..., sid=led.sid)
@@ -18,7 +21,11 @@ port's class of the same name (`AttnParams`, `MLPParams`, `Mamba2Params`,
 `MoEParams`, `MLSTMParams`, `SLSTMParams`; in a cache also `KVCache`,
 `Mamba2State`, `MLSTMState` and `SLSTMState`), None fields stay None, and
 every array becomes a tensor with the same values, shape and dtype (a
-bfloat16 array, numpy's ml_dtypes kind, is carried by its bits).
+bfloat16 array, numpy's ml_dtypes kind, is carried by its bits). A packed
+flat state carries across with its spec, whose leaves may be f32, bf16 or
+f16: the spec is taken from the reference's model tree (its shapes and
+dtypes, on the meta device), the (P,) f32 buffer and the bank (dense rows
+in f32, bf16 or f16, or a QuantBank) from the state's arrays.
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.federation.deep import AsyncDPState, TreeNoise
 from repro_torch.federation.faults import FaultState
-from repro_torch.federation.flatten import BankCodec, QuantBank
+from repro_torch.federation.flatten import BankCodec, FlatSpec, ParamFlat, QuantBank, flatten_spec
 from repro_torch.federation.privacy import DeviceLedger
 from repro_torch.federation.staleness import StalenessState
 from repro_torch.models.attention import AttnParams, KVCache
@@ -65,21 +72,64 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def _convert(tree: Any, device: torch.device, classes=None) -> Any:
+def _meta(a, device=None) -> torch.Tensor:
+    """A meta tensor with the shape and dtype of array `a` (no storage)."""
+    a = np.asarray(a)
+    dtype = (torch.bfloat16 if a.dtype.name == "bfloat16"
+             else torch.from_numpy(np.zeros((), a.dtype)).dtype)
+    return torch.empty(tuple(a.shape), dtype=dtype, device="meta")
+
+
+def _convert(tree: Any, device: torch.device, classes=None, leaf=_tensor) -> Any:
     classes = _PARAMS if classes is None else classes
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: _convert(v, device, classes) for k, v in tree.items()}
+        return {k: _convert(v, device, classes, leaf) for k, v in tree.items()}
     if hasattr(tree, "_asdict"):
         name = type(tree).__name__
         if name not in classes:
             raise TypeError(f"no port counterpart for NamedTuple {name!r} here")
-        return classes[name](**{k: _convert(v, device, classes)
+        return classes[name](**{k: _convert(v, device, classes, leaf)
                                 for k, v in tree._asdict().items()})
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_convert(v, device, classes) for v in tree)
-    return _tensor(tree, device)
+        return type(tree)(_convert(v, device, classes, leaf) for v in tree)
+    return leaf(tree, device)
+
+
+def flat_spec_from_numpy(tree: Any) -> FlatSpec:
+    """The port's FlatSpec of a reference model tree mapped to numpy: the
+    leaves' shapes and dtypes (f32, bf16 or f16; another dtype raises
+    TypeError) in jax's order, read without copying any array."""
+    return flatten_spec(_convert(tree, torch.device("meta"), leaf=_meta))
+
+
+def flat_state_from_numpy(params: Any, buf: np.ndarray, bank, step: int = 0,
+                          tree: Optional[TreeNoise] = None,
+                          ledger: Optional[DeviceLedger] = None,
+                          faults: Optional[FaultState] = None,
+                          stale: Optional[StalenessState] = None,
+                          device=None) -> AsyncDPState:
+    """A port flat state on `device` (CUDA when None) from a reference flat
+    state's arrays: `params` the model tree mapped to numpy (or a FlatSpec)
+    for the spec, `buf` the (P,) f32 packed theta_L, `bank` the (N, P) dense
+    bank (f32, bf16 or f16 rows) or a port QuantBank
+    (`quant_bank_from_numpy`), the granted-round count `step`, and the tree,
+    ledger, fault and runtime states as for `pytree_state_from_numpy`."""
+    device = resolve_device(device)
+    spec = params if isinstance(params, FlatSpec) else flat_spec_from_numpy(params)
+    buf = np.asarray(buf)
+    if buf.dtype != np.float32 or buf.shape != (spec.size,):
+        raise ValueError(f"a packed buffer is ({spec.size},) float32, got {buf.shape} "
+                         f"{buf.dtype}")
+    if not isinstance(bank, QuantBank):
+        bank = _tensor(bank, device)
+        if bank.dim() != 2 or bank.shape[1] != spec.size:
+            raise ValueError(f"a bank of shape {tuple(bank.shape)} does not hold rows of "
+                             f"({spec.size},)")
+    return AsyncDPState(ParamFlat(_tensor(buf, device), spec), bank,
+                        torch.tensor(int(step), dtype=torch.int32, device=device),
+                        ledger, tree, faults, stale)
 
 
 def quant_bank_from_numpy(codes: np.ndarray, scales: np.ndarray, residual: np.ndarray,

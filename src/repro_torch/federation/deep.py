@@ -28,7 +28,7 @@ theta_i) / 2 (eq. 6), take the privatized gradient at theta_bar, update
 the owner copy (eq. 5) and the central model (eq. 7), write the copy back.
 
 The flat bank's storage is chosen by `init_state_flat(..., bank_dtype=)`:
-f32 rows; bf16 rows (upcast on gather, narrowed on write); or a
+f32 rows; bf16 or f16 rows (upcast on gather, narrowed on write); or a
 `QuantBank` of int8 / fp8 codes, whose row is decoded on gather (the
 `decode` kernel) and, on a granted write, re-encoded with stochastic
 rounding after the shared error-feedback residual is added (the `absmax`
@@ -125,7 +125,10 @@ bit; a larger one equals it block for block.
 `make_sync_dp_step` is the synchronous baseline: every owner answers
 every round and the learner averages the privatized gradients.
 
-Example granularity on the fused flat engine waits for a later slice.
+The fused flat engine clips per microbatch group or per example
+(`PrivatizerConfig.granularity`, as in the reference): per example, the B
+gradients of a round (g*B under the grouped driver) come from one batched
+backward and their norms from one `sqnorm` row-axis launch.
 """
 from __future__ import annotations
 
@@ -328,8 +331,9 @@ def init_state_flat(params, cfg: AsyncDPConfig, device=None, bank_dtype=None,
     noise trees, and the fault and runtime counters when cfg arms them.
 
     `bank_dtype` (None = float32) is the bank's storage only: torch.bfloat16
-    halves it; "int8"/"fp8" (or a flatten.BankCodec) build the quantized
-    bank, about 4x below f32 (see flatten.QuantBank). Only f32 keeps the
+    or torch.float16 halves it (also by name: "bfloat16", "float16");
+    "int8"/"fp8" (or a flatten.BankCodec) build the quantized bank, about
+    4x below f32 (see flatten.QuantBank). Only f32 keeps the
     bit parity with the f32 reference; the others round the owner copies.
 
     `mesh` (a named ("data", "model") DeviceMesh from launch.mesh; None =
@@ -453,7 +457,7 @@ def _take_rows(buf: torch.Tensor, idx: torch.Tensor,
 def _gather_row(bank: Bank, owner_idx: torch.Tensor,
                 lay: Optional[FlatLayout] = None) -> torch.Tensor:
     """The owner's (P,) f32 copy: a decoded QuantBank row, or a dense row
-    (a bf16 row upcast, which is exact). On a mesh, this rank's columns of
+    (a bf16 or f16 row upcast, which is exact). On a mesh, this rank's columns of
     it."""
     return _gather_rows(bank, owner_idx, lay)[0]
 
@@ -570,32 +574,101 @@ def _noise_scales(cfg: AsyncDPConfig, device=None) -> torch.Tensor:
                         dtype=torch.float32, device=device)
 
 
+def _clip_scale(xi: torch.Tensor, norm: torch.Tensor) -> torch.Tensor:
+    """min(1, xi / max(norm, 1e-12)), a true f32 division."""
+    return torch.clamp(xi / torch.clamp(norm, min=1e-12), max=1.0)
+
+
+def _example_clipped_rows(loss_fn, spec, xi: torch.Tensor, tb: torch.Tensor,
+                          batch: Dict[str, torch.Tensor]):
+    """Per-example clipping for g members: tb (g, P), batch leaves (g, B,
+    ...) -> (acc (g, P), norms (g, B)).
+
+    As the reference's example granularity: each example's gradient is taken
+    at the member's theta_bar with the example as a batch of one, clipped
+    by its own L2 norm, and the clipped rows are summed (the 1/B mean is the
+    caller's gain). theta_bar is expanded into a (g*B, P) autograd leaf,
+    the loss is `torch.func.vmap`ped over its rows and the examples, and
+    autograd takes ONE backward of the sum: row r's loss reads only row r,
+    so row r of the gradient is example r's own. The g*B norms come from
+    ONE `sqnorm` row-axis launch; the rows are then scaled in place and
+    summed. Peak: two (g*B, P) f32 tensors (the leaf and its gradient),
+    which `example_group_cap` bounds under max_group="auto"."""
+    g, B = next(iter(batch.values())).shape[:2]
+    p = tb.shape[-1]
+    leaf = tb.detach().repeat_interleave(B, dim=0).requires_grad_(True)      # (g*B, P)
+    exs = {k: a.reshape((g * B, 1) + tuple(a.shape[2:])) for k, a in batch.items()}
+    losses = torch.func.vmap(lambda t, ex: loss_fn(spec.unpack(t), ex))
+    losses(leaf, exs).sum().backward()
+    grads = leaf.grad
+    leaf.grad = None
+    del leaf
+    norms = torch.sqrt(fused_sqnorm_rows(grads))                               # (g*B,)
+    grads.mul_(_clip_scale(xi, norms)[:, None])
+    acc = grads.reshape(g, B, p).sum(dim=1)
+    return acc, norms.reshape(g, B)
+
+
+# the share of the free device memory that example_group_cap plans to fill
+EXAMPLE_MEMORY_SHARE = 0.85
+
+
+def example_group_cap(batch: int, p: int, free_bytes: int) -> int:
+    """The most members a grouped round at example granularity fits in
+    `free_bytes` of device memory (>= 1). A member holds 2 * batch rows of
+    P f32 (its share of `_example_clipped_rows`' leaf and gradient) and
+    about six (P,) f32 rows more (theta_bar, the gathered and new bank
+    rows, the clipped sum, the noise and `dp_round`'s output); the plan
+    fills EXAMPLE_MEMORY_SHARE of the free bytes, leaving the rest to the
+    activations."""
+    per_member = (2 * int(batch) + 6) * int(p) * 4
+    return max(1, int(free_bytes * EXAMPLE_MEMORY_SHARE) // per_member)
+
+
+def device_free_bytes(device) -> Optional[int]:
+    """Bytes a CUDA device can still give this process (the free memory
+    CUDA reports and what the caching allocator holds unused); None for
+    the CPU, whose memory no cap plans for."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return int(free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device))
+
+
 def _flat_clipped_grad_acc(loss_fn, spec, pcfg: PrivatizerConfig,
                            tb: torch.Tensor, batch: Dict[str, torch.Tensor]):
-    """Sum of per-group clipped (P,) gradients at theta_bar, the group gain,
-    and the clip metrics, all on tb's device.
+    """Sum of per-group (or per-example) clipped (P,) gradients at
+    theta_bar, the group gain, and the clip metrics, all on tb's device.
 
-    theta_bar becomes an autograd leaf; the loss sees views of it, so after
-    backward() its .grad IS the packed (P,) gradient. Each group's clip
-    norm runs through the `sqnorm` kernel; the group-mean divide is
-    deferred into `gain` so `dp_round` fuses it with the noise add."""
-    G = pcfg.n_microbatches
+    Microbatch granularity: theta_bar becomes an autograd leaf; the loss
+    sees views of it, so after backward() its .grad IS the packed (P,)
+    gradient. Each group's clip norm runs through the `sqnorm` kernel; the
+    group-mean divide is deferred into `gain` so `dp_round` fuses it with
+    the noise add. Example granularity (`_example_clipped_rows` for one
+    member): the B per-example gradients, their norms in one `sqnorm`
+    row-axis launch, gain 1/B; `pre_grouped` is ignored there, as in the
+    reference."""
     B = next(iter(batch.values())).shape[0]
+    xi = torch.full((), pcfg.xi, dtype=torch.float32, device=tb.device)
+    if pcfg.granularity == "example":
+        acc, norms = _example_clipped_rows(loss_fn, spec, xi, tb.unsqueeze(0),
+                                           {k: a.unsqueeze(0) for k, a in batch.items()})
+        norms = norms[0]
+        gain = torch.full((), 1.0 / B, dtype=torch.float32, device=tb.device)
+        return acc[0], gain, {"clip_frac": torch.mean((norms > xi).to(torch.float32)),
+                              "max_grad_norm": torch.amax(norms)}
     if pcfg.granularity != "microbatch":
-        raise NotImplementedError(f"granularity {pcfg.granularity!r} on the fused flat "
-                                  "engine waits for a later slice")
+        raise ValueError(pcfg.granularity)
+    G = pcfg.n_microbatches
     if not pcfg.pre_grouped and B % G:
         raise ValueError(f"batch of {B} does not split into {G} microbatches")
     leaf = tb.detach().requires_grad_(True)
-    xi = torch.full((), pcfg.xi, dtype=torch.float32, device=tb.device)
 
     def flat_grad(mb) -> torch.Tensor:
         leaf.grad = None
         loss_fn(spec.unpack(leaf), mb).backward()
         return leaf.grad
-
-    def clip_scale(norm):
-        return torch.clamp(xi / torch.clamp(norm, min=1e-12), max=1.0)
 
     xs = batch if pcfg.pre_grouped else _group_batch(batch, G)
     acc = torch.zeros_like(tb)
@@ -604,7 +677,7 @@ def _flat_clipped_grad_acc(loss_fn, spec, pcfg: PrivatizerConfig,
     for gi in range(G):
         g = flat_grad({k: a[gi] for k, a in xs.items()})
         norm = torch.sqrt(fused_sqnorm(g))
-        acc = acc + g * clip_scale(norm)
+        acc = acc + g * _clip_scale(xi, norm)
         nclip = nclip + (norm > xi)
         mx = torch.maximum(mx, norm)
     gain = torch.full((), 1.0 / G, dtype=torch.float32, device=tb.device)
@@ -614,26 +687,33 @@ def _flat_clipped_grad_acc(loss_fn, spec, pcfg: PrivatizerConfig,
 def _flat_clipped_grad_acc_rows(loss_fn, spec, pcfg: PrivatizerConfig,
                                 tb: torch.Tensor, batch: Dict[str, torch.Tensor]):
     """`_flat_clipped_grad_acc` for g members at once: tb (g, P), batch
-    leaves (g, B, ...). Per microbatch the loss is `torch.func.vmap`ped
+    leaves (g, B, ...). Returns acc (g, P), gain (g,) and the (g,) clip
+    metrics.
+
+    Microbatch granularity: per microbatch the loss is `torch.func.vmap`ped
     over the members and autograd takes ONE backward of their sum (a
     batched backward, not g of them): member m's loss reads only row m, so
     row m of the gradient is its own. Then one batched `sqnorm`; the clip
-    scale is applied per row. Returns acc (g, P), gain (g,) and the (g,)
-    clip metrics.
+    scale is applied per row. Example granularity: `_example_clipped_rows`
+    over the g*B (member, example) rows, one `sqnorm` launch for the group.
 
     vmap of the loss with autograd's backward, rather than vmap of
     `torch.func.grad`: the same batched kernels, without the functorch
     transform wrapping every op of the backward, whose host time is what
     limits a round on the card (PERF.md)."""
-    G = pcfg.n_microbatches
     g, B = next(iter(batch.values())).shape[:2]
-    if pcfg.granularity != "microbatch":
-        raise NotImplementedError(f"granularity {pcfg.granularity!r} on the fused flat "
-                                  "engine waits for a later slice")
-    if not pcfg.pre_grouped and B % G:
-        raise ValueError(f"batch of {B} does not split into {G} microbatches")
     dev = tb.device
     xi = torch.full((), pcfg.xi, dtype=torch.float32, device=dev)
+    if pcfg.granularity == "example":
+        acc, norms = _example_clipped_rows(loss_fn, spec, xi, tb, batch)
+        gain = torch.full((g,), 1.0 / B, dtype=torch.float32, device=dev)
+        return acc, gain, {"clip_frac": torch.mean((norms > xi).to(torch.float32), dim=1),
+                           "max_grad_norm": torch.amax(norms, dim=1)}
+    if pcfg.granularity != "microbatch":
+        raise ValueError(pcfg.granularity)
+    G = pcfg.n_microbatches
+    if not pcfg.pre_grouped and B % G:
+        raise ValueError(f"batch of {B} does not split into {G} microbatches")
     losses = torch.func.vmap(lambda t, mb: loss_fn(spec.unpack(t), mb))
     leaf = tb.detach().requires_grad_(True)
     xs = batch if pcfg.pre_grouped else {
@@ -646,7 +726,7 @@ def _flat_clipped_grad_acc_rows(loss_fn, spec, pcfg: PrivatizerConfig,
         losses(leaf, {k: a[:, gi] for k, a in xs.items()}).sum().backward()
         gm = leaf.grad
         norm = torch.sqrt(fused_sqnorm_rows(gm))
-        acc = acc + gm * torch.clamp(xi / torch.clamp(norm, min=1e-12), max=1.0)[:, None]
+        acc = acc + gm * _clip_scale(xi, norm)[:, None]
         leaf.grad = gm = None
         nclip = nclip + (norm > xi)
         mx = torch.maximum(mx, norm)

@@ -1,16 +1,23 @@
 """Flat-parameter representation for the deep round engine.
 
-Counterpart of ``repro/federation/flatten.py`` (f32 leaves). The inertia
-round is elementwise in every parameter, so the model is packed into ONE
-contiguous (P,) f32 buffer and the owner bank becomes one (N_owners, P)
-matrix whose gather/scatter is a row copy:
+Counterpart of ``repro/federation/flatten.py``. The inertia round is
+elementwise in every parameter, so the model is packed into ONE contiguous
+(P,) f32 buffer and the owner bank becomes one (N_owners, P) matrix whose
+gather/scatter is a row copy:
 
-    spec = flatten_spec(params)         # leaf shapes/offsets in jax's order
+    spec = flatten_spec(params)         # leaf shapes/dtypes/offsets in jax's order
     flat = pack_params(params)          # ParamFlat: (P,) f32 + spec, on CUDA
-    tree = flat.unpack()                # views of flat.buf
+    tree = flat.unpack()                # leaves in their dtypes (f32: views of flat.buf)
     noise = spec.unpack_f32(buf)        # f32 views (pack_f32 is its inverse)
-    bank = init_flat_bank(flat, N)      # (N, P) f32; bf16, or "int8"/"fp8"
+    bank = init_flat_bank(flat, N)      # (N, P) f32; bf16, f16, or "int8"/"fp8"
     paged = PagedBank(hot, hot_ids, N)  # n_hot resident rows (federation.paging)
+
+Leaves may be f32, bf16 or f16 (`_PACKABLE`, as the reference's
+`_check_dtype`): both narrow floats embed exactly in f32, so `pack` widens
+each leaf to the buffer without losing a bit and `unpack` narrows it back
+exactly. An f32 leaf unpacks to a VIEW of the buffer; a bf16 or f16 leaf to
+a differentiable cast of its slice, so the buffer's gradient is the leaf
+gradient widened to f32. Any other dtype raises TypeError.
 
 On a device mesh (`sharding.flat.FlatLayout`) every buffer is this rank's
 local block: `pack_params(..., layout=)` keeps the rank's columns of the
@@ -18,7 +25,8 @@ packed row (`ParamFlat.layout` says which), and `init_flat_bank` builds
 the rank's rows of the bank over them.
 
 The bank's storage follows `bank_dtype`: f32 (the default), a dense
-torch.bfloat16 matrix, or a `QuantBank` of 1-byte int8 / fp8 codes with
+torch.bfloat16 or torch.float16 matrix (or the names "float32", "bfloat16",
+"float16"), or a `QuantBank` of 1-byte int8 / fp8 codes with
 one f32 scale per row and a shared error-feedback residual row. A
 `PagedBank` keeps only n_hot of the N rows on the device, behind a page
 table (`federation.paging` moves rows between it and the host).
@@ -41,12 +49,25 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.tree_util import tree_flatten, tree_unflatten
 
+# leaf dtypes that embed exactly in the f32 buffer, and the names the
+# reference accepts for them (numpy's)
+_PACKABLE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def _check_dtype(dtype: torch.dtype) -> torch.dtype:
+    if dtype not in _PACKABLE.values():
+        raise TypeError(f"cannot pack dtype {dtype} into the f32 flat buffer without losing "
+                        f"bits (packable: {', '.join(_PACKABLE)})")
+    return dtype
+
 
 @dataclasses.dataclass(frozen=True)
 class FlatSpec:
-    """Static layout of a packed tree: structure, leaf shapes and offsets."""
+    """Static layout of a packed tree: structure, leaf shapes, dtypes and
+    offsets."""
     treedef: Any
     shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]        # f32, bf16 or f16 per leaf
     offsets: Tuple[int, ...]
     size: int                              # P = total elements
 
@@ -58,28 +79,31 @@ class FlatSpec:
         leaves, treedef = tree_flatten(tree)
         if treedef != self.treedef:
             raise ValueError("tree structure does not match the spec")
-        for leaf, shape in zip(leaves, self.shapes):
+        for leaf, shape, dt in zip(leaves, self.shapes, self.dtypes):
             if tuple(leaf.shape) != shape:
                 raise ValueError(f"leaf shape {tuple(leaf.shape)} != spec {shape}")
-            if leaf.dtype != torch.float32:
-                raise TypeError(f"leaf dtype {leaf.dtype}: the port packs f32 only")
+            if leaf.dtype != dt:
+                raise TypeError(f"leaf dtype {leaf.dtype} != spec {dt}")
         return leaves
 
     def pack(self, tree) -> torch.Tensor:
-        """Tree -> (P,) f32 buffer (a copy)."""
-        return torch.cat([leaf.reshape(-1) for leaf in self._leaves(tree)])
+        """Tree -> (P,) f32 buffer (a copy), each leaf widened exactly."""
+        return torch.cat([leaf.reshape(-1).to(torch.float32) for leaf in self._leaves(tree)])
 
-    def unpack(self, buf: torch.Tensor) -> Any:
-        """(P,) f32 buffer -> tree of VIEWS of `buf`. One split op, so the
-        gradient w.r.t. `buf` of a loss on the tree is assembled in one
-        pass, already packed."""
+    def _split(self, buf: torch.Tensor):
+        """(P,) buffer -> its pieces, each a view with its leaf's shape."""
         if tuple(buf.shape) != (self.size,):
             raise ValueError(f"buffer shape {tuple(buf.shape)} != ({self.size},)")
-        sizes = [math.prod(s) for s in self.shapes]
-        pieces = torch.split(buf, sizes)
-        return tree_unflatten(self.treedef,
-                              [p.view(s) for p, s in zip(pieces, self.shapes)])
+        pieces = torch.split(buf, [math.prod(s) for s in self.shapes])
+        return [p.view(s) for p, s in zip(pieces, self.shapes)]
 
+    def unpack(self, buf: torch.Tensor) -> Any:
+        """(P,) f32 buffer -> tree of the spec's leaves: f32 leaves are
+        VIEWS of `buf`, bf16 and f16 leaves casts of their slices. One split
+        op, so the gradient w.r.t. `buf` of a loss on the tree is assembled
+        in one pass, already packed (a narrow leaf's gradient widened)."""
+        return tree_unflatten(self.treedef, [p.to(dt) for p, dt
+                                             in zip(self._split(buf), self.dtypes)])
 
     def pack_f32(self, tree) -> torch.Tensor:
         """Tree with the spec's shapes (any floating dtype) -> (P,) f32
@@ -94,22 +118,24 @@ class FlatSpec:
 
     def unpack_f32(self, buf: torch.Tensor) -> Any:
         """(P,) f32 buffer -> tree of f32 views of `buf` with the spec's
-        shapes (no per-leaf cast)."""
-        return self.unpack(buf.to(torch.float32))
+        shapes, whatever the leaves' dtypes (no per-leaf cast: side-channel
+        rows such as the tree's noise stay f32)."""
+        return tree_unflatten(self.treedef, self._split(buf.to(torch.float32)))
 
 
 def flatten_spec(tree) -> FlatSpec:
+    """The spec of a tree of f32, bf16 or f16 leaves (any other dtype
+    raises TypeError, as the reference's _check_dtype)."""
     leaves, treedef = tree_flatten(tree)
     if not leaves:
         raise ValueError("cannot flatten a tree with no tensor leaves")
-    shapes, offsets, off = [], [], 0
+    shapes, dtypes, offsets, off = [], [], [], 0
     for leaf in leaves:
-        if leaf.dtype != torch.float32:
-            raise TypeError(f"leaf dtype {leaf.dtype}: the port packs f32 only")
+        dtypes.append(_check_dtype(leaf.dtype))
         shapes.append(tuple(leaf.shape))
         offsets.append(off)
         off += leaf.numel()
-    return FlatSpec(treedef, tuple(shapes), tuple(offsets), off)
+    return FlatSpec(treedef, tuple(shapes), tuple(dtypes), tuple(offsets), off)
 
 
 class ParamFlat:
@@ -156,7 +182,6 @@ def pack_params(tree, spec: FlatSpec = None, device=None, layout=None) -> ParamF
 
 
 _QUANT_FMTS = ("int8", "fp8")
-_DENSE = (torch.float32, torch.bfloat16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,19 +209,32 @@ class BankCodec:
 
 def as_bank_codec(dtype) -> Optional[BankCodec]:
     """Normalize a `bank_dtype` option: "int8"/"fp8" (or a BankCodec) mean
-    the quantized bank; None, torch.float32 and torch.bfloat16 mean the
-    dense bank (returns None). Anything else raises."""
+    the quantized bank; None and a packable float (torch.float32,
+    torch.bfloat16, torch.float16, or their names "float32", "bfloat16",
+    "float16") mean the dense bank (returns None). An unknown string or
+    dtype raises ValueError."""
     if isinstance(dtype, BankCodec):
         return dtype
     if isinstance(dtype, str):
         if dtype in _QUANT_FMTS:
             return BankCodec(dtype)
-        raise ValueError(f"unknown bank_dtype {dtype!r}: expected torch.float32, "
-                         f"torch.bfloat16 or a quantized format ({', '.join(_QUANT_FMTS)})")
-    if dtype is not None and dtype not in _DENSE:
+        if dtype not in _PACKABLE:
+            raise ValueError(f"unknown bank_dtype {dtype!r}: expected a floating dtype "
+                             f"({', '.join(_PACKABLE)}) or a quantized format "
+                             f"({', '.join(_QUANT_FMTS)})")
+        return None
+    if dtype is not None and dtype not in _PACKABLE.values():
         raise ValueError(f"bank_dtype {dtype} is not a bank storage the port has "
-                         "(torch.float32, torch.bfloat16, 'int8', 'fp8')")
+                         f"({', '.join(_PACKABLE)}, {', '.join(_QUANT_FMTS)})")
     return None
+
+
+def _dense_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a dense bank's rows: None means f32, a name
+    ("bfloat16", ...) its torch dtype."""
+    if dtype is None:
+        return torch.float32
+    return _PACKABLE[dtype] if isinstance(dtype, str) else dtype
 
 
 class QuantBank:
@@ -320,8 +358,9 @@ def init_flat_bank(flat: ParamFlat, n_owners: int, dtype=None):
     """(N_owners, P) owner-copy bank, every row the central buffer.
 
     `dtype` is the bank's storage: None or torch.float32 (f32 rows),
-    torch.bfloat16 (rows upcast on gather and narrowed on write; a refused
-    row round-trips exactly), or "int8"/"fp8"/a BankCodec for a QuantBank.
+    torch.bfloat16 or torch.float16 (rows upcast on gather and narrowed on
+    write; a refused row round-trips exactly; also by name, "bfloat16"), or
+    "int8"/"fp8"/a BankCodec for a QuantBank.
     The quantized bank encodes the central row ONCE with the deterministic
     round-to-nearest and copies its codes N times, so no (N, P) f32 tensor
     ever exists; the residual starts at zero.
@@ -349,6 +388,5 @@ def init_flat_bank(flat: ParamFlat, n_owners: int, dtype=None):
         return QuantBank(codes_row.unsqueeze(0).expand(n_rows, p).clone(),
                          scales_row.unsqueeze(0).expand(n_rows, -1).clone(),
                          torch.zeros_like(flat.buf), codec)
-    bank = torch.empty((n_rows, p), dtype=torch.float32 if dtype is None else dtype,
-                       device=flat.buf.device)
+    bank = torch.empty((n_rows, p), dtype=_dense_dtype(dtype), device=flat.buf.device)
     return bank.copy_(flat.buf.unsqueeze(0).expand(n_rows, p))

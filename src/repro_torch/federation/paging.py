@@ -39,7 +39,7 @@ the row group (the slot's holder has it), and each rank installs the rows
 of the slots it holds.
 
 Bit-exactness: rows round-trip the cold tier bit for bit for every
-storage (f32, bf16, the int8/fp8 codes and scales), the int8/fp8 error-
+storage (f32, bf16, f16, the int8/fp8 codes and scales), the int8/fp8 error-
 feedback residual belongs to the session and never pages, and with
 n_hot >= N every row stays resident: the paged engine then equals the
 flat one bit for bit on all three drivers.
@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import MemmapRowStore, MemoryRowStore
+from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.checkpoint.store import to_storage
 from repro_torch.device import resolve_device
 from repro_torch.federation.deep import (AsyncDPConfig, AsyncDPState, TreeNoise, _armed,
@@ -264,13 +265,18 @@ class OwnerPager:
 
     def flush(self, state: AsyncDPState, only_dirty: bool = True) -> None:
         """Write resident rows back to the cold tier WITHOUT evicting them
-        (a checkpoint or a shutdown); `only_dirty=False` writes every
+        (a checkpoint or a shutdown), a few rows at a time
+        (`checkpoint.store.PIECE_BYTES`); `only_dirty=False` writes every
         resident row."""
         slot_of = self._slot_of()
         ids = [o for o in (int(i) for i in self.resident_ids)
                if not only_dirty or o in self.dirty]
-        if ids:
-            self._write_back(state, ids, [slot_of[o] for o in ids])
+        # a few rows at a time: the gathered copy stays within PIECE_BYTES
+        row = max(b[0].numel() * b.element_size()
+                  for b in self._buffers(state, self.stores).values())
+        k = max(1, ckpt_store.PIECE_BYTES // max(1, row))
+        for a in range(0, len(ids), k):
+            self._write_back(state, ids[a:a + k], [slot_of[o] for o in ids[a:a + k]])
 
     def adopt(self, state: AsyncDPState) -> None:
         """Re-sync the host mirrors to a RESTORED state (crash-resume): the
@@ -301,7 +307,8 @@ def init_paged_state(params, cfg: AsyncDPConfig, n_hot: int, bank_dtype=None, de
     As `deep.init_state_flat`, except that the (N, P) bank (and the tree's
     (N, d, P) nodes) become an (n_hot, ...) hot tier over a cold row store:
     device bytes are O(n_hot * P), whatever N is. `bank_dtype` picks the
-    storage as for the flat bank (None/f32, torch.bfloat16, "int8"/"fp8").
+    storage as for the flat bank (None/f32, torch.bfloat16, torch.float16,
+    "int8"/"fp8").
     `cold_dir` puts the cold tier on disk (`MemmapRowStore`, created at the
     first eviction); None keeps it in host memory.
 

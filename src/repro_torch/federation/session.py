@@ -29,7 +29,7 @@ Counterpart of ``repro/federation/session.py``:
     fed.make_step(loss_fn, pack_params=True,
                   privatizer=PrivatizerConfig(xi=1.0, n_microbatches=2,
                                               fused_kernel=True),
-                  bank_dtype=None)      # or torch.bfloat16, "int8", "fp8"
+                  bank_dtype=None)      # or torch.bfloat16, torch.float16, "int8", "fp8"
 
     # the flat engine on a device mesh (launch.mesh): each rank keeps its
     # block of the state, a 1x1 mesh equals the unmeshed engine bit for bit
@@ -54,7 +54,8 @@ Counterpart of ``repro/federation/session.py``:
     ring = AvailabilityTraceSchedule(windows, trace=trace).trace_ring(chunk=4096)
     state, metrics = fed.run_rounds(state, batches, ring, key)
 
-    # crash-resume: the device state and the host journal together
+    # crash-resume: the device state and the host journal together (on a
+    # mesh every rank calls both; the files hold the global arrays)
     fed.save_session(directory, state)
     state = fed.restore_session(directory, fed.init_state(params))
 
@@ -89,7 +90,8 @@ from repro_torch.device import resolve_device
 from repro_torch.federation.config import FederationConfig
 from repro_torch.federation.convex import (Algo1Trace, SyncTrace, scan_engine, stack_gram,
                                            sync_scan_engine)
-from repro_torch.federation.deep import (AsyncDPConfig, AsyncDPState, init_state,
+from repro_torch.federation.deep import (AsyncDPConfig, AsyncDPState, _layout_of,
+                                         device_free_bytes, example_group_cap, init_state,
                                          init_state_flat, make_fused_rounds,
                                          make_group_rounds, make_sync_dp_step,
                                          make_train_step)
@@ -107,12 +109,6 @@ from repro_torch.federation.staleness import (LatencyPlan, StalenessPolicy, as_t
                                               merge_timeout_codes, staleness_tick)
 
 _STRATEGIES = ("async", "sync")
-
-
-def _no_meshed_checkpoint(state: AsyncDPState) -> None:
-    if isinstance(state.theta_L, ParamFlat) and state.theta_L.layout is not None:
-        raise NotImplementedError("checkpoints of a state on a device mesh wait for ROADMAP "
-                                  "queue 1, item 7; save an unmeshed state")
 
 
 class Federation:
@@ -285,8 +281,9 @@ class Federation:
         the sensitivity is the privatizer's ENFORCED clip norm.
 
         `bank_dtype` (flat states only) is the owner bank's storage that
-        `init_state` builds: None (f32), torch.bfloat16, or "int8"/"fp8" (or
-        a flatten.BankCodec) for the error-feedback quantized bank, about 4x
+        `init_state` builds: None (f32), torch.bfloat16 or torch.float16 (or
+        the names "float32", "bfloat16", "float16"), or "int8"/"fp8" (or a
+        flatten.BankCodec) for the error-feedback quantized bank, about 4x
         below f32.
 
         `mesh` (flat engine only: a named ("data", "model") DeviceMesh from
@@ -304,6 +301,7 @@ class Federation:
         self._bank_dtype = bank_dtype
         self._mesh = mesh
         acfg = self.as_async_config(privatizer)
+        self._privatizer = acfg.privatizer
         scales = self.mechanism.scales(p=n_params, clip_norm=acfg.privatizer.xi,
                                        device=self.device)
         if self.strategy == "sync":
@@ -512,7 +510,9 @@ class Federation:
         (`schedules.partition_conflict_free`), each run one batch with one
         theta_L inertia reduction. `max_group` caps the group length:
         "auto" (the default) picks the cap from the sequence's own repeats
-        (`schedules.auto_max_group`), None leaves groups unbounded, an int
+        (`schedules.auto_max_group`) and, at example granularity on the
+        card, no more members than the free device memory holds
+        (`deep.example_group_cap`); None leaves groups unbounded, an int
         is a hard cap. The ledger spend equals the sequential driver's
         exactly; theta_L deviates boundedly for groups of more than one.
         When every group has length 1 the sequential driver runs: bit for
@@ -617,6 +617,12 @@ class Federation:
             seq_host = owner_seq.cpu().numpy()
         if max_group == "auto":
             max_group = auto_max_group(seq_host)
+            free = device_free_bytes(self.device)
+            if (self._privatizer.granularity == "example" and free is not None
+                    and isinstance(state.theta_L, ParamFlat)):
+                # the g*B per-example gradient rows must fit the card
+                max_group = min(max_group, example_group_cap(
+                    next(iter(batches.values())).shape[1], state.theta_L.size, free))
         groups = partition_conflict_free(seq_host, max_group)
         if all(length <= 1 for _, length in groups):
             # single-round groups: the sequential driver IS the grouped run
@@ -646,27 +652,59 @@ class Federation:
         flushed, so the cold tier is authoritative, and its written rows
         ride in the same atomic shard as the hot state (never-written rows
         are the default row). Returns the step the checkpoint was filed
-        under (state.step when not given)."""
-        from repro_torch.checkpoint import save_checkpoint
-        _no_meshed_checkpoint(state)
+        under (state.step when not given).
+
+        On a device mesh every rank calls it, and the mesh's lowest rank
+        writes the GLOBAL arrays: each block reaches it a few rows at a time
+        (`sharding.flat.stream_leaves`; a paged state's cold rows likewise,
+        each rank's store holding its columns), so no rank builds a global
+        array on the device or the host. The ranks meet before returning.
+        The files are the unmeshed twin's, so the checkpoint loads unmeshed,
+        on another mesh and into the reference."""
+        from repro_torch.checkpoint.store import (Streamed, flatten_with_paths, save_leaves,
+                                                  stream_rows)
+        from repro_torch.sharding.flat import stream_leaves
+        lay = _layout_of(state.theta_L)
         if step is None:
             step = int(state.step)
         extra: Dict[str, Any] = {}
-        aux = None
+        aux: Dict[str, Any] = {}
         if self._pager is not None:
             # after the flush the cold tier holds the exact bits of every
             # resident row
             self._pager.flush(state, only_dirty=False)
-            aux = {}
             for name, store in self._pager.stores.items():
                 ids = store.written_ids
+                dtype = from_storage(np.empty(0, store.storage_dtype), store.dtype).dtype
+
+                def read(a, b, store=store, ids=ids):
+                    return from_storage(store.read_rows(ids[a:b]), store.dtype)
                 aux[f"cold/{name}/ids"] = ids
-                aux[f"cold/{name}/rows"] = from_storage(store.read_rows(ids), store.dtype)
+                if lay is None:
+                    aux[f"cold/{name}/rows"] = stream_rows(read, ids.size, store.row_shape,
+                                                           dtype)
+                    continue
+                cols = name != "scales"
+                shape = (ids.size,) + store.row_shape[:-1] + (lay.p,) if cols else \
+                    (ids.size,) + store.row_shape
+                aux[f"cold/{name}/rows"] = Streamed(shape, dtype, lay.stream(
+                    read, ids.size, store.row_shape, dtype, False, cols,
+                    state.theta_L.buf.device))
             extra["paging"] = dict(self._paging_manifest(), n_hot=self._pager.n_hot)
         exp = getattr(self.mechanism, "export_journal", None)
         if exp is not None:
             extra["journal"] = exp()
-        save_checkpoint(directory, step, state, extra=extra or None, aux_arrays=aux)
+        leaves = flatten_with_paths(state) if lay is None else stream_leaves(state)
+        if lay is None or lay.writer:
+            save_leaves(directory, step, leaves, extra or None, aux or None)
+        else:
+            # this rank's pieces go to the writer, in the order it writes
+            for v in list(leaves.values()) + list(aux.values()):
+                if isinstance(v, Streamed):
+                    for _ in v.pieces:
+                        pass
+        if lay is not None:
+            lay.barrier()
         return int(step)
 
     def restore_session(self, directory, like: AsyncDPState,
@@ -683,10 +721,14 @@ class Federation:
         owners and config as the one that saved. Restoring into a PAGED
         session (init_paged_state before this call, so `like` and the cold
         stores exist) wipes the stores, writes the checkpoint's cold rows
-        and re-syncs the pager to the restored page table."""
-        from repro_torch.checkpoint import (latest_step, load_aux_arrays, load_checkpoint,
-                                            load_manifest)
-        _no_meshed_checkpoint(like)
+        and re-syncs the pager to the restored page table. A meshed `like`
+        (every rank calls this) keeps its own block of each global array
+        (`FlatLayout.to_local`) and its own columns of the cold rows, and
+        reads only those from the file; cold rows go into the stores a few
+        at a time."""
+        from repro_torch.checkpoint.store import (aux_views, latest_step, load_checkpoint,
+                                                  load_manifest, rows_per_piece)
+        from repro_torch.sharding.flat import state_blocks
         if step is None:
             step = latest_step(directory)
             if step is None:
@@ -699,21 +741,33 @@ class Federation:
         if self._pager is not None and paging is None:
             raise ValueError("checkpoint carries no cold-tier snapshot (saved from a "
                              "non-paged session); restore it into a non-paged state instead")
-        state = load_checkpoint(directory, step, like)
+        lay = _layout_of(like.theta_L)
+        block = None
+        if lay is not None:
+            blocks = state_blocks(like)
+
+            def block(key, full):
+                return lay.to_local(full, *blocks[key]) if key in blocks else full
+        state = load_checkpoint(directory, step, like, block=block)
         if self._pager is not None:
             mine = self._paging_manifest()
             theirs = {"stores": paging["stores"], "dtypes": paging.get("dtypes", mine["dtypes"])}
             if mine != theirs:
                 raise ValueError(f"checkpoint cold tier has stores {theirs} but this session "
                                  f"pages {mine} — codec/tree configuration mismatch")
-            aux = load_aux_arrays(directory, step)
+            views = aux_views(directory, step)
             for name, store in self._pager.stores.items():
                 # wipe first: rows written after the save read as the default
                 # row again, as they did at save time
                 store.clear()
-                ids = aux[f"cold/{name}/ids"].numpy()
-                if ids.size:
-                    store.write_rows(ids, aux[f"cold/{name}/rows"])
+                ids = np.array(views[f"cold/{name}/ids"][0])
+                rows, logical = views[f"cold/{name}/rows"]
+                if lay is not None and name != "scales":
+                    rows = lay.to_local(rows, False, True)
+                k = rows_per_piece(store.row_shape,
+                                   from_storage(np.empty(0, rows.dtype), logical).dtype)
+                for a in range(0, ids.size, k):
+                    store.write_rows(ids[a:a + k], np.array(rows[a:a + k]))
             self._pager.adopt(state)
         journal = (manifest.get("extra") or {}).get("journal")
         if journal is not None:

@@ -31,6 +31,16 @@ Two kinds of group serve the round:
     do not promise `nan_max`'s rule, and an int32 sum must wrap as the
     reference's bit-sum does).
 
+Checkpoints hold GLOBAL arrays, as the reference's `save_checkpoint`
+(`np.asarray` of each leaf), and no rank builds one: `stream` sends each
+block (`state_blocks` says which leaves are blocks, and along which axes)
+to the one writing rank (`writer`) in pieces of a few rows
+(`checkpoint.store.PIECE_BYTES`), point to point from the lowest rank
+that holds it,
+and the writer puts each piece's columns together on the host and writes
+it out; the mesh then meets at `barrier`. On restore `to_local` slices
+each rank's block out of the file's view of the global array.
+
 Every collective is issued whatever the group's size: on a 1x1 mesh each
 group is the rank alone, and the engine runs the code a real mesh runs.
 Groups are created once per (mesh, axes) in this world; every rank of the
@@ -41,7 +51,7 @@ from __future__ import annotations
 
 import itertools
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -184,6 +194,96 @@ class FlatLayout:
         stacked = self._gather(x, self._col_group, self._col_order)     # (C, ..., Pl)
         return torch.movedim(stacked, 0, -2).reshape(tuple(x.shape[:-1]) + (self.p,))
 
+    def to_local(self, full, rows: bool, cols: bool):
+        """This rank's block of a global array (a tensor, or a numpy array
+        such as a view of a checkpoint file, which is sliced and not read);
+        raises ValueError when the array is not of this layout's N or P."""
+        if rows:
+            if full.shape[0] != self.n:
+                raise ValueError(f"{full.shape[0]} rows for a layout of {self.n}")
+            full = full[self.r0:self.r0 + self.n_local]
+        if cols:
+            if full.shape[-1] != self.p:
+                raise ValueError(f"{full.shape[-1]} columns for a layout of {self.p}")
+            full = full[..., self.c0:self.c0 + self.p_local]
+        return full.contiguous() if isinstance(full, torch.Tensor) else full
+
+    @property
+    def writer(self) -> bool:
+        """Whether this rank writes what the mesh writes once (the mesh's
+        lowest global rank)."""
+        return dist.get_rank() == int(self.mesh.mesh.min())
+
+    def barrier(self) -> None:
+        """Every rank of the mesh meets here."""
+        group = _groups(self.mesh, tuple(self.mesh.mesh_dim_names))[0]
+        if self.mesh.device_type == "cuda":
+            dist.barrier(group=group, device_ids=[torch.cuda.current_device()])
+        else:
+            dist.barrier(group=group)
+
+    def _holders(self, rows: bool, cols: bool) -> Dict[Tuple[int, int], int]:
+        """{(row block, column block): the lowest global rank holding it},
+        a block index 0 along an axis the leaf is not blocked on."""
+        names = tuple(self.mesh.mesh_dim_names)
+        sizes = dict(zip(names, self.mesh.mesh.shape))
+        out: Dict[Tuple[int, int], int] = {}
+        for coord in itertools.product(*(range(sizes[a]) for a in names)):
+            at = dict(zip(names, coord))
+            b = (_block_index(at, sizes, self.row_axes) if rows else 0,
+                 _block_index(at, sizes, self.col_axes) if cols else 0)
+            r = int(self.mesh.mesh[coord])
+            out[b] = min(out.get(b, r), r)
+        return out
+
+    def stream(self, read: Callable[[int, int], torch.Tensor], lead: int, row_shape,
+               dtype: torch.dtype, rows: bool, cols: bool, device) -> Iterator[torch.Tensor]:
+        """The global array of a blocked leaf, in C order, as host pieces of
+        whole leading rows, each the columns of every block put together;
+        a collective of the mesh, which every rank iterates to its end (the
+        leaves in one order).
+
+        This rank's block is `lead` leading rows of `row_shape` (columns
+        last), and `read(a, b)` gives its rows [a, b) (any device). The
+        writer yields the pieces and nothing else does: the lowest rank
+        holding a block sends each of its pieces to the writer point to
+        point through `device` (the backend's), and the writer copies its
+        own pieces to the host without a device copy. A piece holds at most
+        `checkpoint.store.PIECE_BYTES` of the global array, or one row."""
+        from repro_torch.checkpoint.store import rows_per_piece
+        writer = int(self.mesh.mesh.min())
+        me = dist.get_rank()
+        holders = self._holders(rows, cols)
+        row_shape = tuple(row_shape)
+        n_rb = self.row_blocks if rows else 1
+        n_cb = self.col_blocks if cols else 1
+        width = row_shape[-1] if row_shape else 1
+        g_row = row_shape[:-1] + (width * n_cb,) if cols else row_shape
+        itemsize = torch.empty(0, dtype=dtype).element_size()
+        k = rows_per_piece(g_row, dtype)
+        for rb in range(n_rb):
+            for a in range(0, lead, k):
+                b = min(lead, a + k)
+                out = torch.empty((b - a,) + g_row, dtype=dtype) if me == writer else None
+                for cb in range(n_cb):
+                    src = holders[(rb, cb)]
+                    if me == writer:
+                        dst = out[..., cb * width:(cb + 1) * width] if cols else out
+                        if src == me:
+                            dst.copy_(read(a, b))
+                        else:
+                            # bytes on the wire: exact, and a dtype every backend sends
+                            shape = (b - a,) + row_shape
+                            buf = torch.empty(shape[:-1] + (shape[-1] * itemsize,),
+                                              dtype=torch.uint8, device=device)
+                            dist.recv(buf, src=src)
+                            dst.copy_(buf.view(dtype))
+                    elif src == me:
+                        dist.send(read(a, b).to(device).contiguous().view(torch.uint8),
+                                  dst=writer)
+                if out is not None:
+                    yield out
+
     def max_cols(self, x: torch.Tensor) -> torch.Tensor:
         """Elementwise max of `x` over the column blocks; a NaN in any block
         wins, as torch.amax and jnp.max keep it."""
@@ -198,6 +298,53 @@ class FlatLayout:
         """Logical and of a bool `flag` over the column blocks."""
         parts = self._gather(flag.to(torch.uint8), self._col_group, self._col_order)
         return torch.all(parts.bool(), dim=0)
+
+
+def state_blocks(state) -> Dict[str, Tuple[bool, bool]]:
+    """{checkpoint key: (rows, cols)} of the leaves of a meshed flat state
+    that are this rank's blocks (`checkpoint.store.flatten_with_paths`
+    keys): theta_L's columns; the bank's (a PagedBank's hot tier's) rows and
+    columns, or a QuantBank's codes (rows and columns), scales (rows) and
+    residual (columns); the tree's node rows and columns. Every other leaf
+    (the ledger, the page table, the leaf counts, the fault and runtime
+    columns, step) is replicated."""
+    from repro_torch.checkpoint.store import flatten_with_paths
+    from repro_torch.federation.flatten import PagedBank, QuantBank
+    axes = {id(state.theta_L.buf): (False, True)}
+    hot = state.bank.hot if isinstance(state.bank, PagedBank) else state.bank
+    if isinstance(hot, QuantBank):
+        axes.update({id(hot.codes): (True, True), id(hot.scales): (True, False),
+                     id(hot.residual): (False, True)})
+    else:
+        axes[id(hot)] = (True, True)
+    if state.tree is not None:
+        axes[id(state.tree.nodes)] = (True, True)
+    return {k: axes[id(v)] for k, v in flatten_with_paths(state).items() if id(v) in axes}
+
+
+def stream_leaves(state) -> Dict[str, Any]:
+    """{checkpoint key: leaf} of a meshed flat state, as `save_leaves`
+    writes it: each block a `Streamed` global array (`FlatLayout.stream`),
+    every other leaf the state's own. Every rank of the mesh drives the
+    streams, in this order."""
+    from repro_torch.checkpoint.store import Streamed, flatten_with_paths
+    lay = state.theta_L.layout
+    blocks = state_blocks(state)
+    out = {}
+    for key, x in flatten_with_paths(state).items():
+        if key not in blocks:
+            out[key] = x
+            continue
+        rows, cols = blocks[key]
+        shape = list(x.shape)
+        if rows:
+            shape[0] = lay.n
+        if cols:
+            shape[-1] = lay.p
+        y = x.unsqueeze(0) if x.ndim == 1 and not rows else x     # (P_local,): one row
+        out[key] = Streamed(tuple(shape), x.dtype, lay.stream(
+            lambda a, b, y=y: y[a:b], y.shape[0], y.shape[1:], x.dtype, rows, cols, x.device))
+    return out
 
 
 def layout_for(mesh, n: int, p: int) -> Optional[FlatLayout]:

@@ -6,6 +6,12 @@ without the JAX package:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
+Per-example clipping on the fused flat engine runs on the card with one
+sqnorm row-axis launch a round (a group under the grouped driver), agrees
+with the CPU within 1e-4 (an f16 bank one f16 step; a model cast to bf16
+1e-3, its loss in bf16 on both sides), and its step loop equals run_rounds
+bit for bit.
+
 Tolerances: the kernels use the plain versions' op order with
 round-to-nearest intrinsics, so only log1pf could differ (1e-6); the
 squared norm sums in another order (rtol 1e-5); the bank codec kernels
@@ -335,6 +341,96 @@ def test_grouped_session_on_the_card(form):
         torch.testing.assert_close(card["nodes"], cpu["nodes"], rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(card["theta"], cpu["theta"], rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(card["bank"], cpu["bank"], rtol=1e-4, atol=1e-5)
+
+
+def _to_dtype(tree, dtype):
+    from repro_torch.tree_util import tree_map
+    return tree_map(lambda leaf: leaf.to(dtype), tree)
+
+
+def _example_session(device, params, lm, bank_dtype=None, horizon=2):
+    fed = Federation([DataOwner(n=100 * (i + 1), epsilon=1.0, xi=1.0) for i in range(4)],
+                     FederationConfig.from_target_lr(0.05, n_owners=4, horizon=horizon,
+                                                     sigma=1e-2), device=device)
+    fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True, bank_dtype=bank_dtype,
+                  privatizer=PrivatizerConfig(xi=1.0, granularity="example",
+                                              fused_kernel=True))
+    return fed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("driver", ["sequential", "grouped"])
+@pytest.mark.parametrize("form", ["f32", "f16-bank", "bf16-leaves"])
+def test_example_granularity_on_the_card_matches_the_cpu(form, driver):
+    # per-example clipping on the fused flat engine: one sqnorm row-axis
+    # launch a round (sequential) or a group (grouped) and one dp_round
+    # each; refusals, owners and the ledger equal the CPU run's, theta_L and
+    # the bank agree with it (bf16 leaves: the loss in bf16 on both sides)
+    dev = _device()
+    cfg = DENSE_124M.reduced()
+    lm = LM(cfg)
+    params = lm.init(seed=2)
+    if form == "bf16-leaves":
+        params = _to_dtype(params, torch.bfloat16)
+    gen = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (8, 4, 16), generator=gen, dtype=torch.int32)
+    batches = {"tokens": toks, "labels": torch.roll(toks, -1, dims=2)}
+    seq = [0, 1, 2, 3, 1, 0, 3, 2]                          # groups of 4 and 4
+    grouped = driver == "grouped"
+    n_calls = len(partition_conflict_free(seq)) if grouped else len(seq)
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        fed = _example_session(device, params, lm,
+                               bank_dtype=torch.float16 if form == "f16-bank" else None)
+        before = dict(tkernel.launches)
+        state, ms = fed.run_rounds(fed.init_state(params), batches, seq,
+                                   key=trandom.PRNGKey(5, device=device),
+                                   owner_parallel=grouped, max_group=None)
+        got = {k: tkernel.launches[k] - before[k] for k in ("dp_round", "sqnorm")}
+        if device.type == "cuda":
+            assert got == {"dp_round": n_calls, "sqnorm": n_calls}
+            assert ([leaf.dtype for leaf in tree_flatten(fed.params_of(state))[0]]
+                    == [leaf.dtype for leaf in tree_flatten(params)[0]])
+        out[device.type] = (ms["refused"].cpu(), ms["owner"].cpu(), fed.reconcile(state),
+                            state.theta_L.buf.cpu(), state.bank.float().cpu(),
+                            ms["clip_frac"].cpu())
+    card, cpu = out["cuda"], out["cpu"]
+    assert torch.equal(card[0], cpu[0]) and torch.equal(card[1], cpu[1]) and card[2] == cpu[2]
+    tol = dict(rtol=1e-3, atol=1e-4) if form == "bf16-leaves" else dict(rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(card[3], cpu[3], **tol)
+    if form == "f16-bank":
+        tol = dict(rtol=2 ** -10, atol=1e-5)
+    torch.testing.assert_close(card[4], cpu[4], **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["f32", "bf16-leaves"])
+def test_example_step_loop_equals_run_rounds_on_the_card(form):
+    # the step loop equals run_rounds bit for bit on the card at example
+    # granularity, refusals included (horizon 2 over 8 rounds of 4 owners)
+    dev = _device()
+    cfg = DENSE_124M.reduced()
+    lm = LM(cfg)
+    params = lm.init(seed=3, device=dev)
+    if form == "bf16-leaves":
+        params = _to_dtype(params, torch.bfloat16)
+    gen = torch.Generator().manual_seed(6)
+    toks = torch.randint(0, cfg.vocab, (8, 4, 16), generator=gen, dtype=torch.int32)
+    batches = {"tokens": toks.to(dev), "labels": torch.roll(toks, -1, dims=2).to(dev)}
+    seq = [0, 0, 1, 0, 2, 1, 1, 3]
+    root = trandom.PRNGKey(7, device=dev)
+    keys = trandom.split(root, len(seq))
+    fa = _example_session(dev, params, lm)
+    sa = fa.init_state(params)
+    refused = []
+    for k, owner in enumerate(seq):
+        sa, m = fa.step(sa, {n: v[k] for n, v in batches.items()}, owner, keys[k])
+        refused.append(bool(m["refused"]))
+    fb = _example_session(dev, params, lm)
+    sb, ms = fb.run_rounds(fb.init_state(params), batches, seq, key=root)
+    assert refused == ms["refused"].cpu().tolist() and any(refused)
+    assert torch.equal(sa.theta_L.buf, sb.theta_L.buf) and torch.equal(sa.bank, sb.bank)
+    assert fa.reconcile(sa) == fb.reconcile(sb)
 
 
 FAULT_COLUMNS = ("spent", "refused", "dropped", "faulted", "quarantined", "timed_out",
@@ -1324,5 +1420,82 @@ def test_one_by_one_nccl_mesh_equals_the_unmeshed_engine_on_the_card(form):
                             {k: after[k] - before[k] for k in after}))
             (a, la, ka), (b, lb, kb) = out
             assert all(torch.equal(x, y) for x, y in zip(a, b)) and la == lb and ka == kb
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_one_by_one_nccl_mesh_save_adds_at_most_a_piece_to_the_card(tmp_path, monkeypatch,
+                                                                     paged):
+    """A 1x1-mesh save_session over NCCL, in pieces of 1 MiB (or one row
+    where a row is larger), raises the card's peak by no more than one
+    piece over the state (no global array on the device; a paged state's
+    flush picks its hot rows a piece at a time, three copies of a piece),
+    beside the few small index tensors of the flush and the barrier; it writes the unmeshed
+    twin's arrays bit for bit, and the meshed restore resumes as the
+    uninterrupted run, bit for bit."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.checkpoint import flatten_with_paths, store
+    from repro_torch.launch.mesh import make_host_mesh
+    monkeypatch.setattr(store, "PIECE_BYTES", 1 << 20)
+    dev = _device()
+    cfg = DENSE_124M.reduced()
+    lm = LM(cfg)
+    params = lm.init(seed=2, device=dev)
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (8, 4, 16), generator=gen, dtype=torch.int32)
+    batches = {"tokens": toks, "labels": torch.roll(toks, -1, dims=2)}
+    seq = [0, 1, 2, 3, 1, 0, 3, 2]
+
+    def session(m):
+        fed = Federation([DataOwner(n=100 * (i + 1), epsilon=1.0, xi=1.0) for i in range(4)],
+                         FederationConfig.from_target_lr(0.05, n_owners=4, horizon=8,
+                                                         sigma=1e-2), device=dev)
+        fed.make_step(lambda p, b: lm.loss(p, b)[0], pack_params=True, mesh=m,
+                      privatizer=PrivatizerConfig(xi=1.0, granularity="example",
+                                                  fused_kernel=True))
+        return fed, fed.init_paged_state(params, n_hot=4) if paged else fed.init_state(params)
+
+    def dispatch(fed, st, d):
+        sl = slice(4 * d, 4 * d + 4)
+        return fed.run_rounds(st, {k: v[sl] for k, v in batches.items()}, seq[sl],
+                              key=trandom.PRNGKey(9 + d, device=dev))[0]
+
+    def arrays(directory):
+        step = store.latest_step(directory)
+        with np.load(f"{directory}/step_{step:08d}/arrays.npz") as z:
+            return {k: z[k] for k in z.files}
+    mesh = make_host_mesh()
+    try:
+        files = {}
+        for tag, m in (("twin", None), ("mesh", mesh)):
+            fed, st = session(m)
+            st = dispatch(fed, st, 0)
+            fed.reconcile(st)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            fed.save_session(str(tmp_path / tag), st)
+            if m is not None:
+                piece = max(store.PIECE_BYTES, st.theta_L.buf.numel() * 4)     # or one row
+                # the writer's own pieces never reach the device; a paged
+                # flush picks its hot rows over the row group, which holds a
+                # piece three times on a 1x1 mesh (the rank's candidate
+                # rows, their gather, the picked rows)
+                bound = (3 if paged else 1) * piece + (1 << 16)
+                peak = torch.cuda.max_memory_allocated() - held
+                assert peak <= bound, (peak, bound)
+                whole = dispatch(fed, st, 1)
+                whole = [t.cpu() for t in flatten_with_paths(whole).values()]
+            files[tag] = arrays(str(tmp_path / tag))
+        assert list(files["mesh"]) == list(files["twin"])
+        for k, a in files["twin"].items():
+            assert files["mesh"][k].dtype == a.dtype and np.array_equal(files["mesh"][k], a), k
+        fed, like = session(mesh)
+        st = dispatch(fed, fed.restore_session(str(tmp_path / "mesh"), like), 1)
+        assert all(torch.equal(a, b.cpu())
+                   for a, b in zip(whole, flatten_with_paths(st).values()))
     finally:
         dist.destroy_process_group()

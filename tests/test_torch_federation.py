@@ -359,19 +359,26 @@ def test_entry_points_without_device_raise_without_cuda(entry):
 
 
 def test_unported_modes_raise(toy_case):
-    # the pytree path and the flat reference mode run; example granularity
-    # on the fused flat engine is refused, and so is a mechanism neither
-    # package has
+    # the pytree path, the flat reference mode and, since per-example
+    # clipping came to the fused flat engine, example granularity there all
+    # run; a granularity or a mechanism neither package has is refused
     params, data, _ = toy_case
+    batch = {k: torch.from_numpy(v[0]) for k, v in data.items()}
     fed = Federation([DataOwner(n=10, epsilon=1.0, xi=1.0)], FederationConfig(horizon=3),
                      device=CPU)
     fed.make_step(_toy_loss_torch, pack_params=True,
                   privatizer=PrivatizerConfig(xi=1.0, granularity="example",
                                               fused_kernel=True))
-    state = fed.init_state(_torch_params(params))
-    with pytest.raises(NotImplementedError, match="example"):
-        fed.step(state, {k: torch.from_numpy(v[0]) for k, v in data.items()}, 0,
-                 trandom.PRNGKey(0, device=CPU))
+    state, m = fed.step(fed.init_state(_torch_params(params)), batch, 0,
+                        trandom.PRNGKey(0, device=CPU))
+    assert not m["refused"] and 0.0 <= float(m["clip_frac"]) <= 1.0
+    assert torch.isfinite(state.theta_L.buf).all()
+    fed = Federation([DataOwner(n=10, epsilon=1.0, xi=1.0)], FederationConfig(horizon=3),
+                     device=CPU)
+    fed.make_step(_toy_loss_torch, pack_params=True,
+                  privatizer=PrivatizerConfig(xi=1.0, granularity="token", fused_kernel=True))
+    with pytest.raises(ValueError, match="token"):
+        fed.step(fed.init_state(_torch_params(params)), batch, 0, trandom.PRNGKey(0, device=CPU))
     with pytest.raises(ValueError, match="unknown mechanism"):
         Federation([DataOwner(n=10, epsilon=1.0, xi=1.0)], FederationConfig(horizon=3),
                    mechanism="gaussian", device=CPU)

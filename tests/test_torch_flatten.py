@@ -118,13 +118,100 @@ def test_validation():
     with pytest.raises(ValueError):
         spec.pack({"v": torch.zeros(3)})
     with pytest.raises(TypeError):
-        tflatten.flatten_spec({"w": torch.zeros(3, dtype=torch.float64)})
+        spec.pack({"w": torch.zeros(3, dtype=torch.bfloat16)})     # not the spec's dtype
+    for dtype in (torch.float64, torch.int32, torch.float8_e4m3fn):
+        with pytest.raises(TypeError, match="packable"):          # as the reference's
+            tflatten.flatten_spec({"w": torch.zeros(3, dtype=dtype)})
+        with pytest.raises(TypeError):
+            jflatten.flatten_spec({"w": jnp.zeros(3, _JAX_DTYPES[dtype])})
     with pytest.raises(ValueError):
         spec.unpack(torch.zeros(5))
-    flat = tflatten.pack_params({"w": torch.zeros(3)}, device=CPU)
-    for storage in (torch.float16, "int4", "bfloat16"):     # not a bank storage of the port
+    flat = tflatten.pack_params({"w": torch.arange(3.0)}, device=CPU)
+    for storage in ("int4", torch.float64, torch.int8):    # not a bank storage of the port
         with pytest.raises(ValueError):
             tflatten.init_flat_bank(flat, 2, storage)
+    with pytest.raises(ValueError):
+        jflatten.as_bank_codec("int4")
+    # every packable float is a dense bank, by dtype or by the reference's name
+    for storage, dtype in ((torch.float16, torch.float16), ("float16", torch.float16),
+                           ("bfloat16", torch.bfloat16), (torch.bfloat16, torch.bfloat16),
+                           ("float32", torch.float32), (None, torch.float32)):
+        assert tflatten.as_bank_codec(storage) is None
+        assert jflatten.as_bank_codec(storage if isinstance(storage, str) or storage is None
+                                      else "float16") is None
+        bank = tflatten.init_flat_bank(flat, 2, storage)
+        assert bank.dtype == dtype and torch.equal(bank.float(), flat.buf.expand(2, 3))
+
+
+# the reference side of each refused dtype: jax without x64 makes a float64
+# array float32, which the reference packs, so int16 stands in for it there
+_JAX_DTYPES = {torch.float64: jnp.int16, torch.int32: jnp.int32,
+               torch.float8_e4m3fn: jnp.float8_e4m3fn}
+
+
+# --------------------------- bf16 and f16 leaves ---------------------------
+def _mixed_arrays(seed=0):
+    import ml_dtypes
+    rng = np.random.default_rng(seed)
+    return {"z": rng.standard_normal((2, 3)).astype(ml_dtypes.bfloat16),
+            "a": np.float16(rng.standard_normal()),
+            "m": rng.standard_normal(4).astype(np.float32),
+            "h": (rng.standard_normal((3, 2)) * 100).astype(np.float16)}
+
+
+def test_mixed_dtype_tree_packs_bit_equal_to_the_reference():
+    # the reference's test_flatten.py mixed tree: f32, bf16 and f16 leaves,
+    # a scalar among them; the packed buffers equal bit for bit, and both
+    # specs name the same dtypes
+    arrs = _mixed_arrays()
+    jtree = {k: jnp.asarray(v) for k, v in arrs.items()}
+    ttree = params_from_numpy(arrs, device=CPU)
+    jspec, tspec = jflatten.flatten_spec(jtree), tflatten.flatten_spec(ttree)
+    assert (tspec.shapes, tspec.offsets, tspec.size) == (jspec.shapes, jspec.offsets, jspec.size)
+    assert [str(d).replace("torch.", "") for d in tspec.dtypes] == [d.name for d in jspec.dtypes]
+    buf = tflatten.pack_params(ttree, device=CPU).buf
+    assert buf.dtype == torch.float32
+    np.testing.assert_array_equal(buf.numpy(), np.asarray(jflatten.pack_params(jtree).buf))
+    back = tspec.unpack(buf)                               # exact round trip, in the dtypes
+    jback = jspec.unpack(jnp.asarray(buf.numpy()))
+    for k, leaf in back.items():
+        assert leaf.dtype == ttree[k].dtype and torch.equal(leaf, ttree[k]), k
+        np.testing.assert_array_equal(leaf.float().numpy(), np.asarray(jback[k], np.float32))
+
+
+def test_unpack_gives_f32_views_and_narrow_casts():
+    ttree = params_from_numpy(_mixed_arrays(1), device=CPU)
+    flat = tflatten.pack_params(ttree, device=CPU)
+    tree = flat.unpack()
+    assert tree["m"].dtype == torch.float32 and tree["m"]._base is not None
+    assert tree["m"].data_ptr() == flat.buf.data_ptr() + 4 * flat.spec.offsets[2]
+    flat.buf[flat.spec.offsets[2]] = 7.0                   # the f32 leaf is a view...
+    assert tree["m"][0] == 7.0
+    assert tree["h"].dtype == torch.float16 and tree["z"].dtype == torch.bfloat16
+    flat.buf[flat.spec.offsets[1]] += 1.0                  # ...a narrow leaf a copy
+    assert torch.equal(tree["h"], ttree["h"])
+    # the f32 views of pack_f32's inverse, whatever the leaves' dtypes
+    side = flat.spec.unpack_f32(flat.buf)
+    assert all(leaf.dtype == torch.float32 for leaf in side.values())
+    assert torch.equal(flat.spec.pack_f32(side), flat.buf)
+
+
+def test_gradient_through_a_narrow_leaf_is_the_widened_leaf_gradient():
+    # the packed gradient of a loss on unpacked bf16/f16 leaves equals each
+    # leaf's own gradient (in its dtype) widened to f32
+    ttree = params_from_numpy(_mixed_arrays(2), device=CPU)
+    spec = tflatten.flatten_spec(ttree)
+
+    def loss(p):
+        return ((p["z"].float() ** 2).sum() * p["a"].float() + (p["h"].float() * 3.0).sum()
+                + torch.sin(p["m"]).sum())
+    leaf = spec.pack(ttree).requires_grad_(True)
+    loss(spec.unpack(leaf)).backward()
+    live = {k: v.detach().clone().requires_grad_(True) for k, v in ttree.items()}
+    loss(live).backward()
+    want = spec.pack_f32({k: v.grad for k, v in live.items()})
+    assert all(live[k].grad.dtype == ttree[k].dtype for k in live)
+    assert torch.equal(leaf.grad, want)
 
 
 def test_init_flat_bank_rows_are_the_buffer():

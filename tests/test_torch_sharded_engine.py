@@ -18,6 +18,14 @@ run inside it). The unmeshed port is the oracle.
     for bit (theta_L, bank rows, codes, scales, residual, tree nodes, the
     paged cold tier), and the replicated state (ledger, leaf counts, fault
     columns, metrics, step, the reconciled ledger) is equal on every rank.
+  * checkpoints of meshed states (`save_session` gathers the global arrays,
+    one rank writes): on every gloo mesh the files equal the unmeshed
+    twin's (manifest and arrays, paged cold rows included) and the
+    resumed run equals the uninterrupted one; a 2x2 file restores into the
+    reference; on the 1x1 mesh a checkpoint crosses the mesh both ways, and
+    the ledger checks hold after a meshed restore.
+  * per-example clipping (granularity "example"), f16 banks and bf16/f16
+    model leaves on every mesh, block for block.
   * `mesh=` on a pytree state raises as in the reference; reconcile,
     LedgerDriftError and the superseded-snapshot error on a meshed state;
     the reference's failing `test_owner_parallel_with_fused_kernel_and_mesh`
@@ -34,6 +42,7 @@ import os
 import pickle
 import time
 
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -67,17 +76,31 @@ STATES = {
     "faults-int8": ("int8", dict(faults=True), {}),
     "faults-tree": (None, dict(faults=True, mechanism="tree", tree_depth=2), {}),
     "faults-staleness": (None, dict(faults=True, staleness=True), {}),
+    "f16": (torch.float16, {}, {}),
+    # per-example clipping on the fused engine (every rank takes the whole
+    # per-example gradients on the gathered theta_bar and keeps its columns)
+    "example": (None, {}, dict(gran="example")),
+    "example-f16": (torch.float16, {}, dict(gran="example")),
+    "example-int8": ("int8", {}, dict(gran="example")),
+    "example-tree": (None, dict(mechanism="tree", tree_depth=2), dict(gran="example")),
+    "example-faults": (None, dict(faults=True, staleness=True), dict(gran="example")),
+    # bf16 and f16 model leaves on an f16 bank
+    "example-mixed": (torch.float16, {}, dict(gran="example", mixed=True)),
 }
+EXAMPLE_STATES = ("f16", "example", "example-f16", "example-int8", "example-tree",
+                  "example-faults", "example-mixed")
 DRIVERS = ("fused", "grouped", "step")
 # toy shapes: N owners and the (w, b) leaves giving P = 28 or P = 64
 SHAPES = {"N8-P28": (8, (6, 4)), "N8-P64": (8, (15, 4)), "N3-P28": (3, (6, 4))}
 
 
-def _toy(shape: str):
+def _toy(shape: str, mixed: bool = False):
     n, (d_in, d_out) = SHAPES[shape]
     rng = np.random.default_rng(1)
     params = {"w": rng.standard_normal((d_in, d_out)).astype(np.float32),
               "b": np.zeros(d_out, np.float32)}
+    if mixed:
+        params = {"w": params["w"].astype(ml_dtypes.bfloat16), "b": params["b"].astype(np.float16)}
     data = {"x": rng.standard_normal((K, 4, d_in)).astype(np.float32),
             "y": rng.standard_normal((K, 4, d_out)).astype(np.float32)}
     seq = rng.integers(0, n, K).astype(np.int32)
@@ -85,7 +108,7 @@ def _toy(shape: str):
 
 
 def _loss(p, b):
-    return torch.mean((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2)
+    return torch.mean((b["x"] @ p["w"].float() + p["b"].float() - b["y"]) ** 2)
 
 
 def _fed(n, state, mesh=None, horizon=3, pack=True):
@@ -99,8 +122,8 @@ def _fed(n, state, mesh=None, horizon=3, pack=True):
                            for i in range(n)],
                           tfed.FederationConfig(horizon=horizon, sigma=1e-2, theta_max=10.0,
                                                 lr_scale=5.0), device=CPU, **fkw)
-    priv = tfed.PrivatizerConfig(xi=1.0, granularity="microbatch", n_microbatches=2,
-                                 fused_kernel=skw.get("fused", True))
+    priv = tfed.PrivatizerConfig(xi=1.0, granularity=skw.get("gran", "microbatch"),
+                                 n_microbatches=2, fused_kernel=skw.get("fused", True))
     fed.make_step(_loss, privatizer=priv, pack_params=pack,
                   bank_dtype=bank_dtype if pack else None, mesh=mesh)
     return fed
@@ -122,16 +145,42 @@ def _bank_arrays(bank):
     return {"rows": _np(bank)}
 
 
+def _result(fed, st, metrics, paged):
+    """A scenario's numpy results: this rank's blocks (theta columns, bank
+    rows x columns, tree nodes), the layout of its block, and the
+    replicated state (ledger, counts, fault columns, metrics, step,
+    reconciled ledger)."""
+    lay = st.theta_L.layout
+    n = fed.n_owners
+    out = {"theta": _np(st.theta_L.buf), "bank": _bank_arrays(st.bank), "metrics": metrics,
+           "step": int(st.step), "ledger": {c: _np(getattr(st.ledger, c))
+                                            for c in st.ledger.COLUMNS},
+           "reconciled": fed.reconcile(st),
+           "rows": (0, 4 if paged else n) if lay is None else (lay.r0, lay.n_local),
+           "cols": (0, st.theta_L.size) if lay is None else (lay.c0, lay.p_local)}
+    if st.tree is not None:
+        out["nodes"] = _np(st.tree.nodes)
+        out["counts"] = _np(st.tree.counts)
+    if st.faults is not None:
+        out["faults"] = [_np(t) for t in st.faults]
+    if st.stale is not None:
+        out["stale"] = [_np(t) for t in st.stale]
+    if paged:
+        out["cold"] = fed.pager.snapshot(st)
+    return out
+
+
+def _inputs(shape, state):
+    n, params, data, seq = _toy(shape, STATES[state][2].get("mixed", False))
+    return n, params_from_numpy(params, device=CPU), \
+        {k: torch.from_numpy(v) for k, v in data.items()}, seq
+
+
 def run_case(shape: str, state: str, driver: str, mesh=None, paged: bool = False):
-    """One scenario -> a dict of numpy results: this rank's blocks (theta
-    columns, bank rows x columns, tree nodes), the layout of its block, and
-    the replicated state (ledger, counts, fault columns, metrics, step,
-    reconciled ledger). mesh=None runs the unmeshed port."""
-    n, params, data, seq = _toy(shape)
+    """One scenario -> `_result`'s dict. mesh=None runs the unmeshed port."""
+    n, p, batches, seq = _inputs(shape, state)
     fed = _fed(n, state, mesh)
-    p = params_from_numpy(params, device=CPU)
     st = fed.init_paged_state(p, n_hot=4) if paged else fed.init_state(p)
-    batches = {k: torch.from_numpy(v) for k, v in data.items()}
     key = trandom.PRNGKey(4, device=CPU)
     faults = STATES[state][1].get("faults", False)
     if driver == "step":
@@ -157,23 +206,42 @@ def run_case(shape: str, state: str, driver: str, mesh=None, paged: bool = False
         st, m = fed.run_rounds(st, batches, seq, key=key, owner_parallel=driver == "grouped",
                                **kw)
         metrics = {name: _np(v) for name, v in m.items()}
-    lay = st.theta_L.layout
-    out = {"theta": _np(st.theta_L.buf), "bank": _bank_arrays(st.bank), "metrics": metrics,
-           "step": int(st.step), "ledger": {c: _np(getattr(st.ledger, c))
-                                            for c in st.ledger.COLUMNS},
-           "reconciled": fed.reconcile(st),
-           "rows": (0, 4 if paged else n) if lay is None else (lay.r0, lay.n_local),
-           "cols": (0, st.theta_L.size) if lay is None else (lay.c0, lay.p_local)}
-    if st.tree is not None:
-        out["nodes"] = _np(st.tree.nodes)
-        out["counts"] = _np(st.tree.counts)
-    if st.faults is not None:
-        out["faults"] = [_np(t) for t in st.faults]
-    if st.stale is not None:
-        out["stale"] = [_np(t) for t in st.stale]
-    if paged:
-        out["cold"] = fed.pager.snapshot(st)
-    return out
+    return _result(fed, st, metrics, paged)
+
+
+def run_checkpoint(shape: str, state: str, directory: str, mesh=None, paged: bool = False):
+    """Crash-resume on a (meshed) state: three dispatches of 4 rounds
+    (sequential, grouped, sequential), `save_session` into `directory`,
+    three more uninterrupted; then a fresh session restores the checkpoint
+    and runs the same three. -> (`_result` of the uninterrupted run, of the
+    resumed run)."""
+    n, p, batches, seq = _inputs(shape, state)
+    faults = STATES[state][1].get("faults", False)
+
+    def session():
+        fed = _fed(n, state, mesh, horizon=6)
+        return fed, (fed.init_paged_state(p, n_hot=4) if paged else fed.init_state(p))
+
+    def dispatch(fed, st, d):
+        sl = slice(4 * d, 4 * d + 4)
+        kw = dict(faults=torch.from_numpy(CODES[sl])) if faults else {}
+        return fed.run_rounds(st, {a: v[sl] for a, v in batches.items()}, seq[sl],
+                              key=trandom.PRNGKey(40 + d, device=CPU),
+                              owner_parallel=d % 2 == 1, **kw)[0]
+
+    fed, st = session()
+    for d in range(3):
+        st = dispatch(fed, st, d)
+    fed.reconcile(st)
+    fed.save_session(directory, st)
+    for d in range(3, 6):
+        st = dispatch(fed, st, d)
+    whole = _result(fed, st, {}, paged)
+    fed, like = session()
+    st = fed.restore_session(directory, like)
+    for d in range(3, 6):
+        st = dispatch(fed, st, d)
+    return whole, _result(fed, st, {}, paged)
 
 
 # scenarios of the gloo meshes: every state and driver at N 8 / P 28, the
@@ -184,13 +252,32 @@ GLOO_CASES = ([("N8-P28", s, d, False) for s in STATES for d in ("fused", "group
                  for d in ("fused", "grouped")]
               + [(sh, s, d, False) for sh in ("N8-P64", "N3-P28")
                  for s in ("f32", "bf16", "int8", "tree", "faults", "unfused")
+                 for d in ("fused", "grouped")]
+              + [("N8-P28", s, "step", False) for s in ("example", "example-faults")]
+              + [("N8-P28", s, d, True) for s in ("example", "example-int8", "example-tree")
+                 for d in ("fused", "grouped")]
+              + [(sh, s, d, False) for sh in ("N8-P64", "N3-P28") for s in ("example", "f16")
                  for d in ("fused", "grouped")])
 GLOO_MESHES = {"2x2": (2, 2), "4x1": (4, 1), "1x4": (1, 4)}
+# the piece size of the gloo meshes' saves, under one row of any leaf: a
+# piece is then one row, the largest a tree node's d * P = 2 * 28 f32
+CKPT_PIECE_BYTES = 64
+CKPT_ROW_BYTES = 2 * 28 * 4
+# checkpoints of meshed states: (shape, state, paged)
+CKPT_CASES = (("N8-P28", "f32", False), ("N8-P28", "example-int8", False),
+              ("N8-P28", "example-tree", False), ("N8-P28", "example-faults", False),
+              ("N8-P28", "example-mixed", False), ("N8-P28", "f16", True),
+              ("N8-P28", "example-int8", True), ("N3-P28", "bf16", False))
 
 
 def _case_id(case):
     shape, state, driver, paged = case
     return f"{shape}-{state}-{driver}" + ("-paged" if paged else "")
+
+
+def _ckpt_id(case):
+    shape, state, paged = case
+    return f"{shape}-{state}" + ("-paged" if paged else "")
 
 
 def _worker(rank, world, mesh_shape, store_path, out_dir):
@@ -203,6 +290,29 @@ def _worker(rank, world, mesh_shape, store_path, out_dir):
         for case in GLOO_CASES:
             shape, state, driver, paged = case
             results[_case_id(case)] = run_case(shape, state, driver, mesh, paged)
+        # the meshed saves in pieces of one row: every block reaches the
+        # writer over several sends; record what each rank holds and moves
+        from repro_torch.checkpoint import store as cstore
+        from repro_torch.sharding.flat import FlatLayout
+        cstore.PIECE_BYTES = CKPT_PIECE_BYTES
+        moved = {"yielded": [], "sent": []}
+        stream, send = FlatLayout.stream, dist.send
+
+        def recorded_stream(self, *a, **kw):
+            for piece in stream(self, *a, **kw):
+                moved["yielded"].append(piece.numel() * piece.element_size())
+                yield piece
+
+        def recorded_send(t, *a, **kw):
+            moved["sent"].append(t.numel() * t.element_size())
+            return send(t, *a, **kw)
+        FlatLayout.stream, dist.send = recorded_stream, recorded_send
+        for case in CKPT_CASES:
+            shape, state, paged = case
+            results["ckpt/" + _ckpt_id(case)] = run_checkpoint(
+                shape, state, os.path.join(out_dir, "ckpt", _ckpt_id(case)), mesh, paged)
+        FlatLayout.stream, dist.send = stream, send
+        results["ckpt-moved"] = moved
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(results, f)
     finally:
@@ -213,12 +323,12 @@ def _spawn(mesh_shape, tmp):
     world = mesh_shape[0] * mesh_shape[1]
     ctx = mp.start_processes(_worker, args=(world, mesh_shape, str(tmp / "store"), str(tmp)),
                              nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + 300
+    deadline = time.monotonic() + 600
     while not ctx.join(timeout=5):
         if time.monotonic() > deadline:
             for p in ctx.processes:
                 p.kill()
-            raise TimeoutError(f"the {mesh_shape} gloo mesh did not finish in 300 s")
+            raise TimeoutError(f"the {mesh_shape} gloo mesh did not finish in 600 s")
     out = []
     for r in range(world):
         with open(tmp / f"rank{r}.pkl", "rb") as f:
@@ -229,7 +339,8 @@ def _spawn(mesh_shape, tmp):
 @pytest.fixture(scope="module", params=list(GLOO_MESHES))
 def gloo_run(request, tmp_path_factory):
     name = request.param
-    return name, _spawn(GLOO_MESHES[name], tmp_path_factory.mktemp(f"gloo{name}"))
+    tmp = tmp_path_factory.mktemp(f"gloo{name}")
+    return name, _spawn(GLOO_MESHES[name], tmp), tmp
 
 
 @pytest.fixture(scope="module")
@@ -291,12 +402,17 @@ def _block_index(key, ndim, r0, nr, c0, nc):
 
 @pytest.mark.parametrize("case", GLOO_CASES, ids=[_case_id(c) for c in GLOO_CASES])
 def test_gloo_mesh_blocks_equal_the_unmeshed_run(gloo_run, unmeshed, case):
-    name, ranks = gloo_run
-    cid = _case_id(case)
+    name, ranks, _ = gloo_run
     want = unmeshed(case)
-    res = [r[cid] for r in ranks]
-    n = SHAPES[case[0]][0]
-    n_rows = 4 if case[3] else n
+    _assert_blocks_equal(name, [r[_case_id(case)] for r in ranks], want, case[0], case[3])
+
+
+def _assert_blocks_equal(name, res, want, shape, paged):
+    """Each rank holds exactly its block, the blocks put together equal the
+    unmeshed `want` bit for bit, and the replicated state is `want`'s on
+    every rank."""
+    n = SHAPES[shape][0]
+    n_rows = 4 if paged else n
     p = want["theta"].shape[0]
     spec = flat_shardings(MeshShape(GLOO_MESHES[name], ("data", "model")), n_rows, p)
     for r in res:
@@ -333,6 +449,111 @@ def test_gloo_mesh_blocks_equal_the_unmeshed_run(gloo_run, unmeshed, case):
                 np.testing.assert_array_equal(a, b, err_msg=field)
 
 
+# ------------------------------------ meshed checkpoints ---------------------------------
+@pytest.fixture(scope="module")
+def unmeshed_ckpt(tmp_path_factory):
+    cache = {}
+
+    def get(case):
+        if case not in cache:
+            d = str(tmp_path_factory.mktemp("ckpt-" + _ckpt_id(case)))
+            torch.set_num_threads(1)
+            cache[case] = (d, run_checkpoint(case[0], case[1], d, None, case[2]))
+        return cache[case]
+    return get
+
+
+def _checkpoint_files(directory):
+    """(manifest, {npz key: array}) of the newest checkpoint under it."""
+    from repro_torch.checkpoint import latest_step, load_manifest
+    step = latest_step(directory)
+    with np.load(os.path.join(directory, f"step_{step:08d}", "arrays.npz")) as z:
+        return load_manifest(directory, step), {k: z[k] for k in z.files}
+
+
+def _assert_files_equal(a, b):
+    (ma, aa), (mb, ab) = a, b
+    assert ma == mb                      # keys, dtypes, shapes, aux, journal, paging
+    assert list(aa) == list(ab)
+    for k in ab:
+        assert aa[k].dtype == ab[k].dtype, k
+        np.testing.assert_array_equal(aa[k], ab[k], err_msg=k)
+
+
+@pytest.mark.parametrize("case", CKPT_CASES, ids=[_ckpt_id(c) for c in CKPT_CASES])
+def test_gloo_mesh_checkpoint_is_the_unmeshed_twins(gloo_run, unmeshed_ckpt, case):
+    """`save_session` on a gloo mesh (every rank calls it, the lowest rank
+    writes the gathered global arrays) writes the files of the unmeshed
+    twin: the manifest and every array (the paged cold rows included) bit
+    for bit, so the file loads unmeshed and the twin's file on the mesh.
+    `restore_session` on the mesh resumes bit for bit as the uninterrupted
+    meshed run, and both equal the twin's runs block for block."""
+    name, ranks, tmp = gloo_run
+    twin_dir, (twin_whole, twin_resumed) = unmeshed_ckpt(case)
+    _assert_files_equal(_checkpoint_files(str(tmp / "ckpt" / _ckpt_id(case))),
+                        _checkpoint_files(twin_dir))
+    _assert_results_equal(twin_resumed, twin_whole)
+    res = [r["ckpt/" + _ckpt_id(case)] for r in ranks]
+    for whole, resumed in res:
+        _assert_results_equal(resumed, whole)
+    _assert_blocks_equal(name, [r[1] for r in res], twin_resumed, case[0], case[2])
+
+
+def test_gloo_mesh_saves_hold_no_global_array(gloo_run):
+    """A meshed save moves each block to the writer a piece at a time: the
+    writer (rank 0) holds one piece of a global array at once, of one row
+    here, and the other ranks hold none, sending pieces of their own
+    blocks no larger."""
+    name, ranks, _ = gloo_run
+    moved = [r["ckpt-moved"] for r in ranks]
+    assert moved[0]["yielded"] and max(moved[0]["yielded"]) <= CKPT_ROW_BYTES
+    assert not moved[0]["sent"]
+    assert any(m["sent"] for m in moved[1:])
+    for m in moved[1:]:
+        assert not m["yielded"] and max(m["sent"], default=0) <= CKPT_ROW_BYTES
+
+
+def _ref_fed(state, n, horizon):
+    import jax.numpy as jnp
+    import repro.federation as jfed
+    bank_dtype, fkw, skw = STATES[state]
+    assert not fkw and not skw.get("mixed")
+    jf = jfed.Federation([jfed.DataOwner(n=100 * (1 + i % 3), epsilon=1.0, xi=1.0)
+                          for i in range(n)],
+                         jfed.FederationConfig(horizon=horizon, sigma=1e-2, theta_max=10.0,
+                                               lr_scale=5.0))
+    jf.make_step(lambda p, b: jnp.mean((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2),
+                 privatizer=jfed.PrivatizerConfig(xi=1.0, granularity=skw.get("gran",
+                                                                              "microbatch"),
+                                                  n_microbatches=2, fused_kernel=True),
+                 pack_params=True, bank_dtype=bank_dtype)
+    return jf
+
+
+@pytest.mark.parametrize("case", [c for c in CKPT_CASES if c[1] in ("f32", "example-int8")
+                                  and not c[2]], ids=_ckpt_id)
+def test_gloo_mesh_checkpoint_loads_into_the_reference(gloo_run, case):
+    """A checkpoint written on a gloo mesh restores into the reference's
+    unmeshed state: every leaf bit for bit the global array, the journal
+    replayed."""
+    import jax.numpy as jnp
+    from repro.checkpoint.store import _flatten_with_paths
+    _, _, tmp = gloo_run
+    directory = str(tmp / "ckpt" / _ckpt_id(case))
+    manifest, arrays = _checkpoint_files(directory)
+    n, params, _, _ = _toy(case[0])
+    jf = _ref_fed(case[1], n, horizon=6)
+    js = jf.restore_session(directory, jf.init_state({k: jnp.asarray(v)
+                                                      for k, v in params.items()}))
+    leaves = _flatten_with_paths(js)
+    assert list(leaves) == manifest["keys"]
+    for k, leaf in leaves.items():
+        np.testing.assert_array_equal(np.asarray(leaf), arrays[k.replace("/", "__SL__")],
+                                      err_msg=k)
+    assert jf.mechanism.export_journal() == manifest["extra"]["journal"]
+    assert int(js.step) == manifest["step"]
+
+
 # ------------------------------------------ 1x1 in this process --------------------------
 @pytest.fixture(scope="module")
 def host_mesh():
@@ -347,8 +568,12 @@ ONE_BY_ONE = ([("N8-P28", s, d, False) for s in STATES for d in DRIVERS]
 @pytest.mark.parametrize("case", ONE_BY_ONE, ids=[_case_id(c) for c in ONE_BY_ONE])
 def test_one_by_one_mesh_is_bit_exact(host_mesh, unmeshed, case):
     torch.set_num_threads(1)
-    got = run_case(case[0], case[1], case[2], host_mesh, case[3])
-    want = unmeshed(case)
+    _assert_results_equal(run_case(case[0], case[1], case[2], host_mesh, case[3]),
+                          unmeshed(case))
+
+
+def _assert_results_equal(got, want):
+    """Two `_result`s of the same block equal bit for bit."""
     np.testing.assert_array_equal(got["theta"], want["theta"])
     assert got["bank"].keys() == want["bank"].keys()
     for k in want["bank"]:
@@ -412,8 +637,64 @@ def test_driver_on_a_mesh_refuses_an_unmeshed_state(host_mesh):
     with pytest.raises(ValueError, match="not laid out"):
         fed.run_rounds(bare, {k: torch.from_numpy(v) for k, v in data.items()}, seq,
                        key=trandom.PRNGKey(0, device=CPU))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        fed.save_session("/nonexistent", st)
+
+
+@pytest.mark.parametrize("state", ("f32", "example-int8", "example-mixed"))
+def test_one_by_one_checkpoints_cross_the_mesh_both_ways(host_mesh, tmp_path, state):
+    """A 1x1-mesh checkpoint is the unmeshed twin's (manifest and arrays);
+    it restores unmeshed, the unmeshed one restores on the mesh, and each
+    resumed run equals the uninterrupted one bit for bit."""
+    torch.set_num_threads(1)
+    whole_m, resumed_m = run_checkpoint("N8-P28", state, str(tmp_path / "m"), host_mesh)
+    whole_u, resumed_u = run_checkpoint("N8-P28", state, str(tmp_path / "u"))
+    _assert_files_equal(_checkpoint_files(str(tmp_path / "m")),
+                        _checkpoint_files(str(tmp_path / "u")))
+    for got in (resumed_m, whole_u, resumed_u):
+        _assert_results_equal(got, whole_m)
+    n, p, batches, seq = _inputs("N8-P28", state)
+    for src, mesh in (("u", host_mesh), ("m", None)):
+        fed = _fed(n, state, mesh, horizon=6)
+        st = fed.restore_session(str(tmp_path / src), fed.init_state(p))
+        assert (st.theta_L.layout is not None) == (mesh is not None)
+        for d in range(3, 6):
+            sl = slice(4 * d, 4 * d + 4)
+            st, _ = fed.run_rounds(st, {a: v[sl] for a, v in batches.items()}, seq[sl],
+                                   key=trandom.PRNGKey(40 + d, device=CPU),
+                                   owner_parallel=d % 2 == 1)
+        _assert_results_equal(_result(fed, st, {}, False), whole_m)
+
+
+def test_meshed_restore_keeps_the_ledger_checks(host_mesh, tmp_path):
+    """After a meshed restore the restored ledger folds exactly once, host
+    spending behind a stale device ledger is drift, and a newer snapshot
+    supersedes a restored state."""
+    n, params, data, _ = _toy("N8-P28")
+    p = params_from_numpy(params, device=CPU)
+    b = {k: torch.from_numpy(v[:2]) for k, v in data.items()}
+    b0 = {k: v[0] for k, v in b.items()}
+    fed = _fed(n, "f32", host_mesh, horizon=4)
+    st, _ = fed.run_rounds(fed.init_state(p), b, np.zeros(2, np.int32),
+                           key=trandom.PRNGKey(1, device=CPU))
+    fed.save_session(str(tmp_path), st)                    # not reconciled: 2 spent
+    fed2 = _fed(n, "f32", host_mesh, horizon=4)
+    restored = fed2.restore_session(str(tmp_path), fed2.init_state(p))
+    assert restored.theta_L.layout is not None
+    led = fed2.reconcile(restored)
+    assert led[0]["responses"] == 2 and led[0]["refused"] == 0
+    assert fed2.reconcile(restored) == led                 # idempotent
+    for _ in range(2):                                     # spend the rest on the host
+        restored, m = fed2.step(restored, b0, 0, trandom.PRNGKey(2, device=CPU))
+        assert not m["refused"]
+    restored, ms = fed2.run_rounds(restored, b, np.zeros(2, np.int32),
+                                   key=trandom.PRNGKey(3, device=CPU))
+    assert not _np(ms["refused"]).any()                    # the stale device ledger grants
+    with pytest.raises(tfed.LedgerDriftError, match="stale"):
+        fed2.reconcile(restored)
+    fed3 = _fed(n, "f32", host_mesh, horizon=4)
+    old = fed3.restore_session(str(tmp_path), fed3.init_state(p))
+    fed3.init_state(p)                                     # a newer snapshot supersedes it
+    with pytest.raises(tfed.LedgerDriftError, match="superseded"):
+        fed3.reconcile(old)
 
 
 def test_sharded_reconcile_folds_bit_exactly_and_detects_drift(host_mesh):
