@@ -294,6 +294,24 @@ without the host's op events, which no printed number reads):
              layers (qwen1.5: 5.21 B parameters): a prefill of B 2 x S
              4096, two timed and one profiled with 2 flash launches each,
              against "jnp" within 1e-3; each model freed before the next.
+   meshzoo — the model zoo's steps on a device mesh: a world of one over
+             NCCL and its 1x1 mesh (launch.mesh.make_host_mesh). yi-6b at
+             full width and depth, f32, attn_backend "pallas" (flash at hd
+             128): a B 2 x S 4096 prefill through build_prefill_step
+             unmeshed, twice (the first warms up), once under
+             analysis.op_cost's counter (logits bit for bit; the counted
+             FLOPs within 0.5% of 2 x the matmul parameters x tokens plus
+             the unembedding of the last positions plus flash's formula;
+             the achieved TFLOP/s and its share of the f32 peak printed),
+             then the same prefill with mesh= on DTensors placed by the
+             bundle's in_shardings, twice: logits bit for bit and 32 flash
+             launches a prefill; 8 greedy decode steps (prompt 4, gen 5)
+             unmeshed and through a meshed build_serve_step: tokens and
+             every step's logits bit for bit. Then zamba2-2.7b at full
+             width and depth (flash at hd 80, the SSD forward) the same
+             way: the prefill meshed against unmeshed bit for bit with 9
+             flash and 54 ssd_chunk_scan launches, and 8 decode steps. The
+             process group is destroyed at the end.
    convex  — the paper's Section 5 at its own size through Federation.run:
              lending and health, p = 10, 10,000 records per owner, T =
              1000, rho 1, sigma 2e-5, reg 1e-5, theta_max 2; for N in (2,
@@ -4509,6 +4527,142 @@ def phase_zoo(torch, dev, cfgs=None, layers=ZOO_LAYERS, batch=PREFILL_B, seq=PRE
     return total
 
 
+# phase meshzoo: the archs served on the 1x1 mesh at full width, with their
+# flash and SSD launches per prefill (yi-6b: 32 layers; zamba2: 9 shared
+# attention blocks, 54 Mamba2 layers), and the greedy decode's prompt and gen
+MESHZOO_ARCHS = (("yi-6b", {"flash_attention": 32}),
+                 ("zamba2-2.7b", {"flash_attention": 9, "ssd_chunk_scan": 54}))
+MESHZOO_PROMPT, MESHZOO_GEN = 4, 5
+
+
+def _analytic_prefill_flops(cfg, B, S):
+    """A dense LM's prefill: 2 x its matmul parameters x tokens, the
+    unembedding of the B last positions, and flash's causal work."""
+    d, H, Kv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    per_layer = d * H * hd + 2 * d * Kv * hd + H * hd * d + 3 * d * f
+    return (2 * cfg.n_layers * per_layer * B * S + 2 * B * d * cfg.vocab
+            + cfg.n_layers * 4 * B * H * hd * S * (S + 1) // 2)
+
+
+def phase_meshzoo(torch, dev, cfgs=None, batch=PREFILL_B, seq=PREFILL_S,
+                  prompt_len=MESHZOO_PROMPT, gen=MESHZOO_GEN):
+    """The model zoo's prefill and decode on the 1x1 mesh of a world of one
+    (NCCL on the card, gloo on the CPU) against their unmeshed twins, bit
+    for bit, at full width (the module docstring); `cfgs` overrides the
+    configs (a CPU rehearsal passes reduced ones, with their launches).
+    Returns the launches of the meshed prefills."""
+    import torch.distributed as dist
+    from repro_torch.analysis.op_cost import OpCost
+    from repro_torch.analysis.roofline import PEAK_FLOPS
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step, place
+    from repro_torch.models import LM
+    on_card = dev.type == "cuda"
+    mesh = make_host_mesh(device_type=dev.type)
+    zero = {k: 0 for k in FED_KERNELS + MODEL_KERNELS}
+    total = dict(zero)
+    try:
+        for cfg, per_prefill in cfgs or [(get_config(a), k) for a, k in MESHZOO_ARCHS]:
+            per_prefill = dict(zero, **per_prefill) if on_card else dict(zero)
+            t0 = time.perf_counter()
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            lm = LM(cfg, attn_backend="pallas")
+            params = lm.init(seed=0, device=dev, generator_device=dev if on_card else None)
+            shape = ShapeConfig("meshzoo_prefill", seq, batch, "prefill")
+            plain = build_prefill_step(cfg, shape, None, model=lm, dtype=torch.float32)
+            meshed = build_prefill_step(cfg, shape, mesh, model=lm, dtype=torch.float32)
+            toks = torch.randint(0, cfg.vocab, (batch, seq), dtype=torch.int32,
+                                 generator=torch.Generator().manual_seed(8)).to(dev)
+            batch_in = {"tokens": toks}
+            print(f"[meshzoo] {cfg.name} at full width and depth ({cfg.param_count():,} "
+                  f"parameters, f32, H {cfg.n_heads}, Kv {cfg.n_kv_heads}, hd {cfg.head_dim}) "
+                  f"on the mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}; drawn in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            with torch.no_grad():
+                times, logits = [], None
+                for _ in range(2):
+                    _sync(torch, dev)
+                    t1 = time.perf_counter()
+                    logits = plain.step(params, batch_in)
+                    _sync(torch, dev)
+                    times.append((time.perf_counter() - t1) * 1e3)
+                if cfg.family == "dense":
+                    with OpCost() as counter:
+                        counted = plain.step(params, batch_in)
+                    check(torch.equal(counted, logits),
+                          f"{cfg.name}: the counter changed the prefill's logits")
+                    flops = counter.summary()["flops"]
+                    want = _analytic_prefill_flops(cfg, batch, seq)
+                    # (on the CPU the plain attention multiplies the whole S x S)
+                    check(abs(flops / want - 1) < 5e-3 or not on_card, f"{cfg.name}: counted "
+                          f"{flops:.6e} FLOPs against the analytic {want:.6e}")
+                    rate = flops / (times[-1] / 1e3)
+                    print(f"[meshzoo] {cfg.name} prefill under the counter: {flops:.6e} FLOPs "
+                          f"counted (analytic {want:.6e}, {flops / want - 1:+.4%}), logits bit "
+                          f"for bit without it; the prefill took {times[-1]:.1f} ms unmeshed: "
+                          f"{rate / 1e12:.2f} TFLOP/s achieved, {rate / PEAK_FLOPS['float32']:.1%} "
+                          f"of the f32 peak (67 TFLOP/s)")
+                args = place(meshed.in_shardings, params, batch_in)
+                m_times = []
+                _reset_launches()
+                for _ in range(2):
+                    _sync(torch, dev)
+                    t1 = time.perf_counter()
+                    m_logits = meshed.step(*args)
+                    _sync(torch, dev)
+                    m_times.append((time.perf_counter() - t1) * 1e3)
+                launches = _launches()
+            check(launches == {k: 2 * v for k, v in per_prefill.items()},
+                  f"{cfg.name}: 2 meshed prefills launched {launches}, expected 2 x {per_prefill}")
+            for k, v in launches.items():
+                total[k] += v
+            check(torch.equal(m_logits.full_tensor(), logits),
+                  f"{cfg.name}: the meshed prefill's logits differ from the unmeshed twin's")
+            print(f"[meshzoo] {cfg.name} prefill B {batch} x S {seq}: unmeshed "
+                  f"{', '.join(f'{t:.1f}' for t in times)} ms, meshed (DTensors, "
+                  f"{type(m_logits).__name__} logits {tuple(m_logits.placements)}) "
+                  f"{', '.join(f'{t:.1f}' for t in m_times)} ms (the first of each warms up); "
+                  f"logits bit for bit; per meshed prefill "
+                  + " and ".join(f"{v} {k}" for k, v in per_prefill.items() if v)
+                  + " launches and no other kernel")
+            del logits, m_logits
+            dshape = ShapeConfig("meshzoo_decode", prompt_len + gen, batch, "decode")
+            prompt = toks[:, :prompt_len]
+            serve = build_serve_step(cfg, dshape, mesh, model=lm, dtype=torch.float32)
+
+            def decode(step, p, cache):
+                _sync(torch, dev)
+                t1 = time.perf_counter()
+                with torch.no_grad():
+                    seqs, step_logits = greedy_decode(lm, p, cache, prompt, gen, step=step)
+                _sync(torch, dev)
+                return seqs, step_logits, (time.perf_counter() - t1) * 1e3
+
+            def cache():
+                return lm.init_cache(batch, dshape.seq_len, dtype=torch.float32, device=dev)
+            out = [decode(None, params, cache()),
+                   decode(serve.step, args[0], place(serve.in_shardings[1:2], cache())[0])]
+            (s0, l0, ms0), (s1, l1, ms1) = out
+            steps = prompt_len + gen - 1
+            check(torch.equal(s0, s1) and torch.equal(l0, l1),
+                  f"{cfg.name}: the meshed greedy decode differs from the unmeshed twin's")
+            print(f"[meshzoo] {cfg.name} greedy decode B {batch}, prompt {prompt_len}, gen {gen}: "
+                  f"{steps} steps, unmeshed {ms0 / steps:.2f} ms a step, meshed {ms1 / steps:.2f} "
+                  f"ms a step; tokens and every step's logits bit for bit")
+            del params, args, plain, meshed, serve, lm, out
+            print(f"[meshzoo] {cfg.name}: {time.perf_counter() - t0:.1f} s, peak memory "
+                  f"{_peak_gb(torch, dev):.2f} GB")
+    finally:
+        dist.destroy_process_group()
+    if on_card:
+        torch.cuda.empty_cache()
+    return total
+
+
 def _time_mlstm_ssd(torch, dev):
     """Both SSD kernels at the mLSTM's shapes (the wide-head variant: per-head
     k and q, v with a ones column), each beside its plain version and its
@@ -5036,6 +5190,10 @@ def main():
               and not any(v for k, v in family_launches[name].items() if k != "flash_attention"),
               f"the {name} prefills launched no flash_attention, or another kernel")
         lap(name)
+    meshzoo_launches = phase_meshzoo(torch, dev)
+    check(all(meshzoo_launches[k] > 0 for k in SERVE_KERNELS),
+          "the meshed prefills launched no flash or SSD kernel")
+    lap("meshzoo")
     phase_convex(torch, dev)
     torch.cuda.empty_cache()
     lap("convex")

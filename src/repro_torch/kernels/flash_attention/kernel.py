@@ -7,6 +7,12 @@ allocates the output with ``torch.empty``, never synchronises, and raises
 when the launch is refused. It adds one to `launches["flash_attention"]`
 when it launches, and nowhere else, so a caller can show that a run went
 through the kernel.
+
+The launch is the custom op ``torch.ops.repro_torch.flash_attention_cuda``
+(`torch.library.custom_op`), so dispatch sees it: a TorchDispatchMode
+(``analysis.op_cost``) counts it by its registered flop formula (PERF.md,
+row 8: 4 B H hd times the (query, key) pairs the mask keeps), and on the
+meta device its fake gives the output's shape without launching.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -53,6 +60,7 @@ def _strides(t: torch.Tensor, what: str):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+@torch.library.custom_op("repro_torch::flash_attention_cuda", mutates_args=())
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
     """One launch. q: (B, S, H, hd); k, v: (B, Skv, Kv, hd), all on one
@@ -89,3 +97,28 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.raise_on(err, "flash_attention")
     launches["flash_attention"] += 1
     return out
+
+
+@flash_attention_cuda.register_fake
+def _(q, k, v, *, causal=True, window=None):
+    return q.new_empty(q.shape).contiguous()
+
+
+def attended_pairs(S: int, Skv: int, causal: bool, window: Optional[int]) -> int:
+    """The (query, key) pairs the mask keeps: query i (0 <= i < S) sees key
+    j (0 <= j < Skv) with j <= i when causal and i - j < window under a
+    window, as the kernel and ``ref.attention_ref`` mask them."""
+    import numpy as np
+    i = np.arange(S, dtype=np.int64)
+    hi = np.minimum(i, Skv - 1) if causal else np.full(S, Skv - 1, np.int64)
+    lo = np.maximum(i - int(window) + 1, 0) if window is not None else np.zeros(S, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_cuda)
+def flash_attention_flops(q_shape, k_shape, v_shape, *, causal=True, window=None,
+                          out_shape=None, **kw) -> int:
+    """PERF.md, row 8: two products of 2 B H hd operations a kept (query,
+    key) pair (4 B H hd S (S + 1) / 2 causal at Skv = S)."""
+    B, S, H, hd = q_shape
+    return 4 * B * H * hd * attended_pairs(S, k_shape[1], causal, window)

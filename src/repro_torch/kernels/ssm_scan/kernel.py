@@ -11,6 +11,13 @@ launch on PyTorch's current stream, allocate their outputs with
 Each adds one to its own count, `launches["ssd_chunk_scan"]` or
 `launches["ssd_chunk_scan_bwd"]`, when it launches, and nowhere else, so a
 caller can show that a run went through the kernels.
+
+Both launches are custom ops (``torch.ops.repro_torch.ssd_chunk_scan_cuda``
+and ``ssd_chunk_scan_bwd_cuda``, `torch.library.custom_op`), so dispatch
+sees them: a TorchDispatchMode (``analysis.op_cost``) counts them by their
+registered flop formulas (PERF.md, rows 9 and 10), and on the meta device
+their fakes give the outputs' shapes without launching. `ops.SSDChunkScan`
+keeps their autograd and vmap rules.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -97,6 +105,7 @@ def _check_inputs(v, ld, k, q, g, chunk, what):
     return B, S, H, N, P, -(-S // chunk)
 
 
+@torch.library.custom_op("repro_torch::ssd_chunk_scan_cuda", mutates_args=())
 def ssd_chunk_scan_cuda(v: torch.Tensor, ld: torch.Tensor, k: torch.Tensor, q: torch.Tensor,
                         g: torch.Tensor, chunk: int
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -127,10 +136,12 @@ def ssd_chunk_scan_cuda(v: torch.Tensor, ld: torch.Tensor, k: torch.Tensor, q: t
     return y, h_add, cum, tot
 
 
+@torch.library.custom_op("repro_torch::ssd_chunk_scan_bwd_cuda", mutates_args=())
 def ssd_chunk_scan_bwd_cuda(dy: torch.Tensor, dh: torch.Tensor, dcum: torch.Tensor,
                             dtot: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
                             k: torch.Tensor, q: torch.Tensor, g: torch.Tensor, chunk: int
-                            ) -> Tuple[torch.Tensor, ...]:
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
     """One launch over every (batch, head, chunk): the backward of
     `ssd_chunk_scan_cuda` at the same inputs (v, ld, k, q, g, chunk, taken
     as that function takes them), from the cotangents of its four outputs
@@ -169,3 +180,48 @@ def ssd_chunk_scan_bwd_cuda(dy: torch.Tensor, dh: torch.Tensor, dcum: torch.Tens
     _build.raise_on(err, "ssd_chunk_scan_bwd")
     launches["ssd_chunk_scan_bwd"] += 1
     return dv, dld, dk, dq, dg
+
+
+@ssd_chunk_scan_cuda.register_fake
+def _(v, ld, k, q, g, chunk):
+    B, S, H, P = v.shape
+    N, nc = k.shape[-1], -(-S // chunk)
+    f32 = torch.float32
+    return (v.new_empty((B, S, H, P), dtype=f32), v.new_empty((B, nc, H, N, P), dtype=f32),
+            v.new_empty((B, S, H), dtype=f32), v.new_empty((B, nc, H), dtype=f32))
+
+
+@ssd_chunk_scan_bwd_cuda.register_fake
+def _(dy, dh, dcum, dtot, v, ld, k, q, g, chunk):
+    B, S, H, P = v.shape
+    N, f32 = k.shape[-1], torch.float32
+    return (v.new_empty((B, S, H, P)), v.new_empty((B, S, H), dtype=f32),
+            k.new_empty((B, S, H, N)), q.new_empty((B, S, H, N)),
+            v.new_empty((B, S, H), dtype=f32))
+
+
+def chunk_rows(S: int, chunk: int):
+    """The positions of each chunk: `chunk`, and a ragged last one."""
+    return [min(chunk, S - c) for c in range(0, S, chunk)]
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunk_scan_cuda)
+def ssd_chunk_scan_flops(v_shape, ld_shape, k_shape, q_shape, g_shape, chunk,
+                         out_shape=None, **kw) -> int:
+    """PERF.md, row 9: B H sum over chunks of Q (Q + 1) / 2 (N + P) 2 +
+    Q N P 2, Q each chunk's positions."""
+    B, S, H, P = v_shape
+    N = k_shape[-1]
+    return B * H * sum(r * (r + 1) // 2 * (N + P) * 2 + r * N * P * 2
+                       for r in chunk_rows(S, chunk))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunk_scan_bwd_cuda)
+def ssd_chunk_scan_bwd_flops(dy_shape, dh_shape, dcum_shape, dtot_shape, v_shape, ld_shape,
+                             k_shape, q_shape, g_shape, chunk, out_shape=None, **kw) -> int:
+    """PERF.md, row 10: B H sum over chunks of Q (Q + 1) / 2 (3 N + 2 P) 2
+    + 2 Q N P 2."""
+    B, S, H, P = v_shape
+    N = k_shape[-1]
+    return B * H * sum(r * (r + 1) // 2 * (3 * N + 2 * P) * 2 + 2 * r * N * P * 2
+                       for r in chunk_rows(S, chunk))

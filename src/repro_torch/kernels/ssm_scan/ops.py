@@ -18,7 +18,9 @@ carried states (one batched matmul) as torch ops, as the reference leaves
 them to XLA. Autograd differentiates those ops as they stand, and
 `SSDChunkScan.backward` turns the cotangents of the four parts into those
 of (v, ld, k, q, g) with the backward kernel; so the hybrid trains on the
-card, as the reference's plain scan trains under ``jax.grad``.
+card, as the reference's plain scan trains under ``jax.grad``. A meta
+tensor takes the CUDA route through the kernels' fakes (shapes only), so
+a step traced on the meta device counts the kernels as the card runs them.
 """
 from __future__ import annotations
 
@@ -33,12 +35,14 @@ from repro_torch.kernels.ssm_scan.ref import (ssd_chunk_scan_bwd_ref, ssd_chunk_
 
 
 def _backend(fn_cpu, fn_cuda, t: torch.Tensor, what: str):
+    """The plain version on the CPU; the kernel's custom op on CUDA, and on
+    the meta device, where its fake gives the shapes."""
     if t.device.type == "cpu":
         return fn_cpu
-    if t.device.type == "cuda":
+    if t.device.type in ("cuda", "meta"):
         return fn_cuda
     raise ValueError(f"{what}: tensors on {t.device} are not supported "
-                     "(cpu runs the plain version, cuda the kernel)")
+                     "(cpu runs the plain version, cuda the kernel, meta its fake)")
 
 
 def _fold(info, in_dims, args):
@@ -127,9 +131,9 @@ def ssd_chunked(v: torch.Tensor, ld: torch.Tensor, k: torch.Tensor, q: torch.Ten
     Returns (y (B,S,H,P) in v's dtype, h_final (B,H,N,P) f32)."""
     if v.device.type == "cpu":
         return ssd_chunked_ref(v, ld, k, q, g, chunk=chunk, h0=h0)
-    if v.device.type != "cuda":
+    if v.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_chunked: tensors on {v.device} are not supported "
-                         "(cpu runs the plain version, cuda the kernel)")
+                         "(cpu runs the plain version, cuda the kernel, meta its fake)")
     Q = min(chunk, v.shape[1])
     parts = SSDChunkScan.apply(v, ld.to(torch.float32), k, q, g.to(torch.float32), Q)
     y, h = combine_chunks(*parts, q, Q, h0)

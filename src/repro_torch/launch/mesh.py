@@ -13,6 +13,12 @@ no network and no launcher are needed for a 1x1 mesh. A larger mesh needs
 the world started by its launcher, one process per rank
 (`torch.distributed.init_process_group` with the rank, the world size and
 a store or a localhost address).
+
+`fake_world(n)` opens a world of n ranks in this process over torch's
+fake process group: this process is rank 0, every collective returns at
+once without moving data, and steps traced on meta tensors see the mesh
+the production world would have (``launch.dryrun``, 256 or 512 ranks). It
+cannot share a process with a real world.
 """
 from __future__ import annotations
 
@@ -38,6 +44,21 @@ def ensure_world(device_type: str = "cuda") -> None:
         dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
     else:
         raise ValueError(f"device_type must be 'cuda' or 'cpu', got {device_type!r}")
+
+
+def fake_world(n: int) -> None:
+    """A world of `n` ranks over torch's fake process group, this process
+    rank 0 (the one place that reaches torch's internal `FakeStore`). A
+    fake world of at least `n` ranks that is already open is kept."""
+    if dist.is_initialized():
+        if dist.get_backend() == "fake" and dist.get_world_size() >= n:
+            return
+        raise RuntimeError("a fake world cannot share a process with another world "
+                           f"(this one has {dist.get_world_size()} ranks over "
+                           f"{dist.get_backend()})")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
 
 
 def _mesh(shape, names, device_type: str):

@@ -25,21 +25,34 @@ from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.model import LM, Params
+from repro_torch.sharding import spmd
 
 
 def greedy_decode(model: LM, params: Params, cache: Any, prompt: torch.Tensor, gen: int,
-                  window: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  window: Optional[int] = None, *, step=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Feed `prompt` (B, P) one token at a time, then `gen` greedy tokens.
 
     Returns (tokens (B, P + gen), logits (B, P + gen - 1, V) of every
     step, f32). Step t decodes the token at position t and the prompt
-    overrides the argmax while t + 1 < P, as the reference's loop does."""
+    overrides the argmax while t + 1 < P, as the reference's loop does.
+
+    `step` (default `model.decode_step` at `window`) is called as
+    step(params, cache, tokens, t): a meshed bundle's step
+    (``launch.steps.build_serve_step(..., mesh)``), with `params` and
+    `cache` placed by its `in_shardings`, places each step's tokens
+    itself; its logits are gathered whole on every rank for the argmax,
+    so the tokens and logits returned are plain tensors."""
+    if step is None:
+        def step(params, cache, toks, t):
+            return model.decode_step(params, cache, toks, t, window=window)
     plen = prompt.shape[1]
     total = plen + gen
     toks = prompt[:, :1]
     out, logits = [toks], []
     for t in range(total - 1):
-        lg, cache = model.decode_step(params, cache, toks, t, window=window)
+        lg, cache = step(params, cache, toks, t)
+        if spmd.is_dtensor(lg):
+            lg = lg.full_tensor()
         logits.append(lg[:, -1].to(torch.float32))
         if t + 1 < plen:
             toks = prompt[:, t + 1:t + 2]

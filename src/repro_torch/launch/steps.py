@@ -7,9 +7,19 @@ prefill -> full-sequence forward, last-position logits (`prefill_logits`)
 decode  -> one-token serve step against the KV/SSM cache
 
 A `StepBundle` carries the step and its arguments as meta-device tensors
-(`launch.specs`). The reference's meshes and sharding specs wait for the
-port's sharding (ROADMAP queue 1, item 7): the mesh argument must be None,
-`in_shardings` is None, and the step runs on one device.
+(`launch.specs`). With `mesh=None` the step runs on one device and
+`in_shardings` is None. With a DeviceMesh (`launch.mesh`), prefill and
+decode follow the reference's `build_prefill_step` / `build_serve_step`:
+the params, batch and cache are placed by `sharding.rules` (`param_specs`,
+`batch_specs`, `cache_specs`; decode tokens over the data axes when the
+batch divides them, else replicated), `in_shardings` is the port's
+NamedSharding tree (`rules.named`), the stand-ins are meta DTensors (each
+rank's meta shard), and the step places any plain tensor it is given
+where its sharding says (`place`) and runs the model on DTensors. A
+training step on a mesh is the next part of ROADMAP queue 1, item 7.
+
+The decode stand-in's `pos` is a 0-d tensor, as the reference's; the step
+takes the position as an int (``launch.dryrun`` passes the last one).
 """
 from __future__ import annotations
 
@@ -23,13 +33,14 @@ from repro_torch.federation.deep import AsyncDPConfig, init_state, make_train_st
 from repro_torch.federation.dp_sgd import PrivatizerConfig
 from repro_torch.launch import specs as specs_mod
 from repro_torch.models.model import LM, Batch, Params, build_model
+from repro_torch.sharding import rules, spmd
 
 
 @dataclasses.dataclass
 class StepBundle:
     step: Callable                 # the step function
     args: Tuple[Any, ...]          # meta-device stand-ins of its arguments, in order
-    in_shardings: Optional[Tuple[Any, ...]]   # None until the port shards
+    in_shardings: Optional[Tuple[Any, ...]]   # NamedSharding trees; None off a mesh
     donate_argnums: Tuple[int, ...]
     kind: str
 
@@ -45,19 +56,28 @@ def default_async_cfg(n_owners: int = 4, horizon: int = 1000, n_microbatches: in
                                     pre_grouped=pre_grouped))
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the model zoo's steps run on one device: LM parameters "
-                                  "placed over a mesh (sharding.rules.param_specs) are the "
-                                  "rest of ROADMAP queue 1, item 7 (pass mesh=None; the "
-                                  "federation engine takes mesh= on its flat states)")
+def place(in_shardings, *args) -> Tuple[Any, ...]:
+    """Each argument placed by its NamedSharding tree (`rules.distribute`;
+    a DTensor or a non-tensor stays as it is)."""
+    return tuple(rules.distribute(a, s) for a, s in zip(args, in_shardings))
+
+
+def _meshed(fn: Callable, mesh, specs: Tuple[Any, ...], args: Tuple[Any, ...], kind: str,
+            donate: Tuple[int, ...]) -> StepBundle:
+    """The bundle of `fn` on `mesh`: shardings from `specs`, the stand-ins
+    `args` placed as meta DTensors, and a step that places plain tensors."""
+    shardings = tuple(rules.named(mesh, s) for s in specs)
+
+    def step(*a):
+        return fn(*place(shardings, *a))
+    return StepBundle(step, place(shardings, *args), shardings, donate, kind)
 
 
 def prefill_logits(model: LM, params: Params, batch: Batch,
                    window: Optional[int] = None) -> torch.Tensor:
     """Logits (B, V) of the last position of `batch["tokens"]` (B, S)."""
     x = model.forward(params, batch, window=window)
-    return torch.einsum("bd,dv->bv", x[:, -1], model._unembed(params))
+    return spmd.einsum("bd,dv->bv", x[:, -1], model._unembed(params))
 
 
 def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
@@ -68,8 +88,13 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
     None), the loss at the shape's effective window. `owner_idx` is a
     one-element int tensor and `noise_key` a (2,) uint32 key of
     ``repro_torch.random``; under a pre-grouped microbatch privatizer the
-    batch is microbatch-major (G, B/G, S)."""
-    _no_mesh(mesh)
+    batch is microbatch-major (G, B/G, S). A mesh is refused: training on a
+    mesh is the next part of ROADMAP queue 1, item 7."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "build_train_step runs on one device: training on a mesh is the next part of "
+            "ROADMAP queue 1, item 7 (noise drawn block-wise for 2-D-sharded leaves, the owner "
+            "bank placed with bank_axis); prefill and decode take mesh=")
     model = model or build_model(cfg)
     acfg = async_cfg or default_async_cfg()
     w = specs_mod.effective_window(cfg, shape)
@@ -91,23 +116,27 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
 
 def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
                        model: Optional[LM] = None, dtype=torch.bfloat16) -> StepBundle:
-    """step(params, batch) -> the last position's logits (B, V)."""
-    _no_mesh(mesh)
+    """step(params, batch) -> the last position's logits (B, V); on a mesh a
+    DTensor, its inputs placed as `in_shardings` says."""
     model = model or build_model(cfg)
     w = specs_mod.effective_window(cfg, shape)
 
     def step(params, batch):
         return prefill_logits(model, params, batch, window=w)
 
-    return StepBundle(step, (specs_mod.params_specs(model, dtype),
-                             specs_mod.train_batch_specs(cfg, shape, with_labels=False)),
-                      None, (), "prefill")
+    args = (specs_mod.params_specs(model, dtype),
+            specs_mod.train_batch_specs(cfg, shape, with_labels=False))
+    if mesh is None:
+        return StepBundle(step, args, None, (), "prefill")
+    specs = (rules.param_specs(args[0], cfg, mesh), rules.batch_specs(args[1], shape, mesh))
+    return _meshed(step, mesh, specs, args, "prefill", ())
 
 
 def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
                      model: Optional[LM] = None, dtype=torch.bfloat16) -> StepBundle:
-    """step(params, cache, tokens (B, 1), pos) -> (logits (B, 1, V), cache)."""
-    _no_mesh(mesh)
+    """step(params, cache, tokens (B, 1), pos) -> (logits (B, 1, V), cache);
+    on a mesh the logits and cache are DTensors, the cache written in
+    place where it lies."""
     model = model or build_model(cfg)
     w = specs_mod.effective_window(cfg, shape)
 
@@ -115,15 +144,22 @@ def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
         return model.decode_step(params, cache, tokens, pos, window=w)
 
     tok_sds, pos_sds = specs_mod.decode_input_specs(cfg, shape)
-    return StepBundle(step, (specs_mod.params_specs(model, dtype),
-                             specs_mod.cache_specs_struct(model, shape, dtype), tok_sds, pos_sds),
-                      None, (1,), "decode")
+    args = (specs_mod.params_specs(model, dtype),
+            specs_mod.cache_specs_struct(model, shape, dtype), tok_sds, pos_sds)
+    if mesh is None:
+        return StepBundle(step, args, None, (1,), "decode")
+    B = shape.global_batch
+    da = rules.data_axes(mesh)
+    tok_spec = rules.P(da, None) if B % rules.axis_size(mesh, da) == 0 else rules.P(None, None)
+    specs = (rules.param_specs(args[0], cfg, mesh),
+             rules.cache_specs(args[1], cfg, mesh, B), tok_spec, rules.P())
+    return _meshed(step, mesh, specs, args, "decode", (1,))
 
 
 def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *, n_microbatches: int = 8,
                model_kw: Optional[dict] = None, **kw) -> StepBundle:
     """model_kw: LM construction knobs (attn_backend, moe_mode,
-    moe_group_tokens)."""
+    moe_group_tokens, kv_chunk)."""
     model = build_model(cfg, **(model_kw or {}))
     if shape.kind == "train":
         return build_train_step(

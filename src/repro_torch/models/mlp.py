@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.spmd import einsum
 
 
 class MLPParams(NamedTuple):
@@ -34,9 +35,9 @@ def init_gelu(generator: torch.Generator, d_model: int, d_ff: int,
 
 
 def mlp_forward(p: MLPParams, x: torch.Tensor) -> torch.Tensor:
-    up = torch.einsum("bsd,df->bsf", x, p.w_up)
+    up = einsum("bsd,df->bsf", x, p.w_up)
     if p.w_gate is None:
         h = F.gelu(up, approximate="tanh")
     else:
-        h = F.silu(torch.einsum("bsd,df->bsf", x, p.w_gate)) * up
-    return torch.einsum("bsf,fd->bsd", h, p.w_down)
+        h = F.silu(einsum("bsd,df->bsf", x, p.w_gate)) * up
+    return einsum("bsf,fd->bsd", h, p.w_down)

@@ -31,8 +31,9 @@ the hiddens (what `prefill_logits` and decode checks read) and
 aux` for the moe family (aux is 0 for the others).
 
 `attn_backend` is the reference's: "jnp" runs the blockwise attention of
-plain torch ops, "pallas" the flash kernel's entry point; every Mamba2
-and mLSTM layer's SSD scan goes through the ssm_scan kernel's entry point.
+plain torch ops (over kv chunks of `kv_chunk` positions), "pallas" the
+flash kernel's entry point; every Mamba2 and mLSTM layer's SSD scan goes
+through the ssm_scan kernel's entry point.
 Both entry points run their plain versions on CPU tensors and the Hopper
 kernels on CUDA tensors. `moe_mode` and `moe_group_tokens` are the
 reference's ("onehot" capacity dispatch or the "ragged" sort). The vlm
@@ -42,13 +43,19 @@ head; its decode, as the reference's, sees no patches. The audio
 learned positions) and a decoder of self-attention (RoPE, causal: flash
 under "pallas"), cross-attention and a GELU MLP; the encoder and
 cross-attention reach no kernel, as in the reference.
+
+Every entry point also runs with its parameters, cache and inputs as
+DTensors on a device mesh (placed by `sharding.rules`; `launch.steps`
+builds such steps): the products shard by their letters, the kernels and
+loops run on each rank's pieces (`sharding.spmd`), and a tensor the step
+makes itself (positions, masks, zero states) stands for the same values on
+every rank, as a replicated DTensor (`spmd.replicating`).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import PORTED_FAMILIES, ModelConfig
 from repro_torch.device import resolve_device
@@ -58,6 +65,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import MetaGenerator, embed_init, rms_norm
+from repro_torch.sharding import spmd
+from repro_torch.sharding.spmd import einsum
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
@@ -76,7 +85,7 @@ def chunked_lm_loss(x: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor
     for start in range(0, S, chunk):
         xi = x[:, start:start + chunk]
         li = labels[:, start:start + chunk].to(torch.int64)
-        logits = torch.einsum("bsd,dv->bsv", xi, unembed).to(torch.float32)
+        logits = einsum("bsd,dv->bsv", xi, unembed).to(torch.float32)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, li.clamp(min=0)[..., None])[..., 0]
         mask = (li >= 0).to(torch.float32)
@@ -124,7 +133,7 @@ def _stack(items: List[Any], dev: torch.device) -> Any:
 
 class LM:
     def __init__(self, cfg: ModelConfig, *, attn_backend: str = "jnp",
-                 moe_mode: str = "onehot", moe_group_tokens: int = 512):
+                 moe_mode: str = "onehot", moe_group_tokens: int = 512, kv_chunk: int = 1024):
         if cfg.family not in PORTED_FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r} (expected one of "
                              f"{', '.join(PORTED_FAMILIES)})")
@@ -139,6 +148,7 @@ class LM:
         self.attn_backend = attn_backend
         self.moe_mode = moe_mode
         self.moe_group_tokens = moe_group_tokens
+        self.kv_chunk = kv_chunk
 
     # ---------------- init -------------------------------------------
     def init(self, seed: int = 0, device=None, dtype=torch.float32,
@@ -225,13 +235,17 @@ class LM:
         """(final hiddens (B, S, d), the MoE load-balance loss: the mean over
         the layers of each router's aux, a 0-d f32 tensor; 0 outside the
         moe family), the reference's `forward`."""
+        with spmd.replicating(params["embed"]):
+            return self._forward_aux(params, batch, window)
+
+    def _forward_aux(self, params, batch, window):
         cfg = self.cfg
         window = window if window is not None else cfg.sliding_window
         tokens = batch["tokens"].to(torch.int64)
-        x = F.embedding(tokens, params["embed"])
+        x = spmd.embedding(tokens, params["embed"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "vlm":
-            patches = torch.einsum("bpd,de->bpe", batch["patches"].to(x.dtype),
+            patches = einsum("bpd,de->bpe", batch["patches"].to(x.dtype),
                                    params["patch_proj"])
             x = torch.cat([patches, x], dim=1)
         positions = torch.arange(x.shape[1], device=tokens.device)
@@ -251,7 +265,8 @@ class LM:
 
     def _attention(self, p, x, positions, window):
         return attn.attention_forward(p, x, positions=positions, rope_theta=self.cfg.rope_theta,
-                                      window=window, backend=self.attn_backend)
+                                      window=window, backend=self.attn_backend,
+                                      kv_chunk=self.kv_chunk)
 
     def _ffn(self, p, x, group_tokens):
         """The block's feed-forward: (out, the router's aux or None)."""
@@ -370,12 +385,13 @@ class LM:
         write every layer's cross-attention K/V, cast to the cache's dtype,
         into `cache["cross"]` IN PLACE (as decode writes its KV); returns
         the cache."""
-        enc = self._encode(params, frames)
-        cross = cache["cross"]
-        for i, blk in enumerate(_unbind(params["blocks"], self.cfg.n_layers)):
-            k, v = attn.cross_kv(blk["cross"], enc)
-            cross.k[i] = k.to(cross.k.dtype)
-            cross.v[i] = v.to(cross.v.dtype)
+        with spmd.replicating(params["embed"]):
+            enc = self._encode(params, frames)
+            cross = cache["cross"]
+            for i, blk in enumerate(_unbind(params["blocks"], self.cfg.n_layers)):
+                k, v = attn.cross_kv(blk["cross"], enc)
+                spmd.write_slot(cross.k, 0, i, k.to(cross.k.dtype))
+                spmd.write_slot(cross.v, 0, i, v.to(cross.v.dtype))
         return cache
 
     def decode_step(self, params: Params, cache: Any, tokens: torch.Tensor, pos: int, *,
@@ -383,11 +399,15 @@ class LM:
         """tokens: (B, 1) int; pos: the position (an int). Returns (logits
         (B, 1, V), cache). KV caches are written in place; the Mamba2 and
         xLSTM states of the returned cache are new tensors."""
+        with spmd.replicating(params["embed"]):
+            return self._decode_step(params, cache, tokens, pos, window)
+
+    def _decode_step(self, params, cache, tokens, pos, window):
         cfg = self.cfg
         eps = cfg.norm_eps
         window = window if window is not None else cfg.sliding_window
         ring = window is not None
-        x = F.embedding(tokens.to(torch.int64), params["embed"])
+        x = spmd.embedding(tokens.to(torch.int64), params["embed"])
 
         def attend(p, h, kv):
             return attn.attention_decode(p, h, kv, pos, rope_theta=cfg.rope_theta, ring=ring,
@@ -436,7 +456,7 @@ class LM:
                     x = x + a
             new_cache = {"mamba": new_m, "shared": shared}
         x = rms_norm(x, params["ln_f"], eps)
-        return torch.einsum("bsd,dv->bsv", x, self._unembed(params)), new_cache
+        return einsum("bsd,dv->bsv", x, self._unembed(params)), new_cache
 
 
 def build_model(cfg: ModelConfig, **kw) -> LM:

@@ -25,6 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding import spmd
+from repro_torch.sharding.spmd import einsum
 
 __all__ = ["MoEParams", "init_moe", "moe_forward", "moe_forward_onehot", "moe_forward_ragged"]
 
@@ -55,7 +57,7 @@ def _one_hot(i: torch.Tensor, n: int, dtype) -> torch.Tensor:
 
 def _router(p: MoEParams, x: torch.Tensor, m: MoEConfig):
     """x: (T, d) -> top-k weights (T, k) f32, indices (T, k), aux loss."""
-    logits = torch.einsum("td,de->te", x.to(torch.float32), p.router)
+    logits = einsum("td,de->te", x.to(torch.float32), p.router)
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.topk(probs, m.top_k, dim=-1)
     w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
@@ -68,9 +70,9 @@ def _router(p: MoEParams, x: torch.Tensor, m: MoEConfig):
 
 def _expert_ffn(p: MoEParams, xe: torch.Tensor) -> torch.Tensor:
     """xe: (G, E, C, d) -> (G, E, C, d); SwiGLU per expert."""
-    gate = torch.einsum("gecd,edf->gecf", xe, p.w_gate)
-    up = torch.einsum("gecd,edf->gecf", xe, p.w_up)
-    return torch.einsum("gecf,efd->gecd", F.silu(gate) * up, p.w_down)
+    gate = einsum("gecd,edf->gecf", xe, p.w_gate)
+    up = einsum("gecd,edf->gecf", xe, p.w_up)
+    return einsum("gecf,efd->gecd", F.silu(gate) * up, p.w_down)
 
 
 def moe_forward_onehot(p: MoEParams, x: torch.Tensor, m: MoEConfig, *,
@@ -104,12 +106,12 @@ def moe_forward_onehot(p: MoEParams, x: torch.Tensor, m: MoEConfig, *,
     x_rep = torch.repeat_interleave(xf, k, dim=1)                    # (G,s,d)
     dispatch = onehot_e[..., :, None] * onehot_c[..., None, :]      # (G,s,E,cap)
     dispatch = dispatch * keep[..., None, None].to(bf16)
-    xe = torch.einsum("gsec,gsd->gecd", dispatch, x_rep.to(bf16))    # (G,E,cap,d)
+    xe = einsum("gsec,gsd->gecd", dispatch, x_rep.to(bf16))    # (G,E,cap,d)
     wdt = torch.promote_types(bf16, p.w_gate.dtype)
     ye = _expert_ffn(p, xe.to(wdt))                                  # (G,E,cap,d)
     combine = dispatch * w_flat[..., None, None].to(bf16)
     ydt = torch.promote_types(bf16, ye.dtype)
-    y = torch.einsum("gsec,gecd->gsd", combine.to(ydt), ye.to(ydt))  # (G,s,d)
+    y = einsum("gsec,gecd->gsd", combine.to(ydt), ye.to(ydt))  # (G,s,d)
     y = y.reshape(G, t, k, d).sum(dim=2)
     return y.reshape(B, S, d).to(x.dtype), aux
 
@@ -131,6 +133,10 @@ def moe_forward_ragged(p: MoEParams, x: torch.Tensor,
         raise NotImplementedError("the ragged MoE dispatch has no batching rule under vmap "
                                   "(as the reference's ragged_dot); use moe_mode='onehot' or "
                                   "microbatch granularity")
+    if spmd.mesh_of(x, *p) is not None:
+        raise NotImplementedError("the ragged MoE dispatch does not run on a mesh: it reads the "
+                                  "group sizes on the host, which a meta or fake-world step "
+                                  "cannot; use moe_mode='onehot' there")
     B, S, d = x.shape
     T = B * S
     E, k = m.n_experts, m.top_k

@@ -24,6 +24,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.ssm_scan.ref import ssd_chunked, ssd_step
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.sharding import spmd
+from repro_torch.sharding.spmd import einsum
 
 __all__ = ["Mamba2Params", "Mamba2State", "causal_conv", "causal_conv_step", "init_mamba2",
            "init_mamba2_state", "mamba2_decode", "mamba2_dims", "mamba2_forward",
@@ -46,7 +48,7 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def causal_conv_step(state: torch.Tensor, x1: torch.Tensor, w: torch.Tensor):
     """state: (B,K-1,C) past inputs; x1: (B,C). Returns (y: (B,C), new_state)."""
     hist = torch.cat([state, x1[:, None]], dim=1)                  # (B,K,C)
-    y = torch.einsum("bkc,kc->bc", hist.to(torch.float32),
+    y = einsum("bkc,kc->bc", hist.to(torch.float32),
                      w.to(torch.float32)).to(x1.dtype)
     return y, hist[:, 1:]
 
@@ -103,17 +105,17 @@ def init_mamba2(generator: torch.Generator, d_model: int, s: SSMConfig,
 
 
 def _mamba2_proj(p: Mamba2Params, x: torch.Tensor):
-    z = torch.einsum("bsd,de->bse", x, p.w_z)
-    xc = torch.einsum("bsd,de->bse", x, p.w_x)
-    Bm = torch.einsum("bsd,dn->bsn", x, p.w_B)
-    Cm = torch.einsum("bsd,dn->bsn", x, p.w_C)
-    dt_raw = torch.einsum("bsd,dh->bsh", x, p.w_dt)
+    z = einsum("bsd,de->bse", x, p.w_z)
+    xc = einsum("bsd,de->bse", x, p.w_x)
+    Bm = einsum("bsd,dn->bsn", x, p.w_B)
+    Cm = einsum("bsd,dn->bsn", x, p.w_C)
+    dt_raw = einsum("bsd,dh->bsh", x, p.w_dt)
     return z, torch.cat([xc, Bm, Cm], dim=-1), dt_raw
 
 
 def _gate_out(p: Mamba2Params, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     y = rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype), p.norm)
-    return torch.einsum("bse,ed->bsd", y, p.w_out)
+    return einsum("bse,ed->bsd", y, p.w_out)
 
 
 def mamba2_forward(p: Mamba2Params, x: torch.Tensor, s: SSMConfig) -> torch.Tensor:
@@ -130,9 +132,14 @@ def mamba2_forward(p: Mamba2Params, x: torch.Tensor, s: SSMConfig) -> torch.Tens
     dt = F.softplus(dt_raw.to(torch.float32) + p.dt_bias)         # (B,S,H)
     ld = dt * -torch.exp(p.A_log)
     v = xc.reshape(B_, S, H, P)
-    k = Bm[:, :, None, :].expand(B_, S, H, N)
-    q = Cm[:, :, None, :].expand(B_, S, H, N)
-    y, _ = ssm_ops.ssd_chunked(v, ld, k, q, dt, chunk=s.chunk)
+
+    def scan(v, ld, Bm, Cm, dt):
+        Hl = v.shape[2]
+        k = Bm[:, :, None, :].expand(v.shape[0], S, Hl, N)
+        q = Cm[:, :, None, :].expand(v.shape[0], S, Hl, N)
+        return ssm_ops.ssd_chunked(v, ld, k, q, dt, chunk=s.chunk)[0]
+    y = spmd.on_heads(scan, (v, ld, Bm, Cm, dt), ((0, 2), (0, 2), (0, None), (0, None), (0, 2)),
+                 (0, 2), H)
     y = y + (p.D[None, None, :, None] * v.to(torch.float32)).to(y.dtype)
     return _gate_out(p, y.reshape(B_, S, d_in), z)
 
@@ -161,9 +168,13 @@ def mamba2_decode(p: Mamba2Params, x: torch.Tensor, state: Mamba2State,
     dt = F.softplus(dt_raw[:, 0].to(torch.float32) + p.dt_bias)  # (B,H)
     ld = dt * -torch.exp(p.A_log)
     v = xc.reshape(B_, H, P)
-    k = Bm[:, None, :].expand(B_, H, N)
-    q = Cm[:, None, :].expand(B_, H, N)
-    y, h_new = ssd_step(state.h, v, ld, k, q, dt)
+
+    def step(h, v, ld, Bm, Cm, dt):
+        Hl = v.shape[1]
+        return ssd_step(h, v, ld, Bm[:, None, :].expand(v.shape[0], Hl, N),
+                        Cm[:, None, :].expand(v.shape[0], Hl, N), dt)
+    y, h_new = spmd.on_heads(step, (state.h, v, ld, Bm, Cm, dt),
+                        ((0, 1),) * 3 + ((0, None),) * 2 + ((0, 1),), ((0, 1), (0, 1)), H)
     y = y + (p.D[None, :, None] * v.to(torch.float32)).to(y.dtype)
     out = _gate_out(p, y.reshape(B_, 1, d_in), z)
     return out, Mamba2State(h_new, new_conv.to(state.conv.dtype))

@@ -29,6 +29,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models.layers import dense_init, rms_norm
 from repro_torch.models.ssm import causal_conv, causal_conv_step, ssd_step
+from repro_torch.sharding.spmd import einsum, on_heads
 
 __all__ = ["MLSTMParams", "MLSTMState", "SLSTMParams", "SLSTMState", "init_mlstm",
            "init_mlstm_state", "init_slstm", "init_slstm_state", "mlstm_decode", "mlstm_dims",
@@ -87,11 +88,11 @@ def init_mlstm(generator: torch.Generator, cfg: ModelConfig,
 
 
 def _mlstm_qkvif(p: MLSTMParams, u: torch.Tensor, uc: torch.Tensor):
-    q = torch.einsum("bse,ehn->bshn", uc, p.w_q)
-    k = torch.einsum("bse,ehn->bshn", uc, p.w_k)
-    v = torch.einsum("bse,ehn->bshn", u, p.w_v)
-    i_raw = torch.einsum("bse,eh->bsh", uc, p.w_i).to(torch.float32)
-    f_raw = torch.einsum("bse,eh->bsh", uc, p.w_f).to(torch.float32) + p.b_f
+    q = einsum("bse,ehn->bshn", uc, p.w_q)
+    k = einsum("bse,ehn->bshn", uc, p.w_k)
+    v = einsum("bse,ehn->bshn", u, p.w_v)
+    i_raw = einsum("bse,eh->bsh", uc, p.w_i).to(torch.float32)
+    f_raw = einsum("bse,eh->bsh", uc, p.w_f).to(torch.float32) + p.b_f
     i_g = torch.sigmoid(i_raw)
     log_f = -F.softplus(-f_raw)                   # log sigmoid(f_raw)
     return q, k, v, i_g, log_f
@@ -105,7 +106,7 @@ def _mlstm_out(p: MLSTMParams, y_aug: torch.Tensor, z: torch.Tensor, N: int,
     num, den = y_aug[..., :N].to(torch.float32), y_aug[..., N].to(torch.float32)
     y = (num / torch.clamp(den.abs(), min=1.0)[..., None]).reshape(B, S, -1).to(dtype)
     y = rms_norm(y, p.norm) * F.silu(z.to(torch.float32)).to(dtype)
-    return torch.einsum("bse,ed->bsd", y, p.w_down)
+    return einsum("bse,ed->bsd", y, p.w_down)
 
 
 def mlstm_forward(p: MLSTMParams, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -113,14 +114,15 @@ def mlstm_forward(p: MLSTMParams, x: torch.Tensor, cfg: ModelConfig) -> torch.Te
     point with N = dm / H and P = N + 1 (v and its ones column)."""
     S = x.shape[1]
     dm, H, N = mlstm_dims(cfg)
-    u = torch.einsum("bsd,de->bse", x, p.w_up)
-    z = torch.einsum("bsd,de->bse", x, p.w_z)
+    u = einsum("bsd,de->bse", x, p.w_up)
+    z = einsum("bsd,de->bse", x, p.w_z)
     uc = F.silu(causal_conv(u, p.conv).to(torch.float32)).to(x.dtype)
     q, k, v, i_g, log_f = _mlstm_qkvif(p, u, uc)
     v_aug = torch.cat([v, torch.ones(v.shape[:-1] + (1,), dtype=v.dtype, device=v.device)],
                       dim=-1)                                         # (B,S,H,N+1)
     chunk = min(256, max(S, 8))
-    y_aug, _ = ssm_ops.ssd_chunked(v_aug, log_f, k, q, i_g, chunk=chunk)
+    y_aug = on_heads(lambda *a: ssm_ops.ssd_chunked(*a, chunk=chunk)[0],
+                     (v_aug, log_f, k, q, i_g), ((0, 2),) * 5, (0, 2), H)
     return _mlstm_out(p, y_aug, z, N, x.dtype)
 
 
@@ -139,14 +141,15 @@ def mlstm_decode(p: MLSTMParams, x: torch.Tensor, state: MLSTMState,
                  cfg: ModelConfig) -> Tuple[torch.Tensor, MLSTMState]:
     """x: (B, 1, d). Returns (out (B, 1, d), new_state)."""
     dm, H, N = mlstm_dims(cfg)
-    u = torch.einsum("bsd,de->bse", x, p.w_up)
-    z = torch.einsum("bsd,de->bse", x, p.w_z)
+    u = einsum("bsd,de->bse", x, p.w_up)
+    z = einsum("bsd,de->bse", x, p.w_z)
     c_out, new_conv = causal_conv_step(state.conv.to(u.dtype), u[:, 0], p.conv)
     uc = F.silu(c_out.to(torch.float32)).to(x.dtype)[:, None]
     q, k, v, i_g, log_f = _mlstm_qkvif(p, u, uc)
     v_aug = torch.cat([v, torch.ones(v.shape[:-1] + (1,), dtype=v.dtype, device=v.device)],
                       dim=-1)
-    y_aug, h_new = ssd_step(state.h, v_aug[:, 0], log_f[:, 0], k[:, 0], q[:, 0], i_g[:, 0])
+    y_aug, h_new = on_heads(ssd_step, (state.h, v_aug[:, 0], log_f[:, 0], k[:, 0], q[:, 0],
+                                       i_g[:, 0]), ((0, 1),) * 6, ((0, 1), (0, 1)), H)
     out = _mlstm_out(p, y_aug[:, None], z, N, x.dtype)
     return out, MLSTMState(h_new, new_conv.to(state.conv.dtype))
 
@@ -197,7 +200,7 @@ def _slstm_cell(p: SLSTMParams, zin: torch.Tensor,
                 st: SLSTMState) -> Tuple[SLSTMState, torch.Tensor]:
     """zin: (B, H, hd, 4) pre-activations from the input; the recurrent
     part is added here."""
-    rec = torch.einsum("bhd,hdkg->bhkg", st.hst.to(torch.float32), p.r.to(torch.float32))
+    rec = einsum("bhd,hdkg->bhkg", st.hst.to(torch.float32), p.r.to(torch.float32))
     pre = zin.to(torch.float32) + rec + p.b
     i_raw, f_raw, z_raw, o_raw = pre.unbind(-1)
     log_f = -F.softplus(-f_raw)                   # log sigmoid — stabilized f
@@ -214,22 +217,28 @@ def _slstm_cell(p: SLSTMParams, zin: torch.Tensor,
 
 def _slstm_out(p: SLSTMParams, y: torch.Tensor, dtype) -> torch.Tensor:
     y = rms_norm(y, p.norm)
-    up = torch.einsum("bsd,df->bsf", y, p.w_up)
+    up = einsum("bsd,df->bsf", y, p.w_up)
     a, g = torch.chunk(up, 2, dim=-1)
     act = F.gelu(a.to(torch.float32), approximate="tanh").to(dtype)
-    return torch.einsum("bsf,fd->bsd", act * g, p.w_down)
+    return einsum("bsf,fd->bsd", act * g, p.w_down)
 
 
 def slstm_forward(p: SLSTMParams, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d): the cell over the positions in order."""
     B, S, d = x.shape
-    zin = torch.einsum("bsd,dhkg->bshkg", x, p.w_in)
-    st = init_slstm_state(B, cfg, device=x.device)
-    hs = []
-    for t in range(S):
-        st, h = _slstm_cell(p, zin[:, t], st)
-        hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    zin = einsum("bsd,dhkg->bshkg", x, p.w_in)
+
+    def scan(zin, r, b):
+        # on a mesh each rank runs the loop over its batch rows as plain
+        # tensors: tens of ops a position, too many to dispatch as DTensors
+        pl = p._replace(r=r, b=b)
+        st = init_slstm_state(zin.shape[0], cfg, device=zin.device)
+        hs = []
+        for t in range(S):
+            st, h = _slstm_cell(pl, zin[:, t], st)
+            hs.append(h)
+        return torch.stack(hs, dim=1).reshape(zin.shape[0], S, d).to(x.dtype)
+    y = on_heads(scan, (zin, p.r, p.b), ((0, None), (None, None), (None, None)), (0, None), 1)
     return _slstm_out(p, y, x.dtype)
 
 
@@ -246,6 +255,6 @@ def slstm_decode(p: SLSTMParams, x: torch.Tensor, st: SLSTMState,
                  cfg: ModelConfig) -> Tuple[torch.Tensor, SLSTMState]:
     """x: (B, 1, d). Returns (out (B, 1, d), new_state)."""
     B, _, d = x.shape
-    zin = torch.einsum("bsd,dhkg->bshkg", x, p.w_in)[:, 0]
+    zin = einsum("bsd,dhkg->bshkg", x, p.w_in)[:, 0]
     st2, h = _slstm_cell(p, zin, st)
     return _slstm_out(p, h.reshape(B, 1, d).to(x.dtype), x.dtype), st2

@@ -19,13 +19,20 @@ tuple of names per dim, normalized as jax's (a one-name tuple becomes the
 name), so it equals the reference's spec entry for entry. `named` and
 `FlatShardings` pair a spec with the live mesh; the flat engine's block
 layout is computed from them in `repro_torch.sharding.flat`.
+
+The model zoo's trees go onto a live mesh as DTensors: `placements` turns
+a spec into DTensor placements and `distribute` places a whole tree, real
+tensors by scattering them and meta stand-ins as each rank's meta shard
+(no collective), so a step can be traced in a fake world.
 """
 from __future__ import annotations
 
 import math
 from typing import Any, NamedTuple, Optional, Tuple
 
-from repro_torch.tree_util import _LEAF, _flatten_into, tree_unflatten
+import torch
+
+from repro_torch.tree_util import _LEAF, _flatten_into, tree_map, tree_unflatten
 
 
 class MeshShape:
@@ -311,6 +318,94 @@ def named(mesh, spec_tree: Any) -> Any:
     if spec_tree is None:
         return None
     raise TypeError(f"not a spec tree: {spec_tree!r}")
+
+
+def placements(spec: PartitionSpec, mesh) -> Tuple[Any, ...]:
+    """DTensor placements of `spec` on a live DeviceMesh: a tensor dim
+    mapped to an axis gives Shard(dim) on that mesh dim; a dim mapped to a
+    tuple of axes gives Shard(dim) on each, whose order must be the mesh's
+    (jax's major to minor is DTensor's outer to inner split); every other
+    mesh dim is Replicate()."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry!r} is not in the mesh's axis order {names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"mesh axis {names[i]!r} shards two dims of {spec}")
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def _local_shape(shape, place, mesh) -> Tuple[int, ...]:
+    sizes = list(shape)
+    for p, n in zip(place, mesh.mesh.shape):
+        if p.is_shard():
+            if sizes[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not divide over {n}")
+            sizes[p.dim] //= n
+    return tuple(sizes)
+
+
+def distribute_leaf(t, spec: PartitionSpec, mesh):
+    """One tensor placed by `spec`: `distribute_tensor` for a real tensor
+    (every rank passes the same values); a meta tensor becomes a DTensor
+    over this rank's meta shard, made by `DTensor.from_local` without a
+    check, so nothing communicates. A DTensor, or anything that is not a
+    tensor (a decode position), is returned as it is."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if not isinstance(t, torch.Tensor) or isinstance(t, DTensor):
+        return t
+    place = placements(spec, mesh)
+    if t.device.type == "meta":
+        local = torch.empty(_local_shape(t.shape, place, mesh), dtype=t.dtype, device="meta")
+        return DTensor.from_local(local, mesh, place, run_check=False, shape=t.shape,
+                                  stride=t.stride())
+    return distribute_tensor(t, mesh, place)
+
+
+def distribute(tree: Any, spec_tree: Any, mesh=None) -> Any:
+    """Every tensor of `tree` placed by the spec at its place in
+    `spec_tree`: a tree of `param_specs`, `batch_specs` or `cache_specs`
+    on `mesh`, or a NamedSharding tree of `named` (which carries its
+    mesh)."""
+    it = iter(_spec_leaves(spec_tree))
+
+    def one(t):
+        s = next(it)
+        if isinstance(s, NamedSharding):
+            return distribute_leaf(t, s.spec, s.mesh)
+        return distribute_leaf(t, s, mesh)
+    return tree_map(one, tree)
+
+
+def _spec_leaves(spec_tree: Any) -> list:
+    """The specs (or NamedShardings) of a spec tree in jax's leaf order."""
+    out: list = []
+
+    def walk(node):
+        if node is None:
+            return
+        if isinstance(node, (NamedSharding, PartitionSpec)):
+            out.append(node)
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+        else:
+            raise TypeError(f"not a spec tree: {node!r}")
+    walk(spec_tree)
+    return out
 
 
 # ------------------- flat federation state (owner bank) ---------------------

@@ -1499,3 +1499,84 @@ def test_one_by_one_nccl_mesh_save_adds_at_most_a_piece_to_the_card(tmp_path, mo
                    for a, b in zip(whole, flatten_with_paths(st).values()))
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_one_by_one_nccl_mesh_prefill_equals_the_unmeshed_with_flash():
+    """The reduced yi-6b's prefill (attn_backend "pallas": flash on the
+    card) through build_prefill_step on the 1x1 mesh of a world of one over
+    NCCL, its params and batch DTensors, equals the unmeshed step bit for
+    bit, with one flash launch a layer; the process group is torn down."""
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_prefill_step, place
+    dev = _device()
+    cfg = get_config("yi-6b").reduced()
+    lm = LM(cfg, attn_backend="pallas")
+    params = lm.init(seed=3, device=dev)
+    shape = ShapeConfig("p", 256, 2, "prefill")
+    toks = torch.randint(0, cfg.vocab, (2, 256), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(3)).to(dev)
+    mesh = make_host_mesh()
+    try:
+        with torch.no_grad():
+            want = build_prefill_step(cfg, shape, None, model=lm).step(params, {"tokens": toks})
+            meshed = build_prefill_step(cfg, shape, mesh, model=lm)
+            before = fkernel.launches["flash_attention"]
+            got = meshed.step(*place(meshed.in_shardings, params, {"tokens": toks}))
+            launched = fkernel.launches["flash_attention"] - before
+        assert launched == cfg.n_layers
+        assert torch.equal(got.full_tensor(), want)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_custom_op_fakes_give_the_real_outputs_shapes(dtype):
+    """Each kernel's custom op on meta tensors (its fake) gives the shapes,
+    dtypes and count of the outputs the launch gives on the card."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, S, H, Kv, hd = 2, 100, 4, 2, 64
+    q, k, v = (torch.randn(shape, device=dev, generator=g, dtype=dtype)
+               for shape in ((B, S, H, hd), (B, S, Kv, hd), (B, S, Kv, hd)))
+    N, P, Q = 16, 32, 32
+    sv, sk = (torch.randn(shape, device=dev, generator=g, dtype=dtype)
+              for shape in ((B, S, H, P), (B, S, H, N)))
+    ld, sg = (torch.rand((B, S, H), device=dev, generator=g) * -0.1 for _ in range(2))
+    nc = -(-S // Q)
+    cots = [torch.randn(shape, device=dev, generator=g)
+            for shape in ((B, S, H, P), (B, nc, H, N, P), (B, S, H), (B, nc, H))]
+    calls = [(fkernel.flash_attention_cuda, (q, k, v), dict(causal=True, window=None)),
+             (skernel.ssd_chunk_scan_cuda, (sv, ld, sk, sk, sg, Q), {}),
+             (skernel.ssd_chunk_scan_bwd_cuda, (*cots, sv, ld, sk, sk, sg, Q), {})]
+    for op, args, kw in calls:
+        real = op(*args, **kw)
+        fake = op(*(a.to("meta") if isinstance(a, torch.Tensor) else a for a in args), **kw)
+        real = real if isinstance(real, tuple) else (real,)
+        fake = fake if isinstance(fake, tuple) else (fake,)
+        assert [(tuple(t.shape), t.dtype) for t in real] == \
+            [(tuple(t.shape), t.dtype) for t in fake]
+
+
+@pytest.mark.cuda
+def test_the_counter_sees_the_flash_launch():
+    """analysis.op_cost counts flash's launch through its custom op, by its
+    registered formula (PERF.md row 8), and the launch happens once."""
+    from repro_torch.analysis.op_cost import OpCost
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, S, H, Kv, hd = 2, 128, 4, 2, 64
+    q = torch.randn((B, S, H, hd), device=dev, generator=g)
+    k, v = (torch.randn((B, S, Kv, hd), device=dev, generator=g) for _ in range(2))
+    before = fkernel.launches["flash_attention"]
+    with torch.no_grad(), OpCost() as counter:
+        out = fops.flash_attention(q, k, v, causal=True)
+    assert fkernel.launches["flash_attention"] - before == 1
+    names = {e[0] for e in counter.events}
+    assert "repro_torch.flash_attention_cuda" in names
+    assert counter.summary()["flops"] == 4 * B * H * hd * S * (S + 1) // 2
+    torch.testing.assert_close(out, fref.flash_attention_ref(q, k, v, causal=True),
+                               rtol=0, atol=2e-5)

@@ -8,6 +8,8 @@ within 2e-5 (softmax sums in other orders), bf16 within 2e-2 (outputs
 rounded to bf16 on both sides). Inputs are made with numpy from a seed and
 rounded to bf16 the same way in both packages.
 """
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -137,5 +139,8 @@ def test_cpu_tensors_take_the_plain_version():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 16, 2, 1, 8, seed=1))
     torch.testing.assert_close(ops.flash_attention(q, k, v, window=5),
                                ref.flash_attention_ref(q, k, v, window=5), rtol=0, atol=0)
+    # a meta tensor runs the kernel op's fake (the shape, nothing launched);
+    # any other device is refused
+    assert ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta")).shape == q.shape
     with pytest.raises(ValueError, match="not supported"):
-        ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+        ops.flash_attention(SimpleNamespace(device=torch.device("xpu")), k, v)

@@ -16,6 +16,8 @@ compute in f32 and round the cotangents of v, k and q to bf16). The vmap
 gradients equal the loop's bit for bit: the vmap rule runs the same plain
 bodies on the folded batch.
 """
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -161,6 +163,9 @@ def test_the_op_has_no_second_derivative():
 
 
 def test_the_op_refuses_other_devices():
+    # meta runs the kernel ops' fakes (shapes only), as a traced step needs
     v = torch.zeros((1, 4, 1, 8), device="meta")
+    shapes = [tuple(t.shape) for t in ops.SSDChunkScan.apply(v, v[..., 0], v, v, v[..., 0], 4)]
+    assert shapes == [(1, 4, 1, 8), (1, 1, 1, 8, 8), (1, 4, 1), (1, 1, 1)]
     with pytest.raises(ValueError, match="not supported"):
-        ops.SSDChunkScan.apply(v, v[..., 0], v, v, v[..., 0], 4)
+        ops._backend(None, None, SimpleNamespace(device=torch.device("xpu")), "SSDChunkScan")
