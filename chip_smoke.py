@@ -836,7 +836,7 @@ def _dense_leaves(torch, dev, seed):
     from repro_torch.configs import DENSE_124M
     from repro_torch.models import LM
     from repro_torch.tree_util import tree_flatten
-    return tree_flatten(LM(DENSE_124M).init(seed=seed, device=dev))[0]
+    return tree_flatten(LM(DENSE_124M, remat=False).init(seed=seed, device=dev))[0]
 
 
 def _check_scale_noise(torch, dev):
@@ -880,13 +880,65 @@ def _check_scale_noise(torch, dev):
         print(f"[kernels] {what}: scale_noise (fused_scale_noise_tree and dp_privatize_tree, "
               f"clip {float(clip):.4e}) equals its plain version bit for bit on every leaf")
         del leaves
+    err = max(err, _check_block_scale_noise(torch, dev))
     got = _diff(dict(kernel.launches), before)
     # per tree: its sqnorm for the check, then dp_privatize_tree's; two
-    # scale_noise per leaf
-    check(got == {"dp_round": 0, "scale_noise": 2 * 13, "sqnorm": 2 * 13},
-          f"the wrappers launched {got}")
+    # scale_noise per leaf; then the whole and four blocks of each of the
+    # BLOCK_LEAVES
+    check(got == {"dp_round": 0, "scale_noise": 2 * 13 + 5 * len(BLOCK_LEAVES),
+                  "sqnorm": 2 * 13}, f"the wrappers launched {got}")
     torch.cuda.empty_cache()
     return {"scale_noise": err}
+
+
+# full-width f32 leaves whose 2 x 2 blocks (the last two dims cut in two)
+# go through the block scale_noise: DENSE_124M's embedding and its stacked
+# (layer, d, d_ff) MLP weight (a layer dim in front: (A, R, C) blocks)
+BLOCK_LEAVES = ((50304, 768), (12, 768, 2048))
+
+
+def _two_by_two(shape):
+    """(offsets, local shape) of the four blocks of a leaf cut in two on
+    its last two dims."""
+    *lead, r, c = shape
+    for i in (0, 1):
+        for j in (0, 1):
+            yield (0,) * len(lead) + (i * r // 2, j * c // 2), tuple(lead) + (r // 2, c // 2)
+
+
+def _check_block_scale_noise(torch, dev):
+    """The block scale_noise (a rank's block of a leaf on a device mesh) on
+    the four 2 x 2 blocks of each BLOCK_LEAVES leaf: each block equal to
+    its plain version on its bits (random.bits_block) and the four tiling
+    the whole-leaf launch, bit for bit. Returns the largest difference."""
+    from repro_torch import random
+    from repro_torch.kernels.dp_clip_noise import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cs, ns = torch.tensor([0.5], device=dev), torch.tensor(0.37, device=dev)
+    err = 0.0
+    for shape in BLOCK_LEAVES:
+        g = torch.randn(shape, device=dev, generator=gen)
+        key = random.PRNGKey(sum(shape), device=dev)
+        whole = ops.scale_noise(g, key, cs, ns)
+        tiled = torch.empty_like(g)
+        for offsets, local in _two_by_two(shape):
+            sl = tuple(slice(o, o + n) for o, n in zip(offsets, local))
+            block = g[sl].contiguous()
+            out = ops.scale_noise(block, key, cs, ns, (shape, offsets))
+            plain = ref.scale_noise_ref(block, random.bits_block(key, shape, offsets, local),
+                                        cs.reshape(()), ns)
+            err = max(err, float((out - plain).abs().max()))
+            check(torch.equal(out, plain), f"the block scale_noise of {shape} at {offsets} "
+                  f"differs from its plain version by {err:.3e}")
+            tiled[sl] = out
+            del block, out, plain
+        check(torch.equal(tiled, whole), f"the 2 x 2 blocks of {shape} do not tile the "
+              "whole-leaf launch")
+        print(f"[kernels] block scale_noise: the four 2 x 2 blocks of a {shape} leaf (block "
+              f"layout {ops._block_layout(shape, *next(iter(_two_by_two(shape))))}) each equal "
+              f"their plain version and tile the whole-leaf launch, bit for bit")
+        del g, whole, tiled
+    return err
 
 
 TREE_DEPTH = 4
@@ -1277,7 +1329,7 @@ def phase_main(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, dispa
     quant = as_bank_codec(bank_dtype) is not None
     tree = bool(tree_depth)
     mech = {} if tree_depth is None else dict(mechanism="tree", tree_depth=tree_depth)
-    lm = LM(cfg)
+    lm = LM(cfg, remat=False)   # as examples/async_dp_llm.py builds it
 
     def loss_fn(p, b):
         return lm.loss(p, b)[0]
@@ -1458,7 +1510,7 @@ def phase_mesh(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, K=MES
     from repro_torch.sharding.flat import layout_for
     cfg = DENSE_124M if cfg is None else cfg
     batch, G = 4, 2
-    lm = LM(cfg)
+    lm = LM(cfg, remat=False)   # as examples/async_dp_llm.py builds it
     t0 = time.perf_counter()
     check(not dist.is_initialized(), "a process group exists before phase mesh")
     mesh = make_host_mesh(device_type=dev.type)
@@ -1601,7 +1653,7 @@ def phase_example(torch, dev, cfg=None, n_owners=EXAMPLE_OWNERS, group_owners=16
     from repro_torch.tree_util import tree_map
     cfg = DENSE_124M if cfg is None else cfg
     batch = 4
-    lm = LM(cfg)
+    lm = LM(cfg, remat=False)   # as examples/async_dp_llm.py builds it
     t0 = time.perf_counter()
     params = lm.init(seed=0, device=dev)
     P = _model_size(params)
@@ -1899,7 +1951,7 @@ def phase_grouped(torch, dev, main_prof, cfg=None, n_owners=16, records=10_000, 
     from repro_torch.models import LM
     cfg = DENSE_124M if cfg is None else cfg
     batch, G = 4, 2
-    lm = LM(cfg)
+    lm = LM(cfg, remat=False)   # as examples/async_dp_llm.py builds it
     t0 = time.perf_counter()
     shards = synthetic_owner_shards(n_owners, records, seq, cfg.vocab, seed=0)
     pipe = OwnerDataPipeline(shards, batch, seed=0)
@@ -2159,7 +2211,7 @@ def phase_faults(torch, dev, main_prof, cfg=None, n_owners=16, records=10_000, s
     from repro_torch.models import LM
     cfg = DENSE_124M if cfg is None else cfg
     batch, G = 4, 2
-    lm = LM(cfg)
+    lm = LM(cfg, remat=False)   # as examples/async_dp_llm.py builds it
     t0 = time.perf_counter()
     shards = synthetic_owner_shards(n_owners, records, seq, cfg.vocab, seed=0)
     pipe = OwnerDataPipeline(shards, batch, seed=0)
@@ -2772,7 +2824,7 @@ def phase_sync(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, round
     from repro_torch.models import LM
     cfg = DENSE_124M if cfg is None else cfg
     batch, G = 4, 2
-    lm = LM(cfg)
+    lm = LM(cfg, remat=False)   # as examples/async_dp_llm.py builds it
 
     def loss_fn(p, b):
         return lm.loss(p, b)[0]
@@ -2914,7 +2966,7 @@ def _check_hybrid_grad(torch, dev, cases=None, generator_device=None):
                  ("zamba2 at full width, 6 layers", dataclasses.replace(full, n_layers=6), 1024))
     worst_all = 0.0
     for what, cfg, S in cases:
-        lm = LM(cfg, attn_backend="jnp")
+        lm = LM(cfg, remat=False, attn_backend="jnp")
         leaves, treedef = tree_flatten(lm.init(seed=3, device=dev,
                                                generator_device=generator_device))
         toks = torch.randint(0, cfg.vocab, (2, S), generator=torch.Generator().manual_seed(S),
@@ -3019,7 +3071,7 @@ def phase_refusal(torch, dev, bank_dtype=None, tree_depth=None, pack_params=True
     horizon = 2 if tree_depth is None else 8
     cap = horizon if tree_depth is None else min(horizon, (1 << tree_depth) - 1)
     cfg = DENSE_124M.reduced()
-    lm = LM(cfg)
+    lm = LM(cfg, remat=False)   # as examples/async_dp_llm.py builds it
     params = lm.init(seed=1, device="cpu")
     toks = np.random.default_rng(5).integers(0, cfg.vocab, (K, 4, 16), dtype=np.int32)
     data = {"tokens": toks, "labels": np.roll(toks, -1, axis=2)}
@@ -3216,7 +3268,7 @@ def phase_fault_refusal(torch, dev, bank_dtype=None, tree_depth=None, pack_param
     n_owners, K = 4, 12
     horizon = 8
     cfg = DENSE_124M.reduced()
-    lm = LM(cfg)
+    lm = LM(cfg, remat=False)   # as examples/async_dp_llm.py builds it
     params = lm.init(seed=1, device="cpu")
     toks = np.random.default_rng(5).integers(0, cfg.vocab, (K, 4, 16), dtype=np.int32)
     data = {"tokens": toks, "labels": np.roll(toks, -1, axis=2)}
@@ -3461,7 +3513,7 @@ def phase_paged(torch, dev, main_prof, cfg=None, K=PAGED_K, n_owners=PAGED_OWNER
     from repro_torch.models import LM
     cfg = DENSE_124M if cfg is None else cfg
     G = 2
-    lm = LM(cfg)
+    lm = LM(cfg, remat=False)   # as examples/async_dp_llm.py builds it
     params = lm.init(seed=0, device=dev)
     P = cfg.param_count()
     row = P * 4
@@ -3590,7 +3642,7 @@ def phase_paged_refusal(torch, dev, bank_dtype=None, tree_depth=None, faults=Fal
     from repro_torch.models import LM
     n_owners, n_hot = 4, 3
     cfg = DENSE_124M.reduced()
-    lm = LM(cfg)
+    lm = LM(cfg, remat=False)   # as examples/async_dp_llm.py builds it
     params = lm.init(seed=1, device="cpu")
     chunks = ([0, 1, 0, 2], [3, 1, 3, 3], [2, 0, 0, 2], [1, 3, 1, 0])
     toks = np.random.default_rng(6).integers(0, cfg.vocab, (16, 4, 16), dtype=np.int32)
@@ -3689,7 +3741,7 @@ def phase_checkpoint(torch, dev, cfg=None, n_owners=16, K=8, seq=128, root=None)
     from repro_torch.configs import DENSE_124M
     from repro_torch.models import LM
     cfg = DENSE_124M if cfg is None else cfg
-    lm = LM(cfg)
+    lm = LM(cfg, remat=False)   # as examples/async_dp_llm.py builds it
     params = lm.init(seed=0, device=dev)
     root = os.path.join(ROOT, "build", "chip_smoke_checkpoint") if root is None else root
     shutil.rmtree(root, ignore_errors=True)
@@ -3774,7 +3826,7 @@ def _paged_crash_resume(torch, dev, directory):
     from repro_torch.federation import (FaultPlan, FaultPolicy, LatencyPlan, StalenessPolicy)
     from repro_torch.models import LM
     cfg = DENSE_124M.reduced()
-    lm = LM(cfg)
+    lm = LM(cfg, remat=False)   # as examples/async_dp_llm.py builds it
     params = lm.init(seed=1, device="cpu")
     chunks = ([0, 1, 0], [1, 2, 2], [0, 0, 1], [2, 3, 2])     # at most n_hot = 2 owners each
     toks = np.random.default_rng(8).integers(0, cfg.vocab, (12, 4, 16), dtype=np.int32)
@@ -4663,6 +4715,212 @@ def phase_meshzoo(torch, dev, cfgs=None, batch=PREFILL_B, seq=PREFILL_S,
     return total
 
 
+# phase meshtrain: phase train's model (zamba2-2.7b at full width, its first
+# TRAIN_LAYERS Mamba2 layers) under launch.steps.build_train_step on the 1x1
+# mesh, at the reference's default bf16 leaves
+MESHTRAIN_ROUNDS = 3             # timed rounds a setting, after one warm-up
+
+
+def _meshtrain_bundle(torch, dev, cfg, mesh, acfg, n_owners, batch, seq, remat):
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import LM
+    return build_train_step(cfg, ShapeConfig("meshtrain", seq, batch, "train"), mesh,
+                            model=LM(cfg, remat=remat), async_cfg=acfg, dtype=torch.bfloat16,
+                            device=dev)
+
+
+def _meshtrain_state(torch, dev, cfg, mesh, acfg, params):
+    from repro_torch.federation.deep import init_state
+    from repro_torch.sharding import rules
+    specs = None if mesh is None else rules.param_specs(params, cfg, mesh)
+    return init_state(params, acfg, device=dev, mesh=mesh, specs=specs)
+
+
+def phase_meshtrain(torch, dev, cfg=None, n_owners=4, batch=4, seq=1024, G=2,
+                    rounds=MESHTRAIN_ROUNDS):
+    """The launcher's training round on the 1x1 mesh of a world of one
+    (NCCL on the card, gloo on the CPU): build_train_step(mesh=) over
+    zamba2-2.7b at full width and TRAIN_LAYERS deep, bf16 leaves (the
+    reference's default), 4 owners, batch 4 x S 1024 in G = 2 pre-grouped
+    microbatches, attn_backend "jnp" (flash has no backward).
+
+    Parity: with fused_kernel False (the reference's random.laplace draw)
+    and True (sqnorm and the block scale_noise), one meshed round against
+    its unmeshed twin: theta_L, the owner's bank row, step and the metrics
+    bit for bit, and each rank's bank piece (N, *block). Launches a round:
+    remat on, 2 x G x layers ssd_chunk_scan (the forward and the
+    backward's recompute) and G x layers ssd_chunk_scan_bwd; remat off, G
+    x layers of each; fused, G x leaves sqnorm and leaves scale_noise.
+    Then, fused, remat on and off, `rounds` timed rounds after a warm-up
+    and one profiled (device busy, idle share, peak memory). Returns the
+    launches of the meshed rounds (the counters set to 0 before the first
+    one). `cfg` overrides the config (a CPU rehearsal passes a reduced
+    one; launches are then not checked)."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch import random
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import default_async_cfg, place
+    from repro_torch.models import LM
+    from repro_torch.sharding import spmd
+    if cfg is None:
+        cfg = dataclasses.replace(get_config("zamba2-2.7b"), n_layers=TRAIN_LAYERS)
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(device_type=dev.type)
+    total = {k: 0 for k in FED_KERNELS + MODEL_KERNELS}
+    try:
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        params = LM(cfg).init(seed=0, device=dev, dtype=torch.bfloat16,
+                              generator_device=dev if on_card else None)
+        n_leaves = len(_leaves(params))
+        n_params = sum(x.numel() for x in _leaves(params))
+        layers = _scan_layers(cfg)
+        batches = _round_batches(torch, cfg, rounds + 2, batch, seq, G, dev, seed=9)
+        key = random.PRNGKey(13, device=dev)
+        print(f"[meshtrain] {cfg.name} at full width, {cfg.n_layers} layers ({n_params:,} "
+              f"bf16 parameters, {n_leaves} leaves) on the mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}; {n_owners} owners, batch "
+              f"{batch} x S {seq}, G = {G}; drawn in {time.perf_counter() - t0:.1f} s")
+
+        def want(remat, fused):
+            per = dict.fromkeys(total, 0)
+            per["ssd_chunk_scan"] = (2 if remat else 1) * G * layers
+            per["ssd_chunk_scan_bwd"] = G * layers
+            if fused:
+                per["sqnorm"], per["scale_noise"] = G * n_leaves, n_leaves
+            return per
+
+        def counted(tag, per, run):
+            before = _launches()
+            out = run()
+            _sync(torch, dev)
+            got = _diff(_launches(), before)
+            check(got == per or not on_card, f"a {tag} round launched {got}, expected {per}")
+            return out, got
+
+        # parity: one round of each privatizer, meshed against the unmeshed twin
+        _reset_launches()
+        for fused in (False, True):
+            a = default_async_cfg(n_owners=n_owners, n_microbatches=G)
+            acfg = dataclasses.replace(a, privatizer=dataclasses.replace(
+                a.privatizer, fused_kernel=fused))
+            owner = torch.tensor([1], dtype=torch.int32, device=dev)
+            out = {}
+            for m in (None, mesh):
+                bundle = _meshtrain_bundle(torch, dev, cfg, m, acfg, n_owners, batch, seq,
+                                           True)
+                state = _meshtrain_state(torch, dev, cfg, m, acfg, params)
+                b = batches[0] if m is None else place(bundle.in_shardings[1:2], batches[0])[0]
+                (state, met), got = counted(f"{'meshed' if m else 'unmeshed'} parity",
+                                            want(True, fused),
+                                            lambda: bundle.step(state, b, owner, key))
+                if m is not None:
+                    for k in total:
+                        total[k] += got[k]
+                out[m is not None] = (
+                    [spmd.plain(x) if not spmd.is_dtensor(x) else x.to_local()
+                     for x in _leaves(state.theta_L)],
+                    [(x.to_local() if spmd.is_dtensor(x) else x)[1] for x in _leaves(state.bank)],
+                    spmd.plain(state.step), {k: spmd.plain(v) for k, v in met.items()},
+                    [tuple(x.to_local().shape) if spmd.is_dtensor(x) else tuple(x.shape)
+                     for x in _leaves(state.bank)])
+                del state, bundle, b
+            (tl, rows, step, met, shapes), (tl2, rows2, step2, met2, shapes2) = out[False], out[True]
+            check(all(torch.equal(x, y) for x, y in zip(tl, tl2)) and len(tl) == len(tl2),
+                  f"fused={fused}: the meshed theta_L differs from the unmeshed twin's")
+            check(all(torch.equal(x, y) for x, y in zip(rows, rows2)),
+                  f"fused={fused}: the meshed owner's bank row differs from the twin's")
+            check(int(step) == int(step2) == 1 and sorted(met) == sorted(met2)
+                  and all(torch.equal(met[k], met2[k]) for k in met),
+                  f"fused={fused}: the meshed step or metrics differ from the twin's")
+            check(shapes == shapes2, "a rank's bank piece is not (N, *block)")
+            print(f"[meshtrain] fused_kernel={fused}: one meshed round == its unmeshed twin bit "
+                  f"for bit (theta_L, the owner's bank row, step, metrics; clip_frac "
+                  f"{float(met['clip_frac']):.2f}, max_grad_norm "
+                  f"{float(met['max_grad_norm']):.4e}); launches "
+                  + json.dumps({k: v for k, v in want(True, fused).items() if v}))
+            del out, tl, tl2, rows, rows2
+            if on_card:
+                torch.cuda.empty_cache()
+
+        # timing: the fused round with remat on and off, and the unmeshed
+        # twin's with remat on
+        a = default_async_cfg(n_owners=n_owners, n_microbatches=G)
+        acfg = dataclasses.replace(a, privatizer=dataclasses.replace(a.privatizer,
+                                                                     fused_kernel=True))
+        twin = _meshtrain_bundle(torch, dev, cfg, None, acfg, n_owners, batch, seq, True)
+        holder = [_meshtrain_state(torch, dev, cfg, None, acfg, params)]
+        twin_ms = []
+        for r in range(rounds + 1):
+            owner = torch.tensor([r % n_owners], dtype=torch.int32, device=dev)
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            (new, _), _ = counted("unmeshed timed", want(True, True), lambda: twin.step(
+                holder.pop(), batches[1 + r], owner, random.fold_in(key, r)))
+            twin_ms.append((time.perf_counter() - t1) * 1e3)
+            holder.append(new)
+            del new
+        del holder, twin
+        print(f"[meshtrain] the unmeshed twin, remat=True, fused: rounds "
+              f"{', '.join(f'{t:.1f}' for t in twin_ms)} ms (the first warms up), median "
+              f"{statistics.median(twin_ms[1:]):.1f} ms")
+        for remat in (True, False):
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            bundle = _meshtrain_bundle(torch, dev, cfg, mesh, acfg, n_owners, batch, seq, remat)
+            holder = [_meshtrain_state(torch, dev, cfg, mesh, acfg, params)]
+            placed = [place(bundle.in_shardings[1:2], b)[0] for b in batches[1:]]
+            per = want(remat, True)
+            times, k = [], key
+            for r in range(rounds + 1):
+                k, sub = random.split(k)
+                owner = torch.tensor([r % n_owners], dtype=torch.int32, device=dev)
+                _sync(torch, dev)
+                t1 = time.perf_counter()
+                # the step consumes the state: only the new one stays referenced
+                (new, met), got = counted(
+                    "timed", per, lambda: bundle.step(holder.pop(), placed[r], owner, sub))
+                times.append((time.perf_counter() - t1) * 1e3)
+                holder.append(new)
+                del new
+                for name in total:
+                    total[name] += got[name]
+            k, sub = random.split(k)
+            owner = torch.tensor([0], dtype=torch.int32, device=dev)
+            (res, got), busy, groups, kernels = _profiled(
+                torch, dev, lambda: counted("profiled", per, lambda: bundle.step(
+                    holder.pop(), placed[rounds], owner, sub)), 1, top=6, cpu_ops=False)
+            for name in total:
+                total[name] += got[name]
+            state = res[0]
+            check(int(spmd.plain(state.step)) == rounds + 2
+                  and all(bool(torch.isfinite(x.to_local()).all())
+                          for x in _leaves(state.theta_L)),
+                  f"the meshed state after {rounds + 2} rounds (remat={remat})")
+            ms = statistics.median(times[1:])
+            print(f"[meshtrain] remat={remat}, fused: rounds "
+                  f"{', '.join(f'{t:.1f}' for t in times)} ms (the first warms up), median "
+                  f"{ms:.1f} ms; device busy {busy:.2f} ms, the device idles "
+                  f"{1 - busy / ms:.1%}, {kernels:.0f} device kernels a round; peak memory "
+                  f"{_peak_gb(torch, dev):.2f} GB")
+            del state, res, bundle, placed
+        del params, batches
+    finally:
+        dist.destroy_process_group()
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"[meshtrain] launches of the meshed rounds: "
+          + json.dumps({k: v for k, v in total.items() if v})
+          + f"; the phase took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def _time_mlstm_ssd(torch, dev):
     """Both SSD kernels at the mLSTM's shapes (the wide-head variant: per-head
     k and q, v with a ones column), each beside its plain version and its
@@ -4791,8 +5049,46 @@ def _time_scale_noise(torch, dev, launches, errs):
     big_ms = cuda_ms(torch, lambda: ops.scale_noise(big, keys[0], cs, ns), 20)
     print(f"[timing] scale_noise on its largest leaf {tuple(big.shape)} alone: {big_ms:.4f} ms "
           f"(bound {8 * big.numel() / HBM_BYTES_PER_S * 1e3:.4f} ms)")
-    del leaves, big
+    # the block form: every leaf as its 2 x 2 blocks (a 1-D leaf as four
+    # ranges), 48 launches over the same P elements
+    blocks = []
+    for x, k in zip(leaves, keys):
+        shape = tuple(x.shape) if x.dim() >= 2 else (4, x.numel() // 4)
+        for offsets, local in _two_by_two(shape):
+            sl = tuple(slice(o, o + n) for o, n in zip(offsets, local))
+            blocks.append((x.reshape(shape)[sl].contiguous(), k, shape, offsets))
+
+    def block_pass():
+        return [ops.scale_noise(b, k, cs, ns, (shape, off)) for b, k, shape, off in blocks]
+    block_ms = _steady_ms(torch, "scale_noise, 2 x 2 blocks", block_pass, 20)
+    # the host's Python around 48 launches outlasts their device time, so
+    # the two passes are also timed queued behind a device sleep
+    queued = {what: statistics.median(_queued_ms(torch, run, 20) for _ in range(5))
+              for what, run in (("whole", kernel_pass), ("blocks", block_pass))}
+    print(f"[timing] scale_noise over the 12 DENSE_124M leaves as 2 x 2 blocks (48 launches, the "
+          f"block offset): {block_ms:.4f} ms against the whole leaves' {row['ms']:.4f} ms on "
+          f"CUDA events; queued (the host ahead of the device, median of 5) "
+          f"{queued['blocks']:.4f} ms against {queued['whole']:.4f} ms (bound "
+          f"{row['bound_ms']:.4f} ms: {row['bound_ms'] / queued['blocks']:.1%} and "
+          f"{row['bound_ms'] / queued['whole']:.1%} of it)")
+    del leaves, big, blocks
     return [row]
+
+
+def _queued_ms(torch, fn, iters, sleep_cycles=400_000_000):
+    """ms per call of fn() on CUDA events, with the calls queued behind a
+    device sleep (about 0.2 s), so the host's time to issue them hides
+    behind it and the events time the device alone."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def _time_bank_codec(torch, dev, launches, errs):
@@ -5194,6 +5490,13 @@ def main():
     check(all(meshzoo_launches[k] > 0 for k in SERVE_KERNELS),
           "the meshed prefills launched no flash or SSD kernel")
     lap("meshzoo")
+    meshtrain_launches = phase_meshtrain(torch, dev)
+    check(all(meshtrain_launches[k] > 0 for k in ("ssd_chunk_scan", "ssd_chunk_scan_bwd",
+                                                   "sqnorm", "scale_noise"))
+          and not any(meshtrain_launches[k] for k in ("dp_round", "flash_attention")),
+          "the meshed training rounds launched no SSD, sqnorm or scale_noise kernel, or a "
+          "dp_round or flash_attention")
+    lap("meshtrain")
     phase_convex(torch, dev)
     torch.cuda.empty_cache()
     lap("convex")

@@ -122,6 +122,21 @@ runtime columns are replicated, computed on every rank from replicated
 inputs with no collective. A 1x1 mesh equals the unmeshed engine bit for
 bit; a larger one equals it block for block.
 
+A pytree state on a device mesh (`init_state(..., mesh=, specs=)`, or
+params that are already DTensors; `launch.steps.build_train_step(mesh=)`)
+holds theta_L as DTensors in the params' placements and every bank leaf
+as a DTensor of (N, *leaf) laid out as `rules.param_specs(...,
+bank_axis=True)` says: the owner axis replicated, the rest sharded like
+the leaf. Each rank builds, reads and writes only its (N, *block) piece of
+the bank. `step` and the ledger are the same on every rank. The round
+(`make_train_step`, one host-authorized round) runs on DTensors: the
+owner's row is taken from each rank's own piece, the privatizer runs on
+each rank's blocks (`dp_sgd`), eqs. (5)-(7) and the projection are
+elementwise on the blocks, and the row is written back into each rank's
+piece. The tree mechanism, the fault and staleness layers, example
+granularity and the K-round drivers raise there (ROADMAP queue 1, item
+9); a pytree bank is dense by design (no codec, no pager).
+
 `make_sync_dp_step` is the synchronous baseline: every owner answers
 every round and the learner averages the privatized gradients.
 
@@ -145,18 +160,18 @@ from repro_torch.federation import faults as _faults
 from repro_torch.federation.dp_sgd import PrivatizerConfig, _group_batch, private_grad
 from repro_torch.federation.faults import FaultPolicy, FaultState, init_fault_state
 from repro_torch.federation.flatten import (PagedBank, ParamFlat, QuantBank, flatten_spec,
-                                            init_flat_bank, pack_params)
+                                            init_flat_bank, pack_params, sliced_scales)
 from repro_torch.federation.privacy import (DeviceLedger, laplace_scale_theorem1,
                                             make_device_ledger)
 from repro_torch.federation.staleness import (StalenessPolicy, StalenessState, deadline_guard,
                                               init_staleness_state, staleness_tick,
                                               staleness_weight)
-from repro_torch.kernels.bank_codec.ops import (decode_row, encode_row, row_absmax,
-                                                scale_from_absmax)
+from repro_torch.kernels.bank_codec.ops import decode_row, encode_row
 from repro_torch.kernels.dp_clip_noise.ops import (dp_round_flat, dp_round_rows, fused_sqnorm,
                                                    fused_sqnorm_rows)
 from repro_torch.kernels.tree_noise.ops import tree_delta_, tree_delta_rows_
 from repro_torch.kernels.tree_noise.ref import tree_masks_ref
+from repro_torch.sharding import spmd
 from repro_torch.sharding.flat import FlatLayout, layout_for
 from repro_torch.tree_util import tree_flatten, tree_map
 
@@ -305,19 +320,77 @@ def _armed(cfg: AsyncDPConfig, bank, device, layout: Optional[FlatLayout] = None
     return faults, stale
 
 
-def init_state(params, cfg: AsyncDPConfig, device=None) -> AsyncDPState:
+def _bank_leaf(leaf: torch.Tensor, n_owners: int) -> torch.Tensor:
+    """(N, *leaf.shape) with each owner's row a copy of the leaf
+    (materialized: an in-place row write must not land in a broadcast
+    view). A DTensor leaf gives a DTensor bank leaf whose owner axis is
+    replicated and whose other dims are laid out as the leaf's: each rank
+    allocates only (N, *its block)."""
+    if not spmd.is_dtensor(leaf):
+        return torch.empty((n_owners,) + tuple(leaf.shape), dtype=leaf.dtype,
+                           device=leaf.device).copy_(leaf)
+    local = leaf.to_local()
+    rows = torch.empty((n_owners,) + tuple(local.shape), dtype=local.dtype,
+                       device=local.device).copy_(local)
+    return spmd.with_owner_axis(leaf, rows, n_owners)
+
+
+def _copy_leaf(leaf: torch.Tensor, device) -> torch.Tensor:
+    """A copy of a leaf on `device`; a DTensor's own block copied where it
+    lies."""
+    if spmd.is_dtensor(leaf):
+        return spmd.like(leaf, leaf.to_local().detach().clone())
+    return leaf.detach().to(device=device, copy=True)
+
+
+def _meshed_tree(theta_L) -> bool:
+    """Whether a state's theta_L is a model tree of DTensors."""
+    return (not isinstance(theta_L, ParamFlat)
+            and spmd.mesh_of(*tree_flatten(theta_L)[0]) is not None)
+
+
+MESHED_PYTREE_TODO = "ROADMAP queue 1, item 9"
+
+
+def _refuse_on_meshed_tree(cfg: AsyncDPConfig, what: str) -> None:
+    """The features a pytree state on a mesh does not run yet raise, naming
+    the roadmap item."""
+    for armed, name in ((cfg.tree_depth is not None, "the tree mechanism"),
+                        (cfg.fault_policy is not None, "the fault layer"),
+                        (cfg.staleness is not None, "the staleness runtime")):
+        if armed:
+            raise NotImplementedError(f"{name} on a pytree state on a device mesh ({what}) is "
+                                      f"{MESHED_PYTREE_TODO}; the flat state runs it on a mesh "
+                                      "(init_state_flat(..., mesh=))")
+
+
+def init_state(params, cfg: AsyncDPConfig, device=None, mesh=None, specs=None) -> AsyncDPState:
     """Pytree state on `device` (CUDA when None): theta_L a copy of the
     model tree, every bank leaf (N_owners, *leaf.shape) with each owner's
     row a copy of the leaf (materialized: an in-place row write must not
     land in a broadcast view), a fresh device ledger (every owner capped
     at its effective cap), under the tree mechanism all-zero noise trees,
     and under cfg.fault_policy / cfg.staleness fresh fault and runtime
-    counters (the checksums of the bank's rows)."""
+    counters (the checksums of the bank's rows).
+
+    On a device mesh: `params` already DTensors, or plain with `mesh` and
+    `specs` (a `rules.param_specs` tree) to place them. theta_L keeps the
+    params' placements and the bank is laid out as
+    `rules.param_specs(..., bank_axis=True)`: each rank allocates only its
+    (N, *block) piece. `step` and the ledger are plain and the same on
+    every rank. The tree mechanism and the fault and staleness layers
+    raise there (module docstring)."""
+    if mesh is not None:
+        if specs is None:
+            raise ValueError("init_state(mesh=) needs the params' specs "
+                             "(sharding.rules.param_specs)")
+        from repro_torch.sharding import rules
+        params = rules.distribute(params, specs, mesh)
     device = resolve_device(device)
-    theta = tree_map(lambda leaf: leaf.detach().to(device=device, copy=True), params)
-    bank = tree_map(lambda leaf: torch.empty((cfg.n_owners,) + tuple(leaf.shape),
-                                             dtype=leaf.dtype, device=device).copy_(leaf),
-                    theta)
+    if _meshed_tree(params):
+        _refuse_on_meshed_tree(cfg, "init_state")
+    theta = tree_map(lambda leaf: _copy_leaf(leaf, device), params)
+    bank = tree_map(lambda leaf: _bank_leaf(leaf, cfg.n_owners), theta)
     return AsyncDPState(theta, bank, torch.zeros((), dtype=torch.int32, device=device),
                         make_device_ledger(cfg.effective_caps, device=device),
                         init_tree_noise(cfg, theta), *_armed(cfg, bank, device))
@@ -352,11 +425,12 @@ def init_state_flat(params, cfg: AsyncDPConfig, device=None, bank_dtype=None,
                         init_tree_noise(cfg, flat), *_armed(cfg, bank, device, layout))
 
 
-def _decode_bank_row(bank: QuantBank, owner_idx: torch.Tensor) -> torch.Tensor:
-    """Gather one owner row of a quantized bank and decode it to (P,) f32."""
+def _decode_bank_row(bank: QuantBank, owner_idx: torch.Tensor, col0: int = 0) -> torch.Tensor:
+    """Gather one owner row of a quantized bank and decode it to (P,) f32
+    (on a mesh this rank's columns, from `col0`, with the row's scales)."""
     return decode_row(bank.codes.index_select(0, owner_idx).reshape(-1),
                       bank.scales.index_select(0, owner_idx).reshape(-1),
-                      bank.codec.fmt, block_elems=bank.codec.block_elems)
+                      bank.codec.fmt, block_elems=bank.codec.block_elems, col0=col0)
 
 
 def _encode_bank_row(bank: QuantBank, value: torch.Tensor, key: torch.Tensor,
@@ -364,16 +438,15 @@ def _encode_bank_row(bank: QuantBank, value: torch.Tensor, key: torch.Tensor,
     """Encode one f32 row (the EF residual already added to `value`) under
     the round key -> (codes (P,), scales (nb,), err (P,)). The codec folds
     its own salt into the key (bank_codec.ref.CODEC_SALT). On a mesh
-    `value` is this rank's columns: the scale is the whole row's (the
-    partial absmaxes reduced over the column group, NaN kept) and each
-    column rounds with its own counter."""
+    `value` is this rank's columns: the scales are the whole row's (the
+    partial absmaxes reduced over the column group, NaN kept; per block
+    under per-block scales, `flatten.sliced_scales`) and each column rounds
+    with its own counter."""
+    codec = bank.codec
     if lay is None:
-        return encode_row(value, key, bank.codec.fmt, block_elems=bank.codec.block_elems)
-    if bank.codec.block_elems is not None:
-        raise NotImplementedError("per-block scales encode whole rows; a bank on a mesh "
-                                  "keeps one scale per row")
-    scale = scale_from_absmax(lay.max_cols(row_absmax(value)), bank.codec.fmt)
-    return encode_row(value, key, bank.codec.fmt, col0=lay.c0, scale=scale)
+        return encode_row(value, key, codec.fmt, block_elems=codec.block_elems)
+    return encode_row(value, key, codec.fmt, block_elems=codec.block_elems, col0=lay.c0,
+                      scale=sliced_scales(value, codec, lay))
 
 
 def _write_rows_(buf: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
@@ -470,7 +543,8 @@ def _gather_rows(bank: Bank, owners: torch.Tensor,
     gathered over the row group)."""
     idx = owners if lay is None else lay.local(owners)[0]
     if isinstance(bank, QuantBank):
-        local = torch.stack([_decode_bank_row(bank, idx[m:m + 1])
+        col0 = 0 if lay is None else lay.c0
+        local = torch.stack([_decode_bank_row(bank, idx[m:m + 1], col0)
                              for m in range(owners.numel())])
     else:
         local = bank.index_select(0, idx).to(torch.float32)
@@ -837,7 +911,7 @@ def _round_math(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
         if isinstance(bank, PagedBank) or row_idx is not None:
             raise TypeError("PagedBank needs the flat engine (paging.init_paged_state "
                             "builds ParamFlat states); the pytree path cannot page")
-        theta_i = tree_map(lambda leaf: leaf.index_select(0, owner_idx)[0], bank)
+        theta_i = tree_map(lambda leaf: spmd.take_row(leaf, owner_idx), bank)
         theta_eff = theta_i if stale_w is None else tree_map(
             lambda l, i: _decayed(l, i, stale_w), theta_L, theta_i)
         d = cfg.tree_depth
@@ -1097,7 +1171,7 @@ def _write_bank_rows(bank, rows, owner_idx: torch.Tensor):
     of a dense (N, P) bank, or rows of every leaf of a pytree bank
     (owner_idx: (g,) int64 device indices, distinct; `rows` (g, ...))."""
     for leaf, v in zip(tree_flatten(bank)[0], tree_flatten(rows)[0]):
-        leaf.index_copy_(0, owner_idx, v.to(leaf.dtype))
+        spmd.put_rows_(leaf, owner_idx, v.to(leaf.dtype))
     return bank
 
 
@@ -1293,10 +1367,18 @@ def _faulted_round(cfg: AsyncDPConfig, round_fn, write, state: AsyncDPState, bat
     return theta_L, bank, metrics, apply
 
 
-def _check_mesh(mesh, state: AsyncDPState) -> None:
+def _check_mesh(mesh, state: AsyncDPState, cfg: AsyncDPConfig,
+                driver: Optional[str] = None) -> None:
     """A driver built with `mesh` runs flat states laid out on that mesh
     (a pytree state ignores it, as in the reference); a meshed state runs
-    on its own layout under any driver."""
+    on its own layout under any driver. A pytree state on a mesh runs
+    under make_train_step alone (`driver` names a K-round driver), without
+    the features `_refuse_on_meshed_tree` names."""
+    if _meshed_tree(state.theta_L):
+        if driver is not None:
+            raise NotImplementedError(f"{driver} on a pytree state on a device mesh is "
+                                      f"{MESHED_PYTREE_TODO}; make_train_step runs it")
+        _refuse_on_meshed_tree(cfg, "make_train_step")
     if mesh is None or not isinstance(state.theta_L, ParamFlat):
         return
     lay = state.theta_L.layout
@@ -1329,7 +1411,8 @@ def make_train_step(loss_fn, cfg: AsyncDPConfig,
     is a bit-exact masked no-op that takes no leaf and no step.
 
     `mesh` (as init_state_flat's) checks that a flat state is laid out on
-    it; the round runs on the state's own layout."""
+    it; the round runs on the state's own layout. A pytree state on a mesh
+    (module docstring) runs its round on DTensors."""
     dev = resolve_device(device)
     compute = _round_compute(loss_fn, cfg, scales, device)
     one = torch.ones(1, dtype=torch.int32, device=dev)
@@ -1337,7 +1420,14 @@ def make_train_step(loss_fn, cfg: AsyncDPConfig,
 
     def step(state: AsyncDPState, batch, owner_idx: torch.Tensor, key: torch.Tensor,
              fault_code=None) -> Tuple[AsyncDPState, Dict[str, Any]]:
-        _check_mesh(mesh, state)
+        _check_mesh(mesh, state, cfg)
+        # a pytree state on a mesh: the round's own scalars (the owner's
+        # weight and scale, the rates) stand for the same values on every rank
+        with spmd.replicating(*tree_flatten(state.theta_L)[0]):
+            return one_round(state, batch, owner_idx, key, fault_code)
+
+    def one_round(state: AsyncDPState, batch, owner_idx: torch.Tensor, key: torch.Tensor,
+                  fault_code) -> Tuple[AsyncDPState, Dict[str, Any]]:
         tree = _require_tree(cfg, state)
         o = owner_idx.reshape(1).to(torch.int64)
         slot, hit = _bank_slot(state.bank, o)
@@ -1480,7 +1570,7 @@ def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
         if state.ledger is None:
             raise ValueError("fused rounds need a device ledger on the state; "
                              "build it with Federation.init_state")
-        _check_mesh(mesh, state)
+        _check_mesh(mesh, state, cfg, "make_fused_rounds")
         _require_tree(cfg, state)
         owners = owner_seq.to(torch.int64)
         if state.faults is None:
@@ -1648,7 +1738,7 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
         if state.ledger is None:
             raise ValueError("grouped rounds need a device ledger on the state; "
                              "build it with Federation.init_state")
-        _check_mesh(mesh, state)
+        _check_mesh(mesh, state, cfg, "make_group_rounds")
         _require_tree(cfg, state)
         owners = owner_seq.to(torch.int64)
         if state.faults is None:

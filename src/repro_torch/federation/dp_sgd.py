@@ -20,6 +20,14 @@ is another lawful Laplace sample than `random.laplace`, so the two
 backends agree in distribution, not bit for bit. The flat engine
 (`deep._flat_clipped_grad_acc`) shares the config.
 
+On a device mesh (the params a tree of DTensors, `launch.steps`) the
+microbatch privatizer runs on each rank's blocks: the gradients come back
+in the parameters' placements, the clip norm sums each rank's blocks and
+reduces them over the mesh, and each leaf's noise is drawn block by block
+(`privacy.noise_tree`, or `scale_noise` with the block's offsets), so a
+meshed round draws the unmeshed round's noise. Example granularity there
+is ROADMAP queue 1, item 9 (torch.func.vmap over DTensors) and raises.
+
 The reference's ``kernel_block_rows`` and ``kernel_interpret`` are layout
 knobs of its TPU kernels and have no counterpart here: the CUDA kernels
 mask their tails, and the tensor's device picks the backend.
@@ -32,8 +40,9 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch import random
-from repro_torch.federation.privacy import laplace_noise_tree
+from repro_torch.federation.privacy import laplace_noise_tree, noise_tree
 from repro_torch.kernels.dp_clip_noise.ops import fused_scale_noise_tree, fused_sqnorm_tree
+from repro_torch.sharding import spmd
 from repro_torch.tree_util import tree_flatten, tree_map, tree_unflatten
 
 LossFn = Callable[[Any, Dict[str, torch.Tensor]], torch.Tensor]
@@ -61,10 +70,11 @@ def _group_batch(batch: Dict[str, torch.Tensor], n_groups: int) -> Dict[str, tor
 
 def _global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves (in jax's order) of each leaf's sum of
-    squares, in f32."""
+    squares, in f32; on DTensor leaves each rank's blocks' sums reduced
+    over the mesh (`spmd.tree_total`), a replicated 0-d DTensor."""
     leaves, _ = tree_flatten(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
-                          for leaf in leaves))
+    return torch.sqrt(spmd.tree_total(
+        leaves, lambda leaf: torch.sum(torch.square(leaf.to(torch.float32)))))
 
 
 def _clip_factor(norm: torch.Tensor, xi: float) -> torch.Tensor:
@@ -87,9 +97,19 @@ def _tree_grad(loss_fn: LossFn, params, batch):
     leaves, treedef = tree_flatten(params)
     live = [leaf.detach().requires_grad_(True) for leaf in leaves]
     loss = loss_fn(tree_unflatten(treedef, live), batch)
-    grads = torch.autograd.grad(loss, live, allow_unused=True)
-    return tree_unflatten(treedef, [torch.zeros_like(x) if g is None else g
+    # on a mesh the backward meets the forward's saved constants too
+    with spmd.replicating(*live):
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    return tree_unflatten(treedef, [torch.zeros_like(x) if g is None else _laid_out(g, x)
                                     for x, g in zip(live, grads)])
+
+
+def _laid_out(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A gradient in its parameter's placements (partial sums reduced); a
+    plain gradient as it is."""
+    if not spmd.is_dtensor(g) or tuple(g.placements) == tuple(like.placements):
+        return g
+    return g.redistribute(like.device_mesh, like.placements)
 
 
 def _example_grads(loss_fn: LossFn, params, batch):
@@ -119,6 +139,18 @@ def private_grad(loss_fn: LossFn, params, batch: Dict[str, torch.Tensor], key: t
     if return_noise and cfg.fused_kernel:
         raise ValueError("return_noise requires the jnp mechanism path "
                          "(fused_kernel adds noise in-kernel)")
+    leaves = tree_flatten(params)[0]
+    if spmd.mesh_of(*leaves) is not None and cfg.granularity == "example":
+        raise NotImplementedError(
+            "example granularity on DTensor leaves: torch.func.vmap over a model on a device "
+            "mesh is ROADMAP queue 1, item 9; use granularity='microbatch' on a mesh")
+    # on a mesh the round's own scalars (xi, the counters) stand for the
+    # same values on every rank
+    with spmd.replicating(*leaves):
+        return _private_grad(loss_fn, params, batch, key, cfg, noise_scale, return_noise)
+
+
+def _private_grad(loss_fn, params, batch, key, cfg, noise_scale, return_noise):
     first = next(iter(batch.values()))
     B = first.shape[0]
     if cfg.pre_grouped and cfg.granularity == "microbatch":
@@ -141,8 +173,7 @@ def private_grad(loss_fn: LossFn, params, batch: Dict[str, torch.Tensor], key: t
         if B % G:
             raise ValueError(f"batch of {B} does not split into {G} microbatches")
         xs = batch if cfg.pre_grouped else _group_batch(batch, G)
-        acc = tree_map(lambda leaf: torch.zeros(leaf.shape, dtype=torch.float32,
-                                                device=leaf.device), params)
+        acc = tree_map(lambda leaf: torch.zeros_like(leaf, dtype=torch.float32), params)
         nclip = torch.zeros((), dtype=torch.float32, device=dev)
         mx = torch.zeros((), dtype=torch.float32, device=dev)
         for gi in range(G):
@@ -178,10 +209,7 @@ def private_grad(loss_fn: LossFn, params, batch: Dict[str, torch.Tensor], key: t
     if cfg.mechanism == "laplace":
         noise = laplace_noise_tree(key, mean_grad, noise_scale)
     elif cfg.mechanism == "gaussian":
-        leaves, treedef = tree_flatten(mean_grad)
-        keys = random.split(key, len(leaves))
-        noise = tree_unflatten(treedef, [noise_scale * random.normal(k, leaf.shape)
-                                         for k, leaf in zip(keys, leaves)])
+        noise = noise_tree(random.normal, key, mean_grad, noise_scale)
     else:
         raise ValueError(cfg.mechanism)
     noisy = tree_map(lambda g, w: g + w, mean_grad, noise)

@@ -354,6 +354,22 @@ class PagedBank:
                 f"storage={fmt!r})")
 
 
+def sliced_scales(value: torch.Tensor, codec: "BankCodec", layout) -> torch.Tensor:
+    """The whole row's scales of a row whose columns from `layout.c0` this
+    rank holds (`value`): the (1,) row scale from the column group's
+    partial absmaxes, or under per-block scales the (nb,) block scales,
+    each block's partials (this rank's columns of it) reduced over the
+    column group, so a block that straddles ranks takes its max over all
+    of them. NaN is kept, as the unmeshed scales keep it."""
+    from repro_torch.kernels.bank_codec.ops import (block_absmax, block_scales_from_absmax,
+                                                    n_scales, row_absmax, scale_from_absmax)
+    be = codec.block_elems
+    if be is None:
+        return scale_from_absmax(layout.max_cols(row_absmax(value)), codec.fmt)
+    parts = block_absmax(value, be, layout.c0, n_scales(layout.p, be))
+    return block_scales_from_absmax(layout.max_cols(parts), codec.fmt)
+
+
 def init_flat_bank(flat: ParamFlat, n_owners: int, dtype=None):
     """(N_owners, P) owner-copy bank, every row the central buffer.
 
@@ -368,20 +384,17 @@ def init_flat_bank(flat: ParamFlat, n_owners: int, dtype=None):
     On a mesh (`flat.layout` set) the bank is this rank's block: its rows
     of the N (`layout.n_local`) over the columns `flat.buf` holds; a
     quantized row is encoded from its columns with the whole row's scale
-    (the partial absmaxes reduced over the column group)."""
+    (the partial absmaxes reduced over the column group), or with
+    per-block scales each block's, a block that straddles ranks reduced
+    over the column group too (`sliced_scales`)."""
     codec = as_bank_codec(dtype)
     layout = flat.layout
     n_rows = n_owners if layout is None else layout.n_local
     p = flat.buf.shape[0]
     if codec is not None:
-        from repro_torch.kernels.bank_codec.ops import encode_row, row_absmax, scale_from_absmax
-        kw = {}
-        if layout is not None:
-            if codec.block_elems is not None:
-                raise NotImplementedError("per-block scales encode whole rows; a bank on a "
-                                          "mesh keeps one scale per row")
-            kw = dict(col0=layout.c0, scale=scale_from_absmax(
-                layout.max_cols(row_absmax(flat.buf)), codec.fmt))
+        from repro_torch.kernels.bank_codec.ops import encode_row
+        kw = {} if layout is None else dict(col0=layout.c0,
+                                            scale=sliced_scales(flat.buf, codec, layout))
         codes_row, scales_row, _ = encode_row(flat.buf, None, codec.fmt,
                                               block_elems=codec.block_elems,
                                               deterministic=True, **kw)

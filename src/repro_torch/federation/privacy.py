@@ -32,6 +32,7 @@ import torch
 
 from repro_torch import random
 from repro_torch.device import resolve_device
+from repro_torch.sharding import spmd
 from repro_torch.tree_util import tree_flatten, tree_unflatten
 
 
@@ -58,20 +59,38 @@ def capped_rounds(horizon: int, n_owners: int, slack: float = 2.0) -> int:
     return max(1, math.ceil(slack * horizon / n_owners))
 
 
-def laplace_noise(key: torch.Tensor, shape, scale) -> torch.Tensor:
+def laplace_noise(key: torch.Tensor, shape, scale, block=None) -> torch.Tensor:
     """scale * jax.random.laplace(key, shape) in f32; `scale` a float or a
-    0-d tensor on the key's device."""
-    return scale * random.laplace(key, shape)
+    0-d tensor on the key's device. `block` = (offsets, local_shape) draws
+    only that block of it (`random.bits_block`)."""
+    return scale * random.laplace(key, shape, block=block)
+
+
+def noise_tree(draw, key: torch.Tensor, tree: Any, scale) -> Any:
+    """scale * draw(key_i, shape, block=...) shaped like `tree`, each cast
+    to its leaf's dtype: one `split(key, n_leaves)` and leaf i draws from
+    key i, leaves in jax's order. A DTensor leaf (a model tree on a device
+    mesh) draws only this rank's block, at the block's offsets in the
+    leaf, and comes back laid out as the leaf: each rank holds the noise
+    of its own block, which is that block of the unmeshed draw."""
+    leaves, treedef = tree_flatten(tree)
+    keys = random.split(key, len(leaves))
+    scale = spmd.plain(scale)
+    out = []
+    for k, leaf in zip(keys, leaves):
+        if spmd.is_dtensor(leaf):
+            local, shape, offsets = spmd.local_block(leaf)
+            w = scale * draw(k, shape, block=(offsets, tuple(local.shape)))
+            out.append(spmd.like(leaf, w.to(leaf.dtype)))
+        else:
+            out.append((scale * draw(k, leaf.shape)).to(leaf.dtype))
+    return tree_unflatten(treedef, out)
 
 
 def laplace_noise_tree(key: torch.Tensor, tree: Any, scale) -> Any:
-    """Laplace(scale) noise shaped like `tree`: one `split(key, n_leaves)`
-    and leaf i draws from key i, leaves in jax's order, each cast to its
-    leaf's dtype."""
-    leaves, treedef = tree_flatten(tree)
-    keys = random.split(key, len(leaves))
-    return tree_unflatten(treedef, [laplace_noise(k, leaf.shape, scale).to(leaf.dtype)
-                                    for k, leaf in zip(keys, leaves)])
+    """Laplace(scale) noise shaped like `tree` (`noise_tree` of
+    `random.laplace`)."""
+    return noise_tree(random.laplace, key, tree, scale)
 
 
 _FAULT_COLUMNS = ("dropped", "faulted", "quarantined", "timed_out", "retried")

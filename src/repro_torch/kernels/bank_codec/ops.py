@@ -33,8 +33,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.bank_codec import kernel
-from repro_torch.kernels.bank_codec.ref import (CODE_DTYPES, QMAX, decode_row_ref,
-                                                encode_row_ref, row_scales_ref)
+from repro_torch.kernels.bank_codec.ref import (CODE_DTYPES, QMAX, block_absmax_ref,
+                                                decode_row_ref, encode_row_ref, row_scales_ref)
 
 FORMATS = tuple(CODE_DTYPES)
 
@@ -88,6 +88,23 @@ def scale_from_absmax(partials: torch.Tensor, fmt: str) -> torch.Tensor:
     return row_scales_ref(partials.reshape(1, -1), QMAX[fmt])
 
 
+def block_absmax(x: torch.Tensor, block_elems: int, col0: int, n_blocks: int) -> torch.Tensor:
+    """(n_blocks,) f32 per-block max|x| of the columns [col0, col0 + P) of
+    a row that `x` holds: a slice's partials of the row's block scales
+    (`block_absmax_ref`; per-block scales run on the plain version only)."""
+    if x.device.type == "cpu":
+        return block_absmax_ref(x, block_elems, col0, n_blocks)
+    if x.device.type == "cuda":
+        raise _per_block_on_cuda("block_absmax")
+    raise _unsupported(x, "block_absmax")
+
+
+def block_scales_from_absmax(partials: torch.Tensor, fmt: str) -> torch.Tensor:
+    """(nb,) block scales from the max of the slices' `block_absmax`:
+    max(absmax, 1e-30) / qmax per block, a NaN kept."""
+    return row_scales_ref(partials.reshape(-1, 1), QMAX[fmt])
+
+
 def encode_row(x: torch.Tensor, key: Optional[torch.Tensor], fmt: str, *,
                block_elems: Optional[int] = None, deterministic: bool = False,
                col0: int = 0, scale: Optional[torch.Tensor] = None
@@ -98,8 +115,9 @@ def encode_row(x: torch.Tensor, key: Optional[torch.Tensor], fmt: str, *,
     `key` is the (2,) uint32 round key (ignored when `deterministic`). A
     slice of a wider row (a rank's columns on a device mesh) passes its
     first column `col0`, so each element rounds with its column's bits,
-    and the whole row's (1,) `scale` (`scale_from_absmax`); None computes
-    the scale of `x`."""
+    and the whole row's (1,) `scale` (`scale_from_absmax`), or with
+    `block_elems` its (nb,) block scales (`block_scales_from_absmax`);
+    None computes the scale of `x`."""
     code_dtype(fmt)
     if x.device.type == "cpu":
         return encode_row_ref(x, key, fmt, block_elems=block_elems,
@@ -116,11 +134,12 @@ def encode_row(x: torch.Tensor, key: Optional[torch.Tensor], fmt: str, *,
 
 
 def decode_row(codes: torch.Tensor, scales: torch.Tensor, fmt: str, *,
-               block_elems: Optional[int] = None) -> torch.Tensor:
-    """(P,) codes + (nb,) scales -> (P,) f32 row."""
+               block_elems: Optional[int] = None, col0: int = 0) -> torch.Tensor:
+    """(P,) codes + (nb,) scales -> (P,) f32 row; with `block_elems` the
+    codes may be the columns from `col0` of a wider row (`decode_row_ref`)."""
     code_dtype(fmt)
     if codes.device.type == "cpu":
-        return decode_row_ref(codes, scales, fmt, block_elems=block_elems)
+        return decode_row_ref(codes, scales, fmt, block_elems=block_elems, col0=col0)
     if codes.device.type == "cuda":
         if block_elems is not None:
             raise _per_block_on_cuda("decode_row")

@@ -188,12 +188,21 @@ def encode_row_ref(x: torch.Tensor, key: Optional[torch.Tensor], fmt: str, *,
     device. The rounding bits are counter_bits(sr_seed(key)) at the
     element index (ref.det_bits when `deterministic`, which ignores key).
     A slice of a wider row passes its first column `col0` (its elements
-    round with the counters of their columns) and the whole row's (1,)
-    `scale`; both need one scale per row."""
+    round with the counters of their columns) and the whole row's scales:
+    its (1,) `scale`, or with `block_elems` its (nb,) block scales
+    (`block_absmax_ref` of each slice, the max over the slices), each
+    element taking its column's block's; the scales come back as given."""
     p = x.shape[0]
     if block_elems is not None and (col0 or scale is not None):
-        raise NotImplementedError("a slice of a row takes the row's one scale; per-block "
-                                  "scales encode whole rows only")
+        if scale is None:
+            raise ValueError("a slice of a row with per-block scales takes the row's (nb,) "
+                             "scales (block_absmax_ref of every slice)")
+        s = scale.reshape(-1).to(torch.float32)
+        bits = (det_bits((p,), device=x.device) if deterministic
+                else counter_bits(sr_seed(key), p, col0))
+        codes, err = ENCODERS[fmt](x.to(torch.float32), bits,
+                                   s[_column_blocks(p, block_elems, col0, x.device)])
+        return codes, s, err
     x2 = _blocks(x.to(torch.float32), block_elems)
     scales = row_scales_ref(x2, QMAX[fmt]) if scale is None else scale.reshape(1)
     if deterministic:
@@ -204,9 +213,36 @@ def encode_row_ref(x: torch.Tensor, key: Optional[torch.Tensor], fmt: str, *,
     return codes2.reshape(-1)[:p], scales, err2.reshape(-1)[:p]
 
 
+def _column_blocks(p: int, block_elems: int, col0: int, device) -> torch.Tensor:
+    """The block index of each of the columns [col0, col0 + p)."""
+    return torch.arange(col0, col0 + p, dtype=torch.int64, device=device) // int(block_elems)
+
+
+def block_absmax_ref(x: torch.Tensor, block_elems: int, col0: int, n_blocks: int
+                     ) -> torch.Tensor:
+    """(n_blocks,) f32: each block's max|x| over the columns [col0, col0 +
+    P) of a wider row that `x` (P,) holds (0 for a block it does not
+    reach; a NaN kept). The max of the slices' partials is the whole row's
+    block absmax, bit for bit (`row_scales_ref` over (nb, be))."""
+    be, p = int(block_elems), x.shape[0]
+    b0 = col0 // be
+    lead = col0 - b0 * be
+    n_local = -(-(lead + p) // be)
+    padded = x.new_zeros(n_local * be, dtype=torch.float32)
+    padded[lead:lead + p] = torch.abs(x.to(torch.float32))
+    out = x.new_zeros(n_blocks, dtype=torch.float32)
+    out[b0:b0 + n_local] = torch.amax(padded.reshape(n_local, be), dim=-1)
+    return out
+
+
 def decode_row_ref(codes: torch.Tensor, scales: torch.Tensor, fmt: str, *,
-                   block_elems: Optional[int] = None) -> torch.Tensor:
-    """(P,) codes + (nb,) scales -> (P,) f32 row."""
+                   block_elems: Optional[int] = None, col0: int = 0) -> torch.Tensor:
+    """(P,) codes + (nb,) scales -> (P,) f32 row. With `block_elems`, codes
+    may be the columns [col0, col0 + P) of a wider row whose (nb,) block
+    scales are given: each element takes its column's block's."""
     p = codes.shape[0]
+    if block_elems is not None and (col0 or scales.numel() != -(-p // int(block_elems))):
+        return DECODERS[fmt](codes, scales.to(torch.float32)[
+            _column_blocks(p, block_elems, col0, codes.device)])
     c2 = _blocks(codes, block_elems)
     return DECODERS[fmt](c2, scales.to(torch.float32)[:, None]).reshape(-1)[:p]

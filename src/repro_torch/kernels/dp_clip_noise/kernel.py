@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -41,7 +41,8 @@ def _library() -> ctypes.CDLL:
     lib.dp_round_rows_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                                          _F, _F, _F, _F, _F, _I, _P]
     lib.dp_round_rows_launch.restype = _I
-    lib.scale_noise_launch.argtypes = [_P, _P, _P, _P, _P, _I64, _I, _P]
+    lib.scale_noise_launch.argtypes = [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                                       _I64, _I, _P]
     lib.scale_noise_launch.restype = _I
     lib.sqnorm_num_partials.argtypes = [_I64]
     lib.sqnorm_num_partials.restype = _I
@@ -101,17 +102,22 @@ def dp_round_cuda(tb: torch.Tensor, acc: torch.Tensor, key: torch.Tensor,
 
 
 def scale_noise_cuda(g: torch.Tensor, key: torch.Tensor, clip_scale: torch.Tensor,
-                     noise_scale: torch.Tensor) -> torch.Tensor:
+                     noise_scale: torch.Tensor,
+                     layout: Optional[Tuple[int, int, int, int, int]] = None) -> torch.Tensor:
     """One launch of g * clip_scale + noise_scale * Laplace(bits) over a
     contiguous f32 tensor of any shape -> a new tensor of g's shape.
 
     The bits are random.bits(key, (g.numel(),)), hashed in-kernel; `key` is
     the leaf's (2,) uint32 key, `clip_scale` and `noise_scale` one-element
-    f32 tensors, all on g's device."""
+    f32 tensors, all on g's device. `layout` (base, R, C, SR, SA) makes g a
+    block of a larger leaf, seen as (A, R, C): element (a, r, c) draws the
+    bits of the leaf's flat index base + a*SA + r*SR + c (ops.py's
+    `_block_layout` computes it); None is the whole leaf."""
     dev = g.device
     if dev.type != "cuda":
         raise ValueError(f"scale_noise_cuda needs CUDA tensors, got {dev}")
     n = g.numel()
+    base, R, C, SR, SA = (0, 1, n, n, n) if layout is None else layout
     _build.require(g, "g", torch.float32, dev, n)
     _build.require(key, "key", torch.uint32, dev, 2)
     _build.require(clip_scale, "clip_scale", torch.float32, dev, 1)
@@ -119,7 +125,8 @@ def scale_noise_cuda(g: torch.Tensor, key: torch.Tensor, clip_scale: torch.Tenso
     out = torch.empty_like(g, memory_format=torch.contiguous_format)
     err = _library().scale_noise_launch(
         g.data_ptr(), key.data_ptr(), clip_scale.data_ptr(), noise_scale.data_ptr(),
-        out.data_ptr(), n, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), n, base, R, C, SR, SA, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on(err, "scale_noise")
     launches["scale_noise"] += 1
     return out

@@ -25,11 +25,12 @@ kernels mask their tails instead of padding to (rows, 1024) blocks.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import random
+from repro_torch.sharding import spmd
 from repro_torch.tree_util import tree_flatten, tree_unflatten
 from repro_torch.kernels.dp_clip_noise.kernel import (dp_round_cuda, dp_round_rows_cuda,
                                                       scale_noise_cuda, sqnorm_cuda,
@@ -111,33 +112,106 @@ def _scalar(v, like: torch.Tensor) -> torch.Tensor:
     return torch.full((1,), v, dtype=torch.float32, device=like.device)
 
 
-def scale_noise(g: torch.Tensor, key: torch.Tensor, clip_scale, noise_scale) -> torch.Tensor:
+def _block_layout(shape: Sequence[int], offsets: Sequence[int], local_shape: Sequence[int]
+                  ) -> Tuple[int, int, int, int, int]:
+    """(base, R, C, SR, SA) of the block of `local_shape` at `offsets` of a
+    row-major leaf of `shape`: the block, contiguous, seen as (A, R, C),
+    element (a, r, c) at the leaf's flat index base + a*SA + r*SR + c.
+
+    Dims of one element drop out; a dim joins the one before it when the
+    block holds it whole, so the groups start at the block's first dim and
+    at each dim the block cuts. A block cut on at most two dims (a leaf
+    sharded on two mesh axes, any stacked dims in front) has at most three
+    groups; the whole leaf, or one range of it, is the single group C =
+    numel."""
+    shape, offsets = tuple(int(d) for d in shape), tuple(int(o) for o in offsets)
+    local_shape = tuple(int(n) for n in local_shape)
+    strides, st = [0] * len(shape), 1
+    for j in reversed(range(len(shape))):
+        strides[j] = st
+        st *= shape[j]
+    base = sum(o * s for o, s in zip(offsets, strides))
+    groups: list = []                   # [size, stride of its last dim]
+    cut = False                         # a dim of one element cut since the last group
+    for j, n in enumerate(local_shape):
+        if n == 1:
+            cut = cut or shape[j] > 1
+            continue
+        if groups and n == shape[j] and not cut:
+            groups[-1] = [groups[-1][0] * n, strides[j]]
+        else:
+            groups.append([n, strides[j]])
+        cut = False
+    if not groups:
+        return base, 1, 1, 1, 1
+    if groups[-1][1] != 1:              # the innermost dims cut to one element: C = 1
+        groups.append([1, 1])
+    if len(groups) > 3:
+        raise NotImplementedError(f"a block of {local_shape} of a leaf of {shape} is cut on "
+                                  "more than two dims; scale_noise takes at most (A, R, C)")
+    while len(groups) < 3:
+        groups.insert(0, [1, 0])
+    (_, sa), (r, sr), (c, _) = groups
+    return base, r, c, sr, sa
+
+
+def scale_noise(g: torch.Tensor, key: torch.Tensor, clip_scale, noise_scale,
+                block: Optional[Tuple[Sequence[int], Sequence[int]]] = None) -> torch.Tensor:
     """g * clip_scale + noise_scale * Laplace(bits(key, g.shape)) for one
-    f32 leaf, in one pass on CUDA."""
+    f32 leaf, in one pass on CUDA. `block` = (the leaf's global shape, the
+    offsets of g in it) makes g a rank's block of that leaf: it draws the
+    bits of its own elements of the unsharded leaf (`random.bits_block`),
+    so the blocks of a leaf tile the whole launch."""
     if g.device.type == "cpu":
-        return scale_noise_ref(g, random.bits(key, g.shape), _scalar(clip_scale, g).reshape(()),
+        bits = (random.bits(key, g.shape) if block is None
+                else random.bits_block(key, block[0], block[1], g.shape))
+        return scale_noise_ref(g, bits, _scalar(clip_scale, g).reshape(()),
                                _scalar(noise_scale, g).reshape(()))
     if g.device.type == "cuda":
-        return scale_noise_cuda(g, key, _scalar(clip_scale, g), _scalar(noise_scale, g))
+        layout = None if block is None else _block_layout(block[0], block[1], g.shape)
+        return scale_noise_cuda(g, key, _scalar(clip_scale, g), _scalar(noise_scale, g),
+                                layout)
     raise _unsupported(g, "scale_noise")
 
 
 def fused_sqnorm_tree(tree: Any) -> torch.Tensor:
-    """Global squared L2 norm of a tree: one `fused_sqnorm` per leaf,
-    summed in leaf order."""
+    """Global squared L2 norm of a tree: one `fused_sqnorm` per leaf (a
+    bf16 or f16 leaf upcast to f32 first), summed in leaf order. On
+    DTensor leaves each rank runs `sqnorm` on its own block and the
+    blocks' sums are summed over the mesh dims that shard the leaf
+    (`spmd.tree_total`); the total is a replicated 0-d DTensor."""
     leaves, _ = tree_flatten(tree)
-    return sum(fused_sqnorm(leaf) for leaf in leaves)
+    return spmd.tree_total(leaves, lambda leaf: fused_sqnorm(_f32(leaf)))
 
 
 def fused_scale_noise_tree(tree: Any, key: torch.Tensor, gain, noise_scale) -> Any:
     """leaf * gain + Laplace(noise_scale) for every leaf, one `scale_noise`
-    pass each; leaf i draws from row i of split(key, n_leaves). `gain` and
+    pass each (in f32, the result cast back to the leaf's dtype, as the
+    reference's); leaf i draws from row i of split(key, n_leaves). `gain` and
     `noise_scale` may be floats or one-element device tensors (a clip
-    factor, an owner's scale), so nothing syncs with the host."""
+    factor, an owner's scale), so nothing syncs with the host. A DTensor
+    leaf runs its local block through the pass with the block's offsets,
+    so each rank draws its own block of the leaf's noise and no rank
+    builds the whole leaf."""
     leaves, treedef = tree_flatten(tree)
     keys = random.split(key, len(leaves))
-    return tree_unflatten(treedef, [scale_noise(leaf, k, gain, noise_scale)
-                                    for leaf, k in zip(leaves, keys)])
+    gain, noise_scale = spmd.plain(gain), spmd.plain(noise_scale)
+    out = []
+    for leaf, k in zip(leaves, keys):
+        if spmd.is_dtensor(leaf):
+            local, shape, offsets = spmd.local_block(leaf)
+            y = scale_noise(_f32(local), k, gain, noise_scale, (shape, offsets))
+            out.append(spmd.like(leaf, y.to(leaf.dtype)))
+        else:
+            out.append(scale_noise(_f32(leaf), k, gain, noise_scale).to(leaf.dtype))
+    return tree_unflatten(treedef, out)
+
+
+def _f32(leaf: torch.Tensor) -> torch.Tensor:
+    """A leaf as the kernels take it: contiguous f32 (a bf16 or f16 leaf
+    upcast, which is exact, as the reference's `_pack` does); an f32 leaf
+    as it is."""
+    return leaf.to(torch.float32).contiguous()
 
 
 def dp_privatize_tree(grads: Any, key: torch.Tensor, xi: float, noise_scale) -> Any:

@@ -22,7 +22,8 @@ def laplace_from_bits_ref(bits: torch.Tensor) -> torch.Tensor:
 def scale_noise_ref(g: torch.Tensor, bits: torch.Tensor, clip_scale,
                     noise_scale) -> torch.Tensor:
     """g * clip_scale + noise_scale * Laplace(bits) in f32, cast back to
-    g's dtype (the scale-and-noise pass of eq. 4)."""
+    g's dtype (the scale-and-noise pass of eq. 4). A rank's block of a
+    leaf takes the bits of that block (`random.bits_block`)."""
     lap = laplace_from_bits_ref(bits)
     return (g.to(torch.float32) * clip_scale + noise_scale * lap).to(g.dtype)
 

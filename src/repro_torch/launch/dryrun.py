@@ -26,10 +26,14 @@ prints the tables. `params` and `active_params` are the port's counts of
 every leaf `LM.init` makes (`configs/base.py`); ROADMAP section 3 lists
 how they differ from the reference's formula.
 
-The train shapes fail (exit 1, as any failed record) with
-`build_train_step`'s NotImplementedError until training runs on a mesh
-(ROADMAP queue 1, item 7). A decode step runs at the last position of
-the cache (its cost does not depend on the position).
+A train shape runs one round of `build_train_step` on the meshed pytree
+state (theta_L and the owner bank as meta DTensors, the round's own
+constants on meta too): every microbatch's forward, its backward and,
+with the model's remat on (the default, as in the reference;
+`--remat-groups` is the reference's knob), the backward's recompute are
+counted, as are the privatizer's block-by-block noise draws. A decode
+step runs at the last position of the cache (its cost does not depend on
+the position).
 """
 from __future__ import annotations
 
@@ -85,7 +89,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         fake_world(512 if multi_pod else 256)
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
         chips = mesh.size()
-        bundle = build_step(cfg, shape, mesh, **(step_kw or {}))
+        # a train step's own constants (the owners' scales and weights) on meta too
+        bundle = build_step(cfg, shape, mesh, **{"device": "meta", **(step_kw or {})})
         args = bundle.args
         if bundle.kind == "decode":
             args = args[:3] + (shape.seq_len - 1,)
@@ -154,6 +159,8 @@ def main(argv=None):
     ap.add_argument("--moe-group-tokens", type=int, default=512)
     ap.add_argument("--kv-chunk", type=int, default=1024)
     ap.add_argument("--attn-backend", default="jnp", choices=["jnp", "pallas"])
+    ap.add_argument("--remat-groups", type=int, default=0,
+                    help="nested remat: checkpoint groups of layers (0 = per layer)")
     args = ap.parse_args(argv)
 
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
@@ -163,7 +170,8 @@ def main(argv=None):
                "model_kw": {"moe_mode": args.moe_mode,
                             "moe_group_tokens": args.moe_group_tokens,
                             "kv_chunk": args.kv_chunk,
-                            "attn_backend": args.attn_backend}}
+                            "attn_backend": args.attn_backend,
+                            "remat_groups": args.remat_groups}}
     fake_world(512 if any(meshes) else 256)
 
     n_ok = n_fail = 0

@@ -78,7 +78,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)      # as the reference's launcher
     params = model.init(seed=args.seed, device=dev)
 
     B = args.batch

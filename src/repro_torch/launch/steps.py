@@ -15,8 +15,13 @@ the params, batch and cache are placed by `sharding.rules` (`param_specs`,
 batch divides them, else replicated), `in_shardings` is the port's
 NamedSharding tree (`rules.named`), the stand-ins are meta DTensors (each
 rank's meta shard), and the step places any plain tensor it is given
-where its sharding says (`place`) and runs the model on DTensors. A
-training step on a mesh is the next part of ROADMAP queue 1, item 7.
+where its sharding says (`place`) and runs the model on DTensors. Train
+follows the reference's `build_train_step`: theta_L by `param_specs`, the
+owner bank by `param_specs(..., bank_axis=True)` (the owner axis
+replicated), `step` and the ledger replicated, the batch by
+`batch_specs(..., microbatches=)`, the owner index and the key
+replicated; the round runs on the meshed pytree state
+(`federation.deep`), drawing each leaf's noise block by block.
 
 The decode stand-in's `pos` is a 0-d tensor, as the reference's; the step
 takes the position as an int (``launch.dryrun`` passes the last one).
@@ -63,13 +68,16 @@ def place(in_shardings, *args) -> Tuple[Any, ...]:
 
 
 def _meshed(fn: Callable, mesh, specs: Tuple[Any, ...], args: Tuple[Any, ...], kind: str,
-            donate: Tuple[int, ...]) -> StepBundle:
+            donate: Tuple[int, ...], n_placed: Optional[int] = None) -> StepBundle:
     """The bundle of `fn` on `mesh`: shardings from `specs`, the stand-ins
-    `args` placed as meta DTensors, and a step that places plain tensors."""
+    `args` placed as meta DTensors, and a step that places the plain
+    tensors among its first `n_placed` arguments (all when None); the
+    others reach `fn` as they are."""
     shardings = tuple(rules.named(mesh, s) for s in specs)
+    n = len(shardings) if n_placed is None else n_placed
 
     def step(*a):
-        return fn(*place(shardings, *a))
+        return fn(*place(shardings[:n], *a[:n]), *a[n:])
     return StepBundle(step, place(shardings, *args), shardings, donate, kind)
 
 
@@ -88,13 +96,11 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
     None), the loss at the shape's effective window. `owner_idx` is a
     one-element int tensor and `noise_key` a (2,) uint32 key of
     ``repro_torch.random``; under a pre-grouped microbatch privatizer the
-    batch is microbatch-major (G, B/G, S). A mesh is refused: training on a
-    mesh is the next part of ROADMAP queue 1, item 7."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_train_step runs on one device: training on a mesh is the next part of "
-            "ROADMAP queue 1, item 7 (noise drawn block-wise for 2-D-sharded leaves, the owner "
-            "bank placed with bank_axis); prefill and decode take mesh=")
+    batch is microbatch-major (G, B/G, S). On a mesh the state's theta_L
+    and bank are DTensors (`deep.init_state(..., mesh=, specs=)` builds
+    them; a plain state is placed, which builds the whole bank on every
+    rank first), the owner index and the key plain or replicated, and
+    `in_shardings` is the reference's: (state, batch, owner, key)."""
     model = model or build_model(cfg)
     acfg = async_cfg or default_async_cfg()
     w = specs_mod.effective_window(cfg, shape)
@@ -108,10 +114,28 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
     p_sds = specs_mod.params_specs(model, dtype)
     state_sds = init_state(p_sds, acfg, device=specs_mod.META)
     batch_sds = specs_mod.train_batch_specs(cfg, shape, microbatches=mb)
-    return StepBundle(step=step,
-                      args=(state_sds, batch_sds, specs_mod.meta((1,), torch.int32),
-                            specs_mod.meta((2,), torch.uint32)),
-                      in_shardings=None, donate_argnums=(0,), kind="train")
+    args = (state_sds, batch_sds, specs_mod.meta((1,), torch.int32),
+            specs_mod.meta((2,), torch.uint32))
+    if mesh is None:
+        return StepBundle(step=step, args=args, in_shardings=None, donate_argnums=(0,),
+                          kind="train")
+    specs = (_train_state_specs(state_sds, cfg, mesh),
+             rules.batch_specs(batch_sds, shape, mesh, microbatches=mb), rules.P(), rules.P())
+
+    def meshed(state, batch, owner_idx, noise_key):
+        # the owner and the key are the same on every rank: the round reads
+        # them as plain tensors (a uint32 key cannot be broadcast)
+        return step(state, batch, spmd.plain(owner_idx), spmd.plain(noise_key))
+    return _meshed(meshed, mesh, specs, args, "train", (0,), n_placed=2)
+
+
+def _train_state_specs(state, cfg: ModelConfig, mesh):
+    """The PartitionSpec tree of a pytree AsyncDPState (the reference's
+    `state_spec`): theta_L by `rules.param_specs`, the bank by
+    `param_specs(..., bank_axis=True)`, `step` and the ledger P()."""
+    return type(state)(theta_L=rules.param_specs(state.theta_L, cfg, mesh),
+                       bank=rules.param_specs(state.bank, cfg, mesh, bank_axis=True),
+                       step=rules.P(), ledger=None if state.ledger is None else rules.P())
 
 
 def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
@@ -158,8 +182,9 @@ def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
 
 def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *, n_microbatches: int = 8,
                model_kw: Optional[dict] = None, **kw) -> StepBundle:
-    """model_kw: LM construction knobs (attn_backend, moe_mode,
-    moe_group_tokens, kv_chunk)."""
+    """model_kw: LM construction knobs (remat, remat_groups, attn_backend,
+    moe_mode, moe_group_tokens, kv_chunk); remat is on unless it says
+    otherwise, as in the reference."""
     model = build_model(cfg, **(model_kw or {}))
     if shape.kind == "train":
         return build_train_step(

@@ -65,7 +65,8 @@ def main(argv=None, params=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    model = build_model(cfg, moe_mode="ragged")
+    # as the reference's launcher: no activation checkpointing
+    model = build_model(cfg, remat=False, moe_mode="ragged")
     key = random.split(random.PRNGKey(args.seed, device=dev))[0]
     if params is None:
         params = model.init(seed=args.seed, device=dev)

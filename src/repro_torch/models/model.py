@@ -30,6 +30,23 @@ the hiddens (what `prefill_logits` and decode checks read) and
 `forward_aux` the pair, which `loss` takes to add `load_balance_coef *
 aux` for the moe family (aux is 0 for the others).
 
+`remat` and `remat_groups` are the reference's activation checkpointing
+(on by default, as there): each layer of the dense, moe and vlm stacks,
+of the audio encoder and decoder, and each group of `attn_every` Mamba2
+layers with the shared attention that closes it runs under
+``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes
+one unit at a time from its input instead of holding every layer's
+activations. With `remat_groups` G (G divides n_layers, G < n_layers) the
+dense stack checkpoints both levels as the reference does: each group of
+n_layers / G layers from its input, and inside the recompute each layer
+again (a plain inner loop would hold the whole group's internals during
+the recompute). The xLSTM has none, as in the reference. The recompute
+runs the same ops on the same inputs, so remat changes no value: the
+gradients equal those without it bit for bit. It applies only where
+autograd records: under ``torch.no_grad`` (prefill, decode) and inside
+``torch.func`` transforms (per-example clipping, which refuse the
+saved-tensor hooks checkpointing uses) the units run as they stand.
+
 `attn_backend` is the reference's: "jnp" runs the blockwise attention of
 plain torch ops (over kv chunks of `kv_chunk` positions), "pallas" the
 flash kernel's entry point; every Mamba2 and mLSTM layer's SSD scan goes
@@ -77,7 +94,9 @@ def chunked_lm_loss(x: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor
     """Mean cross-entropy over positions with label >= 0, without holding
     (B, S, V) logits for more than `chunk` positions at a time.
 
-    x: (B, S, d) final hiddens; unembed: (d, V); labels: (B, S) int."""
+    x: (B, S, d) final hiddens; unembed: (d, V); labels: (B, S) int. On
+    a mesh the logits stay sharded over the vocabulary: the logsumexp and
+    the gold logit are reduced over its group (`spmd.cross_entropy`)."""
     S = x.shape[1]
     chunk = min(chunk, S)
     tot = x.new_zeros((), dtype=torch.float32)
@@ -86,8 +105,7 @@ def chunked_lm_loss(x: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor
         xi = x[:, start:start + chunk]
         li = labels[:, start:start + chunk].to(torch.int64)
         logits = einsum("bsd,dv->bsv", xi, unembed).to(torch.float32)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, li.clamp(min=0)[..., None])[..., 0]
+        logz, gold = spmd.cross_entropy(logits, li)
         mask = (li >= 0).to(torch.float32)
         tot = tot + torch.sum((logz - gold) * mask)
         cnt = cnt + torch.sum(mask)
@@ -131,9 +149,16 @@ def _stack(items: List[Any], dev: torch.device) -> Any:
     return torch.stack(items).to(dev)
 
 
+def _checkpointing() -> bool:
+    """Whether a checkpointed unit would save anything for a backward:
+    autograd records, and no torch.func transform is active."""
+    return torch.is_grad_enabled() and not torch._C._are_functorch_transforms_active()
+
+
 class LM:
-    def __init__(self, cfg: ModelConfig, *, attn_backend: str = "jnp",
-                 moe_mode: str = "onehot", moe_group_tokens: int = 512, kv_chunk: int = 1024):
+    def __init__(self, cfg: ModelConfig, *, remat: bool = True, attn_backend: str = "jnp",
+                 moe_mode: str = "onehot", moe_group_tokens: int = 512, kv_chunk: int = 1024,
+                 remat_groups: int = 0):
         if cfg.family not in PORTED_FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r} (expected one of "
                              f"{', '.join(PORTED_FAMILIES)})")
@@ -145,6 +170,8 @@ class LM:
         if moe_mode not in ("onehot", "ragged"):
             raise ValueError(f"unknown MoE mode {moe_mode!r}")
         self.cfg = cfg
+        self.remat = remat
+        self.remat_groups = remat_groups
         self.attn_backend = attn_backend
         self.moe_mode = moe_mode
         self.moe_group_tokens = moe_group_tokens
@@ -275,16 +302,48 @@ class LM:
             return mlp_mod.mlp_forward(p, x), None
         return moe_mod.moe_forward(p, x, m, mode=self.moe_mode, group_tokens=group_tokens)
 
-    def _dense_stack(self, blocks, x, positions, window):
-        cfg = self.cfg
-        eps = cfg.norm_eps
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for blk in _unbind(blocks, cfg.n_layers):
-            x = x + self._attention(blk["attn"], rms_norm(x, blk["ln1"], eps), positions, window)
-            f, a = self._ffn(blk["ffn"], rms_norm(x, blk["ln2"], eps), self.moe_group_tokens)
-            x = x + f
+    def _maybe_remat(self, fn, *args):
+        """fn(*args), under activation checkpointing when remat is on and
+        autograd records (the module docstring)."""
+        if not (self.remat and _checkpointing()):
+            return fn(*args)
+        from torch.utils.checkpoint import checkpoint
+
+        def run(*a):
+            # the recompute runs inside the backward, outside forward_aux's
+            # context: the model's own constants meet DTensors there too
+            with spmd.replicating(*(t for t in a if isinstance(t, torch.Tensor))):
+                return fn(*a)
+        return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
+    def _dense_layer(self, blk, x, positions, window):
+        """One dense/moe/vlm block -> (x, the router's aux or None)."""
+        eps = self.cfg.norm_eps
+        x = x + self._attention(blk["attn"], rms_norm(x, blk["ln1"], eps), positions, window)
+        f, a = self._ffn(blk["ffn"], rms_norm(x, blk["ln2"], eps), self.moe_group_tokens)
+        return x + f, a
+
+    def _dense_layers(self, blks, x, aux, positions, window):
+        """The blocks `blks` in order, each checkpointed -> (x, aux)."""
+        for blk in blks:
+            x, a = self._maybe_remat(self._dense_layer, blk, x, positions, window)
             if a is not None:
                 aux = aux + a
+        return x, aux
+
+    def _dense_stack(self, blocks, x, positions, window):
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        layers = _unbind(blocks, cfg.n_layers)
+        G = self.remat_groups
+        if self.remat and G and cfg.n_layers % G == 0 and G < cfg.n_layers:
+            # nested remat: the group's input outside, each layer inside
+            n = cfg.n_layers // G
+            for g in range(G):
+                x, aux = self._maybe_remat(self._dense_layers, layers[g * n:(g + 1) * n], x,
+                                           aux, positions, window)
+        else:
+            x, aux = self._dense_layers(layers, x, aux, positions, window)
         return x, aux / cfg.n_layers
 
     def _encode(self, params, frames):
@@ -295,34 +354,48 @@ class LM:
         eps = cfg.norm_eps
         x = frames.to(params["enc_pos"].dtype) + params["enc_pos"][None]
         for blk in _unbind(params["enc_blocks"], cfg.enc_layers):
-            x = x + attn.encoder_attention(blk["attn"], rms_norm(x, blk["ln1"], eps))
-            x = x + mlp_mod.mlp_forward(blk["mlp"], rms_norm(x, blk["ln2"], eps))
+            x = self._maybe_remat(self._enc_layer, blk, x)
         return rms_norm(x, params["enc_ln_f"], eps)
+
+    def _enc_layer(self, blk, x):
+        eps = self.cfg.norm_eps
+        x = x + attn.encoder_attention(blk["attn"], rms_norm(x, blk["ln1"], eps))
+        return x + mlp_mod.mlp_forward(blk["mlp"], rms_norm(x, blk["ln2"], eps))
 
     def _audio_dec_stack(self, blocks, x, enc, positions, window):
         """Whisper's decoder: causal self-attention, cross-attention against
         the encoder's output `enc`, a GELU MLP, each pre-norm."""
-        cfg = self.cfg
-        eps = cfg.norm_eps
-        for blk in _unbind(blocks, cfg.n_layers):
-            x = x + self._attention(blk["self"], rms_norm(x, blk["ln1"], eps), positions, window)
-            x = x + attn.cross_attention(blk["cross"], rms_norm(x, blk["ln2"], eps),
-                                         *attn.cross_kv(blk["cross"], enc))
-            x = x + mlp_mod.mlp_forward(blk["mlp"], rms_norm(x, blk["ln3"], eps))
+        for blk in _unbind(blocks, self.cfg.n_layers):
+            x = self._maybe_remat(self._audio_dec_layer, blk, x, enc, positions, window)
         return x
+
+    def _audio_dec_layer(self, blk, x, enc, positions, window):
+        eps = self.cfg.norm_eps
+        x = x + self._attention(blk["self"], rms_norm(x, blk["ln1"], eps), positions, window)
+        x = x + attn.cross_attention(blk["cross"], rms_norm(x, blk["ln2"], eps),
+                                     *attn.cross_kv(blk["cross"], enc))
+        return x + mlp_mod.mlp_forward(blk["mlp"], rms_norm(x, blk["ln3"], eps))
 
     def _hybrid_stack(self, params, x, positions, window):
         """Zamba2: the Mamba2 layers in order; the SHARED attention block
-        (one set of weights) follows every `attn_every` of them."""
+        (one set of weights) follows every `attn_every` of them. Each group
+        of `attn_every` layers and the shared block is one checkpointed
+        unit, as the reference's scan over groups."""
+        cfg = self.cfg
+        layers = _unbind(params["blocks"], cfg.n_layers)
+        ae = cfg.attn_every
+        for g in range(cfg.n_layers // ae):
+            x = self._maybe_remat(self._hybrid_group, layers[g * ae:(g + 1) * ae],
+                                  params["shared_attn"], params["shared_ln"], x, positions,
+                                  window)
+        return x
+
+    def _hybrid_group(self, blks, shared, shared_ln, x, positions, window):
         cfg = self.cfg
         eps = cfg.norm_eps
-        for i, blk in enumerate(_unbind(params["blocks"], cfg.n_layers)):
+        for blk in blks:
             x = x + ssm_mod.mamba2_forward(blk["mamba"], rms_norm(x, blk["ln"], eps), cfg.ssm)
-            if (i + 1) % cfg.attn_every == 0:
-                x = x + self._attention(params["shared_attn"],
-                                        rms_norm(x, params["shared_ln"], eps), positions,
-                                        window)
-        return x
+        return x + self._attention(shared, rms_norm(x, shared_ln, eps), positions, window)
 
     def _xlstm_stack(self, blocks, x):
         """The xLSTM: each block's residual in order (no pre-norm, as the
@@ -460,4 +533,6 @@ class LM:
 
 
 def build_model(cfg: ModelConfig, **kw) -> LM:
+    """LM(cfg, **kw): remat on unless kw says remat=False, as the
+    reference's."""
     return LM(cfg, **kw)

@@ -141,7 +141,7 @@ def mamba2_forward(p: Mamba2Params, x: torch.Tensor, s: SSMConfig) -> torch.Tens
     y = spmd.on_heads(scan, (v, ld, Bm, Cm, dt), ((0, 2), (0, 2), (0, None), (0, None), (0, 2)),
                  (0, 2), H)
     y = y + (p.D[None, None, :, None] * v.to(torch.float32)).to(y.dtype)
-    return _gate_out(p, y.reshape(B_, S, d_in), z)
+    return _gate_out(p, spmd.keep_grad_layout(y.reshape(B_, S, d_in)), z)
 
 
 def init_mamba2_state(batch: int, d_model: int, s: SSMConfig, dtype=torch.bfloat16,

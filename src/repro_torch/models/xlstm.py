@@ -29,6 +29,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models.layers import dense_init, rms_norm
 from repro_torch.models.ssm import causal_conv, causal_conv_step, ssd_step
+from repro_torch.sharding import spmd
 from repro_torch.sharding.spmd import einsum, on_heads
 
 __all__ = ["MLSTMParams", "MLSTMState", "SLSTMParams", "SLSTMState", "init_mlstm",
@@ -105,7 +106,7 @@ def _mlstm_out(p: MLSTMParams, y_aug: torch.Tensor, z: torch.Tensor, N: int,
     B, S = y_aug.shape[:2]
     num, den = y_aug[..., :N].to(torch.float32), y_aug[..., N].to(torch.float32)
     y = (num / torch.clamp(den.abs(), min=1.0)[..., None]).reshape(B, S, -1).to(dtype)
-    y = rms_norm(y, p.norm) * F.silu(z.to(torch.float32)).to(dtype)
+    y = rms_norm(spmd.keep_grad_layout(y), p.norm) * F.silu(z.to(torch.float32)).to(dtype)
     return einsum("bse,ed->bsd", y, p.w_down)
 
 

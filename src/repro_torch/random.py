@@ -9,6 +9,7 @@ the reference's own keys and a whole trajectory can be held against it:
     key = PRNGKey(0)                 # (2,) uint32 tensor, on CUDA by default
     k1, k2 = split(key)              # rows of a (2, 2) tensor
     u = bits(k1, (5,))               # (5,) uint32 == jax.random.bits
+    b = bits_block(k1, (4, 6), (2, 3), (2, 3))   # == bits(k1, (4, 6))[2:, 3:]
     i = randint(k2, (8,), 0, 4)      # (8,) int32  == jax.random.randint
     x = laplace(k2, (3, 4))          # (3, 4) f32  ~ jax.random.laplace (1 ulp)
 
@@ -39,7 +40,7 @@ overflows.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -111,9 +112,40 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return _as_key(*threefry2x32(k0, k1, torch.zeros_like(d), d))
 
 
-def _bits_i64(key: torch.Tensor, shape: Tuple[int, ...], start: int = 0) -> torch.Tensor:
+def _block_counters(shape: Tuple[int, ...], offsets: Sequence[int],
+                    local_shape: Sequence[int], device) -> torch.Tensor:
+    """The flat (row-major) indices in a leaf of global `shape` of the
+    block of `local_shape` at `offsets`, as a flat int64 tensor in the
+    block's own row-major order."""
+    offsets, local_shape = tuple(int(o) for o in offsets), tuple(int(n) for n in local_shape)
+    if not len(shape) == len(offsets) == len(local_shape):
+        raise ValueError(f"a block of {local_shape} at {offsets} does not match a leaf of "
+                         f"shape {shape}")
+    if any(o < 0 or o + n > d for o, n, d in zip(offsets, local_shape, shape)):
+        raise ValueError(f"the block of {local_shape} at {offsets} leaves the leaf {shape}")
+    idx = torch.zeros(local_shape, dtype=torch.int64, device=device)
+    stride = 1
+    for j in reversed(range(len(shape))):
+        view = [1] * len(shape)
+        view[j] = local_shape[j]
+        idx = idx + (torch.arange(offsets[j], offsets[j] + local_shape[j], dtype=torch.int64,
+                                  device=device) * stride).reshape(view)
+        stride *= shape[j]
+    return idx.reshape(-1)
+
+
+def _bits_i64(key: torch.Tensor, shape: Tuple[int, ...], start: int = 0,
+              block: Optional[Tuple[Sequence[int], Sequence[int]]] = None) -> torch.Tensor:
+    """The int64 words of bits(key, shape), from flat index `start` on; with
+    `block` = (offsets, local_shape) only that block of the leaf (shaped
+    local_shape)."""
     k0, k1 = _words(key)
-    idx = torch.arange(start, start + math.prod(shape), dtype=torch.int64, device=key.device)
+    if block is None:
+        idx = torch.arange(start, start + math.prod(shape), dtype=torch.int64,
+                           device=key.device)
+    else:
+        idx = _block_counters(shape, block[0], block[1], key.device)
+        shape = tuple(int(n) for n in block[1])
     y0, y1 = threefry2x32(k0.unsqueeze(-1), k1.unsqueeze(-1), idx >> 32, idx & _MASK)
     return (y0 ^ y1).reshape(tuple(k0.shape) + shape)
 
@@ -132,6 +164,16 @@ def bits_range(key: torch.Tensor, start: int, stop: int) -> torch.Tensor:
     if not 0 <= start <= stop:
         raise ValueError(f"bits_range needs 0 <= start <= stop, got [{start}, {stop})")
     return _bits_i64(key, (stop - start,), start).to(torch.uint32)
+
+
+def bits_block(key: torch.Tensor, shape: Shape, offsets: Sequence[int],
+               local_shape: Sequence[int]) -> torch.Tensor:
+    """The block of `local_shape` at `offsets` of bits(key, shape), computed
+    for the block alone ((..., *local_shape) for a batch of keys): each
+    element hashes its global flat index. A rank holding a block of a leaf
+    sharded on any of its dims draws the bits of that block of the
+    unsharded leaf; `bits_range` is the 1-D case."""
+    return _bits_i64(key, _shape(shape), block=(offsets, local_shape)).to(torch.uint32)
 
 
 def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int) -> torch.Tensor:
@@ -163,14 +205,17 @@ _ONE_BITS = 0x3F800000                  # the f32 bit pattern of 1.0
 _F32_EPSNEG = 2.0 ** -24                # jnp.finfo(float32).epsneg
 
 
-def uniform(key: torch.Tensor, shape: Shape = (), minval=0.0, maxval=1.0) -> torch.Tensor:
+def uniform(key: torch.Tensor, shape: Shape = (), minval=0.0, maxval=1.0, *,
+            block=None) -> torch.Tensor:
     """jax.random.uniform(key, shape, float32, minval, maxval).
 
     The top 23 bits of each word become the mantissa of a float in [1, 2);
     minus 1, times (maxval - minval), plus minval, then max(minval, .), all
-    in f32 as jax computes them."""
+    in f32 as jax computes them. `block` = (offsets, local_shape) draws
+    only that block of the leaf, from the bits of `bits_block` (so for
+    `laplace` and `normal` too)."""
     shape = _shape(shape)
-    words = _bits_i64(key, shape)
+    words = _bits_i64(key, shape, block=block)
     floats = ((words >> 9) | _ONE_BITS).to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
@@ -182,18 +227,18 @@ def uniform(key: torch.Tensor, shape: Shape = (), minval=0.0, maxval=1.0) -> tor
     return torch.maximum(lo, scaled)
 
 
-def laplace(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+def laplace(key: torch.Tensor, shape: Shape = (), *, block=None) -> torch.Tensor:
     """jax.random.laplace(key, shape, float32): u uniform on
     [-1 + epsneg, 1), then sign(u) * log1p(-|u|)."""
-    u = uniform(key, shape, -1.0 + _F32_EPSNEG, 1.0)
+    u = uniform(key, shape, -1.0 + _F32_EPSNEG, 1.0, block=block)
     return torch.sign(u) * torch.log1p(-torch.abs(u))
 
 
-def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+def normal(key: torch.Tensor, shape: Shape = (), *, block=None) -> torch.Tensor:
     """jax.random.normal(key, shape, float32): sqrt(2) * erfinv(u), u
     uniform on [nextafter(-1, 0), 1)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, shape, lo, 1.0)
+    u = uniform(key, shape, lo, 1.0, block=block)
     return torch.erfinv(u) * float(np.float32(math.sqrt(2.0)))
 
 

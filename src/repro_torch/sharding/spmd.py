@@ -31,6 +31,14 @@ worked out from the roles, and it serves the kernels' entry points (flash
 attention, the SSD scan) and the loops that are cheaper on plain tensors
 (the sLSTM's positions).
 
+Each of them is differentiable. Where a region splits its work over a
+mesh dim (a kept letter, a vocabulary block, the batch or the heads), an
+input replicated on that dim takes only this rank's share of the work, so
+its local gradient is a partial sum: it leaves the region as `Partial`
+there (``to_local(grad_placements=...)``) and is reduced where the
+input's own layout asks for it. `cross_entropy` is the LM loss's
+per-position term on logits whose vocabulary is sharded.
+
 A mesh dim of size 1 splits nothing, so on the 1x1 mesh every local piece
 is the whole tensor and every collective acts on a group of one.
 """
@@ -40,8 +48,11 @@ from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["as_dtensor", "data_dims", "einsum", "embedding", "is_dtensor", "local_map",
-           "mesh_of", "model_dim", "on_heads", "reduced", "replicating", "shards", "write_slot"]
+__all__ = ["as_dtensor", "cross_entropy", "data_dims", "einsum", "embedding", "is_dtensor",
+           "keep_grad_layout", "like", "local_block", "local_map", "mesh_of", "model_dim",
+           "on_heads", "plain",
+           "put_rows_", "reduced", "replicating", "shards", "take_row", "tree_total",
+           "with_owner_axis", "write_slot"]
 
 
 def is_dtensor(t) -> bool:
@@ -107,6 +118,157 @@ def reduced(t):
                                           for p in t.placements])
 
 
+class _KeepGradLayout(torch.autograd.Function):
+    """Identity whose backward hands the gradient back laid out as the
+    forward's tensor was."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.mesh, ctx.placements = t.device_mesh, tuple(t.placements)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if is_dtensor(grad) and tuple(grad.placements) != ctx.placements:
+            grad = grad.redistribute(ctx.mesh, ctx.placements)
+        return grad
+
+
+def keep_grad_layout(t: torch.Tensor) -> torch.Tensor:
+    """`t`, whose gradient reaches the ops before it laid out as `t` is.
+    DTensor's ops may hand a gradient back sharded where the forward
+    tensor was replicated (an elementwise op beside a sharded operand
+    shards it); after a reshape that merged a dim the mesh does not divide
+    (heads that do not split over "model"), the reshape's backward could
+    not split such a gradient, so the merged tensor passes through here.
+    A plain tensor is returned as it is."""
+    return _KeepGradLayout.apply(t) if is_dtensor(t) else t
+
+
+def plain(t):
+    """A replicated DTensor's local tensor (the same on every rank);
+    anything else as it is."""
+    return reduced(t).to_local() if is_dtensor(t) else t
+
+
+def local_block(t) -> Tuple[torch.Tensor, Tuple[int, ...], Tuple[int, ...]]:
+    """(this rank's block of the DTensor t, t's global shape, the block's
+    offset in it), partial sums reduced first."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    t = reduced(t)
+    _, offset = compute_local_shape_and_global_offset(t.shape, t.device_mesh, t.placements)
+    return t.to_local(), tuple(t.shape), tuple(int(o) for o in offset)
+
+
+def like(t, local: torch.Tensor):
+    """`local` as this rank's block of a DTensor laid out as t."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, t.device_mesh, t.placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def _shifted(placements, by: int):
+    """Placements of a tensor with `by` dims added (> 0) or dropped (< 0)
+    in front; a dropped dim must be replicated."""
+    from torch.distributed.tensor import Shard
+    out = []
+    for p in placements:
+        if p.is_shard():
+            if p.dim + by < 0:
+                raise ValueError(f"{p} shards a dim that is dropped")
+            p = Shard(p.dim + by)
+        out.append(p)
+    return out
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of `shape` (a DTensor's global
+    stride, which its local block's does not give where a dim is split)."""
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(out))
+
+
+def with_owner_axis(leaf, rows: torch.Tensor, n: int):
+    """`rows` (n, *this rank's block of leaf) as a DTensor of (n,
+    *leaf.shape): the leading (owner) axis replicated, the rest laid out
+    as the DTensor `leaf`."""
+    from torch.distributed.tensor import DTensor
+    shape = (n,) + tuple(leaf.shape)
+    return DTensor.from_local(rows, leaf.device_mesh, _shifted(leaf.placements, 1),
+                              run_check=False, shape=shape, stride=contiguous_stride(shape))
+
+
+def take_row(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t.index_select(0, idx)[0] for a one-element int64 `idx`; on a
+    DTensor whose leading axis is replicated, each rank takes the row of
+    its own block (no collective)."""
+    if not is_dtensor(t):
+        return t.index_select(0, idx)[0]
+    from torch.distributed.tensor import DTensor
+    local = t.to_local().index_select(0, idx)[0]
+    shape = tuple(t.shape[1:])
+    return DTensor.from_local(local, t.device_mesh, _shifted(t.placements, -1),
+                              run_check=False, shape=shape, stride=contiguous_stride(shape))
+
+
+def put_rows_(t: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
+    """t.index_copy_(0, idx, rows) IN PLACE; on a DTensor whose leading
+    axis is replicated, `rows` is laid out as t and each rank writes its
+    block of every row into its own block of t."""
+    if not is_dtensor(t):
+        t.index_copy_(0, idx, rows)
+        return
+    rows = reduced(as_dtensor(t.device_mesh, rows))
+    if tuple(rows.placements) != tuple(t.placements):
+        rows = rows.redistribute(t.device_mesh, t.placements)
+    t.to_local().index_copy_(0, idx, rows.to_local())
+
+
+def tree_total(leaves: Sequence[torch.Tensor], fn: Callable[[torch.Tensor], torch.Tensor]
+               ) -> torch.Tensor:
+    """sum(fn(leaf) for leaf in leaves), in leaf order, for an `fn` that
+    sums over its leaf (a 0-d result, additive over blocks: a sum of
+    squares). On DTensor leaves fn runs on each rank's block; the blocks'
+    values of the leaves sharded on the same mesh dims are summed over
+    those dims in one all-reduce, and the leaves' totals are then added in
+    leaf order on every rank, so the 1x1 mesh gives the unmeshed value bit
+    for bit. The result is then a replicated 0-d DTensor."""
+    mesh = mesh_of(*leaves)
+    if mesh is None:
+        return sum(fn(leaf) for leaf in leaves)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    leaves = [reduced(as_dtensor(mesh, leaf)) for leaf in leaves]
+    parts = [fn(leaf.to_local()) for leaf in leaves]
+    groups: dict = {}
+    for i, leaf in enumerate(leaves):
+        dims = tuple(m for m, p in enumerate(leaf.placements) if p.is_shard())
+        groups.setdefault(dims, []).append(i)
+    totals: list = [None] * len(leaves)
+    for dims, idx in groups.items():
+        stacked = torch.stack([parts[i] for i in idx])
+        if dims:
+            place = [Partial() if m in dims else Replicate() for m in range(mesh.ndim)]
+            stacked = reduced(DTensor.from_local(stacked, mesh, place,
+                                                 run_check=False)).to_local()
+        for j, i in enumerate(idx):
+            totals[i] = stacked[j]
+    return _replicated(mesh, sum(totals))
+
+
+def _local(t, split) -> torch.Tensor:
+    """t.to_local() whose gradient is a partial sum on each mesh dim in
+    `split` where t is replicated (this rank did only its share of the
+    work there), and laid out as t elsewhere."""
+    from torch.distributed.tensor import Partial
+    grad = [Partial() if m in split and p.is_replicate() else p
+            for m, p in enumerate(t.placements)]
+    return t.to_local(grad_placements=grad)
+
+
 def _plan(subs, out: str, ops, mesh):
     """The letter each mesh dim keeps for a product (None where no operand
     is sharded): of the letters the operands shard there, the one that
@@ -150,12 +312,13 @@ def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     subs = lhs.split(",")
     ops = [reduced(as_dtensor(mesh, o)) for o in ops]
     keep = _plan(subs, out, ops, mesh)
+    split = {m for m, c in enumerate(keep) if c is not None}
     local = []
     for o, sub in zip(ops, subs):
         want = [Shard(sub.index(c)) if c is not None and c in sub else Replicate() for c in keep]
         if list(o.placements) != want:
             o = o.redistribute(mesh, want)
-        local.append(o.to_local())
+        local.append(_local(o, split))
     y = torch.einsum(eq, *local)
     place = [Replicate() if c is None else Shard(out.index(c)) if c in out else Partial()
              for c in keep]
@@ -180,12 +343,11 @@ def embedding(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     tpl = [Shard(0) if m in vocab else Replicate() for m in range(mesh.ndim)]
     if list(table.placements) != tpl:
         table = table.redistribute(mesh, tpl)
-    tok, tab = tokens.to_local(), table.to_local()
+    tok = tokens.to_local()
+    # the table's rows gather the gradient of this rank's tokens only
+    tab = _local(table, {m for m, p in enumerate(tokens.placements) if p.is_shard()})
     if vocab:
-        v0 = 0
-        for m in vocab:
-            v0 = v0 * mesh.size(m) + mesh.get_local_rank(m)
-        v0 *= tab.shape[0]
+        v0 = _vocab_start(mesh, vocab, tab.shape[0])
         hit = (tok >= v0) & (tok < v0 + tab.shape[0])
         y = F.embedding(torch.where(hit, tok - v0, 0), tab)
         y = torch.where(hit[..., None], y, 0)
@@ -229,6 +391,10 @@ def local_map(fn: Callable, args: Sequence[Any], dims: Sequence[Any], out_dims: 
     of those layouts."""
     from torch.distributed.tensor import DTensor
 
+    split = set(data_dims(mesh)) if batch else set()
+    md = model_dim(mesh)
+    if heads and md is not None:
+        split.add(md)
     local = []
     for a, d in zip(args, dims):
         if d is None or a is None:
@@ -238,7 +404,7 @@ def local_map(fn: Callable, args: Sequence[Any], dims: Sequence[Any], out_dims: 
         a = reduced(as_dtensor(mesh, a))
         if list(a.placements) != want:
             a = a.redistribute(mesh, want)
-        local.append(a.to_local())
+        local.append(_local(a, split))
     res = fn(*local)
 
     def wrap(t, d):
@@ -262,6 +428,64 @@ def on_heads(fn: Callable, args: Sequence[Any], dims: Sequence[Any], out_dims: A
     heads = md is not None and n_heads % mesh.size(md) == 0
     batch = shards(mesh, args[0].shape[0], data_dims(mesh))
     return local_map(fn, args, dims, out_dims, mesh, batch=batch, heads=heads)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp over the last dim, the logit at each label clamped to 0)
+    of f32 `logits` (..., V) and int64 `labels` (...).
+
+    Off a mesh, or where no mesh dim splits the vocabulary, that is
+    ``torch.logsumexp`` and ``torch.gather`` on each rank's rows, so the
+    1x1 mesh equals the unmeshed loss bit for bit. Where the vocabulary
+    is split, no rank holds a whole row: each takes its block's max, the
+    max over the vocabulary group stabilizes the sum of exp, which is
+    summed over the group, and the gold logit comes from the rank whose
+    block holds the label (a partial sum, zero elsewhere)."""
+    mesh = mesh_of(logits, labels)
+    if mesh is None:
+        return (torch.logsumexp(logits, dim=-1),
+                torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0])
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    v = logits.dim() - 1
+    logits = reduced(as_dtensor(mesh, logits))
+    vocab = [m for m, p in enumerate(logits.placements) if p.is_shard() and p.dim == v]
+    # each row's placements: the logits' with the vocab dim dropped
+    row = [Replicate() if m in vocab else p for m, p in enumerate(logits.placements)]
+    labels = reduced(as_dtensor(mesh, labels))
+    if list(labels.placements) != row:
+        labels = labels.redistribute(mesh, row)
+    lab = labels.to_local().clamp(min=0)
+    lg = logits.to_local()
+    if _size(mesh, vocab) == 1:
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, lab[..., None])[..., 0]
+        return (DTensor.from_local(lse, mesh, row, run_check=False),
+                DTensor.from_local(gold, mesh, row, run_check=False))
+    part = [Partial("max") if m in vocab else p for m, p in enumerate(row)]
+    top = reduced(DTensor.from_local(lg.detach().amax(dim=-1), mesh, part, run_check=False))
+    top = top.to_local()
+    # a row of -inf logits keeps its max out of the exponent
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    sums = [Partial() if m in vocab else p for m, p in enumerate(row)]
+    s = reduced(DTensor.from_local(torch.sum(torch.exp(lg - top[..., None]), dim=-1), mesh,
+                                   sums, run_check=False))
+    lse = torch.log(s) + DTensor.from_local(top, mesh, row, run_check=False)
+    v0 = _vocab_start(mesh, vocab, lg.shape[-1])
+    hit = (lab >= v0) & (lab < v0 + lg.shape[-1])
+    g = torch.gather(lg, -1, torch.where(hit, lab - v0, 0)[..., None])[..., 0]
+    gold = reduced(DTensor.from_local(torch.where(hit, g, 0.0), mesh, sums, run_check=False))
+    return lse, gold
+
+
+def _vocab_start(mesh, vocab, block: int) -> int:
+    """The first vocabulary index of this rank's block of `block` entries
+    along the mesh dims `vocab` (outer to inner)."""
+    v0 = 0
+    for m in vocab:
+        v0 = v0 * mesh.size(m) + mesh.get_local_rank(m)
+    return v0 * block
 
 
 def write_slot(cache: torch.Tensor, dim: int, slot: int, value: torch.Tensor) -> None:

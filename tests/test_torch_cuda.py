@@ -562,6 +562,61 @@ def test_scale_noise_matches_plain_version(shape, offset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,cuts", [((768, 3072), (2, 2)), ((12, 768, 3072), (1, 2, 2)),
+                                        ((2, 8, 6, 64), (1, 2, 1, 2)), ((4099, 6), (1, 3)),
+                                        ((4, 5, 6), (1, 5, 2))])
+def test_block_scale_noise_tiles_the_whole_launch(shape, cuts):
+    """Each rank's block of a leaf (cut evenly `cuts` ways) through the block
+    scale_noise: equal to its plain version on the block's bits
+    (random.bits_block), and the blocks together equal the whole-leaf
+    launch bit for bit."""
+    import itertools
+    dev = _device()
+    g = torch.randn(shape, device=dev, generator=torch.Generator(device=dev).manual_seed(9))
+    key = trandom.PRNGKey(21, device=dev)
+    cs, ns = torch.tensor([0.625], device=dev), torch.tensor(0.3, device=dev)
+    whole = tops.scale_noise(g, key, cs, ns)
+    out = torch.empty_like(g)
+    sizes = [d // c for d, c in zip(shape, cuts)]
+    before = tkernel.launches["scale_noise"]
+    n_blocks = 0
+    for idx in itertools.product(*(range(c) for c in cuts)):
+        offsets = tuple(i * n for i, n in zip(idx, sizes))
+        sl = tuple(slice(o, o + n) for o, n in zip(offsets, sizes))
+        block = g[sl].contiguous()
+        got = tops.scale_noise(block, key, cs, ns, (shape, offsets))
+        plain = tref.scale_noise_ref(block, trandom.bits_block(key, shape, offsets, sizes),
+                                     cs.reshape(()), ns)
+        assert torch.equal(got, plain)
+        out[sl] = got
+        n_blocks += 1
+    assert torch.equal(out, whole)
+    assert tkernel.launches["scale_noise"] == before + n_blocks
+
+
+@pytest.mark.cuda
+def test_fused_tree_entry_points_take_bf16_leaves():
+    """A bf16 gradient tree through fused_sqnorm_tree and
+    fused_scale_noise_tree on the card: each leaf upcast to f32 for the
+    kernel (as the reference's _pack does), the noisy leaf cast back, equal
+    to the plain versions on the upcast leaves."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    tree = {"a": torch.randn(768, device=dev, generator=gen).to(torch.bfloat16),
+            "b": torch.randn(3, 1001, device=dev, generator=gen).to(torch.bfloat16)}
+    leaves = tree_flatten(tree)[0]
+    torch.testing.assert_close(tops.fused_sqnorm_tree(tree),
+                               sum(tref.sqnorm_ref(x.float()) for x in leaves),
+                               rtol=1e-5, atol=0.0)
+    key = trandom.PRNGKey(8, device=dev)
+    out = tree_flatten(tops.fused_scale_noise_tree(tree, key, 0.5, 0.2))[0]
+    for leaf, k, o in zip(leaves, trandom.split(key, len(leaves)), out):
+        assert o.dtype == torch.bfloat16
+        assert torch.equal(o, tref.scale_noise_ref(leaf.float(), trandom.bits(k, leaf.shape),
+                                                   0.5, 0.2).to(torch.bfloat16))
+
+
+@pytest.mark.cuda
 def test_tree_entry_points_on_the_card():
     dev = _device()
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -985,7 +1040,9 @@ def test_reduced_zamba2_loss_gradient_on_the_card_matches_the_cpu():
     kernels, the training path's attention) against the CPU's plain scan,
     same weights and tokens: every leaf within 1e-3 of its largest
     |gradient| (f32 through two layers; the scan's own bound is 5e-5 of its
-    largest value, and cuBLAS and the CPU BLAS sum in other orders)."""
+    largest value, and cuBLAS and the CPU BLAS sum in other orders). The
+    model's remat is on (the default): the backward recomputes each group's
+    forward, so each Mamba2 layer launches the scan twice."""
     from repro_torch.configs import get_config
     from repro_torch.tree_util import tree_flatten, tree_unflatten
     dev = _device()
@@ -1002,7 +1059,7 @@ def test_reduced_zamba2_loss_gradient_on_the_card_matches_the_cpu():
         loss = lm.loss(tree_unflatten(treedef, live), on_device)[0]
         grads.append([x.cpu() for x in torch.autograd.grad(loss, live)])
     assert {m: skernel.launches[m] - before[m] for m in before} == {
-        "ssd_chunk_scan": cfg.n_layers, "ssd_chunk_scan_bwd": cfg.n_layers}
+        "ssd_chunk_scan": 2 * cfg.n_layers, "ssd_chunk_scan_bwd": cfg.n_layers}
     for a, b in zip(*grads):
         assert bool(torch.isfinite(a).all())
         torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * float(b.abs().max()) + 1e-12)

@@ -286,7 +286,7 @@ def test_loss_gradient_matches_reference(case, scan_route):
     batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
     jgrads = jax.grad(lambda p: jlm.loss(p, {k: jnp.asarray(v) for k, v in batch.items()})[0])(
         jparams)
-    lm = LM(get_config(ARCH).reduced())
+    lm = LM(get_config(ARCH).reduced(), remat=False)      # as `case`'s reference model
     leaves, treedef = tree_flatten(params)
     live = [x.detach().clone().requires_grad_(True) for x in leaves]
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -331,7 +331,7 @@ def test_federated_rounds_match_reference(case, scan_route):
     js, jm = jf.run_rounds(jf.init_state(jparams), {k: jnp.asarray(v) for k, v in data.items()},
                            key=jax.random.PRNGKey(3))
     jf.reconcile(js)
-    lm = LM(get_config(ARCH).reduced())
+    lm = LM(get_config(ARCH).reduced(), remat=False)      # as `case`'s reference model
     tf, tpriv = setup(tfed, device=CPU)
     tf.make_step(lambda p, b: lm.loss(p, b)[0], privatizer=tpriv, pack_params=True)
     ts, tm = tf.run_rounds(tf.init_state(params), {k: torch.from_numpy(v) for k, v in data.items()},

@@ -187,13 +187,6 @@ def test_build_step_runs_and_matches_the_reference_step(arch, shape):
     np.testing.assert_allclose(got, want, rtol=0, atol=tol)
 
 
-def test_a_mesh_is_refused_until_sharding():
-    """Prefill and decode take a mesh (tests/test_torch_launch_mesh.py);
-    a training step on a mesh is the next part of ROADMAP queue 1, item 7."""
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_step(tconfigs.get_config("yi-6b").reduced(), SHAPES[0], object())
-
-
 # ---------------------------------------------------------------- optim, data
 def test_optimizers_and_schedules_match_the_reference():
     import repro.optim as jopt

@@ -26,9 +26,9 @@ reference's SHAPES for prefill and decode, `build_step(cfg, shape, mesh)`:
       reference's plain scan multiplies the whole masked Q x Q block
       (ROADMAP section 3);
   (d) `launch.dryrun.run_one` in a fake world of 256 ranks (a subprocess: a
-      fake world cannot share a process) writes a record with ok true,
-      flops > 0 and a dominant term, and the train shape's record ok false
-      with the NotImplementedError that names ROADMAP queue 1, item 7.
+      fake world cannot share a process) writes a decode and a train
+      record, each with ok true, flops > 0 and a dominant term (the train
+      step runs on the meshed pytree state: tests/test_torch_train_mesh.py).
 
 Run alone: PYTHONPATH=src python -m pytest -q tests/test_torch_launch_mesh.py
 """
@@ -214,14 +214,15 @@ def test_dryrun_run_one_in_a_fake_world(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     ok, train = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert ok["ok"] and ok["chips"] == 256 and not train["ok"]
-    assert "NotImplementedError" in train["error"] and "item 7" in train["error"]
-    with open(tmp_path / "yi-6b__decode_32k__pod16x16.json") as f:
-        rec = json.load(f)
-    assert rec["op_cost"]["flops"] > 0 and rec["trace_s"] >= 0
-    assert rec["roofline"]["dominant"] in ("compute", "memory", "collective")
-    assert rec["memory_analysis"]["argument_size_in_bytes"] > 0
-    assert (tmp_path / "trace" / "yi-6b__decode_32k__pod16x16.trace.json.zst").exists()
+    assert ok["ok"] and ok["chips"] == 256
+    assert train["ok"] and train["chips"] == 256, train["error"]
+    for shape in ("decode_32k", "train_4k"):
+        with open(tmp_path / f"yi-6b__{shape}__pod16x16.json") as f:
+            rec = json.load(f)
+        assert rec["op_cost"]["flops"] > 0 and rec["trace_s"] >= 0
+        assert rec["roofline"]["dominant"] in ("compute", "memory", "collective")
+        assert rec["memory_analysis"]["argument_size_in_bytes"] > 0
+        assert (tmp_path / "trace" / f"yi-6b__{shape}__pod16x16.trace.json.zst").exists()
 
 
 def test_placements_follow_the_mesh_axes():

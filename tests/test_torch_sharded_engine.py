@@ -25,7 +25,9 @@ run inside it). The unmeshed port is the oracle.
     reference; on the 1x1 mesh a checkpoint crosses the mesh both ways, and
     the ledger checks hold after a meshed restore.
   * per-example clipping (granularity "example"), f16 banks and bf16/f16
-    model leaves on every mesh, block for block.
+    model leaves on every mesh, block for block; int8 and fp8 banks with
+    per-block scales (`BankCodec(block_elems=5)`), whose blocks straddle
+    the ranks' columns, block for block (codes, scales, residual).
   * `mesh=` on a pytree state raises as in the reference; reconcile,
     LedgerDriftError and the superseded-snapshot error on a meshed state;
     the reference's failing `test_owner_parallel_with_fused_kernel_and_mesh`
@@ -86,6 +88,10 @@ STATES = {
     "example-faults": (None, dict(faults=True, staleness=True), dict(gran="example")),
     # bf16 and f16 model leaves on an f16 bank
     "example-mixed": (torch.float16, {}, dict(gran="example", mixed=True)),
+    # per-block scales (blocks of 5: on P = 28 the blocks [10, 15) and
+    # [25, 28) straddle the column blocks of 2 and 4 ranks)
+    "int8-block": (tfed.BankCodec("int8", block_elems=5), {}, {}),
+    "fp8-block": (tfed.BankCodec("fp8", block_elems=5), {}, {}),
 }
 EXAMPLE_STATES = ("f16", "example", "example-f16", "example-int8", "example-tree",
                   "example-faults", "example-mixed")
