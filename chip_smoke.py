@@ -80,8 +80,8 @@ without the host's op events, which no printed number reads):
              run_rounds(owner_parallel=True): main's model, 16 owners, f32
              bank, fused, with K = 32 rounds a dispatch drawn from the
              uniform schedule under fixed keys; for max_group="auto" and
-             8, three timed dispatches (the first warms up; cut from
-             four to make room for phase mesh) and one
+             8, two timed dispatches (the first warms up; cut from
+             four to make room for phases mesh, sanitize and examples) and one
              profiled, each with exactly one dp_round and G sqnorm
              launches per group and no other kernel; ms, device ms,
              device kernels, idle share, mean group size and peak memory
@@ -132,8 +132,9 @@ without the host's op events, which no printed number reads):
              per-owner bases in 0.2 to 0.9, jitter 0.3); K = 32 rounds a
              dispatch. The codes and latencies drawn on the card equal the
              CPU draw bit for bit. The sequential driver, then the grouped
-             one (max_group 8), each from a fresh state: two timed
-             dispatches (three before phase mesh) and one profiled on the
+             one (max_group 8), each from a fresh state: one timed
+             dispatch (three before phase mesh, two before phases sanitize
+             and examples) and one profiled on the
              same sequences and keys,
              each with K dp_round and K*G sqnorm (one dp_round and G sqnorm
              per group) and no other kernel, its seven ledger columns,
@@ -236,8 +237,9 @@ without the host's op events, which no printed number reads):
              199,584,812 f32 parameters (11 mLSTM blocks with scan heads N
              384 / P 385, the sLSTM at block 6): launch.steps.
              build_train_step, 4 owners, batch 4 x S 1024, G = 2
-             pre-grouped microbatches: three timed rounds (the first warms
-             up) and one profiled, each with 22 ssd_chunk_scan and 22
+             pre-grouped microbatches: two timed rounds (the first warms
+             up; three before phases sanitize and examples) and one
+             profiled, each with 22 ssd_chunk_scan and 22
              ssd_chunk_scan_bwd launches (11 mLSTM layers x G) and no
              other kernel; ms a round, device time, idle share, peak GB.
              The loss gradient (B 2) through the kernels against the plain
@@ -247,8 +249,8 @@ without the host's op events, which no printed number reads):
              is ill-conditioned in f32 through the sLSTM's recurrence, so
              kernels against the plain scan and the plain scan at chunk
              128 against 256 are printed there, not checked. The main path's flat fused engine over the
-             xLSTM at main's S 128 (phase main's dispatches at K = 8, two
-             timed and one profiled: K dp_round, K*G sqnorm and K*G*11 of
+             xLSTM at main's S 128 (phase main's dispatches at K = 8, one
+             timed, two before phases sanitize and examples, and one profiled: K dp_round, K*G sqnorm and K*G*11 of
              each SSD kernel a dispatch). Decode against the forward over S 300, within
              5e-3. launch.train.main at its reduced default size on the
              card (--steps 5, per-example granularity: vmap of the
@@ -335,7 +337,7 @@ without the host's op events, which no printed number reads):
    sync    — the deep synchronous baseline at full width: DENSE_124M, 16
              owners x 10,000 records, eps 1, batch 4 x seq 128, G = 2, the
              fused privatizer, through Federation(strategy="sync").make_step
-             and sync_round: three timed rounds and one profiled (ms per
+             and sync_round: two timed rounds and one profiled (ms per
              round, device time, idle share, peak memory), each with N*G*12
              = 384 sqnorm and N*12 = 192 scale_noise launches and no other
              kernel; the profiled round's params, batches and key through
@@ -383,6 +385,18 @@ without the host's op events, which no printed number reads):
              counters, the refusals and the ledger bit for bit, the same
              launches. The launches on the paged paths are printed as one
              JSON line.
+   sanitize — dpcheck's key-reuse sanitizer on the card: one dispatch of
+             main's configuration (DENSE_124M, 16 owners, the fused flat
+             engine, K = 4), a grouped one, a tree one (depth 2) and an
+             int8 one (4 owners each), each unsanitized and then under
+             `sanitize()` (both timed): no raise, every draw the kernels'
+             own report (by drawer: dp_round_flat, dp_round_rows,
+             tree_delta_, encode_row), nothing skipped; two seeded reuses
+             (two dp_round_flat launches on one key, a dp_round_rows
+             whose member keys repeat) must raise KeyReuseError.
+   examples — the example twins' `main` on the card: the LLM driver 50
+             steps at full width (and 4 rounds reduced with --fused), the
+             eq. (11) forecast, greedy zamba2 decode; their lines printed.
 5. timing  — each kernel (through the wrapper the main path calls), its
              plain version and the one PyTorch call computing the same
              function where there is one (torch.dot for sqnorm,
@@ -410,6 +424,11 @@ without the host's op events, which no printed number reads):
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Without CUDA, or without the
 repository beside it, it exits non-zero and prints no result.
+
+Lines marked `# dpcheck: ignore[...]` draw one key twice on purpose: a
+kernel held against its plain version on the same key, two runs held
+against each other, or phase sanitize's seeded reuse (`python -m
+repro_torch.analysis.dpcheck` scans this file).
 """
 import collections
 import json
@@ -531,8 +550,8 @@ def phase_kernels(torch, dev):
         acc = torch.randn(p, device=dev, generator=gen)
         for a, b, tag in ((tb, acc, "random"), (torch.zeros_like(tb), torch.zeros_like(tb),
                                                  "zero")):
-            out = ops.dp_round_flat(a, b, key, *scal, **ROUND)
-            plain = ref.dp_round_ref(a, b, random.bits(key, (p,)), *scal, **ROUND)
+            out = ops.dp_round_flat(a, b, key, *scal, **ROUND)  # dpcheck: ignore[DPC101]
+            plain = ref.dp_round_ref(a, b, random.bits(key, (p,)), *scal, **ROUND)  # dpcheck: ignore[DPC101]
             for o, r in zip(out, plain):
                 err["dp_round"] = max(err["dp_round"], float((o - r).abs().max()))
                 check(torch.equal(o, r), f"dp_round ({tag}, P={p}) differs from its plain "
@@ -866,8 +885,8 @@ def _check_scale_noise(torch, dev):
         torch.testing.assert_close(norm, plain_norm, rtol=1e-5, atol=0.0)
         clip = torch.clamp(torch.full_like(norm, 0.25) / torch.clamp(norm, min=1e-12), max=1.0)
         for name, outs, scale in (
-                ("fused_scale_noise_tree", ops.fused_scale_noise_tree(leaves, key, cs, ns), cs),
-                ("dp_privatize_tree", ops.dp_privatize_tree(leaves, key, 0.25, ns), clip)):
+                ("fused_scale_noise_tree", ops.fused_scale_noise_tree(leaves, key, cs, ns), cs),  # dpcheck: ignore[DPC102]
+                ("dp_privatize_tree", ops.dp_privatize_tree(leaves, key, 0.25, ns), clip)):  # dpcheck: ignore[DPC101]
             for leaf, k, out in zip(leaves, keys, outs):
                 plain = ref.scale_noise_ref(leaf, random.bits(k, leaf.shape), scale.reshape(()),
                                             ns)
@@ -924,8 +943,8 @@ def _check_block_scale_noise(torch, dev):
         for offsets, local in _two_by_two(shape):
             sl = tuple(slice(o, o + n) for o, n in zip(offsets, local))
             block = g[sl].contiguous()
-            out = ops.scale_noise(block, key, cs, ns, (shape, offsets))
-            plain = ref.scale_noise_ref(block, random.bits_block(key, shape, offsets, local),
+            out = ops.scale_noise(block, key, cs, ns, (shape, offsets))  # dpcheck: ignore[DPC101]
+            plain = ref.scale_noise_ref(block, random.bits_block(key, shape, offsets, local),  # dpcheck: ignore[DPC101]
                                         cs.reshape(()), ns)
             err = max(err, float((out - plain).abs().max()))
             check(torch.equal(out, plain), f"the block scale_noise of {shape} at {offsets} "
@@ -967,8 +986,8 @@ def _check_tree_delta(torch, dev):
             for g in (1, 0):
                 grant = torch.tensor(g, dtype=torch.int32, device=dev)
                 out, again, plain = nodes.clone(), nodes.clone(), nodes.clone()
-                delta = ops.tree_delta_(out, counts, owner, key, ns, grant)
-                delta2 = ops.tree_delta_(again, counts, owner, key, ns, grant)
+                delta = ops.tree_delta_(out, counts, owner, key, ns, grant)  # dpcheck: ignore[DPC101]
+                delta2 = ops.tree_delta_(again, counts, owner, key, ns, grant)  # dpcheck: ignore[DPC101]
                 p_delta = ref.tree_delta_inplace_ref(plain, counts, owner, bits, ns, grant)
                 err = max(err, float((delta - p_delta).abs().max()),
                           float((out - plain).abs().max()))
@@ -1074,19 +1093,19 @@ def _check_col0(torch, dev):
     full = dops.dp_round_flat(tb, acc, key, *scal, **ROUND)
     for cuts in COL0_SPLITS:
         for c0, c1 in zip(cuts[:-1], cuts[1:]):
-            part = dops.dp_round_flat(tb[c0:c1], acc[c0:c1], key, *scal, col0=c0, **ROUND)
+            part = dops.dp_round_flat(tb[c0:c1], acc[c0:c1], key, *scal, col0=c0, **ROUND)  # dpcheck: ignore[DPC101]
             check(all(torch.equal(a, b[c0:c1]) for a, b in zip(part, full)),
                   f"dp_round at col0 {c0} differs from the full launch's columns")
             del part
     del full, tb, acc
     x = torch.randn(p, device=dev, generator=gen) * 0.05
     for fmt in FMTS:
-        codes, scale, err = cops.encode_row(x, key, fmt)
+        codes, scale, err = cops.encode_row(x, key, fmt)  # dpcheck: ignore[DPC101]
         for cuts in COL0_SPLITS:
             parts = []
             for c0, c1 in zip(cuts[:-1], cuts[1:]):
                 parts.append(cops.row_absmax(x[c0:c1]))
-                pc, _, pe = cops.encode_row(x[c0:c1], key, fmt, col0=c0, scale=scale)
+                pc, _, pe = cops.encode_row(x[c0:c1], key, fmt, col0=c0, scale=scale)  # dpcheck: ignore[DPC101]
                 check(torch.equal(pc, codes[c0:c1]) and torch.equal(pe, err[c0:c1]),
                       f"encode {fmt} at col0 {c0} differs from the full launch's columns")
             check(torch.equal(cops.scale_from_absmax(torch.stack(parts), fmt), scale),
@@ -1098,11 +1117,11 @@ def _check_col0(torch, dev):
     owner = torch.tensor([1], dtype=torch.int64, device=dev)
     ns = torch.tensor([0.37], device=dev)
     whole = nodes.clone()
-    delta = nops.tree_delta_(whole, counts, owner, key, ns)
+    delta = nops.tree_delta_(whole, counts, owner, key, ns)  # dpcheck: ignore[DPC101]
     for cuts in COL0_SPLITS:
         for c0, c1 in zip(cuts[:-1], cuts[1:]):
             part = nodes[:, :, c0:c1].contiguous()
-            d = nops.tree_delta_(part, counts, owner, key, ns, col0=c0)
+            d = nops.tree_delta_(part, counts, owner, key, ns, col0=c0)  # dpcheck: ignore[DPC101]
             check(torch.equal(d, delta[c0:c1]) and torch.equal(part, whole[:, :, c0:c1]),
                   f"tree_delta at col0 {c0} differs from the full launch's columns")
             del part, d
@@ -1136,7 +1155,7 @@ def _check_bank_codec(torch, dev):
             plain = ref.row_scales_ref(x.reshape(1, -1), ref.QMAX[fmt])
             check(torch.equal(s1, plain), f"absmax {fmt}: {float(s1)} vs {float(plain)}")
             for det in (False, True):
-                codes, scales, e = ops.encode_row(x, key, fmt, deterministic=det)
+                codes, scales, e = ops.encode_row(x, key, fmt, deterministic=det)  # dpcheck: ignore[DPC101]
                 p_codes, p_scales, p_e = ref.encode_row_ref(x, key, fmt, deterministic=det)
                 check(torch.equal(scales, p_scales), f"encode {fmt} det={det}: scales differ")
                 bad = int((codes != p_codes).sum())
@@ -1929,7 +1948,7 @@ GROUPED_CAPS = ("auto", ROWS_G)  # max_group of its two settings
 
 
 def phase_grouped(torch, dev, main_prof, cfg=None, n_owners=16, records=10_000, seq=128,
-                  K=GROUPED_K, dispatches=3, caps=GROUPED_CAPS):
+                  K=GROUPED_K, dispatches=2, caps=GROUPED_CAPS):
     """Main's path (flat f32 bank, fused, batch 4 x seq 128, G = 2) under
     the owner-parallel grouped driver, run_rounds(owner_parallel=True), with
     K = 32 rounds a dispatch. The owner sequences are the uniform schedule's
@@ -2183,7 +2202,7 @@ def _trace(n_owners, K):
 
 
 def phase_faults(torch, dev, main_prof, cfg=None, n_owners=16, records=10_000, seq=128,
-                 K=FAULTS_K, dispatches=2, max_group=ROWS_G):
+                 K=FAULTS_K, dispatches=1, max_group=ROWS_G):
     """Main's path (DENSE_124M, flat f32 bank, fused, batch 4 x seq 128, G =
     2, 16 owners) with the fault layer and the runtime armed:
     FaultPlan(FAULTS_PLAN), FaultPolicy(FAULTS_POLICY),
@@ -2615,7 +2634,7 @@ def _convex_accounting(torch, dev, n_owners=5, n_per=10_000, runs=100, cap_slack
           and all(r["refused"] == 0 for r in led.values()),
           "the ledgered run's ledger differs from the bincount of its owners")
     try:
-        fed.run(key, prob)
+        fed.run(key, prob)  # dpcheck: ignore[DPC105]
         check(False, "a second ledgered run did not raise")
     except RuntimeError:
         pass
@@ -2623,7 +2642,7 @@ def _convex_accounting(torch, dev, n_owners=5, n_per=10_000, runs=100, cap_slack
     capped = Federation(owners, cfg, mechanism="per_owner_rounds", cap_slack=cap_slack,
                         device=dev)
     cap = capped.mechanism.cap
-    trace = capped.run(key, prob)
+    trace = capped.run(key, prob)  # dpcheck: ignore[DPC105]
     counts = np.bincount(trace.owners_seq.cpu().numpy(), minlength=n_owners)
     led = capped.ledger()
     check([led[i]["responses"] for i in range(n_owners)] == np.minimum(counts, cap).tolist()
@@ -2662,13 +2681,13 @@ def _convex_accounting(torch, dev, n_owners=5, n_per=10_000, runs=100, cap_slack
           f"replicas, each leaving theta_L and the bank bit-equal")
     for what, call in (
             ("run_sync under per_owner_rounds",
-             lambda: Federation(owners, cfg, mechanism="per_owner_rounds", strategy="sync",
+             lambda: Federation(owners, cfg, mechanism="per_owner_rounds", strategy="sync",  # dpcheck: ignore[DPC105]
                                 device=dev).run_sync(key, prob, lr=0.4)),
             ("run under the tree",
-             lambda: Federation(owners, cfg, mechanism="tree", tree_depth=4,
+             lambda: Federation(owners, cfg, mechanism="tree", tree_depth=4,  # dpcheck: ignore[DPC105]
                                 device=dev).run(key, prob)),
             ("run_sync under the tree",
-             lambda: Federation(owners, cfg, mechanism="tree", strategy="sync",
+             lambda: Federation(owners, cfg, mechanism="tree", strategy="sync",  # dpcheck: ignore[DPC105]
                                 device=dev).run_sync(key, prob, lr=0.4))):
         try:
             call()
@@ -2807,7 +2826,7 @@ def phase_convex(torch, dev, ns=CONVEX_NS, eps_grid=CONVEX_EPS, n_per=10_000, ru
 SYNC_LR = 0.05
 
 
-def phase_sync(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, rounds=3):
+def phase_sync(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, rounds=2):
     """The deep synchronous baseline at full width: DENSE_124M, every owner
     privatizing its batch (4 x seq, G = 2 microbatches) each round with the
     fused privatizer, through Federation(strategy="sync").make_step and
@@ -2903,8 +2922,8 @@ def phase_sync(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, round
     # so with noise they are two lawful draws; without it both compute the
     # same clipped mean, the clip norms summed in other orders
     quiet = dict.fromkeys(expected, 0)
-    fused = one_round(federation(True, noiseless=True), before_prof, batches, sub, expected)
-    unfused = one_round(federation(False, noiseless=True), before_prof, batches, sub, quiet)
+    fused = one_round(federation(True, noiseless=True), before_prof, batches, sub, expected)  # dpcheck: ignore[DPC105]
+    unfused = one_round(federation(False, noiseless=True), before_prof, batches, sub, quiet)  # dpcheck: ignore[DPC105]
     worst = 0.0
     for a, b in zip(_leaves(fused), _leaves(unfused)):
         worst = max(worst, float((a - b).abs().max()))
@@ -2913,8 +2932,8 @@ def phase_sync(torch, dev, cfg=None, n_owners=16, records=10_000, seq=128, round
     del fused
     # a horizon of one round: the second round refuses every owner
     short = federation(True, horizon=1)
-    p1 = one_round(short, params, batches, sub, expected)
-    p2 = one_round(short, p1, batches, sub, quiet)
+    p1 = one_round(short, params, batches, sub, expected)  # dpcheck: ignore[DPC105]
+    p2 = one_round(short, p1, batches, sub, quiet)  # dpcheck: ignore[DPC105]
     check(p2 is p1 and all(r["responses"] == 1 and r["refused"] == 1
                            for r in short.ledger().values()),
           "a fully refused sync round changed the params or the ledger")
@@ -3154,7 +3173,7 @@ def phase_refusal(torch, dev, bank_dtype=None, tree_depth=None, pack_params=True
     round_keys = random.split(random.split(random.PRNGKey(21, device=dev))[1], K)
     for k in range(K):
         state, _ = fed.step(state, {n: torch.from_numpy(v[k]) for n, v in data.items()},
-                            int(owners[k]), round_keys[k])
+                            int(owners[k]), round_keys[k])  # dpcheck: ignore[DPC204]
     check(_bit_equal(torch, _state_tensors(state), tensors),
           "step loop differs from run_rounds on the card")
     # on the run_rounds state, a round of an exhausted owner is refused on
@@ -3460,11 +3479,11 @@ def _paged_parity(torch, dev, lm, cfg, params, K, n_owners, G, seq):
             t1 = time.perf_counter()
             if mode == "profiled":
                 (states[i], ms), busy, _, kernels = _profiled(
-                    torch, dev, lambda: fed.run_rounds(states[i], batches, owner_seq, key=key),
+                    torch, dev, lambda: fed.run_rounds(states[i], batches, owner_seq, key=key),  # dpcheck: ignore[DPC105]
                     len(owner_seq), cpu_ops=False)
                 cost = f"{busy:.3f} ms of device time and {kernels:.1f} kernels a round"
             else:
-                states[i], ms = fed.run_rounds(states[i], batches, owner_seq, key=key, **kw)
+                states[i], ms = fed.run_rounds(states[i], batches, owner_seq, key=key, **kw)  # dpcheck: ignore[DPC105]
                 _sync(torch, dev)
                 cost = f"{(time.perf_counter() - t1) * 1e3 / len(owner_seq):.2f} ms a round"
             res.append((ms, _diff(_launches(), before), cost))
@@ -4017,8 +4036,8 @@ def _train_step_rounds(torch, dev, tag, cfg, lm, holder, n_owners, batch, seq, G
     return ms, busy, kernels, peak
 
 
-def phase_xlstm(torch, dev, cfg=None, n_owners=4, batch=4, seq=XLSTM_SEQ, G=2, rounds=3,
-                fused_seq=128, fused_dispatches=2, decode_seq=XLSTM_DECODE_SEQ,
+def phase_xlstm(torch, dev, cfg=None, n_owners=4, batch=4, seq=XLSTM_SEQ, G=2, rounds=2,
+                fused_seq=128, fused_dispatches=1, decode_seq=XLSTM_DECODE_SEQ,
                 train_steps=XLSTM_TRAIN_STEPS, ckpt_root=None):
     """xlstm-125m at full width and depth on the card (random weights from a
     seed, f32): (1) build_train_step rounds, one SSD scan forward and
@@ -4818,7 +4837,7 @@ def phase_meshtrain(torch, dev, cfg=None, n_owners=4, batch=4, seq=1024, G=2,
                 b = batches[0] if m is None else place(bundle.in_shardings[1:2], batches[0])[0]
                 (state, met), got = counted(f"{'meshed' if m else 'unmeshed'} parity",
                                             want(True, fused),
-                                            lambda: bundle.step(state, b, owner, key))
+                                            lambda: bundle.step(state, b, owner, key))  # dpcheck: ignore[DPC105]
                 if m is not None:
                     for k in total:
                         total[k] += got[k]
@@ -4970,6 +4989,194 @@ def _time_mlstm_ssd(torch, dev):
     return out
 
 
+SANITIZE_K = 4                   # rounds of each sanitized dispatch
+
+
+def phase_sanitize(torch, dev, cfg=None, n_owners=16, small_owners=4, records=10_000,
+                   seq=128, K=SANITIZE_K, p_reuse=P_RAGGED):
+    """The key-reuse sanitizer on the card: one dispatch of K rounds of
+    phase main's configuration (16 owners, the fused flat engine), then a
+    grouped dispatch, a tree dispatch (depth 2) and an int8 dispatch at
+    `small_owners`, each first unsanitized (timed), then the same owners
+    and batches under `dpcheck.sanitize()`, in turns: no raise, every draw
+    is the kernels' own (on the card the kernels hash their keys in-kernel
+    and report each launch's draw; no sampler runs for it), so `by_what`
+    names the entry points, `draws` equals their launches and `skipped`
+    is 0. Then two seeded reuses must raise KeyReuseError on the card: two
+    `dp_round_flat` launches on one key, and a `dp_round_rows` whose
+    member keys repeat. Returns {case: (ms unsanitized, ms sanitized)}, two
+    readings each, taken in turns after a warm-up dispatch."""
+    from repro_torch import random
+    from repro_torch.analysis.dpcheck import KeyReuseError, sanitize
+    from repro_torch.configs import DENSE_124M
+    from repro_torch.data import OwnerDataPipeline, synthetic_owner_shards
+    from repro_torch.federation import (DataOwner, Federation, FederationConfig,
+                                        PrivatizerConfig)
+    from repro_torch.kernels.dp_clip_noise import ops as dops
+    from repro_torch.models import LM
+    cfg = DENSE_124M if cfg is None else cfg
+    batch, G = 4, 2
+    lm = LM(cfg, remat=False)
+
+    def loss_fn(p, b):
+        return lm.loss(p, b)[0]
+
+    t0 = time.perf_counter()
+    params = lm.init(seed=0, device=dev, generator_device=dev if dev.type == "cuda" else None)
+    cuda = dev.type == "cuda"
+    # case: (owners, Federation kwargs, make_step kwargs, run_rounds kwargs,
+    # the expected draws by drawer on the card, the kernel launches)
+    cases = (
+        ("main", n_owners, {}, {}, {}, {"dp_round_flat": K}, {"dp_round": K}),
+        ("grouped", small_owners, {}, {}, dict(owner_parallel=True, max_group=small_owners),
+         {"dp_round_rows": K}, {}),
+        ("tree", small_owners, dict(mechanism="tree", tree_depth=2), {}, {},
+         {"tree_delta_": K}, {"tree_delta": K, "dp_round": 0}),
+        ("int8", small_owners, {}, dict(bank_dtype="int8"), {},
+         {"dp_round_flat": K, "encode_row": K}, {"dp_round": K, "encode": K}),
+    )
+    key = random.PRNGKey(31, device=dev)
+    out = {}
+    for name, n, fed_kw, step_kw, run_kw, want, want_launches in cases:
+        shards = synthetic_owner_shards(n, records, seq, cfg.vocab, seed=0)
+        pipe = OwnerDataPipeline(shards, batch, seed=0)
+        owners = [DataOwner(n=sz, epsilon=1.0, xi=1.0) for sz in pipe.owner_sizes]
+        fed = Federation(owners, FederationConfig.from_target_lr(
+            0.05, n_owners=n, horizon=1000, sigma=1e-2, theta_max=100.0), device=dev,
+            **fed_kw)
+        fed.make_step(loss_fn, pack_params=True, privatizer=PrivatizerConfig(
+            xi=1.0, granularity="microbatch", n_microbatches=G, fused_kernel=True), **step_kw)
+        # distinct owners in turn: the grouped dispatch packs them into groups
+        owner_seq = np.arange(K, dtype=np.int32) % n
+        batches = _torch_batches(torch, pipe.batches_for(owner_seq))
+        times = {False: [], True: []}
+        # a warm-up dispatch, then unsanitized and sanitized in turns, each
+        # from a fresh state (the tree's capacity of 3 leaves an owner)
+        state = None
+        for sanitized in (None, False, True, False, True):
+            state = None
+            state = fed.init_state(params)
+            key, sub = random.split(key)
+            _sync(torch, dev)
+            before = _launches()
+            t1 = time.perf_counter()
+            if sanitized:
+                with sanitize() as rec:
+                    state, ms = fed.run_rounds(state, batches, owner_seq, key=sub, **run_kw)
+            else:
+                state, ms = fed.run_rounds(state, batches, owner_seq, key=sub, **run_kw)
+            _sync(torch, dev)
+            if sanitized is not None:
+                times[sanitized].append((time.perf_counter() - t1) * 1e3)
+            got = _diff(_launches(), before)
+            check(not bool(ms["refused"].any()), f"sanitize {name}: a round was refused")
+        by_what = dict(rec.by_what)
+        expect = (want if cuda else {"random.bits_range": sum(
+            v for k, v in want.items() if k != "encode_row"),
+            **({"random.bits": want["encode_row"]} if "encode_row" in want else {})})
+        check(rec.draws > 0 and rec.skipped == 0 and rec.splits == 1 and by_what == expect,
+              f"sanitize {name}: draws {rec.draws}, splits {rec.splits}, skipped "
+              f"{rec.skipped}, by drawer {by_what}; expected {expect}")
+        if cuda:
+            check(all(got[k] == v for k, v in want_launches.items()) and got["sqnorm"] > 0,
+                  f"sanitize {name}: launches {got}, expected {want_launches}")
+        plain, san = times[False], times[True]
+        out[name] = (plain, san)
+        print(f"[sanitize] {name}: {n} owners, K={K}: {rec.draws} draws ({by_what}), "
+              f"{rec.splits} split, {rec.skipped} skipped, no reuse; launches {got}; "
+              f"in turns, ms a dispatch unsanitized {plain[0]:.1f}, {plain[1]:.1f}, "
+              f"sanitized {san[0]:.1f}, {san[1]:.1f} ({sum(san) / sum(plain):.2f}x)")
+        del fed, state, batches, ms
+        if cuda:
+            torch.cuda.empty_cache()
+    # seeded reuse on the card: both must raise
+    one = torch.ones((), device=dev)
+    tb = torch.zeros(p_reuse, device=dev)
+    k = random.PRNGKey(37, device=dev)
+    kk = random.split(random.fold_in(k, 1), 2)
+    kw = dict(sigma=1e-2, lr_own=0.3, lr_l=0.2, n_owners=16, theta_max=2.0)
+    raised = []
+    for what, call in (
+            ("two dp_round_flat launches on one key",
+             lambda: [dops.dp_round_flat(tb, tb, k, one, one, one, **kw) for _ in range(2)]),
+            ("a dp_round_rows whose member keys repeat",
+             lambda: dops.dp_round_rows(  # dpcheck: ignore[DPC104]
+                 torch.zeros((3, p_reuse), device=dev), torch.zeros((3, p_reuse), device=dev),
+                 torch.stack([kk[0], kk[1], kk[0]]),
+                 torch.ones(3, device=dev), torch.ones(3, device=dev), torch.ones(3, device=dev),
+                 **kw))):
+        try:
+            with sanitize():
+                call()
+                _sync(torch, dev)
+        except KeyReuseError as e:
+            raised.append(what)
+            print(f"[sanitize] seeded reuse caught on {dev.type}: {what}: {e}")
+        check(what in raised, f"sanitize: {what} did not raise KeyReuseError")
+    print(f"[sanitize] the phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _example_module(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(torch, dev, llm_argv=("--steps", "50")):
+    """Each example twin's `main` on `dev`: the LLM twin with `llm_argv`
+    (50 steps at full width: DENSE_124M, 4 owners, the reference's pytree
+    state) and for 4 rounds of the reduced model on the fused flat engine
+    (--fused: sqnorm and dp_round launched), the forecast twin (pilot,
+    fitted constants, isolated baseline, eq. (11)'s forecast and its
+    check) and the serving twin (greedy decode from the reduced zamba2).
+    Each one's printed lines are kept and shown, its seconds printed."""
+    import contextlib
+    import io
+    dev_arg = [] if dev.type == "cuda" else ["--device", dev.type]
+    runs = (
+        ("async_dp_llm_torch", lambda m: m.main(list(llm_argv) + dev_arg)),
+        ("async_dp_llm_torch --fused",
+         lambda m: m.main(["--tiny", "--fused", "--steps", "4", "--rounds-per-dispatch", "2"]
+                          + dev_arg)),
+        ("collaboration_forecast_torch", lambda m: m.main(None if dev.type == "cuda"
+                                                          else dev.type)),
+        ("serve_hybrid_torch", lambda m: m.main(None if dev.type == "cuda" else dev.type)),
+    )
+    for name, run in runs:
+        mod = _example_module(name.split()[0])
+        buf = io.StringIO()
+        before = _launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = run(mod)
+        _sync(torch, dev)
+        dt = time.perf_counter() - t0
+        got = {k: v for k, v in _diff(_launches(), before).items() if v}
+        lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+        for ln in lines:
+            print(f"[examples] {name}: {ln}")
+        print(f"[examples] {name} took {dt:.1f} s; kernel launches {got}")
+        if name.startswith("async_dp_llm_torch"):
+            check(len(result) >= 2 and all(math.isfinite(x) for x in result)
+                  and lines[-1].startswith("loss "), f"{name}: losses {result}")
+            if "--fused" in name and dev.type == "cuda":
+                check(got.get("dp_round", 0) == 4 and got.get("sqnorm", 0) == 8,
+                      f"{name}: launches {got}")
+        elif name == "collaboration_forecast_torch":
+            pilot, consts, psi_iso = result
+            check(all(math.isfinite(v) for v in list(pilot.values()) + list(consts) + [psi_iso])
+                  and any(ln.startswith("  eps=") for ln in lines),
+                  f"{name}: pilot {pilot}, constants {consts}, psi {psi_iso}")
+        else:
+            check(result.shape == (4, 56) and (result >= 0).all()
+                  and any(ln.startswith("sample:") for ln in lines),
+                  f"{name}: tokens {result.shape}")
+
+
 def phase_timing(torch, dev, launches, errs):
     from repro_torch import random
     from repro_torch.kernels.dp_clip_noise import ops, ref
@@ -4982,7 +5189,7 @@ def phase_timing(torch, dev, launches, errs):
     rows = []
     dp_ms = cuda_ms(torch, lambda: ops.dp_round_flat(tb, acc, key, *scal, **ROUND), 20)
     dp_plain = cuda_ms(torch, lambda: ref.dp_round_ref(
-        tb, acc, random.bits(key, (P,)), *scal, **ROUND), 3)
+        tb, acc, random.bits(key, (P,)), *scal, **ROUND), 3)  # dpcheck: ignore[DPC101]
     rows.append(dict(
         name="dp_round", route="cuda",
         source="src/repro_torch/kernels/dp_clip_noise/csrc/dp_clip_noise.cu",
@@ -5105,7 +5312,7 @@ def _time_bank_codec(torch, dev, launches, errs):
     rows = []
     for fmt in FMTS:
         scale = ops.row_scale(x, fmt)
-        codes, _ = kernel.encode_cuda(x, scale, key, fmt)
+        codes, _ = kernel.encode_cuda(x, scale, key, fmt)  # dpcheck: ignore[DPC105]
         if fmt == "int8":
             # codes * scale casts int8 -> f32 (exact) inside one multiply:
             # the library call for the int8 decode, held to the kernel
@@ -5115,7 +5322,7 @@ def _time_bank_codec(torch, dev, launches, errs):
             "absmax": (lambda: ops.row_scale(x, fmt),
                        lambda: ref.row_scales_ref(x.reshape(1, -1), ref.QMAX[fmt]),
                        lambda: torch.linalg.vector_norm(x, float("inf")), 4, "65"),
-            "encode": (lambda: kernel.encode_cuda(x, scale, key, fmt),
+            "encode": (lambda: kernel.encode_cuda(x, scale, key, fmt),  # dpcheck: ignore[DPC105]
                        lambda: ref.ENCODERS[fmt](x, ref.counter_bits(seed, P_FULL), scale),
                        None, 9, "97"),
             "decode": (lambda: ops.decode_row(codes, scale, fmt),
@@ -5171,7 +5378,7 @@ def _time_tree_delta(torch, dev, launches, errs):
             ms=(_steady_ms(torch, "tree_delta (r = 0)", launch, 20) if r == 0
                 else cuda_ms(torch, launch, 20)),
             plain_ms=cuda_ms(torch, lambda: ref.tree_delta_inplace_ref(
-                nodes, counts, owner, random.bits(key, (P_FULL,)), ns, grant), 3),
+                nodes, counts, owner, random.bits(key, (P_FULL,)), ns, grant), 3),  # dpcheck: ignore[DPC101]
             bound_ms=(8 * r + 8) * P_FULL / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
             library_ms=None)
         if r == 0:
@@ -5522,6 +5729,12 @@ def main():
         paged_launches[f"fault refusal {bank_dtype or 'f32'}"] = phase_paged_refusal(
             torch, dev, bank_dtype=bank_dtype, faults=True)
     lap("fault refusal")
+    phase_sanitize(torch, dev)
+    torch.cuda.empty_cache()
+    lap("sanitize")
+    phase_examples(torch, dev)
+    torch.cuda.empty_cache()
+    lap("examples")
     # the kernels' launches on the paged paths (PERF.md section 6's rows)
     print("[paged] launches on the paged paths: " + json.dumps(paged_launches))
     print("[xlstm] launches a build_train_step round: " + json.dumps(xlstm_round)

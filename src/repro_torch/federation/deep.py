@@ -605,7 +605,8 @@ def _tree_delta_at(tree: TreeNoise, owners: torch.Tensor, keys: torch.Tensor,
         return op(work, tree.counts, owners, keys, ns, g, at, col0=lay.c0)
 
     def land(g):
-        launch(g)
+        with random.replay():                   # the first launch's draw again
+            launch(g)
         _write_rows_(tree.nodes, ridx, work, lay, g != 0)
 
     if grant is _DEFER:
@@ -1032,7 +1033,9 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts, tree_inn
                                     consts.no_grant(1) if grant is _DEFER else grant, row_idx)
                 if grant is _DEFER:
                     def commit(g):
-                        tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns1, g, row_idx)
+                        with random.replay():       # the first launch's draw again
+                            tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns1, g,
+                                        row_idx)
             new_L, new_i = _tree_epilogue(cfg, consts, tb, acc, gain, delta, w_i)
         else:
             new_L, new_i = dp_round_flat(                       # (4)+(5)+(7)+Pi
@@ -1090,8 +1093,9 @@ def _round_math_flat_rows(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
                                          else grant, row_idx)
                 if grant is _DEFER:
                     def commit(g):
-                        tree_delta_rows_(tree.nodes, tree.counts, owners, keys_g, ns, g,
-                                         row_idx)
+                        with random.replay():       # the first launch's draws again
+                            tree_delta_rows_(tree.nodes, tree.counts, owners, keys_g, ns, g,
+                                             row_idx)
             new_L, new_i = _tree_epilogue(cfg, consts, tb, acc, gain[:, None], delta,
                                           w[:, None])
         else:
@@ -1249,7 +1253,7 @@ def _masked_write(state: AsyncDPState, owner_idx: torch.Tensor, key: torch.Tenso
         hot = _hot(state.bank)
         if isinstance(hot, QuantBank):
             # same key as compute() by contract (see make_train_step)
-            _quant_write(hot, new_i, widx, key, ok=ok, lay=lay)  # dpcheck: ignore[DPC105]
+            _quant_write(hot, new_i, widx, key, ok=ok, lay=lay)
         elif lay is not None:
             _write_rows_(hot, widx, new_i.unsqueeze(0), lay, ok.reshape(1))
         else:
@@ -1674,7 +1678,7 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
             # the error-feedback chain in round order; same key as the
             # round's by contract (the codec folds in its CODEC_SALT)
             for m in range(owners.numel()):
-                _quant_write(hot, new_i[m], widx[m:m + 1], keys_g[m],  # dpcheck: ignore[DPC105]
+                _quant_write(hot, new_i[m], widx[m:m + 1], keys_g[m],
                              ok=ok[m], lay=lay)
         elif lay is not None or slots is not None:
             # one member at a time (a missed owner's clamped slot, or a row

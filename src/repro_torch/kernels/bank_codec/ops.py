@@ -16,10 +16,11 @@ engine folds the same salt into the round key before its codec draws
 bits(key, ()), so ``encode_row(x, key)`` here equals the reference's
 ``encode_row(x, fold_in(key, 0x5142))``. The kernel derives the seed
 in-kernel from the round key, so the engine never runs the threefry hash
-as tensor ops on the card. The counter is the element index, which is
-also the flat index of the reference's padded (R, 1024) kernel draw, so
-the kernel, the plain version and both reference backends round with the
-same bits.
+as tensor ops on the card; a stochastic encode reports that draw to an
+active key-reuse sanitizer (``random.report_draw``). The counter is the
+element index, which is also the flat index of the reference's padded
+(R, 1024) kernel draw, so the kernel, the plain version and both
+reference backends round with the same bits.
 
 ``block_elems`` switches to per-block f32 scales (the row cut into
 ceil(P / block_elems) segments). As in the reference, only the plain
@@ -32,8 +33,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import random
 from repro_torch.kernels.bank_codec import kernel
-from repro_torch.kernels.bank_codec.ref import (CODE_DTYPES, QMAX, block_absmax_ref,
+from repro_torch.kernels.bank_codec.ref import (CODE_DTYPES, CODEC_SALT, QMAX, block_absmax_ref,
                                                 decode_row_ref, encode_row_ref, row_scales_ref)
 
 FORMATS = tuple(CODE_DTYPES)
@@ -127,6 +129,8 @@ def encode_row(x: torch.Tensor, key: Optional[torch.Tensor], fmt: str, *,
             raise _per_block_on_cuda("encode_row")
         if scale is None:
             scale = kernel.row_scale_cuda(x, QMAX[fmt])
+        if not deterministic:
+            random.report_draw("encode_row", key, 0, 1, fold=CODEC_SALT)
         codes, err = kernel.encode_cuda(x, scale, key, fmt, deterministic=deterministic,
                                         col0=col0)
         return codes, scale, err

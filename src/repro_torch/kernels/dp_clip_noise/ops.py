@@ -17,11 +17,13 @@ launch raises. There is no fallback from one to the other.
 
 The Laplace bits are the key's ``random.bits(key, shape)`` stream on both
 backends: the plain version draws them, the kernel hashes each element's
-index in-kernel. Both therefore see the noise the reference's off-TPU path
-draws (``interpret="oracle"``). A tree's leaves take the rows of one
-``split(key, n_leaves)``, in jax's leaf order. The reference's Pallas
-layout knobs (``block_rows``, ``interpret``) have no counterpart here: the
-kernels mask their tails instead of padding to (rows, 1024) blocks.
+index in-kernel (and its launch reports the draw to an active key-reuse
+sanitizer through ``random.report_draw``). Both therefore see the noise
+the reference's off-TPU path draws (``interpret="oracle"``). A tree's
+leaves take the rows of one ``split(key, n_leaves)``, in jax's leaf order.
+The reference's Pallas layout knobs (``block_rows``, ``interpret``) have
+no counterpart here: the kernels mask their tails instead of padding to
+(rows, 1024) blocks.
 """
 from __future__ import annotations
 
@@ -60,6 +62,7 @@ def dp_round_flat(tb: torch.Tensor, acc: torch.Tensor, key: torch.Tensor,
                             noise_scale, w, sigma=sigma, lr_own=lr_own, lr_l=lr_l,
                             n_owners=n_owners, theta_max=theta_max)
     if tb.device.type == "cuda":
+        random.report_draw("dp_round_flat", key, col0, col0 + tb.shape[0])
         return dp_round_cuda(tb, acc, key, gain, noise_scale, w, sigma=sigma,
                              lr_own=lr_own, lr_l=lr_l, inv_2n=1.0 / (2 * n_owners),
                              theta_max=theta_max, col0=col0)
@@ -89,6 +92,7 @@ def dp_round_rows(tb: torch.Tensor, acc: torch.Tensor, keys: torch.Tensor,
         return dp_round_rows_ref(tb, acc, random.bits_range(keys, col0, col0 + tb.shape[-1]),
                                  gain, noise_scale, w, n_owners=n_owners, **kw)
     if tb.device.type == "cuda":
+        random.report_draw("dp_round_rows", keys, col0, col0 + tb.shape[-1])
         return dp_round_rows_cuda(tb, acc, keys, gain, noise_scale, w,
                                   inv_2n=1.0 / (2 * n_owners), col0=col0, **kw)
     raise _unsupported(tb, "dp_round_rows")
@@ -168,6 +172,8 @@ def scale_noise(g: torch.Tensor, key: torch.Tensor, clip_scale, noise_scale,
         return scale_noise_ref(g, bits, _scalar(clip_scale, g).reshape(()),
                                _scalar(noise_scale, g).reshape(()))
     if g.device.type == "cuda":
+        random.report_draw("scale_noise", key, 0, g.numel(),
+                           block=None if block is None else (block[0], block[1], g.shape))
         layout = None if block is None else _block_layout(block[0], block[1], g.shape)
         return scale_noise_cuda(g, key, _scalar(clip_scale, g), _scalar(noise_scale, g),
                                 layout)

@@ -13,7 +13,9 @@ launch raises. There is no fallback from one to the other.
 The Laplace bits are the round key's ``random.bits(key, (P,))`` stream on
 both backends, the draw of the reference's off-TPU path
 (``tree_delta_row(..., interpret="oracle")``): the plain version draws
-them, the kernel hashes each element's index in-kernel.
+them, the kernel hashes each element's index in-kernel (and its launch
+reports the draw to an active key-reuse sanitizer through
+``random.report_draw``).
 
 `tree_delta_` updates the owner's row of the (N, depth, P) node tensor IN
 PLACE (masked by the grant) and leaves the leaf counter to the caller: the
@@ -54,6 +56,7 @@ def tree_delta_(nodes: torch.Tensor, counts: torch.Tensor, owner_idx: torch.Tens
                                       random.bits_range(key, col0, col0 + p), noise_scale,
                                       grant, row_idx)
     if nodes.device.type == "cuda":
+        random.report_draw("tree_delta_", key, col0, col0 + nodes.shape[-1])
         return tree_delta_cuda(nodes, counts, owner_idx, key, noise_scale, grant, row_idx,
                                col0)
     raise ValueError(f"tree_delta_: tensors on {nodes.device} are not supported "
@@ -82,6 +85,7 @@ def tree_delta_rows_(nodes: torch.Tensor, counts: torch.Tensor, owner_idx: torch
                                            random.bits_range(keys, col0, col0 + p),
                                            noise_scale, grant, row_idx)
     if nodes.device.type == "cuda":
+        random.report_draw("tree_delta_rows_", keys, col0, col0 + nodes.shape[-1])
         return tree_delta_rows_cuda(nodes, counts, owner_idx, keys, noise_scale, grant,
                                     row_idx, col0)
     raise ValueError(f"tree_delta_rows_: tensors on {nodes.device} are not supported "

@@ -39,6 +39,7 @@ overflows.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence, Tuple, Union
 
@@ -48,6 +49,10 @@ import torch
 from repro_torch.device import resolve_device
 
 _MASK = 0xFFFFFFFF
+# the active key-reuse sanitizer's hook (`analysis.dpcheck.sanitize`), None
+# when none is active, and the depth of `replay()` blocks
+_draw_hook = None
+_replaying = 0
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
@@ -110,6 +115,36 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     k0, k1 = _words(key)
     d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
     return _as_key(*threefry2x32(k0, k1, torch.zeros_like(d), d))
+
+
+def report_draw(what: str, key: torch.Tensor, start: int = 0, stop: Optional[int] = None,
+                *, block=None, fold: Optional[int] = None) -> None:
+    """Tell an active key-reuse sanitizer that a kernel entry point's CUDA
+    launch draws from `key` in-kernel: counters [start, stop) of each (2,)
+    row of `key`, or with `block` = (shape, offsets, local_shape) the
+    global flat indices of that block of a leaf (as `bits_block`), from
+    fold_in(key, fold) when `fold` is set. The kernel hashes the key
+    itself, so no sampler of this module sees the draw. With no sanitizer
+    active this is one Python call and touches nothing on the device."""
+    hook = _draw_hook
+    if hook is not None:
+        hook(what, key, start, stop, block, fold)
+
+
+@contextlib.contextmanager
+def replay():
+    """Declare the draws inside the block replays: each redraws counters
+    an earlier draw of the same key took, to recompute the same noise (the
+    tree's deferred commit launches `tree_delta_` again to write the node
+    row it did not write the first time). An active key-reuse sanitizer
+    checks that the counters were drawn before and records nothing more;
+    counters no earlier draw took are recorded as a draw."""
+    global _replaying
+    _replaying += 1
+    try:
+        yield
+    finally:
+        _replaying -= 1
 
 
 def _block_counters(shape: Tuple[int, ...], offsets: Sequence[int],

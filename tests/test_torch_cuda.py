@@ -1637,3 +1637,44 @@ def test_the_counter_sees_the_flash_launch():
     assert counter.summary()["flops"] == 4 * B * H * hd * S * (S + 1) // 2
     torch.testing.assert_close(out, fref.flash_attention_ref(q, k, v, causal=True),
                                rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_each_entry_point_records_one_draw_per_key_on_the_card():
+    """Under dpcheck.sanitize() each kernel entry point's launch reports its
+    in-kernel draw (no sampler runs for it on the card): one draw per key
+    row, nothing skipped, named by the entry point; a second launch on the
+    same key raises KeyReuseError."""
+    from repro_torch.analysis.dpcheck import KeyReuseError, sanitize
+    dev = _device()
+    p, g = 4099, 3
+    key = trandom.PRNGKey(11, device=dev)
+    keys = trandom.split(trandom.fold_in(key, 1), g)
+    z = torch.zeros(p, device=dev)
+    one = torch.ones((), device=dev)
+    nodes = torch.zeros((4, 2, p), device=dev)
+    counts = torch.zeros(4, dtype=torch.int32, device=dev)
+    owner = torch.zeros(1, dtype=torch.int64, device=dev)
+    gs = torch.ones(g, device=dev)
+    calls = [
+        ("dp_round_flat", lambda: tops.dp_round_flat(z, z, key, one, one, one, **ROUND), 1),
+        ("dp_round_rows", lambda: tops.dp_round_rows(
+            torch.zeros((g, p), device=dev), torch.zeros((g, p), device=dev), keys, gs, gs,
+            gs, **ROUND), g),
+        ("scale_noise", lambda: tops.scale_noise(z, key, 1.0, 0.5), 1),
+        ("scale_noise", lambda: tops.scale_noise(
+            torch.zeros((2, 3), device=dev), key, 1.0, 0.5, ((4, 6), (2, 3))), 1),
+        ("tree_delta_", lambda: nops.tree_delta_(nodes, counts, owner, key, one.reshape(1)), 1),
+        ("tree_delta_rows_", lambda: nops.tree_delta_rows_(
+            nodes, counts, torch.arange(g, device=dev), keys, gs), g),
+        ("encode_row", lambda: bops.encode_row(z + 0.3, key, "int8"), 1),
+    ]
+    for name, call, rows in calls:
+        with sanitize() as rec:
+            call()
+        assert (rec.draws, rec.skipped, dict(rec.by_what)) == (rows, 0, {name: rows}), name
+        with pytest.raises(KeyReuseError, match="already consumed"):
+            with sanitize():
+                call()
+                call()
+
