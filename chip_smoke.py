@@ -314,6 +314,22 @@ without the host's op events, which no printed number reads):
              way: the prefill meshed against unmeshed bit for bit with 9
              flash and 54 ssd_chunk_scan launches, and 8 decode steps. The
              process group is destroyed at the end.
+   meshfed — every driver on a pytree state on that mesh (after
+             meshtrain): DENSE_124M at full width and depth, batch 4 x
+             128, G = 2, remat off, `deep.init_state(..., mesh=, specs=)`
+             against unmeshed twins from the same params, batches, owners,
+             keys and fault codes: (a) the fused privatizer on 16 owners,
+             one make_fused_rounds and one make_group_rounds dispatch of K
+             = 4 bit for bit (G x 12 sqnorm and 12 scale_noise a round),
+             then twin and meshed dispatches timed in turns and one meshed
+             dispatch profiled; (b) the tree at depth 2 (random.laplace, 4
+             owners, 4.89 GB of nodes a state) bit for bit, no kernel; (c)
+             faults + staleness (fused, 4 owners, 8 rounds whose codes hold
+             every code), both drivers bit for bit, the counters equal to
+             the host replay, the checksums to bank_checksums; (d) example
+             granularity (fused, 4 owners, 2 rounds) within rtol 1e-4 plus
+             1e-5 of each array's largest magnitude, the integer state
+             exact. The process group is destroyed at the end.
    convex  — the paper's Section 5 at its own size through Federation.run:
              lending and health, p = 10, 10,000 records per owner, T =
              1000, rho 1, sigma 2e-5, reg 1e-5, theta_max 2; for N in (2,
@@ -4940,6 +4956,327 @@ def phase_meshtrain(torch, dev, cfg=None, n_owners=4, batch=4, seq=1024, G=2,
     return total
 
 
+# phase meshfed: DENSE_124M at full width and depth on the 1x1 mesh, as
+# phases main and pytree run it: 16 owners for the fused privatizer's
+# dispatches, 4 for the tree, the fault-armed and the per-example ones
+MESHFED_K = 4                    # rounds a dispatch (the fault-armed ones: 2 x)
+# timed dispatches of each of twin and meshed, in turns (twin first); one
+# keeps the phase near its 60 s (68.4 s with two on a slow host)
+MESHFED_TIMED = 1
+
+
+def _meshfed_tensors(state, metrics):
+    """{name: tensor} of every tensor of a pytree state (a DTensor as this
+    rank's block) and of its metrics."""
+    from repro_torch.sharding import spmd
+
+    def loc(t):
+        return t.to_local() if spmd.is_dtensor(t) else t
+    out = {f"theta{i}": loc(x) for i, x in enumerate(_leaves(state.theta_L))}
+    out.update({f"bank{i}": loc(x) for i, x in enumerate(_leaves(state.bank))})
+    out["step"] = state.step
+    out.update({f"ledger.{c}": getattr(state.ledger, c) for c in FAULT_COLUMNS + ("cap",)})
+    if state.tree is not None:
+        out.update({f"nodes{i}": loc(x) for i, x in enumerate(_leaves(state.tree.nodes))})
+        out["counts"] = state.tree.counts
+    for part in ("faults", "stale"):
+        sub = getattr(state, part)
+        if sub is not None:
+            out.update({f"{part}.{k}": v for k, v in sub._asdict().items()})
+    out.update({f"metric.{k}": loc(v) for k, v in metrics.items()})
+    return out
+
+
+def _same_bits(torch, a, b):
+    """a and b hold the same bits (NaN payloads included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def _example_close(torch, a, b):
+    """PR 25's bound for per-example clipping: the floats within rtol 1e-4
+    plus 1e-5 of the array's largest magnitude, the rest exact."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return bool(torch.equal(a, b))
+    if a.numel() == 0:
+        return True
+    big = float(b.abs().max())
+    return bool(((a - b).abs() <= 1e-4 * b.abs() + 1e-5 * big).all())
+
+
+def phase_meshfed(torch, dev, cfg=None, n_owners=16, small_owners=4, batch=4, seq=128, G=2,
+                  K=MESHFED_K, timed=MESHFED_TIMED):
+    """Every driver on a pytree state on the 1x1 mesh of a world of one
+    (NCCL on the card, gloo on the CPU): DENSE_124M at full width and depth
+    (P = 152,783,616 f32, 12 leaves), main's batch 4 x 128 in G = 2
+    pre-grouped microbatches, remat off, the state built by
+    `deep.init_state(..., mesh=, specs=)` (theta_L, the bank and the nodes
+    DTensors; each rank holds (N, *block) of the bank and (N, d, *block)
+    of the nodes) against its unmeshed twin from the same params, batches,
+    owners, keys and fault codes:
+
+      (a) the fused privatizer, `n_owners` owners (a 9.78 GB bank at 16):
+          one make_fused_rounds and one make_group_rounds dispatch of K
+          rounds, each bit for bit against its twin (theta_L, every bank
+          leaf, step, the ledger, the metrics), with G x 12 sqnorm and 12
+          scale_noise launches a round; then `timed` dispatches of each
+          timed in turns (twin, meshed, then meshed, twin: wall ms a round)
+          and one meshed dispatch profiled (device ms, idle share, peak
+          memory);
+      (b) the tree at depth 2 with the reference's random.laplace
+          privatizer, `small_owners` owners (nodes 4 x 2 x P x 4 B = 4.89 GB
+          a state), one fused-driver dispatch: bit for bit (the nodes and
+          counts too), no kernel launched;
+      (c) FaultPolicy(FAULTS_POLICY) + StalenessPolicy(FAULTS_RUNTIME)
+          with the fused privatizer, `small_owners` owners, 2K rounds whose
+          fault codes hold every code: the sequential and the grouped
+          driver each bit for bit against its twin (the fault and runtime
+          columns too), the ledger's fault columns and the counters equal
+          to the host replay (`_Replay`), the stored checksums equal to
+          `bank_checksums` of the meshed bank;
+      (d) example granularity with the fused privatizer, `small_owners`
+          owners, K / 2 rounds of the sequential driver: the meshed
+          per-example gradients are batch-of-one backward passes (vmap
+          does not pass through DTensors), held to PR 25's bound (rtol
+          1e-4 plus 1e-5 of each array's largest magnitude; the integer
+          state and clip_frac exact), 12 scale_noise launches a round.
+
+    Returns the launches of the meshed dispatches alone (each counted from
+    0 before it; the twins' launches are checked but not added). The twin
+    and the meshed dispatch of a parity pair each re-derive their round
+    keys from one seed on purpose, so the same key material is drawn twice;
+    dpcheck's DPC1xx rules do not follow a key re-derived from a seed, so
+    this reuse is declared here rather than marked. `cfg` overrides the config (a CPU rehearsal passes a
+    reduced one; launches are then not checked)."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch import random
+    from repro_torch.configs.base import DENSE_124M
+    from repro_torch.federation import faults as F
+    from repro_torch.federation import schedules
+    from repro_torch.federation.deep import (init_state, make_fused_rounds,
+                                             make_group_rounds)
+    from repro_torch.federation.staleness import StalenessPolicy
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import default_async_cfg
+    from repro_torch.models import LM
+    from repro_torch.sharding import rules, spmd
+    cfg = DENSE_124M if cfg is None else cfg
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(device_type=dev.type)
+    total = dict.fromkeys(FED_KERNELS + MODEL_KERNELS, 0)
+    try:
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        lm = LM(cfg, remat=False)
+        # drawn on the card (the twin and the meshed state share them)
+        params = lm.init(seed=0, device=dev, generator_device=dev if on_card else None)
+        n_leaves = len(_leaves(params))
+        P = sum(x.numel() for x in _leaves(params))
+        specs = rules.param_specs(params, cfg, mesh)
+
+        def loss_fn(p, b):
+            return lm.loss(p, b)[0]
+
+        def acfg(n, fused, example=False, **kw):
+            a = default_async_cfg(n_owners=n, n_microbatches=G)
+            priv = dataclasses.replace(a.privatizer, fused_kernel=fused)
+            if example:
+                priv = dataclasses.replace(priv, granularity="example", pre_grouped=False)
+            return dataclasses.replace(a, privatizer=priv, **kw)
+
+        def fresh(a, meshed):
+            return init_state(params, a, device=dev, mesh=mesh if meshed else None,
+                              specs=specs if meshed else None)
+
+        def batches_of(k, seed, example=False):
+            rng = np.random.default_rng(seed)
+            shape = (k, batch, seq) if example else (k, G, batch // G, seq)
+            toks = rng.integers(0, cfg.vocab, shape, dtype=np.int32)
+            return {"tokens": torch.from_numpy(toks).to(dev),
+                    "labels": torch.from_numpy(np.roll(toks, -1, axis=-1)).to(dev)}
+
+        def dispatch(driver, a, state, b, owners, seed, codes=None):
+            """One dispatch under the round keys split from PRNGKey(seed):
+            the twin and the meshed state each derive the same keys."""
+            run = (make_fused_rounds if driver == "fused" else make_group_rounds)(
+                loss_fn, a, device=dev)
+            args = (state, b, owners, random.split(random.PRNGKey(seed, device=dev),
+                                                   owners.numel()))
+            if driver == "group":
+                args += schedules.pack_groups(schedules.partition_conflict_free(
+                    owners.cpu().numpy()))
+            return run(*args, fault_codes=codes)
+
+        def counted(tag, per, run, tally=True):
+            """run(), its launches checked against `per`; added to the
+            phase's total only where `tally` (a meshed dispatch)."""
+            before = _launches()
+            out = run()
+            _sync(torch, dev)
+            got = _diff(_launches(), before)
+            check(got == per or not on_card, f"meshfed: {tag} launched {got}, expected {per}")
+            for name in total:
+                total[name] += got[name] if tally else 0
+            return out
+
+        def want(k, fused, example=False):
+            per = dict.fromkeys(total, 0)
+            if fused:
+                per["sqnorm"] = 0 if example else k * G * n_leaves
+                per["scale_noise"] = k * n_leaves
+            return per
+
+        def parity(tag, a, driver, b, owners, seed, codes=None, close=None):
+            """The twin's dispatch, then the meshed one, from the same seed;
+            their tensors compared (bit for bit, or by `close`). Returns the
+            meshed (state, metrics) and the twin's."""
+            twin = dispatch(driver, a, fresh(a, False), b, owners, seed, codes)
+            _sync(torch, dev)
+            meshed = counted(f"the meshed {tag}", want(len(owners), a.privatizer.fused_kernel,
+                                                       a.privatizer.granularity == "example"),
+                             lambda: dispatch(driver, a, fresh(a, True), b, owners, seed,
+                                              codes))
+            got, ref = _meshfed_tensors(*meshed), _meshfed_tensors(*twin)
+            same = close or (lambda x, y: _same_bits(torch, x, y))
+            bad = sorted(k for k in ref if k not in got or not same(got[k], ref[k]))
+            check(not bad and sorted(got) == sorted(ref),
+                  f"meshfed: {tag} differs from its unmeshed twin in {bad[:8]}")
+            shapes = [tuple(x.to_local().shape) for x in _leaves(meshed[0].bank)]
+            check(shapes == [(a.n_owners,) + tuple(x.to_local().shape)
+                             for x in _leaves(meshed[0].theta_L)],
+                  "meshfed: a rank's bank piece is not (N, *block)")
+            return meshed, twin
+
+        print(f"[meshfed] {cfg.name} ({P:,} f32 parameters, {n_leaves} leaves) on the mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}; batch {batch} x S {seq}, "
+              f"G = {G}; drawn in {time.perf_counter() - t0:.1f} s")
+        key = random.PRNGKey(21, device=dev)
+
+        # (a) the fused privatizer, both K-round drivers, then timing
+        a = acfg(n_owners, True)
+        owners = torch.tensor([(3 * k + 1) % n_owners for k in range(K)], dtype=torch.int32,
+                              device=dev)
+        b = batches_of(K, 31)
+        for driver in ("fused", "group"):
+            t1 = time.perf_counter()
+            (ms_state, _), twin = parity(f"{driver} dispatch (fused privatizer, {n_owners} "
+                                         f"owners)", a, driver, b, owners, 41)
+            check(int(ms_state.step) == K, f"meshfed: the {driver} dispatch granted "
+                  f"{int(ms_state.step)} of {K} rounds")
+            print(f"[meshfed] (a) {driver}: one dispatch of K = {K} on {n_owners} owners "
+                  f"(a {_bank_summary(torch, ms_state.bank, n_owners, P)}) == its unmeshed "
+                  f"twin bit for bit (theta_L, the bank, step, ledger, metrics); launches a "
+                  f"dispatch "
+                  + json.dumps({k: v for k, v in want(K, True).items() if v})
+                  + f"; twin and meshed {time.perf_counter() - t1:.1f} s")
+            del ms_state, twin
+        states = {False: fresh(a, False), True: fresh(a, True)}
+        times = {False: [], True: []}
+        run_fused = make_fused_rounds(loss_fn, a, device=dev)
+        for i, meshed in enumerate([False, True, True, False][:2 * timed]):
+            sub = random.split(random.fold_in(key, 100 + i), K)
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            states[meshed], _ = counted("a timed dispatch", want(K, True),
+                                        lambda: run_fused(states[meshed], b, owners, sub),
+                                        tally=meshed)
+            times[meshed].append((time.perf_counter() - t1) * 1e3 / K)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        sub = random.split(random.fold_in(key, 200), K)
+        (res, busy, groups, kernels) = _profiled(
+            torch, dev, lambda: counted("the profiled dispatch", want(K, True),
+                                        lambda: run_fused(states[True], b, owners, sub)),
+            K, top=6, cpu_ops=False)
+        ms_round = statistics.median(times[True])
+        check(int(res[0].step) == (timed + 1) * K, "meshfed: the timed meshed state's step")
+        print(f"[meshfed] (a) ms a round, timed in turns: twin "
+              f"{', '.join(f'{t:.1f}' for t in times[False])}, meshed "
+              f"{', '.join(f'{t:.1f}' for t in times[True])} (median {ms_round:.1f}, "
+              f"{ms_round / statistics.median(times[False]):.2f}x the twin); the profiled "
+              f"meshed dispatch: device busy {busy:.2f} ms a round, the device idles "
+              f"{max(0.0, 1 - busy / ms_round):.1%}, {kernels:.0f} device kernels a round; "
+              f"peak memory {_peak_gb(torch, dev):.2f} GB (both states resident)")
+        del states, res, run_fused
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # (b) the tree at depth 2, random.laplace, the fused driver
+        a = acfg(small_owners, False, tree_depth=2, caps=(3,) * small_owners)
+        owners = torch.tensor([1, 0, 2, 1][:K], dtype=torch.int32, device=dev)
+        t1 = time.perf_counter()
+        (ms_state, _), _ = parity(f"tree dispatch (depth 2, {small_owners} owners)", a,
+                                  "fused", batches_of(K, 32), owners, 42)
+        nodes = _leaves(ms_state.tree.nodes)
+        check(all(tuple(x.to_local().shape) == (small_owners, 2) + tuple(t.to_local().shape)
+                  for x, t in zip(nodes, _leaves(ms_state.theta_L))),
+              "meshfed: a rank's node piece is not (N, d, *block)")
+        node_gb = sum(x.to_local().numel() * 4 for x in nodes) / 1e9
+        print(f"[meshfed] (b) tree: one fused-driver dispatch of K = {K}, {small_owners} owners, "
+              f"nodes {node_gb:.2f} GB a state, counts "
+              f"{ms_state.tree.counts.cpu().tolist()} == its twin bit for bit (nodes and counts "
+              f"too); no kernel launched; {time.perf_counter() - t1:.1f} s")
+        del ms_state, nodes
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # (c) faults + staleness, fused, both drivers, against the host replay
+        a = acfg(small_owners, True, fault_policy=F.FaultPolicy(**FAULTS_POLICY),
+                 staleness=StalenessPolicy(**FAULTS_RUNTIME))
+        k2 = 2 * K
+        owners_np = np.arange(k2, dtype=np.int32) % small_owners
+        codes_np = np.array(([F_OK, F_DROP, F_STALE, F_NONFINITE, F_CORRUPT, F_TIMEOUT]
+                             + [F_OK] * k2)[:k2], np.int8)
+        owners = torch.from_numpy(owners_np).to(dev)
+        codes = torch.from_numpy(codes_np).to(dev)
+        b = batches_of(k2, 33)
+        for driver in ("fused", "group"):
+            t1 = time.perf_counter()
+            (ms_state, mets), _ = parity(f"fault-armed {driver} dispatch", a, driver, b, owners,
+                                         43, codes)
+            replay = _Replay(a.effective_caps, FAULTS_POLICY, FAULTS_RUNTIME)
+            outcomes = replay.run(owners_np, codes_np)
+            _check_replay(torch, ms_state, mets, replay, outcomes, f"meshfed {driver}")
+            check(torch.equal(ms_state.faults.checksum, F.bank_checksums(ms_state.bank)),
+                  "meshfed: the stored checksums differ from the meshed bank's")
+            print(f"[meshfed] (c) faults + staleness, {driver}: {k2} rounds, codes "
+                  f"{codes_np.tolist()} == its twin bit for bit, the counters == the host "
+                  f"replay, the checksums == bank_checksums; {time.perf_counter() - t1:.1f} s")
+            del ms_state, mets
+
+        # (d) example granularity, fused
+        a = acfg(small_owners, True, example=True)
+        k_ex = max(1, K // 2)
+        t1 = time.perf_counter()
+        (ms_state, mets), twin = parity(
+            "example-granularity dispatch", a, "fused", batches_of(k_ex, 34, example=True),
+            torch.tensor([2, 0, 1, 3][:k_ex], dtype=torch.int32, device=dev),
+            44, close=lambda x, y: _example_close(torch, x, y))
+        check(torch.equal(spmd.plain(mets["clip_frac"]), twin[1]["clip_frac"]),
+              "meshfed: example clip_frac differs from the twin's")
+        print(f"[meshfed] (d) example granularity: {k_ex} rounds of {batch} examples within "
+              f"rtol 1e-4 + 1e-5 max of the twin (clip_frac "
+              f"{spmd.plain(mets['clip_frac']).cpu().tolist()}, the integer state exact); "
+              f"{time.perf_counter() - t1:.1f} s")
+        del ms_state, mets, twin, params
+    finally:
+        dist.destroy_process_group()
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"[meshfed] launches of the meshed dispatches: "
+          + json.dumps({k: v for k, v in total.items() if v})
+          + f"; the phase took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def _time_mlstm_ssd(torch, dev):
     """Both SSD kernels at the mLSTM's shapes (the wide-head variant: per-head
     k and q, v with a ones column), each beside its plain version and its
@@ -5704,6 +6041,12 @@ def main():
           "the meshed training rounds launched no SSD, sqnorm or scale_noise kernel, or a "
           "dp_round or flash_attention")
     lap("meshtrain")
+    meshfed_launches = phase_meshfed(torch, dev)
+    check(meshfed_launches["sqnorm"] > 0 and meshfed_launches["scale_noise"] > 0
+          and not any(v for k, v in meshfed_launches.items()
+                      if k not in ("sqnorm", "scale_noise")),
+          "the meshed pytree dispatches launched no sqnorm or scale_noise, or another kernel")
+    lap("meshfed")
     phase_convex(torch, dev)
     torch.cuda.empty_cache()
     lap("convex")

@@ -7,6 +7,8 @@
                                  np.asarray(qb.residual), qb.codec.fmt)
     tree = tree_noise_from_numpy(np.asarray(tn.nodes), np.asarray(tn.counts), tn.depth)
     state = pytree_state_from_numpy(np_theta_L, np_bank, step, tree=tree)  # a pytree state
+    state = pytree_state_from_numpy(np_theta_L, np_bank, step, tree=tree_noise_from_numpy(
+        np_nodes, counts, depth, mesh=mesh, specs=specs), mesh=mesh, specs=specs)  # on a mesh
     spec = flat_spec_from_numpy(np_params)          # leaf shapes and dtypes, no storage
     state = flat_state_from_numpy(np_params, np.asarray(js.theta_L.buf),
                                   np.asarray(js.bank), int(js.step))  # a flat state
@@ -26,6 +28,15 @@ flat state carries across with its spec, whose leaves may be f32, bf16 or
 f16: the spec is taken from the reference's model tree (its shapes and
 dtypes, on the meta device), the (P,) f32 buffer and the bank (dense rows
 in f32, bf16 or f16, or a QuantBank) from the state's arrays.
+
+A pytree state lands on a device mesh with `mesh=` and `specs=` (the
+params' `sharding.rules.param_specs` tree): theta_L in the params'
+placements, the bank and a pytree tree's nodes with their owner (and
+level) axes replicated in front (`param_specs(..., bank_axis=True)`,
+`(..., node_axes=True)`), each rank copying only its blocks of the arrays
+to the device (`rules.distribute_blocks`); `step`, the ledger, the leaf
+counts and the fault and runtime columns are replicated plain tensors, as
+`deep.init_state(..., mesh=)` builds them.
 """
 from __future__ import annotations
 
@@ -151,12 +162,26 @@ def quant_bank_from_numpy(codes: np.ndarray, scales: np.ndarray, residual: np.nd
                      tensor(residual, np.float32), codec)
 
 
-def tree_noise_from_numpy(nodes, counts: np.ndarray, depth: int, device=None) -> TreeNoise:
+def _blocks(tree: Any, specs: Any, mesh, device: torch.device, lead: int) -> Any:
+    """A reference tree of arrays as the port's tree of DTensors on `mesh`
+    (module docstring), each rank building only its blocks."""
+    from repro_torch.sharding import rules
+    arrays = _convert(tree, device, leaf=lambda a, _device: np.asarray(a))
+    return rules.distribute_blocks(arrays, specs, mesh, lead, lambda a: _tensor(a, device))
+
+
+def tree_noise_from_numpy(nodes, counts: np.ndarray, depth: int, device=None, mesh=None,
+                          specs=None) -> TreeNoise:
     """A port TreeNoise on `device` (CUDA when None) from a reference
     TreeNoise's arrays: the nodes, either one (N, depth, P) f32 array (a
     flat state's) or the model tree of (N, depth, *leaf.shape) arrays (a
-    pytree state's), and the (N,) int32 leaf counts."""
+    pytree state's), and the (N,) int32 leaf counts. A pytree state's
+    nodes land on a device mesh with `mesh=` and `specs=` (the params'
+    `param_specs`), each rank building only its (N, depth, *block)."""
     device = resolve_device(device)
+    if mesh is not None and (specs is None or isinstance(nodes, np.ndarray)):
+        raise ValueError("nodes on a mesh are a pytree state's, placed by the params' "
+                         "specs (sharding.rules.param_specs)")
     counts = np.asarray(counts, dtype=np.int32)
     if isinstance(nodes, np.ndarray):
         nodes = np.asarray(nodes, dtype=np.float32)
@@ -165,7 +190,8 @@ def tree_noise_from_numpy(nodes, counts: np.ndarray, depth: int, device=None) ->
                              f"flat depth-{depth} tree")
         tensors = torch.from_numpy(nodes.copy()).to(device)
     else:
-        tensors = _convert(nodes, device)
+        tensors = (_convert(nodes, device) if mesh is None
+                   else _blocks(nodes, specs, mesh, device, lead=2))
         for leaf in tree_flatten(tensors)[0]:
             if leaf.dim() < 2 or leaf.shape[1] != depth or leaf.shape[:1] != counts.shape:
                 raise ValueError(f"a node leaf of shape {tuple(leaf.shape)} and counts "
@@ -227,7 +253,7 @@ def pytree_state_from_numpy(theta_L: Any, bank: Any, step: int = 0,
                             ledger: Optional[DeviceLedger] = None,
                             faults: Optional[FaultState] = None,
                             stale: Optional[StalenessState] = None,
-                            device=None) -> AsyncDPState:
+                            device=None, mesh=None, specs=None) -> AsyncDPState:
     """A port pytree state on `device` (CUDA when None) from a reference
     pytree state's arrays: theta_L the model tree, `bank` the same tree with
     (N, *leaf.shape) leaves, the granted-round count `step`, and the noise
@@ -236,10 +262,18 @@ def pytree_state_from_numpy(theta_L: Any, bank: Any, step: int = 0,
     `staleness_state_from_numpy`) when the session arms them. The ledger is
     the session's to give (`Federation.init_state` seeds one from the live
     accountant; `device_ledger_from_numpy` carries a reference's); None
-    leaves it out."""
+    leaves it out.
+
+    On a device mesh (`mesh` and `specs`, the params' `param_specs` tree)
+    theta_L and the bank are DTensors, each rank building only its blocks
+    (module docstring); a tree's nodes come from
+    `tree_noise_from_numpy(..., mesh=, specs=)`."""
     device = resolve_device(device)
-    theta = _convert(theta_L, device)
-    owners = _convert(bank, device)
+    if mesh is not None and specs is None:
+        raise ValueError("pytree_state_from_numpy(mesh=) needs the params' specs "
+                         "(sharding.rules.param_specs)")
+    theta = _convert(theta_L, device) if mesh is None else _blocks(theta_L, specs, mesh, device, 0)
+    owners = _convert(bank, device) if mesh is None else _blocks(bank, specs, mesh, device, 1)
     n_owners = {leaf.shape[0] for leaf in tree_flatten(owners)[0]}
     if len(n_owners) != 1:
         raise ValueError(f"bank leaves disagree on the owner axis: {sorted(n_owners)}")

@@ -128,14 +128,24 @@ holds theta_L as DTensors in the params' placements and every bank leaf
 as a DTensor of (N, *leaf) laid out as `rules.param_specs(...,
 bank_axis=True)` says: the owner axis replicated, the rest sharded like
 the leaf. Each rank builds, reads and writes only its (N, *block) piece of
-the bank. `step` and the ledger are the same on every rank. The round
-(`make_train_step`, one host-authorized round) runs on DTensors: the
-owner's row is taken from each rank's own piece, the privatizer runs on
-each rank's blocks (`dp_sgd`), eqs. (5)-(7) and the projection are
-elementwise on the blocks, and the row is written back into each rank's
-piece. The tree mechanism, the fault and staleness layers, example
-granularity and the K-round drivers raise there (ROADMAP queue 1, item
-9); a pytree bank is dense by design (no codec, no pager).
+the bank, and under the tree its (N, d, *block) piece of the nodes
+(`rules.param_specs(..., node_axes=True)`). `step`, the ledger, the leaf
+counts and the fault and runtime columns are plain and the same on every
+rank. All three drivers run it, under every mechanism and layer a pytree
+state takes: the owner's row (and node row) is taken from each rank's own
+piece (`spmd.take_row`), the privatizer runs on each rank's blocks
+(`dp_sgd`: per example, B backward passes of a batch of one), the retired
+nodes, the fresh draw (the privatizer's own block draw), the staleness
+decay, eqs. (5)-(7) and the projection are elementwise on the blocks, and
+the masked writes land in each rank's piece (`spmd.put_rows_`). The fault
+layer's row checksums sum each rank's int64 partials exactly over the
+mesh and its finite guard ands the ranks' flags (`federation.faults`).
+The round's own plain tensors (grants, masks, scalars) meet the DTensors
+as replicated ones (`spmd.replicating`). A 1x1 mesh equals the unmeshed
+pytree state bit for bit but at example granularity, whose per-example
+gradients are not vmap's bits; a larger one equals it block for block. A
+pytree bank is dense by design (no codec, no pager), and `Federation`
+keeps a mesh for the flat engine, as the reference's does.
 
 `make_sync_dp_step` is the synchronous baseline: every owner answers
 every round and the learner averages the privatized gradients.
@@ -260,9 +270,21 @@ def init_tree_noise(cfg: AsyncDPConfig, theta_L) -> Optional[TreeNoise]:
         nodes = torch.zeros((rows, d, theta_L.buf.shape[0]), dtype=torch.float32, device=dev)
     else:
         dev = tree_flatten(theta_L)[0][0].device
-        nodes = tree_map(lambda leaf: torch.zeros((n, d) + tuple(leaf.shape),
-                                                  dtype=torch.float32, device=dev), theta_L)
+        nodes = tree_map(lambda leaf: _node_leaf(leaf, n, d), theta_L)
     return TreeNoise(nodes, torch.zeros(n, dtype=torch.int32, device=dev), d)
+
+
+def _node_leaf(leaf: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """All-zero (n, d, *leaf.shape) f32 nodes of one leaf; a DTensor leaf
+    gives DTensor nodes laid out as `rules.param_specs(..., node_axes=True)`
+    says (the owner and level axes replicated, the rest as the leaf), each
+    rank allocating only (n, d, *its block)."""
+    if not spmd.is_dtensor(leaf):
+        return torch.zeros((n, d) + tuple(leaf.shape), dtype=torch.float32, device=leaf.device)
+    local = leaf.to_local()
+    return spmd.with_owner_axis(leaf, torch.zeros((n, d) + tuple(local.shape),
+                                                  dtype=torch.float32, device=local.device),
+                                n, d)
 
 
 def _require_tree(cfg: AsyncDPConfig, state: AsyncDPState) -> Optional[TreeNoise]:
@@ -343,27 +365,6 @@ def _copy_leaf(leaf: torch.Tensor, device) -> torch.Tensor:
     return leaf.detach().to(device=device, copy=True)
 
 
-def _meshed_tree(theta_L) -> bool:
-    """Whether a state's theta_L is a model tree of DTensors."""
-    return (not isinstance(theta_L, ParamFlat)
-            and spmd.mesh_of(*tree_flatten(theta_L)[0]) is not None)
-
-
-MESHED_PYTREE_TODO = "ROADMAP queue 1, item 9"
-
-
-def _refuse_on_meshed_tree(cfg: AsyncDPConfig, what: str) -> None:
-    """The features a pytree state on a mesh does not run yet raise, naming
-    the roadmap item."""
-    for armed, name in ((cfg.tree_depth is not None, "the tree mechanism"),
-                        (cfg.fault_policy is not None, "the fault layer"),
-                        (cfg.staleness is not None, "the staleness runtime")):
-        if armed:
-            raise NotImplementedError(f"{name} on a pytree state on a device mesh ({what}) is "
-                                      f"{MESHED_PYTREE_TODO}; the flat state runs it on a mesh "
-                                      "(init_state_flat(..., mesh=))")
-
-
 def init_state(params, cfg: AsyncDPConfig, device=None, mesh=None, specs=None) -> AsyncDPState:
     """Pytree state on `device` (CUDA when None): theta_L a copy of the
     model tree, every bank leaf (N_owners, *leaf.shape) with each owner's
@@ -378,8 +379,9 @@ def init_state(params, cfg: AsyncDPConfig, device=None, mesh=None, specs=None) -
     params' placements and the bank is laid out as
     `rules.param_specs(..., bank_axis=True)`: each rank allocates only its
     (N, *block) piece. `step` and the ledger are plain and the same on
-    every rank. The tree mechanism and the fault and staleness layers
-    raise there (module docstring)."""
+    every rank. Under the tree mechanism the nodes are laid out as
+    `rules.param_specs(..., node_axes=True)` ((N, d, *block) on each rank),
+    and the counts, the fault and the runtime columns are replicated."""
     if mesh is not None:
         if specs is None:
             raise ValueError("init_state(mesh=) needs the params' specs "
@@ -387,8 +389,6 @@ def init_state(params, cfg: AsyncDPConfig, device=None, mesh=None, specs=None) -
         from repro_torch.sharding import rules
         params = rules.distribute(params, specs, mesh)
     device = resolve_device(device)
-    if _meshed_tree(params):
-        _refuse_on_meshed_tree(cfg, "init_state")
     theta = tree_map(lambda leaf: _copy_leaf(leaf, device), params)
     bank = tree_map(lambda leaf: _bank_leaf(leaf, cfg.n_owners), theta)
     return AsyncDPState(theta, bank, torch.zeros((), dtype=torch.int32, device=device),
@@ -457,9 +457,11 @@ def _write_rows_(buf: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
     are global rows; on a mesh only the rank that holds a row writes it, at
     its local index, one member at a time (a member this rank does not hold
     clamps onto a local row and writes it back as it stands, so the writes
-    never collide)."""
+    never collide). A pytree state's DTensor leaf (a bank or node leaf
+    whose leading axis is replicated) is read and written in each rank's
+    own piece (`spmd.take_row`, `spmd.put_rows_`)."""
     if lay is None and mask is None:
-        buf.index_copy_(0, idx, rows.to(buf.dtype))
+        spmd.put_rows_(buf, idx, rows.to(buf.dtype))
         return
     if lay is None:
         lidx, keep = idx, mask
@@ -470,9 +472,8 @@ def _write_rows_(buf: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
     shape = (1,) * (rows.dim() - 1)
     for m in range(idx.numel()):
         i = lidx[m:m + 1]
-        new = torch.where(keep[m].reshape(shape), rows[m].to(buf.dtype),
-                          buf.index_select(0, i)[0])
-        buf.index_copy_(0, i, new.unsqueeze(0))
+        new = torch.where(keep[m].reshape(shape), rows[m].to(buf.dtype), spmd.take_row(buf, i))
+        spmd.put_rows_(buf, i, new.unsqueeze(0))
 
 
 def _quant_write(bank: QuantBank, new_i: torch.Tensor, owner_idx: torch.Tensor,
@@ -556,9 +557,11 @@ def _tree_row_of(tree: TreeNoise, owner_idx: torch.Tensor,
     """(a copy of the owner's node row: (depth, P) flat or a tree of
     (depth, *leaf.shape) leaves, its (1,) int32 leaf count). `row_idx` (a
     paged bank's hot slot) is the node row when it is not the owner's; the
-    count is the owner's. On a mesh the row is this rank's columns."""
+    count is the owner's. On a mesh the row is this rank's columns (a flat
+    state's) or blocks (a pytree state's, each rank reading its own piece)."""
     ridx = owner_idx if row_idx is None else row_idx
-    row = tree_map(lambda nodes: _take_rows(nodes, ridx, lay)[0], tree.nodes)
+    row = tree_map(lambda nodes: (spmd.take_row(nodes, ridx) if lay is None
+                                  else _take_rows(nodes, ridx, lay)[0]), tree.nodes)
     return row, tree.counts.index_select(0, owner_idx)
 
 
@@ -1371,18 +1374,10 @@ def _faulted_round(cfg: AsyncDPConfig, round_fn, write, state: AsyncDPState, bat
     return theta_L, bank, metrics, apply
 
 
-def _check_mesh(mesh, state: AsyncDPState, cfg: AsyncDPConfig,
-                driver: Optional[str] = None) -> None:
+def _check_mesh(mesh, state: AsyncDPState) -> None:
     """A driver built with `mesh` runs flat states laid out on that mesh
-    (a pytree state ignores it, as in the reference); a meshed state runs
-    on its own layout under any driver. A pytree state on a mesh runs
-    under make_train_step alone (`driver` names a K-round driver), without
-    the features `_refuse_on_meshed_tree` names."""
-    if _meshed_tree(state.theta_L):
-        if driver is not None:
-            raise NotImplementedError(f"{driver} on a pytree state on a device mesh is "
-                                      f"{MESHED_PYTREE_TODO}; make_train_step runs it")
-        _refuse_on_meshed_tree(cfg, "make_train_step")
+    (a pytree state ignores it, as in the reference); a meshed state, flat
+    or pytree, runs on its own layout under any driver."""
     if mesh is None or not isinstance(state.theta_L, ParamFlat):
         return
     lay = state.theta_L.layout
@@ -1390,6 +1385,14 @@ def _check_mesh(mesh, state: AsyncDPState, cfg: AsyncDPConfig,
         raise ValueError("the driver was built for a device mesh but the state is not "
                          "laid out on it; build the state with init_state(..., mesh=) "
                          "on the same mesh")
+
+
+def _replicating(state: AsyncDPState):
+    """On a pytree state on a mesh, a context in which the round's own
+    plain tensors (the owner's weight and scale, the rates, the grant and
+    fault masks, the staleness weight) stand for the same values on every
+    rank; elsewhere a no-op."""
+    return spmd.replicating(*tree_flatten(state.theta_L)[0])
 
 
 def make_train_step(loss_fn, cfg: AsyncDPConfig,
@@ -1424,10 +1427,8 @@ def make_train_step(loss_fn, cfg: AsyncDPConfig,
 
     def step(state: AsyncDPState, batch, owner_idx: torch.Tensor, key: torch.Tensor,
              fault_code=None) -> Tuple[AsyncDPState, Dict[str, Any]]:
-        _check_mesh(mesh, state, cfg)
-        # a pytree state on a mesh: the round's own scalars (the owner's
-        # weight and scale, the rates) stand for the same values on every rank
-        with spmd.replicating(*tree_flatten(state.theta_L)[0]):
+        _check_mesh(mesh, state)
+        with _replicating(state):
             return one_round(state, batch, owner_idx, key, fault_code)
 
     def one_round(state: AsyncDPState, batch, owner_idx: torch.Tensor, key: torch.Tensor,
@@ -1574,7 +1575,7 @@ def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
         if state.ledger is None:
             raise ValueError("fused rounds need a device ledger on the state; "
                              "build it with Federation.init_state")
-        _check_mesh(mesh, state, cfg, "make_fused_rounds")
+        _check_mesh(mesh, state)
         _require_tree(cfg, state)
         owners = owner_seq.to(torch.int64)
         if state.faults is None:
@@ -1585,6 +1586,10 @@ def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
             if fault_codes is None:
                 fault_codes = torch.zeros(owners.shape, dtype=torch.int8, device=owners.device)
             fault_codes = fault_codes.to(device=owners.device, dtype=torch.int8)
+        with _replicating(state):
+            return loop(state, batches, owners, keys, fault_codes)
+
+    def loop(state: AsyncDPState, batches, owners, keys, fault_codes):
         per_round = []
         for k in range(owners.shape[0]):
             args = (state, {name: v[k] for name, v in batches.items()}, owners[k:k + 1],
@@ -1742,7 +1747,7 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
         if state.ledger is None:
             raise ValueError("grouped rounds need a device ledger on the state; "
                              "build it with Federation.init_state")
-        _check_mesh(mesh, state, cfg, "make_group_rounds")
+        _check_mesh(mesh, state)
         _require_tree(cfg, state)
         owners = owner_seq.to(torch.int64)
         if state.faults is None:
@@ -1753,6 +1758,10 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
             if fault_codes is None:
                 fault_codes = torch.zeros(owners.shape, dtype=torch.int8, device=owners.device)
             fault_codes = fault_codes.to(device=owners.device, dtype=torch.int8)
+        with _replicating(state):
+            return loop(state, batches, owners, keys, group_idx, group_valid, fault_codes)
+
+    def loop(state: AsyncDPState, batches, owners, keys, group_idx, group_valid, fault_codes):
         idx, valid = np.asarray(group_idx), np.asarray(group_valid, bool)
         per_group = []
         for row, ok in zip(idx, valid):

@@ -21,12 +21,19 @@ backends agree in distribution, not bit for bit. The flat engine
 (`deep._flat_clipped_grad_acc`) shares the config.
 
 On a device mesh (the params a tree of DTensors, `launch.steps`) the
-microbatch privatizer runs on each rank's blocks: the gradients come back
-in the parameters' placements, the clip norm sums each rank's blocks and
-reduces them over the mesh, and each leaf's noise is drawn block by block
+privatizer runs on each rank's blocks: the gradients come back in the
+parameters' placements, the clip norm sums each rank's blocks and reduces
+them over the mesh, and each leaf's noise is drawn block by block
 (`privacy.noise_tree`, or `scale_noise` with the block's offsets), so a
-meshed round draws the unmeshed round's noise. Example granularity there
-is ROADMAP queue 1, item 9 (torch.func.vmap over DTensors) and raises.
+meshed round draws the unmeshed round's noise. Per example,
+torch.func.vmap does not pass through a model on DTensors (its batching
+meets `sharding.spmd`'s regions and collectives, and DTensor refuses the
+batched views), so the B per-example gradients are B backward passes of a
+batch of one on the meshed model (`_example_grads_meshed`): memory O(B x
+this rank's block), each example's norm the sum of its blocks' partials
+reduced over the mesh, then the reference's scale and mean. Those
+gradients are not vmap's bits, so a meshed example round equals the
+unmeshed one to float rounding, not bit for bit.
 
 The reference's ``kernel_block_rows`` and ``kernel_interpret`` are layout
 knobs of its TPU kernels and have no counterpart here: the CUDA kernels
@@ -125,6 +132,29 @@ def _example_grads(loss_fn: LossFn, params, batch):
     return torch.func.vmap(one)(batch), treedef
 
 
+def _example_grads_meshed(loss_fn: LossFn, params, batch):
+    """`_example_grads` on DTensor params: B backward passes of a batch of
+    one (`_tree_grad`, the meshed autograd), stacked leaf by leaf into (B,
+    ...) DTensors laid out as the leaf on its dims. A batch leaf that is a
+    DTensor is read whole: the examples are a host-side split of a few
+    token rows."""
+    rows = {k: v.full_tensor() if spmd.is_dtensor(v) else v for k, v in batch.items()}
+    B = next(iter(rows.values())).shape[0]
+    per = [tree_flatten(_tree_grad(loss_fn, params, {k: v[b:b + 1] for k, v in rows.items()}))
+           for b in range(B)]
+    treedef = per[0][1]
+    return [torch.stack([p[0][i] for p in per]) for i in range(len(per[0][0]))], treedef
+
+
+def _example_norms(g_leaves, B: int) -> torch.Tensor:
+    """(B,) per-example L2 norms of the (B, ...) gradient leaves, each
+    leaf's per-example sum of squares added in leaf order; on DTensor
+    leaves each rank's blocks' sums reduced over the mesh
+    (`spmd.tree_total`)."""
+    return torch.sqrt(spmd.tree_total(
+        g_leaves, lambda g: torch.sum(torch.square(g.to(torch.float32).reshape(B, -1)), dim=1)))
+
+
 def private_grad(loss_fn: LossFn, params, batch: Dict[str, torch.Tensor], key: torch.Tensor,
                  *, cfg: PrivatizerConfig, noise_scale, return_noise: bool = False
                  ) -> Tuple[Any, ...]:
@@ -140,10 +170,6 @@ def private_grad(loss_fn: LossFn, params, batch: Dict[str, torch.Tensor], key: t
         raise ValueError("return_noise requires the jnp mechanism path "
                          "(fused_kernel adds noise in-kernel)")
     leaves = tree_flatten(params)[0]
-    if spmd.mesh_of(*leaves) is not None and cfg.granularity == "example":
-        raise NotImplementedError(
-            "example granularity on DTensor leaves: torch.func.vmap over a model on a device "
-            "mesh is ROADMAP queue 1, item 9; use granularity='microbatch' on a mesh")
     # on a mesh the round's own scalars (xi, the counters) stand for the
     # same values on every rank
     with spmd.replicating(*leaves):
@@ -159,9 +185,10 @@ def _private_grad(loss_fn, params, batch, key, cfg, noise_scale, return_noise):
     xi = torch.full((), cfg.xi, dtype=torch.float32, device=dev)
 
     if cfg.granularity == "example":
-        g_leaves, treedef = _example_grads(loss_fn, params, batch)     # leaves (B, ...)
-        norms = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32).reshape(B, -1)),
-                                         dim=1) for g in g_leaves))
+        grads = (_example_grads if spmd.mesh_of(*tree_flatten(params)[0]) is None
+                 else _example_grads_meshed)
+        g_leaves, treedef = grads(loss_fn, params, batch)               # leaves (B, ...)
+        norms = _example_norms(g_leaves, B)
         scale = _clip_factor(norms, cfg.xi)
         mean_grad = tree_unflatten(treedef, [
             torch.mean(g.to(torch.float32) * scale.reshape((-1,) + (1,) * (g.dim() - 1)),

@@ -40,6 +40,15 @@ tiles one row's sum over the (N,) column (every row, hot, cold or never
 written, is the default row at init), never an O(N*P) pass. A row's bits
 round-trip the cold tier exactly, so it keeps its checksum across an
 eviction and a reload.
+
+A pytree bank on a device mesh (DTensor leaves of (N, *leaf), each rank
+holding (N, *block)) is summed block by block: each rank takes the int64
+partial of its blocks of the rows, the partials are summed exactly over
+the mesh dims each leaf is sharded on (`spmd.tree_total`; a dim the leaf
+is replicated on is counted once), and the total wraps to int32, so the
+checksums equal the unmeshed bank's bit for bit on every mesh. The finite
+guards and the NaN injection act on the blocks, the guards' flags
+and-ed over the mesh.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ import torch
 from repro_torch import random
 from repro_torch.device import resolve_device
 from repro_torch.federation.flatten import PagedBank, ParamFlat, QuantBank
+from repro_torch.sharding import spmd
 from repro_torch.tree_util import tree_flatten, tree_map
 
 # per-round fault codes (int8 on the device, plain ints here)
@@ -183,6 +193,29 @@ def _row_sum64(t: torch.Tensor, owner_idx: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def _rows_sum64(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(g,) int64 sums of rows `idx` ((g,) int64) of `t`, one row at a
+    time (`_row_sum64`'s transient)."""
+    return torch.stack([_row_sum64(t, idx[m:m + 1]) for m in range(idx.numel())])
+
+
+def _parts(bank):
+    """The tensors a checksum sums: a QuantBank's codes and scales (the
+    shared residual belongs to no owner), else the leaves of the bank; a
+    PagedBank's hot tier."""
+    if isinstance(bank, PagedBank):
+        bank = bank.hot
+    return (bank.codes, bank.scales) if isinstance(bank, QuantBank) else tree_flatten(bank)[0]
+
+
+def _tree_checksums(parts, idx: torch.Tensor) -> torch.Tensor:
+    """(g,) int32 checksums of rows `idx` over `parts`: the exact int64 sum
+    of every part's row, wrapped to int32. On DTensor leaves each rank's
+    int64 partials of its blocks are summed exactly over the mesh."""
+    total = spmd.tree_total(parts, lambda block: _rows_sum64(block, idx))
+    return _wrap32(spmd.plain(total))
+
+
 def row_checksum(bank, owner_idx: torch.Tensor, layout=None) -> torch.Tensor:
     """() int32 checksum of one owner's resident row (`owner_idx` a (1,)
     int64 device index): the codes plus the scales of a QuantBank (the
@@ -195,21 +228,16 @@ def row_checksum(bank, owner_idx: torch.Tensor, layout=None) -> torch.Tensor:
     this rank's block: the int64 partial of its columns (and the row's
     scales, replicated over the columns) is taken from the rank holding
     the row, the column partials are summed exactly over the column group,
-    and the total wraps to int32 as the unsharded sum does."""
-    if isinstance(bank, PagedBank):
-        return row_checksum(bank.hot, owner_idx, layout)
-    quant = isinstance(bank, QuantBank)
-    parts = (bank.codes, bank.scales) if quant else tree_flatten(bank)[0]
-    if layout is not None:
-        lidx, _ = layout.local(owner_idx)
-        cols = _row_sum64(parts[0], lidx)
-        rest = _row_sum64(parts[1], lidx) if quant else torch.zeros_like(cols)
-        held = layout.pick(torch.stack([cols, rest]).unsqueeze(0), owner_idx.reshape(1))[0]
-        return _wrap32(layout.sum_cols(held[0]) + held[1])
-    total = _row_sum64(parts[0], owner_idx)
-    for t in parts[1:]:
-        total = total + _row_sum64(t, owner_idx)
-    return _wrap32(total)
+    and the total wraps to int32 as the unsharded sum does. A pytree bank
+    of DTensor leaves is summed block by block (module docstring)."""
+    parts = _parts(bank)
+    if layout is None:
+        return _tree_checksums(parts, owner_idx.reshape(1))[0]
+    lidx, _ = layout.local(owner_idx)
+    cols = _row_sum64(parts[0], lidx)
+    rest = _row_sum64(parts[1], lidx) if len(parts) > 1 else torch.zeros_like(cols)
+    held = layout.pick(torch.stack([cols, rest]).unsqueeze(0), owner_idx.reshape(1))[0]
+    return _wrap32(layout.sum_cols(held[0]) + held[1])
 
 
 def _n_owners(bank) -> int:
@@ -232,6 +260,8 @@ def bank_checksums(bank, layout=None) -> torch.Tensor:
     if n == 0:
         return torch.zeros(0, dtype=torch.int32, device=dev)
     idx = torch.arange(n, dtype=torch.int64, device=dev)
+    if layout is None:
+        return _tree_checksums(_parts(bank), idx)
     return torch.stack([row_checksum(bank, idx[i:i + 1], layout) for i in range(n)])
 
 
@@ -294,7 +324,8 @@ def inject_nonfinite(tree, flag):
         if not leaf.is_floating_point():
             return leaf
         fl = _as_bool(flag, leaf.device)
-        fl = fl.reshape(tuple(fl.shape) + (1,) * (leaf.dim() - fl.dim()))
+        if fl.dim():
+            fl = fl.reshape(tuple(fl.shape) + (1,) * (leaf.dim() - fl.dim()))
         return torch.where(fl, torch.full((), float("nan"), dtype=leaf.dtype,
                                           device=leaf.device), leaf)
     if isinstance(tree, ParamFlat):
@@ -304,17 +335,26 @@ def inject_nonfinite(tree, flag):
     return tree_map(poison, tree)
 
 
+def _block(leaf: torch.Tensor) -> torch.Tensor:
+    """This rank's block of a DTensor leaf (partial sums reduced); a plain
+    leaf as it is."""
+    return spmd.reduced(leaf).to_local() if spmd.is_dtensor(leaf) else leaf
+
+
 def finite_guard(tree, layout=None) -> torch.Tensor:
     """0-d bool: every float leaf of `tree` is entirely finite. On a mesh
     (`layout`) the leaves are this rank's columns, and the flag is the
-    logical and over the column group."""
+    logical and over the column group; DTensor leaves are checked block by
+    block and the flag and-ed over their mesh. Always a plain tensor."""
     ok = None
-    for leaf in _leaves_of(tree):
+    leaves = _leaves_of(tree)
+    for leaf in leaves:
         if leaf.is_floating_point():
-            f = torch.isfinite(leaf).all()
+            f = torch.isfinite(_block(leaf)).all()
             ok = f if ok is None else ok & f
     if ok is None:
         raise ValueError("finite_guard needs a float leaf")
+    ok = spmd.all_true(ok, spmd.mesh_of(*leaves))
     return ok if layout is None else layout.all_cols(ok)
 
 
@@ -323,12 +363,15 @@ def finite_guard_rows(tree, layout=None) -> torch.Tensor:
     are entirely finite; `finite_guard` of each member, batched (and on a
     mesh and-ed over the column group)."""
     ok = None
-    for leaf in _leaves_of(tree):
+    leaves = _leaves_of(tree)
+    for leaf in leaves:
         if leaf.is_floating_point():
-            f = torch.isfinite(leaf).reshape(leaf.shape[0], -1).all(dim=1)
+            b = _block(leaf)
+            f = torch.isfinite(b).reshape(b.shape[0], -1).all(dim=1)
             ok = f if ok is None else ok & f
     if ok is None:
         raise ValueError("finite_guard_rows needs a float leaf")
+    ok = spmd.all_true(ok, spmd.mesh_of(*leaves))
     return ok if layout is None else layout.all_cols(ok)
 
 
@@ -354,8 +397,11 @@ def update_checksum(fs: FaultState, bank, owner_idx: torch.Tensor, apply,
     read; the sums land in the owners' column. `layout` as in row_checksum."""
     idx = _owners(owner_idx)
     ridx = idx if row_idx is None else _owners(row_idx)
-    new = torch.stack([row_checksum(bank, ridx[m:m + 1], layout)
-                       for m in range(idx.numel())])
+    if layout is None:
+        new = _tree_checksums(_parts(bank), ridx)
+    else:
+        new = torch.stack([row_checksum(bank, ridx[m:m + 1], layout)
+                           for m in range(idx.numel())])
     _masked_set_(fs.checksum, idx, new, _as_bool(apply, idx.device).reshape(-1))
     return fs
 

@@ -28,7 +28,7 @@ tensors by scattering them and meta stand-ins as each rank's meta shard
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -229,22 +229,25 @@ def _map_with_path(fn, tree) -> Any:
     return tree_unflatten(treedef, out)
 
 
-def param_specs(params: Any, cfg, mesh, bank_axis: bool = False) -> Any:
-    """PartitionSpec tree for params (or the owner bank if bank_axis): the
-    stacked layer axis of a scan-family block (a leading L dim under
+def param_specs(params: Any, cfg, mesh, bank_axis: bool = False,
+                node_axes: bool = False) -> Any:
+    """PartitionSpec tree for params (or the owner bank if bank_axis: a
+    leading owner axis, replicated; or a pytree state's noise trees if
+    node_axes: leading owner and level axes, both replicated): the stacked
+    layer axis of a scan-family block (a leading L dim under
     "blocks"/"enc_blocks" with no numeric index in the path) is stripped
     and replicated."""
+    lead = 2 if node_axes else 1 if bank_axis else 0
+
     def g(toks, leaf):
         shape = tuple(leaf.shape)
-        core = shape[1 if bank_axis else 0:]
+        core = shape[lead:]
         is_list_block = any(t.isdigit() for t in toks)
         if ("blocks" in toks or "enc_blocks" in toks) and not is_list_block:
             spec = P(None, *spec_for_param(toks, core[1:], cfg, mesh))
         else:
             spec = spec_for_param(toks, core, cfg, mesh)
-        if bank_axis:
-            spec = P(None, *spec)
-        return spec
+        return P(*([None] * lead), *spec)
     return _map_with_path(g, params)
 
 
@@ -384,6 +387,32 @@ def distribute(tree: Any, spec_tree: Any, mesh=None) -> Any:
         if isinstance(s, NamedSharding):
             return distribute_leaf(t, s.spec, s.mesh)
         return distribute_leaf(t, s, mesh)
+    return tree_map(one, tree)
+
+
+def distribute_blocks(tree: Any, spec_tree: Any, mesh, lead: int,
+                      to_tensor: Callable[[Any], torch.Tensor]) -> Any:
+    """Every host array of `tree` (numpy, or a CPU tensor) as a DTensor
+    laid out by its spec in `spec_tree` (a `param_specs` tree of the
+    params) with `lead` replicated axes in front (1: an owner bank, 2: a
+    pytree state's noise trees, as `param_specs(..., bank_axis=True)` and
+    `(..., node_axes=True)` lay them out). Each rank slices its own block
+    on the host and hands only that to `to_tensor` (which puts it on the
+    device), so nothing communicates and no rank holds a whole leaf."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch.sharding.spmd import contiguous_stride
+    it = iter(_spec_leaves(spec_tree))
+
+    def one(a):
+        s = next(it)
+        shape = tuple(a.shape)
+        place = placements(P(*([None] * lead), *s), mesh)
+        size, off = compute_local_shape_and_global_offset(shape, mesh, place)
+        block = a[tuple(slice(int(o), int(o) + int(n)) for o, n in zip(off, size))]
+        return DTensor.from_local(to_tensor(block), mesh, place, run_check=False, shape=shape,
+                                  stride=contiguous_stride(shape))
     return tree_map(one, tree)
 
 

@@ -44,13 +44,14 @@ is the whole tensor and every collective acts on a group of one.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["as_dtensor", "cross_entropy", "data_dims", "einsum", "embedding", "is_dtensor",
-           "keep_grad_layout", "like", "local_block", "local_map", "mesh_of", "model_dim",
-           "on_heads", "plain",
+__all__ = ["all_true", "as_dtensor", "cross_entropy", "data_dims", "einsum", "embedding",
+           "is_dtensor", "keep_grad_layout", "like", "local_block", "local_map", "mesh_of",
+           "model_dim", "on_heads", "plain",
            "put_rows_", "reduced", "replicating", "shards", "take_row", "tree_total",
            "with_owner_axis", "write_slot"]
 
@@ -83,12 +84,30 @@ def replicating(*ts):
     """A context in which plain tensors meet DTensors as replicated ones
     (``implicit_replication``) when any of `ts` is a DTensor; else a no-op.
     The model's own constants (positions, masks, zero states) are the same
-    on every rank, so that is what they are."""
-    import contextlib
+    on every rank, so that is what they are. Re-entrant: leaving an inner
+    context keeps the outer one's replication (``implicit_replication``
+    alone switches it off on every exit)."""
     if mesh_of(*ts) is None:
         return contextlib.nullcontext()
+    return _replicating()
+
+
+# the depth of the open `replicating` contexts (torch's flag is per process)
+_REPLICATING = [0]
+
+
+@contextlib.contextmanager
+def _replicating():
     from torch.distributed.tensor.experimental import implicit_replication
-    return implicit_replication()
+    _REPLICATING[0] += 1
+    try:
+        if _REPLICATING[0] == 1:
+            with implicit_replication():
+                yield
+        else:
+            yield
+    finally:
+        _REPLICATING[0] -= 1
 
 
 def _size(mesh, dims) -> int:
@@ -191,13 +210,13 @@ def contiguous_stride(shape) -> tuple:
     return tuple(reversed(out))
 
 
-def with_owner_axis(leaf, rows: torch.Tensor, n: int):
-    """`rows` (n, *this rank's block of leaf) as a DTensor of (n,
-    *leaf.shape): the leading (owner) axis replicated, the rest laid out
-    as the DTensor `leaf`."""
+def with_owner_axis(leaf, rows: torch.Tensor, *lead: int):
+    """`rows` (*lead, *this rank's block of leaf) as a DTensor of (*lead,
+    *leaf.shape): the leading axes (the owners; a noise tree's owners and
+    levels) replicated, the rest laid out as the DTensor `leaf`."""
     from torch.distributed.tensor import DTensor
-    shape = (n,) + tuple(leaf.shape)
-    return DTensor.from_local(rows, leaf.device_mesh, _shifted(leaf.placements, 1),
+    shape = tuple(lead) + tuple(leaf.shape)
+    return DTensor.from_local(rows, leaf.device_mesh, _shifted(leaf.placements, len(lead)),
                               run_check=False, shape=shape, stride=contiguous_stride(shape))
 
 
@@ -230,12 +249,14 @@ def put_rows_(t: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
 def tree_total(leaves: Sequence[torch.Tensor], fn: Callable[[torch.Tensor], torch.Tensor]
                ) -> torch.Tensor:
     """sum(fn(leaf) for leaf in leaves), in leaf order, for an `fn` that
-    sums over its leaf (a 0-d result, additive over blocks: a sum of
-    squares). On DTensor leaves fn runs on each rank's block; the blocks'
-    values of the leaves sharded on the same mesh dims are summed over
-    those dims in one all-reduce, and the leaves' totals are then added in
-    leaf order on every rank, so the 1x1 mesh gives the unmeshed value bit
-    for bit. The result is then a replicated 0-d DTensor."""
+    sums over its leaf (a result additive over blocks, of one shape for
+    every leaf: a sum of squares, the int64 bit sums of some rows). On
+    DTensor leaves fn runs on each rank's block; the blocks' values of the
+    leaves sharded on the same mesh dims are summed over those dims in one
+    all-reduce (a dim the leaf is replicated on is counted once), and the
+    leaves' totals are then added in leaf order on every rank, so the 1x1
+    mesh gives the unmeshed value bit for bit. The result is then a
+    replicated DTensor."""
     mesh = mesh_of(*leaves)
     if mesh is None:
         return sum(fn(leaf) for leaf in leaves)
@@ -257,6 +278,18 @@ def tree_total(leaves: Sequence[torch.Tensor], fn: Callable[[torch.Tensor], torc
         for j, i in enumerate(idx):
             totals[i] = stacked[j]
     return _replicated(mesh, sum(totals))
+
+
+def all_true(flags: torch.Tensor, mesh) -> torch.Tensor:
+    """The logical and of a plain bool tensor over every rank of `mesh`
+    (elementwise; each rank's flags of its own blocks); on no mesh the
+    flags as they are."""
+    if mesh is None:
+        return flags
+    from torch.distributed.tensor import DTensor, Partial
+    low = DTensor.from_local(flags.to(torch.int32), mesh, [Partial("min")] * mesh.ndim,
+                             run_check=False)
+    return reduced(low).to_local() != 0
 
 
 def _local(t, split) -> torch.Tensor:
@@ -374,9 +407,12 @@ def _placements(mesh, dims, batch: bool, heads: bool):
 
 
 def shards(mesh, size: int, dims) -> bool:
-    """Whether a dim of `size` splits evenly over the mesh dims `dims`."""
+    """Whether a dim of `size` splits evenly over the mesh dims `dims`. A
+    dim of one is left whole: split over mesh dims of size 1 it would hold
+    the same values, but a gradient that keeps such a split where the
+    forward broadcast the dim cannot be squeezed back (a batch of one)."""
     n = _size(mesh, dims)
-    return n > 0 and size % n == 0
+    return n > 0 and size > 1 and size % n == 0
 
 
 def local_map(fn: Callable, args: Sequence[Any], dims: Sequence[Any], out_dims: Any, mesh, *,

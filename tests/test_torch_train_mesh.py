@@ -17,9 +17,10 @@ of `build_step(cfg, shape, mesh)`:
       reference): the noise is the unmeshed draw on every mesh, only the
       sums' order differs. Every rank holds only its block of theta_L and
       of the bank (the owner axis whole, the rest its block), and every
-      noise draw is the size of a block, never of a whole leaf;
-  (c) the features a meshed pytree state does not run yet raise
-      NotImplementedError naming ROADMAP queue 1, item 9.
+      noise draw is the size of a block, never of a whole leaf.
+
+The K-round drivers, the tree, the fault and staleness layers and example
+granularity on a meshed pytree state are in tests/test_torch_pytree_mesh*.py.
 
 Run alone: PYTHONPATH=src python -m pytest -q tests/test_torch_train_mesh.py
 """
@@ -37,8 +38,7 @@ import torch.multiprocessing as mp
 
 from repro_torch import random
 from repro_torch.configs import ShapeConfig, get_config
-from repro_torch.federation.deep import (init_state, make_fused_rounds, make_group_rounds,
-                                         make_train_step)
+from repro_torch.federation.deep import init_state
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.launch.steps import build_step, default_async_cfg
 from repro_torch.models import build_model
@@ -231,65 +231,6 @@ def test_gloo_ranks_hold_only_their_blocks(mesh_shape, gloo_runs):
         for arch in ARCHS:
             for fused in FUSED:
                 assert rank[(mesh_shape, arch, fused)]["blocks_only"], (arch, fused)
-
-
-# ------------------------------------------------------------- (c) refusals
-def _loss_fn(model):
-    return lambda p, b: model.loss(p, b)[0]
-
-
-@pytest.fixture(scope="module")
-def meshed_params():
-    cfg = get_config("yi-6b").reduced()
-    model = build_model(cfg)
-    params = model.init(seed=0, device=CPU)
-    mesh = make_debug_mesh(1, 1, device_type="cpu")
-    return cfg, model, rules.distribute(params, rules.param_specs(params, cfg, mesh), mesh)
-
-
-@pytest.mark.parametrize("what", ["tree", "faults", "staleness"])
-def test_meshed_pytree_state_refuses_the_tree_and_fault_layers(what, meshed_params):
-    from repro_torch.federation.faults import FaultPolicy
-    from repro_torch.federation.staleness import StalenessPolicy
-    _, _, params = meshed_params
-    kw = {"tree": dict(tree_depth=2, caps=(3,) * 4),
-          "faults": dict(fault_policy=FaultPolicy(max_faults=3, window=8)),
-          "staleness": dict(fault_policy=FaultPolicy(max_faults=3, window=8),
-                            staleness=StalenessPolicy(deadline=1.0, decay=0.9))}[what]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        init_state(params, _acfg(False, **kw), device=CPU)
-    # a state built without them, under a driver armed with them
-    state = init_state(params, _acfg(False), device=CPU)
-    step = make_train_step(_loss_fn(meshed_params[1]), _acfg(False, **kw), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        step(state, {}, torch.tensor([0]), random.PRNGKey(0, device=CPU))
-
-
-def test_meshed_pytree_state_refuses_example_granularity(meshed_params):
-    _, model, params = meshed_params
-    a = default_async_cfg(n_microbatches=2)
-    acfg = dataclasses.replace(a, privatizer=dataclasses.replace(
-        a.privatizer, granularity="example", pre_grouped=False))
-    state = init_state(params, acfg, device=CPU)
-    toks = torch.zeros((2, 16), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_train_step(_loss_fn(model), acfg, device=CPU)(
-            state, {"tokens": toks, "labels": toks}, torch.tensor([0]),
-            random.PRNGKey(0, device=CPU))
-
-
-@pytest.mark.parametrize("driver", [make_fused_rounds, make_group_rounds],
-                         ids=["fused_rounds", "group_rounds"])
-def test_meshed_pytree_state_refuses_the_k_round_drivers(driver, meshed_params):
-    _, model, params = meshed_params
-    acfg = _acfg(False)
-    state = init_state(params, acfg, device=CPU)
-    run = driver(_loss_fn(model), acfg, device=CPU)
-    args = ({}, torch.zeros(2, dtype=torch.int32), torch.zeros((2, 2), dtype=torch.uint32))
-    if driver is make_group_rounds:
-        args = args + ([0, 1], [True, True])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run(state, *args)
 
 
 def test_init_state_on_a_mesh_needs_the_specs():
