@@ -183,6 +183,7 @@ from repro_torch.kernels.tree_noise.ops import tree_delta_, tree_delta_rows_
 from repro_torch.kernels.tree_noise.ref import tree_masks_ref
 from repro_torch.sharding import spmd
 from repro_torch.sharding.flat import FlatLayout, layout_for
+from repro_torch.telemetry import span
 from repro_torch.tree_util import tree_flatten, tree_map
 
 
@@ -674,16 +675,21 @@ def _example_clipped_rows(loss_fn, spec, xi: torch.Tensor, tb: torch.Tensor,
     which `example_group_cap` bounds under max_group="auto"."""
     g, B = next(iter(batch.values())).shape[:2]
     p = tb.shape[-1]
-    leaf = tb.detach().repeat_interleave(B, dim=0).requires_grad_(True)      # (g*B, P)
-    exs = {k: a.reshape((g * B, 1) + tuple(a.shape[2:])) for k, a in batch.items()}
-    losses = torch.func.vmap(lambda t, ex: loss_fn(spec.unpack(t), ex))
-    losses(leaf, exs).sum().backward()
-    grads = leaf.grad
-    leaf.grad = None
-    del leaf
-    norms = torch.sqrt(fused_sqnorm_rows(grads))                               # (g*B,)
-    grads.mul_(_clip_scale(xi, norms)[:, None])
-    acc = grads.reshape(g, B, p).sum(dim=1)
+    with span("privatizer.grad"):
+        leaf = tb.detach().repeat_interleave(B, dim=0).requires_grad_(True)  # (g*B, P)
+        exs = {k: a.reshape((g * B, 1) + tuple(a.shape[2:])) for k, a in batch.items()}
+        losses = torch.func.vmap(lambda t, ex: loss_fn(spec.unpack(t), ex))
+        with span("model.forward"):
+            loss = losses(leaf, exs).sum()
+        with span("model.backward"):
+            loss.backward()
+        grads = leaf.grad
+        leaf.grad = None
+        del leaf
+        with span("privatizer.clip"):
+            norms = torch.sqrt(fused_sqnorm_rows(grads))                       # (g*B,)
+            grads.mul_(_clip_scale(xi, norms)[:, None])
+            acc = grads.reshape(g, B, p).sum(dim=1)
     return acc, norms.reshape(g, B)
 
 
@@ -745,7 +751,10 @@ def _flat_clipped_grad_acc(loss_fn, spec, pcfg: PrivatizerConfig,
 
     def flat_grad(mb) -> torch.Tensor:
         leaf.grad = None
-        loss_fn(spec.unpack(leaf), mb).backward()
+        with span("model.forward"):
+            loss = loss_fn(spec.unpack(leaf), mb)
+        with span("model.backward"):
+            loss.backward()
         return leaf.grad
 
     xs = batch if pcfg.pre_grouped else _group_batch(batch, G)
@@ -753,11 +762,13 @@ def _flat_clipped_grad_acc(loss_fn, spec, pcfg: PrivatizerConfig,
     nclip = torch.zeros((), dtype=torch.float32, device=tb.device)
     mx = torch.zeros((), dtype=torch.float32, device=tb.device)
     for gi in range(G):
-        g = flat_grad({k: a[gi] for k, a in xs.items()})
-        norm = torch.sqrt(fused_sqnorm(g))
-        acc = acc + g * _clip_scale(xi, norm)
-        nclip = nclip + (norm > xi)
-        mx = torch.maximum(mx, norm)
+        with span("privatizer.grad"):
+            g = flat_grad({k: a[gi] for k, a in xs.items()})
+            with span("privatizer.clip"):
+                norm = torch.sqrt(fused_sqnorm(g))
+                acc = acc + g * _clip_scale(xi, norm)
+                nclip = nclip + (norm > xi)
+                mx = torch.maximum(mx, norm)
     gain = torch.full((), 1.0 / G, dtype=torch.float32, device=tb.device)
     return acc, gain, {"clip_frac": nclip / G, "max_grad_norm": mx}
 
@@ -800,14 +811,19 @@ def _flat_clipped_grad_acc_rows(loss_fn, spec, pcfg: PrivatizerConfig,
     nclip = torch.zeros(g, dtype=torch.float32, device=dev)
     mx = torch.zeros(g, dtype=torch.float32, device=dev)
     for gi in range(G):
-        leaf.grad = None
-        losses(leaf, {k: a[:, gi] for k, a in xs.items()}).sum().backward()
-        gm = leaf.grad
-        norm = torch.sqrt(fused_sqnorm_rows(gm))
-        acc = acc + gm * _clip_scale(xi, norm)[:, None]
-        leaf.grad = gm = None
-        nclip = nclip + (norm > xi)
-        mx = torch.maximum(mx, norm)
+        with span("privatizer.grad"):
+            leaf.grad = None
+            with span("model.forward"):
+                loss = losses(leaf, {k: a[:, gi] for k, a in xs.items()}).sum()
+            with span("model.backward"):
+                loss.backward()
+            gm = leaf.grad
+            with span("privatizer.clip"):
+                norm = torch.sqrt(fused_sqnorm_rows(gm))
+                acc = acc + gm * _clip_scale(xi, norm)[:, None]
+                leaf.grad = gm = None
+                nclip = nclip + (norm > xi)
+                mx = torch.maximum(mx, norm)
     gain = torch.full((g,), 1.0 / G, dtype=torch.float32, device=dev)
     return acc, gain, {"clip_frac": nclip / G, "max_grad_norm": mx}
 
@@ -1025,26 +1041,28 @@ def _round_math_flat(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts, tree_inn
         acc, gain, pm = _flat_clipped_grad_acc(loss_fn, spec, pcfg, full(tb), batch)
         acc = mine(acc)
         col0 = 0 if lay is None else lay.c0
-        if tree_on:
-            ns1 = ns.reshape(1)
-            if lay is not None:
-                delta, commit = _tree_delta_at(tree, owner_idx, key, ns1, grant, row_idx, lay,
-                                               rows=False)
-                delta = delta[0]
-            else:
-                delta = tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns1,
-                                    consts.no_grant(1) if grant is _DEFER else grant, row_idx)
-                if grant is _DEFER:
-                    def commit(g):
-                        with random.replay():       # the first launch's draw again
-                            tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns1, g,
+        with span("privatizer.noise"):
+            if tree_on:
+                ns1 = ns.reshape(1)
+                if lay is not None:
+                    delta, commit = _tree_delta_at(tree, owner_idx, key, ns1, grant, row_idx,
+                                                   lay, rows=False)
+                    delta = delta[0]
+                else:
+                    delta = tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns1,
+                                        consts.no_grant(1) if grant is _DEFER else grant,
                                         row_idx)
-            new_L, new_i = _tree_epilogue(cfg, consts, tb, acc, gain, delta, w_i)
-        else:
-            new_L, new_i = dp_round_flat(                       # (4)+(5)+(7)+Pi
-                tb, acc, key, gain, ns.reshape(1), w_i.reshape(1), sigma=cfg.sigma,
-                lr_own=consts.lr_own, lr_l=consts.lr_L, n_owners=N,
-                theta_max=cfg.theta_max, col0=col0)
+                    if grant is _DEFER:
+                        def commit(g):
+                            with random.replay():       # the first launch's draw again
+                                tree_delta_(tree.nodes, tree.counts, owner_idx, key, ns1, g,
+                                            row_idx)
+                new_L, new_i = _tree_epilogue(cfg, consts, tb, acc, gain, delta, w_i)
+            else:
+                new_L, new_i = dp_round_flat(                       # (4)+(5)+(7)+Pi
+                    tb, acc, key, gain, ns.reshape(1), w_i.reshape(1), sigma=cfg.sigma,
+                    lr_own=consts.lr_own, lr_l=consts.lr_L, n_owners=N,
+                    theta_max=cfg.theta_max, col0=col0)
         metrics = {"clip_frac": pm["clip_frac"], "max_grad_norm": pm["max_grad_norm"],
                    "grad_noise_scale": ns}
         return theta_L.replace_buf(new_L), new_i, theta_i, metrics, commit
@@ -1086,26 +1104,27 @@ def _round_math_flat_rows(loss_fn, cfg: AsyncDPConfig, consts: _RoundConsts):
         if lay is not None:
             acc = lay.col_slice(acc)
         commit = None
-        if tree is not None and cfg.tree_depth:
-            if lay is not None:
-                delta, commit = _tree_delta_at(tree, owners, keys_g, ns, grant, row_idx, lay,
-                                               rows=True)
+        with span("privatizer.noise"):
+            if tree is not None and cfg.tree_depth:
+                if lay is not None:
+                    delta, commit = _tree_delta_at(tree, owners, keys_g, ns, grant, row_idx,
+                                                   lay, rows=True)
+                else:
+                    delta = tree_delta_rows_(tree.nodes, tree.counts, owners, keys_g, ns,
+                                             consts.no_grant(owners.numel())
+                                             if grant is _DEFER else grant, row_idx)
+                    if grant is _DEFER:
+                        def commit(g):
+                            with random.replay():       # the first launch's draws again
+                                tree_delta_rows_(tree.nodes, tree.counts, owners, keys_g, ns,
+                                                 g, row_idx)
+                new_L, new_i = _tree_epilogue(cfg, consts, tb, acc, gain[:, None], delta,
+                                              w[:, None])
             else:
-                delta = tree_delta_rows_(tree.nodes, tree.counts, owners, keys_g, ns,
-                                         consts.no_grant(owners.numel()) if grant is _DEFER
-                                         else grant, row_idx)
-                if grant is _DEFER:
-                    def commit(g):
-                        with random.replay():       # the first launch's draws again
-                            tree_delta_rows_(tree.nodes, tree.counts, owners, keys_g, ns, g,
-                                             row_idx)
-            new_L, new_i = _tree_epilogue(cfg, consts, tb, acc, gain[:, None], delta,
-                                          w[:, None])
-        else:
-            new_L, new_i = dp_round_rows(                                # (4)+(5)+(7)+Pi
-                tb, acc, keys_g, gain, ns, w, sigma=cfg.sigma, lr_own=consts.lr_own,
-                lr_l=consts.lr_L, n_owners=N, theta_max=cfg.theta_max,
-                col0=0 if lay is None else lay.c0)
+                new_L, new_i = dp_round_rows(                                # (4)+(5)+(7)+Pi
+                    tb, acc, keys_g, gain, ns, w, sigma=cfg.sigma, lr_own=consts.lr_own,
+                    lr_l=consts.lr_L, n_owners=N, theta_max=cfg.theta_max,
+                    col0=0 if lay is None else lay.c0)
         metrics = {"clip_frac": pm["clip_frac"], "max_grad_norm": pm["max_grad_norm"],
                    "grad_noise_scale": ns}
         return new_L, new_i, theta_i, metrics, commit
@@ -1314,13 +1333,14 @@ def _guarded_round(round_fn, write, state: AsyncDPState, batch, owners: torch.Te
     apply = answered & guard_ok & on_time
     timed = answered & ~on_time
     guard_rej = answered & on_time & ~guard_ok
-    theta_L, bank = write(new_L, new_i, theta_i, apply)
-    del new_L, new_i, theta_i
-    applied = apply.to(torch.int32).reshape(-1)
-    if tree is not None:
-        if commit is not None:
-            commit(applied)
-        tree.counts.index_add_(0, owners, applied)
+    with span("engine.write"):
+        theta_L, bank = write(new_L, new_i, theta_i, apply)
+        del new_L, new_i, theta_i
+        applied = apply.to(torch.int32).reshape(-1)
+        if tree is not None:
+            if commit is not None:
+                commit(applied)
+            tree.counts.index_add_(0, owners, applied)
     # the stored checksum follows the POST-write row; a masked round keeps it
     _faults.update_checksum(fs, bank, owners, apply, row_idx, lay)
     metrics = dict(metrics, faulted=guard_rej, timed_out=timed)
@@ -1542,12 +1562,13 @@ def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
         new_L, new_i, theta_i, metrics, _ = compute(state.theta_L, state.bank, batch,
                                                     owner_idx, key, tree=tree, grant=oki,
                                                     row_idx=slot)
-        # same key as compute() by contract (see make_train_step)
-        theta_L, bank = _masked_write(state, owner_idx, key, slot)(  # dpcheck: ignore[DPC105]
-            new_L, new_i, theta_i, ok)
-        del new_L, new_i, theta_i
-        if tree is not None:
-            tree.counts.scatter_add_(0, owner_idx, oki.reshape(1))
+        with span("engine.write"):
+            # same key as compute() by contract (see make_train_step)
+            theta_L, bank = _masked_write(state, owner_idx, key, slot)(  # dpcheck: ignore[DPC105]
+                new_L, new_i, theta_i, ok)
+            del new_L, new_i, theta_i
+            if tree is not None:
+                tree.counts.scatter_add_(0, owner_idx, oki.reshape(1))
         led.spent.scatter_add_(0, owner_idx, oki.reshape(1))
         led.refused.scatter_add_(0, owner_idx, (1 - oki).reshape(1))
         metrics = dict(metrics, refused=~ok, owner=owner_idx.reshape(()).to(torch.int32))
@@ -1592,12 +1613,13 @@ def make_fused_rounds(loss_fn, cfg: AsyncDPConfig,
     def loop(state: AsyncDPState, batches, owners, keys, fault_codes):
         per_round = []
         for k in range(owners.shape[0]):
-            args = (state, {name: v[k] for name, v in batches.items()}, owners[k:k + 1],
-                    keys[k])
-            if fault_codes is None:
-                state, m = body(*args)
-            else:
-                state, m = body_faulted(*args, fault_codes[k])
+            with span("engine.round"):
+                args = (state, {name: v[k] for name, v in batches.items()}, owners[k:k + 1],
+                        keys[k])
+                if fault_codes is None:
+                    state, m = body(*args)
+                else:
+                    state, m = body_faulted(*args, fault_codes[k])
             per_round.append(m)
         if not per_round:
             return state, {}
@@ -1707,13 +1729,14 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
         new_L, new_i, theta_i, metrics, _ = compute.rows(state.theta_L, state.bank, batch_g,
                                                          owners, keys_g, tree=tree, grant=oki,
                                                          row_idx=slots)
-        # the round keys again by contract: a quantized bank's codec folds
-        # in its CODEC_SALT (see make_train_step)
-        theta_L, bank = write_members(  # dpcheck: ignore[DPC105]
-            state, new_L, new_i, theta_i, owners, keys_g, ok, slots)
-        del new_i, theta_i
-        if tree is not None:
-            tree.counts.index_add_(0, owners, oki)
+        with span("engine.write"):
+            # the round keys again by contract: a quantized bank's codec folds
+            # in its CODEC_SALT (see make_train_step)
+            theta_L, bank = write_members(  # dpcheck: ignore[DPC105]
+                state, new_L, new_i, theta_i, owners, keys_g, ok, slots)
+            del new_i, theta_i
+            if tree is not None:
+                tree.counts.index_add_(0, owners, oki)
         led.spent.index_add_(0, owners, oki)
         led.refused.index_add_(0, owners, 1 - oki)
         metrics = dict(metrics, refused=~ok, owner=owners.to(torch.int32))
@@ -1770,11 +1793,12 @@ def make_group_rounds(loss_fn, cfg: AsyncDPConfig,
                 raise ValueError("each group must be a consecutive run of rounds followed "
                                  "by padding, as schedules.pack_groups builds it")
             sl = slice(start, start + n)
-            args = (state, {k: v[sl] for k, v in batches.items()}, owners[sl], keys[sl])
-            if fault_codes is None:
-                state, m = body(*args)
-            else:
-                state, m = body_faulted(*args, fault_codes[sl])
+            with span("engine.group", members=n):
+                args = (state, {k: v[sl] for k, v in batches.items()}, owners[sl], keys[sl])
+                if fault_codes is None:
+                    state, m = body(*args)
+                else:
+                    state, m = body_faulted(*args, fault_codes[sl])
             per_group.append(m)
         if not per_group:
             return state, {}

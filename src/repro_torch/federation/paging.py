@@ -53,6 +53,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.checkpoint import MemmapRowStore, MemoryRowStore
 from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.checkpoint.store import to_storage
@@ -85,7 +86,8 @@ class OwnerPager:
     d2h for the rows written back (evictions and flushes: the gather, the
     copy to pinned memory and the store's write), h2d for the rows loaded
     and the page table (the store's read into pinned memory, the copy up,
-    the scatter; the device synchronized at the end)."""
+    the scatter; the device synchronized at the end). Both are read in
+    place through `telemetry.counters()`."""
 
     def __init__(self, n_owners: int, n_hot: int, hot_ids: np.ndarray,
                  stores: Dict[str, Any], layout=None):
@@ -101,6 +103,7 @@ class OwnerPager:
             int(o): 0 for o in self._hot_ids if o != self._sentinel}
         self.stats = {"prefetches": 0, "loads": 0, "evictions": 0, "writebacks": 0}
         self.io = {"d2h_bytes": 0, "d2h_s": 0.0, "h2d_bytes": 0, "h2d_s": 0.0}
+        telemetry.register_pager(self)
 
     @property
     def resident_ids(self) -> np.ndarray:

@@ -107,6 +107,7 @@ from repro_torch.federation.schedules import (TraceRing, UniformSchedule, as_own
                                               partition_conflict_free)
 from repro_torch.federation.staleness import (LatencyPlan, StalenessPolicy, as_tick_times,
                                               merge_timeout_codes, staleness_tick)
+from repro_torch.telemetry import span
 
 _STRATEGIES = ("async", "sync")
 
@@ -541,93 +542,98 @@ class Federation:
         As in the reference, a schedule-drawn sequence takes its key from
         split(key) first, and the fault codes, the latencies and the round
         keys all come from the remaining key."""
-        if self.strategy != "async":
-            raise ValueError("run_rounds() is the async path")
-        self._require_step()
-        if key is None:
-            raise ValueError("run_rounds needs an explicit key")
-        batches = self._on_device(batches)
-        k_rounds = next(iter(batches.values())).shape[0]
-        key = key.to(self.device)
-        # the one host copy of the owner sequence a dispatch makes, shared by
-        # the pager's prefetch, auto_max_group and the partition
-        seq_host = None
-        user_times = times is not None
-        if isinstance(owner_seq, TraceRing):
-            seq_host = np.asarray(owner_seq.window(k_rounds), np.int32)
-            if seq_host.size and (seq_host.min() < 0 or seq_host.max() >= self.n_owners):
-                raise ValueError(f"trace names owners outside this federation "
-                                 f"(n_owners={self.n_owners})")
-            owner_seq = owner_seq.next(k_rounds).to(self.device)
-        elif owner_seq is None:
-            k_sched, key = random.split(key)
-            draw_wt = getattr(self.schedule, "draw_with_times", None)
-            if latency is not None and times is None and draw_wt is not None:
-                # the schedule's own clock feeds the deadline model
-                sched = draw_wt(k_sched, self.n_owners, k_rounds)
-                owner_seq, times = sched.owners.to(torch.int32), sched.times
-            else:
-                owner_seq = self.schedule.draw(k_sched, self.n_owners, k_rounds)
-        else:
-            if owner_parallel or self._pager is not None:
-                # the one host copy, validated and uploaded by as_owner_seq
-                seq_host = np.asarray(owner_seq.cpu() if isinstance(owner_seq, torch.Tensor)
-                                      else owner_seq)
-                owner_seq = seq_host
-            owner_seq = as_owner_seq(owner_seq, self.n_owners, self.device)
-        if any(v.shape[0] != owner_seq.shape[0] for v in batches.values()):
-            raise ValueError(f"batches carry {k_rounds} rounds, the owner sequence "
-                             f"{owner_seq.shape[0]}")
-        if user_times:
-            times = as_tick_times(times, k_rounds, device=self.device)
-        if self._pager is not None:
-            if seq_host is None:
-                seq_host = owner_seq.cpu().numpy()
-            # page in every row this dispatch touches before it launches
-            state = self._pager.prefetch(state, seq_host)
-        fault_codes = None
-        if faults is not None:
-            if state.faults is None:
-                raise ValueError("fault injection needs a fault-armed state; build the "
-                                 "Federation with fault_policy=FaultPolicy(...)")
-            fault_codes = (faults.draw(key, k_rounds) if isinstance(faults, FaultPlan)
-                           else as_fault_codes(faults, k_rounds, device=self.device))
-        if latency is not None:
-            if self.staleness is None:
-                raise ValueError("latency modeling needs a staleness-armed Federation; "
-                                 "pass staleness=StalenessPolicy(...) at construction")
-            if state.faults is None:
-                raise ValueError("latency injection needs a fault-armed state (TIMEOUT "
-                                 "is a fault code); rebuild the state from this "
-                                 "staleness-armed federation")
-            # the STALE_SALT stream of the same key as the fault codes
-            lat = (latency.draw(key, owner_seq)  # dpcheck: ignore[DPC105]
-                   if isinstance(latency, LatencyPlan)
-                   else torch.as_tensor(latency, dtype=torch.float32).to(self.device))
-            if fault_codes is None:
-                fault_codes = torch.full((k_rounds,), OK, dtype=torch.int8, device=self.device)
-            fault_codes = merge_timeout_codes(fault_codes, lat, self.staleness.deadline,
-                                              times=times)
-        # the same key as the fault draw by contract: it folds in FAULT_SALT
-        keys = random.split(key, k_rounds)  # dpcheck: ignore[DPC105]
-        codes = () if fault_codes is None else (fault_codes,)
-        if not owner_parallel:
-            return self._fused_fn(state, batches, owner_seq, keys, *codes)
-        if seq_host is None:
-            seq_host = owner_seq.cpu().numpy()
-        if max_group == "auto":
-            max_group = auto_max_group(seq_host)
-            free = device_free_bytes(self.device)
-            if (self._privatizer.granularity == "example" and free is not None
-                    and isinstance(state.theta_L, ParamFlat)):
-                # the g*B per-example gradient rows must fit the card
-                max_group = min(max_group, example_group_cap(
-                    next(iter(batches.values())).shape[1], state.theta_L.size, free))
-        groups = partition_conflict_free(seq_host, max_group)
-        if all(length <= 1 for _, length in groups):
-            # single-round groups: the sequential driver IS the grouped run
-            return self._fused_fn(state, batches, owner_seq, keys, *codes)
-        return self._group_fn(state, batches, owner_seq, keys, *pack_groups(groups), *codes)
+        with span("session.run_rounds"):
+            if self.strategy != "async":
+                raise ValueError("run_rounds() is the async path")
+            self._require_step()
+            if key is None:
+                raise ValueError("run_rounds needs an explicit key")
+            batches = self._on_device(batches)
+            k_rounds = next(iter(batches.values())).shape[0]
+            key = key.to(self.device)
+            # the one host copy of the owner sequence a dispatch makes, shared by
+            # the pager's prefetch, auto_max_group and the partition
+            seq_host = None
+            user_times = times is not None
+            with span("session.owner_seq"):
+                if isinstance(owner_seq, TraceRing):
+                    seq_host = np.asarray(owner_seq.window(k_rounds), np.int32)
+                    if seq_host.size and (seq_host.min() < 0
+                                          or seq_host.max() >= self.n_owners):
+                        raise ValueError(f"trace names owners outside this federation "
+                                         f"(n_owners={self.n_owners})")
+                    owner_seq = owner_seq.next(k_rounds).to(self.device)
+                elif owner_seq is None:
+                    k_sched, key = random.split(key)
+                    draw_wt = getattr(self.schedule, "draw_with_times", None)
+                    if latency is not None and times is None and draw_wt is not None:
+                        # the schedule's own clock feeds the deadline model
+                        sched = draw_wt(k_sched, self.n_owners, k_rounds)
+                        owner_seq, times = sched.owners.to(torch.int32), sched.times
+                    else:
+                        owner_seq = self.schedule.draw(k_sched, self.n_owners, k_rounds)
+                else:
+                    if owner_parallel or self._pager is not None:
+                        # the one host copy, validated and uploaded by as_owner_seq
+                        seq_host = np.asarray(owner_seq.cpu()
+                                              if isinstance(owner_seq, torch.Tensor)
+                                              else owner_seq)
+                        owner_seq = seq_host
+                    owner_seq = as_owner_seq(owner_seq, self.n_owners, self.device)
+                if seq_host is None and (owner_parallel or self._pager is not None):
+                    seq_host = owner_seq.cpu().numpy()
+            if any(v.shape[0] != owner_seq.shape[0] for v in batches.values()):
+                raise ValueError(f"batches carry {k_rounds} rounds, the owner sequence "
+                                 f"{owner_seq.shape[0]}")
+            if user_times:
+                times = as_tick_times(times, k_rounds, device=self.device)
+            if self._pager is not None:
+                # page in every row this dispatch touches before it launches
+                state = self._pager.prefetch(state, seq_host)
+            fault_codes = None
+            if faults is not None:
+                if state.faults is None:
+                    raise ValueError("fault injection needs a fault-armed state; build the "
+                                     "Federation with fault_policy=FaultPolicy(...)")
+                fault_codes = (faults.draw(key, k_rounds) if isinstance(faults, FaultPlan)
+                               else as_fault_codes(faults, k_rounds, device=self.device))
+            if latency is not None:
+                if self.staleness is None:
+                    raise ValueError("latency modeling needs a staleness-armed Federation; "
+                                     "pass staleness=StalenessPolicy(...) at construction")
+                if state.faults is None:
+                    raise ValueError("latency injection needs a fault-armed state (TIMEOUT "
+                                     "is a fault code); rebuild the state from this "
+                                     "staleness-armed federation")
+                # the STALE_SALT stream of the same key as the fault codes
+                lat = (latency.draw(key, owner_seq)  # dpcheck: ignore[DPC105]
+                       if isinstance(latency, LatencyPlan)
+                       else torch.as_tensor(latency, dtype=torch.float32).to(self.device))
+                if fault_codes is None:
+                    fault_codes = torch.full((k_rounds,), OK, dtype=torch.int8, device=self.device)
+                fault_codes = merge_timeout_codes(fault_codes, lat, self.staleness.deadline,
+                                                  times=times)
+            # the same key as the fault draw by contract: it folds in FAULT_SALT
+            keys = random.split(key, k_rounds)  # dpcheck: ignore[DPC105]
+            codes = () if fault_codes is None else (fault_codes,)
+            if not owner_parallel:
+                return self._fused_fn(state, batches, owner_seq, keys, *codes)
+            with span("schedules.partition"):
+                if max_group == "auto":
+                    max_group = auto_max_group(seq_host)
+                    free = device_free_bytes(self.device)
+                    if (self._privatizer.granularity == "example" and free is not None
+                            and isinstance(state.theta_L, ParamFlat)):
+                        # the g*B per-example gradient rows must fit the card
+                        max_group = min(max_group, example_group_cap(
+                            next(iter(batches.values())).shape[1], state.theta_L.size, free))
+                groups = partition_conflict_free(seq_host, max_group)
+                packed = (None if all(length <= 1 for _, length in groups)
+                          else pack_groups(groups))
+            if packed is None:
+                # single-round groups: the sequential driver IS the grouped run
+                return self._fused_fn(state, batches, owner_seq, keys, *codes)
+            return self._group_fn(state, batches, owner_seq, keys, *packed, *codes)
 
     def reconcile(self, state: AsyncDPState) -> Dict[int, Dict]:
         """Fold the state's device ledger into the host accountant

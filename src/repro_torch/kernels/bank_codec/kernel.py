@@ -8,6 +8,8 @@ synchronise, and raise when the launch is refused. Each adds one to its
 entry of `launches` when it launches, and nowhere else (`absmax` counts
 its two passes as one launch), so a caller can show that a run went
 through the kernels.
+`repro_torch.telemetry.counters()` reads this `launches` in place, beside
+the other kernels' and the pager's counters: the way to read them all.
 """
 from __future__ import annotations
 

@@ -9,6 +9,8 @@ entry of `launches` when it launches, and nowhere else, so a caller can
 show that a run went through the kernels. The `*_rows_cuda` forms take a
 member axis (g contiguous rows, one launch for all of them) and count one
 launch under the same name.
+`repro_torch.telemetry.counters()` reads this `launches` in place, beside
+the other kernels' and the pager's counters: the way to read them all.
 """
 from __future__ import annotations
 

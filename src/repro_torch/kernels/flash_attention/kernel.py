@@ -13,6 +13,8 @@ The launch is the custom op ``torch.ops.repro_torch.flash_attention_cuda``
 (``analysis.op_cost``) counts it by its registered flop formula (PERF.md,
 row 8: 4 B H hd times the (query, key) pairs the mask keeps), and on the
 meta device its fake gives the output's shape without launching.
+`repro_torch.telemetry.counters()` reads this `launches` in place, beside
+the other kernels' and the pager's counters: the way to read them all.
 """
 from __future__ import annotations
 

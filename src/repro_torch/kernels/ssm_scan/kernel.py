@@ -18,6 +18,8 @@ sees them: a TorchDispatchMode (``analysis.op_cost``) counts them by their
 registered flop formulas (PERF.md, rows 9 and 10), and on the meta device
 their fakes give the outputs' shapes without launching. `ops.SSDChunkScan`
 keeps their autograd and vmap rules.
+`repro_torch.telemetry.counters()` reads this `launches` in place, beside
+the other kernels' and the pager's counters: the way to read them all.
 """
 from __future__ import annotations
 

@@ -9,6 +9,8 @@ nowhere else, so a caller can show that a run went through the kernel.
 `tree_delta_rows_cuda` advances g distinct owners in one launch and counts
 one launch under the same name. On a paged bank `row_idx` names each
 member's node row (its hot slot) apart from its owner, whose count it reads.
+`repro_torch.telemetry.counters()` reads this `launches` in place, beside
+the other kernels' and the pager's counters: the way to read them all.
 """
 from __future__ import annotations
 
